@@ -1,0 +1,201 @@
+"""Stacked transformer blocks (counterpart of ``paddle_tpu.layers.stacked``).
+
+Per-layer parameters live stacked on a leading ``[num_layers, ...]``
+axis, under the JAX package's names (``ln1/scale``, ``qkv/w`` ...), owned
+by :class:`EncoderStack`. The block functions are plain functions of
+``(activation, layer_params)`` as in the JAX package, with the compute
+dtype passed in (``framework.cast_compute``) instead of read from a flag.
+Weights stay ``[in, out]``; the fused qkv weight stays ``[d, 3, d]``.
+
+Not carried yet: the sequence-parallel branch of ``_sdpa``, dropout,
+tensor-parallel psums, ``apply_stacked``'s pipeline path and the int8
+KV cache (``decode_block_q8``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+from torch import nn
+
+from ..core.errors import NotYetPorted
+from ..framework import cast_compute
+from .. import initializer as init
+
+NEG_INF = -1e9
+
+
+class StackedInit(init.Initializer):
+    """Apply a base initializer per layer over the leading stack axis, so
+    a ``[L, d, k]`` leaf gets L independent ``[d, k]`` inits (fan-in/out
+    computed per layer, matching the unstacked model exactly)."""
+
+    def __init__(self, base: init.Initializer):
+        self.base = base
+
+    def __call__(self, generator, shape, dtype):
+        return torch.stack([self.base(generator, shape[1:], dtype)
+                            for _ in range(shape[0])])
+
+
+# JAX name inside the stack -> (module attribute, initializer); the one
+# table that maps the JAX package's names onto this module
+STACK_PARAMS = {
+    "ln1/scale": ("ln1_scale", init.Constant(1.0)),
+    "ln1/bias": ("ln1_bias", init.Constant(0.0)),
+    "qkv/w": ("qkv_w", StackedInit(init.Xavier())),
+    "qkv/b": ("qkv_b", init.Constant(0.0)),
+    "out/w": ("out_w", StackedInit(init.Xavier())),
+    "out/b": ("out_b", init.Constant(0.0)),
+    "ln2/scale": ("ln2_scale", init.Constant(1.0)),
+    "ln2/bias": ("ln2_bias", init.Constant(0.0)),
+    "ffn_in/w": ("ffn_in_w", StackedInit(init.Xavier())),
+    "ffn_in/b": ("ffn_in_b", init.Constant(0.0)),
+    "ffn_out/w": ("ffn_out_w", StackedInit(init.Xavier())),
+    "ffn_out/b": ("ffn_out_b", init.Constant(0.0)),
+}
+_MATMUL_WEIGHTS = ("qkv/w", "out/w", "ffn_in/w", "ffn_out/w")
+
+
+def encoder_stack_shapes(num_layers: int, d_model: int, d_inner: int):
+    """{JAX name: shape} of ``encoder_stack_params`` (all float32)."""
+    L, d, di = num_layers, d_model, d_inner
+    return {
+        "ln1/scale": (L, d), "ln1/bias": (L, d),
+        "qkv/w": (L, d, 3, d), "qkv/b": (L, 3, d),
+        "out/w": (L, d, d), "out/b": (L, d),
+        "ln2/scale": (L, d), "ln2/bias": (L, d),
+        "ffn_in/w": (L, d, di), "ffn_in/b": (L, di),
+        "ffn_out/w": (L, di, d), "ffn_out/b": (L, d),
+    }
+
+
+class EncoderStack(nn.Module):
+    """The stacked params of ``num_layers`` pre-LN self-attention blocks
+    (``encoder_stack_params``): float32 tensors ``[L, ...]`` under the
+    attributes of :data:`STACK_PARAMS`."""
+
+    def __init__(self, num_layers: int, d_model: int, d_inner: int,
+                 device=None):
+        super().__init__()
+        self.num_layers = num_layers
+        for name, shape in encoder_stack_shapes(num_layers, d_model,
+                                                d_inner).items():
+            self.register_parameter(STACK_PARAMS[name][0], nn.Parameter(
+                torch.empty(shape, dtype=torch.float32, device=device),
+                requires_grad=False))
+
+    def get(self, name: str) -> torch.Tensor:
+        return getattr(self, STACK_PARAMS[name][0])
+
+    def layer(self, i: int, compute_dtype=None) -> Dict[str, torch.Tensor]:
+        """Layer ``i``'s params by JAX name. With ``compute_dtype`` the
+        matmul weights come already cast, so a decode loop casts them
+        once per call rather than once per step (the same values
+        ``cast_compute`` gives inside each block)."""
+        out = {name: self.get(name)[i] for name in STACK_PARAMS}
+        if compute_dtype is not None:
+            for name in _MATMUL_WEIGHTS:
+                out[name] = cast_compute(compute_dtype, out[name])
+        return out
+
+
+def _ln(x, scale, bias, eps: float = 1e-5):
+    mean = x.mean(dim=-1, keepdim=True)
+    var = torch.square(x - mean).mean(dim=-1, keepdim=True)
+    out = (x - mean) * torch.rsqrt(var + eps)
+    return out * scale + bias
+
+
+def _sdpa(q, k, v, key_bias, causal: bool, use_flash: bool, sp_cfg=None,
+          dropout_rate: float = 0.0, training: bool = False):
+    """[b,h,s,hd] attention with an additive [b,s_k] key bias."""
+    if sp_cfg is not None:
+        raise NotYetPorted("sequence-parallel attention (multi-GPU slice)")
+    if use_flash and (dropout_rate == 0.0 or not training):
+        from ..ops.flash_attention import flash_attention
+        return flash_attention(q, k, v, causal=causal, key_bias=key_bias)
+    if dropout_rate > 0.0 and training:
+        raise NotYetPorted("attention dropout in training (training slice)")
+    from ..ops.attention_scores import scores_mxu
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = scores_mxu(q, k, scale)
+    if key_bias is not None:
+        logits = logits + key_bias[:, None, None, :]
+    if causal:
+        sq, sk = logits.shape[-2], logits.shape[-1]
+        cm = torch.ones((sq, sk), dtype=torch.bool,
+                        device=logits.device).tril(sk - sq)
+        logits = logits.masked_fill(~cm, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.matmul(probs, v)
+
+
+def _split_heads(x, head_dim):
+    b, s, d = x.shape
+    return x.reshape(b, s, d // head_dim, head_dim).transpose(1, 2)
+
+
+def _merge_heads(x):
+    b, h, s, hd = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * hd)
+
+
+def _attn_qkv(x, p, num_heads, compute_dtype):
+    b, s, d = x.shape
+    head_dim = d // num_heads
+    h = _ln(x, p["ln1/scale"], p["ln1/bias"])
+    h, w = cast_compute(compute_dtype, h, p["qkv/w"])
+    # einsum "bsd,dke->bske" as one [d, 3d] matmul
+    qkv = torch.matmul(h, w.reshape(w.shape[0], -1)).view(b, s, 3, -1) \
+        + p["qkv/b"].to(h.dtype)
+    return tuple(_split_heads(qkv[:, :, i], head_dim) for i in range(3))
+
+
+def _attn_out(x, p, o, compute_dtype):
+    o, ow = cast_compute(compute_dtype, _merge_heads(o), p["out/w"])
+    o = torch.matmul(o, ow)
+    return x + (o + p["out/b"].to(o.dtype))
+
+
+def _ffn(x, p, compute_dtype):
+    h = _ln(x, p["ln2/scale"], p["ln2/bias"])
+    h, w1, w2 = cast_compute(compute_dtype, h, p["ffn_in/w"], p["ffn_out/w"])
+    h = torch.relu(torch.matmul(h, w1) + p["ffn_in/b"].to(h.dtype))
+    h = torch.matmul(h, w2)
+    return x + (h + p["ffn_out/b"].to(h.dtype))
+
+
+def prefill_block(x, p, num_heads: int, use_flash: bool = False,
+                  compute_dtype=torch.float32):
+    """Causal block that also returns its (k, v) for cache seeding."""
+    q, k, v = _attn_qkv(x, p, num_heads, compute_dtype)
+    x = _attn_out(x, p, _sdpa(q, k, v, None, True, use_flash), compute_dtype)
+    return _ffn(x, p, compute_dtype), (k, v)
+
+
+def decode_block(x, p, k_cache, v_cache, index: int, num_heads: int,
+                 compute_dtype=torch.float32):
+    """One-token step: x [rows, 1, d]; caches [rows, h, T, hd]; attends
+    to cache positions <= index. Returns (x, k_cache, v_cache).
+
+    Unlike the JAX package's functional ``dynamic_update_slice``, the
+    caches are updated IN PLACE at position ``index`` (the generator
+    owns them; a copy per step would move the whole cache)."""
+    q, k1, v1 = _attn_qkv(x, p, num_heads, compute_dtype)
+    k_cache[:, :, index:index + 1] = k1.to(k_cache.dtype)
+    v_cache[:, :, index:index + 1] = v1.to(v_cache.dtype)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.matmul(q.float(), k_cache.float().transpose(-1, -2)) * scale
+    pos = torch.arange(k_cache.shape[2], device=logits.device)
+    logits = logits.masked_fill(pos > index, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(v_cache.dtype)
+    o = torch.matmul(probs, v_cache)
+    x = _attn_out(x, p, o, compute_dtype)
+    return _ffn(x, p, compute_dtype), k_cache, v_cache
+
+
+__all__ = ["EncoderStack", "STACK_PARAMS", "StackedInit", "decode_block",
+           "encoder_stack_shapes", "prefill_block"]
