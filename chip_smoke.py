@@ -17,11 +17,29 @@ Phases, each reported on its own lines; any failure exits non-zero:
 4. parity — full-width GPT-base (random weights from ``--seed``) in f32:
    ``make_generator`` on the card (kernel) against the CPU (plain
    versions) from the same weights; 12 kernel launches per generate call;
+3b. backward — the two flash-attention backward kernels (dQ; dK/dV)
+   against their plain PyTorch version on the card, at the training
+   path's shape (strided head views of the fused [8, 1024, 3, 768] qkv
+   projection, with a strided dO) and at long, ragged, masked, sq > sk and
+   head-dim 32/128 shapes, with each grad's error against its tolerance,
+   timings per pass (kernel, plain version, ``scaled_dot_product_attention``
+   backward where its mask convention matches) and the card's least time;
 5. served — the bf16 decode-serving path a user calls: ``export_decoder``
    → ``decode_server`` (``load_inference_model`` + continuous batching)
    answers single-prompt requests; each reply is checked against its row
    of ``Predictor.run`` on the same merged bucket batch. Kernel launch
-   counts are zeroed just before this path and read just after it.
+   counts are zeroed just before this path and read just after it;
+6. training parity — full-width GPT-base in f32: ``make_model`` +
+   ``Trainer`` with AdamW on the card (kernels) against the CPU (plain
+   versions) from the same weights, 3 steps: the losses of every step and
+   the step-1 grads of every param must agree;
+7. training — the bf16 GPT-base training path a user calls, at bench.py
+   ``bench_gpt``'s config and feeds: ``make_model`` → ``Trainer(AdamW)``
+   → ``startup`` → ``step``, 3 warm-up and 10 timed steps, with the launch
+   counts zeroed just before the path and read just after it (12 launches
+   of each kernel per step); tokens/s, ms per step, peak memory, the
+   losses; the first two losses against the same steps run through the
+   plain versions on the card; a profiler breakdown of one step.
 
 The last lines are a JSON ``kernels`` record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -33,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import os
 import subprocess
@@ -47,6 +66,15 @@ PROMPT, NEW_TOKENS, BUCKETS = 128, 128, (1, 8)
 PARITY_NEW_TOKENS = 16
 N_REQUESTS = 16
 
+# GPT-base training as bench.py's bench_gpt defines it (dtype and compute
+# bf16), and the cut-down f32 parity run of the same widths
+TRAIN = dict(GPT_BASE, vocab_size=32000, max_len=1024, fused_ce=True,
+             dtype="bfloat16")
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_FEEDS = 8, 1024, 4
+TRAIN_WARMUP, TRAIN_STEPS = 3, 10
+TRAIN_LR, TRAIN_WD = 1e-4, 0.01
+PARITY_TRAIN_BATCH, PARITY_TRAIN_SEQ, PARITY_TRAIN_STEPS = 2, 256, 3
+
 # H100 SXM published peaks (dense): HBM bytes/s and FLOP/s by operand type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -57,6 +85,23 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # lse (f32 in both) at LSE_TOL
 TOL = {"float32": 1e-5, "bfloat16": 1.6e-2}
 LSE_TOL = 1e-4
+# backward kernels against their plain version: each of dQ, dK, dV at
+# BWD_TOL[dtype]·max|plain| (each grad sums up to s products in another
+# order; in bf16 dS and P are rounded to bf16 from f32 values that may
+# differ in the last bits, and each grad is rounded once more)
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# f32 training, card against CPU: losses at rel 1e-4 (the same f32
+# arithmetic summed in another order through 12 layers), step-1 grads per
+# param at 1e-2 relative L2, ‖g_card − g_cpu‖ / ‖g_cpu‖. Not element by
+# element, and not tighter: a ReLU input within f32 rounding of 0 takes
+# the other branch on one side (phase 6 counts them: 4 of the 18.9 M
+# ReLU inputs of a step on an H100, |input| ≤ 6.1e-7); each moves one
+# column of its layer's ffn_in grad by one token's share (3.3% of max|g|
+# at worst) and that token's grads in every layer below, up to 9.8e-4
+# relative L2 (the embedding). The element-wise error is reported. bf16
+# kernels against the plain versions on the card: the first two losses
+# at rel 2e-2
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_BF16_LOSS_TOL = 1e-4, 1e-2, 2e-2
 
 
 class SmokeFailure(RuntimeError):
@@ -132,14 +177,17 @@ Case = collections.namedtuple(
 
 def kernel_cases():
     """q, k, v are [b, h, s, d]. In the ``qkv`` cases they are what the
-    served prefill hands the kernel: strided head views of one fused
-    [b, s, 3, h·d] projection (``layers.stacked._split_heads``), at both
-    served buckets. The main path's row of the kernels record is
+    served prefill and the training step hand the kernel: strided head
+    views of one fused [b, s, 3, h·d] projection
+    (``layers.stacked._split_heads``), at both served buckets and at the
+    training shape. The kernels record has rows ``train_qkv_b8`` and
     ``prefill_qkv_b8``."""
     return [
         Case("prefill_qkv_b8", 8, 12, 128, 128, 64, "bfloat16", causal=True,
              qkv=True),
         Case("prefill_qkv_b1", 1, 12, 128, 128, 64, "bfloat16", causal=True,
+             qkv=True),
+        Case("train_qkv_b8", 8, 12, 1024, 1024, 64, "bfloat16", causal=True,
              qkv=True),
         Case("prefill", 8, 12, 128, 128, 64, "bfloat16", causal=True),
         Case("long", 1, 12, 2048, 2048, 64, "bfloat16", causal=True),
@@ -198,17 +246,23 @@ def _visible_pairs(q, k, kw):
     return int(vis.sum().item()) * h
 
 
-def bound_of(q, k, v, kw):
+def bound_of(q, k, v, kw, like=None, rows=1, products=2):
     """(bound_ms, bound_by): the larger of the bytes the call must move
-    (q, k, v, bias and ids read once; o and lse written once) over HBM
-    bandwidth, and the Q·Kᵀ and P·V multiply-adds of the visible pairs
-    over the peak rate of the operand type."""
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
-    nbytes += q.shape[0] * q.shape[1] * q.shape[2] * 4  # lse
+    over HBM bandwidth and its multiply-adds over the peak rate of the
+    operand type. Bytes, each read or written once: q, k and v, one more
+    tensor of the size of each of ``like`` (the forward writes o: (q,);
+    the dQ pass reads dO and writes dQ: (q, q); the dK/dV pass reads dO
+    and writes dK, dV: (q, k, k)), ``rows`` f32 values per query row
+    (lse; lse and δ in the backward), the bias and the ids. Operations:
+    ``products`` d-long products per visible pair (Q·Kᵀ and P·V in the
+    forward)."""
+    like = (q,) if like is None else like
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, *like))
+    nbytes += rows * q.shape[0] * q.shape[1] * q.shape[2] * 4
     for key in ("key_bias", "segment_ids", "kv_segment_ids"):
         if key in kw:
             nbytes += kw[key].numel() * 4
-    flops = 4 * q.shape[-1] * _visible_pairs(q, k, kw)
+    flops = 2 * products * q.shape[-1] * _visible_pairs(q, k, kw)
     dt = str(q.dtype).replace("torch.", "")
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dt]
@@ -272,6 +326,106 @@ def phase_kernels(dev, seed):
     return rows
 
 
+# -- phase 3b: the backward kernels against their plain version --------------
+
+
+def bwd_cases():
+    """The training step hands the backward kernels the strided qkv head
+    views and a strided dO (``_merge_heads``' backward gives a transposed
+    view of a [b, s, h, d] tensor); its row of the kernels record is
+    ``train_qkv``."""
+    return [
+        Case("train_qkv", 8, 12, 1024, 1024, 64, "bfloat16", causal=True, qkv=True),
+        Case("long", 1, 12, 2048, 2048, 64, "bfloat16", causal=True),
+        Case("ragged_f32", 2, 12, 100, 300, 64, "float32", bias=True,
+             segments=True),
+        Case("causal_sq_gt_sk_bf16", 2, 12, 300, 100, 64, "bfloat16", causal=True),
+        Case("fully_masked_f32", 2, 4, 96, 96, 64, "float32", causal=True,
+             segments=True, fully_masked=True),
+        Case("head32_f32", 2, 4, 70, 70, 32, "float32", causal=True),
+        Case("head128_bf16", 2, 4, 70, 130, 128, "bfloat16", causal=True,
+             bias=True),
+    ]
+
+
+def _sdpa_backward_ms(q, k, v, g, causal, iters):
+    """Device ms of ``scaled_dot_product_attention``'s backward (dq, dk
+    and dv together): forward plus backward, less the forward."""
+    import torch
+    import torch.nn.functional as F
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def fwd():
+        return F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qr, kr, vr), g)
+
+    return device_ms(fwd_bwd, iters) - device_ms(fwd, iters)
+
+
+def phase_bwd_kernels(dev, seed):
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    rows = {}
+    for case in bwd_cases():
+        name, b, h, sq, sk, d, dt = case[:7]
+        q, k, v, kw = _case_inputs(case, dev, seed)
+        g_ = torch.Generator().manual_seed(seed + 7)
+        dtype = getattr(torch, dt)
+        if case.qkv:  # dO as the head split's backward hands it over
+            g = torch.randn(b, sq, h, d, generator=g_).to(dev, dtype).transpose(1, 2)
+        else:
+            g = torch.randn(b, h, sq, d, generator=g_).to(dev, dtype)
+        out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        delta = (out.float() * g.float()).sum(-1)
+        args = (q, k, v, kw["causal"], kw.get("key_bias"), kw.get("segment_ids"),
+                kw.get("kv_segment_ids"), g, lse, delta)
+        got = (fa.flash_bwd_dq_cuda(*args), *fa.flash_bwd_dkv_cuda(*args))
+        torch.cuda.synchronize()
+        want = (fa.flash_bwd_dq_reference(*args), *fa.flash_bwd_dkv_reference(*args))
+        errs, ok = {}, True
+        for gname, a, w in zip(("dq", "dk", "dv"), got, want):
+            tol = BWD_TOL[dt] * w.float().abs().max().item()
+            errs[gname] = ((a.float() - w.float()).abs().max().item(), tol)
+            ok &= torch.isfinite(a.float()).all().item() and errs[gname][0] <= tol
+        if case.fully_masked:  # rows with no visible key get no gradient
+            check(got[0][:, :, sq // 2:].abs().max().item() == 0.0,
+                  f"{name}: fully masked rows' dq is not 0")
+        if case.causal and sq > sk:  # the first sq - sk rows see no key
+            check(got[0][:, :, :sq - sk].abs().max().item() == 0.0,
+                  f"{name}: dq of rows that see no key is not 0")
+        iters = 5 if sq * sk > 1e6 else 20
+        ms = {"dq": device_ms(lambda: fa.flash_bwd_dq_cuda(*args), iters),
+              "dkv": device_ms(lambda: fa.flash_bwd_dkv_cuda(*args), iters)}
+        plain = {"dq": device_ms(lambda: fa.flash_bwd_dq_reference(*args), iters),
+                 "dkv": device_ms(lambda: fa.flash_bwd_dkv_reference(*args), iters)}
+        lib_ms = None
+        if sq == sk and len(kw) == 1:  # causal or not, no bias/ids: same mask
+            lib_ms = _sdpa_backward_ms(q, k, v, g, kw["causal"], iters)
+        bounds = {"dq": bound_of(q, k, v, kw, like=(q, q), rows=2, products=3),
+                  "dkv": bound_of(q, k, v, kw, like=(q, k, k), rows=2, products=4)}
+        max_err = {"dq": errs["dq"][0], "dkv": max(errs["dk"][0], errs["dv"][0])}
+        rows[name] = {p: dict(ms=ms[p], plain_ms=plain[p], library_ms=lib_ms,
+                              bound_ms=bounds[p][0], bound_by=bounds[p][1],
+                              max_abs_err=max_err[p]) for p in ("dq", "dkv")}
+        layout = "strided qkv views, strided dO" if case.qkv else "contiguous"
+        say(f"backward {name}: [{b},{h},{sq},{sk},{d}] {dt} {layout} "
+            f"causal={kw['causal']} bias={'key_bias' in kw} "
+            f"segments={'segment_ids' in kw} | "
+            + " ".join(f"max|{n}-plain|={e:.3g} (tol {t:.3g})"
+                       for n, (e, t) in errs.items())
+            + f" | dq kernel {ms['dq']:.4f} ms, plain {plain['dq']:.4f} ms, bound "
+            f"{bounds['dq'][0] * 1e3:.2f} us ({bounds['dq'][1]}) | dkv kernel "
+            f"{ms['dkv']:.4f} ms, plain {plain['dkv']:.4f} ms, bound "
+            f"{bounds['dkv'][0] * 1e3:.2f} us ({bounds['dkv'][1]}) | sdpa backward "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} | "
+            f"{'ok' if ok else 'MISMATCH'}")
+        check(ok, f"{name}: a backward kernel disagrees with its plain version")
+    return rows
+
+
 # -- phase 4: f32 path parity, card against CPU ------------------------------
 
 
@@ -331,7 +485,7 @@ def phase_served(dev, seed, card):
         d = os.path.join(tmp, "decoder")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fa.flash_fwd_launches = 0
+        _zero_launch_counts(fa)
         # ---- the main path, as a user drives it
         decode.export_decoder(d, cfg, NEW_TOKENS, example,
                               batch_buckets=list(BUCKETS), seed=seed,
@@ -350,7 +504,7 @@ def phase_served(dev, seed, card):
             rep = srv.report()
         finally:
             srv.close(drain=True, timeout=120)
-        launches = {"flash_fwd": fa.flash_fwd_launches}
+        launches = _launch_counts(fa)
         # ---- end of the main path
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         lat = sorted(p.latency for p in pends)
@@ -439,6 +593,266 @@ def served_breakdown(prog, ids, card):
         f"device busy {busy}")
 
 
+# -- phases 6 and 7: training ------------------------------------------------
+
+
+def _train_feeds(rng, n, batch, seq, vocab):
+    """bench_gpt's feeds: ids in [3, vocab), labels the ids shifted left
+    with 2 appended."""
+    import numpy as np
+    feeds = []
+    for _ in range(n):
+        ids = rng.randint(3, vocab, (batch, seq)).astype(np.int32)
+        labels = np.concatenate([ids[:, 1:], np.full((batch, 1), 2)],
+                                axis=1).astype(np.int32)
+        feeds.append({"ids": ids, "labels": labels})
+    return feeds
+
+
+def _zero_launch_counts(fa):
+    fa.flash_fwd_launches = 0
+    fa.flash_bwd_dq_launches = 0
+    fa.flash_bwd_dkv_launches = 0
+
+
+def _launch_counts(fa):
+    return {"flash_fwd": fa.flash_fwd_launches,
+            "flash_bwd_dq": fa.flash_bwd_dq_launches,
+            "flash_bwd_dkv": fa.flash_bwd_dkv_launches}
+
+
+@contextlib.contextmanager
+def plain_versions_on_card(fa):
+    """Route CUDA tensors through the kernels' plain versions, so one run
+    can be held against the same run through the kernels. Used only by
+    this check; the port itself never takes them for a CUDA tensor."""
+    saved = fa.flash_fwd_cuda, fa.flash_bwd_cuda
+    fa.flash_fwd_cuda = (lambda q, k, v, causal, key_bias=None, seg_q=None,
+                         seg_k=None: fa.flash_attention_reference(
+                             q, k, v, causal, key_bias, seg_q, seg_k))
+    fa.flash_bwd_cuda = fa.flash_attention_bwd_reference
+    try:
+        yield
+    finally:
+        fa.flash_fwd_cuda, fa.flash_bwd_cuda = saved
+
+
+def _trainer(cfg, dev, compute="float32"):
+    from paddle_tpu_torch import Trainer, optimizer
+    from paddle_tpu_torch.models import gpt
+    return Trainer(gpt.make_model(cfg, compute_dtype=compute, device=dev),
+                   optimizer.AdamW(TRAIN_LR, weight_decay=TRAIN_WD),
+                   loss_name="loss", fetch_list=["loss"], device=dev)
+
+
+def phase_train_parity(dev, seed):
+    """f32 GPT-base training, card (kernels) against CPU (plain versions),
+    from the same weights."""
+    import numpy as np
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    cfg = gpt.base_config(max_len=PARITY_TRAIN_SEQ, dtype="float32", **GPT_BASE)
+    t0 = time.perf_counter()
+    card = _trainer(cfg, dev).startup(seed)
+    host = _trainer(cfg, "cpu").startup(
+        params={k: v.detach().cpu() for k, v in card.scope.params.items()})
+    feeds = _train_feeds(np.random.RandomState(seed + 2), PARITY_TRAIN_STEPS,
+                         PARITY_TRAIN_BATCH, PARITY_TRAIN_SEQ, cfg.vocab_size)
+    for f in feeds:
+        f["labels"][0, -16:] = 0  # padding, masked out of the loss
+    rel_loss, grad_err, grad_max_err, launches = [], {}, {}, []
+    relu_in = {}
+    for i, f in enumerate(feeds):
+        before = _launch_counts(fa)
+        with record_relu_inputs(i == 0) as relu_in["card"]:
+            lc = float(card.step(f)["loss"])
+        launches.append({k: v - before[k] for k, v in _launch_counts(fa).items()})
+        with record_relu_inputs(i == 0) as relu_in["cpu"]:
+            lh = float(host.step(f)["loss"])
+        rel_loss.append(abs(lc - lh) / abs(lh))
+        if i == 0:
+            step1_relu = dict(relu_in)
+            for name, p in card.scope.params.items():
+                gh = host.scope.params[name].grad
+                diff = p.grad.cpu() - gh
+                grad_err[name] = (diff.norm() / gh.norm().clamp_min(1e-30)).item()
+                grad_max_err[name] = (diff.abs().max()
+                                      / gh.abs().max().clamp_min(1e-30)).item()
+            flips, flip_cols, worst_col_flipped = _relu_flips(
+                step1_relu, card.scope.params["gpt/encoder_stack/ffn_in/w"].grad.cpu(),
+                host.scope.params["gpt/encoder_stack/ffn_in/w"].grad)
+    worst = max(grad_err, key=grad_err.get)
+    worst_max = max(grad_max_err, key=grad_max_err.get)
+    n_relu = sum(t.numel() for t in step1_relu["cpu"])
+    say(f"training parity f32 GPT-base b={PARITY_TRAIN_BATCH} s={PARITY_TRAIN_SEQ} "
+        f"{cfg.num_layers} layers, {PARITY_TRAIN_STEPS} AdamW steps: loss rel "
+        f"card - cpu per step {[f'{r:.3g}' for r in rel_loss]} (tol "
+        f"{TRAIN_LOSS_TOL}), step-1 grads ‖card - cpu‖/‖cpu‖ worst "
+        f"{grad_err[worst]:.3g} ({worst}; tol {TRAIN_GRAD_TOL}), max|card - "
+        f"cpu|/max|cpu| worst {grad_max_err[worst_max]:.3g} ({worst_max}; "
+        f"reported only); step-1 ReLU inputs of opposite sign on card and CPU: "
+        f"{len(flips)} of {n_relu} (|input| <= {max(flips, default=0.0):.3g}), "
+        f"the worst ffn_in/w grad column {'is' if worst_col_flipped else 'is not'}"
+        f" one of their {flip_cols} units; launches per step {launches[0]}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(max(rel_loss) <= TRAIN_LOSS_TOL, "training parity: losses differ")
+    check(grad_err[worst] <= TRAIN_GRAD_TOL, "training parity: grads differ")
+    check(all(n == cfg.num_layers for step in launches for n in step.values()),
+          f"training parity: launches per step {launches}")
+
+
+@contextlib.contextmanager
+def record_relu_inputs(enabled=True):
+    """Collect (on the CPU) the input of every ``torch.relu`` call made
+    inside: the FFN of each block, in layer order. Collects nothing when
+    not ``enabled``."""
+    import torch
+    seen, relu = [], torch.relu
+    if not enabled:
+        yield seen
+        return
+
+    def recording(x):
+        seen.append(x.detach().cpu())
+        return relu(x)
+
+    torch.relu = recording
+    try:
+        yield seen
+    finally:
+        torch.relu = relu
+
+
+def _relu_flips(relu_in, g_card, g_cpu):
+    """(the CPU-side |input| of each ReLU input whose sign differs between
+    the card and the CPU, the number of (layer, unit) columns they fall
+    in, whether the ffn_in/w grad's worst column [L, d, d_inner] is one)."""
+    import torch
+    flips, flipped = [], []
+    for a, b in zip(relu_in["card"], relu_in["cpu"]):
+        differ = (a > 0) != (b > 0)
+        flips += b[differ].abs().tolist()
+        flipped.append(differ.flatten(0, -2).any(dim=0))
+    flipped = torch.stack(flipped)  # [L, d_inner]
+    col_err = (g_card - g_cpu).abs().amax(dim=1)  # [L, d_inner]
+    return flips, int(flipped.sum()), bool(flipped.flatten()[col_err.argmax()])
+
+
+def phase_train(dev, seed, card_name):
+    """The bf16 GPT-base training path (bench_gpt's config and feeds);
+    returns the launches of each kernel during the path."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    cfg = gpt.base_config(**TRAIN)
+    feeds = _train_feeds(np.random.RandomState(0), TRAIN_FEEDS, TRAIN_BATCH,
+                         TRAIN_SEQ, cfg.vocab_size)
+    n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    trainer = _trainer(cfg, dev, "bfloat16").startup(seed, sample_feed=feeds[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts(fa)
+    # ---- the main path, as a user drives it
+    losses = []
+    for i in range(n_steps):
+        if i == TRAIN_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(trainer.step(feeds[i % TRAIN_FEEDS])["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts(fa)
+    # ---- end of the main path
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(x) for x in losses]
+    ms_step = wall / TRAIN_STEPS * 1e3
+    tok_s = TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS / wall
+    say(f"training bf16 GPT-base ({card_name}): b={TRAIN_BATCH} s={TRAIN_SEQ}, "
+        f"AdamW({TRAIN_LR}, wd {TRAIN_WD}), {TRAIN_WARMUP} warm-up + "
+        f"{TRAIN_STEPS} timed steps: {tok_s:.1f} tokens/s, {ms_step:.2f} ms per "
+        f"step, peak memory {peak_gb:.3f} GB, launches {launches} (want "
+        f"{cfg.num_layers * n_steps} each)")
+    say("training losses per step: " + " ".join(f"{x:.5f}" for x in losses))
+    check(all(np.isfinite(losses)), "training: a loss is not finite")
+    check(losses[-1] < losses[0], "training: the loss did not fall")
+    check(all(n == cfg.num_layers * n_steps for n in launches.values()),
+          f"training: launches {launches}, want {cfg.num_layers} per step")
+    train_breakdown(trainer, feeds[0], card_name)
+    del trainer
+
+    # the same first steps through the plain versions on the card
+    plain = _trainer(cfg, dev, "bfloat16").startup(seed, sample_feed=feeds[0])
+    before = _launch_counts(fa)
+    with plain_versions_on_card(fa):
+        plain_losses = [float(plain.step(feeds[i])["loss"]) for i in range(2)]
+    check(_launch_counts(fa) == before, "plain run launched a kernel")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain_losses)]
+    say(f"training bf16 kernels against the plain versions on the card, steps "
+        f"1-2: losses {losses[:2]} vs {plain_losses}, rel "
+        f"{[f'{r:.3g}' for r in rel]} (tol {TRAIN_BF16_LOSS_TOL})")
+    check(max(rel) <= TRAIN_BF16_LOSS_TOL,
+          "training: kernel losses differ from the plain versions'")
+    del plain
+    return launches
+
+
+def train_breakdown(trainer, feed, card_name):
+    """Where one training step's time goes: the host-clock step time
+    (median of 3, each ending in a synchronize), then one step under
+    torch.profiler: device time of the kernels launched in the forward
+    and update ranges of ``Trainer.step`` (the backward's kernels are
+    launched from autograd's own thread, outside any range, so the
+    backward is the rest), the three kernels' share of device time and
+    the device's busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.step(feed)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step(feed)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_us, spans = 0.0, {}
+    kernels = {"flash_fwd_kernel": 0.0, "flash_bwd_dq_kernel": 0.0,
+               "flash_bwd_dkv_kernel": 0.0}
+    for evt in prof.key_averages():
+        if evt.key.startswith("trainer."):
+            # the range itself, and its copy on the device's timeline
+            spans[evt.key] = max(spans.get(evt.key, 0.0), evt.device_time_total)
+            continue
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        device_us += evt.self_device_time_total
+        for name in kernels:
+            if name in evt.key:
+                kernels[name] += evt.self_device_time_total
+    if device_us == 0:
+        seen = "not measured (the profiler saw no device time)"
+    else:
+        fwd = spans.get("trainer.forward", 0.0)
+        upd = spans.get("trainer.update", 0.0)
+        seen = (f"device busy {100 * device_us / 1e3 / wall_ms:.1f}% of a profiled "
+                f"{wall_ms:.1f} ms step ({device_us / 1e3:.2f} ms of device time: "
+                f"forward {fwd / 1e3:.2f} ms, update {upd / 1e3:.2f} ms, backward "
+                f"(the rest) {(device_us - fwd - upd) / 1e3:.2f} ms); "
+                + ", ".join(f"{k} {v / 1e3:.2f} ms ({100 * v / device_us:.1f}%)"
+                            for k, v in kernels.items())
+                + f", together {100 * sum(kernels.values()) / device_us:.1f}% of "
+                  "device time")
+    say(f"training breakdown ({card_name}), one step at b={TRAIN_BATCH} "
+        f"s={TRAIN_SEQ}: {sorted(times)[1]:.2f} ms on the host clock; {seen}")
+
+
 # -- the run ------------------------------------------------------------------
 
 
@@ -454,7 +868,6 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from paddle_tpu_torch.ops import _build
-    from paddle_tpu_torch.ops import flash_attention as fa
 
     # f32 references in full f32 (the defaults, stated)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -476,32 +889,73 @@ def main(argv=None) -> int:
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         say(f"build {name}: {secs:.2f} s nvcc; " + " | ".join(regs))
 
+    def done(phase):
+        say(f"{phase} done at {time.perf_counter() - t_start:.1f} s")
+
+    done("build")
+
     # 3. kernel against its plain version
     rows = phase_kernels(dev, args.seed)
+    done("phase 3")
+
+    # 3b. the backward kernels against their plain version
+    bwd_rows = phase_bwd_kernels(dev, args.seed)
+    done("phase 3b")
 
     # 4. f32 path parity
     phase_parity(dev, args.seed)
+    done("phase 4")
 
     # 5. the served path (launch counts zeroed inside, around the path)
-    launches = phase_served(dev, args.seed, smi)
-    check(launches["flash_fwd"] > 0, "served: the flash kernel never launched")
-    check(launches["flash_fwd"] % GPT_BASE["num_layers"] == 0,
-          f"served: {launches['flash_fwd']} launches is not a whole number "
+    served = phase_served(dev, args.seed, smi)
+    check(served["flash_fwd"] > 0, "served: the flash kernel never launched")
+    check(served["flash_fwd"] % GPT_BASE["num_layers"] == 0,
+          f"served: {served['flash_fwd']} launches is not a whole number "
           "of generate calls")
+    done("phase 5")
 
-    # 6. the kernels record
-    main_row = rows["prefill_qkv_b8"]
+    # 6. f32 training parity
+    phase_train_parity(dev, args.seed)
+    done("phase 6")
+
+    # 7. the training path (launch counts zeroed inside, around the path)
+    trained = phase_train(dev, args.seed, smi)
+    done("phase 7")
+
+    # the kernels record: each kernel's row at the training path's shape,
+    # launches summed over the main paths it runs on
+    fwd_row = rows["train_qkv_b8"]
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "paddle_tpu/ops/flash_attention.py:191",
-        "launches": launches["flash_fwd"],
-        "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"], "library_ms": main_row["library_ms"],
+        "launches": served["flash_fwd"] + trained["flash_fwd"],
+        "launches_by_path": {"served": served["flash_fwd"],
+                             "training": trained["flash_fwd"]},
+        "max_abs_err": fwd_row["max_abs_err"], "ms": fwd_row["ms"],
+        "plain_ms": fwd_row["plain_ms"], "bound_ms": fwd_row["bound_ms"],
+        "bound_by": fwd_row["bound_by"], "library_ms": fwd_row["library_ms"],
+        "served_shape": {k: rows["prefill_qkv_b8"][k] for k in
+                         ("ms", "plain_ms", "bound_ms", "library_ms")},
     }]
-    say(f"kernels: flash_fwd ported (cuda, sm_90a), checked in "
-        f"{len(rows)} cases; total {time.perf_counter() - t_start:.1f} s")
+    for name, line, pass_ in (("flash_bwd_dq", 342, "dq"),
+                              ("flash_bwd_dkv", 379, "dkv")):
+        row = bwd_rows["train_qkv"][pass_]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/ops/csrc/flash_bwd.cu",
+            "replaces": f"paddle_tpu/ops/flash_attention.py:{line}",
+            "launches": served[name] + trained[name],
+            "launches_by_path": {"served": served[name], "training": trained[name]},
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "library_covers": "dq, dk and dv together (SDPA forward+backward "
+                              "minus forward)",
+        })
+    say(f"kernels: flash_fwd, flash_bwd_dq, flash_bwd_dkv ported (cuda, sm_90a), "
+        f"checked in {len(rows)} forward and {len(bwd_rows)} backward cases; "
+        f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -12,3 +12,8 @@ Entry points run on the CUDA card unless the caller passes
 """
 
 __version__ = "0.1.0"
+
+from . import optimizer  # noqa: E402
+from .executor import Scope, Trainer  # noqa: E402
+
+__all__ = ["Scope", "Trainer", "optimizer"]

@@ -1,4 +1,4 @@
-"""The part of ``paddle_tpu.framework`` the decode slice needs.
+"""The part of ``paddle_tpu.framework`` the ported slices need.
 
 The JAX package reads its mixed-precision compute dtype from a global
 flag (``default_compute_dtype``, set by ``amp_guard``); the port takes it

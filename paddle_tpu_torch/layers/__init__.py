@@ -1,1 +1,2 @@
-"""Layers of the decode slice: attention, stacked blocks, greedy search."""
+"""Layers of the ported slices: attention, stacked blocks, greedy search,
+embedding and layer norm."""

@@ -30,13 +30,14 @@ def scaled_dot_product_attention(q, k, v,
     ``tril(k=sk-sq)`` mask. The flash kernel has no dropout, so it is
     taken when ``use_flash`` and dropout is a no-op (rate 0, or not
     ``training``), the JAX package's routing rule. Training-time
-    dropout comes with the training slice.
+    dropout comes with the Transformer/BERT slice (ROADMAP slice 6).
     """
     if use_flash and (dropout_rate == 0.0 or not training):
         from ..ops.flash_attention import flash_attention
         return flash_attention(q, k, v, causal=causal, attn_mask=attn_mask)
     if dropout_rate > 0.0 and training:
-        raise NotYetPorted("attention dropout in training (training slice)")
+        raise NotYetPorted("attention dropout in training (slice 6, ROADMAP "
+                           "queue 1)")
 
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = _scores_mxu(q, k, scale)

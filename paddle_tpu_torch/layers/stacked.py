@@ -7,18 +7,25 @@ by :class:`EncoderStack`. The block functions are plain functions of
 dtype passed in (``framework.cast_compute``) instead of read from a flag.
 Weights stay ``[in, out]``; the fused qkv weight stays ``[d, 3, d]``.
 
-Not carried yet: the sequence-parallel branch of ``_sdpa``, dropout,
-tensor-parallel psums, ``apply_stacked``'s pipeline path and the int8
-KV cache (``decode_block_q8``).
+Training runs :func:`apply_stacked` over :func:`make_encoder_block`
+sequentially, one Python loop over the layers in place of the JAX
+``lax.scan``, with ``remat=True`` as per-layer
+``torch.utils.checkpoint``. Not carried yet, each raising
+:class:`NotYetPorted`: dropout in training, the sequence-parallel branch
+of ``_sdpa``, tensor-parallel psums and the int8 KV cache
+(``decode_block_q8``). ``apply_stacked``'s pipeline path is entered
+through ``DistStrategy.pp_microbatches``, which the port's ``Trainer``
+does not take yet.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.errors import NotYetPorted
 from ..framework import cast_compute
@@ -75,20 +82,25 @@ def encoder_stack_shapes(num_layers: int, d_model: int, d_inner: int):
 class EncoderStack(nn.Module):
     """The stacked params of ``num_layers`` pre-LN self-attention blocks
     (``encoder_stack_params``): float32 tensors ``[L, ...]`` under the
-    attributes of :data:`STACK_PARAMS`."""
+    attributes of :data:`STACK_PARAMS`, trainable when ``trainable``."""
 
     def __init__(self, num_layers: int, d_model: int, d_inner: int,
-                 device=None):
+                 device=None, trainable: bool = False):
         super().__init__()
         self.num_layers = num_layers
         for name, shape in encoder_stack_shapes(num_layers, d_model,
                                                 d_inner).items():
             self.register_parameter(STACK_PARAMS[name][0], nn.Parameter(
                 torch.empty(shape, dtype=torch.float32, device=device),
-                requires_grad=False))
+                requires_grad=trainable))
 
     def get(self, name: str) -> torch.Tensor:
         return getattr(self, STACK_PARAMS[name][0])
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        """{JAX name inside the stack: [L, ...] tensor}, as
+        ``encoder_stack_params`` returns them."""
+        return {name: self.get(name) for name in STACK_PARAMS}
 
     def layer(self, i: int, compute_dtype=None) -> Dict[str, torch.Tensor]:
         """Layer ``i``'s params by JAX name. With ``compute_dtype`` the
@@ -118,7 +130,8 @@ def _sdpa(q, k, v, key_bias, causal: bool, use_flash: bool, sp_cfg=None,
         from ..ops.flash_attention import flash_attention
         return flash_attention(q, k, v, causal=causal, key_bias=key_bias)
     if dropout_rate > 0.0 and training:
-        raise NotYetPorted("attention dropout in training (training slice)")
+        raise NotYetPorted("attention dropout in training (slice 6, ROADMAP "
+                           "queue 1)")
     from ..ops.attention_scores import scores_mxu
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = scores_mxu(q, k, scale)
@@ -168,6 +181,63 @@ def _ffn(x, p, compute_dtype):
     return x + (h + p["ffn_out/b"].to(h.dtype))
 
 
+def _self_attention(x, p, num_heads, causal, use_flash, key_bias,
+                    compute_dtype, dropout_rate: float = 0.0,
+                    training: bool = False):
+    q, k, v = _attn_qkv(x, p, num_heads, compute_dtype)
+    o = _sdpa(q, k, v, key_bias, causal, use_flash, dropout_rate=dropout_rate,
+              training=training)
+    return _attn_out(x, p, o, compute_dtype)
+
+
+def make_encoder_block(num_heads: int, use_flash: bool = False,
+                       causal: bool = False, tp_axis: Optional[str] = None,
+                       sp_cfg: Optional[dict] = None,
+                       dropout_rate: float = 0.0,
+                       compute_dtype=torch.float32,
+                       training: bool = False) -> Callable:
+    """``layer_fn(x, layer_params, key_bias=None)``: pre-LN self-attention
+    then the FFN (layers/stacked.py:224). The compute dtype and whether
+    this is a training pass are arguments here, where the JAX package
+    reads them from its build context."""
+    if tp_axis is not None:
+        raise NotYetPorted("tensor-parallel stacked blocks (multi-GPU slice)")
+    if sp_cfg is not None:
+        raise NotYetPorted("sequence-parallel attention (multi-GPU slice)")
+    if dropout_rate > 0.0 and training:
+        raise NotYetPorted("dropout in training (residual, FFN and attention "
+                           "dropout: slice 6, ROADMAP queue 1)")
+
+    def block(x, p, key_bias=None):
+        x = _self_attention(x, p, num_heads, causal, use_flash, key_bias,
+                            compute_dtype, dropout_rate, training)
+        return _ffn(x, p, compute_dtype)
+
+    return block
+
+
+def apply_stacked(x, stacked: Dict[str, torch.Tensor], make_block: Callable,
+                  extras=None, num_heads: int = 8, use_flash: bool = False,
+                  causal: bool = False, remat: bool = False,
+                  dropout_rate: float = 0.0, compute_dtype=torch.float32,
+                  training: bool = False):
+    """Run a parameter stack ``{name: [L, ...]}`` over ``x``, layer by
+    layer (the JAX package's sequential ``lax.scan``). ``remat=True``
+    checkpoints each layer (``torch.utils.checkpoint``, non-reentrant):
+    its activations are recomputed in the backward instead of kept."""
+    block = make_block(num_heads=num_heads, use_flash=use_flash,
+                       causal=causal, tp_axis=None, sp_cfg=None,
+                       dropout_rate=dropout_rate, compute_dtype=compute_dtype,
+                       training=training)
+    num_layers = next(iter(stacked.values())).shape[0]
+    for i in range(num_layers):
+        lp = {name: t[i] for name, t in stacked.items()}
+        args = (x, lp) if extras is None else (x, lp, extras)
+        x = checkpoint(block, *args, use_reentrant=False) if remat \
+            else block(*args)
+    return x
+
+
 def prefill_block(x, p, num_heads: int, use_flash: bool = False,
                   compute_dtype=torch.float32):
     """Causal block that also returns its (k, v) for cache seeding."""
@@ -197,5 +267,6 @@ def decode_block(x, p, k_cache, v_cache, index: int, num_heads: int,
     return _ffn(x, p, compute_dtype), k_cache, v_cache
 
 
-__all__ = ["EncoderStack", "STACK_PARAMS", "StackedInit", "decode_block",
-           "encoder_stack_shapes", "prefill_block"]
+__all__ = ["EncoderStack", "STACK_PARAMS", "StackedInit", "apply_stacked",
+           "decode_block", "encoder_stack_shapes", "make_encoder_block",
+           "prefill_block"]

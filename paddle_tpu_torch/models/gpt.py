@@ -1,14 +1,15 @@
-"""GPT — decoder-only causal LM, incremental generation
-(counterpart of ``paddle_tpu.models.gpt``: ``GPTConfig``,
-``base_config``, ``make_generator``).
+"""GPT — decoder-only causal LM: the training program and incremental
+generation (counterpart of ``paddle_tpu.models.gpt``: ``GPTConfig``,
+``base_config``, ``make_model``, ``make_generator``).
 
-The generator is an ``nn.Module`` that owns its parameters under the JAX
+Both programs are ``nn.Module``s that own their parameters under the JAX
 package's names (:data:`PARAM_TABLE`), so params trained or initialised
-in ``paddle_tpu`` load through :func:`params_from_jax` and the two
-produce the same token ids. The prefill runs the stacked blocks
-causally through the flash-attention kernel (``use_flash``, the config
-default); the decode steps are plain matmuls over a KV cache, as in the
-JAX package. The training program (``make_model``), beam search and the
+in ``paddle_tpu`` load through :func:`params_from_jax`, params trained
+by :func:`make_model` load straight into :func:`make_generator`, and the
+port produces the JAX package's losses and token ids. Both run the
+stacked blocks causally through the flash-attention kernels
+(``use_flash``, the config default); training differentiates through
+the forward kernel and the two backward kernels. Beam search and the
 int8 KV cache come in later slices.
 """
 
@@ -28,8 +29,10 @@ from ..core.errors import EnforceError, NotFoundError, NotYetPorted, enforce
 from ..core.place import default_device
 from ..framework import cast_compute
 from ..layers import attention as A
+from ..layers import nn as L
 from ..layers import stacked as S
 from ..layers.beam_search import greedy_search
+from .lm_head import lm_head_loss
 
 BUILDER = "models.gpt.make_generator"
 
@@ -43,9 +46,9 @@ class GPTConfig:
     num_heads: int = 12
     num_layers: int = 12
     use_flash: bool = True
-    # training-only fields, read by the training program (make_model, not
-    # ported yet); the generator ignores them as the JAX package's does,
-    # so a config trained with dropout or remat still serves
+    # training-only fields, read by the training program (make_model);
+    # the generator ignores them as the JAX package's does, so a config
+    # trained with dropout or remat still serves
     fused_ce: bool = True
     ce_chunk: int = 4096
     remat: bool = False
@@ -70,17 +73,113 @@ PARAM_TABLE = {
 }
 
 
-def _take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``table[ids]`` with the JAX gather's index rule: a negative id
-    counts from the end, then ids are clamped into range (an out-of-range
-    id must not fault the device)."""
-    n = table.shape[0]
-    ids = ids.long()
-    ids = torch.where(ids < 0, ids + n, ids).clamp(0, n - 1)
-    return table[ids]
+class _JaxNamedParams(nn.Module):
+    """What both GPT programs do with their params under the JAX names
+    of :data:`PARAM_TABLE`."""
+
+    @property
+    def device(self) -> torch.device:
+        return self.w_emb.device
+
+    def flat_params(self) -> Dict[str, torch.Tensor]:
+        """{JAX param name: tensor} (the tensors themselves, not copies)."""
+        return {name: self.get_parameter(attr)
+                for name, (attr, _) in PARAM_TABLE.items()}
+
+    def load_params(self, flat: Dict[str, torch.Tensor]):
+        """Take every parameter from ``flat`` (JAX names; dtypes kept as
+        given, copied to this module's device, so training in place never
+        writes to the caller's tensors). Missing, extra or misshapen
+        entries raise."""
+        extra = sorted(set(flat) - set(PARAM_TABLE))
+        enforce(not extra, f"load_params: not params of this program: {extra}")
+        for name, (attr, _) in PARAM_TABLE.items():
+            if name not in flat:
+                raise NotFoundError(f"load_params: missing param {name!r}")
+            p = self.get_parameter(attr)
+            t = torch.as_tensor(flat[name])
+            if tuple(t.shape) != tuple(p.shape):
+                raise EnforceError(f"load_params: {name} has shape "
+                                   f"{tuple(t.shape)}, expected {tuple(p.shape)}")
+            p.data = t.to(self.device, copy=True)
+        return self
+
+    def init_params(self, seed: int = 0):
+        """Fresh init through the port's initializers: each param draws
+        from its own CPU generator seeded from (seed, its name), so the
+        values do not depend on the device or on the order of params."""
+        for name, (attr, initializer) in PARAM_TABLE.items():
+            p = self.get_parameter(attr)
+            # the CPU generator keeps only 32 bits of its seed, so seed and
+            # name are hashed together rather than packed side by side
+            h = hashlib.sha256(f"{seed}/{name}".encode()).digest()
+            g = torch.Generator().manual_seed(int.from_bytes(h[:4], "little"))
+            p.data = initializer(g, tuple(p.shape), p.dtype).to(self.device)
+        return self
 
 
-class GPTGenerator(nn.Module):
+class GPTModel(_JaxNamedParams):
+    """``make_model``'s program: ``forward(ids [b, s], labels [b, s]) ->
+    {"loss", "token_count"}``, the next-token CE over labels that are not
+    the pad id 0. Parameter dtypes follow the JAX package's
+    ``Program.init``: the embedding and ``lm_head_0/w`` in ``cfg.dtype``,
+    the stack in f32, and ``gpt/layer_norm_0`` in the dtype of the
+    activations it normalises (the JAX layer creates it in its input's
+    dtype), which is the wider of the compute dtype and ``cfg.dtype``."""
+
+    def __init__(self, cfg: GPTConfig, compute_dtype="float32", device=None):
+        super().__init__()
+        dev = default_device(device, "make_model")
+        self.cfg = cfg
+        self.compute_dtype = convert_dtype(compute_dtype)
+        dt = convert_dtype(cfg.dtype)
+        V, d = cfg.vocab_size, cfg.d_model
+
+        def param(shape, dtype):
+            return nn.Parameter(torch.empty(shape, dtype=dtype, device=dev))
+
+        self.w_emb = param((V, d), dt)
+        self.stack = S.EncoderStack(cfg.num_layers, d, cfg.d_inner, device=dev,
+                                    trainable=True)
+        ln_dtype = torch.promote_types(self.compute_dtype, dt)
+        self.ln_scale = param((d,), ln_dtype)
+        self.ln_bias = param((d,), ln_dtype)
+        self.w_head = param((d, V), dt)
+        self.register_buffer(
+            "pe", A.positional_encoding(cfg.max_len, d, dt, device=dev),
+            persistent=False)
+
+    def forward(self, ids, labels) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        ids = torch.as_tensor(ids, device=self.device)
+        labels = torch.as_tensor(labels, device=self.device)
+        s = ids.shape[1]
+        enforce(s <= cfg.max_len, f"seq {s} exceeds max_len {cfg.max_len}")
+        x = L.embedding(ids, self.w_emb, self.compute_dtype) + self.pe[:s][None]
+        x = S.apply_stacked(x, self.stack.params(), S.make_encoder_block,
+                            num_heads=cfg.num_heads, use_flash=cfg.use_flash,
+                            causal=True, remat=cfg.remat,
+                            dropout_rate=cfg.dropout,
+                            compute_dtype=self.compute_dtype,
+                            training=self.training)
+        x = L.layer_norm(x, self.ln_scale, self.ln_bias, begin_norm_axis=2)
+        loss, token_count = lm_head_loss(x, labels, self.w_head, cfg.fused_ce,
+                                         cfg.ce_chunk)
+        return {"loss": loss, "token_count": token_count}
+
+
+def make_model(cfg: GPTConfig, compute_dtype="float32", device=None) -> GPTModel:
+    """The training program: ``(ids [b, s], labels [b, s]) -> {"loss",
+    "token_count"}``, next-token CE over non-pad labels (pad id 0).
+
+    ``compute_dtype`` replaces the JAX package's ``default_compute_dtype``
+    flag. Parameters are allocated on ``device`` (the CUDA card by
+    default) uninitialised: call ``init_params`` or ``load_params``, or
+    let ``Trainer.startup`` do it."""
+    return GPTModel(cfg, compute_dtype=compute_dtype, device=device)
+
+
+class GPTGenerator(_JaxNamedParams):
     """``make_generator``'s program: ``forward(prompt_ids [b, p] int32)
     -> {"ids": [b, max_new_tokens] int32}`` (greedy)."""
 
@@ -113,10 +212,6 @@ class GPTGenerator(nn.Module):
             "pe", A.positional_encoding(cfg.max_len, d, dt, device=dev),
             persistent=False)
 
-    @property
-    def device(self) -> torch.device:
-        return self.w_emb.device
-
     def spec(self) -> Dict:
         """How to rebuild this program: the builder and its arguments
         (what ``io.save_inference_model`` records in meta.json)."""
@@ -124,43 +219,6 @@ class GPTGenerator(nn.Module):
                 "max_new_tokens": self.max_new_tokens, "bos_id": self.bos_id,
                 "eos_id": self.eos_id,
                 "compute_dtype": dtype_name(self.compute_dtype)}
-
-    # -- params under the JAX names -----------------------------------------
-
-    def flat_params(self) -> Dict[str, torch.Tensor]:
-        """{JAX param name: tensor} (the tensors themselves, not copies)."""
-        return {name: self.get_parameter(attr)
-                for name, (attr, _) in PARAM_TABLE.items()}
-
-    def load_params(self, flat: Dict[str, torch.Tensor]) -> "GPTGenerator":
-        """Take every parameter from ``flat`` (JAX names; dtypes kept as
-        given, moved to this module's device). Missing, extra or
-        misshapen entries raise."""
-        extra = sorted(set(flat) - set(PARAM_TABLE))
-        enforce(not extra, f"load_params: not params of this program: {extra}")
-        for name, (attr, _) in PARAM_TABLE.items():
-            if name not in flat:
-                raise NotFoundError(f"load_params: missing param {name!r}")
-            p = self.get_parameter(attr)
-            t = torch.as_tensor(flat[name])
-            if tuple(t.shape) != tuple(p.shape):
-                raise EnforceError(f"load_params: {name} has shape "
-                                   f"{tuple(t.shape)}, expected {tuple(p.shape)}")
-            p.data = t.to(self.device)
-        return self
-
-    def init_params(self, seed: int = 0) -> "GPTGenerator":
-        """Fresh init through the port's initializers: each param draws
-        from its own CPU generator seeded from (seed, its name), so the
-        values do not depend on the device or on the order of params."""
-        for name, (attr, initializer) in PARAM_TABLE.items():
-            p = self.get_parameter(attr)
-            # the CPU generator keeps only 32 bits of its seed, so seed and
-            # name are hashed together rather than packed side by side
-            h = hashlib.sha256(f"{seed}/{name}".encode()).digest()
-            g = torch.Generator().manual_seed(int.from_bytes(h[:4], "little"))
-            p.data = initializer(g, tuple(p.shape), p.dtype).to(self.device)
-        return self
 
     # -- the program ----------------------------------------------------------
 
@@ -182,7 +240,7 @@ class GPTGenerator(nn.Module):
             layers = [self.stack.layer(i, self.compute_dtype)
                       for i in range(cfg.num_layers)]
         x = cast_compute(self.compute_dtype,
-                         _take_rows(self.w_emb, prompt_ids) + self.pe[:p][None])
+                         L.take_rows(self.w_emb, prompt_ids) + self.pe[:p][None])
         ks, vs = [], []
         for lp in layers:
             x, (k, v) = S.prefill_block(x, lp, cfg.num_heads, cfg.use_flash,
@@ -220,7 +278,7 @@ class GPTGenerator(nn.Module):
                     return logp0, dict(state, first=False)
                 index = state["index"]
                 xt = cast_compute(self.compute_dtype,
-                                  _take_rows(self.w_emb, tokens)[:, None, :]
+                                  L.take_rows(self.w_emb, tokens)[:, None, :]
                                   + self.pe[index][None, None])
                 for i, lp in enumerate(layers):
                     xt, _, _ = S.decode_block(xt, lp, state["k"][i],
@@ -281,5 +339,5 @@ def build_from_spec(spec: Dict, device=None) -> GPTGenerator:
                           compute_dtype=spec["compute_dtype"], device=device)
 
 
-__all__ = ["GPTConfig", "GPTGenerator", "PARAM_TABLE", "base_config",
-           "make_generator", "params_from_jax"]
+__all__ = ["GPTConfig", "GPTGenerator", "GPTModel", "PARAM_TABLE",
+           "base_config", "make_generator", "make_model", "params_from_jax"]

@@ -62,7 +62,10 @@ def test_importing_the_port_loads_no_jax():
     mods = ["paddle_tpu_torch", "paddle_tpu_torch.io", "paddle_tpu_torch.serving",
             "paddle_tpu_torch.fleet.decode", "paddle_tpu_torch.models.gpt",
             "paddle_tpu_torch.ops.flash_attention", "paddle_tpu_torch.ops._build",
-            "paddle_tpu_torch.layers.attention", "paddle_tpu_torch.initializer"]
+            "paddle_tpu_torch.layers.attention", "paddle_tpu_torch.initializer",
+            "paddle_tpu_torch.optimizer", "paddle_tpu_torch.executor",
+            "paddle_tpu_torch.ops.fused_ce", "paddle_tpu_torch.layers.nn",
+            "paddle_tpu_torch.layers.stacked", "paddle_tpu_torch.models.lm_head"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -88,8 +91,12 @@ def _entry_points(tmp_path):
     art = str(tmp_path / "art")
     prompts = np.full((2, 4), 3, np.int32)
     decode.export_decoder(art, _tiny_cfg(), 2, prompts, device="cpu")
+    from paddle_tpu_torch import Trainer, optimizer
     return {
         "make_generator": lambda: gpt.make_generator(_tiny_cfg(), 2),
+        "make_model": lambda: gpt.make_model(_tiny_cfg()),
+        "Trainer": lambda: Trainer(gpt.make_model(_tiny_cfg(), device="cpu"),
+                                   optimizer.AdamW(1e-4)),
         "params_from_jax": lambda: gpt.params_from_jax(
             {"w": np.zeros(2, np.float32)}),
         "export_decoder": lambda: decode.export_decoder(
@@ -101,7 +108,7 @@ def _entry_points(tmp_path):
 
 @pytest.mark.parametrize("entry", ["make_generator", "params_from_jax",
                                    "export_decoder", "load_inference_model",
-                                   "decode_server"])
+                                   "decode_server", "make_model", "Trainer"])
 def test_entry_points_refuse_to_run_without_a_card(tmp_path, entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the entry points run on it")
@@ -141,7 +148,7 @@ def test_chip_smoke_fails_alone(tmp_path):
 
 
 def test_kernel_source_and_builder_load_without_nvcc(tmp_path, monkeypatch):
-    assert _build.sources() == ["flash_fwd"]
+    assert _build.sources() == ["flash_bwd", "flash_fwd"]
     with open(os.path.join(_build.CSRC, "flash_fwd.cu")) as f:
         src = f.read()
     # the C entry point's parameters match the ctypes argtypes one to one
@@ -164,6 +171,28 @@ def test_kernel_source_and_builder_load_without_nvcc(tmp_path, monkeypatch):
                         lambda name: str(tmp_path / f"lib{name}.so"))
     with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
         _build.build("flash_fwd")
+
+
+@pytest.mark.parametrize("entry", sorted(tfa.BWD_ARGTYPES))
+def test_backward_entry_points_match_their_argtypes(entry):
+    """flash_bwd_dq / flash_bwd_dkv: each C parameter has its ctypes
+    argtype, pointers and the stream as c_void_p (a c_int would cut
+    them)."""
+    with open(os.path.join(_build.CSRC, "flash_bwd.cu")) as f:
+        src = f.read()
+    sig = re.search(rf'extern "C" int {entry}\(([^)]*)\)', src)
+    assert sig is not None
+    params = [p.strip() for p in sig.group(1).split(",") if p.strip()]
+    argtypes = tfa.BWD_ARGTYPES[entry]
+    assert len(params) == len(argtypes)
+    for param, argtype in zip(params, argtypes):
+        assert ("*" in param) == (argtype is ctypes.c_void_p), param
+        if "long long" in param:
+            assert argtype is ctypes.c_longlong, param
+        elif param.startswith("float"):
+            assert argtype is ctypes.c_float, param
+    for name in ("_dq_kernel", "_dkv_kernel", "paddle_tpu/ops/flash_attention.py"):
+        assert name in src  # names what it replaces
 
 
 def test_package_import_builds_nothing():
