@@ -18,9 +18,11 @@ Phases, each reported on its own lines; any failure exits non-zero:
    ``make_generator`` on the card (kernel) against the CPU (plain
    versions) from the same weights; 12 kernel launches per generate call;
 3b. backward — the two flash-attention backward kernels (dQ; dK/dV)
-   against their plain PyTorch version on the card, at the training
-   path's shape (strided head views of the fused [8, 1024, 3, 768] qkv
-   projection, with a strided dO) and at long, ragged, masked, sq > sk and
+   against their plain PyTorch version on the card, on both routes (bf16
+   on the tensor cores, f32 and bf16 head dim 32 on the CUDA cores), at
+   the training path's shape (strided head views of the fused [8, 1024,
+   3, 768] qkv projection, with a strided dO; two runs must give the same
+   bits) and at long, ragged, biased, segmented, fully masked, sq > sk and
    head-dim 32/128 shapes, with each grad's error against its tolerance,
    timings per pass (kernel, plain version, ``scaled_dot_product_attention``
    backward where its mask convention matches) and the card's least time;
@@ -39,7 +41,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
    counts zeroed just before the path and read just after it (12 launches
    of each kernel per step); tokens/s, ms per step, peak memory, the
    losses; the first two losses against the same steps run through the
-   plain versions on the card; a profiler breakdown of one step.
+   plain versions on the card; a profiler breakdown of one step, which
+   must show the backward's tensor-core kernels and none of its CUDA-core
+   ones.
 
 The last lines are a JSON ``kernels`` record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -90,6 +94,10 @@ LSE_TOL = 1e-4
 # order; in bf16 dS and P are rounded to bf16 from f32 values that may
 # differ in the last bits, and each grad is rounded once more)
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the backward passes' device ms at train_qkv on the CUDA-core kernels that
+# the bf16 tensor-core route replaced (NVIDIA H100 80GB HBM3, 700 W): quoted
+# for comparison in the printout, not measured by this script
+PREV_BWD_MS = {"dq": 0.8617, "dkv": 1.1106}
 # f32 training, card against CPU: losses at rel 1e-4 (the same f32
 # arithmetic summed in another order through 12 layers), step-1 grads per
 # param at 1e-2 relative L2, ‖g_card − g_cpu‖ / ‖g_cpu‖. Not element by
@@ -345,6 +353,21 @@ def bwd_cases():
         Case("head32_f32", 2, 4, 70, 70, 32, "float32", causal=True),
         Case("head128_bf16", 2, 4, 70, 130, 128, "bfloat16", causal=True,
              bias=True),
+        # every branch of the bf16 tensor-core route: bias and segment ids
+        # with sq != sk and sk - sq not a multiple of the 64-row tile, with
+        # and without causal; fully masked rows; a causal length that is
+        # not a multiple of the tile; head dim 128 at a length with whole
+        # unmasked tiles; and bf16 head dim 32, which the route sends to
+        # the CUDA cores
+        Case("bias_segments_bf16", 2, 12, 200, 331, 64, "bfloat16", bias=True,
+             segments=True),
+        Case("causal_bias_segments_bf16", 2, 12, 200, 331, 64, "bfloat16",
+             causal=True, bias=True, segments=True),
+        Case("fully_masked_bf16", 2, 4, 96, 96, 64, "bfloat16", causal=True,
+             segments=True, fully_masked=True),
+        Case("causal_1000_bf16", 2, 12, 1000, 1000, 64, "bfloat16", causal=True),
+        Case("head128_long_bf16", 1, 12, 1024, 1024, 128, "bfloat16", causal=True),
+        Case("head32_bf16", 2, 4, 70, 70, 32, "bfloat16", causal=True),
     ]
 
 
@@ -384,6 +407,11 @@ def phase_bwd_kernels(dev, seed):
                 kw.get("kv_segment_ids"), g, lse, delta)
         got = (fa.flash_bwd_dq_cuda(*args), *fa.flash_bwd_dkv_cuda(*args))
         torch.cuda.synchronize()
+        route = fa.BWD_ROUTES[(q.dtype, d)]
+        if case.qkv:  # one writer per output tile, no atomics: the same bits
+            again = (fa.flash_bwd_dq_cuda(*args), *fa.flash_bwd_dkv_cuda(*args))
+            check(all(torch.equal(a, b_) for a, b_ in zip(got, again)),
+                  f"{name}: two runs of a backward pass differ")
         want = (fa.flash_bwd_dq_reference(*args), *fa.flash_bwd_dkv_reference(*args))
         errs, ok = {}, True
         for gname, a, w in zip(("dq", "dk", "dv"), got, want):
@@ -409,9 +437,10 @@ def phase_bwd_kernels(dev, seed):
         max_err = {"dq": errs["dq"][0], "dkv": max(errs["dk"][0], errs["dv"][0])}
         rows[name] = {p: dict(ms=ms[p], plain_ms=plain[p], library_ms=lib_ms,
                               bound_ms=bounds[p][0], bound_by=bounds[p][1],
-                              max_abs_err=max_err[p]) for p in ("dq", "dkv")}
+                              max_abs_err=max_err[p], route=route)
+                      for p in ("dq", "dkv")}
         layout = "strided qkv views, strided dO" if case.qkv else "contiguous"
-        say(f"backward {name}: [{b},{h},{sq},{sk},{d}] {dt} {layout} "
+        say(f"backward {name}: [{b},{h},{sq},{sk},{d}] {dt} {route} {layout} "
             f"causal={kw['causal']} bias={'key_bias' in kw} "
             f"segments={'segment_ids' in kw} | "
             + " ".join(f"max|{n}-plain|={e:.3g} (tol {t:.3g})"
@@ -423,6 +452,21 @@ def phase_bwd_kernels(dev, seed):
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} | "
             f"{'ok' if ok else 'MISMATCH'}")
         check(ok, f"{name}: a backward kernel disagrees with its plain version")
+        if case.qkv:
+            pairs = _visible_pairs(q, k, kw)
+            for p_, n_products in (("dq", 3), ("dkv", 4)):
+                tflops = 2 * n_products * d * pairs / (ms[p_] * 1e-3) / 1e12
+                say(f"backward {name} {p_}: {ms[p_]:.4f} ms (before the tensor-core "
+                    f"route, quoted: {PREV_BWD_MS[p_]} ms, "
+                    f"{PREV_BWD_MS[p_] / ms[p_]:.2f}x), "
+                    f"bound {bounds[p_][0]:.4f} ms ({bounds[p_][1]}), "
+                    f"{100 * bounds[p_][0] / ms[p_]:.1f}% of it reached, "
+                    f"{tflops:.1f} TFLOP/s on {n_products} products a visible pair; "
+                    f"two runs gave the same bits")
+            if lib_ms is not None:
+                say(f"backward {name}: dq + dkv {ms['dq'] + ms['dkv']:.4f} ms against "
+                    f"sdpa backward {lib_ms:.4f} ms in this run: "
+                    f"{(ms['dq'] + ms['dkv']) / lib_ms:.2f}x")
     return rows
 
 
@@ -823,8 +867,11 @@ def train_breakdown(trainer, feed, card_name):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     device_us, spans = 0.0, {}
-    kernels = {"flash_fwd_kernel": 0.0, "flash_bwd_dq_kernel": 0.0,
-               "flash_bwd_dkv_kernel": 0.0}
+    # the backward's two kernel families: the bf16 step must run on the
+    # tensor-core ones alone
+    tensor_core = ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")
+    cuda_core = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+    kernels = dict.fromkeys(("flash_fwd_kernel", *tensor_core, *cuda_core), 0.0)
     for evt in prof.key_averages():
         if evt.key.startswith("trainer."):
             # the range itself, and its copy on the device's timeline
@@ -851,6 +898,11 @@ def train_breakdown(trainer, feed, card_name):
                   "device time")
     say(f"training breakdown ({card_name}), one step at b={TRAIN_BATCH} "
         f"s={TRAIN_SEQ}: {sorted(times)[1]:.2f} ms on the host clock; {seen}")
+    check(all(kernels[k] > 0 for k in tensor_core),
+          "training: the profiled step shows no device time of the backward's "
+          "tensor-core kernels")
+    check(all(kernels[k] == 0 for k in cuda_core),
+          "training: the bf16 step ran a backward kernel of the CUDA-core route")
 
 
 # -- the run ------------------------------------------------------------------
@@ -868,6 +920,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_attention as fa
 
     # f32 references in full f32 (the defaults, stated)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -886,7 +939,9 @@ def main(argv=None) -> int:
     _build.load_all()
     say(f"build: {_build.sources()} in {time.perf_counter() - t0:.2f} s")
     for name, (secs, log) in sorted(_build.build_log.items()):
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+        # ptxas's lines for each kernel: the function, its spills, its registers
+        regs = [ln.strip() for ln in log.splitlines()
+                if "registers" in ln or "spill" in ln or "entry function" in ln]
         say(f"build {name}: {secs:.2f} s nvcc; " + " | ".join(regs))
 
     def done(phase):
@@ -952,6 +1007,9 @@ def main(argv=None) -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "library_covers": "dq, dk and dv together (SDPA forward+backward "
                               "minus forward)",
+            "routes": {"bfloat16": fa.BWD_ROUTES[(torch.bfloat16, 64)],
+                       "float32": fa.BWD_ROUTES[(torch.float32, 64)],
+                       "bfloat16_head_dim_32": fa.BWD_ROUTES[(torch.bfloat16, 32)]},
         })
     say(f"kernels: flash_fwd, flash_bwd_dq, flash_bwd_dkv ported (cuda, sm_90a), "
         f"checked in {len(rows)} forward and {len(bwd_rows)} backward cases; "

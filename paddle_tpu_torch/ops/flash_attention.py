@@ -32,6 +32,16 @@ from ..core.errors import EnforceError, enforce
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The backward kernels' route by (dtype, head dim): bf16 at head dims 64
+# and 128 on the tensor cores ("wgmma": TMA loads, wgmma products),
+# everything else on the CUDA cores ("cuda_core": f32 FMAs). f32 stays off
+# the tensor cores, whose f32 products are TF32; head dim 32 would need its
+# own swizzle. This table is the rule: the wrapper passes its choice to
+# csrc/flash_bwd.cu (:func:`_bwd_route_code`), which launches what it is
+# told.
+BWD_ROUTES = {(dtype, d): ("wgmma" if dtype == torch.bfloat16 and d in (64, 128)
+                           else "cuda_core")
+              for dtype in _DTYPE_CODES for d in HEAD_DIMS}
 
 # launches of each CUDA kernel in this process (plain ints, bumped at each
 # launch and nowhere else; the smoke run zeroes them around a main path)
@@ -257,6 +267,24 @@ def _last_dim_contiguous(t):
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
+def _tma_ready(t):
+    """``t`` as TMA reads it: the same tensor when its base address and
+    every stride but the last (which is 1) are positive multiples of 16
+    bytes, as the training path's qkv head views and transposed dO are;
+    otherwise a fresh contiguous copy, which is."""
+    es = t.element_size()
+    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st > 0 and st * es % 16 == 0 for st in t.stride()[:-1])):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _bwd_route_code(dtype, d):
+    """The backward entry points' first argument: 0 (f32) or 1 (bf16) on
+    the CUDA cores, as :data:`_DTYPE_CODES`; 2, bf16 on the tensor cores."""
+    return 2 if BWD_ROUTES[(dtype, d)] == "wgmma" else _DTYPE_CODES[dtype]
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -354,10 +382,12 @@ def _bwd_operands(q, k, v, causal, key_bias, seg_q, seg_k, g, lse, delta):
                 f"flash_attention backward: {name} is {tuple(t.shape)}, "
                 f"expected {(b, h, sq)}")
     g = _last_dim_contiguous(g)
+    if BWD_ROUTES[(q.dtype, d)] == "wgmma":
+        q, k, v, g = (_tma_ready(t) for t in (q, k, v, g))
     lse = lse.float().contiguous()
     delta = delta.float().contiguous()
-    common = [_DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-              _ptr(key_bias), _ptr(seg_q), _ptr(seg_k), g.data_ptr(),
+    common = [_bwd_route_code(q.dtype, d), d, q.data_ptr(), k.data_ptr(),
+              v.data_ptr(), _ptr(key_bias), _ptr(seg_q), _ptr(seg_k), g.data_ptr(),
               lse.data_ptr(), delta.data_ptr()]
     sizes = [b, h, sq, sk, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
              *g.stride()[:3], 1.0 / math.sqrt(d), int(bool(causal))]
@@ -375,7 +405,7 @@ def _launch(fn, name, dev, *args):
 # the C signatures of csrc/flash_fwd.cu and csrc/flash_bwd.cu, one entry per
 # parameter. flash_fwd: dtype, head_dim, 8 pointers (q, k, v, bias, seg_q,
 # seg_k, o, lse), B, H, sq, sk, 9 strides, scale, causal, stream. The
-# backward passes: dtype, head_dim, 9 input pointers (q, k, v, bias, seg_q,
+# backward passes: route, head_dim, 9 input pointers (q, k, v, bias, seg_q,
 # seg_k, dO, lse, delta), their 1 (dq) or 2 (dk, dv) output pointers, B, H,
 # sq, sk, 12 strides (q, k, v, dO), scale, causal, stream.
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

@@ -64,6 +64,15 @@ CASES = {
                           lambda b, sq, sk: {"key_bias": np.random.RandomState(7)
                                              .randn(b, sk).astype(np.float32)},
                           {"block_q": 16, "block_k": 32}),
+    # head dim 64 (the tensor-core route's), causal with a key bias and
+    # query/key segment ids, sq != sk and sk - sq not a multiple of a block
+    "causal_bias_segments_d64_cross": (
+        2, 2, 40, 71, 64,
+        lambda b, sq, sk: {"causal": True, "segment_ids": _segments(b, sq, 2, 12),
+                           "kv_segment_ids": _segments(b, sk, 2, 13),
+                           "key_bias": np.random.RandomState(14)
+                           .randn(b, sk).astype(np.float32)},
+        {"block_q": 16, "block_k": 16}),
     # the second half of the queries has no key of its segment: o = 0,
     # lse ≈ -1e30, and their grads (and their share of dk/dv) are 0
     "fully_masked_rows": (1, 2, 64, 64, 32,
@@ -121,7 +130,7 @@ def test_plain_backward_matches_jax_grad(case):
 
 
 @pytest.mark.parametrize("case", ["causal_many_blocks", "causal_segments_bias_ragged",
-                                  "causal_sq_gt_sk"])
+                                  "causal_sq_gt_sk", "causal_bias_segments_d64_cross"])
 def test_bf16_backward_matches_jax(case):
     b, h, sq, sk, d, make_kw, blocks = CASES[case]
     q, k, v, g = _inputs(b, h, sq, sk, d, seed=3)

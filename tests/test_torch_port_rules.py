@@ -199,3 +199,67 @@ def test_package_import_builds_nothing():
     assert paddle_tpu_torch.__version__
     assert _build._libs == {} or torch.cuda.is_available()
     assert tfa.HEAD_DIMS == (32, 64, 128)
+
+
+def _bwd_source():
+    with open(os.path.join(_build.CSRC, "flash_bwd.cu")) as f:
+        return f.read()
+
+
+def test_backward_source_runs_bf16_on_the_tensor_cores_without_atomics():
+    """The bf16 route's products are wgmma, its tiles arrive by TMA into
+    mbarrier-guarded stages, and nothing in the source adds into an output
+    with atomics: each output tile has one writer."""
+    src = _bwd_source()
+    for needle in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait",
+                   "cuTensorMapEncodeTiled", "__grid_constant__"):
+        assert needle in src, needle
+    code = re.sub(r"//[^\n]*", "", src)  # comments may name what is absent
+    assert "atomic" not in code.lower()
+    assert re.search(r"\bred\.|\batom\.|cp\.reduce", code) is None
+    for name in ("_dq_kernel", "_dkv_kernel", "paddle_tpu/ops/flash_attention.py"):
+        assert name in src  # names what it replaces
+
+
+def test_backward_route_table_is_the_stated_rule():
+    """bf16 at head dims 64 and 128 on the tensor cores; f32 at every head
+    dim and bf16 at 32 on the CUDA cores. The wrapper passes the choice to
+    the C entry points as a code: 0 f32 and 1 bf16 on the CUDA cores, 2
+    bf16 on the tensor cores."""
+    want = {(torch.bfloat16, 32): "cuda_core", (torch.bfloat16, 64): "wgmma",
+            (torch.bfloat16, 128): "wgmma", (torch.float32, 32): "cuda_core",
+            (torch.float32, 64): "cuda_core", (torch.float32, 128): "cuda_core"}
+    assert tfa.BWD_ROUTES == want
+    codes = {key: tfa._bwd_route_code(*key) for key in want}
+    assert codes == {(torch.bfloat16, 32): 1, (torch.bfloat16, 64): 2,
+                     (torch.bfloat16, 128): 2, (torch.float32, 32): 0,
+                     (torch.float32, 64): 0, (torch.float32, 128): 0}
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_tma_ready_keeps_the_training_views_without_a_copy(d):
+    from paddle_tpu_torch.layers.stacked import _split_heads
+    b, s, h = 2, 16, 3
+    qkv = torch.randn(b, s, 3, h * d).to(torch.bfloat16)
+    for i in range(3):
+        view = _split_heads(qkv[:, :, i], d)
+        assert not view.is_contiguous()
+        assert tfa._tma_ready(view) is view
+    g = torch.randn(b, s, h, d).to(torch.bfloat16).transpose(1, 2)  # _merge_heads' grad
+    assert not g.is_contiguous() and tfa._tma_ready(g) is g
+    flat = torch.randn(b, h, s, d).to(torch.bfloat16)
+    assert tfa._tma_ready(flat) is flat
+
+
+@pytest.mark.parametrize("make", ["row_stride_136_bytes", "base_off_by_2_bytes",
+                                  "zero_stride"])
+def test_tma_ready_copies_what_tma_cannot_read(make):
+    base = torch.randn(2, 3, 10, 68).to(torch.bfloat16)
+    t = {"row_stride_136_bytes": lambda: base[..., :64],
+         "base_off_by_2_bytes": lambda: base.flatten()[1:1 + 2 * 3 * 10 * 64]
+         .view(2, 3, 10, 64),
+         "zero_stride": lambda: base[:1, :, :, :64].contiguous().expand(2, 3, 10, 64),
+         }[make]()
+    got = tfa._tma_ready(t)
+    assert got is not t and got.is_contiguous()
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, t)
