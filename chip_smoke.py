@@ -9,11 +9,15 @@ Phases, each reported on its own lines; any failure exits non-zero:
 2. build  — every kernel under ``paddle_tpu_torch/ops/csrc`` compiled with
    nvcc for sm_90a (one nvcc per source, all at once);
 3. kernel — the flash-attention forward kernel against its plain PyTorch
-   version on the card, at the prefill shapes of the served path (the
-   strided head views of the fused qkv projection, buckets 1 and 8) and
-   at ragged, masked and long shapes, with each case's tolerance, timings
-   (kernel, plain version, ``scaled_dot_product_attention`` where its mask
-   convention matches) and the card's least time for the same work;
+   version on the card, on both routes (bf16 at head dims 64 and 128 on
+   the tensor cores, f32 and bf16 head dim 32 on the CUDA cores), at the
+   prefill shapes of the served path (the strided head views of the fused
+   qkv projection, buckets 1 and 8), at the training path's shape (two
+   runs must give the same bits) and at ragged, masked, fully masked,
+   sq > sk, long and head-dim 32/128 shapes, with each case's tolerance,
+   timings (kernel, plain version, ``scaled_dot_product_attention`` where
+   its mask convention matches) and the card's least time for the same
+   work;
 4. parity — full-width GPT-base (random weights from ``--seed``) in f32:
    ``make_generator`` on the card (kernel) against the CPU (plain
    versions) from the same weights; 12 kernel launches per generate call;
@@ -30,7 +34,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
    → ``decode_server`` (``load_inference_model`` + continuous batching)
    answers single-prompt requests; each reply is checked against its row
    of ``Predictor.run`` on the same merged bucket batch. Kernel launch
-   counts are zeroed just before this path and read just after it;
+   counts are zeroed just before this path and read just after it; a
+   profiled bf16 generate call must show the forward's tensor-core
+   kernel and none of its CUDA-core one;
 6. training parity — full-width GPT-base in f32: ``make_model`` +
    ``Trainer`` with AdamW on the card (kernels) against the CPU (plain
    versions) from the same weights, 3 steps: the losses of every step and
@@ -42,7 +48,7 @@ Phases, each reported on its own lines; any failure exits non-zero:
    of each kernel per step); tokens/s, ms per step, peak memory, the
    losses; the first two losses against the same steps run through the
    plain versions on the card; a profiler breakdown of one step, which
-   must show the backward's tensor-core kernels and none of its CUDA-core
+   must show the three tensor-core kernels and none of the CUDA-core
    ones.
 
 The last lines are a JSON ``kernels`` record, the nvidia-smi line and
@@ -98,6 +104,9 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # the bf16 tensor-core route replaced (NVIDIA H100 80GB HBM3, 700 W): quoted
 # for comparison in the printout, not measured by this script
 PREV_BWD_MS = {"dq": 0.8617, "dkv": 1.1106}
+# the same for the forward, on its CUDA-core kernel at train_qkv_b8 and
+# prefill_qkv_b8 (NVIDIA H100 80GB HBM3, 700 W): quoted, not measured here
+PREV_FWD_MS = {"train_qkv_b8": 0.5868, "prefill_qkv_b8": 0.0244}
 # f32 training, card against CPU: losses at rel 1e-4 (the same f32
 # arithmetic summed in another order through 12 layers), step-1 grads per
 # param at 1e-2 relative L2, ‖g_card − g_cpu‖ / ‖g_cpu‖. Not element by
@@ -189,7 +198,8 @@ def kernel_cases():
     views of one fused [b, s, 3, h·d] projection
     (``layers.stacked._split_heads``), at both served buckets and at the
     training shape. The kernels record has rows ``train_qkv_b8`` and
-    ``prefill_qkv_b8``."""
+    ``prefill_qkv_b8``. The bf16 cases at head dims 64 and 128 run on the
+    tensor cores, the f32 and bf16 head-dim-32 ones on the CUDA cores."""
     return [
         Case("prefill_qkv_b8", 8, 12, 128, 128, 64, "bfloat16", causal=True,
              qkv=True),
@@ -211,6 +221,18 @@ def kernel_cases():
         Case("head32_f32", 2, 4, 70, 70, 32, "float32", causal=True),
         Case("head128_bf16", 2, 4, 70, 130, 128, "bfloat16", causal=True,
              bias=True),
+        # every branch of the bf16 tensor-core route: fully masked rows,
+        # causal sq > sk (the first sq - sk rows see no key), bias and
+        # segment ids at head dim 128 on strided qkv views with a length
+        # that is not a multiple of the 64-row tile; and bf16 head dim
+        # 32, which the route sends to the CUDA cores
+        Case("fully_masked_bf16", 2, 4, 96, 96, 64, "bfloat16", causal=True,
+             segments=True, fully_masked=True),
+        Case("causal_sq_gt_sk_bf16", 2, 12, 300, 100, 64, "bfloat16",
+             causal=True),
+        Case("qkv_h128_bias_segments_bf16", 2, 8, 331, 331, 128, "bfloat16",
+             causal=True, bias=True, segments=True, qkv=True),
+        Case("head32_bf16", 2, 4, 70, 70, 32, "bfloat16", causal=True),
     ]
 
 
@@ -288,8 +310,13 @@ def phase_kernels(dev, seed):
         name, b, h, sq, sk, d, dt = case[:7]
         q, k, v, kw = _case_inputs(case, dev, seed)
         layout = "strided qkv views" if case.qkv else "contiguous"
+        route = fa.ROUTES[(q.dtype, d)]
         o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
         torch.cuda.synchronize()
+        if name == "train_qkv_b8":  # one writer per output tile: the same bits
+            o2, lse2 = fa.flash_attention(q, k, v, return_lse=True, **kw)
+            check(torch.equal(o, o2) and torch.equal(lse, lse2),
+                  f"{name}: two runs of the forward differ")
         ro, rlse = fa.flash_attention_reference(
             q, k, v, kw["causal"], kw.get("key_bias"), kw.get("segment_ids"),
             kw.get("kv_segment_ids"))
@@ -304,6 +331,10 @@ def phase_kernels(dev, seed):
                   f"{name}: fully masked rows are not 0")
             check((lse[:, :, sq // 2:] < -1e29).all().item(),
                   f"{name}: fully masked rows' lse is not about -1e30")
+        if case.causal and sq > sk:  # the first sq - sk rows see no key
+            check(o[:, :, :sq - sk].float().abs().max().item() == 0.0
+                  and (lse[:, :, :sq - sk] < -1e29).all().item(),
+                  f"{name}: rows that see no key are not o = 0, lse about -1e30")
         iters = 10 if sq * sk > 1e6 else 50
         ms = device_ms(lambda: fa.flash_attention(q, k, v, **kw), iters)
         plain_ms = device_ms(lambda: fa.flash_attention_reference(
@@ -316,7 +347,7 @@ def phase_kernels(dev, seed):
         bound_ms, bound_by = bound_of(q, k, v, kw)
         rows[name] = dict(max_abs_err=err, lse_err=lerr, ms=ms, plain_ms=plain_ms,
                           library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
-        say(f"kernel {name}: [{b},{h},{sq},{sk},{d}] {dt} {layout} "
+        say(f"kernel {name}: [{b},{h},{sq},{sk},{d}] {dt} {route} {layout} "
             f"causal={kw['causal']} bias={'key_bias' in kw} "
             f"segments={'segment_ids' in kw} | "
             f"max|o-plain|={err:.3g} (tol {TOL[dt]}) max|lse-plain|={lerr:.3g} "
@@ -325,6 +356,15 @@ def phase_kernels(dev, seed):
             f"{bound_ms * 1e3:.2f} us ({bound_by}) | "
             f"{'ok' if ok_o and ok_l else 'MISMATCH'}")
         check(ok_o and ok_l, f"{name}: kernel disagrees with its plain version")
+        if name in PREV_FWD_MS:
+            pairs = _visible_pairs(q, k, kw)
+            say(f"kernel {name}: {ms:.4f} ms (before the tensor-core route, quoted: "
+                f"{PREV_FWD_MS[name]} ms, {PREV_FWD_MS[name] / ms:.2f}x), bound "
+                f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of it "
+                f"reached, {4 * d * pairs / (ms * 1e-3) / 1e12:.1f} TFLOP/s on 2 "
+                f"products a visible pair"
+                + ("" if lib_ms is None else f", {ms / lib_ms:.2f}x sdpa")
+                + ("; two runs gave the same bits" if name == "train_qkv_b8" else ""))
     # no query row: the wrapper launches nothing and counts nothing
     before = fa.flash_fwd_launches
     e = torch.empty(0, 12, 128, 64, dtype=torch.bfloat16, device=dev)
@@ -407,7 +447,7 @@ def phase_bwd_kernels(dev, seed):
                 kw.get("kv_segment_ids"), g, lse, delta)
         got = (fa.flash_bwd_dq_cuda(*args), *fa.flash_bwd_dkv_cuda(*args))
         torch.cuda.synchronize()
-        route = fa.BWD_ROUTES[(q.dtype, d)]
+        route = fa.ROUTES[(q.dtype, d)]
         if case.qkv:  # one writer per output tile, no atomics: the same bits
             again = (fa.flash_bwd_dq_cuda(*args), *fa.flash_bwd_dkv_cuda(*args))
             check(all(torch.equal(a, b_) for a, b_ in zip(got, again)),
@@ -617,24 +657,34 @@ def served_breakdown(prog, ids, card):
             prog(ids)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    device_us = flash_us = 0.0
+    device_us = 0.0
     n_kernels = 0
+    # the forward's two kernels: the bf16 call must run the tensor-core one
+    kernels = dict.fromkeys(("flash_fwd_wgmma", "flash_fwd_kernel"), 0.0)
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         device_us += evt.self_device_time_total
         n_kernels += evt.count
-        if "flash_fwd_kernel" in evt.key:
-            flash_us += evt.self_device_time_total
+        for name in kernels:
+            if name in evt.key:
+                kernels[name] += evt.self_device_time_total
     steps = prog.max_new_tokens - 1
     busy = ("not measured (the profiler saw no device time)" if device_us == 0
             else f"{100 * device_us / 1e3 / wall_ms:.1f}% of a profiled "
-                 f"{wall_ms:.1f} ms call, {n_kernels} device kernels, flash_fwd "
-                 f"{100 * flash_us / device_us:.3f}% of device time")
+                 f"{wall_ms:.1f} ms call, {n_kernels} device kernels; "
+                 + ", ".join(f"{k} {v / 1e3:.4f} ms ({100 * v / device_us:.3f}%)"
+                             for k, v in kernels.items())
+                 + " of device time")
     say(f"served breakdown ({card}), one generate call at b={ids.shape[0]}: "
         f"prefill {prefill_ms:.2f} ms, whole call {call_ms:.1f} ms, decode "
         f"{(call_ms - prefill_ms) / steps:.2f} ms per step over {steps} steps; "
         f"device busy {busy}")
+    check(kernels["flash_fwd_wgmma"] > 0,
+          "served: the profiled generate call shows no device time of the "
+          "forward's tensor-core kernel")
+    check(kernels["flash_fwd_kernel"] == 0,
+          "served: the bf16 generate call ran the forward's CUDA-core kernel")
 
 
 # -- phases 6 and 7: training ------------------------------------------------
@@ -867,11 +917,11 @@ def train_breakdown(trainer, feed, card_name):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     device_us, spans = 0.0, {}
-    # the backward's two kernel families: the bf16 step must run on the
+    # the three kernels' two families: the bf16 step must run on the
     # tensor-core ones alone
-    tensor_core = ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")
-    cuda_core = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
-    kernels = dict.fromkeys(("flash_fwd_kernel", *tensor_core, *cuda_core), 0.0)
+    tensor_core = ("flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")
+    cuda_core = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+    kernels = dict.fromkeys((*tensor_core, *cuda_core), 0.0)
     for evt in prof.key_averages():
         if evt.key.startswith("trainer."):
             # the range itself, and its copy on the device's timeline
@@ -899,13 +949,20 @@ def train_breakdown(trainer, feed, card_name):
     say(f"training breakdown ({card_name}), one step at b={TRAIN_BATCH} "
         f"s={TRAIN_SEQ}: {sorted(times)[1]:.2f} ms on the host clock; {seen}")
     check(all(kernels[k] > 0 for k in tensor_core),
-          "training: the profiled step shows no device time of the backward's "
-          "tensor-core kernels")
+          "training: the profiled step shows no device time of a tensor-core "
+          "kernel")
     check(all(kernels[k] == 0 for k in cuda_core),
-          "training: the bf16 step ran a backward kernel of the CUDA-core route")
+          "training: the bf16 step ran a kernel of the CUDA-core route")
 
 
 # -- the run ------------------------------------------------------------------
+
+
+def _routes(fa, torch):
+    """The route table's choices, as the kernels record reports them."""
+    return {"bfloat16": fa.ROUTES[(torch.bfloat16, 64)],
+            "float32": fa.ROUTES[(torch.float32, 64)],
+            "bfloat16_head_dim_32": fa.ROUTES[(torch.bfloat16, 32)]}
 
 
 def main(argv=None) -> int:
@@ -940,8 +997,10 @@ def main(argv=None) -> int:
     say(f"build: {_build.sources()} in {time.perf_counter() - t0:.2f} s")
     for name, (secs, log) in sorted(_build.build_log.items()):
         # ptxas's lines for each kernel: the function, its spills, its registers
+        # and any note that it serialised a kernel's wgmma products
         regs = [ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln or "entry function" in ln]
+                if "registers" in ln or "spill" in ln or "entry function" in ln
+                or "wgmma" in ln]
         say(f"build {name}: {secs:.2f} s nvcc; " + " | ".join(regs))
 
     def done(phase):
@@ -992,6 +1051,7 @@ def main(argv=None) -> int:
         "bound_by": fwd_row["bound_by"], "library_ms": fwd_row["library_ms"],
         "served_shape": {k: rows["prefill_qkv_b8"][k] for k in
                          ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "routes": _routes(fa, torch),
     }]
     for name, line, pass_ in (("flash_bwd_dq", 342, "dq"),
                               ("flash_bwd_dkv", 379, "dkv")):
@@ -1007,9 +1067,7 @@ def main(argv=None) -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "library_covers": "dq, dk and dv together (SDPA forward+backward "
                               "minus forward)",
-            "routes": {"bfloat16": fa.BWD_ROUTES[(torch.bfloat16, 64)],
-                       "float32": fa.BWD_ROUTES[(torch.float32, 64)],
-                       "bfloat16_head_dim_32": fa.BWD_ROUTES[(torch.bfloat16, 32)]},
+            "routes": _routes(fa, torch),
         })
     say(f"kernels: flash_fwd, flash_bwd_dq, flash_bwd_dkv ported (cuda, sm_90a), "
         f"checked in {len(rows)} forward and {len(bwd_rows)} backward cases; "

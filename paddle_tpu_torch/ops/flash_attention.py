@@ -32,16 +32,16 @@ from ..core.errors import EnforceError, enforce
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# The backward kernels' route by (dtype, head dim): bf16 at head dims 64
-# and 128 on the tensor cores ("wgmma": TMA loads, wgmma products),
-# everything else on the CUDA cores ("cuda_core": f32 FMAs). f32 stays off
-# the tensor cores, whose f32 products are TF32; head dim 32 would need its
-# own swizzle. This table is the rule: the wrapper passes its choice to
-# csrc/flash_bwd.cu (:func:`_bwd_route_code`), which launches what it is
-# told.
-BWD_ROUTES = {(dtype, d): ("wgmma" if dtype == torch.bfloat16 and d in (64, 128)
-                           else "cuda_core")
-              for dtype in _DTYPE_CODES for d in HEAD_DIMS}
+# The route of all three kernels (the forward, the dQ and the dK/dV
+# passes) by (dtype, head dim): bf16 at head dims 64 and 128 on the tensor
+# cores ("wgmma": TMA loads, wgmma products), everything else on the CUDA
+# cores ("cuda_core": f32 FMAs). f32 stays off the tensor cores, whose f32
+# products are TF32; head dim 32 would need its own swizzle. This table is
+# the rule: the wrappers pass its choice to csrc/flash_fwd.cu and
+# csrc/flash_bwd.cu (:func:`_route_code`), which launch what they are told.
+ROUTES = {(dtype, d): ("wgmma" if dtype == torch.bfloat16 and d in (64, 128)
+                       else "cuda_core")
+          for dtype in _DTYPE_CODES for d in HEAD_DIMS}
 
 # launches of each CUDA kernel in this process (plain ints, bumped at each
 # launch and nowhere else; the smoke run zeroes them around a main path)
@@ -224,13 +224,20 @@ def _masked_scores(q, k, causal, key_bias, seg_q, seg_k):
 
 
 def _cuda_operands(q, k, v, key_bias, seg_q, seg_k, **more):
-    """Check what the kernels take and bring it to their layout: q, k, v
-    (and the ``more`` tensors) on q's CUDA device, q/k/v of one dtype
-    (float32 or bfloat16), [b, h, s, d] with d in :data:`HEAD_DIMS` and
-    a contiguous last dim (read through their other strides); the bias
-    as contiguous f32 [b, sk], the ids as contiguous int32 [b, s]."""
+    """Check what the kernels take and bring it to their layout
+    (:func:`_kernel_layout`), on q's CUDA device."""
     dev = q.device
     enforce(dev.type == "cuda", f"flash_attention: q is on {dev}, not a CUDA card")
+    return _kernel_layout(q, k, v, key_bias, seg_q, seg_k, **more)
+
+
+def _kernel_layout(q, k, v, key_bias, seg_q, seg_k, **more):
+    """q, k, v (and the ``more`` tensors) on q's device, q/k/v of one dtype
+    (float32 or bfloat16), [b, h, s, d] with d in :data:`HEAD_DIMS` and a
+    contiguous last dim (read through their other strides; on the
+    tensor-core route also as TMA reads them, :func:`_tma_ready`); the
+    bias as contiguous f32 [b, sk], the ids as contiguous int32 [b, s]."""
+    dev = q.device
     for name, t in (("k", k), ("v", v), ("key_bias", key_bias),
                     ("segment_ids", seg_q), ("kv_segment_ids", seg_k),
                     *more.items()):
@@ -253,7 +260,8 @@ def _cuda_operands(q, k, v, key_bias, seg_q, seg_k, **more):
         raise UnsupportedFlashInput(
             f"flash_attention: k {tuple(k.shape)} / v {tuple(v.shape)} do "
             f"not match q {tuple(q.shape)}")
-    q, k, v = (_last_dim_contiguous(t) for t in (q, k, v))
+    layout = _tma_ready if ROUTES[(q.dtype, d)] == "wgmma" else _last_dim_contiguous
+    q, k, v = (layout(t) for t in (q, k, v))
     if key_bias is not None:
         key_bias = key_bias.float().expand(b, sk).contiguous()
     if seg_q is not None:
@@ -270,8 +278,8 @@ def _last_dim_contiguous(t):
 def _tma_ready(t):
     """``t`` as TMA reads it: the same tensor when its base address and
     every stride but the last (which is 1) are positive multiples of 16
-    bytes, as the training path's qkv head views and transposed dO are;
-    otherwise a fresh contiguous copy, which is."""
+    bytes, as the fused qkv projection's head views and the transposed dO
+    are; otherwise a fresh contiguous copy, which is."""
     es = t.element_size()
     if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and all(st > 0 and st * es % 16 == 0 for st in t.stride()[:-1])):
@@ -279,10 +287,10 @@ def _tma_ready(t):
     return t.clone(memory_format=torch.contiguous_format)
 
 
-def _bwd_route_code(dtype, d):
-    """The backward entry points' first argument: 0 (f32) or 1 (bf16) on
-    the CUDA cores, as :data:`_DTYPE_CODES`; 2, bf16 on the tensor cores."""
-    return 2 if BWD_ROUTES[(dtype, d)] == "wgmma" else _DTYPE_CODES[dtype]
+def _route_code(dtype, d):
+    """The C entry points' first argument: 0 (f32) or 1 (bf16) on the CUDA
+    cores, as :data:`_DTYPE_CODES`; 2, bf16 on the tensor cores."""
+    return 2 if ROUTES[(dtype, d)] == "wgmma" else _DTYPE_CODES[dtype]
 
 
 def _ptr(t):
@@ -304,7 +312,7 @@ def flash_fwd_cuda(q, k, v, causal: bool, key_bias=None, seg_q=None, seg_k=None)
     fn = _kernel("flash_fwd", "flash_fwd", ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(_DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        err = fn(_route_code(q.dtype, d), d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  _ptr(key_bias), _ptr(seg_q), _ptr(seg_k), o.data_ptr(),
                  lse.data_ptr(), b, h, sq, sk, *q.stride()[:3], *k.stride()[:3],
                  *v.stride()[:3], 1.0 / math.sqrt(d), int(bool(causal)), stream)
@@ -381,12 +389,10 @@ def _bwd_operands(q, k, v, causal, key_bias, seg_q, seg_k, g, lse, delta):
             raise UnsupportedFlashInput(
                 f"flash_attention backward: {name} is {tuple(t.shape)}, "
                 f"expected {(b, h, sq)}")
-    g = _last_dim_contiguous(g)
-    if BWD_ROUTES[(q.dtype, d)] == "wgmma":
-        q, k, v, g = (_tma_ready(t) for t in (q, k, v, g))
+    g = (_tma_ready if ROUTES[(q.dtype, d)] == "wgmma" else _last_dim_contiguous)(g)
     lse = lse.float().contiguous()
     delta = delta.float().contiguous()
-    common = [_bwd_route_code(q.dtype, d), d, q.data_ptr(), k.data_ptr(),
+    common = [_route_code(q.dtype, d), d, q.data_ptr(), k.data_ptr(),
               v.data_ptr(), _ptr(key_bias), _ptr(seg_q), _ptr(seg_k), g.data_ptr(),
               lse.data_ptr(), delta.data_ptr()]
     sizes = [b, h, sq, sk, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
@@ -403,7 +409,7 @@ def _launch(fn, name, dev, *args):
 
 
 # the C signatures of csrc/flash_fwd.cu and csrc/flash_bwd.cu, one entry per
-# parameter. flash_fwd: dtype, head_dim, 8 pointers (q, k, v, bias, seg_q,
+# parameter. flash_fwd: route, head_dim, 8 pointers (q, k, v, bias, seg_q,
 # seg_k, o, lse), B, H, sq, sk, 9 strides, scale, causal, stream. The
 # backward passes: route, head_dim, 9 input pointers (q, k, v, bias, seg_q,
 # seg_k, dO, lse, delta), their 1 (dq) or 2 (dk, dv) output pointers, B, H,

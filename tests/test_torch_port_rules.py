@@ -201,36 +201,53 @@ def test_package_import_builds_nothing():
     assert tfa.HEAD_DIMS == (32, 64, 128)
 
 
-def _bwd_source():
-    with open(os.path.join(_build.CSRC, "flash_bwd.cu")) as f:
+def _source(name):
+    with open(os.path.join(_build.CSRC, f"{name}.cu")) as f:
         return f.read()
 
 
-def test_backward_source_runs_bf16_on_the_tensor_cores_without_atomics():
+@pytest.mark.parametrize("source,replaces", [
+    ("flash_bwd", ("_dq_kernel", "_dkv_kernel")), ("flash_fwd", ("_fwd_kernel",))])
+def test_kernel_source_runs_bf16_on_the_tensor_cores_without_atomics(source, replaces):
     """The bf16 route's products are wgmma, its tiles arrive by TMA into
     mbarrier-guarded stages, and nothing in the source adds into an output
     with atomics: each output tile has one writer."""
-    src = _bwd_source()
+    src = _source(source)
     for needle in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait",
                    "cuTensorMapEncodeTiled", "__grid_constant__"):
         assert needle in src, needle
     code = re.sub(r"//[^\n]*", "", src)  # comments may name what is absent
     assert "atomic" not in code.lower()
     assert re.search(r"\bred\.|\batom\.|cp\.reduce", code) is None
-    for name in ("_dq_kernel", "_dkv_kernel", "paddle_tpu/ops/flash_attention.py"):
+    for name in (*replaces, "paddle_tpu/ops/flash_attention.py"):
         assert name in src  # names what it replaces
 
 
-def test_backward_route_table_is_the_stated_rule():
-    """bf16 at head dims 64 and 128 on the tensor cores; f32 at every head
-    dim and bf16 at 32 on the CUDA cores. The wrapper passes the choice to
-    the C entry points as a code: 0 f32 and 1 bf16 on the CUDA cores, 2
-    bf16 on the tensor cores."""
+@pytest.mark.parametrize("source", _build.sources())
+def test_kernel_source_includes_no_header_of_the_repo(source):
+    """Each source stands alone: it includes only the CUDA toolkit's and the
+    C library's headers. A header shared by the forward and the backward
+    once slowed the forward (the library name hashes the source, so a
+    shared header would also go unseen by the rebuild check)."""
+    includes = re.findall(r'^\s*#\s*include\s*([<"])([^>"]+)[>"]', _source(source), re.M)
+    assert includes, source
+    assert all(kind == "<" for kind, _ in includes), includes
+    repo_headers = {f for _, _, files in os.walk(REPO) for f in files
+                    if f.endswith((".h", ".cuh", ".hpp"))}
+    assert not {os.path.basename(h) for _, h in includes} & repo_headers
+
+
+def test_route_table_is_the_stated_rule():
+    """One table routes the forward and both backward passes: bf16 at head
+    dims 64 and 128 on the tensor cores; f32 at every head dim and bf16 at
+    32 on the CUDA cores. The wrappers pass the choice to the C entry
+    points as a code: 0 f32 and 1 bf16 on the CUDA cores, 2 bf16 on the
+    tensor cores."""
     want = {(torch.bfloat16, 32): "cuda_core", (torch.bfloat16, 64): "wgmma",
             (torch.bfloat16, 128): "wgmma", (torch.float32, 32): "cuda_core",
             (torch.float32, 64): "cuda_core", (torch.float32, 128): "cuda_core"}
-    assert tfa.BWD_ROUTES == want
-    codes = {key: tfa._bwd_route_code(*key) for key in want}
+    assert tfa.ROUTES == want
+    codes = {key: tfa._route_code(*key) for key in want}
     assert codes == {(torch.bfloat16, 32): 1, (torch.bfloat16, 64): 2,
                      (torch.bfloat16, 128): 2, (torch.float32, 32): 0,
                      (torch.float32, 64): 0, (torch.float32, 128): 0}
@@ -249,6 +266,34 @@ def test_tma_ready_keeps_the_training_views_without_a_copy(d):
     assert not g.is_contiguous() and tfa._tma_ready(g) is g
     flat = torch.randn(b, h, s, d).to(torch.bfloat16)
     assert tfa._tma_ready(flat) is flat
+
+
+def _attn_params(d, n_heads, dtype):
+    """Random weights of one attention block's qkv projection, as
+    ``layers.stacked._attn_qkv`` reads them."""
+    g = torch.Generator().manual_seed(0)
+    width = d * n_heads
+    return {"ln1/scale": torch.ones(width), "ln1/bias": torch.zeros(width),
+            "qkv/w": torch.randn(width, 3, width, generator=g).to(dtype),
+            "qkv/b": torch.randn(3, width, generator=g).to(dtype)}
+
+
+@pytest.mark.parametrize("d,dtype", [(64, torch.bfloat16), (128, torch.bfloat16),
+                                     (64, torch.float32), (32, torch.bfloat16)])
+def test_forward_operands_keep_the_qkv_head_views_without_a_copy(d, dtype):
+    """The served prefill and the training step hand the forward q, k and v
+    as strided head views of one fused [b, s, 3, h·d] projection
+    (``_attn_qkv``); the operands the kernel gets are those views, on
+    either route, so their pointers and strides reach it unchanged."""
+    from paddle_tpu_torch.layers.stacked import _attn_qkv
+    b, s, h = 2, 24, 3
+    x = torch.randn(b, s, h * d, generator=torch.Generator().manual_seed(1))
+    q, k, v = _attn_qkv(x.to(dtype), _attn_params(d, h, dtype), h, dtype)
+    assert q.dtype == dtype and not q.is_contiguous()
+    assert q.stride() == (s * 3 * h * d, d, 3 * h * d, 1)
+    got = tfa._kernel_layout(q, k, v, None, None, None)
+    assert all(a is w for a, w in zip(got[:3], (q, k, v)))
+    assert got[3:] == (None, None, None)
 
 
 @pytest.mark.parametrize("make", ["row_stride_136_bytes", "base_off_by_2_bytes",
