@@ -49,7 +49,22 @@ Phases, each reported on its own lines; any failure exits non-zero:
    losses; the first two losses against the same steps run through the
    plain versions on the card; a profiler breakdown of one step, which
    must show the three tensor-core kernels and none of the CUDA-core
-   ones.
+   ones;
+8. MNIST MLP — the ``build`` programming model a user drives:
+   ``build(mnist.mlp)`` → ``Trainer`` → ``step`` and ``fit``. (i) f32
+   parity, card against CPU, from one seed's params on both: 20 SGD(0.01)
+   steps on bench.py ``bench_mnist_mlp``'s feeds; (ii) ``fit`` with the
+   prefetch (``DeviceFeeder``: pinned batches copied on a side stream)
+   against ``fit`` without it over one epoch of synthetic MNIST: the same
+   losses bit for bit, then test accuracy above 0.9; (iii) the timed path
+   at ``bench_mnist_mlp``'s config (batch 128, SGD(0.01), 5 warm-up and 50
+   timed steps fed through the prefetch): samples/s, ms per step, kernels
+   launched per step and the device's busy share of profiled steps, peak
+   memory; beside it the same steps fed by a lookahead on the step's own
+   thread, by a plain put and from the card, with each thread's CPU time
+   and context switches, and a profile of the prefetched steps by thread.
+   The path runs no hand kernel: the launch counts, zeroed just before
+   it, must read 0 after it.
 
 The last lines are a JSON ``kernels`` record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -119,6 +134,17 @@ PREV_FWD_MS = {"train_qkv_b8": 0.5868, "prefill_qkv_b8": 0.0244}
 # kernels against the plain versions on the card: the first two losses
 # at rel 2e-2
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_BF16_LOSS_TOL = 1e-4, 1e-2, 2e-2
+
+# MNIST MLP as bench.py's bench_mnist_mlp runs it (batch 128, SGD(0.01), 5
+# warm-up and 50 timed steps over 4 random feeds), and the fit check's
+# epoch (synthetic MNIST, shuffle buffer 512 with seed 0, batch 64, Adam)
+MNIST_BATCH, MNIST_FEEDS, MNIST_WARMUP, MNIST_STEPS = 128, 4, 5, 50
+MNIST_PARITY_STEPS, MNIST_LR, MNIST_FIT_BATCH, MNIST_FIT_LR = 20, 0.01, 64, 1e-3
+# f32 MNIST, card against CPU: losses at rel 1e-5 per step and final params
+# at max abs 1e-5 (the same f32 products summed in another order, cuBLAS
+# with TF32 off against the CPU's BLAS; three layers of 784, 200 and 200
+# inputs). Profiled steps of phase 8's timing
+MNIST_LOSS_TOL, MNIST_PARAM_TOL, MNIST_PROFILED_STEPS = 1e-5, 1e-5, 10
 
 
 class SmokeFailure(RuntimeError):
@@ -955,6 +981,332 @@ def train_breakdown(trainer, feed, card_name):
           "training: the bf16 step ran a kernel of the CUDA-core route")
 
 
+# -- phase 8: MNIST MLP through build programs --------------------------------
+
+
+def _mnist_feeds():
+    """bench_mnist_mlp's feeds (bench.py:1763-1766)."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    return [{"image": rng.randn(MNIST_BATCH, 784).astype(np.float32),
+             "label": rng.randint(0, 10, (MNIST_BATCH, 1)).astype(np.int64)}
+            for _ in range(MNIST_FEEDS)]
+
+
+def phase_mnist(dev, seed, card_name):
+    """Parity, prefetch bit-equality and the timed MNIST path; returns the
+    hand kernels' launches during the path (none expected)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    _zero_launch_counts(fa)
+    # ---- the main path, as a user drives it
+    mnist_parity(dev, seed)
+    mnist_fit(dev, seed)
+    mnist_timed(dev, seed, card_name)
+    launches = _launch_counts(fa)
+    # ---- end of the main path
+    say(f"mnist: hand-kernel launches during the path {launches} (the MLP runs none)")
+    check(all(n == 0 for n in launches.values()), "mnist: a flash kernel launched")
+    return launches
+
+
+def _mnist_trainer(dev, opt):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import mnist
+    return pt.Trainer(pt.build(mnist.mlp), opt, loss_name="loss", place=dev)
+
+
+def mnist_parity(dev, seed):
+    """(i) f32, card against CPU, from the same params."""
+    import numpy as np
+    import paddle_tpu_torch as pt
+
+    feeds = _mnist_feeds()
+    card = _mnist_trainer(dev, pt.optimizer.SGD(MNIST_LR)).startup(seed, feeds[0])
+    host = _mnist_trainer("cpu", pt.optimizer.SGD(MNIST_LR)).startup(
+        seed, feeds[0], params={k: v.detach().cpu() for k, v in card.scope.params.items()})
+    lc, lh = [], []
+    for i in range(MNIST_PARITY_STEPS):
+        lc.append(card.step(feeds[i % MNIST_FEEDS])["loss"])
+        lh.append(float(host.step(feeds[i % MNIST_FEEDS])["loss"]))
+    lc = [float(x) for x in lc]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    perr = max((card.scope.params[k].detach().cpu() - p.detach()).abs().max().item()
+               for k, p in host.scope.params.items())
+    say(f"mnist parity f32 card - cpu, {MNIST_PARITY_STEPS} SGD({MNIST_LR}) steps at "
+        f"b={MNIST_BATCH}: losses {lc[0]:.6f} -> {lc[-1]:.6f}, max rel {rel:.3g} (tol "
+        f"{MNIST_LOSS_TOL}), final params max abs {perr:.3g} (tol {MNIST_PARAM_TOL})")
+    check(all(np.isfinite(lc)) and lc[-1] < lc[0], "mnist parity: the loss did not fall")
+    check(rel <= MNIST_LOSS_TOL, "mnist parity: losses differ between card and CPU")
+    check(perr <= MNIST_PARAM_TOL, "mnist parity: params differ between card and CPU")
+
+
+def mnist_fit(dev, seed):
+    """(ii) fit with the prefetch against fit without it, then accuracy."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import data
+
+    reader = data.batch(data.shuffle(data.datasets.mnist("train"), 512, seed=0),
+                        MNIST_FIT_BATCH)
+    sample = data.DataFeeder(["image", "label"]).feed(next(iter(reader())))
+    runs = {}
+    for prefetch in (True, False):
+        tr = _mnist_trainer(dev, pt.optimizer.Adam(MNIST_FIT_LR)).startup(seed, sample)
+        losses = []
+        pt.fit(tr, reader, 1, ["image", "label"], prefetch=prefetch,
+               event_handler=lambda e: losses.append(e.metrics["loss"])
+               if e.kind == "end_step" else None)
+        runs[prefetch] = (torch.stack(losses).cpu(), tr)
+    same = torch.equal(runs[True][0], runs[False][0])
+    params_same = all(torch.equal(p, runs[False][1].scope.params[k])
+                      for k, p in runs[True][1].scope.params.items())
+    trainer = runs[True][1]
+    feeder = data.DataFeeder(["image", "label"])
+    accs = [trainer.eval(feeder.feed(s))["acc"]
+            for s in data.batch(data.datasets.mnist("test"), 256)()]
+    acc = float(torch.stack(accs).mean())
+    losses = runs[True][0]
+    say(f"mnist fit: 1 epoch of synthetic MNIST ({len(losses)} steps, b={MNIST_FIT_BATCH}, "
+        f"Adam({MNIST_FIT_LR})): prefetch on vs off losses bit-identical: {same}, final "
+        f"params bit-identical: {params_same}; loss {float(losses[0]):.5f} -> "
+        f"{float(losses[-1]):.5f}; test accuracy {acc:.4f} (want > 0.9)")
+    check(same and params_same, "mnist fit: the prefetch changed the losses or params")
+    check(bool(np.isfinite(losses.numpy()).all()), "mnist fit: a loss is not finite")
+    check(acc > 0.9, f"mnist fit: test accuracy {acc:.4f}")
+
+
+def _lookahead(feed_iter, dev):
+    """A depth-1 lookahead from the consumer's own thread, measured beside
+    the ``DeviceFeeder`` and used nowhere in the port: batch i+1 is pinned
+    and its copy started on a side stream before step i runs; the compute
+    stream waits on the copy's event, as the feeder's consumer does."""
+    import numpy as np
+    import torch
+
+    stream = torch.cuda.Stream(dev)
+
+    def stage(feed):
+        pinned = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                  for k, v in feed.items()}
+        with torch.cuda.stream(stream):
+            tensors = {k: t.to(dev, non_blocking=True) for k, t in pinned.items()}
+            ready = torch.cuda.Event()
+            ready.record(stream)
+        return tensors, ready, pinned
+
+    def deliver(staged):
+        tensors, ready, _ = staged
+        current = torch.cuda.current_stream(dev)
+        current.wait_event(ready)
+        for t in tensors.values():
+            t.record_stream(current)
+        return tensors
+
+    nxt = None
+    for feed in feed_iter:
+        cur, nxt = nxt, stage(feed)
+        if cur is not None:
+            yield deliver(cur)
+    if nxt is not None:
+        yield deliver(nxt)
+
+
+def _thread_cpu_split(prof):
+    """Top-level CPU op time (ms) on each thread a profile saw, keyed by
+    the role its ops show: the step's thread (its ``trainer.`` ranges),
+    the fill thread (the feeder's ``DeviceFeeder.stage`` ranges),
+    autograd's device thread (the rest);
+    and the fill thread's ops by self CPU time: {name: (ms, calls)}."""
+    import torch
+
+    by_thread = collections.defaultdict(float)
+    names = collections.defaultdict(set)
+    self_ms = collections.defaultdict(lambda: collections.defaultdict(lambda: [0.0, 0]))
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        names[evt.thread].add(evt.name)
+        if evt.cpu_parent is None:
+            by_thread[evt.thread] += evt.cpu_time_total / 1e3
+        entry = self_ms[evt.thread][evt.name]
+        entry[0] += evt.self_cpu_time_total / 1e3
+        entry[1] += 1
+    roles, fill_ops = {}, {}
+    for tid, ms in by_thread.items():
+        seen = names[tid]
+        role = ("step" if any(n.startswith("trainer.") for n in seen) else
+                "fill" if "DeviceFeeder.stage" in seen else "autograd")
+        roles[role] = roles.get(role, 0.0) + ms
+        if role == "fill":
+            fill_ops.update(self_ms[tid])
+    return roles, fill_ops
+
+
+def _profile_steps(trainer, feed_iter, n):
+    """Profile ``n`` steps fed by ``feed_iter``: (wall ms, device ops,
+    copies, device us, host us by step range, thread split)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    try:  # see the fill thread's ops too (a thread the step did not start)
+        from torch._C._profiler import _ExperimentalConfig
+        extra = {"experimental_config": _ExperimentalConfig(profile_all_threads=True)}
+    except (ImportError, TypeError):
+        extra = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], **extra) as prof:
+        t0 = time.perf_counter()
+        for feed in feed_iter:
+            trainer.step(feed)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_us, n_ops, memcpy, host_us = 0.0, 0, 0, {}
+    for evt in prof.key_averages():
+        if evt.key.startswith("trainer."):
+            if evt.device_type == torch.autograd.DeviceType.CPU:
+                host_us[evt.key] = evt.cpu_time_total
+            continue
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        device_us += evt.self_device_time_total
+        n_ops += evt.count
+        memcpy += evt.count if "Memcpy" in evt.key or "Memset" in evt.key else 0
+    return (wall_ms, n_ops, memcpy, device_us, host_us) + _thread_cpu_split(prof)
+
+
+def _profile_line(name, n, prof):
+    wall_ms, n_ops, memcpy, device_us, host_us, threads, fill_ops = prof
+    top = sorted(fill_ops.items(), key=lambda kv: -kv[1][0])[:6]
+    fill = ("" if not top else "; the fill thread's ops by self CPU ms a batch (calls a batch) "
+            + ", ".join(f"{k} {ms / n:.3f} ({calls / n:.1f})" for k, (ms, calls) in top))
+    if device_us == 0:
+        return f"{name}: not measured (the profiler saw no device time)"
+    return (f"{name}: {n_ops / n:.1f} device operations a step ({memcpy / n:.1f} of them "
+            f"copies or memsets), {device_us / 1e3 / n:.4f} ms of device time a step, "
+            f"device busy {100 * device_us / 1e3 / wall_ms:.1f}% of {n} profiled steps "
+            f"({wall_ms / n:.3f} ms a step under the profiler; host ms a step in "
+            + ", ".join(f"{k} {v / 1e3 / n:.3f}" for k, v in sorted(host_us.items()))
+            + "; top-level CPU op ms a step by thread "
+            + ", ".join(f"{k} {v / n:.3f}" for k, v in sorted(threads.items())) + fill + ")")
+
+
+def mnist_timed(dev, seed, card_name):
+    """(iii) bench_mnist_mlp's config fed through the prefetch. Beside it,
+    the same steps fed by a depth-1 lookahead on the step's own thread, by
+    a plain put and with the feeds already on the card, in the order
+    A B C D E E D C B A (B is the prefetch with the interpreter lock's
+    switch interval cut from 5 ms to 0.1 ms), each with the time the
+    step's thread spends getting its feed, its CPU time (and the fill
+    thread's: the thread clock may tick coarsely, 10 ms on some hosts, so
+    0.2 ms a step over 50 steps); then profiles of the prefetched and the
+    staged steps: device operations and time a step, the device's busy
+    share, the host's time in the step's three ranges, the CPU op time of
+    each thread and the fill thread's ops."""
+    import torch
+    import paddle_tpu_torch as pt
+
+    feeds = _mnist_feeds()
+    trainer = _mnist_trainer(dev, pt.optimizer.SGD(MNIST_LR)).startup(seed, feeds[0])
+    staged = [trainer._put_feed(f) for f in feeds]
+    fill_usage = []
+
+    def batches(n):
+        return lambda: (feeds[i % MNIST_FEEDS] for i in range(n))
+
+    def fill_measured(n):
+        def run():  # runs on the feeder's fill thread
+            c0 = time.thread_time()
+            try:
+                yield from batches(n)()
+            finally:
+                fill_usage.append(time.thread_time() - c0)
+        return run
+
+    def switching_fast(feed_iter_fn):
+        def run(n):  # the interpreter lock offered to a waiting thread every 0.1 ms
+            old = sys.getswitchinterval()
+            sys.setswitchinterval(1e-4)
+            try:
+                yield from feed_iter_fn(n)
+            finally:
+                sys.setswitchinterval(old)
+        return run
+
+    modes = {
+        "prefetch": lambda n: pt.data.DeviceFeeder(fill_measured(n), device=dev),
+        "prefetch_switch_0.1ms": switching_fast(
+            lambda n: pt.data.DeviceFeeder(fill_measured(n), device=dev)),
+        "lookahead": lambda n: _lookahead(batches(n)(), dev),
+        "put": lambda n: map(trainer._put_feed, batches(n)()),
+        "staged": lambda n: (staged[i % MNIST_FEEDS] for i in range(n)),
+    }
+
+    def timed(feed_iter, n):
+        torch.cuda.synchronize()
+        c0, t0 = time.thread_time(), time.perf_counter()
+        feed_iter, wait = iter(feed_iter), 0.0
+        while True:  # the time the step's thread spends getting each feed
+            t1 = time.perf_counter()
+            feed = next(feed_iter, None)
+            wait += time.perf_counter() - t1
+            if feed is None:
+                break
+            out = trainer.step(feed)
+        torch.cuda.synchronize()
+        wall, cpu = time.perf_counter() - t0, time.thread_time() - c0
+        return {"ms": wall / n * 1e3, "cpu_ms": cpu / n * 1e3, "wait_ms": wait / n * 1e3}, out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mode in modes.values():
+        for feed in mode(MNIST_WARMUP):
+            trainer.step(feed)
+    runs = collections.defaultdict(list)
+    order = list(modes) + list(reversed(modes))
+    for name in order:
+        fill_usage.clear()
+        r, out = timed(modes[name](MNIST_STEPS), MNIST_STEPS)
+        if name.startswith("prefetch"):
+            r["fill_cpu_ms"] = fill_usage[0] / MNIST_STEPS * 1e3
+        runs[name].append(r)
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    loss = float(out["loss"])
+    ms_step = sum(r["ms"] for r in runs["prefetch"]) / len(runs["prefetch"])
+    mean = {name: sum(r["ms"] for r in rs) / len(rs) for name, rs in runs.items()}
+
+    def mode_line(name):
+        rs = runs[name]
+        line = (f"{name} " + " / ".join(f"{r['ms']:.4f}" for r in rs) + " ms a step, step "
+                "thread CPU " + " / ".join(f"{r['cpu_ms']:.4f}" for r in rs) + " ms; "
+                "getting the feed " + " / ".join(f"{r['wait_ms']:.4f}" for r in rs)
+                + f" ms a step (wall); mean {mean[name]:.4f} ms, {mean[name] - mean['put']:+.4f} "
+                "against the plain put")
+        if "fill_cpu_ms" in rs[0]:
+            line += ("; fill thread CPU " + " / ".join(f"{r['fill_cpu_ms']:.4f}" for r in rs)
+                     + " ms a batch")
+        return line
+
+    n = MNIST_PROFILED_STEPS
+    prof_lines = []
+    for name in ("prefetch", "staged"):
+        try:  # a breakdown for the reader, not a check
+            prof_lines.append(_profile_line(f"profiled {name}", n,
+                                            _profile_steps(trainer, modes[name](n), n)))
+        except Exception as e:  # noqa: BLE001 - reported, and the checks go on
+            prof_lines.append(f"profiled {name}: not measured ({type(e).__name__}: {e})")
+    say(f"mnist timed ({card_name}): MLP 784-200-200-10, b={MNIST_BATCH}, SGD({MNIST_LR}), "
+        f"{MNIST_WARMUP} warm-up steps a feed mode, then {MNIST_STEPS} timed steps a mode in "
+        f"the order {' '.join(order)}: {MNIST_BATCH / ms_step * 1e3:.1f} samples/s, "
+        f"{ms_step:.4f} ms per step through the prefetch (mean of both rounds); peak memory "
+        f"{peak_mb:.2f} MB, last loss {loss:.5f}")
+    for name in modes:
+        say(f"mnist feed modes: {mode_line(name)}")
+    for line in prof_lines:
+        say(f"mnist {line}")
+    check(ms_step > 0 and torch.isfinite(torch.tensor(loss)), "mnist timed: bad step")
+
+
 # -- the run ------------------------------------------------------------------
 
 
@@ -1035,6 +1387,10 @@ def main(argv=None) -> int:
     # 7. the training path (launch counts zeroed inside, around the path)
     trained = phase_train(dev, args.seed, smi)
     done("phase 7")
+
+    # 8. MNIST MLP through build programs (launch counts zeroed inside)
+    phase_mnist(dev, args.seed, smi)
+    done("phase 8")
 
     # the kernels record: each kernel's row at the training path's shape,
     # launches summed over the main paths it runs on

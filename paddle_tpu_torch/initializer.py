@@ -5,11 +5,17 @@ that draws from an explicit ``torch.Generator`` — the port's stand-in
 for a ``jax.random`` key. The draws land on the generator's device. The
 fans and limits are the JAX package's; the random streams are not (Philox
 or the CPU's Mersenne Twister against threefry), so a parity test
-initialises in ``paddle_tpu`` and carries the values across.
+initialises in ``paddle_tpu`` and carries the values across, and the
+draws themselves are checked by their statistics.
+
+A parameter draws from its own generator, :func:`param_generator`,
+seeded from the program's seed and the parameter's full name, as the JAX
+package folds the sha256 of the name into its key.
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
 from typing import Optional, Sequence
 
@@ -17,6 +23,23 @@ import numpy as np
 import torch
 
 from .core.dtypes import convert_dtype
+
+
+def mix_seed(seed: int, tag) -> int:
+    """A 32-bit seed from ``seed`` and ``tag`` (a name or a counter): the
+    first four bytes of the sha256 of ``"{seed}/{tag}"``. The CPU generator
+    keeps only 32 bits of its seed, so the two are hashed together rather
+    than packed side by side (``seed * 2**32 + h`` would draw the same
+    numbers for every seed)."""
+    h = hashlib.sha256(f"{seed}/{tag}".encode()).digest()
+    return int.from_bytes(h[:4], "little")
+
+
+def param_generator(seed: int, name: str) -> torch.Generator:
+    """The CPU generator a parameter named ``name`` draws its initial
+    values from: the same values on every device and whatever other
+    parameters the program has."""
+    return torch.Generator().manual_seed(mix_seed(seed, name))
 
 
 def _fan_in_out(shape: Sequence[int]):

@@ -1,1 +1,1 @@
-"""Model zoo of the port (GPT decode so far)."""
+"""Model zoo of the port: GPT (serving and training) and the MNIST MLP."""

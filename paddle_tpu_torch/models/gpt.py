@@ -16,7 +16,6 @@ int8 KV cache come in later slices.
 from __future__ import annotations
 
 import dataclasses
-import hashlib
 from typing import Dict
 
 import numpy as np
@@ -27,6 +26,7 @@ from .. import initializer as init
 from ..core.dtypes import convert_dtype, dtype_name
 from ..core.errors import EnforceError, NotFoundError, NotYetPorted, enforce
 from ..core.place import default_device
+from .. import framework
 from ..framework import cast_compute
 from ..layers import attention as A
 from ..layers import nn as L
@@ -110,10 +110,7 @@ class _JaxNamedParams(nn.Module):
         values do not depend on the device or on the order of params."""
         for name, (attr, initializer) in PARAM_TABLE.items():
             p = self.get_parameter(attr)
-            # the CPU generator keeps only 32 bits of its seed, so seed and
-            # name are hashed together rather than packed side by side
-            h = hashlib.sha256(f"{seed}/{name}".encode()).digest()
-            g = torch.Generator().manual_seed(int.from_bytes(h[:4], "little"))
+            g = init.param_generator(seed, name)
             p.data = initializer(g, tuple(p.shape), p.dtype).to(self.device)
         return self
 
@@ -313,22 +310,12 @@ def params_from_jax(flat: Dict[str, np.ndarray], device=None,
                     dtype=None) -> Dict[str, torch.Tensor]:
     """The JAX package's flat params (numpy arrays, e.g. from
     ``jax.tree.map(np.asarray, params)``) as torch tensors on ``device``
-    (the CUDA card by default). bfloat16 arrays (ml_dtypes) travel
-    through their 16-bit pattern, so no value is rounded. ``dtype``
-    casts every floating param; None keeps each one's dtype."""
-    dev = default_device(device, "params_from_jax")
+    (the CUDA card by default), through :func:`framework.params_from_jax`.
+    ``dtype`` casts every floating param; None keeps each one's dtype."""
+    out = framework.params_from_jax(flat, device=device)
     dt = convert_dtype(dtype)
-    out = {}
-    for name, a in flat.items():
-        a = np.asarray(a)
-        if a.dtype.name == "bfloat16":
-            t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()) \
-                .view(torch.bfloat16)
-        else:
-            t = torch.from_numpy(np.array(a))
-        if dt is not None and t.is_floating_point():
-            t = t.to(dt)
-        out[name] = t.to(dev)
+    if dt is not None:
+        out = {k: t.to(dt) if t.is_floating_point() else t for k, t in out.items()}
     return out
 
 

@@ -3,16 +3,18 @@ SGD, Adam and AdamW.
 
 Each optimizer is the JAX package's pure transform over dicts of tensors
 keyed by parameter name: ``init(params) -> opt_state`` builds the
-accumulators and ``update(grads, opt_state, params) -> (new_params,
-new_opt_state)`` computes the step. The state keeps the JAX layout,
-``{"step", "global": {...}, "accums": {name: {slot: tensor}}}``, so it
-moves between the packages leaf by leaf. The update math runs in f32 and
-each new param is cast back to its param's dtype. ``Trainer.step`` writes
-the new values into the module's parameters in place.
+accumulators and ``update(grads, opt_state, params, param_info) ->
+(new_params, new_opt_state)`` computes the step. The state keeps the JAX
+layout, ``{"step", "global": {...}, "accums": {name: {slot: tensor}}}``,
+so it moves between the packages leaf by leaf. ``update`` runs the JAX
+package's order: regularization (a parameter's own regularizer wins over
+the optimizer's), clipping, the per-parameter learning-rate multiplier,
+and no update for a parameter without a grad or not trainable. The update
+math runs in f32 and each new param is cast back to its param's dtype.
+``Trainer.step`` writes the new values into the parameters in place.
 
-Not carried yet, each raising :class:`NotYetPorted` unless left at its
-default: regularization, gradient clipping and a reduced ``state_dtype``
-(ROADMAP queue 1, item 6). Momentum, Adagrad and the rest come with the
+Not carried yet: a reduced ``state_dtype`` (raises :class:`NotYetPorted`);
+Momentum comes with the ResNet slice, Adagrad and the rest with the
 slices whose models use them.
 """
 
@@ -22,7 +24,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from .core.errors import NotYetPorted
+from .core.errors import NotYetPorted, enforce
 
 Params = Dict[str, torch.Tensor]
 Grads = Dict[str, Optional[torch.Tensor]]
@@ -45,13 +47,15 @@ class Optimizer:
 
     def __init__(self, learning_rate, regularization=None, grad_clip=None,
                  name=None):
-        if regularization is not None:
-            raise NotYetPorted("optimizer regularization (regularizer.py: the "
-                               "MNIST slice, ROADMAP queue 1 item 6)")
-        if grad_clip is not None:
-            raise NotYetPorted("gradient clipping (clip.py: the MNIST slice, "
-                               "ROADMAP queue 1 item 6)")
+        enforce(regularization is None or callable(getattr(regularization, "apply", None)),
+                f"regularization={regularization!r}: expected a regularizer with "
+                "apply(param, grad), e.g. regularizer.L2Decay")
+        enforce(grad_clip is None or callable(grad_clip),
+                f"grad_clip={grad_clip!r}: expected a clip such as "
+                "clip.GradientClipByGlobalNorm")
         self._lr = learning_rate
+        self.regularization = regularization
+        self.grad_clip = grad_clip
         self.name = name
 
     def set_state_dtype(self, dtype) -> "Optimizer":
@@ -90,25 +94,46 @@ class Optimizer:
         lr = self._lr(step) if callable(self._lr) else self._lr
         return _f32(lr, step.device)
 
-    def update(self, grads: Grads, opt_state: OptState, params: Params
-               ) -> Tuple[Params, OptState]:
+    def update(self, grads: Grads, opt_state: OptState, params: Params,
+               param_info: Optional[Dict[str, Any]] = None) -> Tuple[Params, OptState]:
         """One step: (new_params, new_opt_state). A param whose grad is
-        None keeps its value and accumulators. Bias corrections read the
-        global state from before this step's update."""
+        None, or whose ``param_info`` says it is not trainable, keeps its
+        value and accumulators. Bias corrections read the global state
+        from before this step's update."""
+        param_info = param_info or {}
         step = opt_state["step"]
         lr = self.learning_rate(step)
+
+        # 1. regularization: the param's own regularizer wins
+        reg_grads: Grads = {}
+        for k, g in grads.items():
+            info = param_info.get(k)
+            reg = (info.regularizer if info is not None and info.regularizer is not None
+                   else self.regularization)
+            if reg is not None and g is not None:
+                g = reg.apply(params[k], g)
+            reg_grads[k] = g
+
+        # 2. clipping, over the grads there are
+        if self.grad_clip is not None:
+            reg_grads.update(self.grad_clip(
+                {k: g for k, g in reg_grads.items() if g is not None}, params))
+
+        # 3. per-param updates at the per-param rate
         new_state: OptState = {"step": step + 1,
                                "global": self._update_global(opt_state["global"]),
                                "accums": {}}
         new_params: Params = {}
         state_for_param = {"step": step, "global": opt_state["global"]}
         for k, p in params.items():
-            g = grads.get(k)
-            if g is None:
+            g = reg_grads.get(k)
+            info = param_info.get(k)
+            if g is None or (info is not None and not info.trainable):
                 new_params[k] = p
                 new_state["accums"][k] = opt_state["accums"][k]
                 continue
-            np_, nacc = self._apply_dense(lr, p, g.float(), opt_state["accums"][k],
+            plr = lr * (info.learning_rate if info is not None else 1.0)
+            np_, nacc = self._apply_dense(plr, p, g.float(), opt_state["accums"][k],
                                           state_for_param)
             new_params[k] = np_.to(p.dtype)
             new_state["accums"][k] = nacc

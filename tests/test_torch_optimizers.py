@@ -15,7 +15,7 @@ import torch
 
 from paddle_tpu import optimizer as jopt
 from paddle_tpu_torch import optimizer as topt
-from paddle_tpu_torch.core.errors import NotYetPorted
+from paddle_tpu_torch.core.errors import EnforceError, NotYetPorted
 
 RTOL, ATOL = 1e-6, 1e-7
 
@@ -100,7 +100,10 @@ def test_a_param_without_grad_keeps_value_and_state():
 
 @pytest.mark.parametrize("kw", [{"regularization": object()}, {"grad_clip": object()}])
 def test_regularization_and_clipping_are_not_ported(kw):
-    with pytest.raises(NotYetPorted):
+    """Regularization and clipping are ported now (their parity is in
+    test_torch_optimizer_attrs.py); what is refused up front is an object
+    that is neither a regularizer nor a clip."""
+    with pytest.raises(EnforceError, match="expected a"):
         topt.AdamW(0.01, **kw)
 
 

@@ -65,7 +65,14 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.layers.attention", "paddle_tpu_torch.initializer",
             "paddle_tpu_torch.optimizer", "paddle_tpu_torch.executor",
             "paddle_tpu_torch.ops.fused_ce", "paddle_tpu_torch.layers.nn",
-            "paddle_tpu_torch.layers.stacked", "paddle_tpu_torch.models.lm_head"]
+            "paddle_tpu_torch.layers.stacked", "paddle_tpu_torch.models.lm_head",
+            "paddle_tpu_torch.framework", "paddle_tpu_torch.core.config",
+            "paddle_tpu_torch.core.unique_name", "paddle_tpu_torch.layers.ops",
+            "paddle_tpu_torch.layers.tensor", "paddle_tpu_torch.metrics",
+            "paddle_tpu_torch.regularizer", "paddle_tpu_torch.clip",
+            "paddle_tpu_torch.lr_scheduler", "paddle_tpu_torch.data",
+            "paddle_tpu_torch.data.reader", "paddle_tpu_torch.data.datasets",
+            "paddle_tpu_torch.data.feeder", "paddle_tpu_torch.models.mnist"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -91,8 +98,26 @@ def _entry_points(tmp_path):
     art = str(tmp_path / "art")
     prompts = np.full((2, 4), 3, np.int32)
     decode.export_decoder(art, _tiny_cfg(), 2, prompts, device="cpu")
-    from paddle_tpu_torch import Trainer, optimizer
+    from paddle_tpu_torch import (Executor, Trainer, build, data, fit, framework, layers,
+                                  optimizer)
+    from paddle_tpu_torch.models import mnist
+    sample = {"image": np.zeros((2, 784), np.float32), "label": np.zeros((2, 1), np.int64)}
+    reader = data.batch(data.datasets.mnist("train", synthetic_size=8), 4)
+
+    def constant():  # no params, no inputs: nothing says where it runs
+        return {"out": layers.fill_constant([2], "float32", 1.0)}
+
     return {
+        "Executor": lambda: Executor(),
+        "Trainer_program": lambda: Trainer(build(mnist.mlp), optimizer.SGD(0.01)),
+        "fit": lambda: fit(Trainer(build(mnist.mlp), optimizer.SGD(0.01)), reader, 1,
+                           ["image", "label"]),
+        "Program.init": lambda: build(mnist.mlp).init(0, **sample),
+        "Program.apply": lambda: build(constant).apply({}, {}),
+        "Program.apply_numpy": lambda: build(mnist.mlp).apply({}, {}, **sample),
+        "DeviceFeeder": lambda: data.DeviceFeeder(lambda: iter([sample])),
+        "framework.params_from_jax": lambda: framework.params_from_jax(
+            {"w": np.zeros(2, np.float32)}),
         "make_generator": lambda: gpt.make_generator(_tiny_cfg(), 2),
         "make_model": lambda: gpt.make_model(_tiny_cfg()),
         "Trainer": lambda: Trainer(gpt.make_model(_tiny_cfg(), device="cpu"),
@@ -108,13 +133,57 @@ def _entry_points(tmp_path):
 
 @pytest.mark.parametrize("entry", ["make_generator", "params_from_jax",
                                    "export_decoder", "load_inference_model",
-                                   "decode_server", "make_model", "Trainer"])
+                                   "decode_server", "make_model", "Trainer",
+                                   "Executor", "Trainer_program", "fit", "Program.init",
+                                   "Program.apply", "Program.apply_numpy",
+                                   "DeviceFeeder", "framework.params_from_jax"])
 def test_entry_points_refuse_to_run_without_a_card(tmp_path, entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the entry points run on it")
     call = _entry_points(tmp_path)[entry]
     with pytest.raises(NoCudaDevice, match="no CUDA card is available"):
         call()
+
+
+def test_executor_and_trainer_run_programs_on_their_own_place():
+    """A program with no params and no inputs runs where the Executor or
+    Trainer that runs it is placed, not on a device of its own choosing:
+    on the CPU when they are given the CPU, and on the card (so, with no
+    card, NoCudaDevice) when they hold a CUDA place."""
+    from paddle_tpu_torch import CPUPlace, Executor, Trainer, build, layers, optimizer
+
+    def constant():
+        return {"loss": layers.fill_constant([2], "float32", 1.0)}
+
+    exe = Executor(place=CPUPlace())
+    prog = build(constant)
+    exe.startup(prog)
+    out = exe.run(prog, return_numpy=False)
+    assert out["loss"].device == torch.device("cpu")
+    trainer = Trainer(prog, optimizer.SGD(0.1), place=CPUPlace()).startup(0)
+    assert trainer.eval({})["loss"].device == torch.device("cpu")
+    if torch.cuda.is_available():
+        return
+    # the same objects holding the card's place (as Executor() and Trainer()
+    # would, with a card) hand it to the program, which then needs the card
+    exe.device = trainer.device = torch.device("cuda", 0)
+    with pytest.raises(NoCudaDevice, match="Program.apply"):
+        exe.run(prog)
+    with pytest.raises(NoCudaDevice, match="Program.apply"):
+        trainer.eval({})
+    with pytest.raises(NoCudaDevice, match="Program.init"):
+        trainer.startup(0)
+
+
+def test_device_feeder_refuses_a_cpu_target():
+    """The prefetch copies on a side CUDA stream: asked to target the CPU,
+    it raises instead of copying synchronously, and fit(prefetch=True)
+    with a CPU trainer raises the same way."""
+    from paddle_tpu_torch.core.errors import EnforceError
+    from paddle_tpu_torch.data import DeviceFeeder
+    for device in ("cpu", torch.device("cpu")):
+        with pytest.raises(EnforceError, match="side CUDA stream"):
+            DeviceFeeder(lambda: iter([]), device=device)
 
 
 def test_places_are_torch_devices_and_tpu_place_raises():
