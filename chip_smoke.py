@@ -64,7 +64,22 @@ Phases, each reported on its own lines; any failure exits non-zero:
    thread, by a plain put and from the card, with each thread's CPU time
    and context switches, and a profile of the prefetched steps by thread.
    The path runs no hand kernel: the launch counts, zeroed just before
-   it, must read 0 after it.
+   it, must read 0 after it;
+9. persistence and inference — (a) the bf16 GPT-base trainer of phase 7
+   (``make_model`` → ``Trainer(AdamW)``): two uninterrupted runs of 5
+   steps, the second ``io.save_trainer``'d after step 3 (seconds, bytes,
+   ``validate_checkpoint``'s verdict), and a fresh trainer ``load_trainer``'d
+   from it takes steps 4-5, whose losses and params must equal the
+   uninterrupted run's (bit for bit when the two uninterrupted runs are)
+   and which launch all three kernels; (b) MNIST ``fit`` with
+   ``CheckpointConfig(step_interval=10)`` stopped by a SIGTERM the process
+   sends itself mid-epoch, then ``fit(resume=True)``: the uninterrupted
+   run's losses and params bit for bit, no fill thread left; (c) the MNIST
+   trainer ``save_inference_model``'d at buckets [1, 8, 128] and
+   ``load_inference_model``'d on the card: ``trainer.eval``'s outputs; a
+   ``PredictorServer`` answers 64 requests (p50/p99 latency); a copy with
+   one byte flipped raises ``CheckpointCorrupt``. Launch counts are
+   zeroed just before the phase and read just after it.
 
 The last lines are a JSON ``kernels`` record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -145,6 +160,18 @@ MNIST_PARITY_STEPS, MNIST_LR, MNIST_FIT_BATCH, MNIST_FIT_LR = 20, 0.01, 64, 1e-3
 # with TF32 off against the CPU's BLAS; three layers of 784, 200 and 200
 # inputs). Profiled steps of phase 8's timing
 MNIST_LOSS_TOL, MNIST_PARAM_TOL, MNIST_PROFILED_STEPS = 1e-5, 1e-5, 10
+
+# phase 9: the GPT-base trainer of phase 7 takes CKPT_STEPS steps, is saved,
+# and a fresh trainer loaded from the checkpoint takes RESUMED_STEPS more;
+# MNIST fit (the phase-8 epoch, 2 epochs of 32 steps) checkpoints every
+# MNIST_CKPT_INTERVAL steps and is sent SIGTERM after step MNIST_SIGTERM_STEP
+# (mid epoch 2), then resumed; the MNIST artifact serves buckets
+# SERVE_BUCKETS and a PredictorServer answers SERVE_REQUESTS requests of
+# 1-128 rows. Served rows against trainer.eval on the same rows at the
+# MNIST tolerance (another batch size may take another GEMM kernel)
+CKPT_STEPS, RESUMED_STEPS = 3, 2
+MNIST_CKPT_EPOCHS, MNIST_CKPT_INTERVAL, MNIST_SIGTERM_STEP = 2, 10, 45
+SERVE_BUCKETS, SERVE_REQUESTS = (1, 8, 128), 64
 
 
 class SmokeFailure(RuntimeError):
@@ -1307,6 +1334,263 @@ def mnist_timed(dev, seed, card_name):
     check(ms_step > 0 and torch.isfinite(torch.tensor(loss)), "mnist timed: bad step")
 
 
+# -- phase 9: persistence and inference ---------------------------------------
+
+
+def phase_persistence(dev, seed, card_name):
+    """(a) the GPT-base checkpoint round trip, (b) MNIST fit preempted by
+    SIGTERM and resumed, (c) the MNIST inference artifact served; returns
+    the hand kernels' launches during the path."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _zero_launch_counts(fa)
+        # ---- the main path, as a user drives it
+        gpt_checkpoint(dev, seed, card_name, tmp)
+        mnist_resume(dev, seed, tmp)
+        mnist_serving(dev, seed, card_name, tmp)
+        launches = _launch_counts(fa)
+        # ---- end of the main path
+    say(f"persistence: hand-kernel launches during the path {launches}")
+    check(all(n > 0 for n in launches.values()),
+          f"persistence: a flash kernel never launched ({launches})")
+    return launches
+
+
+def _host_params(trainer):
+    return {k: v.detach().cpu() for k, v in trainer.scope.params.items()}
+
+
+def _max_param_diff(a, b):
+    return max((a[k].float() - b[k].float()).abs().max().item() for k in a)
+
+
+def gpt_checkpoint(dev, seed, card_name, tmp):
+    """(a) The bf16 GPT-base trainer of phase 7: two uninterrupted runs of
+    CKPT_STEPS + RESUMED_STEPS steps, the second saved after CKPT_STEPS;
+    a fresh trainer (other initial values) loads it and takes the last
+    RESUMED_STEPS steps. Its losses and params must equal the
+    uninterrupted run's to the degree two uninterrupted runs agree."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    cfg = gpt.base_config(**TRAIN)
+    n = CKPT_STEPS + RESUMED_STEPS
+    feeds = _train_feeds(np.random.RandomState(1), n, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)
+
+    def steps(trainer, fs):
+        return [float(x) for x in [trainer.step(f)["loss"] for f in fs]]
+
+    first = _trainer(cfg, dev, "bfloat16").startup(seed)
+    ref = steps(first, feeds)
+    ref_params = _host_params(first)
+    del first
+    torch.cuda.empty_cache()
+    second = _trainer(cfg, dev, "bfloat16").startup(seed)
+    again = steps(second, feeds[:CKPT_STEPS])
+    d = os.path.join(tmp, "gpt_base", "step_%d" % CKPT_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pt.io.save_trainer(d, second)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    t0 = time.perf_counter()
+    man = pt.resilience.validate_checkpoint(d)
+    validate_s = time.perf_counter() - t0
+    again += steps(second, feeds[CKPT_STEPS:])
+    again_params = _host_params(second)
+    del second
+    torch.cuda.empty_cache()
+    resumed = _trainer(cfg, dev, "bfloat16").startup(seed + 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pt.io.load_trainer(d, resumed)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    before = _launch_counts(fa)
+    tail = steps(resumed, feeds[CKPT_STEPS:])
+    resumed_launches = {k: v - before[k] for k, v in _launch_counts(fa).items()}
+    resumed_params = _host_params(resumed)
+    del resumed
+    torch.cuda.empty_cache()
+
+    def loss_rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    runs_equal = again == ref and all(torch.equal(again_params[k], ref_params[k])
+                                      for k in ref_params)
+    res_equal = tail == ref[CKPT_STEPS:] and all(
+        torch.equal(resumed_params[k], ref_params[k]) for k in ref_params)
+    run_loss, run_param = loss_rel(again, ref), _max_param_diff(again_params, ref_params)
+    res_loss = loss_rel(tail, ref[CKPT_STEPS:])
+    res_param = _max_param_diff(resumed_params, ref_params)
+    say(f"persistence (a) bf16 GPT-base checkpoint ({card_name}): b={TRAIN_BATCH} "
+        f"s={TRAIN_SEQ}, {sum(p.numel() for p in ref_params.values())} params, AdamW; "
+        f"save_trainer after step {CKPT_STEPS}: {save_s:.3f} s, {nbytes} bytes "
+        f"({nbytes / 1e9:.3f} GB, {len(man['files'])} files); validate_checkpoint: "
+        f"valid (global_step {man['global_step']}, {validate_s:.3f} s); load_trainer "
+        f"into a fresh trainer: {load_s:.3f} s")
+    say(f"persistence (a) two uninterrupted runs of {n} steps bit-identical: "
+        f"{runs_equal} (losses rel {run_loss:.3g}, params max abs {run_param:.3g}); "
+        f"resumed steps {CKPT_STEPS + 1}-{n} against the uninterrupted run: "
+        f"bit-identical {res_equal} (losses {tail} vs {ref[CKPT_STEPS:]}, rel "
+        f"{res_loss:.3g}; params max abs {res_param:.3g}); launches in the resumed "
+        f"steps {resumed_launches}")
+    check(all(np.isfinite(ref)), "persistence: a loss is not finite")
+    if runs_equal:
+        check(res_equal, "persistence: the resumed run differs from the uninterrupted one")
+    else:
+        # a nondeterministic op on the path: the resumed run may differ from
+        # the uninterrupted one as much as two uninterrupted runs differ
+        # (twice that, for the spread of one more sample)
+        check(res_loss <= 2 * run_loss and res_param <= 2 * run_param,
+              "persistence: the resumed run differs from the uninterrupted one "
+              "more than two uninterrupted runs do")
+    check(all(v == cfg.num_layers * RESUMED_STEPS for v in resumed_launches.values()),
+          f"persistence: launches in the resumed steps {resumed_launches}")
+
+
+def mnist_resume(dev, seed, tmp):
+    """(b) fit over phase 8's synthetic MNIST (prefetch on) with
+    CheckpointConfig(step_interval=MNIST_CKPT_INTERVAL), stopped by a
+    SIGTERM the process sends itself after step MNIST_SIGTERM_STEP, then
+    fit(resume=True) to the end: the losses and final params equal the
+    uninterrupted run's."""
+    import signal
+    import threading
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import data
+
+    reader = data.batch(data.shuffle(data.datasets.mnist("train"), 512, seed=0),
+                        MNIST_FIT_BATCH)
+    sample = data.DataFeeder(["image", "label"]).feed(next(iter(reader())))
+    cfg = pt.CheckpointConfig(os.path.join(tmp, "mnist"), epoch_interval=1,
+                              step_interval=MNIST_CKPT_INTERVAL, max_num_checkpoints=3)
+
+    def run(rng, handler=None, **kw):
+        tr = _mnist_trainer(dev, pt.optimizer.Adam(MNIST_FIT_LR)).startup(rng, sample)
+        pt.fit(tr, reader, MNIST_CKPT_EPOCHS, ["image", "label"], event_handler=handler,
+               **kw)
+        return tr
+
+    ref_losses, losses, events = [], [], []
+
+    def record(log):
+        return lambda e: log.append(e.metrics["loss"]) if e.kind == "end_step" else None
+
+    def preempting(e):
+        events.append(e.kind)
+        record(losses)(e)
+        if e.kind == "end_step" and e.step == MNIST_SIGTERM_STEP:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    ref = run(seed, record(ref_losses))
+    sigterm_before = signal.getsignal(signal.SIGTERM)
+    t0 = time.perf_counter()
+    stopped = run(seed, preempting, checkpoint_config=cfg)
+    stop_s = time.perf_counter() - t0
+    fill_alive = [t for t in threading.enumerate() if t.name == "DeviceFeeder.fill"]
+    tags = [(c.tag, c.global_step) for c in pt.resilience.list_checkpoints(cfg.checkpoint_dir)]
+    t0 = time.perf_counter()
+    resumed = run(seed + 1, record(losses), checkpoint_config=cfg, resume=True)
+    resume_s = time.perf_counter() - t0
+    same = len(losses) == len(ref_losses) and torch.equal(torch.stack(losses).cpu(),
+                                                          torch.stack(ref_losses).cpu())
+    params_same = all(torch.equal(p, ref.scope.params[k])
+                      for k, p in resumed.scope.params.items())
+    say(f"persistence (b) mnist fit {MNIST_CKPT_EPOCHS} epochs x "
+        f"{len(ref_losses) // MNIST_CKPT_EPOCHS} steps, Adam({MNIST_FIT_LR}), prefetch on, "
+        f"step_interval {MNIST_CKPT_INTERVAL}: SIGTERM after step {MNIST_SIGTERM_STEP} -> "
+        f"returned at step {stopped.global_step} with event {events[-1]!r} in {stop_s:.2f} s, "
+        f"fill threads alive {len(fill_alive)}, checkpoints {tags}; fit(resume=True) to "
+        f"step {resumed.global_step} in {resume_s:.2f} s: losses equal to the "
+        f"uninterrupted run's bit for bit: {same}, final params: {params_same}")
+    check(stopped.global_step == MNIST_SIGTERM_STEP and events[-1] == "preempted",
+          "persistence: the SIGTERM did not stop fit at the step boundary")
+    check(not fill_alive, "persistence: a DeviceFeeder fill thread outlived fit")
+    check(signal.getsignal(signal.SIGTERM) == sigterm_before,
+          "persistence: fit did not restore the SIGTERM handler")
+    check(tags[-1] == (f"step_{MNIST_SIGTERM_STEP}", MNIST_SIGTERM_STEP),
+          f"persistence: no boundary checkpoint ({tags})")
+    check(resumed.global_step == ref.global_step and same and params_same,
+          "persistence: the resumed run differs from the uninterrupted one")
+
+
+def mnist_serving(dev, seed, card_name, tmp):
+    """(c) bench_mnist_mlp's trainer after 20 steps exported at buckets
+    SERVE_BUCKETS, loaded on the card: its outputs equal trainer.eval's; a
+    PredictorServer answers SERVE_REQUESTS requests one at a time; a copy
+    of the artifact with one byte flipped is refused."""
+    import shutil
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.serving import PredictorServer
+
+    feeds = _mnist_feeds()
+    trainer = _mnist_trainer(dev, pt.optimizer.SGD(MNIST_LR)).startup(seed, feeds[0])
+    for i in range(MNIST_PARITY_STEPS):
+        trainer.step(feeds[i % MNIST_FEEDS])
+    d = os.path.join(tmp, "mnist_mlp")
+    t0 = time.perf_counter()
+    pt.io.save_inference_model(d, trainer.program, trainer.scope.params,
+                               trainer.scope.state, feeds[0], batch_buckets=SERVE_BUCKETS)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred = pt.io.load_inference_model(d, device=dev)
+    load_s = time.perf_counter() - t0
+    got, want = pred.run(feeds[1]), trainer.eval(feeds[1])
+    exact = all(torch.equal(got[k], want[k]) for k in ("logits", "loss", "acc"))
+    rng = np.random.RandomState(seed)
+    lat, worst = [], 0.0
+    with PredictorServer(pred, workers=2) as server:
+        for _ in range(SERVE_REQUESTS):
+            n = int(rng.randint(1, SERVE_BUCKETS[-1] + 1))
+            rows = rng.choice(MNIST_BATCH, n, replace=False)
+            f = {k: v[rows] for k, v in feeds[2].items()}
+            t0 = time.perf_counter()
+            out = server.run(f, timeout=60)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            ref = trainer.eval(f)["logits"]
+            check(out["logits"].device == torch.device(dev) and out["logits"].shape == (n, 10),
+                  "persistence: a served reply is off the card or misshapen")
+            worst = max(worst, (out["logits"] - ref).abs().max().item())
+        report = server.report()
+    p50, p99 = np.percentile(lat, [50, 99])
+    flipped = d + "_flipped"
+    shutil.copytree(d, flipped)
+    p = os.path.join(flipped, "params.npz")
+    with open(p, "r+b") as fh:
+        fh.seek(os.path.getsize(p) // 2)
+        b = fh.read(1)
+        fh.seek(os.path.getsize(p) // 2)
+        fh.write(bytes([b[0] ^ 0xFF]))
+    try:
+        pt.io.load_inference_model(flipped, device=dev)
+        refused = None
+    except pt.resilience.CheckpointCorrupt as e:
+        refused = e.reason
+    say(f"persistence (c) mnist artifact ({card_name}): save_inference_model at buckets "
+        f"{list(SERVE_BUCKETS)} {save_s:.3f} s, load_inference_model on {dev} "
+        f"{load_s:.3f} s; Predictor.run equals trainer.eval bit for bit at b={MNIST_BATCH}: "
+        f"{exact}; PredictorServer (2 workers) answered {SERVE_REQUESTS} requests of 1-"
+        f"{SERVE_BUCKETS[-1]} rows one at a time: latency p50 {p50:.3f} ms, p99 "
+        f"{p99:.3f} ms (host clock around server.run; the server's histogram: "
+        f"p50 {report['latency_ms']['p50']} ms, p99 {report['latency_ms']['p99']} ms), "
+        f"served logits against trainer.eval max abs {worst:.3g} (tol {MNIST_PARAM_TOL}), "
+        f"completed {report['completed']}; a copy with one byte of params.npz flipped: "
+        f"{refused!r}")
+    check(exact, "persistence: the loaded artifact's outputs differ from trainer.eval's")
+    check(worst <= MNIST_PARAM_TOL and report["completed"] == SERVE_REQUESTS,
+          "persistence: served rows differ from trainer.eval's, or a request failed")
+    check(refused is not None and "checksum" in refused,
+          "persistence: a flipped byte was not refused")
+
+
 # -- the run ------------------------------------------------------------------
 
 
@@ -1392,6 +1676,10 @@ def main(argv=None) -> int:
     phase_mnist(dev, args.seed, smi)
     done("phase 8")
 
+    # 9. persistence and inference (launch counts zeroed inside)
+    persisted = phase_persistence(dev, args.seed, smi)
+    done("phase 9")
+
     # the kernels record: each kernel's row at the training path's shape,
     # launches summed over the main paths it runs on
     fwd_row = rows["train_qkv_b8"]
@@ -1399,9 +1687,10 @@ def main(argv=None) -> int:
         "name": "flash_fwd", "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "paddle_tpu/ops/flash_attention.py:191",
-        "launches": served["flash_fwd"] + trained["flash_fwd"],
+        "launches": served["flash_fwd"] + trained["flash_fwd"] + persisted["flash_fwd"],
         "launches_by_path": {"served": served["flash_fwd"],
-                             "training": trained["flash_fwd"]},
+                             "training": trained["flash_fwd"],
+                             "persistence": persisted["flash_fwd"]},
         "max_abs_err": fwd_row["max_abs_err"], "ms": fwd_row["ms"],
         "plain_ms": fwd_row["plain_ms"], "bound_ms": fwd_row["bound_ms"],
         "bound_by": fwd_row["bound_by"], "library_ms": fwd_row["library_ms"],
@@ -1416,8 +1705,9 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/ops/csrc/flash_bwd.cu",
             "replaces": f"paddle_tpu/ops/flash_attention.py:{line}",
-            "launches": served[name] + trained[name],
-            "launches_by_path": {"served": served[name], "training": trained[name]},
+            "launches": served[name] + trained[name] + persisted[name],
+            "launches_by_path": {"served": served[name], "training": trained[name],
+                                 "persistence": persisted[name]},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

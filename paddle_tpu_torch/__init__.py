@@ -15,12 +15,12 @@ card they raise :class:`paddle_tpu_torch.core.place.NoCudaDevice`.
 
 __version__ = "0.1.0"
 
-from . import clip, core, data, framework, initializer, layers, lr_scheduler  # noqa: E402
-from . import metrics, models, optimizer, regularizer  # noqa: E402
+from . import clip, core, data, framework, initializer, io, layers, lr_scheduler  # noqa: E402
+from . import metrics, models, optimizer, regularizer, resilience  # noqa: E402
 from .core.config import enable_determinism, get_flag  # noqa: E402
 from .core.place import CPUPlace, CUDAPlace  # noqa: E402
-from .executor import (Event, Executor, Scope, Trainer, fit, global_scope,  # noqa: E402
-                       scope_guard)
+from .executor import (CheckpointConfig, Event, Executor, Inferencer, Scope,  # noqa: E402
+                       Trainer, fit, global_scope, scope_guard)
 from .framework import (  # noqa: E402
     LayerHelper,
     ParamAttr,
@@ -41,11 +41,12 @@ if get_flag("deterministic"):
     enable_determinism()
 
 __all__ = [
-    "CPUPlace", "CUDAPlace", "Event", "Executor", "LayerHelper",
+    "CPUPlace", "CUDAPlace", "CheckpointConfig", "Event", "Executor", "Inferencer",
+    "LayerHelper",
     "ParamAttr", "Program", "Scope", "Trainer", "WeightNormParamAttr", "amp_guard",
     "build", "clip", "create_parameter", "create_variable", "data",
     "default_main_program", "default_startup_program", "enable_determinism", "fit",
-    "framework", "global_scope", "initializer", "layers", "lr_scheduler", "metrics",
-    "models", "name_scope", "optimizer", "program_guard", "regularizer",
+    "framework", "global_scope", "initializer", "io", "layers", "lr_scheduler", "metrics",
+    "models", "name_scope", "optimizer", "program_guard", "regularizer", "resilience",
     "scope_guard",
 ]

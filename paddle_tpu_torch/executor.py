@@ -13,21 +13,26 @@ params and state live in ``trainer.scope`` under their JAX names — or an
 ``nn.Module`` whose ``forward(**feed)`` returns a dict of tensors and
 which owns its params (``models.gpt.make_model``). ``fit`` drives a
 Trainer from a reader: DataFeeder → DeviceFeeder (the prefetch on the
-card) or a plain put → ``step``, with the JAX package's events.
+card) or a plain put → ``step``, with the JAX package's events, interval
+checkpoints (:class:`CheckpointConfig`), resume from the newest valid
+checkpoint and a boundary checkpoint on SIGTERM/SIGINT. ``Inferencer``
+runs a program from a checkpoint directory.
 
 Not carried yet, each raising :class:`NotYetPorted` with the slice that
 brings it: meshes and sharding rules, ``DistStrategy`` (pipeline,
 sequence parallelism, loss scaling, ZeRO), the NaN/Inf guard policy (the
 ``check_nan_inf`` flag is honoured), feed wire formats, on-device
-augmentation, ``run_steps`` and fit's fused steps, checkpoints and
-resume, elastic resizes, preemption, the HBM dataset cache and interval
-profile events.
+augmentation, ``run_steps`` and fit's fused steps, elastic resizes, the
+HBM dataset cache and interval profile events; the journal and telemetry
+of checkpoint saves come with the observability slice.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, Optional, Sequence
+import os
+import shutil
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -36,7 +41,7 @@ from torch.profiler import record_function
 from .core.config import get_flag
 from .core.errors import NotYetPorted, enforce
 from .core.place import default_device
-from .framework import Program, check_params
+from .framework import Program, build, check_params, params_from_jax
 from .initializer import mix_seed
 
 Feed = Dict[str, Any]
@@ -87,6 +92,8 @@ def _to_numpy(tree):
 
 def _put(value, device: torch.device) -> torch.Tensor:
     if isinstance(value, np.ndarray):
+        if value.dtype.name == "bfloat16":  # ml_dtypes: through its 16-bit pattern
+            return params_from_jax({"v": value}, device=device)["v"]
         value = torch.from_numpy(np.ascontiguousarray(value))
     return torch.as_tensor(value).to(device, non_blocking=True)
 
@@ -102,14 +109,14 @@ class Executor:
         self.place = self.device
         self.scope = Scope()
 
-    def startup(self, program: Program, seed: Optional[int] = None, *example_args,
+    def startup(self, program: Program, rng: Optional[int] = None, *example_args,
                 **example_kwargs) -> Scope:
         """Run the startup program on the example inputs (on this
         executor's device): initialise params and state into the scope.
-        ``seed`` None takes the ``seed`` flag."""
+        ``rng`` is an int seed; None takes the ``seed`` flag."""
         args = [_put(a, self.device) for a in example_args]
         kwargs = {k: _put(v, self.device) for k, v in example_kwargs.items()}
-        params, state = program.init(seed, *args, place=self.device, **kwargs)
+        params, state = program.init(rng, *args, place=self.device, **kwargs)
         self.scope.params, self.scope.state = params, state
         return self.scope
 
@@ -174,9 +181,11 @@ class Trainer:
         self.fetch_list = list(fetch_list) if fetch_list is not None else None
         self.scope = Scope()
         self.global_step = 0
+        # the meta of the checkpoint io.load_trainer last restored
+        self._last_loaded_meta: Optional[Dict[str, Any]] = None
 
     # ------------------------------------------------------------------
-    def startup(self, seed: Optional[int] = None, sample_feed: Optional[Feed] = None,
+    def startup(self, rng: Optional[int] = None, sample_feed: Optional[Feed] = None,
                 params: Optional[Dict[str, Any]] = None):
         """Initialise the params and build the optimizer state.
 
@@ -185,9 +194,9 @@ class Trainer:
         its own params (``init_params``; its shapes come from its config).
         ``params`` ({JAX name: tensor}, e.g. from ``params_from_jax``)
         replaces the initial values; they are copied, so training never
-        writes to the caller's tensors. ``seed`` None takes the ``seed``
-        flag."""
-        seed = get_flag("seed") if seed is None else int(seed)
+        writes to the caller's tensors. ``rng`` is an int seed; None takes
+        the ``seed`` flag."""
+        seed = get_flag("seed") if rng is None else int(rng)
         if self.is_program:
             example = {k: torch.zeros_like(_put(v, "cpu"), device=self.device)
                        for k, v in (sample_feed or {}).items()}
@@ -213,11 +222,12 @@ class Trainer:
     def _put_feed(self, feed: Feed) -> Feed:
         return {k: _put(v, self.device) for k, v in feed.items()}
 
-    def _run(self, feed: Feed, training: bool):
+    def _run(self, feed: Feed, training: bool, rng: Optional[int] = None):
         """(outputs as a dict, new state) of one run of the program."""
         if self.is_program:
-            # the step's rng, as the JAX package derives it (executor.py:1310)
-            rng = mix_seed(get_flag("seed") + 1, self.global_step) if training else None
+            if rng is None and training:
+                # the step's rng, as the JAX package derives it (executor.py:1310)
+                rng = mix_seed(get_flag("seed") + 1, self.global_step)
             out, new_state = self.program.apply(self.scope.params, self.scope.state,
                                                 training=training, rng=rng,
                                                 place=self.device, **feed)
@@ -233,10 +243,17 @@ class Trainer:
             list(dict.fromkeys(self.fetch_list + [self.loss_name]))
         return {k: out[k].detach() for k in keys}
 
-    def step(self, feed: Feed) -> Dict[str, torch.Tensor]:
+    def step(self, feed: Feed, rng: Optional[int] = None,
+             span: Optional[str] = None) -> Dict[str, torch.Tensor]:
         """One optimization step; returns the fetched outputs, computed
         before the update. With the ``check_nan_inf`` flag a non-finite
-        output or grad raises ``FloatingPointError`` before the update."""
+        output or grad raises ``FloatingPointError`` before the update.
+
+        ``rng`` (an int seed) replaces the step's derived seed
+        ``mix_seed(seed + 1, global_step)``; an ``nn.Module`` program
+        draws nothing from it. ``span`` names the feeder batch of a
+        journal event in the JAX package; it is taken and unused until
+        the observability slice (ROADMAP queue 1, item 24)."""
         enforce(self.scope.opt_state is not None, "call startup() before step()")
         feed = self._put_feed(feed)
         params = self.scope.params
@@ -246,7 +263,7 @@ class Trainer:
         # its device time by them; about a microsecond each when no
         # profiler runs
         with record_function("trainer.forward"):
-            out, new_state = self._run(feed, training=True)
+            out, new_state = self._run(feed, training=True, rng=rng)
         with record_function("trainer.backward"):
             out[self.loss_name].backward()
         grads = {k: p.grad for k, p in params.items()}
@@ -287,12 +304,26 @@ class Trainer:
         return {k: v.detach() for k, v in out.items()}
 
 
+class CheckpointConfig:
+    """contrib.trainer CheckpointConfig analog (contrib/trainer.py:100):
+    where ``fit`` saves (``checkpoint_dir``), every how many epochs and
+    steps (0: never), and how many of its own checkpoints it keeps."""
+
+    def __init__(self, checkpoint_dir: str, epoch_interval: int = 1,
+                 step_interval: int = 0, max_num_checkpoints: int = 3):
+        self.checkpoint_dir = checkpoint_dir
+        self.epoch_interval = epoch_interval
+        self.step_interval = step_interval
+        self.max_num_checkpoints = max_num_checkpoints
+
+
 class Event:
     """Training events (contrib.trainer BeginEpochEvent/EndStepEvent…):
-    ``kind`` is begin_epoch, begin_step, end_step or end_epoch; ``step``
-    the trainer's global step when it fired; ``metrics`` the step's
-    fetched outputs on end_step; ``num_steps`` the steps an event covers
-    (1 until the fused-step slice)."""
+    ``kind`` is begin_epoch, begin_step, end_step, end_epoch or preempted
+    (once, after the boundary checkpoint, when fit returns on
+    SIGTERM/SIGINT); ``step`` the trainer's global step when it fired;
+    ``metrics`` the step's fetched outputs on end_step; ``num_steps`` the
+    steps an event covers (1 until the fused-step slice)."""
 
     def __init__(self, kind: str, epoch: int, step: int, metrics=None,
                  num_steps: int = 1):
@@ -305,11 +336,8 @@ class Event:
 
 # fit's arguments of later slices: (default, the slice that brings it)
 _FIT_LATER = {
-    "checkpoint_config": (None, "checkpoints, ROADMAP queue 1 item 8"),
-    "resume": (False, "checkpoints, ROADMAP queue 1 item 8"),
     "elastic": (False, "elastic training, ROADMAP queue 1 item 22"),
     "resize": (None, "elastic training, ROADMAP queue 1 item 22"),
-    "preemption": (None, "checkpoints, ROADMAP queue 1 item 8"),
     "steps_per_dispatch": (1, "fused steps, ROADMAP queue 1 item 18"),
     "feed_wire": (None, "data extras, ROADMAP queue 1 item 23"),
     "device_cache": (None, "data extras, ROADMAP queue 1 item 23"),
@@ -318,54 +346,165 @@ _FIT_LATER = {
 }
 
 
+def _fit_tag(tag: str) -> bool:
+    """Whether a checkpoint tag is fit's own (step_N / epoch_N): only those
+    rotate, so a hand-saved checkpoint in the same directory ("best") is
+    never deleted."""
+    head, _, num = tag.partition("_")
+    return head in ("step", "epoch") and num.isdigit()
+
+
 def fit(trainer: Trainer, reader, num_epochs: int, feed_names: Sequence[str],
         dtypes: Optional[Sequence[Any]] = None, event_handler=None,
-        checkpoint_config=None, prefetch: bool = True, steps_per_dispatch: int = 1,
-        resume: bool = False, elastic: bool = False, preemption: Optional[bool] = None,
-        resize=None, feed_wire=None, profile_interval_steps: int = 0,
-        device_cache=None, augment=None):
+        checkpoint_config: Optional[CheckpointConfig] = None, prefetch: bool = True,
+        steps_per_dispatch: int = 1, resume: bool = False, elastic: bool = False,
+        preemption: Optional[bool] = None, resize=None, feed_wire=None,
+        profile_interval_steps: int = 0, device_cache=None, augment=None):
     """High-level train loop (contrib.trainer.Trainer.train analog):
     reader → DataFeeder → DeviceFeeder (``prefetch=True``: batches copied
     to the card on a side stream while the step runs) or a plain put →
     ``trainer.step``, with begin_epoch / begin_step / end_step / end_epoch
     events in the JAX package's order and with its step counts. A trainer
-    on the CPU has nothing to prefetch to: pass ``prefetch=False`` there."""
+    on the CPU has nothing to prefetch to: pass ``prefetch=False`` there.
+
+    With a ``checkpoint_config`` fit saves ``step_N`` every
+    ``step_interval`` steps and ``epoch_N`` every ``epoch_interval``
+    epochs (``io.save_trainer``), keeps the newest ``max_num_checkpoints``
+    of its own tags (rebuilt from disk, so a restart rotates the old ones
+    out) and sweeps torn-save leftovers at start. ``resume=True`` restores
+    the newest valid checkpoint (falling back over corrupt ones) and skips
+    the batches of its epoch that it already consumed. ``preemption``
+    (default: on with a checkpoint_config) catches SIGTERM/SIGINT: fit
+    saves a boundary checkpoint after the current step, fires
+    ``"preempted"`` and returns."""
+    from . import io as _io
+    from . import resilience
     from .data.feeder import DataFeeder, DeviceFeeder
 
-    given = {"checkpoint_config": checkpoint_config, "resume": resume,
-             "elastic": elastic, "resize": resize, "preemption": preemption,
+    given = {"elastic": elastic, "resize": resize,
              "steps_per_dispatch": steps_per_dispatch, "feed_wire": feed_wire,
              "device_cache": device_cache, "augment": augment,
              "profile_interval_steps": profile_interval_steps}
-    given["preemption"] = preemption or None  # False asks for nothing either
     for name, (default, later) in _FIT_LATER.items():
         if given[name] != default:
             raise NotYetPorted(f"fit({name}=...): {later}")
     feeder = DataFeeder(feed_names, dtypes)
 
-    def batches():
-        for samples in reader():
-            yield feeder.feed(samples)
-
     def emit(*args, **kw):
         if event_handler:
             event_handler(Event(*args, **kw))
 
-    for epoch in range(num_epochs):
-        emit("begin_epoch", epoch, trainer.global_step)
-        device_feeder = DeviceFeeder(batches, device=trainer.device) if prefetch else None
-        feeds = iter(device_feeder) if prefetch else map(trainer._put_feed, batches())
-        try:
-            for feed in feeds:
-                emit("begin_step", epoch, trainer.global_step)
-                out = trainer.step(feed)
-                emit("end_step", epoch, trainer.global_step, out)
-        finally:
-            # an abandoned epoch (exception, early exit) stops the fill thread
-            if device_feeder is not None:
-                device_feeder.close()
-        emit("end_epoch", epoch, trainer.global_step)
+    start_epoch, skip_steps = 0, 0
+    if resume:
+        enforce(checkpoint_config is not None,
+                "fit(resume=True) needs a checkpoint_config to scan")
+        meta = resilience.restore_latest(checkpoint_config.checkpoint_dir, trainer)
+        if meta is not None:
+            start_epoch = int(meta.get("epoch", 0))
+            skip_steps = int(meta.get("epoch_step", 0))
+
+    kept: List[str] = []
+    if checkpoint_config is not None:
+        resilience.sweep_tmp_dirs(checkpoint_config.checkpoint_dir)
+        # over-quota checkpoints from earlier runs go at this run's first
+        # save: trimming here could delete the only valid one, just restored
+        kept = [c.path for c in resilience.list_checkpoints(
+            checkpoint_config.checkpoint_dir) if _fit_tag(c.tag)]
+    last_saved_step = [None]  # the step of this run's last save
+
+    def save(tag: str, epoch: int, epoch_step: int):
+        if checkpoint_config is None:
+            return
+        d = os.path.join(checkpoint_config.checkpoint_dir, tag)
+        _io.save_trainer(d, trainer, extra_meta={"epoch": epoch, "epoch_step": epoch_step})
+        last_saved_step[0] = trainer.global_step
+        if d in kept:  # a re-saved tag takes the newest place
+            kept.remove(d)
+        kept.append(d)
+        while len(kept) > checkpoint_config.max_num_checkpoints:
+            shutil.rmtree(kept.pop(0), ignore_errors=True)
+
+    use_preempt = preemption if preemption is not None else checkpoint_config is not None
+    si = checkpoint_config.step_interval if checkpoint_config else 0
+    with (resilience.PreemptionHandler() if use_preempt
+          else contextlib.nullcontext()) as ph:
+        for epoch in range(start_epoch, num_epochs):
+            # a resume lands mid-epoch: skip the batches the restored
+            # checkpoint already consumed (one batch is one step)
+            skip = skip_steps if epoch == start_epoch else 0
+            steps_in_epoch = skip
+            emit("begin_epoch", epoch, trainer.global_step)
+
+            def batches(_skip=skip):
+                for i, samples in enumerate(reader()):
+                    if i >= _skip:
+                        yield feeder.feed(samples)
+
+            device_feeder = DeviceFeeder(batches, device=trainer.device) if prefetch else None
+            feeds = iter(device_feeder) if prefetch else map(trainer._put_feed, batches())
+            preempted = False
+            try:
+                for feed in feeds:
+                    gs_before = trainer.global_step
+                    emit("begin_step", epoch, gs_before)
+                    out = trainer.step(feed)
+                    steps_in_epoch += 1
+                    emit("end_step", epoch, trainer.global_step, out)
+                    if si and trainer.global_step // si > gs_before // si:
+                        save(f"step_{trainer.global_step}", epoch, steps_in_epoch)
+                    if ph is not None and ph.requested:
+                        preempted = True
+                        break
+            finally:
+                # an abandoned epoch (exception, early exit, preemption)
+                # stops the fill thread
+                if device_feeder is not None:
+                    device_feeder.close()
+            if preempted:
+                # the boundary checkpoint, unless this run's interval save
+                # just wrote this very step (a stale same-tag directory of
+                # an earlier run does not count)
+                if last_saved_step[0] != trainer.global_step:
+                    save(f"step_{trainer.global_step}", epoch, steps_in_epoch)
+                emit("preempted", epoch, trainer.global_step)
+                return trainer
+            emit("end_epoch", epoch, trainer.global_step)
+            if checkpoint_config and checkpoint_config.epoch_interval and \
+                    (epoch + 1) % checkpoint_config.epoch_interval == 0:
+                save(f"epoch_{epoch}", epoch + 1, 0)
     return trainer
+
+
+class Inferencer:
+    """High-level inference wrapper (contrib/inferencer.py:31): build the
+    inference program, load its params, run batches.
+
+        inf = Inferencer(infer_fn, param_path="ckpt_dir")
+        out = inf.infer({"image": batch})
+
+    ``param_path`` is a persistables or ``save_trainer`` directory;
+    otherwise pass ``params`` (and ``state``). Runs on ``place``: the CUDA
+    card unless the caller passes the CPU (no card: NoCudaDevice)."""
+
+    def __init__(self, infer_func: Callable, param_path: Optional[str] = None,
+                 params=None, state=None, place=None):
+        from . import io as _io
+
+        self.program = infer_func if isinstance(infer_func, Program) else build(infer_func)
+        self.device = default_device(place, "Inferencer")
+        self.place = self.device
+        if param_path is not None:
+            params, state, _, _ = _io.load_persistables(param_path)
+            enforce(bool(params), f"Inferencer: no parameters found in {param_path!r}")
+        enforce(params is not None, "Inferencer: need param_path or params")
+        self._params = {k: _put(v, self.device) for k, v in params.items()}
+        self._state = {k: _put(v, self.device) for k, v in (state or {}).items()}
+
+    def infer(self, inputs: Feed, return_numpy: bool = True):
+        with torch.no_grad():
+            out, _ = self.program.apply(self._params, self._state, training=False,
+                                        place=self.device, **inputs)
+        return _to_numpy(out) if return_numpy else out
 
 
 _global_scope = Scope()
@@ -389,5 +528,5 @@ def scope_guard(scope: Scope):
         _global_scope = old
 
 
-__all__ = ["Event", "Executor", "Scope", "Trainer",
+__all__ = ["CheckpointConfig", "Event", "Executor", "Inferencer", "Scope", "Trainer",
            "fit", "global_scope", "scope_guard"]

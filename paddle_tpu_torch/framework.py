@@ -25,7 +25,10 @@ Where the port differs from the JAX package:
   ``default_compute_dtype`` flag); layers read it from there through
   :func:`compute_dtype`, never from a process global.
   :func:`cast_compute` takes it as an explicit argument, as the GPT
-  modules call it.
+  modules call it. The program's image layout is recorded there too, and
+  :func:`current_layout` reads it, so a block recomputed by
+  :func:`maybe_remat` on autograd's thread sees the layout its forward
+  saw.
 - ``trainable=False`` detaches the parameter: its grad is None where the
   JAX package's ``stop_gradient`` gives zeros; the optimizer skips both.
 - Not carried yet, each raising :class:`NotYetPorted`: ``Program.desc``
@@ -109,7 +112,7 @@ class ParamInfo:
 
 class BuildContext:
     """Per-run context: parameter scope, name generator, rng, mode, the
-    device and the compute dtype.
+    device, the compute dtype and the image layout.
 
     Mode 'init' creates parameters (the startup program); mode 'apply'
     fetches them. Name generation is context-local, so the init and apply
@@ -117,7 +120,8 @@ class BuildContext:
 
     def __init__(self, mode: str, params: Params, state: State, rng: Optional[int],
                  training: bool, param_info: Dict[str, ParamInfo],
-                 device: torch.device, compute_dtype: torch.dtype):
+                 device: torch.device, compute_dtype: torch.dtype,
+                 layout: str = "NCHW"):
         enforce(mode in ("init", "apply"), f"BuildContext mode {mode!r}")
         self.mode = mode
         self.params = params
@@ -129,6 +133,7 @@ class BuildContext:
         self.param_info = param_info
         self.device = device
         self.compute_dtype = compute_dtype
+        self.layout = layout
         self.namer = _unique_name.UniqueNameGenerator()
         self.name_stack: List[str] = []
 
@@ -446,10 +451,10 @@ class Program:
         ctx = BuildContext("init", params, state,
                            get_flag("seed") if rng is None else int(rng),
                            training=False, param_info=self.param_info, device=device,
-                           compute_dtype=_ambient_compute_dtype())
+                           compute_dtype=_ambient_compute_dtype(), layout=self.layout)
         args = tuple(_as_input(a, device) for a in args)
         kwargs = {k: _as_input(v, device) for k, v in kwargs.items()}
-        with torch.no_grad(), _use_ctx(ctx), layout_mode(self.layout):
+        with torch.no_grad(), _use_ctx(ctx):
             self.fn(*args, **kwargs)
         return params, state
 
@@ -464,8 +469,9 @@ class Program:
         args = tuple(_as_input(a, device) for a in args)
         kwargs = {k: _as_input(v, device) for k, v in kwargs.items()}
         ctx = BuildContext("apply", params, state or {}, rng, training,
-                           dict(self.param_info), device, _ambient_compute_dtype())
-        with _use_ctx(ctx), layout_mode(self.layout):
+                           dict(self.param_info), device, _ambient_compute_dtype(),
+                           self.layout)
+        with _use_ctx(ctx):
             out = self.fn(*args, **kwargs)
         new_state = dict(ctx.state)
         new_state.update(ctx.new_state)
@@ -530,24 +536,31 @@ _layout_mode = threading.local()
 
 @contextlib.contextmanager
 def layout_mode(data_format: str = "NHWC"):
-    """Ambient image-layout switch: conv/pool/BN layers whose
-    ``data_format`` is left unspecified follow it (``channels_last`` on the
-    card comes with the conv slice)."""
+    """Image-layout switch: conv/pool/BN layers whose ``data_format`` is
+    left unspecified follow it (``channels_last`` on the card comes with
+    the conv slice). Inside a running program it sets the program run's
+    layout (its context's); outside, this thread's default for programs
+    built in the block."""
     enforce(data_format in ("NCHW", "NHWC"), f"layout_mode({data_format!r})")
-    old = getattr(_layout_mode, "fmt", None)
-    _layout_mode.fmt = data_format
+    holder = current_context() or _layout_mode
+    old = getattr(holder, "layout", None)
+    holder.layout = data_format
     try:
         yield
     finally:
-        _layout_mode.fmt = old
+        holder.layout = old
 
 
 def current_layout(explicit=None) -> str:
     """Resolve a layer's data_format: explicit argument wins, then the
-    ambient :func:`layout_mode`, then the reference default NCHW."""
+    running program's layout (recorded on its context), then the ambient
+    :func:`layout_mode`, then the reference default NCHW."""
     if explicit is not None:
         return explicit
-    return getattr(_layout_mode, "fmt", None) or "NCHW"
+    ctx = current_context()
+    if ctx is not None:
+        return ctx.layout
+    return getattr(_layout_mode, "layout", None) or "NCHW"
 
 
 _remat_mode = threading.local()
@@ -584,9 +597,11 @@ def maybe_remat(fn: Callable, enabled: Optional[bool] = None,
     :func:`remat_enabled`). Never wraps during init.
 
     The backward's recompute runs ``fn`` again with the context's name
-    counters, name stack and rng counter as they were when the forward
-    entered it, so it fetches the same parameters and draws the same
-    random numbers."""
+    counters, name stack, rng (as :func:`rng_fold`/:func:`rng_scope` left
+    it), rng counter and layout as they were when the forward entered it,
+    so it fetches the same parameters, draws the same random numbers and
+    lays out its images the same way, on whichever thread autograd runs
+    it."""
     _no_remat_policy(policy)
     ctx = current_context()
     if ctx is not None and ctx.mode == "init":
@@ -598,14 +613,17 @@ def maybe_remat(fn: Callable, enabled: Optional[bool] = None,
         ctx = current_context()
         if ctx is None:
             return checkpoint(fn, *args, use_reentrant=False, **kwargs)
-        start = (dict(ctx.namer.ids), list(ctx.name_stack), ctx._rng_count)
+        start = (dict(ctx.namer.ids), list(ctx.name_stack), ctx.rng, ctx._rng_count,
+                 ctx.layout)
         after = {}
 
         def replay(*a, **kw):
-            saved = (dict(ctx.namer.ids), ctx.name_stack, ctx._rng_count)
+            saved = (dict(ctx.namer.ids), ctx.name_stack, ctx.rng, ctx._rng_count,
+                     ctx.layout)
             ctx.namer.ids.clear()
             ctx.namer.ids.update(start[0])
-            ctx.name_stack, ctx._rng_count = list(start[1]), start[2]
+            ctx.name_stack = list(start[1])
+            ctx.rng, ctx._rng_count, ctx.layout = start[2:]
             try:
                 with _use_ctx(ctx):
                     out = fn(*a, **kw)
@@ -614,7 +632,8 @@ def maybe_remat(fn: Callable, enabled: Optional[bool] = None,
             finally:
                 ctx.namer.ids.clear()
                 ctx.namer.ids.update(saved[0])
-                ctx.name_stack, ctx._rng_count = saved[1], saved[2]
+                ctx.name_stack = saved[1]
+                ctx.rng, ctx._rng_count, ctx.layout = saved[2:]
 
         out = checkpoint(replay, *args, use_reentrant=False, **kwargs)
         ctx.namer.ids.clear()

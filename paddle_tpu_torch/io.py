@@ -1,35 +1,55 @@
-"""Inference export and the Predictor (counterpart of the inference half
-of ``paddle_tpu.io``).
+"""Checkpoints, inference export and the Predictor (counterpart of
+``paddle_tpu.io``).
 
-An artifact directory holds what ``paddle_tpu.io.save_inference_model``
-writes, minus the StableHLO: ``params.npz`` and ``state.npz`` under the
-same key mangling (bfloat16 as a uint16 view with an ``@bfloat16``
-suffix), and ``meta.json`` with ``feed_names``/``batch_size``/
-``batched_feeds``/``batch_buckets``. The program is recorded by its
-builder and arguments (``builder``, ``config``, ``max_new_tokens`` ...)
-and rebuilt from them at load. The commit is atomic: everything is
-written to a ``<dirname>.tmp.<pid>`` sibling, fsynced and renamed into
-place. Not carried yet: the CRC manifest (``resilience.write_manifest``,
-the checkpoint slice) and an exported graph (``torch.export`` cannot
-trace a kernel called through ctypes).
+Persistable state is name-keyed dicts of tensors, one ``.npz`` per
+collection (``params.npz``, ``state.npz``, ``opt_state.npz``) plus
+``meta.json``, under the JAX package's key mangling: nested keys joined by
+``||``, bfloat16 stored as its uint16 bit pattern under an ``@bfloat16``
+suffix. Every leaf goes through that encoding, so each package loads the
+other's files. ``save_trainer`` and ``save_inference_model`` commit
+atomically: everything is written to a ``<dirname>.tmp.<pid>`` sibling,
+fsynced, covered by a ``resilience.write_manifest`` manifest (per-file
+CRC32 and size, the flat shape/dtype spec of each collection) and renamed
+into place; the loaders validate the manifest and raise
+:class:`~paddle_tpu_torch.resilience.CheckpointCorrupt` on a torn or
+bit-flipped directory. Loaded leaves are CPU tensors, copied out of the
+npz reader.
+
+An inference artifact records its program instead of an exported graph: a
+``build`` Program by the import path of its function
+(``paddle_tpu_torch.models.mnist:mlp``) with its layout and compute dtype,
+a GPT generator by its builder and arguments (``spec()``). The loader
+rebuilds the program from there. Not carried yet, each raising
+:class:`NotYetPorted`: an exported graph per bucket (``torch.export``
+cannot trace a kernel called through ctypes; ROADMAP queue 1, item 9),
+``save_train_artifact`` (item 27), ZeRO and orbax checkpoints (item 21)
+and the loss-scale restore (item 11: a checkpoint that carries
+``loss_scale_state`` loads with a warning).
 """
 
 from __future__ import annotations
 
+import importlib
 import json
 import logging
 import os
 import shutil
+import warnings
+import zlib
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .core.errors import EnforceError, enforce
+from . import resilience
+from .core.dtypes import dtype_name
+from .core.errors import EnforceError, NotYetPorted, enforce
 from .core.place import default_device
+from .resilience import CheckpointCorrupt
 
 SEP = "||"  # path separator for nested keys (param names use '/')
-TMP_MARKER = ".tmp."
+TMP_MARKER = resilience.TMP_MARKER
+_COLLECTIONS = {"params": "params.npz", "state": "state.npz", "opt_state": "opt_state.npz"}
 
 
 def _log():
@@ -68,32 +88,36 @@ def _canonical_dtype(dtype: np.dtype) -> np.dtype:
 # -- flat dict <-> npz -------------------------------------------------------
 
 
-def _mangle_key(prefix: str, dtype_name: str, stored: np.dtype) -> str:
-    """The npz member name of a leaf of logical dtype ``dtype_name``
-    stored as ``stored`` (``paddle_tpu.io._mangle_key``'s rule)."""
-    if dtype_name in _EXOTIC_DTYPES:
-        return f"{prefix}@{dtype_name}"
+def _mangle_key(prefix: str, dtype_name_: str) -> Tuple[str, np.dtype]:
+    """(npz member name, stored dtype) of a leaf of logical dtype
+    ``dtype_name_`` (``paddle_tpu.io._mangle_key``'s rule)."""
+    if dtype_name_ in _EXOTIC_DTYPES:
+        return f"{prefix}@{dtype_name_}", np.dtype(_EXOTIC_DTYPES[dtype_name_])
+    stored = np.dtype(dtype_name_)
     if (prefix.endswith("@raw")
             or any(prefix.endswith(f"@{dt}") and stored == enc
                    for dt, enc in _EXOTIC_DTYPES.items())):
         # an integer param literally named 'x@bfloat16' (or 'x@raw') is
         # escaped so load strips exactly one suffix
-        return f"{prefix}@raw"
-    return prefix
+        return f"{prefix}@raw", stored
+    return prefix, stored
 
 
-def _to_numpy(t) -> Tuple[str, np.ndarray]:
-    """(logical dtype name, storable numpy array) of a tensor/array."""
+def _logical_dtype(t) -> str:
+    if isinstance(t, torch.Tensor):
+        return dtype_name(t.dtype)
+    return np.asarray(t).dtype.name
+
+
+def _to_numpy(t) -> np.ndarray:
+    """The storable numpy array of a tensor/array (bfloat16 as uint16)."""
     if isinstance(t, torch.Tensor):
         t = t.detach().cpu()
         if t.dtype == torch.bfloat16:
-            return "bfloat16", t.view(torch.int16).numpy().view(np.uint16)
-        a = t.numpy()
-        return a.dtype.name, a
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
     a = np.asarray(t)
-    if a.dtype.name == "bfloat16":
-        return "bfloat16", a.view(np.uint16)
-    return a.dtype.name, a
+    return a.view(np.uint16) if a.dtype.name == "bfloat16" else a
 
 
 def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -102,13 +126,28 @@ def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
         for k, v in tree.items():
             out.update(_flatten(v, f"{prefix}{SEP}{k}" if prefix else str(k)))
     elif tree is not None:
-        name, a = _to_numpy(tree)
-        out[_mangle_key(prefix, name, a.dtype)] = a
+        out[_mangle_key(prefix, _logical_dtype(tree))[0]] = _to_numpy(tree)
+    return out
+
+
+def flat_spec(tree: Any, prefix: str = "") -> Dict[str, Dict[str, Any]]:
+    """The flat ``{npz key: {"shape": [...], "dtype": "..."}}`` spec
+    :func:`save_persistables` would record for ``tree``, from shapes and
+    dtypes only (no device-to-host copy), through the same key mangling."""
+    out: Dict[str, Dict[str, Any]] = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(flat_spec(v, f"{prefix}{SEP}{k}" if prefix else str(k)))
+    elif tree is not None:
+        shape = tree.shape if hasattr(tree, "shape") else np.asarray(tree).shape
+        key, stored = _mangle_key(prefix, _logical_dtype(tree))
+        out[key] = {"shape": list(shape), "dtype": str(stored)}
     return out
 
 
 def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
-    """npz members -> nested dict of CPU tensors (bfloat16 restored)."""
+    """npz members -> nested dict of CPU tensors (bfloat16 restored), each
+    a copy owning its memory."""
     out: Dict[str, Any] = {}
     for key, v in flat.items():
         t = None
@@ -129,14 +168,68 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
     return out
 
 
-def _load_npz(path: str) -> Dict[str, Any]:
-    if not os.path.exists(path):
-        return {}
-    with np.load(path, allow_pickle=False) as z:
+def _spec_of(flat: Dict[str, np.ndarray]) -> Dict[str, Dict[str, Any]]:
+    return {k: {"shape": list(v.shape), "dtype": str(v.dtype)} for k, v in flat.items()}
+
+
+# -- persistables ------------------------------------------------------------
+
+
+def save_persistables(dirname: str, params: Dict[str, Any],
+                      state: Optional[Dict[str, Any]] = None,
+                      opt_state: Optional[Dict[str, Any]] = None,
+                      meta: Optional[Dict[str, Any]] = None) -> Dict[str, Dict[str, Any]]:
+    """Save the persistable collections (save_persistables analog): tensors
+    (on any device) or numpy arrays. Returns the flat shape/dtype spec per
+    npz file, which ``save_trainer`` records in the manifest."""
+    os.makedirs(dirname, exist_ok=True)
+    spec: Dict[str, Dict[str, Any]] = {}
+    for name, tree in (("params.npz", params), ("state.npz", state),
+                       ("opt_state.npz", opt_state)):
+        if tree is None and name != "params.npz":
+            continue
+        flat = _flatten(tree)
+        np.savez(os.path.join(dirname, name), **flat)
+        spec[name] = _spec_of(flat)
+    with open(os.path.join(dirname, "meta.json"), "w") as f:
+        json.dump(meta or {}, f)
+    return spec
+
+
+def _load_collection(dirname: str, name: str) -> Optional[Dict[str, Any]]:
+    p = os.path.join(dirname, name)
+    if not os.path.exists(p):
+        return None
+    with np.load(p, allow_pickle=False) as z:
         return _unflatten({k: z[k] for k in z.files})
 
 
+def load_persistables(dirname: str) -> Tuple[Dict[str, Any], Dict[str, Any],
+                                             Optional[Dict[str, Any]], Dict[str, Any]]:
+    """Load (params, state, opt_state, meta) as CPU tensors
+    (load_persistables analog). A ZeRO checkpoint raises
+    :class:`NotYetPorted`."""
+    meta: Dict[str, Any] = {}
+    meta_path = os.path.join(dirname, "meta.json")
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+    if meta.get("zero"):
+        raise NotYetPorted(f"{dirname!r} is a ZeRO (shard-aware) checkpoint: ZeRO "
+                           "comes with ROADMAP queue 1, item 21")
+    params = _load_collection(dirname, "params.npz") or {}
+    state = _load_collection(dirname, "state.npz") or {}
+    opt_state = _load_collection(dirname, "opt_state.npz")
+    if opt_state is not None:
+        # a stateless optimizer's empty "global"/"accums" flatten to nothing
+        opt_state.setdefault("global", {})
+        opt_state.setdefault("accums", {})
+    return params, state, opt_state, meta
+
+
 def _fsync_tree(dirname: str) -> None:
+    """fsync every regular file in ``dirname`` and the directory: the
+    rename commits only what has reached the disk."""
     for name in os.listdir(dirname):
         p = os.path.join(dirname, name)
         if not os.path.isfile(p):
@@ -164,10 +257,199 @@ def _fsync_dir(dirname: str) -> None:
         os.close(fd)
 
 
+def save_trainer(dirname: str, trainer, extra_meta: Optional[Dict[str, Any]] = None) -> None:
+    """Checkpoint a Trainer: params, state, optimizer state and step
+    (CheckpointConfig/save_checkpoint analog).
+
+    Atomic and validated: the collections go to a ``<dirname>.tmp.<pid>``
+    sibling, are fsynced, covered by ``manifest.json`` and renamed into
+    place. A crash at any point (the ``save_trainer:*`` crash points)
+    leaves the previous committed checkpoint or the new one, never a torn
+    directory that :func:`load_trainer` trusts. ``extra_meta`` rides in
+    the meta (``fit`` stores epoch/epoch_step there)."""
+    meta = {"global_step": trainer.global_step,
+            # the mesh the checkpoint was written at: {} on one device, so
+            # a restore onto a mesh trips the reshard gate
+            "mesh_axes": resilience.trainer_mesh_axes(trainer) or {}}
+    if extra_meta:
+        meta.update(extra_meta)
+    path = os.path.abspath(dirname)
+    parent = os.path.dirname(path)
+    os.makedirs(parent, exist_ok=True)
+    # a prior process's torn save of this tag leaves <tag>.tmp.<pid>
+    resilience.sweep_tmp_dirs(parent, tag=os.path.basename(path))
+    tmp = f"{path}{TMP_MARKER}{os.getpid()}"
+    spec = save_persistables(tmp, trainer.scope.params, trainer.scope.state,
+                             trainer.scope.opt_state, meta=meta)
+    resilience.crash_point("save_trainer:files-written")
+    _fsync_tree(tmp)
+    resilience.write_manifest(tmp, meta=meta, arrays=spec)
+    resilience.crash_point("save_trainer:manifest-written")
+    if os.path.isdir(path):
+        # an overwritten tag vanishes before the rename (a rename onto a
+        # non-empty directory fails); older tags stay for the scanner
+        shutil.rmtree(path)
+    os.rename(tmp, path)
+    _fsync_dir(parent)
+
+
+def _to_device(tree, device: torch.device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def load_trainer(dirname: str, trainer, allow_reshard: bool = False) -> None:
+    """Restore a Trainer in place onto its device.
+
+    The directory is validated against its manifest first (CRC32 per
+    file, format version); a mismatch, or an npz that fails to parse,
+    raises :class:`CheckpointCorrupt`. Pre-manifest (legacy) directories
+    load without validation. A checkpoint recorded at other mesh axes than
+    the trainer's (a single device: none) raises
+    :class:`~paddle_tpu_torch.resilience.ReshardError` unless
+    ``allow_reshard``. A started trainer's params must match the
+    checkpoint's names, shapes and dtypes.
+
+    A ``Program`` trainer's params become fresh tensors on its device,
+    with ``requires_grad`` as ``startup`` sets it; an ``nn.Module``
+    trainer's params are written into the module (``load_params``) and
+    re-read from it, so the next step trains the restored values."""
+    if not allow_reshard:
+        man = resilience.read_manifest(dirname)  # None for legacy
+        saved = ((man or {}).get("meta") or {})
+        saved_axes = saved.get("mesh_axes")
+        target_axes = resilience.trainer_mesh_axes(trainer)
+        if saved_axes is not None and resilience.normalize_mesh_axes(saved_axes) \
+                != resilience.normalize_mesh_axes(target_axes):
+            raise resilience.ReshardError(
+                dirname, saved_axes, target_axes,
+                f"checkpoint was saved at mesh axes {saved_axes} but the target "
+                f"trainer runs {target_axes or 'a single device'} — restoring "
+                "across a mesh change is an elastic reshard (ROADMAP queue 1, "
+                "item 22)")
+        if resilience.normalize_mesh_axes(saved.get("zero_axes")):
+            raise resilience.ReshardError(
+                dirname, saved_axes, target_axes,
+                f"checkpoint zero_sharding axes {saved['zero_axes']} differ from "
+                "the target trainer's None — restoring across a ZeRO shard-layout "
+                "change is an elastic reshard (ROADMAP queue 1, item 22)")
+    manifest = resilience.validate_checkpoint(dirname)  # None for legacy
+    try:
+        params, state, opt_state, meta = load_persistables(dirname)
+    except NotYetPorted:
+        raise
+    except Exception as e:
+        raise CheckpointCorrupt(
+            dirname, f"unreadable collection: {type(e).__name__}: {e}") from e
+    if not params:
+        raise CheckpointCorrupt(dirname, "no parameters found (params.npz missing or empty)")
+    if manifest:
+        _check_arrays_spec(manifest, dirname, params=params, state=state,
+                           opt_state=opt_state)
+    _check_trainer_param_drift(dirname, trainer, params)
+    dev = trainer.device
+    if opt_state is not None:
+        # a stateless optimizer's per-param accums are empty dicts, which
+        # flatten to nothing on save
+        for k in params:
+            opt_state["accums"].setdefault(k, {})
+        opt_state = _to_device(opt_state, dev)
+        opt_state["step"] = opt_state["step"].to(torch.int32)
+    if trainer.is_program:
+        params = {k: v.to(dev).requires_grad_(v.is_floating_point())
+                  for k, v in params.items()}
+    else:
+        trainer.program.load_params(params)
+        params = trainer.program.flat_params()
+    trainer.scope.params = params
+    trainer.scope.state = _to_device(state, dev)
+    trainer.scope.opt_state = opt_state
+    trainer.global_step = int(meta.get("global_step", 0))
+    # fit(resume=True) reads epoch/epoch_step from here
+    trainer._last_loaded_meta = dict(meta)
+    if meta.get("loss_scale_state"):
+        warnings.warn(f"checkpoint {dirname!r} carries loss_scale_state but the "
+                      "trainer has no loss scaler — ignoring it (loss scaling comes "
+                      "with ROADMAP queue 1, item 11)")
+
+
+def _check_trainer_param_drift(dirname: str, trainer, params) -> None:
+    """Raise :class:`CheckpointCorrupt` when a started trainer's params
+    and the checkpoint's differ in names, shapes or dtypes (the model
+    config drifted since the save), instead of failing inside the next
+    step or training the wrong thing."""
+    have = trainer.scope.params
+    if not have:
+        return
+    want, got = flat_spec(have), flat_spec(params)
+    if set(want) != set(got):
+        missing = sorted(set(want) - set(got))[:3]
+        extra = sorted(set(got) - set(want))[:3]
+        raise CheckpointCorrupt(
+            dirname, f"checkpoint params diverge from the trainer's (missing: "
+            f"{missing}, unexpected: {extra}) — the model config drifted since "
+            "this checkpoint was written")
+    drift = {k: (got[k], want[k]) for k in want if got[k] != want[k]}
+    if drift:
+        k, (g, w) = sorted(drift.items())[0]
+        raise CheckpointCorrupt(
+            dirname, f"checkpoint param {k!r} is {g} but the trainer expects {w} "
+            f"({len(drift)} drifted entr{'y' if len(drift) == 1 else 'ies'} total) "
+            "— the model config drifted since this checkpoint was written")
+
+
+def _check_arrays_spec(manifest: Dict[str, Any], dirname: str, **collections) -> None:
+    """Hold the loaded collections to the manifest's flat shape/dtype spec
+    (CRC32 vouches for the bytes, this for the decoded structure)."""
+    spec = manifest.get("arrays") or {}
+    for coll, tree in collections.items():
+        fname = _COLLECTIONS[coll]
+        want = spec.get(fname)
+        if want is None or tree is None:
+            continue
+        got = flat_spec(tree)
+        if set(got) != set(want):
+            missing = sorted(set(want) - set(got))[:3]
+            extra = sorted(set(got) - set(want))[:3]
+            raise CheckpointCorrupt(
+                dirname, f"{fname} members diverge from manifest (missing: "
+                f"{missing}, unexpected: {extra})")
+        for k, w in want.items():
+            if got[k] != w:
+                raise CheckpointCorrupt(
+                    dirname, f"{fname}:{k} is {got[k]} on disk but the manifest "
+                    f"records {w}")
+
+
+def save_params(dirname: str, params, state=None, opt_state=None):
+    """save_params analog: the params (with state/opt_state when given)."""
+    save_persistables(dirname, params, state or {}, opt_state)
+
+
+def save_vars(dirname: str, vars: Dict[str, Any], filename=None):
+    """save_vars analog: an arbitrary name→tensor dict."""
+    save_persistables(dirname, dict(vars), {}, None)
+
+
+def load_params(dirname: str):
+    """load_params analog: the parameter dict (CPU tensors)."""
+    return load_persistables(dirname)[0]
+
+
+def load_vars(dirname: str):
+    """load_vars analog."""
+    return load_persistables(dirname)[0]
+
+
+# -- inference model ---------------------------------------------------------
+
+
 def _recover_renamed_aside(path: str) -> None:
     """A save that died between moving the old artifact aside and
     committing the new one leaves the only good copy at
-    ``<path>.tmp.<pid>.old``: put it back before anything else."""
+    ``<path>.tmp.<pid>.old``: put it back before the tmp sweep, whose
+    ``<tag>.tmp.*`` pattern would delete it."""
     if os.path.isdir(path):
         return
     parent = os.path.dirname(path) or "."
@@ -196,53 +478,112 @@ def _infer_batch_info(example_feed: Dict[str, Any]) -> Tuple[int, List[str]]:
     return batch, batched
 
 
-# -- export ------------------------------------------------------------------
+def _resolve(path: str):
+    """The object at import path ``module:qualname``."""
+    module, _, qualname = path.partition(":")
+    obj = importlib.import_module(module)
+    for part in qualname.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def _program_spec(program) -> Dict[str, Any]:
+    """How to rebuild a ``build`` Program: its function's import path, its
+    name, its layout and the compute dtype in force at export."""
+    from .framework import compute_dtype
+
+    fn = program.fn
+    path = f"{getattr(fn, '__module__', None)}:{getattr(fn, '__qualname__', '')}"
+    try:
+        found = _resolve(path)
+    except (ImportError, AttributeError):
+        found = None
+    enforce(found is fn,
+            f"save_inference_model: the program's function {path!r} cannot be "
+            "imported back by that path (a lambda or a nested function?): define "
+            "it at module level")
+    return {"program": path, "name": program.name, "layout": program.layout,
+            "compute_dtype": dtype_name(compute_dtype())}
+
+
+class _ProgramRunner:
+    """A ``build`` Program bound to its loaded weights, called as the GPT
+    programs are: ``runner(**feed) -> outputs``, through
+    ``Program.apply(training=False)`` under the export's compute dtype."""
+
+    def __init__(self, program, params, state, device: torch.device, compute_dtype: str):
+        self.program = program
+        self.params = _to_device(params, device)
+        self.state = _to_device(state, device)
+        self.device = device
+        self.compute_dtype = compute_dtype
+
+    def __call__(self, **feed):
+        from .framework import amp_guard
+
+        with amp_guard(self.compute_dtype):
+            out, _ = self.program.apply(self.params, self.state, training=False,
+                                        place=self.device, **feed)
+        return out
 
 
 def save_inference_model(dirname: str, program, params: Dict[str, Any],
                          state: Dict[str, Any], example_feed: Dict[str, Any],
                          batch_buckets: Optional[Sequence[int]] = None) -> None:
-    """Export ``program`` (a module with ``spec()``, e.g. a
-    ``models.gpt.make_generator`` program) with its weights as an
-    inference artifact. ``batch_buckets`` adds batch sizes the
-    :class:`Predictor` serves besides the example feed's own."""
-    enforce(callable(getattr(program, "spec", None)),
-            "save_inference_model: the program must have spec() "
-            "(a port program such as models.gpt.make_generator's)")
+    """Export ``program`` with its weights as an inference artifact: a
+    ``build`` Program (its function must be importable by path) or a
+    module with ``spec()`` (``models.gpt.make_generator``'s).
+    ``batch_buckets`` adds batch sizes the :class:`Predictor` serves
+    besides the example feed's own.
+
+    The commit is atomic and validated as ``save_trainer``'s, with
+    ``{"kind": "inference_model"}`` as the manifest's meta; overwriting
+    moves the committed artifact aside first, so a crash inside the
+    two-rename window leaves it recoverable."""
+    from .framework import Program
+
+    if isinstance(program, Program):
+        spec = _program_spec(program)
+    else:
+        enforce(callable(getattr(program, "spec", None)),
+                "save_inference_model: the program must be a build Program or "
+                "have spec() (as models.gpt.make_generator's)")
+        spec = program.spec()
     feed_names = sorted(example_feed)
     batch, batched_feeds = _infer_batch_info(example_feed)
     buckets = sorted(set(int(b) for b in (batch_buckets or [])) | {batch})
-    enforce(all(b > 0 for b in buckets),
-            f"batch_buckets must be positive, got {buckets}")
-    feeds = {}
+    enforce(all(b > 0 for b in buckets), f"batch_buckets must be positive, got {buckets}")
+    inputs = []
     for k in feed_names:
         v = np.asarray(example_feed[k])
-        feeds[k] = {"shape": list(v.shape),
-                    "dtype": _canonical_dtype(v.dtype).name}
-    meta = {"feed_names": feed_names, "batch_size": batch,
-            "batched_feeds": batched_feeds, "batch_buckets": buckets,
-            "feeds": feeds, **program.spec()}
+        inputs.append({"source": "feed", "name": k, "shape": list(v.shape),
+                       "dtype": _canonical_dtype(v.dtype).name})
+    meta = {"feed_names": feed_names, "inputs": inputs, "batch_size": batch,
+            "batched_feeds": batched_feeds, "batch_buckets": buckets, **spec}
 
     path = os.path.abspath(dirname)
     parent = os.path.dirname(path)
     os.makedirs(parent, exist_ok=True)
     _recover_renamed_aside(path)
+    resilience.sweep_tmp_dirs(parent, tag=os.path.basename(path))
     tmp = f"{path}{TMP_MARKER}{os.getpid()}"
-    if os.path.isdir(tmp):
-        shutil.rmtree(tmp)
     os.makedirs(tmp)
-    np.savez(os.path.join(tmp, "params.npz"), **_flatten(params))
-    np.savez(os.path.join(tmp, "state.npz"), **_flatten(state or {}))
+    arrays = {}
+    for name, tree in (("params.npz", params), ("state.npz", state or {})):
+        flat = _flatten(tree)
+        np.savez(os.path.join(tmp, name), **flat)
+        arrays[name] = _spec_of(flat)
     with open(os.path.join(tmp, "meta.json"), "w") as f:
         json.dump(meta, f)
+    resilience.crash_point("save_inference_model:files-written")
     _fsync_tree(tmp)
+    resilience.write_manifest(tmp, meta={"kind": "inference_model"}, arrays=arrays)
+    resilience.crash_point("save_inference_model:manifest-written")
     old = None
     if os.path.isdir(path):
-        # move the committed artifact aside (one rename) instead of
-        # deleting it first: a crash in the two-rename window leaves it
-        # recoverable (_recover_renamed_aside)
         old = f"{path}{TMP_MARKER}{os.getpid()}.old"
         os.rename(path, old)
+        resilience.crash_point("save_inference_model:committing")
     os.rename(tmp, path)
     _fsync_dir(parent)
     if old is not None:
@@ -255,21 +596,101 @@ def _builders():
 
 
 def load_inference_model(dirname: str, device=None) -> "Predictor":
-    """Rebuild the program recorded in ``dirname``, load its weights onto
-    ``device`` (the CUDA card by default) and warm every bucket once."""
+    """Validate the artifact in ``dirname`` against its manifest (a torn
+    or bit-flipped one raises :class:`CheckpointCorrupt`; a legacy one
+    without a manifest loads unvalidated), rebuild its program, load its
+    weights onto ``device`` (the CUDA card by default) and run every
+    bucket once."""
     dev = default_device(device, "load_inference_model")
-    with open(os.path.join(dirname, "meta.json")) as f:
-        meta = json.load(f)
-    builder = _builders().get(meta.get("builder"))
-    enforce(builder is not None,
-            f"load_inference_model: {dirname!r} records builder "
-            f"{meta.get('builder')!r}, which this port cannot rebuild")
-    program = builder(meta, device=dev)
-    program.load_params(_load_npz(os.path.join(dirname, "params.npz")))
-    return Predictor(program, meta["feed_names"], meta["feeds"],
-                     batch_size=meta["batch_size"],
-                     batched_feeds=meta["batched_feeds"],
+    manifest = resilience.validate_checkpoint(dirname)
+    meta = read_artifact_meta(dirname)["meta"]
+    try:
+        params, state, _, _ = load_persistables(dirname)
+        feeds = artifact_feed_spec(meta)
+    except NotYetPorted:
+        raise
+    except Exception as e:
+        raise CheckpointCorrupt(
+            dirname, f"unreadable artifact: {type(e).__name__}: {e}") from e
+    if manifest:
+        _check_arrays_spec(manifest, dirname, params=params, state=state)
+    if "program" in meta:
+        from .framework import build
+
+        program = build(_resolve(meta["program"]), name=meta["name"])
+        program.layout = meta["layout"]
+        program = _ProgramRunner(program, params, state, dev, meta["compute_dtype"])
+    else:
+        builder = _builders().get(meta.get("builder"))
+        enforce(builder is not None,
+                f"load_inference_model: {dirname!r} records no program this port "
+                f"can rebuild (builder {meta.get('builder')!r})")
+        program = builder(meta, device=dev)
+        program.load_params(params)
+    return Predictor(program, meta["feed_names"],
+                     {k: {"shape": list(s), "dtype": d.name} for k, (s, d) in feeds.items()},
+                     batch_size=meta["batch_size"], batched_feeds=meta["batched_feeds"],
                      batch_buckets=meta["batch_buckets"])
+
+
+def read_artifact_meta(dirname: str) -> Dict[str, Any]:
+    """The static metadata of a ``save_inference_model`` artifact: its
+    parsed ``meta.json`` and its manifest (read without the CRC pass). No
+    weights are read and nothing runs. Raises :class:`CheckpointCorrupt`
+    for a directory that is not a readable artifact. (The JAX package
+    also reports its per-bucket StableHLO files; the port exports none.)"""
+    if not os.path.isdir(dirname):
+        raise CheckpointCorrupt(dirname, "not a directory")
+    mpath = os.path.join(dirname, "meta.json")
+    if not os.path.exists(mpath):
+        raise CheckpointCorrupt(dirname, "no meta.json (not a save_inference_model "
+                                "artifact)")
+    try:
+        with open(mpath) as f:
+            meta = json.load(f)
+    except (OSError, ValueError) as e:
+        raise CheckpointCorrupt(dirname, f"unreadable meta.json: {e}") from e
+    return {"path": dirname, "meta": meta, "manifest": resilience.read_manifest(dirname)}
+
+
+def artifact_feed_spec(meta: Dict[str, Any],
+                       batch: Optional[int] = None) -> Dict[str, Tuple[Tuple[int, ...], Any]]:
+    """``{feed name: (shape, numpy dtype)}`` at bucket ``batch`` (default:
+    the export's own batch size), from an artifact's ``meta.json`` alone:
+    the spec :meth:`Predictor.feed_spec` gives."""
+    feeds = {e["name"]: e for e in meta.get("inputs", []) if e.get("source") == "feed"}
+    enforce(set(feeds) == set(meta.get("feed_names", [])),
+            f"artifact meta is inconsistent: inputs name feeds {sorted(feeds)} but "
+            f"feed_names is {meta.get('feed_names')}")
+    batch = int(meta["batch_size"]) if batch is None else int(batch)
+    batched = set(meta.get("batched_feeds", []))
+    out = {}
+    for k, e in feeds.items():
+        shape = tuple(int(d) for d in e["shape"])
+        if k in batched:
+            shape = (batch,) + shape[1:]
+        out[k] = (shape, np.dtype(str(e["dtype"])))
+    return out
+
+
+def artifact_fingerprint(dirname: str) -> Tuple[Dict[str, Any], str]:
+    """(manifest, token) of a committed artifact: the token is
+    ``<basename>-<crc32:08x>`` over the sorted ``name:crc:size`` lines of
+    the manifest's file table, so two hosts can agree an artifact is the
+    same without moving its bytes."""
+    path = os.path.abspath(dirname)
+    man = resilience.read_manifest(path)
+    enforce(man is not None, f"artifact_fingerprint: {dirname!r} has no manifest — "
+            "only committed save_inference_model dirs can be distributed")
+    lines = "\n".join(f"{name}:{spec['crc32']}:{spec['size']}"
+                      for name, spec in sorted(man["files"].items()))
+    crc = zlib.crc32(lines.encode()) & 0xFFFFFFFF
+    return man, f"{os.path.basename(path)}-{crc:08x}"
+
+
+def save_train_artifact(dirname: str, trainer, example_feed: Dict[str, Any]) -> None:
+    raise NotYetPorted("save_train_artifact: the native trainer's step artifact "
+                       "comes with ROADMAP queue 1, item 27")
 
 
 class Predictor:
@@ -417,5 +838,8 @@ def _block_on(out) -> None:
             return
 
 
-__all__ = ["InvalidRequest", "Predictor", "load_inference_model",
-           "save_inference_model"]
+__all__ = ["InvalidRequest", "Predictor", "artifact_feed_spec", "artifact_fingerprint",
+           "flat_spec", "load_inference_model", "load_params", "load_persistables",
+           "load_trainer", "load_vars", "read_artifact_meta", "save_inference_model",
+           "save_params", "save_persistables", "save_train_artifact", "save_trainer",
+           "save_vars"]

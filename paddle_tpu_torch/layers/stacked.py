@@ -10,7 +10,7 @@ Weights stay ``[in, out]``; the fused qkv weight stays ``[d, 3, d]``.
 Training runs :func:`apply_stacked` over :func:`make_encoder_block`
 sequentially, one Python loop over the layers in place of the JAX
 ``lax.scan``, with ``remat=True`` as per-layer
-``torch.utils.checkpoint``. Not carried yet, each raising
+``framework.maybe_remat``. Not carried yet, each raising
 :class:`NotYetPorted`: dropout in training, the sequence-parallel branch
 of ``_sdpa``, tensor-parallel psums and the int8 KV cache
 (``decode_block_q8``). ``apply_stacked``'s pipeline path is entered
@@ -25,10 +25,9 @@ from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..core.errors import NotYetPorted
-from ..framework import cast_compute
+from ..framework import cast_compute, maybe_remat
 from .. import initializer as init
 
 NEG_INF = -1e9
@@ -223,18 +222,18 @@ def apply_stacked(x, stacked: Dict[str, torch.Tensor], make_block: Callable,
                   training: bool = False):
     """Run a parameter stack ``{name: [L, ...]}`` over ``x``, layer by
     layer (the JAX package's sequential ``lax.scan``). ``remat=True``
-    checkpoints each layer (``torch.utils.checkpoint``, non-reentrant):
-    its activations are recomputed in the backward instead of kept."""
+    runs each layer under :func:`framework.maybe_remat`: its activations
+    are recomputed in the backward instead of kept, with the running
+    program's context (names, rng, layout) replayed."""
     block = make_block(num_heads=num_heads, use_flash=use_flash,
                        causal=causal, tp_axis=None, sp_cfg=None,
                        dropout_rate=dropout_rate, compute_dtype=compute_dtype,
                        training=training)
+    layer = maybe_remat(block, enabled=remat)
     num_layers = next(iter(stacked.values())).shape[0]
     for i in range(num_layers):
         lp = {name: t[i] for name, t in stacked.items()}
-        args = (x, lp) if extras is None else (x, lp, extras)
-        x = checkpoint(block, *args, use_reentrant=False) if remat \
-            else block(*args)
+        x = layer(x, lp) if extras is None else layer(x, lp, extras)
     return x
 
 

@@ -32,6 +32,7 @@ from paddle_tpu_torch import layers as tL
 from paddle_tpu_torch import regularizer as treg
 from paddle_tpu_torch.core.dtypes import dtype_name
 from paddle_tpu_torch.core.errors import NotYetPorted
+from paddle_tpu_torch.layers import stacked as S
 from paddle_tpu_torch.models import mnist as tmnist
 
 TOL = 1e-6
@@ -276,6 +277,60 @@ def test_maybe_remat_recomputes_with_the_same_params_and_grads():
     with pytest.raises(NotYetPorted):
         with F.remat_mode(True, policy="dots"):
             pass
+
+
+def _scaled_noise(t):
+    """A term that depends on the program's layout and on its rng."""
+    scale = 2.0 if F.current_layout() == "NHWC" else 1.0
+    return scale * tL.uniform_random([t.shape[-1]])
+
+
+def _remat_net(x, remat, route):
+    h = tL.fc(x, 6, act="tanh")
+    with F.rng_fold(3):
+        if route == "maybe_remat":
+            block = F.maybe_remat(lambda t: tL.fc(t, 6, act="tanh") * _scaled_noise(t),
+                                  enabled=remat)
+            h = block(h)
+        else:
+            w = F.create_parameter([2, 6, 6], name="stack_w")
+
+            def make_block(**kw):
+                return lambda t, p: torch.tanh(t @ p["w"]) * _scaled_noise(t)
+
+            h = S.apply_stacked(h, {"w": w}, make_block, remat=remat)
+    return {"loss": tL.mean(tL.fc(h, 1))}
+
+
+@pytest.mark.parametrize("route", ["maybe_remat", "apply_stacked"])
+def test_remat_recompute_sees_the_forward_layout_and_rng_on_another_thread(route):
+    """A remat'd block whose output depends on ``current_layout()`` and on
+    the rng inside ``rng_fold``, in a program built under
+    ``layout_mode("NHWC")``, runs its backward on another thread (where
+    the thread-local layout is unset and ``apply`` has long returned): its
+    grads equal those of the same block without remat, bit for bit."""
+    x = torch.randn(4, 5, generator=torch.Generator().manual_seed(0))
+    with F.layout_mode("NHWC"):
+        progs = {remat: tpt.build(lambda x, r=remat: _remat_net(x, r, route))
+                 for remat in (False, True)}
+    params, _ = progs[False].init(0, x)
+    grads, losses = {}, {}
+    for remat, prog in progs.items():
+        p = {k: v.clone().requires_grad_() for k, v in params.items()}
+        out, _ = prog.apply(p, {}, x, rng=5)
+        t = threading.Thread(target=out["loss"].backward)
+        t.start()
+        t.join(timeout=60)
+        assert not t.is_alive()
+        grads[remat] = {k: v.grad for k, v in p.items()}
+        losses[remat] = out["loss"].detach()
+    assert torch.equal(losses[True], losses[False])
+    for k in params:
+        torch.testing.assert_close(grads[True][k], grads[False][k], rtol=0, atol=0)
+    # the layout did reach the block: built under NCHW, the loss differs
+    nchw = tpt.build(lambda x: _remat_net(x, True, route))
+    assert not torch.equal(nchw.apply(params, {}, x, rng=5)[0]["loss"].detach(),
+                           losses[True])
 
 
 @pytest.mark.parametrize("call", ["desc", "desc_flat", "pipeline_mode", "sp_mode"])

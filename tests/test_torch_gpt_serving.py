@@ -179,7 +179,8 @@ def artifact(jax_side, tmp_path_factory):
 
 
 def test_save_load_inference_model_round_trip(jax_side, artifact):
-    assert sorted(os.listdir(artifact)) == ["meta.json", "params.npz", "state.npz"]
+    assert sorted(os.listdir(artifact)) == ["manifest.json", "meta.json", "params.npz",
+                                            "state.npz"]
     with open(os.path.join(artifact, "meta.json")) as f:
         meta = json.load(f)
     assert meta["builder"] == "models.gpt.make_generator"

@@ -17,7 +17,12 @@
 (d) ``fit`` gives the JAX package's event sequence, global steps and
     losses (relative 1e-5) over 2 epochs of a small reader.
 (e) Every fit/Trainer argument of a later slice raises NotYetPorted, and
-    fit will not prefetch for a trainer on the CPU."""
+    fit will not prefetch for a trainer on the CPU.
+(f) The single-device half of tests/test_e2e_mnist.py:84-107 with the JAX
+    package's keyword names: ``startup(rng=3, sample_feed=...)`` and
+    ``step(feed, rng=100 + i)`` give the positional calls' losses, and
+    ``Executor.startup(prog, rng=3, **feed)`` the positional call's
+    params; a given step rng replaces the derived one."""
 
 import numpy as np
 import pytest
@@ -31,6 +36,7 @@ from paddle_tpu.models import mnist as jmnist
 
 import paddle_tpu_torch as tpt
 from paddle_tpu_torch import data as tdata
+from paddle_tpu_torch import layers as tL
 from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch.core.errors import EnforceError, NotYetPorted
 from paddle_tpu_torch.framework import params_from_jax
@@ -155,11 +161,8 @@ def test_fit_gives_the_jax_events_steps_and_losses():
 
 
 FIT_LATER = {
-    "checkpoint_config": lambda tmp: object(),
-    "resume": lambda tmp: True,
     "elastic": lambda tmp: True,
     "resize": lambda tmp: str(tmp / "resize"),
-    "preemption": lambda tmp: True,
     "steps_per_dispatch": lambda tmp: 2,
     "feed_wire": lambda tmp: {"image": object()},
     "device_cache": lambda tmp: True,
@@ -216,3 +219,55 @@ def test_trainer_place_and_device_must_agree():
         tpt.Trainer(tpt.build(tmnist.mlp), topt.SGD(0.05), place=CPU, device="cuda")
     tr = tpt.Trainer(tpt.build(tmnist.mlp), topt.SGD(0.05), device="cpu")
     assert tr.place == tr.device == torch.device("cpu")
+
+
+def test_rng_keywords_give_the_positional_calls_losses():
+    sample = next(_feed_iter(batch_size=64))
+    runs = {}
+    for how in ("keyword", "positional"):
+        tr = tpt.Trainer(tpt.build(tmnist.mlp), topt.SGD(0.1), loss_name="loss", place=CPU)
+        if how == "keyword":
+            tr.startup(rng=3, sample_feed=sample)
+        else:
+            tr.startup(3, sample)
+        losses = []
+        for i, feed in enumerate(_feed_iter(batch_size=64)):
+            out = (tr.step(feed, rng=100 + i, span=f"s{i}") if how == "keyword"
+                   else tr.step(feed, 100 + i))
+            losses.append(float(out["loss"]))
+            if i >= 4:
+                break
+        runs[how] = losses
+    assert runs["keyword"] == runs["positional"]
+    assert runs["keyword"][-1] < runs["keyword"][0]
+    prog = tpt.build(tmnist.mlp)
+    by_kw = tpt.Executor(CPU).startup(prog, rng=3, **sample).params
+    by_pos = tpt.Executor(CPU).startup(prog, 3, **sample).params
+    assert sorted(by_kw) == [f"fc_{i}/{p}" for i in range(3) for p in ("b", "w")]
+    assert all(torch.equal(by_kw[k], by_pos[k]) for k in by_kw)
+
+
+def _noisy(x):
+    w = tpt.create_parameter([3], name="w", initializer=tpt.initializer.Constant(1.0))
+    return {"loss": tL.mean(x * w * tL.uniform_random([3]))}
+
+
+def test_step_rng_replaces_the_derived_seed():
+    """A program that draws from its rng: ``step(feed, rng=k)`` draws what
+    ``apply(..., rng=k)`` draws, and without ``rng`` the first step derives
+    its seed from (seed + 1, global_step 0) as before."""
+    from paddle_tpu_torch.core.config import get_flag
+    from paddle_tpu_torch.initializer import mix_seed
+
+    prog = tpt.build(_noisy)
+    x = np.ones((2, 3), np.float32)
+    derived_seed = mix_seed(get_flag("seed") + 1, 0)
+    want = {k: prog.apply({"w": torch.ones(3)}, {}, x, rng=k, place=CPU)[0]["loss"]
+            for k in (7, derived_seed)}
+    losses = {}
+    for rng in (7, None):
+        tr = tpt.Trainer(prog, topt.SGD(0.1), place=CPU).startup(0, {"x": x})
+        losses[rng] = tr.step({"x": x}, rng=rng)["loss"]
+    assert torch.equal(losses[7], want[7])
+    assert torch.equal(losses[None], want[derived_seed])
+    assert not torch.equal(losses[7], losses[None])

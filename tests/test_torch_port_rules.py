@@ -72,7 +72,8 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.regularizer", "paddle_tpu_torch.clip",
             "paddle_tpu_torch.lr_scheduler", "paddle_tpu_torch.data",
             "paddle_tpu_torch.data.reader", "paddle_tpu_torch.data.datasets",
-            "paddle_tpu_torch.data.feeder", "paddle_tpu_torch.models.mnist"]
+            "paddle_tpu_torch.data.feeder", "paddle_tpu_torch.models.mnist",
+            "paddle_tpu_torch.resilience"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -98,10 +99,14 @@ def _entry_points(tmp_path):
     art = str(tmp_path / "art")
     prompts = np.full((2, 4), 3, np.int32)
     decode.export_decoder(art, _tiny_cfg(), 2, prompts, device="cpu")
-    from paddle_tpu_torch import (Executor, Trainer, build, data, fit, framework, layers,
-                                  optimizer)
+    from paddle_tpu_torch import (Executor, Inferencer, Trainer, build, data, fit, framework,
+                                  layers, optimizer)
     from paddle_tpu_torch.models import mnist
     sample = {"image": np.zeros((2, 784), np.float32), "label": np.zeros((2, 1), np.int64)}
+    mlp_params = {k: np.zeros(v.shape, np.float32) for k, v in
+                  build(mnist.mlp).init(0, place="cpu", **sample)[0].items()}
+    mlp_art = str(tmp_path / "mlp")
+    tio.save_inference_model(mlp_art, build(mnist.mlp), mlp_params, {}, sample)
     reader = data.batch(data.datasets.mnist("train", synthetic_size=8), 4)
 
     def constant():  # no params, no inputs: nothing says where it runs
@@ -127,6 +132,8 @@ def _entry_points(tmp_path):
         "export_decoder": lambda: decode.export_decoder(
             str(tmp_path / "other"), _tiny_cfg(), 2, prompts),
         "load_inference_model": lambda: tio.load_inference_model(art),
+        "load_inference_model_program": lambda: tio.load_inference_model(mlp_art),
+        "Inferencer": lambda: Inferencer(mnist.mlp, params=mlp_params),
         "decode_server": lambda: decode.decode_server(art),
     }
 
@@ -136,7 +143,8 @@ def _entry_points(tmp_path):
                                    "decode_server", "make_model", "Trainer",
                                    "Executor", "Trainer_program", "fit", "Program.init",
                                    "Program.apply", "Program.apply_numpy",
-                                   "DeviceFeeder", "framework.params_from_jax"])
+                                   "DeviceFeeder", "framework.params_from_jax",
+                                   "load_inference_model_program", "Inferencer"])
 def test_entry_points_refuse_to_run_without_a_card(tmp_path, entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the entry points run on it")
