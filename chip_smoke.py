@@ -79,7 +79,28 @@ Phases, each reported on its own lines; any failure exits non-zero:
    ``load_inference_model``'d on the card: ``trainer.eval``'s outputs; a
    ``PredictorServer`` answers 64 requests (p50/p99 latency); a copy with
    one byte flipped raises ``CheckpointCorrupt``. Launch counts are
-   zeroed just before the phase and read just after it.
+   zeroed just before the phase and read just after it;
+10. ResNet-50 and mixed precision — (a) f32 ResNet-50 (depth 50, 1000
+   classes) at 64x64, batch 16, NHWC: 3 Momentum(1e-4, 0.9) steps card
+   against CPU from the same params (losses, step-1 grads of every param,
+   moving stats, the params' moves), with a second card run's spread, and
+   each card step's Momentum update held against its formula on the
+   card's own grads to f32 rounding; then the path a user drives,
+   with the launch counts zeroed before it and read after it (the conv
+   nets run no hand kernel): (b) bf16 NHWC ResNet-50 at bench.py
+   ``bench_resnet50``'s config (224x224, batch 64, Momentum(0.1, 0.9),
+   ``layout_mode`` + ``amp_guard``), 3 warm-up and 10 timed steps:
+   images/s, ms per step, peak memory, the losses; a profiled step's
+   device time, busy share, device operations and top ops, with no
+   NCHW<->NHWC transpose kernel; the step with and without a dynamic
+   loss scaler in turns, with each one's device time and operations; (c)
+   NCHW against NHWC
+   from the same params, the first losses and ms per step; (d)
+   ``mnist.conv_net`` at batch 64: a NaN batch skipped under loss scaling
+   (scale halved, params and moving stats bit-equal) and discarded by the
+   guard (one incident), ``fit`` to test accuracy above 0.9; (e) the (b)
+   trainer exported at buckets [1, 16] and served on the card against
+   ``trainer.eval``.
 
 The last lines are a JSON ``kernels`` record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -172,6 +193,50 @@ MNIST_LOSS_TOL, MNIST_PARAM_TOL, MNIST_PROFILED_STEPS = 1e-5, 1e-5, 10
 CKPT_STEPS, RESUMED_STEPS = 3, 2
 MNIST_CKPT_EPOCHS, MNIST_CKPT_INTERVAL, MNIST_SIGTERM_STEP = 2, 10, 45
 SERVE_BUCKETS, SERVE_REQUESTS = (1, 8, 128), 64
+
+
+# phase 10: ResNet-50 as bench.py bench_resnet50 trains it (depth 50, 1000
+# classes, 224x224, batch 64, NHWC, bf16 compute, Momentum(0.1, 0.9), 4 random
+# feeds from seed 0; 3 warm-up and 10 timed steps), 3 forward passes' FLOPs a
+# training image (:func:`_resnet_fwd_flops`, the JAX package's core/flops.py).
+# (a) f32 parity card against CPU at 64x64 images, batch 16, 3 steps of
+# Momentum(1e-4, 0.9). ResNet-50 at init on random data is ill-conditioned
+# (backprop through 53 batch norms amplifies rounding; measured on the CPU by
+# python3 -m paddle_tpu_torch.tools.resnet_conditioning): f32 against float64
+# step-1 grads differ
+# by up to 2.1e-2 relative L2 (a batch norm's bias), and
+# with lr 0.1 the step-3 moving stats by 37% of their max; with lr 1e-4 the
+# losses of steps 1-3 differ by 1.4e-6, 4.5e-4 and 5.7e-4 and the moving stats
+# after them by 1.7e-5, 1.3e-3 and 1.1e-2 of max. At batch 4 even the f32 step-1
+# grads of two CPU runs with 1 and 8 threads differ by 4% (1e-5 at batch 16):
+# hence batch 16 and lr 1e-4. Held: the step-1 loss at rel 1e-4 and the moving
+# stats after it at 1e-4 of max (the forward alone), the step-1 grads at 5e-2
+# relative L2 per param, the losses of steps 2-3 at 5e-3 and the moving stats
+# after step 3 at 5e-2 of max. The params' moves over the 3 steps, card against
+# CPU, at 0.4 relative L2 per param (the grads of steps 2-3 inherit the
+# conditioning: the worst param, a batch norm's bias, read 0.279-0.292 on five
+# runs on an H100); so each card step's update is also held against Momentum's
+# formula on that step's own grads and velocity in float64, element by element
+# within 2^-22 of the magnitudes it sums (two f32 roundings, 0.9 and lr as f32).
+# (c) NCHW against NHWC in bf16: the first losses at rel 2e-2 (each
+# conv rounds its bf16 output once, from sums in another order). (e) the served
+# logits against trainer.eval's at 1e-2 of their max (bf16; the same program
+# on the same shapes, so equal unless cuDNN picks another algorithm). (d)
+# mnist.conv_net at batch 64, Momentum(0.01, 0.9)
+RESNET = dict(depth=50, class_num=1000, image_size=224)
+RESNET_BATCH, RESNET_FEEDS, RESNET_WARMUP, RESNET_STEPS = 64, 4, 3, 10
+RESNET_LR, RESNET_MOMENTUM = 0.1, 0.9
+RESNET_PARITY_IMAGE, RESNET_PARITY_BATCH, RESNET_PARITY_STEPS = 64, 16, 3
+RESNET_PARITY_LR = 1e-4
+RESNET_LOSS1_TOL, RESNET_GRAD_TOL, RESNET_STATE1_TOL = 1e-4, 5e-2, 1e-4
+RESNET_LOSS_TOL, RESNET_STATE_TOL, RESNET_MOVE_TOL = 5e-3, 5e-2, 0.4
+RESNET_UPDATE_ULP = 2.0 ** -22
+RESNET_LAYOUT_TOL, RESNET_LAYOUT_STEPS, RESNET_SCALING_STEPS = 2e-2, 3, 6
+RESNET_INFER_BUCKETS, RESNET_INFER_TOL = (1, 16), 1e-2
+RESNET_TOP_OPS = 12
+CONVNET_BATCH, CONVNET_LR = 64, 0.01
+# cuDNN's layout transposes, and any other kernel named for a transpose
+TRANSPOSE_KERNELS = ("nchwToNhwc", "nhwcToNchw", "ranspose")
 
 
 class SmokeFailure(RuntimeError):
@@ -1591,6 +1656,498 @@ def mnist_serving(dev, seed, card_name, tmp):
           "persistence: a flipped byte was not refused")
 
 
+# -- phase 10: ResNet-50 and mixed precision ----------------------------------
+
+
+def _resnet_fwd_flops(image_size):
+    """Forward FLOPs of one ResNet-50 image (2 a multiply-add; the JAX
+    package's core/flops.py resnet_fwd_flops, 8.18 G at 224)."""
+    def conv(cin, cout, k, hw):
+        return 2.0 * k * k * cin * cout * hw * hw
+    s = image_size
+    f = conv(3, 64, 7, s // 2)
+    s //= 4
+    cin = 64
+    for stage, n in enumerate((3, 4, 6, 3)):
+        width = 64 * 2 ** stage
+        for b in range(n):
+            so = s // (1 if stage == 0 or b else 2)
+            f += conv(cin, width, 1, s) + conv(width, width, 3, so) + conv(width, 4 * width, 1, so)
+            if b == 0:
+                f += conv(cin, 4 * width, 1, so)
+            cin, s = 4 * width, so
+    return f + 2.0 * cin * RESNET["class_num"]
+
+
+def _resnet_feeds(rng, n, batch, size, fmt):
+    """bench_resnet50's feeds (bench.py:368-374): f32 randn images and
+    int64 labels in [0, 1000), image then label from one rng per feed."""
+    import numpy as np
+    shape = (batch, size, size, 3) if fmt == "NHWC" else (batch, 3, size, size)
+    return [{"image": rng.randn(*shape).astype(np.float32),
+             "label": rng.randint(0, RESNET["class_num"], (batch, 1)).astype(np.int64)}
+            for _ in range(n)]
+
+
+def _nchw(feed):
+    import numpy as np
+    return dict(feed, image=np.ascontiguousarray(feed["image"].transpose(0, 3, 1, 2)))
+
+
+def _resnet_trainer(dev, fmt, image_size=None, strategy=None, lr=RESNET_LR):
+    """bench_resnet50's program and optimizer: the model built under
+    ``layout_mode(fmt)`` with ``data_format=fmt``, Momentum(lr, 0.9)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import layout_mode
+    from paddle_tpu_torch.models import resnet
+    with layout_mode(fmt):
+        prog = pt.build(resnet.make_model(
+            depth=RESNET["depth"], class_num=RESNET["class_num"],
+            image_size=image_size or RESNET["image_size"], data_format=fmt))
+    return pt.Trainer(prog, pt.optimizer.Momentum(lr, RESNET_MOMENTUM),
+                      loss_name="loss", fetch_list=["loss"], place=dev, strategy=strategy)
+
+
+def _on_card(feeds, dev):
+    import torch
+    return [{k: torch.from_numpy(v).to(dev) for k, v in f.items()} for f in feeds]
+
+
+def _rel_l2(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+
+
+def _rel_max(a, b):
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
+
+
+def phase_resnet(dev, seed, card_name):
+    """(a) f32 parity card against CPU, then the path a user drives: (b)
+    the timed bf16 NHWC step at bench_resnet50's config, (c) NCHW against
+    NHWC, (d) loss scaling and the guard on mnist.conv_net, (e) the (b)
+    trainer exported and served; returns the hand kernels' launches
+    during (b)-(e)."""
+    import gc
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    resnet_parity(dev, seed, card_name)
+    with tempfile.TemporaryDirectory() as tmp, pt.amp_guard("bfloat16"):
+        _zero_launch_counts(fa)
+        # ---- the main path, as a user drives it
+        trainer, feeds = resnet_timed(dev, seed, card_name)
+        resnet_loss_scaling(dev, seed, card_name)
+        resnet_layouts(dev, seed, card_name)
+        convnet_scaling_and_guard(dev, seed, card_name)
+        resnet_inference(dev, trainer, feeds, card_name, tmp)
+        launches = _launch_counts(fa)
+        # ---- end of the main path
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"resnet: hand-kernel launches during the path {launches} (ResNet-50 and the "
+        "conv net run none)")
+    check(all(n == 0 for n in launches.values()), "resnet: a flash kernel launched")
+    return launches
+
+
+def resnet_parity(dev, seed, card_name):
+    """(a) f32 ResNet-50 (depth 50, 1000 classes) at 64x64 images, batch
+    16, NHWC: 3 Momentum(1e-4, 0.9) steps on the card and on the CPU from
+    the card's initial params; a second card run from the same params
+    gives the card's own spread. Each step of the first card run is held
+    against Momentum's formula on its own grads (:func:`_momentum_err`)."""
+    import numpy as np
+    import torch
+
+    feeds = _resnet_feeds(np.random.RandomState(seed), RESNET_PARITY_STEPS,
+                          RESNET_PARITY_BATCH, RESNET_PARITY_IMAGE, "NHWC")
+    runs, update_err = {}, []
+    t0 = time.perf_counter()
+    first = _resnet_trainer(dev, "NHWC", RESNET_PARITY_IMAGE, lr=RESNET_PARITY_LR).startup(
+        seed, feeds[0])
+    p0 = {k: v.detach().to("cpu", copy=True) for k, v in first.scope.params.items()}
+    for name, place, trainer in (("card", dev, first), ("card2", dev, None),
+                                 ("cpu", "cpu", None)):
+        trainer = trainer or _resnet_trainer(place, "NHWC", RESNET_PARITY_IMAGE,
+                                             lr=RESNET_PARITY_LR).startup(seed, feeds[0],
+                                                                          params=p0)
+        losses, grads, states = [], None, []
+        for i, f in enumerate(feeds):
+            before = _momentum_snapshot(trainer) if name == "card" else None
+            losses.append(float(trainer.step(f)["loss"]))
+            if before is not None:
+                update_err.append(_momentum_err(trainer, before, RESNET_PARITY_LR))
+            if i == 0:
+                grads = {k: p.grad.detach().cpu() for k, p in trainer.scope.params.items()}
+            states.append({k: v.detach().cpu() for k, v in trainer.scope.state.items()})
+        moved = {k: v.detach().cpu() - p0[k] for k, v in trainer.scope.params.items()}
+        runs[name] = (losses, grads, states, moved)
+        del trainer
+    del first
+    secs = time.perf_counter() - t0
+    (lc, gc_, sc, mc), (l2, g2, s2, m2), (lh, gh, sh, mh) = (runs["card"], runs["card2"],
+                                                           runs["cpu"])
+    moved_rel = {k: _rel_l2(mc[k], mh[k]) for k in mh}
+    moved_worst = max(moved_rel, key=moved_rel.get)
+    moved_all = _rel_l2(torch.cat([mc[k].flatten() for k in mh]),
+                        torch.cat([mh[k].flatten() for k in mh]))
+    moved_card = max(_rel_l2(mc[k], m2[k]) for k in m2)
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(lc, lh)]
+    grad_rel = {k: _rel_l2(gc_[k], gh[k]) for k in gh}
+    worst = max(grad_rel, key=grad_rel.get)
+    state_rel = [max(_rel_max(a[k], b[k]) for k in b) for a, b in zip(sc, sh)]
+    spread = (lc == l2 and all(torch.equal(gc_[k], g2[k]) for k in g2)
+              and all(torch.equal(a[k], b[k]) for a, b in zip(sc, s2) for k in b))
+    card_spread = ("bit-identical" if spread else
+                   f"losses rel {[f'{abs(a - b) / abs(b):.3g}' for a, b in zip(lc, l2)]}, "
+                   f"step-1 grads rel L2 up to {max(_rel_l2(gc_[k], g2[k]) for k in g2):.3g} "
+                   f"({max(g2, key=lambda k: _rel_l2(gc_[k], g2[k]))})")
+    say(f"resnet parity f32 ({card_name}): depth {RESNET['depth']}, {RESNET['class_num']} "
+        f"classes, {RESNET_PARITY_IMAGE}x{RESNET_PARITY_IMAGE} NHWC, b={RESNET_PARITY_BATCH}, "
+        f"{RESNET_PARITY_STEPS} Momentum({RESNET_PARITY_LR}, {RESNET_MOMENTUM}) steps in "
+        f"{secs:.1f} "
+        f"s: losses card {lc} cpu {lh}, rel {[f'{r:.3g}' for r in loss_rel]} (tol "
+        f"{RESNET_LOSS1_TOL} at step 1, then {RESNET_LOSS_TOL}); step-1 grads of {len(gh)} "
+        f"params rel L2 up to {grad_rel[worst]:.3g} ({worst}; tol {RESNET_GRAD_TOL}); moving "
+        f"stats after each step up to {[f'{r:.3g}' for r in state_rel]} of max (tol "
+        f"{RESNET_STATE1_TOL} after step 1, {RESNET_STATE_TOL} after step "
+        f"{RESNET_PARITY_STEPS}); the params' moves over the {RESNET_PARITY_STEPS} steps rel "
+        f"L2 up to {moved_rel[moved_worst]:.3g} ({moved_worst}; tol {RESNET_MOVE_TOL}), "
+        f"{moved_all:.3g} over all params; each card step's Momentum update against its "
+        f"formula: velocity and params within {[f'{v:.3g}/{q:.3g}' for v, q in update_err]} of "
+        f"the f32 rounding bound; two card runs: {card_spread}, moves rel L2 up to "
+        f"{moved_card:.3g}")
+    check(all(np.isfinite(lc)), "resnet parity: a loss is not finite")
+    check(loss_rel[0] <= RESNET_LOSS1_TOL and max(loss_rel) <= RESNET_LOSS_TOL,
+          "resnet parity: losses differ card against CPU")
+    check(grad_rel[worst] <= RESNET_GRAD_TOL, "resnet parity: grads differ card against CPU")
+    check(state_rel[0] <= RESNET_STATE1_TOL and state_rel[-1] <= RESNET_STATE_TOL,
+          "resnet parity: moving stats differ card against CPU")
+    check(moved_rel[moved_worst] <= RESNET_MOVE_TOL,
+          "resnet parity: the params' moves differ card against CPU")
+    check(len(update_err) == RESNET_PARITY_STEPS and all(max(e) <= 1.0 for e in update_err),
+          "resnet parity: a card step's Momentum update is not its formula")
+
+
+def _momentum_snapshot(trainer):
+    """{name: (param, velocity)} copies before a step."""
+    acc = trainer.scope.opt_state["accums"]
+    return {k: (p.detach().clone(), acc[k]["velocity"].clone())
+            for k, p in trainer.scope.params.items()}
+
+
+def _momentum_err(trainer, before, lr):
+    """The step just taken against Momentum's formula in float64 on its own
+    grads: v = 0.9·v_prev + g, p = p_prev − lr·v. Returns the worst
+    |error| / (RESNET_UPDATE_ULP · the magnitudes summed) of the velocity
+    and of the params; at most 1 where each is its formula rounded to f32."""
+    acc = trainer.scope.opt_state["accums"]
+    worst_v = worst_p = 0.0
+    for k, p in trainer.scope.params.items():
+        p_prev, v_prev = (t.double() for t in before[k])
+        g, v, p_new = p.grad.double(), acc[k]["velocity"].double(), p.detach().double()
+        bound_v = RESNET_UPDATE_ULP * (RESNET_MOMENTUM * v_prev.abs() + g.abs()) + 1e-30
+        worst_v = max(worst_v, float(((v - (RESNET_MOMENTUM * v_prev + g)).abs()
+                                      / bound_v).max()))
+        bound_p = RESNET_UPDATE_ULP * (p_prev.abs() + lr * v.abs()) + 1e-30
+        worst_p = max(worst_p, float(((p_new - (p_prev - lr * v)).abs() / bound_p).max()))
+    return worst_v, worst_p
+
+
+# kernel families of a profiled ResNet step, by name (the first match wins)
+RESNET_FAMILIES = (
+    ("layout transposes", TRANSPOSE_KERNELS),
+    ("convs and matmuls", ("xmma", "cutlass", "cudnn", "nvjet", "gemm", "conv")),
+    ("reductions", ("reduce_kernel",)),
+    ("copies and casts", ("copy", "Memcpy", "Memset")),
+    ("pooling", ("pool",)),
+    ("elementwise", ("elementwise",)))
+
+
+def _resnet_profile(trainer, feed):
+    """One profiled step: (wall ms, device us, device ops, rows of (us,
+    calls, kernel), the layout-transpose kernels by name, device us by
+    kernel family)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step(feed)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_us, n_ops, rows, transposes = 0.0, 0, [], {}
+    families = dict.fromkeys([f for f, _ in RESNET_FAMILIES] + ["other"], 0.0)
+    for evt in prof.key_averages():
+        # a record_function range shows a second time as a device event; on
+        # this host-bound step its span includes the device's idle gaps
+        if evt.key.startswith("trainer.") or evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        device_us += evt.self_device_time_total
+        n_ops += evt.count
+        rows.append((evt.self_device_time_total, evt.count, evt.key))
+        if any(t in evt.key for t in TRANSPOSE_KERNELS):
+            transposes[evt.key[:90]] = evt.count
+        family = next((f for f, keys in RESNET_FAMILIES if any(k in evt.key for k in keys)),
+                      "other")
+        families[family] += evt.self_device_time_total
+    return wall_ms, device_us, n_ops, sorted(rows, reverse=True), transposes, families
+
+
+def resnet_timed(dev, seed, card_name):
+    """(b) bf16 NHWC ResNet-50 at bench_resnet50's config: 3 warm-up and
+    10 timed steps fed as numpy (the trainer copies each batch to the
+    card), then 10 on feeds already on the card, and one profiled step."""
+    import numpy as np
+    import torch
+
+    feeds = _resnet_feeds(np.random.RandomState(0), RESNET_FEEDS, RESNET_BATCH,
+                          RESNET["image_size"], "NHWC")
+    t0 = time.perf_counter()
+    trainer = _resnet_trainer(dev, "NHWC").startup(seed, feeds[0])
+    startup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in trainer.scope.params.values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(RESNET_WARMUP + RESNET_STEPS):
+        if i == RESNET_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(trainer.step(feeds[i % RESNET_FEEDS])["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    staged = _on_card(feeds, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(RESNET_STEPS):
+        losses.append(trainer.step(staged[i % RESNET_FEEDS])["loss"])
+    torch.cuda.synchronize()
+    wall_staged = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(x) for x in losses]
+    ms, ms_staged = wall / RESNET_STEPS * 1e3, wall_staged / RESNET_STEPS * 1e3
+    tflop = 3 * _resnet_fwd_flops(RESNET["image_size"]) * RESNET_BATCH / 1e12
+    say(f"resnet bf16 NHWC ({card_name}): depth {RESNET['depth']}, {RESNET['image_size']}x"
+        f"{RESNET['image_size']}, b={RESNET_BATCH}, Momentum({RESNET_LR}, {RESNET_MOMENTUM}), "
+        f"{n_params} params, startup {startup_s:.2f} s; {RESNET_WARMUP} warm-up + "
+        f"{RESNET_STEPS} timed steps fed as numpy: {RESNET_BATCH / wall * RESNET_STEPS:.1f} "
+        f"images/s, {ms:.2f} ms per step; {RESNET_STEPS} steps on feeds already on the card: "
+        f"{RESNET_BATCH / wall_staged * RESNET_STEPS:.1f} images/s, {ms_staged:.2f} ms per "
+        f"step ({tflop:.3f} TFLOP a step, {tflop / ms_staged * 1e3:.1f} TFLOP/s); peak memory "
+        f"{peak_gb:.3f} GB")
+    say("resnet losses per step: " + " ".join(f"{x:.5f}" for x in losses))
+    check(all(np.isfinite(losses)), "resnet: a loss is not finite")
+    wall_ms, device_us, n_ops, rows, transposes, families = _resnet_profile(trainer,
+                                                                            staged[0])
+    if device_us == 0:
+        say("resnet breakdown: not measured (the profiler saw no device time)")
+    else:
+        say(f"resnet breakdown ({card_name}), one profiled step on the card's feed: "
+            f"{device_us / 1e3:.2f} ms of device time in a {wall_ms:.2f} ms step, device busy "
+            f"{100 * device_us / 1e3 / wall_ms:.1f}%, {n_ops} device operations; by kernel "
+            f"family "
+            + ", ".join(f"{k} {v / 1e3:.2f} ms ({100 * v / device_us:.1f}%)"
+                        for k, v in families.items())
+            + f"; NCHW<->NHWC transpose kernels: {sum(transposes.values())} {transposes}")
+        for us, calls, key in rows[:RESNET_TOP_OPS]:
+            say(f"  resnet top op {us / 1e3:8.3f} ms {100 * us / device_us:5.1f}% "
+                f"{calls:5d} calls  {key[:120]}")
+    check(device_us > 0, "resnet: the profiler saw no device time, so the transposes "
+          "cannot be counted")
+    check(not transposes, f"resnet: layout transposes ran in the NHWC step: {transposes}")
+    return trainer, feeds
+
+
+def resnet_loss_scaling(dev, seed, card_name):
+    """The mixed-precision layer's cost on the ResNet-50 step: the (b)
+    config without a loss scaler and under DistStrategy(dynamic_loss_scale=
+    True, loss_scale=1024), from the same params on feeds already on the
+    card, in turns (a, b, b, a, twice; the median turn of each, as the
+    host's step time jumps by tens of ms between turns), and each one's
+    profiled step. bf16 does not overflow at that scale: the scale stays
+    and the first losses agree at the bf16 tolerance of (c)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+
+    feeds = _on_card(_resnet_feeds(np.random.RandomState(0), RESNET_FEEDS, RESNET_BATCH,
+                                   RESNET["image_size"], "NHWC"), dev)
+    strat = pt.DistStrategy(dynamic_loss_scale=True, loss_scale=1024.0)
+    trainers = {"no scaler": _resnet_trainer(dev, "NHWC"),
+                "dynamic scaler": _resnet_trainer(dev, "NHWC", strategy=strat)}
+    first = {}
+    for name, tr in trainers.items():
+        tr.startup(seed, feeds[0])
+        first[name] = float(tr.step(feeds[0])["loss"])
+        for i in range(1, RESNET_WARMUP):
+            tr.step(feeds[i % RESNET_FEEDS])
+    times = {k: [] for k in trainers}
+    order = (list(trainers) + list(trainers)[::-1]) * 2
+    for name in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(RESNET_SCALING_STEPS):
+            trainers[name].step(feeds[i % RESNET_FEEDS])
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) / RESNET_SCALING_STEPS * 1e3)
+    profiles = {k: _resnet_profile(tr, feeds[0])[1:3] for k, tr in trainers.items()}
+    ls = trainers["dynamic scaler"].scope.loss_scale_state
+    scale, overflows = float(ls["scale"]), int(ls["overflows"])
+    rel = abs(first["dynamic scaler"] - first["no scaler"]) / abs(first["no scaler"])
+    say(f"resnet loss scaling ({card_name}), bf16 NHWC b={RESNET_BATCH}, ms per step in turns "
+        f"{order}, {RESNET_SCALING_STEPS} steps each: "
+        + "; ".join(f"{k} {[round(t, 2) for t in v]} (median {np.median(v):.2f}; profiled step "
+                    f"{profiles[k][0] / 1e3:.2f} ms of device time, {profiles[k][1]} device "
+                    f"operations)" for k, v in times.items())
+        + f"; first losses {first}, rel {rel:.3g} (tol {RESNET_LAYOUT_TOL}); scale {scale}, "
+        f"overflows {overflows}")
+    check(rel <= RESNET_LAYOUT_TOL, "resnet loss scaling: the first losses differ")
+    check(scale == 1024.0 and overflows == 0, "resnet loss scaling: a bf16 step overflowed")
+    del trainers
+
+
+def resnet_layouts(dev, seed, card_name):
+    """(c) NCHW against NHWC at the full config from the same params: the
+    first step's losses agree, and ms per step of each (in turns)."""
+    import numpy as np
+    import torch
+
+    feeds_h = _resnet_feeds(np.random.RandomState(0), RESNET_FEEDS, RESNET_BATCH,
+                            RESNET["image_size"], "NHWC")
+    staged = {"NHWC": _on_card(feeds_h, dev), "NCHW": _on_card([_nchw(f) for f in feeds_h], dev)}
+    trainers = {fmt: _resnet_trainer(dev, fmt).startup(seed, staged[fmt][0])
+                for fmt in ("NHWC", "NCHW")}
+    check(all(torch.equal(trainers["NHWC"].scope.params[k], p)
+              for k, p in trainers["NCHW"].scope.params.items()),
+          "resnet layouts: the two trainers start from different params")
+    first = {fmt: float(tr.step(staged[fmt][0])["loss"]) for fmt, tr in trainers.items()}
+    rel = abs(first["NCHW"] - first["NHWC"]) / abs(first["NHWC"])
+    times = {fmt: [] for fmt in trainers}
+    for fmt in ("NHWC", "NCHW", "NCHW", "NHWC"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(RESNET_LAYOUT_STEPS):
+            trainers[fmt].step(staged[fmt][(i + 1) % RESNET_FEEDS])
+        torch.cuda.synchronize()
+        times[fmt].append((time.perf_counter() - t0) / RESNET_LAYOUT_STEPS * 1e3)
+    nchw_t = _resnet_profile(trainers["NCHW"], staged["NCHW"][0])
+    say(f"resnet NCHW vs NHWC ({card_name}), bf16 b={RESNET_BATCH}: first-step losses "
+        f"NHWC {first['NHWC']:.5f} NCHW {first['NCHW']:.5f}, rel {rel:.3g} (tol "
+        f"{RESNET_LAYOUT_TOL}); ms per step in turns (NHWC, NCHW, NCHW, NHWC), "
+        f"{RESNET_LAYOUT_STEPS} steps each: NHWC {[round(t, 2) for t in times['NHWC']]}, NCHW "
+        f"{[round(t, 2) for t in times['NCHW']]}; the NCHW step profiled: "
+        f"{nchw_t[1] / 1e3:.2f} ms of device time, {nchw_t[2]} device operations, transpose "
+        f"kernels {sum(nchw_t[4].values())}")
+    check(rel <= RESNET_LAYOUT_TOL, "resnet layouts: NCHW and NHWC losses differ")
+    del trainers
+
+
+def convnet_scaling_and_guard(dev, seed, card_name):
+    """(d) mnist.conv_net at batch 64 in bf16: under dynamic loss scaling a
+    NaN batch is skipped (the scale halves, params and moving stats stay
+    bit-equal, the next clean step moves them); under GuardPolicy() a NaN
+    batch is discarded with one Incident; fit over one epoch of synthetic
+    MNIST reaches test accuracy above 0.9; LossScaler.all_finite on the
+    card flags a single NaN or Inf."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import data
+    from paddle_tpu_torch.amp import LossScaler
+    from paddle_tpu_torch.models import mnist
+
+    reader = data.batch(data.shuffle(data.datasets.mnist("train"), 512, seed=0),
+                        CONVNET_BATCH)
+    feed = data.DataFeeder(["image", "label"]).feed(next(iter(reader())))
+    bad = dict(feed, image=np.full_like(feed["image"], np.nan))
+
+    def trainer(**kw):
+        return pt.Trainer(pt.build(mnist.conv_net), pt.optimizer.Momentum(CONVNET_LR, 0.9),
+                          loss_name="loss", place=dev, **kw).startup(seed, feed)
+
+    def snap(tr):
+        return ({k: v.detach().clone() for k, v in tr.scope.params.items()},
+                {k: v.clone() for k, v in tr.scope.state.items()})
+
+    def same(a, b):
+        return all(torch.equal(a[i][k], b[i][k]) for i in range(2) for k in a[i])
+
+    scaled = trainer(strategy=pt.DistStrategy(dynamic_loss_scale=True, loss_scale=1024.0))
+    scaled.step(feed)
+    before = snap(scaled)
+    skipped = scaled.step(bad)
+    kept = same(before, snap(scaled))
+    moved_after = scaled.step(feed)
+    moved = not same(before, snap(scaled))
+    guarded = trainer(guard=pt.GuardPolicy())
+    guarded.step(feed)
+    before_g = snap(guarded)
+    guarded.step(bad)
+    guarded.drain_guard()
+    kept_g = same(before_g, snap(guarded))
+    incidents = list(guarded.guard_incidents)
+    t0 = time.perf_counter()
+    fitted = trainer()
+    pt.fit(fitted, reader, 1, ["image", "label"])
+    fit_s = time.perf_counter() - t0
+    accs = [fitted.eval(data.DataFeeder(["image", "label"]).feed(s))["acc"]
+            for s in data.batch(data.datasets.mnist("test"), 256)()]
+    acc = float(torch.stack(accs).mean())
+    probes = {}
+    for name, value in (("clean", None), ("nan", float("nan")), ("inf", float("inf"))):
+        grads = [torch.randn(257, device=dev), torch.randn(33, 5, device=dev).bfloat16()]
+        if value is not None:
+            grads[0][100] = value
+            grads[1][7, 3] = value
+        probes[name] = bool(LossScaler.all_finite(grads))
+    say(f"conv_net bf16 b={CONVNET_BATCH} ({card_name}): dynamic loss scale 1024, a NaN batch: "
+        f"loss_scale {float(skipped['loss_scale'])} (want 512), params and moving stats "
+        f"bit-equal {kept}, the next clean step moves them {moved} (loss "
+        f"{float(moved_after['loss']):.5f}); GuardPolicy(): a NaN batch leaves them bit-equal "
+        f"{kept_g}, incidents {[str(i) for i in incidents]}; fit over one epoch of synthetic "
+        f"MNIST ({fitted.global_step} steps, Momentum({CONVNET_LR}, 0.9), prefetch) in "
+        f"{fit_s:.2f} s: test accuracy {acc:.4f} (want > 0.9); all_finite on the card "
+        f"{probes}")
+    check(float(skipped["loss_scale"]) == 512.0 and kept and moved,
+          "conv_net: the loss scaler did not skip the NaN batch cleanly")
+    check(kept_g and len(incidents) == 1, "conv_net: the guard did not discard the NaN batch")
+    check(acc > 0.9, "conv_net: test accuracy not above 0.9")
+    check(probes == {"clean": True, "nan": False, "inf": False},
+          f"conv_net: all_finite on the card gave {probes}")
+
+
+def resnet_inference(dev, trainer, feeds, card_name, tmp):
+    """(e) The (b) trainer exported at buckets RESNET_INFER_BUCKETS and
+    loaded on the card: its outputs against trainer.eval's at b=16."""
+    import torch
+    import paddle_tpu_torch as pt
+
+    rows = {k: v[:RESNET_INFER_BUCKETS[-1]] for k, v in feeds[1].items()}
+    d = os.path.join(tmp, "resnet50")
+    t0 = time.perf_counter()
+    pt.io.save_inference_model(d, trainer.program, trainer.scope.params, trainer.scope.state,
+                               rows, batch_buckets=RESNET_INFER_BUCKETS)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred = pt.io.load_inference_model(d, device=dev)
+    load_s = time.perf_counter() - t0
+    got, want = pred.run(rows), trainer.eval(rows)
+    err = _rel_max(got["logits"], want["logits"])
+    exact = torch.equal(got["logits"], want["logits"])
+    meta = pt.io.read_artifact_meta(d)["meta"]
+    say(f"resnet inference ({card_name}): save_inference_model at buckets "
+        f"{list(RESNET_INFER_BUCKETS)} {save_s:.3f} s, load_inference_model on {dev} "
+        f"{load_s:.3f} s (layout {meta['layout']}, compute {meta['compute_dtype']}); "
+        f"Predictor.run against trainer.eval at b={RESNET_INFER_BUCKETS[-1]}: logits max abs "
+        f"{err:.3g} of max|logits| (tol {RESNET_INFER_TOL}), bit-equal {exact}")
+    check(meta["layout"] == "NHWC" and meta["compute_dtype"] == "bfloat16",
+          "resnet inference: the artifact lost its layout or compute dtype")
+    check(err <= RESNET_INFER_TOL, "resnet inference: served logits differ from trainer.eval's")
+
+
 # -- the run ------------------------------------------------------------------
 
 
@@ -1680,6 +2237,10 @@ def main(argv=None) -> int:
     persisted = phase_persistence(dev, args.seed, smi)
     done("phase 9")
 
+    # 10. ResNet-50 and mixed precision (launch counts zeroed inside)
+    resnet_launches = phase_resnet(dev, args.seed, smi)
+    done("phase 10")
+
     # the kernels record: each kernel's row at the training path's shape,
     # launches summed over the main paths it runs on
     fwd_row = rows["train_qkv_b8"]
@@ -1690,7 +2251,8 @@ def main(argv=None) -> int:
         "launches": served["flash_fwd"] + trained["flash_fwd"] + persisted["flash_fwd"],
         "launches_by_path": {"served": served["flash_fwd"],
                              "training": trained["flash_fwd"],
-                             "persistence": persisted["flash_fwd"]},
+                             "persistence": persisted["flash_fwd"],
+                             "resnet": resnet_launches["flash_fwd"]},
         "max_abs_err": fwd_row["max_abs_err"], "ms": fwd_row["ms"],
         "plain_ms": fwd_row["plain_ms"], "bound_ms": fwd_row["bound_ms"],
         "bound_by": fwd_row["bound_by"], "library_ms": fwd_row["library_ms"],
@@ -1707,7 +2269,8 @@ def main(argv=None) -> int:
             "replaces": f"paddle_tpu/ops/flash_attention.py:{line}",
             "launches": served[name] + trained[name] + persisted[name],
             "launches_by_path": {"served": served[name], "training": trained[name],
-                                 "persistence": persisted[name]},
+                                 "persistence": persisted[name],
+                                 "resnet": resnet_launches[name]},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -15,8 +15,9 @@ card they raise :class:`paddle_tpu_torch.core.place.NoCudaDevice`.
 
 __version__ = "0.1.0"
 
-from . import clip, core, data, framework, initializer, io, layers, lr_scheduler  # noqa: E402
-from . import metrics, models, optimizer, regularizer, resilience  # noqa: E402
+from . import amp, clip, core, data, framework, initializer, io, layers  # noqa: E402
+from . import lr_scheduler, metrics, models, nets, optimizer, parallel  # noqa: E402
+from . import quantize, regularizer, resilience  # noqa: E402
 from .core.config import enable_determinism, get_flag  # noqa: E402
 from .core.place import CPUPlace, CUDAPlace  # noqa: E402
 from .executor import (CheckpointConfig, Event, Executor, Inferencer, Scope,  # noqa: E402
@@ -35,18 +36,20 @@ from .framework import (  # noqa: E402
     name_scope,
     program_guard,
 )
+from .parallel import DistStrategy  # noqa: E402
+from .resilience import GuardPolicy  # noqa: E402
 
 # honour PDTPU_DETERMINISTIC=1, as the JAX package does at import
 if get_flag("deterministic"):
     enable_determinism()
 
 __all__ = [
-    "CPUPlace", "CUDAPlace", "CheckpointConfig", "Event", "Executor", "Inferencer",
-    "LayerHelper",
-    "ParamAttr", "Program", "Scope", "Trainer", "WeightNormParamAttr", "amp_guard",
+    "CPUPlace", "CUDAPlace", "CheckpointConfig", "DistStrategy", "Event", "Executor",
+    "GuardPolicy", "Inferencer", "LayerHelper",
+    "ParamAttr", "Program", "Scope", "Trainer", "WeightNormParamAttr", "amp", "amp_guard",
     "build", "clip", "create_parameter", "create_variable", "data",
     "default_main_program", "default_startup_program", "enable_determinism", "fit",
-    "framework", "global_scope", "initializer", "io", "layers", "lr_scheduler", "metrics",
-    "models", "name_scope", "optimizer", "program_guard", "regularizer", "resilience",
-    "scope_guard",
+    "framework", "global_scope", "initializer", "io", "layers",
+    "lr_scheduler", "metrics", "models", "name_scope", "nets", "optimizer", "parallel",
+    "program_guard", "quantize", "regularizer", "resilience", "scope_guard",
 ]

@@ -537,8 +537,9 @@ _layout_mode = threading.local()
 @contextlib.contextmanager
 def layout_mode(data_format: str = "NHWC"):
     """Image-layout switch: conv/pool/BN layers whose ``data_format`` is
-    left unspecified follow it (``channels_last`` on the card comes with
-    the conv slice). Inside a running program it sets the program run's
+    left unspecified follow it. Under "NHWC" images are logically
+    ``[b, H, W, C]`` and reach cuDNN as channels-last views (see
+    ``layers.nn``). Inside a running program it sets the program run's
     layout (its context's); outside, this thread's default for programs
     built in the block."""
     enforce(data_format in ("NCHW", "NHWC"), f"layout_mode({data_format!r})")

@@ -107,3 +107,77 @@ class Xavier(Initializer):
             return Uniform(-limit, limit)(generator, shape, dtype)
         std = math.sqrt(2.0 / (fi + fo))
         return Normal(0.0, std)(generator, shape, dtype)
+
+
+class TruncatedNormal(Initializer):
+    """A standard normal truncated to [-2, 2], then ``loc + scale·x``, as
+    ``jax.random.truncated_normal`` draws it (here by inverting the CDF
+    at uniform draws between the bounds' CDF values)."""
+
+    def __init__(self, loc: float = 0.0, scale: float = 1.0):
+        self.loc, self.scale = loc, scale
+
+    def __call__(self, generator, shape, dtype):
+        lo, hi = (0.5 * (1.0 + math.erf(b / math.sqrt(2.0))) for b in (-2.0, 2.0))
+        u = torch.empty(tuple(shape), dtype=torch.float64, device=generator.device)
+        u.uniform_(lo, hi, generator=generator)
+        x = (torch.special.ndtri(u).clamp(-2.0, 2.0) * self.scale + self.loc)
+        return x.to(convert_dtype(dtype))
+
+
+class MSRA(Initializer):
+    """He/Kaiming init (initializer.py MSRAInitializer): uniform within
+    ±sqrt(6/fan_in), or normal with std sqrt(2/fan_in)."""
+
+    def __init__(self, uniform: bool = True, fan_in: Optional[int] = None):
+        self.uniform, self.fan_in = uniform, fan_in
+
+    def __call__(self, generator, shape, dtype):
+        fi, _ = _fan_in_out(shape)
+        fi = self.fan_in or fi
+        if self.uniform:
+            limit = math.sqrt(6.0 / fi)
+            return Uniform(-limit, limit)(generator, shape, dtype)
+        return Normal(0.0, math.sqrt(2.0 / fi))(generator, shape, dtype)
+
+
+class Bilinear(Initializer):
+    """Bilinear upsampling filter for a transposed conv (initializer.py
+    BilinearInitializer): every [out, in] slice of the 4-D filter holds
+    the same bilinear kernel. Draws nothing."""
+
+    def __call__(self, generator, shape, dtype):
+        if len(shape) != 4:
+            raise ValueError("Bilinear initializer expects a 4-D filter shape")
+        weight = np.zeros(shape, dtype=np.float32)
+        kh, kw = shape[2], shape[3]
+        f_h, f_w = math.ceil(kh / 2.0), math.ceil(kw / 2.0)
+        c_h, c_w = (2 * f_h - 1 - f_h % 2) / (2.0 * f_h), (2 * f_w - 1 - f_w % 2) / (2.0 * f_w)
+        for i in range(kh):
+            for j in range(kw):
+                weight[:, :, i, j] = (1 - abs(i / f_h - c_h)) * (1 - abs(j / f_w - c_w))
+        return torch.from_numpy(weight).to(generator.device, convert_dtype(dtype))
+
+
+class NumpyArrayInitializer(Initializer):
+    """The given array, cast to the parameter's dtype; its shape must be
+    the parameter's."""
+
+    def __init__(self, value: np.ndarray):
+        self.value = np.asarray(value)
+
+    def __call__(self, generator, shape, dtype):
+        if tuple(self.value.shape) != tuple(shape):
+            raise ValueError(f"NumpyArrayInitializer shape {self.value.shape} != {shape}")
+        return torch.from_numpy(np.array(self.value)).to(generator.device,
+                                                         convert_dtype(dtype))
+
+
+# fluid-style aliases
+ConstantInitializer = Constant
+UniformInitializer = Uniform
+NormalInitializer = Normal
+TruncatedNormalInitializer = TruncatedNormal
+XavierInitializer = Xavier
+MSRAInitializer = MSRA
+BilinearInitializer = Bilinear

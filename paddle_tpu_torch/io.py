@@ -15,16 +15,19 @@ into place; the loaders validate the manifest and raise
 bit-flipped directory. Loaded leaves are CPU tensors, copied out of the
 npz reader.
 
+A trainer's loss-scale state rides in the meta (``loss_scale_state``) and
+is restored across config drift with the JAX package's warnings.
+
 An inference artifact records its program instead of an exported graph: a
 ``build`` Program by the import path of its function
-(``paddle_tpu_torch.models.mnist:mlp``) with its layout and compute dtype,
+(``paddle_tpu_torch.models.mnist:mlp``), or of the factory that made it
+with the factory's arguments (a function with ``factory_spec``, as
+``models.resnet.make_model`` returns), with its layout and compute dtype;
 a GPT generator by its builder and arguments (``spec()``). The loader
 rebuilds the program from there. Not carried yet, each raising
 :class:`NotYetPorted`: an exported graph per bucket (``torch.export``
 cannot trace a kernel called through ctypes; ROADMAP queue 1, item 9),
-``save_train_artifact`` (item 27), ZeRO and orbax checkpoints (item 21)
-and the loss-scale restore (item 11: a checkpoint that carries
-``loss_scale_state`` loads with a warning).
+``save_train_artifact`` (item 27) and ZeRO and orbax checkpoints (item 21).
 """
 
 from __future__ import annotations
@@ -271,6 +274,9 @@ def save_trainer(dirname: str, trainer, extra_meta: Optional[Dict[str, Any]] = N
             # the mesh the checkpoint was written at: {} on one device, so
             # a restore onto a mesh trips the reshard gate
             "mesh_axes": resilience.trainer_mesh_axes(trainer) or {}}
+    ls = trainer.scope.loss_scale_state
+    if ls:
+        meta["loss_scale_state"] = {k: float(v) for k, v in ls.items()}
     if extra_meta:
         meta.update(extra_meta)
     path = os.path.abspath(dirname)
@@ -368,10 +374,42 @@ def load_trainer(dirname: str, trainer, allow_reshard: bool = False) -> None:
     trainer.global_step = int(meta.get("global_step", 0))
     # fit(resume=True) reads epoch/epoch_step from here
     trainer._last_loaded_meta = dict(meta)
-    if meta.get("loss_scale_state"):
-        warnings.warn(f"checkpoint {dirname!r} carries loss_scale_state but the "
-                      "trainer has no loss scaler — ignoring it (loss scaling comes "
-                      "with ROADMAP queue 1, item 11)")
+    _restore_loss_scale(trainer, meta, dirname)
+
+
+def _restore_loss_scale(trainer, meta: Dict[str, Any], dirname: str) -> None:
+    """The loss-scale state across drift between the checkpoint and the
+    trainer (io.py:800): a checkpoint without it restored into a
+    scaler-running trainer (or the other way round), or with fields
+    missing, warns and falls back to the scaler's initial values."""
+    ls_meta = meta.get("loss_scale_state")
+    if trainer.loss_scaler is None:
+        if ls_meta:
+            warnings.warn(
+                f"checkpoint {dirname!r} carries loss_scale_state but the trainer "
+                "has no loss scaler — ignoring it (configure DistStrategy.loss_scale "
+                "to adopt it)")
+        return
+    init = trainer.loss_scaler.init_state()
+    if not ls_meta:
+        warnings.warn(
+            f"checkpoint {dirname!r} has no loss_scale_state but the trainer runs a "
+            "loss scaler — falling back to the scaler's initial state (scale will "
+            "re-calibrate)")
+        ls_meta = {}
+    missing = {"scale", "good_steps", "overflows"} - set(ls_meta)
+    if ls_meta and missing:
+        warnings.warn(
+            f"checkpoint {dirname!r} loss_scale_state is missing {sorted(missing)} — "
+            "those fields fall back to the scaler's initial values")
+    dev = trainer.device
+    trainer.scope.loss_scale_state = {
+        "scale": torch.tensor(float(ls_meta.get("scale", float(init["scale"]))),
+                              dtype=torch.float32, device=dev),
+        "good_steps": torch.tensor(int(ls_meta.get("good_steps", int(init["good_steps"]))),
+                                   dtype=torch.int32, device=dev),
+        "overflows": torch.tensor(int(ls_meta.get("overflows", int(init["overflows"]))),
+                                  dtype=torch.int32, device=dev)}
 
 
 def _check_trainer_param_drift(dirname: str, trainer, params) -> None:
@@ -488,11 +526,18 @@ def _resolve(path: str):
 
 
 def _program_spec(program) -> Dict[str, Any]:
-    """How to rebuild a ``build`` Program: its function's import path, its
+    """How to rebuild a ``build`` Program: its function's import path (or
+    its ``factory_spec``: a factory's import path and arguments), its
     name, its layout and the compute dtype in force at export."""
     from .framework import compute_dtype
 
     fn = program.fn
+    factory = getattr(fn, "factory_spec", None)
+    if factory is not None:
+        _resolve(factory["factory"])  # importable, or the export fails now
+        return {"program_factory": factory["factory"],
+                "program_kwargs": dict(factory["kwargs"]), "name": program.name,
+                "layout": program.layout, "compute_dtype": dtype_name(compute_dtype())}
     path = f"{getattr(fn, '__module__', None)}:{getattr(fn, '__qualname__', '')}"
     try:
         found = _resolve(path)
@@ -614,10 +659,12 @@ def load_inference_model(dirname: str, device=None) -> "Predictor":
             dirname, f"unreadable artifact: {type(e).__name__}: {e}") from e
     if manifest:
         _check_arrays_spec(manifest, dirname, params=params, state=state)
-    if "program" in meta:
+    if "program" in meta or "program_factory" in meta:
         from .framework import build
 
-        program = build(_resolve(meta["program"]), name=meta["name"])
+        fn = (_resolve(meta["program"]) if "program" in meta
+              else _resolve(meta["program_factory"])(**meta["program_kwargs"]))
+        program = build(fn, name=meta["name"])
         program.layout = meta["layout"]
         program = _ProgramRunner(program, params, state, dev, meta["compute_dtype"])
     else:

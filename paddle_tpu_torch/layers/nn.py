@@ -1,6 +1,7 @@
 """Neural-network layers (counterpart of ``paddle_tpu.layers.nn``): ``fc``,
 ``mean``, ``softmax``/``log_softmax``, ``softmax_with_cross_entropy`` and
-``cross_entropy``, with ``embedding`` and ``layer_norm`` for GPT.
+``cross_entropy``, ``conv2d``, ``pool2d`` and ``batch_norm`` with
+``to_chw_order``, and ``embedding`` and ``layer_norm`` for GPT.
 
 ``fc`` creates its parameters through ``LayerHelper`` inside a program,
 under the JAX package's names (``fc_0/w``, ``fc_0/b``; ``w_0``, ``w_1``
@@ -8,18 +9,35 @@ under the JAX package's names (``fc_0/w``, ``fc_0/b``; ``w_0``, ``w_1``
 operands to the program's compute dtype. ``embedding`` and ``layer_norm``
 keep the GPT slice's form, the params passed in by the caller; their
 ``LayerHelper`` forms come with the Transformer/BERT slice.
+
+The image layers take ``data_format=None`` as the program's layout
+(:func:`framework.current_layout`: NCHW, or NHWC under ``layout_mode``).
+An NHWC tensor is logically ``[b, H, W, C]``, as in the JAX package; it
+reaches cuDNN as ``x.permute(0, 3, 1, 2)``, an NCHW-shaped view with
+channels-last strides, and the result is permuted back, so no image is
+copied into another layout. Conv weights are OIHW in both layouts.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import torch
+import torch.nn.functional as F
 
 from .. import initializer as init
-from ..framework import LayerHelper, cast_compute, compute_dtype
+from ..core.errors import enforce
+from ..framework import (LayerHelper, cast_compute, compute_dtype, current_layout,
+                         in_training)
+from ..quantize import refuse_int8
 from .ops import apply_activation
+
+Int2 = Union[int, Sequence[int]]
+
+
+def _pair(v: Int2) -> tuple:
+    return tuple(v) if isinstance(v, (list, tuple)) else (v, v)
 
 
 def fc(input, size: int, num_flatten_dims: int = 1, param_attr=None, bias_attr=None,
@@ -29,6 +47,7 @@ def fc(input, size: int, num_flatten_dims: int = 1, param_attr=None, bias_attr=N
     Flattens trailing dims from ``num_flatten_dims`` on and multiplies by
     a [flattened_in, size] weight. A list of inputs gets one weight each
     and their products are summed; ``bias_attr=False`` drops the bias."""
+    refuse_int8("fc")
     helper = LayerHelper("fc", name=name)
     inputs = input if isinstance(input, (list, tuple)) else [input]
     cd = compute_dtype()
@@ -47,6 +66,174 @@ def fc(input, size: int, num_flatten_dims: int = 1, param_attr=None, bias_attr=N
                                     attr=bias_attr, initializer=init.Constant(0.0))
         out = out + b.to(out.dtype)
     return apply_activation(out, act)
+
+
+# ---------------------------------------------------------------------------
+# convolution, pooling and batch norm
+# ---------------------------------------------------------------------------
+
+
+def _to_nchw(x: torch.Tensor, data_format: str) -> torch.Tensor:
+    # an NHWC tensor as an NCHW-shaped view (channels-last strides): no copy
+    return x.permute(0, 3, 1, 2) if data_format == "NHWC" else x
+
+
+def _from_nchw(x: torch.Tensor, data_format: str) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1) if data_format == "NHWC" else x
+
+
+def conv2d(input, num_filters: int, filter_size: Int2, stride: Int2 = 1,
+           padding: Int2 = 0, dilation: Int2 = 1, groups: int = 1, param_attr=None,
+           bias_attr=None, act: Optional[str] = None, data_format: Optional[str] = None,
+           name: Optional[str] = None, use_cudnn: bool = True):
+    """2-D convolution (layers/nn.py:174; conv_op.cc analog) through
+    cuDNN (``F.conv2d``). The weight is OIHW ``[num_filters, in_c/groups,
+    kh, kw]`` in both layouts, drawn from ``MSRA(uniform=False)``; the
+    padding is symmetric. Operands are cast to the compute dtype and the
+    output stays in it (cuDNN accumulates a bf16 conv in f32, as the TPU's
+    MXU does). In NHWC the weight goes in as channels-last, cast and laid
+    out in one copy, so cuDNN runs its NHWC kernels with no transpose of
+    its own. ``use_cudnn`` is accepted and ignored."""
+    refuse_int8("conv2d")
+    data_format = current_layout(data_format)
+    helper = LayerHelper("conv2d", name=name)
+    fs, st, pd, dl = _pair(filter_size), _pair(stride), _pair(padding), _pair(dilation)
+    in_c = input.shape[1 if data_format == "NCHW" else 3]
+    enforce(in_c % groups == 0, "input channels %d not divisible by groups %d", in_c, groups)
+    w = helper.create_parameter("w", shape=(num_filters, in_c // groups, fs[0], fs[1]),
+                                dtype=torch.float32, attr=param_attr,
+                                initializer=init.MSRA(uniform=False))
+    cd = compute_dtype()
+    x = _to_nchw(cast_compute(cd, input), data_format)
+    if data_format == "NHWC":
+        # one copy that casts and lays out; an OIHW weight made cuDNN copy
+        # each weight again, 33 copies more on a ResNet-50 step (PERF.md, PR 7)
+        w = w.to(cd, memory_format=torch.channels_last)
+    else:
+        w = cast_compute(cd, w)
+    out = _from_nchw(F.conv2d(x, w, stride=st, padding=pd, dilation=dl, groups=groups),
+                     data_format)
+    if bias_attr is not False:
+        b = helper.create_parameter("b", shape=(num_filters,), dtype=torch.float32,
+                                    attr=bias_attr, initializer=init.Constant(0.0))
+        bshape = (1, num_filters, 1, 1) if data_format == "NCHW" else (1, 1, 1, num_filters)
+        out = out + b.to(out.dtype).reshape(bshape)
+    return apply_activation(out, act)
+
+
+def pool2d(input, pool_size: Int2 = 2, pool_type: str = "max", pool_stride: Int2 = 1,
+           pool_padding: Int2 = 0, global_pooling: bool = False, ceil_mode: bool = False,
+           exclusive: bool = True, data_format: Optional[str] = None, name=None,
+           use_cudnn: bool = True):
+    """2-D max or average pooling (layers/nn.py:323; pool_op.cc analog),
+    with the JAX package's windows:
+
+    - ``ceil_mode`` pads on the right by ``pad + (out_ceil − out_floor)·
+      stride``, so every window that starts inside the padded input is
+      kept; PyTorch's ``ceil_mode`` drops a window that starts in the
+      right padding, so that case pads by hand and pools unpadded;
+    - max pads with −inf; an average divides by the count of unpadded
+      cells when ``exclusive`` and the input is padded, else by the whole
+      window;
+    - ``global_pooling`` takes the whole image as one window.
+
+    Where a max window ties, the gradient goes to the first maximal cell
+    in row-major order, as JAX's ``select_and_scatter`` routes it."""
+    data_format = current_layout(data_format)
+    enforce(pool_type in ("max", "avg"), f"pool_type must be 'max' or 'avg', got {pool_type}")
+    x = _to_nchw(input, data_format)
+    if global_pooling:
+        ps, st, pd = tuple(x.shape[2:]), tuple(x.shape[2:]), (0, 0)
+    else:
+        ps, st, pd = _pair(pool_size), _pair(pool_stride), _pair(pool_padding)
+    hi = list(pd)
+    if ceil_mode:
+        for i in range(2):
+            span = x.shape[2 + i] + 2 * pd[i] - ps[i]
+            hi[i] = pd[i] + (-(-span // st[i]) - span // st[i]) * st[i]
+    padded = any(pd) or hi != list(pd)
+    if hi == list(pd) and all(2 * p <= k for p, k in zip(pd, ps)):
+        # PyTorch's own symmetric padding gives the same windows
+        if pool_type == "max":
+            out = F.max_pool2d(x, ps, st, pd)
+        else:
+            out = F.avg_pool2d(x, ps, st, pd, count_include_pad=not (exclusive and padded))
+        return _from_nchw(out, data_format)
+    pads = (pd[1], hi[1], pd[0], hi[0])
+    if pool_type == "max":
+        out = F.max_pool2d(F.pad(x, pads, value=float("-inf")), ps, st)
+        return _from_nchw(out, data_format)
+    total = F.avg_pool2d(F.pad(x, pads), ps, st, divisor_override=1)
+    if exclusive and padded:
+        count = F.avg_pool2d(F.pad(torch.ones_like(x[:1, :1]), pads), ps, st,
+                             divisor_override=1)
+        out = total / count
+    else:
+        out = total / math.prod(ps)
+    return _from_nchw(out, data_format)
+
+
+def batch_norm(input, act: Optional[str] = None, is_test: Optional[bool] = None,
+               momentum: float = 0.9, epsilon: float = 1e-5, param_attr=None,
+               bias_attr=None, data_layout: Optional[str] = None, name: Optional[str] = None,
+               moving_mean_name=None, moving_variance_name=None,
+               use_global_stats: bool = False):
+    """Batch normalization (layers/nn.py:394; batch_norm_op analog), the
+    JAX package's formula written out (not ``F.batch_norm``, whose running
+    update weighs the batch by the momentum and takes the unbiased
+    variance):
+
+    - in training, the batch statistics in f32: ``E[x]`` and
+      ``E[x²] − E[x]²`` clamped at 0; the moving stats (f32 program state,
+      no grad) become ``momentum·old + (1 − momentum)·batch`` with that
+      biased variance;
+    - otherwise (``is_test``, or ``is_test=None`` outside training, or
+      ``use_global_stats``) the moving stats;
+    - the output ``x·inv + shift``, with ``inv`` and ``shift`` cast to
+      x's dtype (two roundings under bf16), then ``act``.
+
+    ``scale`` and ``bias`` are created in x's dtype (bf16 params under
+    amp). The backward is autograd through this formula."""
+    data_layout = current_layout(data_layout)
+    helper = LayerHelper("batch_norm", name=name)
+    c_axis = 1 if data_layout == "NCHW" else input.dim() - 1
+    c = input.shape[c_axis]
+    red_axes = tuple(a for a in range(input.dim()) if a != c_axis)
+    bshape = [1] * input.dim()
+    bshape[c_axis] = c
+    scale = helper.create_parameter("scale", (c,), input.dtype, attr=param_attr,
+                                    initializer=init.Constant(1.0))
+    bias = helper.create_parameter("bias", (c,), input.dtype, attr=bias_attr,
+                                   initializer=init.Constant(0.0))
+    moving_mean = helper.create_variable("moving_mean", (c,), torch.float32,
+                                         initializer=init.Constant(0.0))
+    moving_var = helper.create_variable("moving_variance", (c,), torch.float32,
+                                        initializer=init.Constant(1.0))
+    training = in_training() if is_test is None else not is_test
+    if training and not use_global_stats:
+        x32 = input.float()
+        mean = x32.mean(dim=red_axes)
+        var = (x32.square().mean(dim=red_axes) - mean.square()).clamp_min(0.0)
+        with torch.no_grad():
+            helper.assign_variable("moving_mean",
+                                   momentum * moving_mean + (1 - momentum) * mean)
+            helper.assign_variable("moving_variance",
+                                   momentum * moving_var + (1 - momentum) * var)
+    else:
+        mean, var = moving_mean, moving_var
+    inv = torch.rsqrt(var + epsilon) * scale.float()
+    shift = bias.float() - mean * inv
+    out = input * inv.reshape(bshape).to(input.dtype) + shift.reshape(bshape).to(input.dtype)
+    return apply_activation(out, act)
+
+
+def to_chw_order(x):
+    """The feature order at a conv → fc boundary: under NHWC an image
+    tensor goes back to [b, C, H, W], so a flatten and fc see the C, H, W
+    order that NCHW weights expect; identity otherwise."""
+    if current_layout() == "NHWC" and x.dim() == 4:
+        return x.permute(0, 3, 1, 2)
+    return x
 
 
 def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -145,5 +332,6 @@ def mean(x, name=None):
     return torch.mean(x if torch.is_floating_point(x) else x.float())
 
 
-__all__ = ["cross_entropy", "embedding", "fc", "layer_norm", "log_softmax", "mean",
-           "softmax", "softmax_with_cross_entropy", "take_rows"]
+__all__ = ["batch_norm", "conv2d", "cross_entropy", "embedding", "fc", "layer_norm",
+           "log_softmax", "mean", "pool2d", "softmax", "softmax_with_cross_entropy",
+           "take_rows", "to_chw_order"]

@@ -1,5 +1,5 @@
 """Optimizers (counterpart of ``paddle_tpu.optimizer``): the base class,
-SGD, Adam and AdamW.
+SGD, Momentum, Adam and AdamW.
 
 Each optimizer is the JAX package's pure transform over dicts of tensors
 keyed by parameter name: ``init(params) -> opt_state`` builds the
@@ -14,8 +14,8 @@ math runs in f32 and each new param is cast back to its param's dtype.
 ``Trainer.step`` writes the new values into the parameters in place.
 
 Not carried yet: a reduced ``state_dtype`` (raises :class:`NotYetPorted`);
-Momentum comes with the ResNet slice, Adagrad and the rest with the
-slices whose models use them.
+LarsMomentum, Adagrad and the rest come with the slices whose models use
+them.
 """
 
 from __future__ import annotations
@@ -147,6 +147,26 @@ class SGD(Optimizer):
         return p.float() - lr * g, acc
 
 
+class Momentum(Optimizer):
+    """MomentumOptimizer (optimizer.py:184; momentum_op): an f32
+    ``velocity`` per param, ``v = momentum·v + g``, then ``p −= lr·v``, or
+    ``p −= lr·(g + momentum·v)`` with ``use_nesterov``."""
+
+    def __init__(self, learning_rate, momentum: float = 0.9, use_nesterov: bool = False,
+                 **kw):
+        super().__init__(learning_rate, **kw)
+        self.momentum = momentum
+        self.use_nesterov = use_nesterov
+
+    def _create_accumulators(self, p):
+        return {"velocity": torch.zeros(p.shape, dtype=torch.float32, device=p.device)}
+
+    def _apply_dense(self, lr, p, g, acc, state):
+        v = self.momentum * acc["velocity"] + g
+        step = g + self.momentum * v if self.use_nesterov else v
+        return p.float() - lr * step, {"velocity": v}
+
+
 class Adam(Optimizer):
     """AdamOptimizer (optimizer.py:248): bias correction through the
     global beta1^t / beta2^t accumulators, as in the reference."""
@@ -192,4 +212,4 @@ class AdamW(Adam):
         return p2 - lr * self.weight_decay * p.float(), nacc
 
 
-__all__ = ["Adam", "AdamW", "Optimizer", "SGD"]
+__all__ = ["Adam", "AdamW", "Momentum", "Optimizer", "SGD"]

@@ -19,12 +19,15 @@ the manifest half of ``paddle_tpu.resilience``).
   ``fit`` checkpoints at the next step boundary and returns.
 - **Fault injection** (:func:`crash_point`): named crash points in the
   save paths let tests kill a save at an exact phase.
+- **The NaN/Inf guard's policy** (:class:`GuardPolicy`, :class:`Incident`,
+  :func:`escalate_if_needed`, :func:`record_incident`): ``Trainer(guard=)``
+  discards a non-finite step on the device and records an incident here.
 
 Not carried yet, each raising :class:`NotYetPorted`: elastic restores
 (``restore_latest(elastic=True)``, :func:`reshard_restore`,
 :class:`ResizeRequest`; ROADMAP queue 1 item 22), the CRC-framed segment
 log of the telemetry store (:func:`frame_record` and its siblings; item
-24) and the NaN/Inf guard policy (item 11). A single-device trainer
+24; an incident is logged, not journaled, until then). A single-device trainer
 records ``mesh_axes`` as ``{}``; a checkpoint saved on a mesh raises
 :class:`ReshardError` at load.
 """
@@ -38,6 +41,7 @@ import os
 import shutil
 import signal
 import threading
+import time
 import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -401,8 +405,111 @@ class PreemptionHandler:
         return False
 
 
-__all__ = ["CheckpointCorrupt", "CheckpointInfo", "InjectedCrash", "MANIFEST_NAME",
-           "MANIFEST_VERSION", "PreemptionHandler", "ReshardError", "ResizeRequest",
-           "TMP_MARKER", "crash_point", "list_checkpoints", "normalize_mesh_axes",
-           "read_manifest", "reshard_restore", "restore_latest", "sweep_tmp_dirs",
-           "trainer_mesh_axes", "validate_checkpoint", "write_manifest"]
+# -- NaN/Inf guard policy ----------------------------------------------------
+
+
+@dataclasses.dataclass
+class GuardPolicy:
+    """How ``Trainer(guard=GuardPolicy(...))`` degrades on a non-finite
+    step (resilience.py:786).
+
+    The step computes on the device one bitmask of the checked values
+    that hold a NaN or an Inf (the grads, unless a loss scaler owns them,
+    and every float output it returns); a non-zero mask discards the
+    update there (params, optimizer state and program state keep their
+    values from before the step) and the host records an
+    :class:`Incident`. More than ``max_incidents`` incidents within the
+    trailing ``window`` steps raise ``FloatingPointError``
+    (``max_incidents=0``: the first one does).
+
+    The step reads back at once only whether its update stands (one flag,
+    shared with a loss scaler's skip). ``defer_readback`` (default)
+    examines the bitmask (which values, the incident record, the
+    escalation) one step late; ``Trainer.drain_guard()`` examines the last
+    one (``fit`` does at its end). False examines it at once, so
+    escalation raises at the step at fault. ``record_feed_digest`` keeps the step's feed until then, for
+    the incident's crc32. A loss scaler's state is not rolled back on a
+    discarded step: its backoff must stay."""
+
+    max_incidents: int = 8
+    window: int = 1000  # in optimizer steps
+    record_feed_digest: bool = True
+    defer_readback: bool = True
+
+
+@dataclasses.dataclass
+class Incident:
+    """One discarded non-finite step."""
+
+    step: int                   # global_step of the discarded update
+    outputs: Tuple[str, ...]    # which checked values were non-finite
+    feed_digest: Optional[str]  # crc32 of the offending batch (or None)
+    wall_time: float
+
+    def __str__(self):
+        return (f"non-finite step {self.step}: {', '.join(self.outputs)}"
+                + (f" (feed crc32 {self.feed_digest})" if self.feed_digest else ""))
+
+
+def feed_digest(feed: Dict[str, Any], index: Optional[int] = None) -> str:
+    """crc32 of a feed dict (one batch) over its names and bytes in name
+    order; ``index`` selects step ``i`` of a stacked ``(K, batch, ...)``
+    feed. Tensors are read back to the host (called on incidents only)."""
+    import numpy as np
+    import torch
+
+    crc = 0
+    for k in sorted(feed):
+        v = feed[k]
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu()
+            v = (v.view(torch.int16) if v.dtype == torch.bfloat16 else v).numpy()
+        v = np.asarray(v)
+        if index is not None and v.ndim >= 1:
+            v = v[index]
+        crc = zlib.crc32(k.encode(), crc)
+        crc = zlib.crc32(np.ascontiguousarray(v).tobytes(), crc)
+    return f"{crc & 0xFFFFFFFF:#010x}"
+
+
+def escalate_if_needed(incidents: List[Incident], policy: GuardPolicy,
+                       current_step: int) -> None:
+    """Raise ``FloatingPointError`` when more than ``policy.max_incidents``
+    incidents fall in the trailing ``policy.window`` steps up to
+    ``current_step``; scans the step-ordered list from its tail."""
+    recent: List[Incident] = []
+    for inc in reversed(incidents):
+        if inc.step <= current_step - policy.window:
+            break
+        if inc.step <= current_step:
+            recent.append(inc)
+    if len(recent) > policy.max_incidents:
+        lines = "\n  ".join(str(i) for i in recent[:5])
+        raise FloatingPointError(
+            f"{len(recent)} non-finite steps within the last {policy.window} steps "
+            f"(GuardPolicy.max_incidents={policy.max_incidents}); last incidents:"
+            f"\n  {lines}")
+
+
+# a long run with occasional incidents keeps a bounded log (escalation only
+# reads the trailing window)
+MAX_INCIDENT_LOG = 10_000
+
+
+def record_incident(incidents: List[Incident], step: int, outputs: Tuple[str, ...],
+                    digest: Optional[str]) -> Incident:
+    inc = Incident(step=step, outputs=outputs, feed_digest=digest, wall_time=time.time())
+    incidents.append(inc)
+    if len(incidents) > MAX_INCIDENT_LOG:
+        del incidents[:len(incidents) - MAX_INCIDENT_LOG]
+    _log().warning("guard: discarded %s", inc)
+    return inc
+
+
+__all__ = ["CheckpointCorrupt", "CheckpointInfo", "GuardPolicy", "Incident",
+           "InjectedCrash", "MANIFEST_NAME", "MANIFEST_VERSION", "MAX_INCIDENT_LOG",
+           "PreemptionHandler", "ReshardError", "ResizeRequest", "TMP_MARKER",
+           "crash_point", "escalate_if_needed", "feed_digest", "list_checkpoints",
+           "normalize_mesh_axes", "read_manifest", "record_incident", "reshard_restore",
+           "restore_latest", "sweep_tmp_dirs", "trainer_mesh_axes", "validate_checkpoint",
+           "write_manifest"]

@@ -17,7 +17,8 @@
 (d) ``fit`` gives the JAX package's event sequence, global steps and
     losses (relative 1e-5) over 2 epochs of a small reader.
 (e) Every fit/Trainer argument of a later slice raises NotYetPorted, and
-    fit will not prefetch for a trainer on the CPU.
+    fit will not prefetch for a trainer on the CPU; the check_nan_inf flag
+    stops a non-finite step before its update.
 (f) The single-device half of tests/test_e2e_mnist.py:84-107 with the JAX
     package's keyword names: ``startup(rng=3, sample_feed=...)`` and
     ``step(feed, rng=100 + i)`` give the positional calls' losses, and
@@ -180,11 +181,13 @@ def test_fit_arguments_of_later_slices_raise(arg, tmp_path):
     assert tt.global_step == 0
 
 
-@pytest.mark.parametrize("kw", ["mesh", "sharding_rules", "strategy", "guard", "feed_wire",
+@pytest.mark.parametrize("kw", ["mesh", "sharding_rules", "strategy", "feed_wire",
                                 "augment"])
 def test_trainer_arguments_of_later_slices_raise(kw):
+    # a strategy raises for its fields of later slices (loss scaling is ported)
+    value = tpt.DistStrategy(accum_steps=2) if kw == "strategy" else object()
     with pytest.raises(NotYetPorted):
-        tpt.Trainer(tpt.build(tmnist.mlp), topt.SGD(0.05), place=CPU, **{kw: object()})
+        tpt.Trainer(tpt.build(tmnist.mlp), topt.SGD(0.05), place=CPU, **{kw: value})
 
 
 def test_fit_will_not_prefetch_for_a_cpu_trainer():
@@ -197,20 +200,23 @@ def test_fit_will_not_prefetch_for_a_cpu_trainer():
 
 
 def test_check_nan_inf_flag_stops_the_step_before_the_update():
+    # the flag is read at startup and routes to the guard, as in the JAX
+    # package: the non-finite step raises and its update is discarded
     from paddle_tpu_torch.core import config
     feeds = _bench_feeds(8)
     tt = tpt.Trainer(tpt.build(tmnist.mlp), topt.SGD(0.05), place=CPU)
-    tt.startup(sample_feed=feeds[0])
-    before = {k: v.detach().clone() for k, v in tt.scope.params.items()}
     bad = dict(feeds[0], image=np.full_like(feeds[0]["image"], np.nan))
     config.set_flag("check_nan_inf", True)
     try:
-        with pytest.raises(FloatingPointError, match="NaN/Inf"):
+        tt.startup(sample_feed=feeds[0])
+        before = {k: v.detach().clone() for k, v in tt.scope.params.items()}
+        with pytest.raises(FloatingPointError, match="non-finite"):
             tt.step(bad)
+        assert all(torch.equal(before[k], v) for k, v in tt.scope.params.items())
         tt.step(feeds[0])  # a finite step goes through
     finally:
         config.set_flag("check_nan_inf", False)
-    assert tt.global_step == 1
+    assert tt.global_step == 2
     assert not torch.equal(before["fc_0/w"], tt.scope.params["fc_0/w"])
 
 
