@@ -100,7 +100,27 @@ Phases, each reported on its own lines; any failure exits non-zero:
    (scale halved, params and moving stats bit-equal) and discarded by the
    guard (one incident), ``fit`` to test accuracy above 0.9; (e) the (b)
    trainer exported at buckets [1, 16] and served on the card against
-   ``trainer.eval``.
+   ``trainer.eval``;
+11. Transformer-base and BERT-base — (a) f32 parity card against CPU at
+   dropout 0, full width from one seed's params: Transformer-base at b=4,
+   s=64 (3 Adam steps) and BERT-base at b=4, s=128 (2 AdamW steps), the
+   losses, the step-1 grads of every param, and an eval that launches 12
+   flash forwards; then the paths a user drives, each with the launch
+   counts zeroed just before it and read just after it: (b) bf16
+   Transformer-base at bench.py ``bench_transformer``'s config (b=32,
+   s=256, dropout 0.1: no flash launch in training), 3 warm-up and 10
+   timed steps (tokens/s, ms per step, TFLOP/s by ``core/flops.py``, peak
+   memory, a profiled step's device time, busy share, operations and top
+   ops), then ``trainer.eval`` (12 flash forwards) against the same eval
+   through the plain versions on the card; (c) its params served by
+   ``make_decoder`` through ``save_inference_model`` and
+   ``load_inference_model``: 8 source rows of 256 decoded greedily (6
+   flash forwards a call), the ids against the program run directly and
+   against the CPU's in f32; (d) bf16 BERT-base at ``bench_bert``'s config,
+   read as (b); (e) ``bench_transformer_long`` (b=4, s=4096, dropout 0): 12
+   launches of each kernel a step on the tensor-core route, the first
+   loss against the plain versions; (f) dropout on the card: the keep
+   rate, the rng, and remat replaying the masks.
 
 The last lines are a JSON ``kernels`` record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -238,6 +258,48 @@ CONVNET_BATCH, CONVNET_LR = 64, 0.01
 # cuDNN's layout transposes, and any other kernel named for a transpose
 TRANSPOSE_KERNELS = ("nchwToNhwc", "nhwcToNchw", "ranspose")
 
+# phase 11: Transformer-base (base_config: d 512, d_inner 2048, 8 heads, 6+6
+# layers, vocab 32000) and BERT-base (base_config, max_len 512) as bench.py
+# trains them. (a) f32 parity card against CPU at dropout 0 from the card's
+# initial params: the Transformer at b=4, s=64, 3 Adam(1e-3) steps; BERT at
+# b=4, s=128, 2 AdamW steps; losses at TRAIN_LOSS_TOL, step-1 grads at
+# TRAIN_GRAD_TOL relative L2 per param. (b) bench_transformer (bench.py:418-465):
+# b=32, s=256, dropout 0.1, fuse_qkv, use_flash, fused_ce, bf16, Adam(1e-3),
+# bench.py's 4 feeds from seed 0, 3 warm-up and 10 timed steps. (c) its
+# params served: make_decoder(max_len=64) exported, loaded on the card, 8
+# source rows of 256 (ragged, padded with 0) decoded greedily SEQ_SERVE_CALLS
+# times. (d) bench_bert (bench.py:473-500): b=32, s=128, 20 masked, AdamW(1e-4,
+# wd 0.01), fuse_qkv, use_flash, fused_ce, max_len 512, bf16. (e)
+# bench_transformer_long (bench.py:466): b=4, s=4096, max_len 4096, dropout 0,
+# 2 warm-up and 5 timed steps. Evals and the first long step are held
+# against the same run through the kernels' plain versions on the card at
+# TRAIN_BF16_LOSS_TOL, and what each path hands the kernels (the first call
+# of each kind) against the plain versions element by element, as phases 3
+# and 3b hold them; phase 3 and 3b also run these shapes under a padded key
+# bias. (f) dropout on the card: a 10^7-element mask's keep
+# rate within 4 sigma, the same rng the same bits, and two GPT-base layers at
+# dropout 0.1 with and without remat (grads within SEQ_REMAT_TOL rel L2)
+TRANSFORMER = dict(src_vocab=32000, trg_vocab=32000, d_model=512, d_inner=2048,
+                   num_heads=8, num_encoder_layers=6, num_decoder_layers=6)
+SEQ_FEEDS, SEQ_WARMUP, SEQ_STEPS = 4, 3, 10
+TR_BATCH, TR_SEQ, TR_LR = 32, 256, 1e-3
+TR_PARITY_BATCH, TR_PARITY_SEQ, TR_PARITY_STEPS = 4, 64, 3
+BERT_BASE = dict(max_len=512)
+BERT_BATCH, BERT_SEQ, BERT_MASKED, BERT_LR, BERT_WD = 32, 128, 20, 1e-4, 0.01
+BERT_PARITY_BATCH, BERT_PARITY_SEQ, BERT_PARITY_STEPS = 4, 128, 2
+SEQ_SERVE_ROWS, SEQ_SERVE_SRC, SEQ_SERVE_MAX_LEN, SEQ_SERVE_CALLS = 8, 256, 64, 3
+LONG_BATCH, LONG_SEQ, LONG_WARMUP, LONG_STEPS = 4, 4096, 2, 5
+DROPOUT_N, DROPOUT_P, SEQ_REMAT_TOL = 10 ** 7, 0.1, 1e-6
+SEQ_TOP_OPS = 8
+# the first long step's grads: each param's relative L2 distance from the
+# same step in f32, the kernels' run at most LONG_GRAD_RATIO times the
+# plain versions' (both bf16, which part from f32 by 3% at the median
+# param, 8% at the worst; the ratio read 0.98 at the median and 1.29 at
+# the worst on an H100); the served decoder's log-probabilities (bf16,
+# the kernels) against the plain CPU run's (f32) at SERVE_LOGP_TOL max
+# abs, over every step whose inputs agree (read: 0.012 a row)
+LONG_GRAD_RATIO, SERVE_LOGP_TOL = 2.0, 0.05
+
 
 class SmokeFailure(RuntimeError):
     pass
@@ -306,8 +368,12 @@ def device_ms(fn, iters, repeats=5):
 
 
 Case = collections.namedtuple(
-    "Case", "name b h sq sk d dtype causal bias segments fully_masked qkv",
-    defaults=(False, False, False, False, False))
+    "Case", "name b h sq sk d dtype causal bias segments fully_masked qkv pad",
+    defaults=(False, False, False, False, False, False))
+
+# the padding mask's value (layers.attention.NEG_INF), which ``pad`` cases
+# add to the key bias on a ragged tail of keys
+PAD_BIAS = -1e9
 
 
 def kernel_cases():
@@ -317,7 +383,11 @@ def kernel_cases():
     (``layers.stacked._split_heads``), at both served buckets and at the
     training shape. The kernels record has rows ``train_qkv_b8`` and
     ``prefill_qkv_b8``. The bf16 cases at head dims 64 and 128 run on the
-    tensor cores, the f32 and bf16 head-dim-32 ones on the CUDA cores."""
+    tensor cores, the f32 and bf16 head-dim-32 ones on the CUDA cores.
+    The ``transformer``, ``served``, ``bert`` and ``long`` qkv cases are
+    phase 11's shapes: the encoders' non-causal attention under a key
+    bias (random, plus the padding mask on a ragged tail of each row's
+    keys) and the decoders' causal self-attention."""
     return [
         Case("prefill_qkv_b8", 8, 12, 128, 128, 64, "bfloat16", causal=True,
              qkv=True),
@@ -351,6 +421,20 @@ def kernel_cases():
         Case("qkv_h128_bias_segments_bf16", 2, 8, 331, 331, 128, "bfloat16",
              causal=True, bias=True, segments=True, qkv=True),
         Case("head32_bf16", 2, 4, 70, 70, 32, "bfloat16", causal=True),
+        # phase 11: Transformer-base eval (b=32, s=256), its served encoder
+        # (8 rows), BERT-base eval (b=32, s=128) and the long-context step
+        Case("transformer_enc_qkv", 32, 8, 256, 256, 64, "bfloat16", bias=True,
+             qkv=True, pad=True),
+        Case("transformer_dec_qkv", 32, 8, 256, 256, 64, "bfloat16", causal=True,
+             qkv=True),
+        Case("served_enc_qkv_b8", 8, 8, 256, 256, 64, "bfloat16", bias=True,
+             qkv=True, pad=True),
+        Case("bert_qkv", 32, 12, 128, 128, 64, "bfloat16", bias=True, qkv=True,
+             pad=True),
+        Case("long_enc_qkv", 4, 8, 4096, 4096, 64, "bfloat16", bias=True, qkv=True,
+             pad=True),
+        Case("long_dec_qkv", 4, 8, 4096, 4096, 64, "bfloat16", causal=True,
+             qkv=True),
     ]
 
 
@@ -369,7 +453,11 @@ def _case_inputs(case, dev, seed):
                    for s in (sq, sk, sk))
     kw = {"causal": case.causal}
     if case.bias:
-        kw["key_bias"] = torch.randn(b, sk, generator=g).to(dev)
+        kw["key_bias"] = torch.randn(b, sk, generator=g)
+        if case.pad:  # row i pads its last i·sk/(2b) keys
+            for i in range(b):
+                kw["key_bias"][i, sk - i * sk // (2 * b):] = PAD_BIAS
+        kw["key_bias"] = kw["key_bias"].to(dev)
     if case.segments:
         seg_q = (torch.arange(sq) * 3 // sq).repeat(b, 1)
         seg_k = (torch.arange(sk) * 3 // sk).repeat(b, 1)
@@ -467,7 +555,7 @@ def phase_kernels(dev, seed):
                           library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
         say(f"kernel {name}: [{b},{h},{sq},{sk},{d}] {dt} {route} {layout} "
             f"causal={kw['causal']} bias={'key_bias' in kw} "
-            f"segments={'segment_ids' in kw} | "
+            f"segments={'segment_ids' in kw} pad={case.pad} | "
             f"max|o-plain|={err:.3g} (tol {TOL[dt]}) max|lse-plain|={lerr:.3g} "
             f"(tol {LSE_TOL}) | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"sdpa {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
@@ -526,6 +614,12 @@ def bwd_cases():
         Case("causal_1000_bf16", 2, 12, 1000, 1000, 64, "bfloat16", causal=True),
         Case("head128_long_bf16", 1, 12, 1024, 1024, 128, "bfloat16", causal=True),
         Case("head32_bf16", 2, 4, 70, 70, 32, "bfloat16", causal=True),
+        # phase 11's long-context step: the encoder's non-causal
+        # attention under a key bias and the decoder's causal one
+        Case("long_enc_qkv", 4, 8, 4096, 4096, 64, "bfloat16", bias=True, qkv=True,
+             pad=True),
+        Case("long_dec_qkv", 4, 8, 4096, 4096, 64, "bfloat16", causal=True,
+             qkv=True),
     ]
 
 
@@ -566,7 +660,7 @@ def phase_bwd_kernels(dev, seed):
         got = (fa.flash_bwd_dq_cuda(*args), *fa.flash_bwd_dkv_cuda(*args))
         torch.cuda.synchronize()
         route = fa.ROUTES[(q.dtype, d)]
-        if case.qkv:  # one writer per output tile, no atomics: the same bits
+        if name == "train_qkv":  # one writer per output tile, no atomics: the same bits
             again = (fa.flash_bwd_dq_cuda(*args), *fa.flash_bwd_dkv_cuda(*args))
             check(all(torch.equal(a, b_) for a, b_ in zip(got, again)),
                   f"{name}: two runs of a backward pass differ")
@@ -600,7 +694,7 @@ def phase_bwd_kernels(dev, seed):
         layout = "strided qkv views, strided dO" if case.qkv else "contiguous"
         say(f"backward {name}: [{b},{h},{sq},{sk},{d}] {dt} {route} {layout} "
             f"causal={kw['causal']} bias={'key_bias' in kw} "
-            f"segments={'segment_ids' in kw} | "
+            f"segments={'segment_ids' in kw} pad={case.pad} | "
             + " ".join(f"max|{n}-plain|={e:.3g} (tol {t:.3g})"
                        for n, (e, t) in errs.items())
             + f" | dq kernel {ms['dq']:.4f} ms, plain {plain['dq']:.4f} ms, bound "
@@ -610,7 +704,7 @@ def phase_bwd_kernels(dev, seed):
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} | "
             f"{'ok' if ok else 'MISMATCH'}")
         check(ok, f"{name}: a backward kernel disagrees with its plain version")
-        if case.qkv:
+        if name == "train_qkv":
             pairs = _visible_pairs(q, k, kw)
             for p_, n_products in (("dq", 3), ("dkv", 4)):
                 tflops = 2 * n_products * d * pairs / (ms[p_] * 1e-3) / 1e12
@@ -1866,7 +1960,7 @@ RESNET_FAMILIES = (
     ("elementwise", ("elementwise",)))
 
 
-def _resnet_profile(trainer, feed):
+def _profile_step(trainer, feed):
     """One profiled step: (wall ms, device us, device ops, rows of (us,
     calls, kernel), the layout-transpose kernels by name, device us by
     kernel family)."""
@@ -1940,7 +2034,7 @@ def resnet_timed(dev, seed, card_name):
         f"{peak_gb:.3f} GB")
     say("resnet losses per step: " + " ".join(f"{x:.5f}" for x in losses))
     check(all(np.isfinite(losses)), "resnet: a loss is not finite")
-    wall_ms, device_us, n_ops, rows, transposes, families = _resnet_profile(trainer,
+    wall_ms, device_us, n_ops, rows, transposes, families = _profile_step(trainer,
                                                                             staged[0])
     if device_us == 0:
         say("resnet breakdown: not measured (the profiler saw no device time)")
@@ -1993,7 +2087,7 @@ def resnet_loss_scaling(dev, seed, card_name):
             trainers[name].step(feeds[i % RESNET_FEEDS])
         torch.cuda.synchronize()
         times[name].append((time.perf_counter() - t0) / RESNET_SCALING_STEPS * 1e3)
-    profiles = {k: _resnet_profile(tr, feeds[0])[1:3] for k, tr in trainers.items()}
+    profiles = {k: _profile_step(tr, feeds[0])[1:3] for k, tr in trainers.items()}
     ls = trainers["dynamic scaler"].scope.loss_scale_state
     scale, overflows = float(ls["scale"]), int(ls["overflows"])
     rel = abs(first["dynamic scaler"] - first["no scaler"]) / abs(first["no scaler"])
@@ -2033,7 +2127,7 @@ def resnet_layouts(dev, seed, card_name):
             trainers[fmt].step(staged[fmt][(i + 1) % RESNET_FEEDS])
         torch.cuda.synchronize()
         times[fmt].append((time.perf_counter() - t0) / RESNET_LAYOUT_STEPS * 1e3)
-    nchw_t = _resnet_profile(trainers["NCHW"], staged["NCHW"][0])
+    nchw_t = _profile_step(trainers["NCHW"], staged["NCHW"][0])
     say(f"resnet NCHW vs NHWC ({card_name}), bf16 b={RESNET_BATCH}: first-step losses "
         f"NHWC {first['NHWC']:.5f} NCHW {first['NCHW']:.5f}, rel {rel:.3g} (tol "
         f"{RESNET_LAYOUT_TOL}); ms per step in turns (NHWC, NCHW, NCHW, NHWC), "
@@ -2148,6 +2242,605 @@ def resnet_inference(dev, trainer, feeds, card_name, tmp):
     check(err <= RESNET_INFER_TOL, "resnet inference: served logits differ from trainer.eval's")
 
 
+# -- phase 11: Transformer-base and BERT-base ---------------------------------
+
+
+def _seq2seq_feeds(rng, n, batch, seq):
+    """bench_transformer's feeds (bench.py:445-449): src_ids, trg_ids and
+    labels in [3, vocab), drawn in that order from one rng."""
+    import numpy as np
+    vocab = TRANSFORMER["src_vocab"]
+    return [{"src_ids": rng.randint(3, vocab, (batch, seq)).astype(np.int32),
+             "trg_ids": rng.randint(3, vocab, (batch, seq)).astype(np.int32),
+             "labels": rng.randint(3, vocab, (batch, seq)).astype(np.int32)}
+            for _ in range(n)]
+
+
+def _bert_feeds(rng, n, batch, seq, masked, vocab):
+    """bench_bert's feeds (bench.py:487-493)."""
+    import numpy as np
+    return [{"input_ids": rng.randint(0, vocab, (batch, seq)).astype(np.int32),
+             "token_type_ids": rng.randint(0, 2, (batch, seq)).astype(np.int32),
+             "mlm_positions": rng.randint(0, seq, (batch, masked)).astype(np.int32),
+             "mlm_labels": rng.randint(0, vocab, (batch, masked, 1)).astype(np.int64),
+             "nsp_label": rng.randint(0, 2, (batch, 1)).astype(np.int64)}
+            for _ in range(n)]
+
+
+def _transformer_cfg(**kw):
+    from paddle_tpu_torch.models import transformer
+    return transformer.base_config(**TRANSFORMER, use_flash=True, fuse_qkv=True,
+                                   fused_ce=True, **kw)
+
+
+def _bert_cfg(**kw):
+    from paddle_tpu_torch.models import bert
+    return bert.base_config(**BERT_BASE, use_flash=True, fuse_qkv=True, fused_ce=True,
+                            **kw)
+
+
+def _seq2seq_trainer(cfg, dev):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import transformer
+    return pt.Trainer(pt.build(transformer.make_model(cfg)), pt.optimizer.Adam(TR_LR),
+                      loss_name="loss", fetch_list=["loss"], place=dev)
+
+
+def _bert_trainer(cfg, dev):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import bert
+    return pt.Trainer(pt.build(bert.make_pretrain_model(cfg)),
+                      pt.optimizer.AdamW(BERT_LR, weight_decay=BERT_WD),
+                      loss_name="loss", fetch_list=["loss"], place=dev)
+
+
+@contextlib.contextmanager
+def record_kernel_calls(fa):
+    """Record what the path hands the kernels: for the first call of each
+    kind (forward or backward, at each shape, causal or not, with or
+    without a key bias or segment ids), copies of its inputs and of the
+    kernel's outputs, for :func:`check_recorded` to hold against the plain
+    versions once the path's launch counts are read. The launches are the
+    path's own: the wrappers count them as always."""
+    import torch
+    calls, seen = [], set()
+    fwd, bwd = fa.flash_fwd_cuda, fa.flash_bwd_cuda
+
+    def keep(kind, args, out):
+        q, k, _, causal, bias, seg_q = args[:6]
+        key = (kind, tuple(q.shape), tuple(k.shape), bool(causal), bias is None,
+               seg_q is None)
+        if key not in seen:
+            seen.add(key)
+            strided = not all(t.is_contiguous() for t in args[:3])
+            calls.append((kind, strided,
+                          [a.clone() if torch.is_tensor(a) else a for a in args],
+                          [o.clone() for o in out]))
+
+    def fwd_recorded(q, k, v, causal, key_bias=None, seg_q=None, seg_k=None):
+        out = fwd(q, k, v, causal, key_bias, seg_q, seg_k)
+        keep("forward", (q, k, v, causal, key_bias, seg_q, seg_k), out)
+        return out
+
+    def bwd_recorded(*args):
+        out = bwd(*args)
+        keep("backward", args, out)
+        return out
+
+    fa.flash_fwd_cuda, fa.flash_bwd_cuda = fwd_recorded, bwd_recorded
+    try:
+        yield calls
+    finally:
+        fa.flash_fwd_cuda, fa.flash_bwd_cuda = fwd, bwd
+
+
+def check_recorded(fa, calls, path):
+    """Each recorded call's kernel outputs against the plain versions on
+    the same inputs, element by element, as phases 3 and 3b hold them: the
+    forward's o at TOL and lse at LSE_TOL, the backward's dq, dk and dv at
+    BWD_TOL·max|plain|."""
+    import torch
+    check(calls, f"{path}: the path handed the kernels nothing")
+    for kind, strided, args, got in calls:
+        q, k, _, causal, bias, seg_q = args[:6]
+        dt = str(q.dtype).replace("torch.", "")
+        if kind == "forward":  # allclose with atol = rtol = tol, as phase 3
+            want = fa.flash_attention_reference(*args)
+            errs = {n: ((a.float() - w.float()).abs().max().item(), tol,
+                        ((a.float() - w.float()).abs() / (tol * (1 + w.float().abs())))
+                        .max().item())
+                    for n, a, w, tol in (("o", got[0], want[0], TOL[dt]),
+                                         ("lse", got[1], want[1], LSE_TOL))}
+            ok = all(r <= 1 for _, _, r in errs.values())
+            detail = " ".join(f"max|{n}-plain|={e:.3g}, {r:.2f} of allclose's bound "
+                              f"(atol=rtol={t})" for n, (e, t, r) in errs.items())
+        else:
+            want = (fa.flash_bwd_dq_reference(*args), *fa.flash_bwd_dkv_reference(*args))
+            errs = {n: ((a.float() - w.float()).abs().max().item(),
+                        BWD_TOL[dt] * w.float().abs().max().item())
+                    for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+            ok = all(e <= t for e, t in errs.values())
+            detail = " ".join(f"max|{n}-plain|={e:.3g} (tol {t:.3g})"
+                              for n, (e, t) in errs.items())
+        ok &= all(torch.isfinite(t.float()).all().item() for t in got)
+        masked = "no key bias" if bias is None else (
+            f"key bias masking {int((bias <= PAD_BIAS / 2).sum())} of {bias.numel()} keys")
+        say(f"{path} {kind} as the path called it: [{q.shape[0]},{q.shape[1]},{q.shape[2]},"
+            f"{k.shape[2]},{q.shape[3]}] {dt} {fa.ROUTES[(q.dtype, q.shape[3])]} "
+            f"{'strided views' if strided else 'contiguous'} causal={bool(causal)}, "
+            f"{masked}, segments={seg_q is not None} | {detail} | "
+            f"{'ok' if ok else 'MISMATCH'}")
+        check(ok, f"{path}: the {kind} kernel disagrees with its plain version on the "
+              "path's own inputs")
+        del want
+
+
+@contextlib.contextmanager
+def record_greedy_logp(module):
+    """Record, on the host, the log-probabilities [rows, vocab] f32 from
+    which each step of ``module``'s ``greedy_search`` chooses."""
+    steps = []
+    inner = module.greedy_search
+
+    def search(step_fn, init_state, *args, **kw):
+        def step(tokens, state):
+            logp, state = step_fn(tokens, state)
+            steps.append(logp.float().cpu())
+            return logp, state
+        return inner(step, init_state, *args, **kw)
+
+    module.greedy_search = search
+    try:
+        yield steps
+    finally:
+        module.greedy_search = inner
+
+
+def _eval_launches(fa, trainer, feed):
+    """(outputs, launches) of one ``trainer.eval``."""
+    _zero_launch_counts(fa)
+    out = trainer.eval(feed)
+    return out, _launch_counts(fa)
+
+
+def phase_seq2seq(dev, seed, card_name):
+    """Phase 11: (a) f32 parity, then the paths a user drives, each with
+    the launch counts zeroed just before it and read just after it: (b)
+    the bf16 Transformer-base step and its eval, (c) its params served by
+    make_decoder, (d) the bf16 BERT-base step and its eval, (e) the
+    long-context Transformer step; then (f) dropout on the card. Returns
+    the launches of each kernel by path."""
+    import gc
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    seq2seq_parity(dev, seed, card_name, "transformer")
+    seq2seq_parity(dev, seed, card_name, "bert")
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp, pt.amp_guard("bfloat16"):
+        trainer, cfg, launches["transformer"] = seq2seq_timed(dev, seed, card_name,
+                                                              "transformer")
+        launches["transformer_served"] = transformer_served(dev, trainer, cfg, card_name,
+                                                            tmp)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer, _, launches["bert"] = seq2seq_timed(dev, seed, card_name, "bert")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches["transformer_long"] = transformer_long(dev, seed, card_name)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dropout_on_card(dev, seed, card_name)
+    return launches
+
+
+def seq2seq_parity(dev, seed, card_name, model):
+    """(a) f32 at dropout 0, card (kernels) against CPU (plain versions)
+    from the card's initial params: the losses of every step, the step-1
+    grads of every param and one eval, which launches 12 forwards."""
+    import numpy as np
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.RandomState(seed + 11)
+    if model == "transformer":
+        cfg = _transformer_cfg(max_len=TR_PARITY_SEQ, dropout=0.0)
+        make, steps, b, s = _seq2seq_trainer, TR_PARITY_STEPS, TR_PARITY_BATCH, TR_PARITY_SEQ
+        feeds = _seq2seq_feeds(rng, steps, b, s)
+        for f in feeds:  # padding: the key bias and the loss mask see it
+            f["src_ids"][0, -s // 4:] = 0
+            f["labels"][1, -s // 8:] = 0
+        want_fwd = cfg.num_encoder_layers + cfg.num_decoder_layers
+    else:
+        cfg = _bert_cfg(dropout=0.0)
+        make, steps, b, s = _bert_trainer, BERT_PARITY_STEPS, BERT_PARITY_BATCH, BERT_PARITY_SEQ
+        feeds = _bert_feeds(rng, steps, b, s, BERT_MASKED, cfg.vocab_size)
+        for f in feeds:
+            f["input_ids"][0, -s // 4:] = 0
+        want_fwd = cfg.num_layers
+    t0 = time.perf_counter()
+    card = make(cfg, dev).startup(seed, feeds[0])
+    host = make(cfg, "cpu").startup(
+        seed, feeds[0], params={k: v.detach().cpu() for k, v in card.scope.params.items()})
+    rel_loss, grad_err, launches = [], {}, []
+    for i, f in enumerate(feeds):
+        _zero_launch_counts(fa)
+        lc = float(card.step(f)["loss"])
+        launches.append(_launch_counts(fa))
+        lh = float(host.step(f)["loss"])
+        rel_loss.append(abs(lc - lh) / abs(lh))
+        if i == 0:
+            for name, p in card.scope.params.items():
+                grad_err[name] = _rel_l2(p.grad.cpu(), host.scope.params[name].grad)
+    out, eval_launches = _eval_launches(fa, card, feeds[0])
+    eval_rel = abs(float(out["loss"]) - float(host.eval(feeds[0])["loss"])) / abs(
+        float(out["loss"]))
+    worst = max(grad_err, key=grad_err.get)
+    say(f"{model} parity f32 ({card_name}): b={b} s={s}, {steps} "
+        f"{type(card.optimizer).__name__} steps, {len(grad_err)} params: loss rel card - cpu "
+        f"per step {[f'{r:.3g}' for r in rel_loss]} (tol {TRAIN_LOSS_TOL}), step-1 grads "
+        f"rel L2 worst {grad_err[worst]:.3g} ({worst}; tol {TRAIN_GRAD_TOL}), eval loss rel "
+        f"{eval_rel:.3g}; launches per step {launches[0]}, eval {eval_launches} (want "
+        f"{want_fwd} forwards); {time.perf_counter() - t0:.1f} s")
+    check(max(rel_loss) <= TRAIN_LOSS_TOL and eval_rel <= TRAIN_LOSS_TOL,
+          f"{model} parity: losses differ card against CPU")
+    check(grad_err[worst] <= TRAIN_GRAD_TOL, f"{model} parity: grads differ card against CPU")
+    check(all(n == want_fwd for step in launches for n in step.values()),
+          f"{model} parity: launches per step {launches}")
+    check(eval_launches == {"flash_fwd": want_fwd, "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
+          f"{model} parity: eval launches {eval_launches}")
+
+
+def seq2seq_timed(dev, seed, card_name, model):
+    """(b)/(d) The bf16 training path at bench.py's config: 3 warm-up and 10
+    timed steps (dropout 0.1: the dense attention, no flash launch), then
+    ``trainer.eval`` (12 flash forwards) held against the same eval
+    through the plain versions on the card, then a profiled step. Returns
+    (trainer, cfg, launches during the path)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.core import flops
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    if model == "transformer":
+        cfg = _transformer_cfg(max_len=TR_SEQ, dropout=0.1, dtype="bfloat16")
+        b, s = TR_BATCH, TR_SEQ
+        feeds = _seq2seq_feeds(np.random.RandomState(0), SEQ_FEEDS, b, s)
+        trainer = _seq2seq_trainer(cfg, dev)
+        tflop = flops.transformer_train_flops(b, s, cfg) / 1e12
+        want_fwd = cfg.num_encoder_layers + cfg.num_decoder_layers
+    else:
+        cfg = _bert_cfg(dtype="bfloat16")
+        b, s = BERT_BATCH, BERT_SEQ
+        feeds = _bert_feeds(np.random.RandomState(0), SEQ_FEEDS, b, s, BERT_MASKED,
+                            cfg.vocab_size)
+        trainer = _bert_trainer(cfg, dev)
+        tflop = flops.bert_train_flops(b, s, BERT_MASKED, cfg) / 1e12
+        want_fwd = cfg.num_layers
+    t0 = time.perf_counter()
+    trainer.startup(seed, feeds[0])
+    startup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in trainer.scope.params.values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts(fa)
+    # ---- the main path, as a user drives it
+    losses = []
+    for i in range(SEQ_WARMUP + SEQ_STEPS):
+        if i == SEQ_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(trainer.step(feeds[i % SEQ_FEEDS])["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train_launches = _launch_counts(fa)
+    with record_kernel_calls(fa) as calls:
+        out, eval_launches = _eval_launches(fa, trainer, feeds[0])
+    # ---- end of the main path
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(x) for x in losses]
+    ms = wall / SEQ_STEPS * 1e3
+    say(f"{model} bf16 ({card_name}): b={b} s={s}, dropout {cfg.dropout}, "
+        f"{type(trainer.optimizer).__name__}, {n_params} params, startup {startup_s:.2f} s; "
+        f"{SEQ_WARMUP} warm-up + {SEQ_STEPS} timed steps: {b * s / ms * 1e3:.1f} tokens/s, "
+        f"{ms:.2f} ms per step ({tflop:.3f} TFLOP a step by core/flops.py, "
+        f"{tflop / ms * 1e3:.1f} TFLOP/s), peak memory {peak_gb:.3f} GB; launches in "
+        f"training {train_launches} (want 0: dropout takes the dense path), at eval "
+        f"{eval_launches} (want {want_fwd} forwards)")
+    say(f"{model} losses per step: " + " ".join(f"{x:.5f}" for x in losses))
+    check(all(np.isfinite(losses)), f"{model}: a loss is not finite")
+    check(all(n == 0 for n in train_launches.values()),
+          f"{model}: a flash kernel launched in training at dropout 0.1")
+    check(eval_launches == {"flash_fwd": want_fwd, "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
+          f"{model}: eval launches {eval_launches}")
+    before = _launch_counts(fa)
+    with plain_versions_on_card(fa):
+        plain = trainer.eval(feeds[0])
+    check(_launch_counts(fa) == before, f"{model}: the plain eval launched a kernel")
+    rel = abs(float(out["loss"]) - float(plain["loss"])) / abs(float(plain["loss"]))
+    say(f"{model} eval, kernels against the plain versions on the card: loss "
+        f"{float(out['loss']):.5f} vs {float(plain['loss']):.5f}, rel {rel:.3g} (tol "
+        f"{TRAIN_BF16_LOSS_TOL})")
+    check(rel <= TRAIN_BF16_LOSS_TOL, f"{model}: eval through the kernels differs from the "
+          "plain versions'")
+    check_recorded(fa, calls, f"{model} eval")
+    del calls
+    _seq2seq_breakdown(model, trainer, feeds[0], card_name)
+    return trainer, cfg, {k: train_launches[k] + eval_launches[k] for k in train_launches}
+
+
+def _seq2seq_breakdown(model, trainer, feed, card_name):
+    """One profiled step: device time, busy share, device operations and
+    the top ops."""
+    wall_ms, device_us, n_ops, rows, _, _ = _profile_step(trainer, feed)
+    if device_us == 0:
+        say(f"{model} breakdown: not measured (the profiler saw no device time)")
+        return rows
+    say(f"{model} breakdown ({card_name}), one profiled step: {device_us / 1e3:.2f} ms of "
+        f"device time in a {wall_ms:.2f} ms step, device busy "
+        f"{100 * device_us / 1e3 / wall_ms:.1f}%, {n_ops} device operations")
+    for us, calls, key in rows[:SEQ_TOP_OPS]:
+        say(f"  {model} top op {us / 1e3:8.3f} ms {100 * us / device_us:5.1f}% "
+            f"{calls:5d} calls  {key[:120]}")
+    return rows
+
+
+def transformer_served(dev, trainer, cfg, card_name, tmp):
+    """(c) The (b) trainer's params served: ``save_inference_model`` of
+    ``make_decoder(cfg, max_len=64)``, ``load_inference_model`` on the card,
+    8 padded source rows of 256 decoded greedily SEQ_SERVE_CALLS times (6
+    flash forwards a call, the encoder's), with what the path hands the
+    kernel held against the plain version. The served ids must equal those
+    of the same program run on the card directly. That run's
+    log-probabilities are held against the plain CPU run's from the same
+    params in f32 at SERVE_LOGP_TOL, at every step whose inputs agree (up
+    to each row's first differing id, that step included), so a row's ids
+    may part from the CPU's only at a near-tie. Returns the launches during
+    the served calls."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.RandomState(7)
+    src = rng.randint(3, cfg.src_vocab, (SEQ_SERVE_ROWS, SEQ_SERVE_SRC)).astype(np.int32)
+    for i in range(SEQ_SERVE_ROWS):  # ragged rows, padded with 0
+        src[i, SEQ_SERVE_SRC - 16 * i:] = 0
+    prog = pt.build(transformer.make_decoder(cfg, max_len=SEQ_SERVE_MAX_LEN))
+    d = os.path.join(tmp, "transformer_decoder")
+    t0 = time.perf_counter()
+    pt.io.save_inference_model(d, prog, trainer.scope.params, {}, {"src_ids": src})
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred = pt.io.load_inference_model(d, device=dev)
+    load_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    _zero_launch_counts(fa)
+    # ---- the main path, as a user drives it
+    with record_kernel_calls(fa) as calls:
+        t0 = time.perf_counter()
+        for _ in range(SEQ_SERVE_CALLS):
+            ids = pred.run({"src_ids": src})["ids"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = _launch_counts(fa)
+    # ---- end of the main path
+    ms_call = wall / SEQ_SERVE_CALLS * 1e3
+    check_recorded(fa, calls, "transformer served")
+    del calls
+    params = {k: v.detach() for k, v in trainer.scope.params.items()}
+    with torch.no_grad(), record_greedy_logp(transformer) as logp_card:
+        direct = prog.apply(params, {}, src_ids=src, place=dev)[0]["ids"]
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    t0 = time.perf_counter()
+    with pt.amp_guard("float32"), torch.no_grad(), \
+            record_greedy_logp(transformer) as logp_host:
+        host = pt.build(transformer.make_decoder(cfg32, max_len=SEQ_SERVE_MAX_LEN)).apply(
+            {k: v.float().cpu() for k, v in params.items()}, {}, src_ids=src,
+            place="cpu")[0]["ids"]
+    host_s = time.perf_counter() - t0
+    got, want = ids.cpu().numpy(), host.numpy()
+    differ = got != want
+    first = [int(np.argmax(row)) if row.any() else None for row in differ]
+    # per row: the largest |logp card - logp cpu| over the steps whose
+    # inputs agree, and at a first differing step the CPU's margin between
+    # its id and the card's
+    logp_err, margin = [], []
+    for r, t in enumerate(first):
+        last = SEQ_SERVE_MAX_LEN - 1 if t is None else t
+        logp_err.append(max((logp_card[i][r] - logp_host[i][r]).abs().max().item()
+                            for i in range(last + 1)))
+        margin.append(None if t is None else
+                      (logp_host[t][r, want[r, t]] - logp_host[t][r, got[r, t]]).item())
+    say(f"transformer served ({card_name}): make_decoder(max_len={SEQ_SERVE_MAX_LEN}) "
+        f"exported in {save_s:.3f} s, loaded on {dev} in {load_s:.3f} s; "
+        f"{SEQ_SERVE_ROWS} rows of {SEQ_SERVE_SRC} source tokens (lengths "
+        f"{[int((r != 0).sum()) for r in src]}), {SEQ_SERVE_CALLS} greedy calls: "
+        f"{ms_call:.2f} ms per call, {ms_call / (SEQ_SERVE_MAX_LEN + 1):.3f} ms a step "
+        f"averaged over the call's {SEQ_SERVE_MAX_LEN + 1} decoder steps (the step before "
+        f"the loop included, and the encoder's time spread over them), launches {launches} "
+        f"(want {cfg.num_encoder_layers} forwards a call); served ids equal the program "
+        f"run directly on the card: {bool(torch.equal(ids, direct))}; against the plain "
+        f"CPU run in f32 ({host_s:.1f} s): {int((~differ).all(axis=1).sum())} of "
+        f"{SEQ_SERVE_ROWS} rows equal, first differing step per row {first}, CPU margin "
+        f"there {[None if m is None else f'{m:.3g}' for m in margin]}; max|logp card - "
+        f"cpu| per row over the steps whose inputs agree "
+        f"{[f'{e:.3g}' for e in logp_err]} (tol {SERVE_LOGP_TOL})")
+    check(tuple(ids.shape) == (SEQ_SERVE_ROWS, SEQ_SERVE_MAX_LEN)
+          and int(ids.min()) >= 0 and int(ids.max()) < cfg.trg_vocab,
+          "transformer served: ids out of shape or range")
+    check(torch.equal(ids, direct), "transformer served: the artifact's ids differ from "
+          "the program's on the card")
+    check(len(logp_card) == len(logp_host) == SEQ_SERVE_MAX_LEN,
+          "transformer served: a greedy step's log-probabilities were not recorded")
+    check(max(logp_err) <= SERVE_LOGP_TOL, "transformer served: the log-probabilities "
+          "differ from the plain CPU run's")
+    check(all(m is None or m <= 2 * SERVE_LOGP_TOL for m in margin),
+          "transformer served: the ids part from the plain CPU run's other than at a near-tie")
+    check(launches == {"flash_fwd": cfg.num_encoder_layers * SEQ_SERVE_CALLS,
+                       "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
+          f"transformer served: launches {launches}")
+    return launches
+
+
+def transformer_long(dev, seed, card_name):
+    """(e) bench_transformer_long: bf16 at b=4, s=4096, dropout 0; 2 warm-up
+    and 5 timed steps, 12 launches of each kernel a step, all on the
+    tensor-core route (a profiled step), what the step hands the kernels
+    held against the plain versions, and the first step's loss and grads
+    against the same step through the plain versions on the card. Two bf16
+    runs' grads differ by their roundings, so each param's grad is held
+    against the same step in f32 (plain versions): the kernels' run may lie
+    no farther from it than LONG_GRAD_RATIO times the plain run does."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core import flops
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    cfg = _transformer_cfg(max_len=LONG_SEQ, dropout=0.0, dtype="bfloat16")
+    feeds = _seq2seq_feeds(np.random.RandomState(0), SEQ_FEEDS, LONG_BATCH, LONG_SEQ)
+    trainer = _seq2seq_trainer(cfg, dev).startup(seed, feeds[0])
+    p0 = {k: v.detach().clone() for k, v in trainer.scope.params.items()}
+    n_steps = LONG_WARMUP + LONG_STEPS
+    per_step = cfg.num_encoder_layers + cfg.num_decoder_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts(fa)
+    # ---- the main path, as a user drives it
+    losses = []
+    with record_kernel_calls(fa) as calls:
+        for i in range(n_steps):
+            if i == LONG_WARMUP:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            losses.append(trainer.step(feeds[i % SEQ_FEEDS])["loss"])
+            if i == 0:  # the first step's grads, on the host
+                g1 = {k: p.grad.detach().cpu() for k, p in trainer.scope.params.items()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = _launch_counts(fa)
+    # ---- end of the main path
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(x) for x in losses]
+    ms = wall / LONG_STEPS * 1e3
+    tflop = flops.transformer_train_flops(LONG_BATCH, LONG_SEQ, cfg) / 1e12
+    say(f"transformer_long bf16 ({card_name}): b={LONG_BATCH} s={LONG_SEQ}, dropout 0, "
+        f"{LONG_WARMUP} warm-up + {LONG_STEPS} timed steps: "
+        f"{LONG_BATCH * LONG_SEQ / ms * 1e3:.1f} tokens/s, {ms:.2f} ms per step "
+        f"({tflop:.3f} TFLOP a step, {tflop / ms * 1e3:.1f} TFLOP/s), peak memory "
+        f"{peak_gb:.3f} GB (the dense cross-attention keeps f32 probabilities), launches "
+        f"{launches} (want {per_step * n_steps} each)")
+    say("transformer_long losses per step: " + " ".join(f"{x:.5f}" for x in losses))
+    check(all(np.isfinite(losses)), "transformer_long: a loss is not finite")
+    check(all(n == per_step * n_steps for n in launches.values()),
+          f"transformer_long: launches {launches}, want {per_step} per step")
+    rows = _seq2seq_breakdown("transformer_long", trainer, feeds[0], card_name)
+    tensor_core = ("flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")
+    cuda_core = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+    us = {k: sum(t for t, _, key in rows if k in key) for k in tensor_core + cuda_core}
+    say("transformer_long flash kernels in the profiled step: "
+        + ", ".join(f"{k} {v / 1e3:.3f} ms" for k, v in us.items()))
+    check(all(us[k] > 0 for k in tensor_core),
+          "transformer_long: the profiled step shows no device time of a tensor-core kernel")
+    check(all(us[k] == 0 for k in cuda_core),
+          "transformer_long: the bf16 step ran a kernel of the CUDA-core route")
+    del trainer
+    torch.cuda.empty_cache()
+    check_recorded(fa, calls, "transformer_long step 1")
+    del calls
+    torch.cuda.empty_cache()
+    plain = _seq2seq_trainer(cfg, dev).startup(seed, feeds[0], params=p0)
+    before = _launch_counts(fa)
+    with plain_versions_on_card(fa):
+        plain_loss = float(plain.step(feeds[0])["loss"])
+    g_plain = {k: p.grad.detach().cpu() for k, p in plain.scope.params.items()}
+    del plain
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    with pt.amp_guard("float32"), plain_versions_on_card(fa):
+        ref = _seq2seq_trainer(cfg32, dev).startup(
+            seed, feeds[0], params={k: v.float() for k, v in p0.items()})
+        del p0
+        ref_loss = float(ref.step(feeds[0])["loss"])
+    g32 = {k: p.grad.detach().cpu() for k, p in ref.scope.params.items()}
+    del ref
+    torch.cuda.empty_cache()
+    check(_launch_counts(fa) == before, "transformer_long: a plain run launched a kernel")
+    rel = abs(losses[0] - plain_loss) / abs(plain_loss)
+    to_plain = {k: _rel_l2(g1[k], g_plain[k]) for k in g32}
+    err_kernel = {k: _rel_l2(g1[k], g32[k]) for k in g32}
+    err_plain = {k: _rel_l2(g_plain[k], g32[k]) for k in g32}
+    ratio = {k: err_kernel[k] / max(err_plain[k], 1e-30) for k in g32}
+    worst = max(ratio, key=ratio.get)
+
+    def median(d):
+        return sorted(d.values())[len(d) // 2]
+
+    say(f"transformer_long step 1, kernels against the plain versions on the card: loss "
+        f"{losses[0]:.5f} vs {plain_loss:.5f}, rel {rel:.3g} (tol {TRAIN_BF16_LOSS_TOL}), "
+        f"f32 {ref_loss:.5f}; grads of {len(g32)} params, rel L2 kernels to plain worst "
+        f"{max(to_plain.values()):.3g} median {median(to_plain):.3g}; to the f32 step: "
+        f"kernels worst {max(err_kernel.values()):.3g} median {median(err_kernel):.3g}, "
+        f"plain worst {max(err_plain.values()):.3g} median {median(err_plain):.3g}; kernels' "
+        f"over plain's, worst {ratio[worst]:.3g} ({worst}: {err_kernel[worst]:.3g} against "
+        f"{err_plain[worst]:.3g}), median {median(ratio):.3g} (tol {LONG_GRAD_RATIO})")
+    check(rel <= TRAIN_BF16_LOSS_TOL, "transformer_long: the kernels' loss differs from the "
+          "plain versions'")
+    check(ratio[worst] <= LONG_GRAD_RATIO, "transformer_long: the kernels' step-1 grads lie "
+          "farther from the f32 step's than the plain versions' do")
+    return launches
+
+
+def dropout_on_card(dev, seed, card_name):
+    """(f) The keep rate of a 10^7-element mask, the same program rng giving
+    the same bits, and two GPT-base layers at dropout 0.1 trained one step
+    with and without remat from the same params: the recompute draws the
+    forward's masks, so the grads agree."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import layers as L
+    from paddle_tpu_torch.models import gpt
+
+    x = torch.ones(DROPOUT_N, device=dev)
+    kept = int((L.dropout(x, DROPOUT_P, is_test=False, seed=seed) != 0).sum())
+    sigma = (DROPOUT_N * DROPOUT_P * (1 - DROPOUT_P)) ** 0.5
+    z = (kept - DROPOUT_N * (1 - DROPOUT_P)) / sigma
+    prog = pt.build(lambda x: {"y": L.dropout(x, DROPOUT_P)})
+    a = prog.apply({}, {}, x=x, training=True, rng=seed + 5, place=dev)[0]["y"]
+    b = prog.apply({}, {}, x=x, training=True, rng=seed + 5, place=dev)[0]["y"]
+    c = prog.apply({}, {}, x=x, training=True, rng=seed + 6, place=dev)[0]["y"]
+    cfg = gpt.base_config(**dict(GPT_BASE, num_layers=2), max_len=256, dropout=DROPOUT_P)
+    feed = _train_feeds(np.random.RandomState(seed), 1, 2, 256, cfg.vocab_size)[0]
+    grads, losses, p0 = {}, {}, None
+    for remat in (False, True):
+        trainer = _trainer(dataclasses.replace(cfg, remat=remat), dev)
+        trainer.startup(seed, params=p0)
+        p0 = p0 or {k: v.detach().clone() for k, v in trainer.scope.params.items()}
+        losses[remat] = float(trainer.step(feed)["loss"])
+        grads[remat] = {k: p.grad.detach().clone() for k, p in trainer.scope.params.items()}
+        del trainer
+    err = max(_rel_l2(grads[True][k], grads[False][k]) for k in grads[False])
+    same = all(torch.equal(grads[True][k], grads[False][k]) for k in grads[False])
+    say(f"dropout on the card ({card_name}): p={DROPOUT_P} over {DROPOUT_N} elements kept "
+        f"{kept} ({z:+.2f} sigma); the same program rng gives the same bits "
+        f"{bool(torch.equal(a, b))}, another rng other bits {not torch.equal(a, c)}; two "
+        f"GPT-base layers at dropout {DROPOUT_P}, one step with and without remat: losses "
+        f"{losses[False]:.6f} / {losses[True]:.6f}, grads rel L2 up to {err:.3g} (tol "
+        f"{SEQ_REMAT_TOL}), bit-equal {same}")
+    check(abs(z) <= 4, "dropout: the keep rate is off by more than 4 sigma")
+    check(torch.equal(a, b) and not torch.equal(a, c),
+          "dropout: the masks do not follow the program rng")
+    check(err <= SEQ_REMAT_TOL, "dropout: a remat recompute drew other masks")
+
+
 # -- the run ------------------------------------------------------------------
 
 
@@ -2241,6 +2934,14 @@ def main(argv=None) -> int:
     resnet_launches = phase_resnet(dev, args.seed, smi)
     done("phase 10")
 
+    # 11. Transformer-base and BERT-base (launch counts zeroed inside, per path)
+    seq2seq = phase_seq2seq(dev, args.seed, smi)
+    done("phase 11")
+    by_path = {name: {"served": served[name], "training": trained[name],
+                      "persistence": persisted[name], "resnet": resnet_launches[name],
+                      **{path: n[name] for path, n in seq2seq.items()}}
+               for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+
     # the kernels record: each kernel's row at the training path's shape,
     # launches summed over the main paths it runs on
     fwd_row = rows["train_qkv_b8"]
@@ -2248,11 +2949,8 @@ def main(argv=None) -> int:
         "name": "flash_fwd", "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "paddle_tpu/ops/flash_attention.py:191",
-        "launches": served["flash_fwd"] + trained["flash_fwd"] + persisted["flash_fwd"],
-        "launches_by_path": {"served": served["flash_fwd"],
-                             "training": trained["flash_fwd"],
-                             "persistence": persisted["flash_fwd"],
-                             "resnet": resnet_launches["flash_fwd"]},
+        "launches": sum(by_path["flash_fwd"].values()),
+        "launches_by_path": by_path["flash_fwd"],
         "max_abs_err": fwd_row["max_abs_err"], "ms": fwd_row["ms"],
         "plain_ms": fwd_row["plain_ms"], "bound_ms": fwd_row["bound_ms"],
         "bound_by": fwd_row["bound_by"], "library_ms": fwd_row["library_ms"],
@@ -2267,10 +2965,8 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/ops/csrc/flash_bwd.cu",
             "replaces": f"paddle_tpu/ops/flash_attention.py:{line}",
-            "launches": served[name] + trained[name] + persisted[name],
-            "launches_by_path": {"served": served[name], "training": trained[name],
-                                 "persistence": persisted[name],
-                                 "resnet": resnet_launches[name]},
+            "launches": sum(by_path[name].values()),
+            "launches_by_path": by_path[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -57,7 +57,7 @@ from .amp import LossScaler
 from .core.config import get_flag
 from .core.errors import NotYetPorted, enforce
 from .core.place import default_device
-from .framework import Program, build, check_params, params_from_jax
+from .framework import Program, build, check_params, params_from_jax, run_context
 from .initializer import mix_seed
 from .parallel.strategy import DistStrategy, unported_fields
 from .resilience import GuardPolicy
@@ -285,16 +285,17 @@ class Trainer:
 
     def _run(self, feed: Feed, training: bool, rng: Optional[int] = None):
         """(outputs as a dict, new state) of one run of the program."""
+        if rng is None and training:
+            # the step's rng, as the JAX package derives it (executor.py:1310)
+            rng = mix_seed(get_flag("seed") + 1, self.global_step)
         if self.is_program:
-            if rng is None and training:
-                # the step's rng, as the JAX package derives it (executor.py:1310)
-                rng = mix_seed(get_flag("seed") + 1, self.global_step)
             out, new_state = self.program.apply(self.scope.params, self.scope.state,
                                                 training=training, rng=rng,
                                                 place=self.device, **feed)
         else:
             self.program.train(training)
-            out, new_state = self.program(**feed), self.scope.state
+            with run_context(rng, training, self.device):
+                out, new_state = self.program(**feed), self.scope.state
         if not isinstance(out, dict):
             out = {self.loss_name: out}
         return out, new_state
@@ -318,9 +319,10 @@ class Trainer:
 
         ``rng`` (an int seed) replaces the step's derived seed
         ``mix_seed(seed + 1, global_step)``; an ``nn.Module`` program
-        draws nothing from it. ``span`` names the feeder batch of a
-        journal event in the JAX package; it is taken and unused until
-        the observability slice (ROADMAP queue 1, item 24)."""
+        draws its dropout masks from it too (:func:`framework.run_context`).
+        ``span`` names the feeder batch of a journal event in the JAX
+        package; it is taken and unused until the observability slice
+        (ROADMAP queue 1, item 24)."""
         enforce(self.scope.opt_state is not None, "call startup() before step()")
         feed = self._put_feed(feed)
         params = self.scope.params

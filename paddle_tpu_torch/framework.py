@@ -296,6 +296,19 @@ def rng_scope(key: Optional[int]):
         ctx.rng = old
 
 
+@contextlib.contextmanager
+def run_context(rng: Optional[int], training: bool, device):
+    """A context with no parameters, for a program that owns its params (an
+    ``nn.Module`` such as GPT's, which ``Trainer`` runs): what runs inside
+    sees ``in_training() == training`` and draws its dropout masks from
+    ``rng`` (:func:`next_rng_key`), and a :func:`maybe_remat` block inside
+    replays them."""
+    ctx = BuildContext("apply", {}, {}, rng, training, {}, torch.device(device),
+                       _ambient_compute_dtype())
+    with _use_ctx(ctx):
+        yield ctx
+
+
 # --------------------------------------------------------------------------
 # Parameter / variable creation — the LayerHelper primitives
 # --------------------------------------------------------------------------
@@ -726,5 +739,5 @@ __all__ = [
     "default_startup_program", "in_training", "layout_mode", "maybe_remat",
     "name_scope", "next_rng_key", "params_from_jax", "pipeline_mode",
     "program_guard", "remat_enabled", "remat_mode", "reuse_names", "rng_fold",
-    "rng_scope", "sp_mode",
+    "rng_scope", "run_context", "sp_mode",
 ]

@@ -1,14 +1,16 @@
 """Neural-network layers (counterpart of ``paddle_tpu.layers.nn``): ``fc``,
 ``mean``, ``softmax``/``log_softmax``, ``softmax_with_cross_entropy`` and
 ``cross_entropy``, ``conv2d``, ``pool2d`` and ``batch_norm`` with
-``to_chw_order``, and ``embedding`` and ``layer_norm`` for GPT.
+``to_chw_order``, ``embedding``, ``layer_norm``, ``matmul``, ``mul`` and
+``dropout``.
 
-``fc`` creates its parameters through ``LayerHelper`` inside a program,
-under the JAX package's names (``fc_0/w``, ``fc_0/b``; ``w_0``, ``w_1``
-... for a list input) and layout ([in, out] weights), and casts its
-operands to the program's compute dtype. ``embedding`` and ``layer_norm``
-keep the GPT slice's form, the params passed in by the caller; their
-``LayerHelper`` forms come with the Transformer/BERT slice.
+``fc``, ``embedding`` and ``layer_norm`` create their parameters through
+``LayerHelper`` inside a program, under the JAX package's names
+(``fc_0/w``, ``fc_0/b``; ``w_0``, ``w_1`` ... for a list input;
+``embedding_0/w``; ``layer_norm_0/scale``) and layouts ([in, out]
+weights), and cast their matmul operands to the program's compute dtype.
+GPT's module, which owns its params, uses the private forms
+``_embedding_lookup`` and ``_layer_norm_given``.
 
 The image layers take ``data_format=None`` as the program's layout
 (:func:`framework.current_layout`: NCHW, or NHWC under ``layout_mode``).
@@ -27,9 +29,9 @@ import torch
 import torch.nn.functional as F
 
 from .. import initializer as init
-from ..core.errors import enforce
+from ..core.errors import NotYetPorted, enforce
 from ..framework import (LayerHelper, cast_compute, compute_dtype, current_layout,
-                         in_training)
+                         in_training, next_rng_key)
 from ..quantize import refuse_int8
 from .ops import apply_activation
 
@@ -246,14 +248,14 @@ def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return table[ids]
 
 
-def embedding(ids: torch.Tensor, table: torch.Tensor,
-              compute_dtype) -> torch.Tensor:
-    """Embedding lookup (layers/nn.py:93): the rows of ``table`` [vocab,
-    dim] at ``ids``, cast to the compute dtype, with ``jnp.take``'s index
-    rule: a negative id counts from the end, and an id outside [-vocab,
-    vocab) gives a row of NaN (its "fill" mode; the generator's
-    ``table[ids]`` clamps instead, see :func:`take_rows`). Not carried
-    yet: ``padding_idx`` and ``is_sparse`` (the DeepFM slice)."""
+def _embedding_lookup(ids: torch.Tensor, table: torch.Tensor,
+                      compute_dtype) -> torch.Tensor:
+    """The rows of ``table`` [vocab, dim] at ``ids``, cast to the compute
+    dtype, with ``jnp.take``'s index rule: a negative id counts from the
+    end, and an id outside [-vocab, vocab) gives a row of NaN (its "fill"
+    mode; the generator's ``table[ids]`` clamps instead, see
+    :func:`take_rows`). The lookup of :func:`embedding`, and GPT's, whose
+    module owns its table."""
     n = table.shape[0]
     ids = ids.long()
     rows = take_rows(table, ids)
@@ -263,18 +265,135 @@ def embedding(ids: torch.Tensor, table: torch.Tensor,
     return cast_compute(compute_dtype, rows)
 
 
-def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               begin_norm_axis: int = 1, epsilon: float = 1e-5) -> torch.Tensor:
-    """Layer normalization over dims [begin_norm_axis, rank)
-    (layers/nn.py:455): statistics and the affine map in f32, the output
-    in x's dtype. The JAX layer creates ``scale`` and ``bias`` in x's
-    dtype; here the caller owns them."""
-    dims = tuple(range(begin_norm_axis, x.dim()))
+def embedding(input, size: Sequence[int], is_sparse: bool = False,
+              is_distributed: bool = False, padding_idx: Optional[int] = None,
+              param_attr=None, dtype="float32", name: Optional[str] = None):
+    """Embedding lookup (layers/nn.py:93; lookup_table_op): a ``[vocab,
+    dim]`` table ``w`` created in ``dtype`` (Xavier unless ``param_attr``
+    says otherwise), read with :func:`_embedding_lookup`'s index rule and
+    cast to the compute dtype. ``padding_idx`` (negative: counted from the
+    end) zeroes its rows by a mask. An id input with a trailing dim of 1
+    loses it, as in the JAX package."""
+    if is_sparse or is_distributed:
+        raise NotYetPorted("embedding(is_sparse=True / is_distributed=True): "
+                           "sparse and row-sharded tables come with the DeepFM "
+                           "slice (ROADMAP queue 1, item 19)")
+    helper = LayerHelper("embedding", name=name)
+    vocab, dim = int(size[0]), int(size[1])
+    table = helper.create_parameter("w", shape=(vocab, dim), dtype=dtype, attr=param_attr)
+    ids = input.long()
+    if ids.dim() >= 2 and ids.shape[-1] == 1:
+        ids = ids[..., 0]
+    out = _embedding_lookup(ids, table, compute_dtype())
+    if padding_idx is not None:
+        pad = vocab + padding_idx if padding_idx < 0 else padding_idx
+        out = out * (ids != pad)[..., None].to(out.dtype)
+    return out
+
+
+def matmul(x, y, transpose_x: bool = False, transpose_y: bool = False,
+           alpha: float = 1.0, name=None):
+    """matmul_op analog with batched broadcasting; mixed dtypes promote,
+    as ``jnp.matmul`` does."""
+    if transpose_x:
+        x = x.transpose(-1, -2)
+    if transpose_y:
+        y = y.transpose(-1, -2)
+    dt = torch.promote_types(x.dtype, y.dtype)
+    out = torch.matmul(x.to(dt), y.to(dt))
+    if alpha != 1.0:
+        out = out * alpha
+    return out
+
+
+def mul(x, y, x_num_col_dims: int = 1, y_num_col_dims: int = 1, name=None):
+    """mul_op analog: x flattened to 2-D at ``x_num_col_dims``, y at
+    ``y_num_col_dims``; the product takes x's leading and y's trailing
+    dims."""
+    xs = (math.prod(x.shape[:x_num_col_dims]), math.prod(x.shape[x_num_col_dims:]))
+    ys = (math.prod(y.shape[:y_num_col_dims]), math.prod(y.shape[y_num_col_dims:]))
+    dt = torch.promote_types(x.dtype, y.dtype)
+    out = torch.matmul(x.reshape(xs).to(dt), y.reshape(ys).to(dt))
+    return out.reshape(*x.shape[:x_num_col_dims], *y.shape[y_num_col_dims:])
+
+
+def _normalize(x: torch.Tensor, dims, epsilon: float) -> torch.Tensor:
+    """(x − mean)·rsqrt(var + eps) over ``dims``, in f32."""
     x32 = x.float()
     mean = x32.mean(dim=dims, keepdim=True)
     var = x32.var(dim=dims, keepdim=True, unbiased=False)
-    out = (x32 - mean) * torch.rsqrt(var + epsilon)
+    return (x32 - mean) * torch.rsqrt(var + epsilon)
+
+
+def layer_norm(input, scale: bool = True, shift: bool = True, begin_norm_axis: int = 1,
+               epsilon: float = 1e-5, param_attr=None, bias_attr=None,
+               act: Optional[str] = None, name: Optional[str] = None):
+    """Layer normalization over dims [begin_norm_axis, rank)
+    (layers/nn.py:455; layer_norm_op): the statistics and the affine map
+    in f32, the output in the input's dtype, then ``act``. ``scale`` (ones)
+    and ``bias`` (zeros), each of the normalised dims' shape, are created
+    in the input's dtype, as the JAX layer creates them."""
+    helper = LayerHelper("layer_norm", name=name)
+    dims = tuple(range(begin_norm_axis, input.dim()))
+    nshape = tuple(input.shape[a] for a in dims)
+    out = _normalize(input, dims, epsilon)
+    if scale:
+        g = helper.create_parameter("scale", nshape, input.dtype, attr=param_attr,
+                                    initializer=init.Constant(1.0))
+        out = out * g.float()
+    if shift:
+        b = helper.create_parameter("bias", nshape, input.dtype, attr=bias_attr,
+                                    initializer=init.Constant(0.0))
+        out = out + b.float()
+    return apply_activation(out.to(input.dtype), act)
+
+
+def _layer_norm_given(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                      begin_norm_axis: int = 1, epsilon: float = 1e-5) -> torch.Tensor:
+    """:func:`layer_norm`'s arithmetic with ``scale`` and ``bias`` given by
+    the caller (GPT's module owns them)."""
+    out = _normalize(x, tuple(range(begin_norm_axis, x.dim())), epsilon)
     return (out * scale.float() + bias.float()).to(x.dtype)
+
+
+def _scalar_like(x: torch.Tensor, value: float) -> torch.Tensor:
+    """``value`` as a 0-d tensor in x's dtype on x's device: the JAX
+    package's weakly typed Python scalar, which is rounded to x's dtype
+    before the op (``torch`` would apply it in f32 to a bf16 tensor)."""
+    return torch.full((), value, dtype=x.dtype, device=x.device)
+
+
+def dropout(x, dropout_prob: float, is_test: Optional[bool] = None,
+            seed: Optional[int] = None,
+            dropout_implementation: str = "downgrade_in_infer", name=None):
+    """dropout_op analog (layers/nn.py:547). In training (``is_test``
+    given, else :func:`framework.in_training`) each element is kept with
+    probability ``1 − p`` and zeroed otherwise; ``upscale_in_train``
+    divides the kept ones by ``1 − p`` (a division by ``1 − p`` rounded to
+    x's dtype, so bf16 rounds as in the JAX package). At inference ``downgrade_in_infer`` (the default)
+    returns ``x·(1 − p)`` and ``upscale_in_train`` returns x.
+
+    The mask is ``torch.rand(x.shape) < 1 − p`` drawn from a generator on
+    x's device: seeded from ``seed`` when given, else the running
+    program's next one (:func:`framework.next_rng_key`), so the same
+    program rng and step give the same mask, and a recomputed
+    :func:`framework.maybe_remat` block draws its forward's masks. The
+    JAX package draws threefry bits, so the masks agree in their
+    statistics only."""
+    training = in_training() if is_test is None else not is_test
+    if dropout_prob == 0.0:
+        return x
+    if not training:
+        if dropout_implementation == "downgrade_in_infer":
+            return x * _scalar_like(x, 1.0 - dropout_prob)
+        return x
+    g = (torch.Generator(device=x.device).manual_seed(int(seed)) if seed is not None
+         else next_rng_key())
+    keep = torch.rand(x.shape, generator=g, device=x.device) < 1.0 - dropout_prob
+    out = torch.where(keep, x, torch.zeros((), dtype=x.dtype, device=x.device))
+    if dropout_implementation == "upscale_in_train":
+        out = out / _scalar_like(out, 1.0 - dropout_prob)
+    return out
 
 
 def softmax(input, axis: int = -1, name=None, use_cudnn: bool = False):
@@ -332,6 +451,6 @@ def mean(x, name=None):
     return torch.mean(x if torch.is_floating_point(x) else x.float())
 
 
-__all__ = ["batch_norm", "conv2d", "cross_entropy", "embedding", "fc", "layer_norm",
-           "log_softmax", "mean", "pool2d", "softmax", "softmax_with_cross_entropy",
-           "take_rows", "to_chw_order"]
+__all__ = ["batch_norm", "conv2d", "cross_entropy", "dropout", "embedding", "fc",
+           "layer_norm", "log_softmax", "matmul", "mean", "mul", "pool2d", "softmax",
+           "softmax_with_cross_entropy", "take_rows", "to_chw_order"]

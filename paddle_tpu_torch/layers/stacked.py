@@ -10,10 +10,14 @@ Weights stay ``[in, out]``; the fused qkv weight stays ``[d, 3, d]``.
 Training runs :func:`apply_stacked` over :func:`make_encoder_block`
 sequentially, one Python loop over the layers in place of the JAX
 ``lax.scan``, with ``remat=True`` as per-layer
-``framework.maybe_remat``. Not carried yet, each raising
-:class:`NotYetPorted`: dropout in training, the sequence-parallel branch
-of ``_sdpa``, tensor-parallel psums and the int8 KV cache
-(``decode_block_q8``). ``apply_stacked``'s pipeline path is entered
+``framework.maybe_remat``. Dropout in training sits at the JAX package's
+four sites of a block (the attention probabilities, the two residual
+branches and the FFN's inner activation, ``upscale_in_train``), and each
+layer folds its index into the running program's rng
+(``framework.rng_fold``), so the layers draw different masks and a
+recomputed layer draws its forward's. Not carried yet, each raising
+:class:`NotYetPorted`: the sequence-parallel branch of ``_sdpa``,
+tensor-parallel psums and the int8 KV cache (``decode_block_q8``). ``apply_stacked``'s pipeline path is entered
 through ``DistStrategy.pp_microbatches``, which the port's ``Trainer``
 does not take yet.
 """
@@ -27,8 +31,9 @@ import torch
 from torch import nn
 
 from ..core.errors import NotYetPorted
-from ..framework import cast_compute, maybe_remat
+from ..framework import cast_compute, maybe_remat, rng_fold
 from .. import initializer as init
+from .nn import dropout
 
 NEG_INF = -1e9
 
@@ -120,17 +125,26 @@ def _ln(x, scale, bias, eps: float = 1e-5):
     return out * scale + bias
 
 
+def _drop(x, rate: float, training: bool):
+    """Residual/inner dropout (``upscale_in_train``, as the unrolled
+    transformer layer); a no-op at rate 0 or outside training."""
+    if rate == 0.0:
+        return x
+    return dropout(x, rate, is_test=not training,
+                   dropout_implementation="upscale_in_train")
+
+
 def _sdpa(q, k, v, key_bias, causal: bool, use_flash: bool, sp_cfg=None,
           dropout_rate: float = 0.0, training: bool = False):
-    """[b,h,s,hd] attention with an additive [b,s_k] key bias."""
+    """[b,h,s,hd] attention with an additive [b,s_k] key bias. The flash
+    kernel when ``use_flash`` and dropout is a no-op (the routing rule of
+    layers/attention.py), else the dense path with dropout on the
+    probabilities."""
     if sp_cfg is not None:
         raise NotYetPorted("sequence-parallel attention (multi-GPU slice)")
     if use_flash and (dropout_rate == 0.0 or not training):
         from ..ops.flash_attention import flash_attention
         return flash_attention(q, k, v, causal=causal, key_bias=key_bias)
-    if dropout_rate > 0.0 and training:
-        raise NotYetPorted("attention dropout in training (slice 6, ROADMAP "
-                           "queue 1)")
     from ..ops.attention_scores import scores_mxu
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = scores_mxu(q, k, scale)
@@ -142,6 +156,7 @@ def _sdpa(q, k, v, key_bias, causal: bool, use_flash: bool, sp_cfg=None,
                         device=logits.device).tril(sk - sq)
         logits = logits.masked_fill(~cm, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    probs = _drop(probs, dropout_rate, training)
     return torch.matmul(probs, v)
 
 
@@ -166,18 +181,20 @@ def _attn_qkv(x, p, num_heads, compute_dtype):
     return tuple(_split_heads(qkv[:, :, i], head_dim) for i in range(3))
 
 
-def _attn_out(x, p, o, compute_dtype):
+def _attn_out(x, p, o, compute_dtype, dropout_rate: float = 0.0,
+              training: bool = False):
     o, ow = cast_compute(compute_dtype, _merge_heads(o), p["out/w"])
     o = torch.matmul(o, ow)
-    return x + (o + p["out/b"].to(o.dtype))
+    return x + _drop(o + p["out/b"].to(o.dtype), dropout_rate, training)
 
 
-def _ffn(x, p, compute_dtype):
+def _ffn(x, p, compute_dtype, dropout_rate: float = 0.0, training: bool = False):
     h = _ln(x, p["ln2/scale"], p["ln2/bias"])
     h, w1, w2 = cast_compute(compute_dtype, h, p["ffn_in/w"], p["ffn_out/w"])
     h = torch.relu(torch.matmul(h, w1) + p["ffn_in/b"].to(h.dtype))
+    h = _drop(h, dropout_rate, training)
     h = torch.matmul(h, w2)
-    return x + (h + p["ffn_out/b"].to(h.dtype))
+    return x + _drop(h + p["ffn_out/b"].to(h.dtype), dropout_rate, training)
 
 
 def _self_attention(x, p, num_heads, causal, use_flash, key_bias,
@@ -186,7 +203,7 @@ def _self_attention(x, p, num_heads, causal, use_flash, key_bias,
     q, k, v = _attn_qkv(x, p, num_heads, compute_dtype)
     o = _sdpa(q, k, v, key_bias, causal, use_flash, dropout_rate=dropout_rate,
               training=training)
-    return _attn_out(x, p, o, compute_dtype)
+    return _attn_out(x, p, o, compute_dtype, dropout_rate, training)
 
 
 def make_encoder_block(num_heads: int, use_flash: bool = False,
@@ -196,21 +213,20 @@ def make_encoder_block(num_heads: int, use_flash: bool = False,
                        compute_dtype=torch.float32,
                        training: bool = False) -> Callable:
     """``layer_fn(x, layer_params, key_bias=None)``: pre-LN self-attention
-    then the FFN (layers/stacked.py:224). The compute dtype and whether
-    this is a training pass are arguments here, where the JAX package
-    reads them from its build context."""
+    then the FFN (layers/stacked.py:224), with ``dropout_rate`` at the
+    four dropout sites in training. The compute dtype and whether this is
+    a training pass are arguments here, where the JAX package reads them
+    from its build context; a training pass with dropout draws its masks
+    from the running program's rng (:func:`framework.next_rng_key`)."""
     if tp_axis is not None:
         raise NotYetPorted("tensor-parallel stacked blocks (multi-GPU slice)")
     if sp_cfg is not None:
         raise NotYetPorted("sequence-parallel attention (multi-GPU slice)")
-    if dropout_rate > 0.0 and training:
-        raise NotYetPorted("dropout in training (residual, FFN and attention "
-                           "dropout: slice 6, ROADMAP queue 1)")
 
     def block(x, p, key_bias=None):
         x = _self_attention(x, p, num_heads, causal, use_flash, key_bias,
                             compute_dtype, dropout_rate, training)
-        return _ffn(x, p, compute_dtype)
+        return _ffn(x, p, compute_dtype, dropout_rate, training)
 
     return block
 
@@ -221,19 +237,26 @@ def apply_stacked(x, stacked: Dict[str, torch.Tensor], make_block: Callable,
                   dropout_rate: float = 0.0, compute_dtype=torch.float32,
                   training: bool = False):
     """Run a parameter stack ``{name: [L, ...]}`` over ``x``, layer by
-    layer (the JAX package's sequential ``lax.scan``). ``remat=True``
-    runs each layer under :func:`framework.maybe_remat`: its activations
-    are recomputed in the backward instead of kept, with the running
+    layer (the JAX package's sequential ``lax.scan``). Layer ``i`` runs
+    under ``framework.rng_fold(i)``, so its dropout masks differ from
+    the other layers' (stacked.py:432-439). ``remat=True`` runs each
+    layer under :func:`framework.maybe_remat`: its activations are
+    recomputed in the backward instead of kept, with the running
     program's context (names, rng, layout) replayed."""
     block = make_block(num_heads=num_heads, use_flash=use_flash,
                        causal=causal, tp_axis=None, sp_cfg=None,
                        dropout_rate=dropout_rate, compute_dtype=compute_dtype,
                        training=training)
-    layer = maybe_remat(block, enabled=remat)
+
+    def layer(i, a, lp):
+        with rng_fold(i):
+            return block(a, lp) if extras is None else block(a, lp, extras)
+
+    layer = maybe_remat(layer, enabled=remat)
     num_layers = next(iter(stacked.values())).shape[0]
     for i in range(num_layers):
         lp = {name: t[i] for name, t in stacked.items()}
-        x = layer(x, lp) if extras is None else layer(x, lp, extras)
+        x = layer(i, x, lp)
     return x
 
 

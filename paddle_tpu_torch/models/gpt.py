@@ -9,8 +9,11 @@ by :func:`make_model` load straight into :func:`make_generator`, and the
 port produces the JAX package's losses and token ids. Both run the
 stacked blocks causally through the flash-attention kernels
 (``use_flash``, the config default); training differentiates through
-the forward kernel and the two backward kernels. Beam search and the
-int8 KV cache come in later slices.
+the forward kernel and the two backward kernels. At ``dropout > 0``
+training takes the dense attention instead (the kernels have no
+dropout), with its masks drawn from the rng that ``Trainer`` gives the
+step (``framework.run_context``). Beam search and the int8 KV cache
+come in later slices.
 """
 
 from __future__ import annotations
@@ -152,14 +155,14 @@ class GPTModel(_JaxNamedParams):
         labels = torch.as_tensor(labels, device=self.device)
         s = ids.shape[1]
         enforce(s <= cfg.max_len, f"seq {s} exceeds max_len {cfg.max_len}")
-        x = L.embedding(ids, self.w_emb, self.compute_dtype) + self.pe[:s][None]
+        x = L._embedding_lookup(ids, self.w_emb, self.compute_dtype) + self.pe[:s][None]
         x = S.apply_stacked(x, self.stack.params(), S.make_encoder_block,
                             num_heads=cfg.num_heads, use_flash=cfg.use_flash,
                             causal=True, remat=cfg.remat,
                             dropout_rate=cfg.dropout,
                             compute_dtype=self.compute_dtype,
                             training=self.training)
-        x = L.layer_norm(x, self.ln_scale, self.ln_bias, begin_norm_axis=2)
+        x = L._layer_norm_given(x, self.ln_scale, self.ln_bias, begin_norm_axis=2)
         loss, token_count = lm_head_loss(x, labels, self.w_head, cfg.fused_ce,
                                          cfg.ce_chunk)
         return {"loss": loss, "token_count": token_count}

@@ -1,11 +1,9 @@
 """Composite nets (counterpart of ``paddle_tpu.nets``; fluid nets.py):
 ``simple_img_conv_pool``, ``img_conv_group``, ``sequence_conv_pool``,
-``glu`` and ``scaled_dot_product_attention``.
-
-Not carried yet, each raising :class:`NotYetPorted`: dropout after a
-batch norm in ``img_conv_group`` (``conv_batchnorm_drop_rate > 0``) and
-attention dropout in training; ``layers.dropout`` comes with the
-Transformer/BERT slice (ROADMAP queue 1, item 13).
+``glu`` and ``scaled_dot_product_attention``, with their dropout:
+``img_conv_group``'s after each batch norm (``downgrade_in_infer``, so
+inference scales by ``1 − p``) and the attention probabilities'
+(``upscale_in_train``).
 """
 
 from __future__ import annotations
@@ -13,8 +11,6 @@ from __future__ import annotations
 import torch
 
 from . import layers as L
-from .core.errors import NotYetPorted
-from .framework import in_training
 from .layers import attention as A
 
 
@@ -33,16 +29,14 @@ def simple_img_conv_pool(input, num_filters, filter_size, pool_size, pool_stride
 def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
                    conv_filter_size=3, conv_act="relu", conv_with_batchnorm=False,
                    conv_batchnorm_drop_rate=0.0, pool_stride=1, pool_type="max"):
-    if conv_with_batchnorm and conv_batchnorm_drop_rate:
-        raise NotYetPorted("img_conv_group(conv_batchnorm_drop_rate > 0): dropout "
-                           "comes with the Transformer/BERT slice (ROADMAP queue 1, "
-                           "item 13)")
     tmp = input
     for nf in conv_num_filter:
         tmp = L.conv2d(tmp, nf, conv_filter_size, padding=conv_padding,
                        act=None if conv_with_batchnorm else conv_act)
         if conv_with_batchnorm:
             tmp = L.batch_norm(tmp, act=conv_act)
+            if conv_batchnorm_drop_rate:
+                tmp = L.dropout(tmp, conv_batchnorm_drop_rate)
     return L.pool2d(tmp, pool_size=pool_size, pool_type=pool_type,
                     pool_stride=pool_stride)
 
@@ -72,10 +66,6 @@ def glu(input, dim=-1):
 
 def scaled_dot_product_attention(queries, keys, values, num_heads=1, dropout_rate=0.0):
     """nets.scaled_dot_product_attention analog over [b, s, d] inputs."""
-    if dropout_rate > 0.0 and in_training():
-        raise NotYetPorted("nets.scaled_dot_product_attention(dropout_rate > 0) in "
-                           "training: dropout comes with the Transformer/BERT slice "
-                           "(ROADMAP queue 1, item 13)")
     b, sq, d = queries.shape
     hd = d // num_heads
 
@@ -83,7 +73,7 @@ def scaled_dot_product_attention(queries, keys, values, num_heads=1, dropout_rat
         return x.reshape(x.shape[0], x.shape[1], num_heads, hd).permute(0, 2, 1, 3)
 
     out = A.scaled_dot_product_attention(split_heads(queries), split_heads(keys),
-                                         split_heads(values))
+                                         split_heads(values), dropout_rate=dropout_rate)
     return out.permute(0, 2, 1, 3).reshape(b, sq, d)
 
 

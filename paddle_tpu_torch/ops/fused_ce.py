@@ -25,15 +25,21 @@ from ..core.errors import NotYetPorted
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b with an f32 output and f32 accumulation. Two bf16 CUDA
-    operands go to cuBLAS as they are, asking for an f32 output
-    (``out_dtype``): the tensor-core product with nothing rounded after
-    the f32 sum. Anything else is widened to f32 first, which is exact
-    for bf16 (its products fit in f32), so both give the JAX package's
-    bf16×bf16→f32 logits up to the order of the sum."""
+    """a @ b over [..., m, k] × [..., k, n] with an f32 output and f32
+    accumulation. Two bf16 CUDA operands go to cuBLAS as they are, asking
+    for an f32 output (``out_dtype``): the tensor-core product with
+    nothing rounded after the f32 sum. Anything else is widened to f32
+    first, which is exact for bf16 (its products fit in f32), so both give
+    the JAX package's bf16×bf16→f32 products up to the order of the sum."""
     if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return torch.mm(a.float(), b.float())
+        if a.dim() == b.dim() == 2:
+            return torch.mm(a, b, out_dtype=torch.float32)
+        lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+        a3 = a.expand(*lead, *a.shape[-2:]).reshape(-1, *a.shape[-2:])
+        b3 = b.expand(*lead, *b.shape[-2:]).reshape(-1, *b.shape[-2:])
+        return torch.bmm(a3, b3, out_dtype=torch.float32).view(
+            *lead, a.shape[-2], b.shape[-1])
+    return torch.matmul(a.float(), b.float())
 
 
 def _chunk_logits(hidden, weight, bias, base: int, chunk: int):

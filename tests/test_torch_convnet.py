@@ -611,15 +611,23 @@ def test_nets_match_jax():
 
 
 def test_nets_dropout_raises_not_yet_ported():
-    x = np.ones((1, 3, 8, 8), np.float32)
+    """Dropout in ``nets`` is ported now (``layers.dropout``): the two cases
+    that raised run. ``img_conv_group`` drops after its batch norm in
+    training and scales by 1 − p at inference (downgrade_in_infer);
+    ``scaled_dot_product_attention`` drops attention probabilities in
+    training only."""
+    x = np.random.RandomState(0).rand(2, 3, 8, 8).astype(np.float32)
     prog = tpt.build(lambda image: {"y": tnets.img_conv_group(
         image, [4], 2, conv_with_batchnorm=True, conv_batchnorm_drop_rate=0.5)})
-    with pytest.raises(NotYetPorted, match="item 13"):
-        prog.init(0, place=CPU, image=x)
-    q = np.ones((1, 4, 8), np.float32)
+    params, state = prog.init(0, place=CPU, image=x)
+    train, _ = prog.apply(params, state, training=True, rng=1, place=CPU, image=x)
+    infer, _ = prog.apply(params, state, training=False, place=CPU, image=x)
+    assert train["y"].shape == infer["y"].shape == (2, 4, 7, 7)
+    assert not torch.equal(train["y"], infer["y"])
+    q = np.random.RandomState(1).randn(1, 4, 8).astype(np.float32)
     prog = tpt.build(lambda q: {"y": tnets.scaled_dot_product_attention(
         q, q, q, num_heads=2, dropout_rate=0.1)})
     params, state = prog.init(0, place=CPU, q=q)
-    with pytest.raises(NotYetPorted, match="item 13"):
-        prog.apply(params, state, training=True, place=CPU, q=q)
-    assert prog.apply(params, state, training=False, place=CPU, q=q)[0]["y"].shape == (1, 4, 8)
+    train = prog.apply(params, state, training=True, rng=1, place=CPU, q=q)[0]["y"]
+    infer = prog.apply(params, state, training=False, place=CPU, q=q)[0]["y"]
+    assert train.shape == infer.shape == (1, 4, 8) and not torch.equal(train, infer)

@@ -225,8 +225,9 @@ def test_trained_params_serve_in_both_generators(jax_f32):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_embedding_and_layer_norm_match_jax(dtype):
-    """layers/nn.py's two layers on their own, from JAX-initialised and
-    jittered params: the gather with the JAX index rule (negative ids
+    """GPT's forms of layers/nn.py's two layers (the params passed in:
+    ``_embedding_lookup`` and ``_layer_norm_given``) on their own, from
+    JAX-initialised and jittered params: the gather with the JAX index rule (negative ids
     count from the end, out-of-range ids clamp) and the cast to the
     compute dtype; layer norm with f32 statistics, output in x's dtype.
     Tolerance: f32 1e-6 (the same arithmetic), bf16 one ulp (2⁻⁷ rel)."""
@@ -248,9 +249,10 @@ def test_embedding_and_layer_norm_match_jax(dtype):
         want, _ = prog.apply({k: jnp.asarray(v) for k, v in params.items()}, state,
                              ids, x)
     tp = tgpt.params_from_jax(params, device=CPU)
-    e = tL.embedding(torch.from_numpy(ids), tp["embedding_0/w"], dtype)
-    n = tL.layer_norm(torch.from_numpy(x).to(e.dtype) + e, tp["layer_norm_0/scale"],
-                      tp["layer_norm_0/bias"], begin_norm_axis=2)
+    e = tL._embedding_lookup(torch.from_numpy(ids), tp["embedding_0/w"], dtype)
+    n = tL._layer_norm_given(torch.from_numpy(x).to(e.dtype) + e,
+                             tp["layer_norm_0/scale"], tp["layer_norm_0/bias"],
+                             begin_norm_axis=2)
     tol = 1e-6 if dtype == "float32" else 2 ** -7
     for got, w in ((e, want["e"]), (n, want["n"])):
         assert str(got.dtype).replace("torch.", "") == str(w.dtype)
@@ -272,12 +274,31 @@ def test_training_never_writes_to_the_callers_params(jax_f32):
 
 
 def test_dropout_in_training_is_not_ported():
-    model = tgpt.make_model(tgpt.base_config(dropout=0.1, **SMALL), device=CPU)
-    tr = Trainer(model, topt.AdamW(LR), device=CPU).startup(0)
+    """Dropout in training is ported now: GPT at dropout 0.1 trains on the
+    stacked path (the dense attention, which draws its masks, since the
+    flash kernel has no dropout), its masks come from the step's rng, a
+    per-layer recompute (``remat``) draws the same masks, and eval runs
+    no dropout."""
     feed = _feeds(1)[0]
-    with pytest.raises(NotYetPorted, match="dropout"):
-        tr.step(feed)
-    assert np.isfinite(float(tr.eval(feed)["loss"]))  # eval runs no dropout
+    losses, grads = {}, {}
+    for remat in (False, True):
+        model = tgpt.make_model(tgpt.base_config(dropout=0.1, remat=remat, **SMALL),
+                                device=CPU)
+        tr = Trainer(model, topt.AdamW(LR), device=CPU).startup(0)
+        launches = tfa.flash_fwd_launches
+        calls = []
+        plain = tfa.flash_attention_reference
+        tfa.flash_attention_reference = lambda *a: calls.append(1) or plain(*a)
+        try:
+            losses[remat] = float(tr.step(feed)["loss"])
+        finally:
+            tfa.flash_attention_reference = plain
+        assert calls == [] and tfa.flash_fwd_launches == launches
+        grads[remat] = {k: p.grad.clone() for k, p in tr.scope.params.items()}
+    assert np.isfinite(losses[False]) and losses[True] == losses[False]
+    assert all(torch.equal(grads[True][k], grads[False][k]) for k in grads[False])
+    eval_loss = float(tr.eval(feed)["loss"])  # eval runs no dropout
+    assert np.isfinite(eval_loss) and float(tr.eval(feed)["loss"]) == eval_loss
 
 
 @pytest.mark.parametrize("kw", ["mesh", "sharding_rules", "strategy",

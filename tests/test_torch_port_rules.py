@@ -73,7 +73,9 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.lr_scheduler", "paddle_tpu_torch.data",
             "paddle_tpu_torch.data.reader", "paddle_tpu_torch.data.datasets",
             "paddle_tpu_torch.data.feeder", "paddle_tpu_torch.models.mnist",
-            "paddle_tpu_torch.resilience"]
+            "paddle_tpu_torch.resilience", "paddle_tpu_torch.models.transformer",
+            "paddle_tpu_torch.models.bert", "paddle_tpu_torch.core.flops",
+            "paddle_tpu_torch.ops.attention_scores", "paddle_tpu_torch.nets"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -109,6 +111,18 @@ def _entry_points(tmp_path):
     tio.save_inference_model(mlp_art, build(mnist.mlp), mlp_params, {}, sample)
     reader = data.batch(data.datasets.mnist("train", synthetic_size=8), 4)
 
+    from paddle_tpu_torch.models import bert, transformer
+    tcfg = transformer.base_config(src_vocab=17, trg_vocab=17, max_len=8, d_model=16,
+                                   d_inner=32, num_heads=2, num_encoder_layers=1,
+                                   num_decoder_layers=1)
+    src = np.full((2, 4), 3, np.int32)
+    dec_art = str(tmp_path / "dec")
+    dec = build(transformer.make_decoder(tcfg, 3))
+    dec_params = {k: v.numpy() for k, v in dec.init(0, place="cpu", src_ids=src)[0].items()}
+    tio.save_inference_model(dec_art, dec, dec_params, {}, {"src_ids": src})
+    bcfg = bert.base_config(vocab_size=17, max_len=8, d_model=16, d_inner=32,
+                            num_heads=2, num_layers=1)
+
     def constant():  # no params, no inputs: nothing says where it runs
         return {"out": layers.fill_constant([2], "float32", 1.0)}
 
@@ -135,6 +149,13 @@ def _entry_points(tmp_path):
         "load_inference_model_program": lambda: tio.load_inference_model(mlp_art),
         "Inferencer": lambda: Inferencer(mnist.mlp, params=mlp_params),
         "decode_server": lambda: decode.decode_server(art),
+        "Trainer_transformer": lambda: Trainer(build(transformer.make_model(tcfg)),
+                                               optimizer.Adam(1e-3)),
+        "Trainer_bert": lambda: Trainer(build(bert.make_pretrain_model(bcfg)),
+                                        optimizer.AdamW(1e-4)),
+        "transformer.make_decoder": lambda: build(transformer.make_decoder(tcfg, 3)).init(
+            0, src_ids=src),
+        "load_inference_model_decoder": lambda: tio.load_inference_model(dec_art),
     }
 
 
@@ -144,7 +165,10 @@ def _entry_points(tmp_path):
                                    "Executor", "Trainer_program", "fit", "Program.init",
                                    "Program.apply", "Program.apply_numpy",
                                    "DeviceFeeder", "framework.params_from_jax",
-                                   "load_inference_model_program", "Inferencer"])
+                                   "load_inference_model_program", "Inferencer",
+                                   "Trainer_transformer", "Trainer_bert",
+                                   "transformer.make_decoder",
+                                   "load_inference_model_decoder"])
 def test_entry_points_refuse_to_run_without_a_card(tmp_path, entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the entry points run on it")
