@@ -120,7 +120,28 @@ Phases, each reported on its own lines; any failure exits non-zero:
    read as (b); (e) ``bench_transformer_long`` (b=4, s=4096, dropout 0): 12
    launches of each kernel a step on the tensor-core route, the first
    loss against the plain versions; (f) dropout on the card: the keep
-   rate, the rng, and remat replaying the masks.
+   rate, the rng, and remat replaying the masks;
+12. captured steps — ``Trainer.run_steps`` (the step captured once as a
+   CUDA graph and replayed K times a dispatch) and
+   ``fit(steps_per_dispatch=K)`` on each training path, every result held
+   bit for bit against the same steps run eagerly: (a) MNIST MLP at
+   bench.py ``bench_dispatch_overhead``'s config (K=16): ``run_steps``
+   from a saved state (also on a trainer that captured before the load),
+   ``fit`` with and without the prefetch against ``fit`` K=1; (b) bf16
+   GPT-base at ``bench_gpt``'s config, K=4: a profiled dispatch runs the
+   three tensor-core kernels 12 times a step and no CUDA-core one (the
+   Python launch counts, zeroed around the path, count the eager steps
+   and the capture's warm-up and capture: a replay runs no Python); (c)
+   bf16 ResNet-50 with a dynamic loss scaler, K=4, one step fed infinite
+   pixels: skipped on the device, the scale halved, batch-norm state
+   carried; (d) bf16 Transformer-base at dropout 0.1, K=4, and under
+   ``remat_mode()`` on 2+2 layers; (e) the guard's NaN batch inside a
+   dispatch charged to its own step; (f) bf16 BERT-base (K=4) and the
+   long-context Transformer (K=2, the three kernels under a key bias and
+   causal in the graph), each trainer alone on the card. Each path's ms per step eager
+   against captured (in turns), throughput, peak memory, and the
+   device's busy share, device time and operations a step of profiled
+   eager steps and of a profiled dispatch.
 
 The last lines are a JSON ``kernels`` record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -299,6 +320,27 @@ SEQ_TOP_OPS = 8
 # the kernels) against the plain CPU run's (f32) at SERVE_LOGP_TOL max
 # abs, over every step whose inputs agree (read: 0.012 a row)
 LONG_GRAD_RATIO, SERVE_LOGP_TOL = 2.0, 0.05
+
+
+# phase 12: captured steps (Trainer.run_steps: one CUDA graph of the step,
+# replayed K times a dispatch). (a) MNIST MLP as bench.py
+# bench_dispatch_overhead (bench.py:584: f32, batch 128, SGD(0.01), K=16),
+# FUSED_MNIST_DISPATCHES dispatches a timed turn; (b)-(d) GPT-base (phase 7's
+# config), ResNet-50 (phase 10's, with a dynamic loss scaler) and
+# Transformer-base (phase 11's, dropout 0.1) at K=FUSED_K, FUSED_DISPATCHES
+# dispatches a timed turn, in turns eager, captured, captured, eager; the
+# Transformer under remat_mode() cut to FUSED_REMAT_LAYERS+FUSED_REMAT_LAYERS
+# layers; (e) the guard's NaN batch at step FUSED_GUARD_AT of a K=16
+# dispatch; (f) BERT-base (phase 11 (d)'s config, K=FUSED_K) and transformer_long
+# (K=FUSED_LONG_K). Every comparison of captured against eager steps is bit for bit.
+FUSED_MNIST_K, FUSED_MNIST_DISPATCHES, FUSED_GUARD_AT = 16, 48, 5
+FUSED_K, FUSED_DISPATCHES, FUSED_REMAT_LAYERS = 4, 2, 2
+# (f) transformer_long (phase 11 (e)'s config) at K=2, eager and captured
+# trainers one after the other (two would not fit the card together); where
+# two eager runs from one state are not bit-equal (atomics in a library
+# kernel), captured steps are held to an eager run within FUSED_NONDET_RATIO
+# times the distance between the two eager runs
+FUSED_LONG_K, FUSED_NONDET_RATIO, FUSED_LOSS_FLOOR = 2, 2.0, 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -1875,7 +1917,10 @@ def resnet_parity(dev, seed, card_name):
                 update_err.append(_momentum_err(trainer, before, RESNET_PARITY_LR))
             if i == 0:
                 grads = {k: p.grad.detach().cpu() for k, p in trainer.scope.params.items()}
-            states.append({k: v.detach().cpu() for k, v in trainer.scope.state.items()})
+            # copies: the step writes the state in place, and .cpu() of a CPU
+            # tensor is the tensor itself
+            states.append({k: v.detach().to("cpu", copy=True)
+                           for k, v in trainer.scope.state.items()})
         moved = {k: v.detach().cpu() - p0[k] for k, v in trainer.scope.params.items()}
         runs[name] = (losses, grads, states, moved)
         del trainer
@@ -2844,6 +2889,610 @@ def dropout_on_card(dev, seed, card_name):
 # -- the run ------------------------------------------------------------------
 
 
+# -- phase 12: captured steps (Trainer.run_steps, fit(steps_per_dispatch=K)) ---
+
+
+def _params_of(trainer):
+    return {k: p.detach().clone() for k, p in trainer.scope.params.items()}
+
+
+def _state_of(trainer):
+    """Every leaf of the training state (params, optimizer, program and
+    loss-scale state), cloned, by path."""
+    out = {}
+
+    def walk(prefix, tree):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(f"{prefix}/{k}", v)
+        else:
+            out[prefix] = tree.detach().clone()
+
+    walk("", trainer._state_trees())
+    return out
+
+
+def _bits_equal(a, b):
+    """Two tensors bit for bit, a NaN (a skipped step's loss) equal to a NaN."""
+    import torch
+    return a.shape == b.shape and a.dtype == b.dtype and bool(
+        torch.equal(torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0))
+        and torch.equal(torch.isnan(a), torch.isnan(b)))
+
+
+def _states_differ(a, b):
+    """The leaves of two state snapshots that are not bit-equal."""
+    return [k for k in a if not _bits_equal(a[k], b[k])]
+
+
+def _profile_dispatch(fn):
+    """``fn`` (a dispatch) under torch.profiler: (wall ms, device us,
+    device operations, {kernel name: (calls, device us)}). Record_function
+    ranges, which the profiler shows again on the device's timeline, are
+    left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_us, n_ops, kernels = 0.0, 0, {}
+    for evt in prof.key_averages():
+        if evt.key.startswith(("trainer.", "DeviceFeeder.")) or \
+                evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        device_us += evt.self_device_time_total
+        n_ops += evt.count
+        kernels[evt.key] = (evt.count, evt.self_device_time_total)
+    return wall_ms, device_us, n_ops, kernels
+
+
+def _eager_against_captured(eager, fused, staged, stacked, n_dispatches, k):
+    """ms per step of ``eager`` (``step()`` on feeds already on the card)
+    and of ``fused`` (``run_steps`` on a stacked feed on the card), each
+    over ``n_dispatches`` dispatches of ``k`` steps, in turns (eager,
+    captured, captured, eager) after one warm dispatch each; with each
+    one's peak device memory over its turns. Returns ({name: [ms per
+    step of each turn]}, {name: peak GB})."""
+    import torch
+
+    def run_eager():
+        for i in range(n_dispatches * k):
+            eager.step(staged[i % len(staged)])
+
+    def run_fused():
+        for _ in range(n_dispatches):
+            fused.run_steps(stacked)
+
+    runs = {"eager": run_eager, "captured": run_fused}
+    for name in runs:
+        eager.step(staged[0]) if name == "eager" else fused.run_steps(stacked)
+    times, peaks = {n: [] for n in runs}, {n: 0.0 for n in runs}
+    for name in ("eager", "captured", "captured", "eager"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        runs[name]()
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) / (n_dispatches * k) * 1e3)
+        peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated() / 1e9)
+    return times, peaks
+
+
+def _busy_against(eager, fused, staged, stacked):
+    """The device's busy share, device ms and operations a step of K
+    profiled eager steps and of one profiled dispatch of K, as a clause of
+    the timing line."""
+    k = len(staged)
+    parts = []
+    for name, fn in (("eager", lambda: [eager.step(f) for f in staged]),
+                     ("captured", lambda: fused.run_steps(stacked))):
+        wall, dev_us, n_ops, _ = _profile_dispatch(fn)
+        parts.append(f"{name} busy {100 * dev_us / 1e3 / wall:.1f}% ({dev_us / 1e3 / k:.2f} "
+                     f"ms, {n_ops / k:.0f} operations a step)" if dev_us else
+                     f"{name} busy: not measured")
+    return f"; profiled {k} steps: " + ", ".join(parts)
+
+
+def _timing_line(path, times, peaks, unit, per_step, card_name, k, extra=""):
+    """One line of eager against captured times, and the means."""
+    import numpy as np
+    ms = {n: float(np.mean(v)) for n, v in times.items()}
+    say(f"captured steps timing ({card_name}): {path}: eager "
+        f"{[round(t, 4) for t in times['eager']]} ms per step (mean {ms['eager']:.4f}, "
+        f"{per_step / ms['eager'] * 1e3:.1f} {unit}), captured K={k} "
+        f"{[round(t, 4) for t in times['captured']]} ms per step (mean {ms['captured']:.4f}, "
+        f"{per_step / ms['captured'] * 1e3:.1f} {unit}), {ms['eager'] / ms['captured']:.2f}x; "
+        f"peak memory eager {peaks['eager']:.3f} GB, captured {peaks['captured']:.3f} GB"
+        + extra)
+    return ms
+
+
+def fused_mnist(dev, seed, card_name, tmp):
+    """(a) MNIST MLP as bench.py bench_dispatch_overhead (f32, batch 128,
+    SGD(0.01), K=16): run_steps from a saved state against 16 step()
+    calls from it, bit for bit (losses and params), also on a trainer
+    that captured its step before the load; fit(steps_per_dispatch=16)
+    with and without the prefetch against fit K=1; then eager against
+    captured over FUSED_MNIST_DISPATCHES dispatches."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import data
+    from paddle_tpu_torch import io as pio
+
+    k = FUSED_MNIST_K
+    feeds = _mnist_feeds()
+    chunk = [feeds[i % len(feeds)] for i in range(k)]
+    opt = lambda: pt.optimizer.SGD(MNIST_LR)  # noqa: E731
+    saved = _mnist_trainer(dev, opt()).startup(seed, feeds[0])
+    for f in feeds[:3]:
+        saved.step(f)
+    ckpt = os.path.join(tmp, "mnist_fused")
+    pio.save_trainer(ckpt, saved)
+    eager = _mnist_trainer(dev, opt()).startup(seed + 1, feeds[0])
+    pio.load_trainer(ckpt, eager)
+    losses_eager = torch.stack([eager.step(f)["loss"] for f in chunk])
+    fused = _mnist_trainer(dev, opt()).startup(seed + 1, feeds[0])
+    fused.run_steps(pt.data.stack_batches(chunk))  # a graph of the state the load replaces
+    stale = fused._fused
+    pio.load_trainer(ckpt, fused)
+    outs = fused.run_steps(pt.data.stack_batches(chunk))
+    differ = _states_differ(_state_of(eager), _state_of(fused))
+    same_losses = _bits_equal(losses_eager, outs["loss"])
+    say(f"captured mnist (a): run_steps(K={k}) from a saved state (global step "
+        f"{saved.global_step}) against {k} step() calls from it: losses bit-equal "
+        f"{same_losses}, state leaves differing {differ}; the trainer had captured "
+        f"its step before the load: captured anew {fused._fused is not stale} "
+        f"({fused._fused.captures} capture)")
+    check(same_losses and not differ, "captured mnist: run_steps differs from step()")
+    check(fused._fused is not stale, "captured mnist: load_trainer kept the old graph")
+
+    reader = data.batch(data.shuffle(data.datasets.mnist("train"), 512, seed=0),
+                        MNIST_FIT_BATCH)
+    sample = data.DataFeeder(["image", "label"]).feed(next(iter(reader())))
+    runs = {}
+    for kk, prefetch in ((1, False), (k, True), (k, False)):
+        tr = _mnist_trainer(dev, pt.optimizer.Adam(MNIST_FIT_LR)).startup(seed, sample)
+        losses, dispatches = [], []
+        pt.fit(tr, reader, 1, ["image", "label"], prefetch=prefetch, steps_per_dispatch=kk,
+               event_handler=lambda e: (losses.append(e.metrics["loss"].reshape(-1)),
+                                        dispatches.append(e.num_steps))
+               if e.kind == "end_step" else None)
+        runs[(kk, prefetch)] = (torch.cat(losses), _state_of(tr), dispatches,
+                                tr.pipeline_report())
+    base = runs[(1, False)]
+    for key, (losses, state, dispatches, report) in runs.items():
+        same = _bits_equal(losses, base[0]) and not _states_differ(state, base[1])
+        say(f"captured mnist (a): fit(steps_per_dispatch={key[0]}, prefetch={key[1]}) "
+            f"over an epoch ({len(losses)} steps in {len(dispatches)} dispatches "
+            f"{sorted(set(dispatches))}): losses and state bit-equal to K=1: {same}; "
+            f"pipeline {({n: report[n] for n in ('batches', 'chunks', 'h2d_mbps', 'bottleneck')})}")
+        check(same, f"captured mnist: fit K={key[0]} prefetch={key[1]} differs from K=1")
+    check(max(runs[(k, True)][2]) == k, "captured mnist: fit never ran a fused dispatch")
+
+    # the timed path: bench_dispatch_overhead's config on staged feeds
+    trainers = [_mnist_trainer(dev, opt()).startup(seed, feeds[0]) for _ in range(2)]
+    for tr in trainers:
+        tr.fetch_list = ["loss"]
+    staged = [trainers[0]._put_feed(f) for f in feeds]
+    stacked = trainers[1]._put_feed(pt.data.stack_batches(chunk))
+    times, peaks = _eager_against_captured(trainers[0], trainers[1], staged, stacked,
+                                           FUSED_MNIST_DISPATCHES, k)
+    ms = _timing_line(f"MNIST MLP f32 b={MNIST_BATCH} SGD({MNIST_LR}), "
+                      f"{FUSED_MNIST_DISPATCHES} dispatches a turn", times, peaks,
+                      "samples/s", MNIST_BATCH, card_name, k)
+    wall, dev_us, n_ops, _ = _profile_dispatch(lambda: trainers[1].run_steps(stacked))
+    busy = (f"device busy {100 * dev_us / 1e3 / wall:.1f}% of a profiled dispatch of "
+            f"{wall:.3f} ms ({dev_us / 1e3 / k:.4f} ms of device time and {n_ops / k:.1f} "
+            f"device operations a step)" if dev_us else "device busy: not measured")
+    say(f"captured mnist (a): {busy}")
+    return {"MNIST MLP": ms}
+
+
+def fused_gpt(dev, seed, card_name):
+    """(b) GPT-base at bench_gpt's config (bf16, b=8, s=1024, AdamW), K=4,
+    from one state: 4 eager steps against one dispatch, bit for bit; a
+    profiled dispatch must show device time of all three tensor-core
+    kernels, 12 launches of each a step, and none of the CUDA-core ones;
+    eager against captured (ms per step, tokens/s, busy share, memory).
+    Returns the Python launch counts of the path (eager steps, and the
+    warm-up and capture of the captured step: a replay runs no Python)
+    and the profiled replays' launches."""
+    import gc
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    k = FUSED_K
+    cfg = gpt.base_config(**TRAIN)
+    feeds = _train_feeds(np.random.RandomState(0), k, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)
+    _zero_launch_counts(fa)
+    # ---- the main path, as a user drives it
+    eager = _trainer(cfg, dev, "bfloat16").startup(seed, sample_feed=feeds[0])
+    fused = _trainer(cfg, dev, "bfloat16").startup(seed, sample_feed=feeds[0],
+                                                  params=_params_of(eager))
+    losses_eager = torch.stack([eager.step(f)["loss"] for f in feeds])
+    stacked = fused._put_feed(pt.data.stack_batches(feeds))
+    outs = fused.run_steps(stacked)
+    launches = _launch_counts(fa)
+    # ---- end of the main path (the timing below launches more)
+    differ = _states_differ(_state_of(eager), _state_of(fused))
+    same_losses = _bits_equal(losses_eager, outs["loss"])
+    say(f"captured gpt (b): bf16 GPT-base b={TRAIN_BATCH} s={TRAIN_SEQ} AdamW, run_steps(K={k}) "
+        f"against {k} step() calls from one state: losses {outs['loss'].tolist()}, bit-equal "
+        f"{same_losses}; state leaves differing {differ}; Python launch counts {launches} "
+        f"({k} eager steps and the warm-up and capture of one step: "
+        f"{cfg.num_layers} x ({k} + {_captured_step_runs()}) each)")
+    check(same_losses and not differ, "captured gpt: run_steps differs from step()")
+    want = cfg.num_layers * (k + _captured_step_runs())
+    check(all(n == want for n in launches.values()),
+          f"captured gpt: Python launch counts {launches}, want {want} each")
+    wall, dev_us, n_ops, kernels = _profile_dispatch(lambda: fused.run_steps(stacked))
+    tensor_core = ("flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")
+    cuda_core = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+    seen = {n: [sum(c for key, (c, _) in kernels.items() if n in key),
+                sum(us for key, (_, us) in kernels.items() if n in key) / 1e3]
+            for n in tensor_core + cuda_core}
+    say(f"captured gpt (b): one profiled dispatch of {k} replays ({card_name}): {wall:.2f} ms, "
+        f"{dev_us / 1e3:.2f} ms of device time ({dev_us / 1e3 / k:.2f} ms and "
+        f"{n_ops / k:.0f} device operations a step), device busy "
+        f"{100 * dev_us / 1e3 / wall:.1f}%; flash kernels [launches, device ms] {seen}")
+    check(all(seen[n][0] == cfg.num_layers * k and seen[n][1] > 0 for n in tensor_core),
+          f"captured gpt: the replays did not run each tensor-core kernel "
+          f"{cfg.num_layers} times a step: {seen}")
+    check(all(seen[n][0] == 0 for n in cuda_core),
+          "captured gpt: the replays ran a kernel of the CUDA-core route")
+    replayed = {n.replace("_wgmma", ""): seen[n][0] for n in tensor_core}
+    staged = [eager._put_feed(f) for f in feeds]
+    times, peaks = _eager_against_captured(eager, fused, staged, stacked, FUSED_DISPATCHES, k)
+    ms = _timing_line(f"GPT-base bf16 b={TRAIN_BATCH} s={TRAIN_SEQ}, {FUSED_DISPATCHES} "
+                      f"dispatches a turn", times, peaks, "tokens/s",
+                      TRAIN_BATCH * TRAIN_SEQ, card_name, k,
+                      _busy_against(eager, fused, staged, stacked))
+    del eager, fused
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"GPT-base": ms}, launches, replayed
+
+
+def _captured_step_runs():
+    """Eager runs of the step body a capture makes: its warm-up, then the
+    capture itself (which launches every kernel's host code once)."""
+    from paddle_tpu_torch import _captured_step
+    return _captured_step.WARMUP_RUNS + 1
+
+
+def fused_resnet(dev, seed, card_name):
+    """(c) ResNet-50 at bench_resnet50's config (b=64, NHWC, bf16,
+    Momentum) with a dynamic loss scaler, K=4, step 3 of the dispatch fed
+    infinite pixels: its update is skipped on the device (params and
+    batch-norm state kept), the scale backs off, the batch-norm state of
+    the other steps carries through; the dispatch equals the eager steps
+    bit for bit. Then eager against captured."""
+    import gc
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+
+    k = FUSED_K
+    feeds = _resnet_feeds(np.random.RandomState(0), k, RESNET_BATCH, RESNET["image_size"],
+                          "NHWC")
+    feeds[2] = dict(feeds[2], image=np.full_like(feeds[2]["image"], np.inf))
+    strat = lambda: pt.DistStrategy(dynamic_loss_scale=True, loss_scale=1024.0)  # noqa: E731
+    eager = _resnet_trainer(dev, "NHWC", strategy=strat()).startup(seed, feeds[0])
+    fused = _resnet_trainer(dev, "NHWC", strategy=strat()).startup(
+        seed, feeds[0], params=_params_of(eager))
+    snaps, outs_eager = [_state_of(eager)], []
+    for f in feeds:
+        outs_eager.append(eager.step(f))
+        snaps.append(_state_of(eager))
+    outs = fused.run_steps(fused._put_feed(pt.data.stack_batches(feeds)))
+    scales = outs["loss_scale"].tolist()
+    kept = _states_differ(snaps[2], snaps[3])
+    kept = [n for n in kept if not n.startswith("/ls/")]
+    moved = [n for n in _states_differ(snaps[1], snaps[2]) if n.startswith("/state/")]
+    differ = _states_differ(snaps[-1], _state_of(fused))
+    same_losses = _bits_equal(torch.stack([o["loss"] for o in outs_eager]), outs["loss"])
+    say(f"captured resnet (c): bf16 NHWC ResNet-50 b={RESNET_BATCH}, dynamic loss scale from "
+        f"1024, run_steps(K={k}) with step 3 fed infinite pixels: losses "
+        f"{[round(x, 5) for x in outs['loss'].tolist()]}, scales after each step {scales}; "
+        f"the skipped step changed {kept or 'nothing'} but the loss-scale state; step 2 "
+        f"moved {len(moved)} batch-norm statistics; captured against eager: losses bit-equal "
+        f"{same_losses}, state leaves differing {differ}")
+    check(scales[2] == scales[1] / 2 and scales[1] == scales[0],
+          f"captured resnet: the scale did not back off at the skipped step: {scales}")
+    check(not kept, f"captured resnet: the skipped step changed {kept[:5]}")
+    check(moved, "captured resnet: the batch-norm statistics did not move")
+    check(same_losses and not differ, "captured resnet: run_steps differs from step()")
+    staged = _on_card(feeds[:2], dev)
+    stacked = fused._put_feed(pt.data.stack_batches([feeds[i % 2] for i in range(k)]))
+    times, peaks = _eager_against_captured(eager, fused, staged, stacked, FUSED_DISPATCHES, k)
+    ms = _timing_line(f"ResNet-50 bf16 NHWC b={RESNET_BATCH} with a dynamic loss scaler, "
+                      f"{FUSED_DISPATCHES} dispatches a turn", times, peaks, "images/s",
+                      RESNET_BATCH, card_name, k,
+                      _busy_against(eager, fused, [staged[i % 2] for i in range(k)], stacked))
+    del eager, fused
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ResNet-50": ms}
+
+
+def fused_transformer(dev, seed, card_name):
+    """(d) Transformer-base at bench_transformer's config with dropout 0.1
+    (b=32, s=256, Adam), K=4: captured against eager bit for bit; the same
+    under remat_mode() on the model cut to FUSED_REMAT_LAYERS +
+    FUSED_REMAT_LAYERS layers (the only cut); eager against captured."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import remat_mode
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    k = FUSED_K
+    feeds = _seq2seq_feeds(np.random.RandomState(0), k, TR_BATCH, TR_SEQ)
+    cut = FUSED_REMAT_LAYERS
+    ms = None
+    for remat in (False, True):
+        # phase 11 (b)'s config: bench_transformer's, bf16 tables and norms
+        cfg = _transformer_cfg(max_len=TR_SEQ, dropout=DROPOUT_P, dtype="bfloat16")
+        if remat:
+            cfg = dataclasses.replace(cfg, num_encoder_layers=cut, num_decoder_layers=cut)
+        with remat_mode(remat):
+            eager = _seq2seq_trainer(cfg, dev).startup(seed, feeds[0])
+            fused = _seq2seq_trainer(cfg, dev).startup(seed, feeds[0],
+                                                       params=_params_of(eager))
+            # the startups' init runs (not training) took the flash forward
+            _zero_launch_counts(fa)
+            losses_eager = torch.stack([eager.step(f)["loss"] for f in feeds])
+            stacked = fused._put_feed(pt.data.stack_batches(feeds))
+            outs = fused.run_steps(stacked)
+            differ = _states_differ(_state_of(eager), _state_of(fused))
+            same_losses = _bits_equal(losses_eager, outs["loss"])
+            gens = len(fused._fused.stream.generators())
+            say(f"captured transformer (d): bf16 Transformer-base b={TR_BATCH} s={TR_SEQ} "
+                f"dropout {DROPOUT_P}" + (f", remat_mode() on {cut}+{cut} layers (cut from "
+                                          f"{TRANSFORMER['num_encoder_layers']}+"
+                                          f"{TRANSFORMER['num_decoder_layers']})"
+                                          if remat else "")
+                + f": run_steps(K={k}) against {k} step() calls: losses "
+                f"{[round(x, 5) for x in outs['loss'].tolist()]}, bit-equal {same_losses}; "
+                f"state leaves differing {differ}; {gens} generators registered with the "
+                f"graph")
+            check(same_losses and not differ,
+                  f"captured transformer: run_steps differs from step() (remat {remat})")
+            check(len(set(outs["loss"].tolist())) == k, "captured transformer: repeated loss")
+            launches = _launch_counts(fa)
+            check(all(n == 0 for n in launches.values()),
+                  f"captured transformer: a flash kernel launched in training: {launches}")
+            if not remat:
+                staged = [eager._put_feed(f) for f in feeds]
+                times, peaks = _eager_against_captured(eager, fused, staged, stacked,
+                                                       FUSED_DISPATCHES, k)
+                ms = _timing_line(f"Transformer-base bf16 b={TR_BATCH} s={TR_SEQ} dropout "
+                                  f"{DROPOUT_P}, {FUSED_DISPATCHES} dispatches a turn",
+                                  times, peaks, "tokens/s", TR_BATCH * TR_SEQ, card_name, k,
+                                  _busy_against(eager, fused, staged, stacked))
+        del eager, fused
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"Transformer-base": ms}
+
+
+def _fused_alone(make, feeds, k, path, card_name, unit, per_step, on_fused=None):
+    """Eager and captured trainers from one state, one at a time (for
+    paths whose trainers would not fit the card together): ``k`` eager
+    steps, twice; then ``run_steps(k)``; then one more timed dispatch of
+    each kind. Where the two eager runs agree bit for bit the captured run
+    must too. Where they do not (a library kernel that accumulates with
+    atomics, such as ``torch.gather``'s backward), the captured run is
+    held to the first eager run within FUSED_NONDET_RATIO times the eager
+    runs' own distance: the worst relative L2 distance of a state leaf,
+    and the worst relative difference of a loss (at least
+    FUSED_LOSS_FLOOR, should the eager runs' losses agree). ``on_fused`` runs just
+    before the captured trainer is made. Returns {"eager": ms,
+    "captured": ms}."""
+    import gc
+    import torch
+    import paddle_tpu_torch as pt
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    eager = make(None)
+    params = _params_of(eager)
+    losses_eager = torch.stack([eager.step(f)["loss"] for f in feeds])
+    state_eager = _state_of(eager)
+    staged = [eager._put_feed(f) for f in feeds]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in staged:
+        eager.step(f)
+    torch.cuda.synchronize()
+    ms = {"eager": (time.perf_counter() - t0) / k * 1e3}
+    del eager, staged
+    free()
+    again = make(params)
+    losses_again = torch.stack([again.step(f)["loss"] for f in feeds])
+    state_again = _state_of(again)
+    del again
+    free()
+    if on_fused is not None:
+        on_fused()
+    fused = make(params)
+    stacked = fused._put_feed(pt.data.stack_batches(feeds))
+    outs = fused.run_steps(stacked)
+    state_fused = _state_of(fused)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fused.run_steps(stacked)
+    torch.cuda.synchronize()
+    ms["captured"] = (time.perf_counter() - t0) / k * 1e3
+    del fused
+    free()
+
+    def distance(losses, state):
+        loss = float(((losses - losses_eager).abs() / losses_eager.abs()).max())
+        leaves = max((_rel_l2(state[n], state_eager[n]) for n in state_eager
+                      if state_eager[n].is_floating_point()), default=0.0)
+        return loss, leaves, _states_differ(state_eager, state)
+
+    spread, held = distance(losses_again, state_again), distance(outs["loss"], state_fused)
+    deterministic = not spread[2] and _bits_equal(losses_again, losses_eager)
+    timing = (f"one more dispatch of each ({card_name}): eager {ms['eager']:.4f} ms per step "
+              f"({per_step / ms['eager'] * 1e3:.1f} {unit}), captured {ms['captured']:.4f} "
+              f"({per_step / ms['captured'] * 1e3:.1f} {unit}), "
+              f"{ms['eager'] / ms['captured']:.2f}x")
+    if deterministic:
+        same = not held[2] and _bits_equal(losses_eager, outs["loss"])
+        say(f"captured {path}: run_steps(K={k}) against {k} step() calls from one state (two "
+            f"eager runs bit-equal): losses {[round(x, 5) for x in outs['loss'].tolist()]}, "
+            f"bit-equal {same}; state leaves differing {held[2]}; {timing}")
+        check(same, f"captured {path}: run_steps differs from step()")
+    else:
+        ok = held[0] <= FUSED_NONDET_RATIO * max(spread[0], FUSED_LOSS_FLOOR) and \
+            held[1] <= FUSED_NONDET_RATIO * spread[1]
+        say(f"captured {path}: two eager runs from one state differ ({len(spread[2])} state "
+            f"leaves, e.g. {spread[2][:3]}; losses rel up to {spread[0]:.3g}, leaves rel L2 up "
+            f"to {spread[1]:.3g}): a library kernel accumulates in an order of its own, so "
+            f"run_steps(K={k}) is held to the eager run within {FUSED_NONDET_RATIO}x that: "
+            f"losses rel {held[0]:.3g}, leaves rel L2 {held[1]:.3g}; {timing}")
+        check(ok, f"captured {path}: run_steps lies farther from step() than two eager runs")
+    return ms
+
+
+def fused_bert_and_long(dev, seed, card_name):
+    """(f) The other training paths of phase 11: BERT-base at bench_bert's
+    config (dropout 0.1, K=4) and transformer_long (b=4, s=4096, dropout
+    0, K=2: the three flash kernels in the graph, the encoder's under a
+    key bias), each captured against eager bit for bit. Returns the
+    Python launch counts of the long path (its eager steps, and the
+    warm-up and capture of one step)."""
+    import numpy as np
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    k = FUSED_K
+    cfg = _bert_cfg(dtype="bfloat16")
+    feeds = _bert_feeds(np.random.RandomState(0), k, BERT_BATCH, BERT_SEQ, BERT_MASKED,
+                        cfg.vocab_size)
+    times = {"BERT-base": _fused_alone(
+        lambda params: _bert_trainer(cfg, dev).startup(seed, feeds[0], params=params),
+        feeds, k, f"bert (f): bf16 BERT-base b={BERT_BATCH} s={BERT_SEQ}", card_name,
+        "tokens/s", BERT_BATCH * BERT_SEQ)}
+    k = FUSED_LONG_K
+    cfg = _transformer_cfg(max_len=LONG_SEQ, dropout=0.0, dtype="bfloat16")
+    feeds = _seq2seq_feeds(np.random.RandomState(0), k, LONG_BATCH, LONG_SEQ)
+
+    def make(params):
+        tr = _seq2seq_trainer(cfg, dev).startup(seed, feeds[0], params=params)
+        _zero_launch_counts(fa)  # after the startup's init forwards
+        return tr
+
+    launches = {}
+    times["transformer_long"] = _fused_alone(
+        make, feeds, k, f"transformer_long (f): bf16 b={LONG_BATCH} s={LONG_SEQ}",
+        card_name, "tokens/s", LONG_BATCH * LONG_SEQ,
+        on_fused=lambda: launches.update(_launch_counts(fa)))
+    captured = _launch_counts(fa)
+    layers = cfg.num_encoder_layers + cfg.num_decoder_layers
+    # the eager trainers' counts: the second one's k steps (each startup zeroes)
+    want = {n: k * layers for n in launches}
+    say(f"captured transformer_long (f): Python launch counts of the second eager run's steps "
+        f"{launches} (want {want}), of the captured trainer {captured} (two dispatches: the "
+        f"warm-up and capture of one step, {_captured_step_runs()} x {layers} each)")
+    check(launches == want, "captured transformer_long: eager launch counts")
+    check(all(n == _captured_step_runs() * layers for n in captured.values()),
+          "captured transformer_long: a replay ran Python, or the capture launched no kernel")
+    return times, {n: launches[n] + captured[n] for n in captured}
+
+
+def fused_coverage(dev, seed, card_name, tmp):
+    """(e) The guard in a fused dispatch: a NaN batch at step FUSED_GUARD_AT
+    of a K=16 MNIST dispatch from global step 3 is discarded on the
+    device and recorded at step 3 + FUSED_GUARD_AT with that batch's
+    digest, as the eager steps record it; the state equals theirs."""
+    import numpy as np
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import mnist
+    from paddle_tpu_torch.resilience import GuardPolicy, feed_digest
+
+    k, at = FUSED_MNIST_K, FUSED_GUARD_AT
+    feeds = _mnist_feeds()
+    chunk = [feeds[i % len(feeds)] for i in range(k)]
+    chunk[at] = dict(chunk[at], image=np.full_like(chunk[at]["image"], np.nan))
+    trainers = []
+    for _ in range(2):
+        tr = pt.Trainer(pt.build(mnist.mlp), pt.optimizer.SGD(MNIST_LR),
+                        loss_name="loss", place=dev,
+                        guard=GuardPolicy(max_incidents=4, window=100))
+        trainers.append(tr.startup(seed, feeds[0]))
+    eager, fused = trainers
+    for tr in trainers:
+        for f in feeds[:3]:
+            tr.step(f)
+    for f in chunk:
+        eager.step(f)
+    outs = fused.run_steps(pt.data.stack_batches(chunk))
+    for tr in trainers:
+        tr.drain_guard()
+    steps = {n: [i.step for i in tr.guard_incidents] for n, tr in (("eager", eager),
+                                                                   ("captured", fused))}
+    digest_ok = [i.feed_digest for i in fused.guard_incidents] == [feed_digest(chunk[at])]
+    differ = _states_differ(_state_of(eager), _state_of(fused))
+    say(f"captured coverage (e): the guard in a K={k} dispatch from global step 3 with a NaN "
+        f"batch at step {at}: masks {outs['guard_nonfinite'].tolist()}, incidents at steps "
+        f"{steps} (want [{3 + at}]), digest of that batch alone {digest_ok}; state against "
+        f"the eager steps: leaves differing {differ}")
+    check(steps["captured"] == steps["eager"] == [3 + at],
+          f"captured coverage: the incident was charged to {steps}")
+    check(digest_ok and not differ, "captured coverage: digest or state differ")
+
+
+def phase_fused(dev, seed, card_name):
+    """Phase 12: captured steps on each training path, (a)-(f). Returns
+    the Python launch counts of the paths that run the kernels (GPT-base
+    and transformer_long) and the profiled GPT-base replays' launches."""
+    import gc
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    timings = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        _zero_launch_counts(fa)
+        timings.update(fused_mnist(dev, seed, card_name, tmp))
+        fused_coverage(dev, seed, card_name, tmp)
+        mnist_launches = _launch_counts(fa)
+        check(all(n == 0 for n in mnist_launches.values()),
+              "captured mnist: a flash kernel launched")
+        with pt.amp_guard("bfloat16"):
+            gpt_times, launches, replayed = fused_gpt(dev, seed, card_name)
+            timings.update(gpt_times)
+            _zero_launch_counts(fa)
+            timings.update(fused_resnet(dev, seed, card_name))
+            resnet = _launch_counts(fa)
+            # zeroed after each trainer's startup and checked inside
+            timings.update(fused_transformer(dev, seed, card_name))
+            more, long_launches = fused_bert_and_long(dev, seed, card_name)
+            timings.update(more)
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"captured steps: hand-kernel launches on the ResNet-50 path {resnet} (it runs none)")
+    check(all(n == 0 for n in resnet.values()), "captured resnet: a flash kernel launched")
+    for path, ms in timings.items():
+        say(f"captured steps summary ({card_name}): {path}: eager {ms['eager']:.4f} ms per "
+            f"step, captured {ms['captured']:.4f} ms per step, "
+            f"{ms['eager'] / ms['captured']:.2f}x")
+    return {n: launches[n] + long_launches[n] for n in launches}, replayed
+
+
 def _routes(fa, torch):
     """The route table's choices, as the kernels record reports them."""
     return {"bfloat16": fa.ROUTES[(torch.bfloat16, 64)],
@@ -2937,9 +3586,14 @@ def main(argv=None) -> int:
     # 11. Transformer-base and BERT-base (launch counts zeroed inside, per path)
     seq2seq = phase_seq2seq(dev, args.seed, smi)
     done("phase 11")
+
+    # 12. captured steps (launch counts zeroed inside, around the GPT path)
+    captured, replayed = phase_fused(dev, args.seed, smi)
+    done("phase 12")
     by_path = {name: {"served": served[name], "training": trained[name],
                       "persistence": persisted[name], "resnet": resnet_launches[name],
-                      **{path: n[name] for path, n in seq2seq.items()}}
+                      **{path: n[name] for path, n in seq2seq.items()},
+                      "captured": captured[name]}
                for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 
     # the kernels record: each kernel's row at the training path's shape,
@@ -2954,6 +3608,7 @@ def main(argv=None) -> int:
         "max_abs_err": fwd_row["max_abs_err"], "ms": fwd_row["ms"],
         "plain_ms": fwd_row["plain_ms"], "bound_ms": fwd_row["bound_ms"],
         "bound_by": fwd_row["bound_by"], "library_ms": fwd_row["library_ms"],
+        "replay_launches_profiled": replayed["flash_fwd"],
         "served_shape": {k: rows["prefill_qkv_b8"][k] for k in
                          ("ms", "plain_ms", "bound_ms", "library_ms")},
         "routes": _routes(fa, torch),
@@ -2972,6 +3627,7 @@ def main(argv=None) -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "library_covers": "dq, dk and dv together (SDPA forward+backward "
                               "minus forward)",
+            "replay_launches_profiled": replayed[name],
             "routes": _routes(fa, torch),
         })
     say(f"kernels: flash_fwd, flash_bwd_dq, flash_bwd_dkv ported (cuda, sm_90a), "

@@ -11,8 +11,9 @@ non-finite step instead of aborting.
 Every piece of the class is branchless on the device, as in the JAX
 package: the state ``{scale, good_steps, overflows}`` is three 0-d
 tensors, and ``update`` and ``select`` read the ``finite`` flag as a
-tensor. ``Trainer.step`` reads that flag back once a step and skips the
-update on the host (executor.py) rather than calling ``select``.
+tensor. ``Trainer``'s step computes the update and selects the old
+values back with ``select`` where a step is skipped, so it never reads the
+flag on the host and can be captured as a CUDA graph.
 """
 
 from __future__ import annotations

@@ -25,21 +25,25 @@ step's old values when a grad is not finite (``out["loss_scale"]``);
 ``Trainer(guard=GuardPolicy(...))`` (or the ``check_nan_inf`` flag, read
 at ``startup``) discards a step whose grads or float outputs are not
 finite and records an :class:`~paddle_tpu_torch.resilience.Incident`.
-Both compute one flag on the device, which the step reads back after the
-backward to skip the update on the host; the JAX package instead computes
-the update and selects the old values back on the device (``jnp.where``).
-On the ResNet-50 step the read makes about 430 fewer device operations
-and about 1.3 ms less device time (PERF.md, PR 7). The guard's
-``defer_readback`` defers only the examination of its bitmask (the
-incident record and the escalation), not this read.
+Both compute one flag on the device and select the old values back on the
+device (``LossScaler.select``), as the JAX package does, so a step never
+waits on the card: the guard's host half examines the flag later
+(``defer_readback``), and a captured step (which cannot read the host)
+takes the same body.
+
+K steps a dispatch, as the JAX package's ``lax.scan``:
+``Trainer.run_steps(stacked_feed)`` runs K steps of the same body from a
+``{name: (K, ...)}`` feed, on the card as one captured CUDA graph of the
+step replayed K times (``_captured_step``), bit for bit the K ``step()``
+calls it stands for; ``fit(steps_per_dispatch=K)`` feeds it K-batch
+chunks (``DeviceFeeder(stack_k=K)``).
 
 Not carried yet, each raising :class:`NotYetPorted` with the slice that
 brings it: meshes and sharding rules, the ``DistStrategy`` fields other
 than loss scaling (pipeline, sequence parallelism, accumulation, ZeRO),
-feed wire formats, on-device augmentation, ``run_steps`` and fit's fused
-steps (and the guard in them), elastic resizes, the HBM dataset cache and
-interval profile events; the journal and telemetry of checkpoint saves
-and guard incidents come with the observability slice.
+feed wire formats, on-device augmentation, elastic resizes, the HBM
+dataset cache and interval profile events; the journal and telemetry of
+checkpoint saves and guard incidents come with the observability slice.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from __future__ import annotations
 import contextlib
 import os
 import shutil
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -57,7 +62,9 @@ from .amp import LossScaler
 from .core.config import get_flag
 from .core.errors import NotYetPorted, enforce
 from .core.place import default_device
-from .framework import Program, build, check_params, params_from_jax, run_context
+from .data.feeder import PipelineMetrics, host_feed_nbytes
+from .framework import (Program, RngStream, build, check_params, params_from_jax,
+                        run_context)
 from .initializer import mix_seed
 from .parallel.strategy import DistStrategy, unported_fields
 from .resilience import GuardPolicy
@@ -116,6 +123,43 @@ def _loss_scaler(strategy) -> Optional[LossScaler]:
     return LossScaler(init_scale=strategy.loss_scale or 2.0 ** 15,
                       dynamic=strategy.dynamic_loss_scale,
                       growth_interval=strategy.loss_scale_growth_interval)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def _leaf_pairs(dst, src, pairs):
+    """(dst leaf, src leaf) of two trees of dicts, where src is another
+    tensor; a key src has and dst lacks is added to dst."""
+    for k, v in src.items():
+        d = dst.get(k)
+        if isinstance(v, dict):
+            if d is None:
+                d = dst[k] = {}
+            _leaf_pairs(d, v, pairs)
+        elif d is None:
+            dst[k] = v
+        elif v is not d:
+            pairs.append((d, v))
+    return pairs
+
+
+def write_in_place(dst, src) -> None:
+    """Copy the leaves of ``src`` into the tensors of ``dst`` (trees of
+    dicts of the same shape): the training state keeps its tensors, which
+    a captured step reads and writes at fixed addresses. One multi-tensor
+    copy per dtype."""
+    groups: Dict[Any, List] = {}
+    for d, v in _leaf_pairs(dst, src, []):
+        groups.setdefault((d.dtype, v.dtype), []).append((d, v))
+    with torch.no_grad():
+        for pairs in groups.values():
+            torch._foreach_copy_([d for d, _ in pairs], [v for _, v in pairs])
 
 
 def _to_numpy(tree):
@@ -233,6 +277,12 @@ class Trainer:
         self.global_step = 0
         # the meta of the checkpoint io.load_trainer last restored
         self._last_loaded_meta: Optional[Dict[str, Any]] = None
+        # the stream the eager steps draw from (seeded before each step)
+        self._rng = RngStream(self.device)
+        # run_steps' captured step (_captured_step.FusedSteps), made on its
+        # first dispatch and dropped when the training state is replaced
+        self._fused = None
+        self.pipeline_metrics = PipelineMetrics()
 
     # ------------------------------------------------------------------
     def startup(self, rng: Optional[int] = None, sample_feed: Optional[Feed] = None,
@@ -278,16 +328,42 @@ class Trainer:
         self._guard = guard
         self._guard_pending = None
         self.global_step = 0
+        self._fused = None
+        self.pipeline_metrics.reset()
         return self
 
     def _put_feed(self, feed: Feed) -> Feed:
-        return {k: _put(v, self.device) for k, v in feed.items()}
+        """The feed's values as tensors on this trainer's device (a
+        ``(K, ...)`` super-batch as one tensor a name); its host bytes and
+        the put's submission time go to ``pipeline_metrics``."""
+        nbytes = host_feed_nbytes(feed)
+        t0 = time.perf_counter()
+        out = {k: _put(v, self.device) for k, v in feed.items()}
+        if nbytes:
+            self.pipeline_metrics.record_h2d(nbytes, time.perf_counter() - t0)
+        return out
 
-    def _run(self, feed: Feed, training: bool, rng: Optional[int] = None):
-        """(outputs as a dict, new state) of one run of the program."""
-        if rng is None and training:
-            # the step's rng, as the JAX package derives it (executor.py:1310)
-            rng = mix_seed(get_flag("seed") + 1, self.global_step)
+    def pipeline_report(self) -> Dict[str, Any]:
+        """The input pipeline's stage attribution since ``startup`` (or
+        ``pipeline_metrics.reset()``): seconds per stage, bytes, the
+        link estimate and the bottleneck (:meth:`PipelineMetrics.report`).
+        Fed by ``fit``'s ``DeviceFeeder`` and by ``_put_feed`` on direct
+        ``step``/``run_steps`` calls."""
+        return self.pipeline_metrics.report()
+
+    def _step_seed(self, rng: Optional[int], step: int, fused: bool = False) -> int:
+        """The seed step ``step`` draws from: the JAX package's
+        ``fold_in(key(seed + 1), global_step)`` (executor.py:1310) as
+        ``mix_seed(seed + 1, step)``; a ``step(rng=r)`` draws from ``r``
+        itself, a ``run_steps(rng=r)`` from ``mix_seed(r, step)``
+        (executor.py:1193)."""
+        if rng is None:
+            return mix_seed(get_flag("seed") + 1, step)
+        return mix_seed(int(rng), step) if fused else int(rng)
+
+    def _run(self, feed: Feed, training: bool, rng=None):
+        """(outputs as a dict, new state) of one run of the program;
+        ``rng`` is an int seed or an ``RngStream``."""
         if self.is_program:
             out, new_state = self.program.apply(self.scope.params, self.scope.state,
                                                 training=training, rng=rng,
@@ -315,16 +391,52 @@ class Trainer:
         A non-finite grad under a loss scaler, or a non-finite checked
         value under the guard, keeps the params, the optimizer state (its
         step too) and the program state at their values from before the
-        step; ``global_step`` still advances.
+        step, selected back on the device; ``global_step`` still advances.
+        The step reads nothing back from the card.
 
         ``rng`` (an int seed) replaces the step's derived seed
-        ``mix_seed(seed + 1, global_step)``; an ``nn.Module`` program
-        draws its dropout masks from it too (:func:`framework.run_context`).
-        ``span`` names the feeder batch of a journal event in the JAX
-        package; it is taken and unused until the observability slice
-        (ROADMAP queue 1, item 24)."""
+        ``mix_seed(seed + 1, global_step)``; the program's random ops
+        (dropout) draw from a stream seeded with it
+        (:class:`framework.RngStream`). ``span`` names the feeder batch of
+        a journal event in the JAX package; it is taken and unused until
+        the observability slice (ROADMAP queue 1, item 24)."""
         enforce(self.scope.opt_state is not None, "call startup() before step()")
         feed = self._put_feed(feed)
+        out = self._step_body(feed, self._rng.reset(self._step_seed(rng, self.global_step)))
+        self.global_step += 1
+        self._after_dispatch(out, feed, 1)
+        return out
+
+    def _after_dispatch(self, out: Dict[str, torch.Tensor], feed: Feed, k: int) -> None:
+        """The host's half of a dispatch of ``k`` steps that ended at
+        ``global_step``: the ``benchmark`` flag's wait, and the guard's
+        masks parked (or examined)."""
+        if get_flag("benchmark") and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        if self._guard is not None:
+            self._guard_enqueue(out["guard_nonfinite"], feed, self.global_step - k, k)
+        else:
+            self._warn_inert_nan_flag()
+
+    def _state_trees(self) -> Dict[str, Any]:
+        """The training state a step reads and writes in place: params,
+        optimizer state, program state and loss-scale state."""
+        return {"params": self.scope.params, "opt": self.scope.opt_state,
+                "state": self.scope.state, "ls": self.scope.loss_scale_state or {}}
+
+    def _step_body(self, feed: Dict[str, torch.Tensor],
+                   stream: RngStream) -> Dict[str, torch.Tensor]:
+        """One step on the device, with no read back to the host: the
+        forward (random ops drawing from ``stream``), the backward, the
+        unscale and finiteness flag, the guard's mask, the update, and the
+        select of the old values where the step is skipped
+        (``LossScaler.select``, as the JAX package's step,
+        executor.py:1044-1115; the loss-scale state is not rolled back).
+        The results are written into the training state's own tensors
+        (:func:`write_in_place`). Returns the fetched outputs.
+
+        ``step`` runs it eagerly; ``run_steps`` runs it from fixed feed
+        slots, captured as a CUDA graph on the card (``_captured_step``)."""
         params = self.scope.params
         scaler, ls = self.loss_scaler, self.scope.loss_scale_state
         for p in params.values():
@@ -333,7 +445,7 @@ class Trainer:
         # its device time by them; about a microsecond each when no
         # profiler runs
         with record_function("trainer.forward"):
-            out, new_state = self._run(feed, training=True, rng=rng)
+            out, new_state = self._run(feed, training=True, rng=stream)
         with record_function("trainer.backward"):
             loss = out[self.loss_name]
             (loss if scaler is None else scaler.scale_loss(loss, ls)).backward()
@@ -345,6 +457,11 @@ class Trainer:
             grads = {k: torch.zeros_like(params[k]) if g is None else g
                      for k, g in grads.items()}
         out = self._fetch(out)
+        # an output that is training state (a state variable the program
+        # returns) is copied: the update below writes that tensor in place
+        owned = {t.untyped_storage().data_ptr() for t in _leaves(self._state_trees())}
+        out = {k: v.clone() if v.untyped_storage().data_ptr() in owned else v
+               for k, v in out.items()}
         keep = None  # 0-d bool on the device: whether this step's update stands
         with torch.no_grad():
             if scaler is not None:
@@ -362,27 +479,60 @@ class Trainer:
         with torch.no_grad(), record_function("trainer.update"):
             values = {k: p.detach() for k, p in params.items()}
             new_state = {k: v.detach() for k, v in new_state.items()}
-            if keep is not None and not bool(keep):  # one flag read back a step
-                new_params, new_opt, new_state = values, self.scope.opt_state, self.scope.state
-            else:
-                new_params, new_opt = self.optimizer.update(
-                    grads, self.scope.opt_state, values,
-                    self.program.param_info if self.is_program else None)
-            for k, p in values.items():
-                if new_params[k] is not p:  # a param with no update keeps its value
-                    p.copy_(new_params[k])
-        self.scope.opt_state = new_opt
-        self.scope.state = new_state
-        if scaler is not None:
-            self.scope.loss_scale_state = new_ls
-        self.global_step += 1
-        if get_flag("benchmark") and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        if self._guard is not None:
-            self._guard_enqueue(out["guard_nonfinite"], feed, self.global_step - 1)
-        else:
-            self._warn_inert_nan_flag()
+            new_params, new_opt = self.optimizer.update(
+                grads, self.scope.opt_state, values,
+                self.program.param_info if self.is_program else None)
+            if keep is not None:
+                new_params = LossScaler.select(keep, new_params, values)
+                new_opt = LossScaler.select(keep, new_opt, self.scope.opt_state)
+                new_state = LossScaler.select(keep, new_state, self.scope.state)
+            write_in_place({"params": values, "opt": self.scope.opt_state,
+                            "state": self.scope.state, "ls": ls or {}},
+                           {"params": new_params, "opt": new_opt, "state": new_state,
+                            "ls": new_ls if scaler is not None else {}})
         return out
+
+    def run_steps(self, stacked_feed: Feed, k: Optional[int] = None,
+                  rng: Optional[int] = None,
+                  span: Optional[str] = None) -> Dict[str, torch.Tensor]:
+        """K optimization steps in one dispatch (executor.py:1341):
+        ``stacked_feed`` carries K per-step batches on a new leading axis
+        (``{name: (K, batch, ...)}``); the fetched outputs come back
+        stacked ``(K, ...)``. Each step draws from the seed ``step()``
+        would draw at its global step (``mix_seed(seed + 1,
+        global_step + i)``, or ``mix_seed(rng, global_step + i)``), so K
+        fused steps are bit for bit K ``step()`` calls, the guard and the
+        loss scaler working per step. ``global_step`` advances by K; the
+        guard charges an incident to its own step.
+
+        On the card the step is captured once as a CUDA graph (per trainer
+        and feed signature) and replayed K times (``_captured_step``); a
+        failed capture or replay raises, and never runs eager steps. On the
+        CPU the same body runs K times. ``k`` must equal the feed's
+        leading dim; a remainder batch goes to :meth:`step`, as ``fit``
+        sends it. ``span`` is taken and unused until item 24."""
+        from . import _captured_step
+
+        enforce(self.scope.opt_state is not None, "call startup() before run_steps()")
+        default_device(self.device, "Trainer.run_steps")
+        lead = {name: int(v.shape[0]) for name, v in stacked_feed.items()}
+        enforce(len(set(lead.values())) == 1,
+                f"run_steps: stacked feed leading dims disagree: {lead}")
+        feed_k = next(iter(lead.values()))
+        k = feed_k if k is None else int(k)
+        enforce(k == feed_k, f"run_steps(k={k}): stacked feed carries {feed_k} step "
+                             "batches on its leading axis")
+        feed = self._put_feed(stacked_feed)
+        base = self.global_step
+        seeds = [self._step_seed(rng, base + i, fused=True) for i in range(k)]
+        if self._fused is None or not self._fused.valid_for(self, feed):
+            self._fused = None  # the old graph and its pool go first
+            self._fused = _captured_step.FusedSteps(self, feed)
+        with record_function("trainer.run_steps"):
+            outs = self._fused.run(feed, seeds)
+        self.global_step += k
+        self._after_dispatch(outs, feed, k)
+        return outs
 
     # -- the NaN/Inf guard's host half (executor.py:1404-1500) -------------
     def _guard_mask(self, out: Dict[str, torch.Tensor], grads) -> torch.Tensor:
@@ -410,12 +560,14 @@ class Trainer:
         bits = torch.stack(flags).to(torch.int64)
         return (bits << torch.arange(len(flags), device=bits.device)).sum()
 
-    def _guard_enqueue(self, mask: torch.Tensor, feed: Feed, step: int) -> None:
-        """Park this step's mask and examine the previous one (which bits,
-        the incident, the escalation); with
-        ``GuardPolicy(defer_readback=False)`` examine it at once, so an
-        escalation raises at the step at fault."""
-        item = (mask, feed if self._guard.record_feed_digest else None, step)
+    def _guard_enqueue(self, mask: torch.Tensor, feed: Feed, base_step: int,
+                       k: int) -> None:
+        """Park this dispatch's mask (``(k,)`` for ``k`` fused steps from
+        ``base_step``) and examine the previous one (which bits, the
+        incidents, the escalation); with ``GuardPolicy(defer_readback=False)``
+        examine it at once, so an escalation raises at the dispatch at
+        fault."""
+        item = (mask, feed if self._guard.record_feed_digest else None, base_step, k)
         if not self._guard.defer_readback:
             self._guard_examine(*item)
             return
@@ -431,23 +583,33 @@ class Trainer:
         if prev is not None:
             self._guard_examine(*prev)
 
-    def _guard_examine(self, mask: torch.Tensor, feed: Optional[Feed], step: int) -> None:
+    def _guard_examine(self, mask: torch.Tensor, feed: Optional[Feed], base_step: int,
+                       k: int) -> None:
+        """Record an incident for each step whose mask is not 0, at its own
+        step, digesting only that step's slice of a stacked feed, then
+        escalate at each incident's step (executor.py:1466-1500)."""
         from . import resilience
 
-        m = int(mask.item())
-        if not m:
+        masks = [int(m) for m in mask.reshape(-1).tolist()]
+        if not any(masks):
             return
-        bad = tuple(n for b, n in enumerate(self._guard_bit_names) if (m >> b) & 1)
-        digest = None
-        if feed is not None:
-            try:
-                digest = resilience.feed_digest(feed)
-            except Exception:  # digesting must never mask the incident
-                digest = None
-        inc = resilience.record_incident(self.guard_incidents, step, bad or ("unknown",),
-                                         digest)
-        self.guard_incident_total += 1
-        resilience.escalate_if_needed(self.guard_incidents, self._guard, inc.step)
+        recorded = []
+        for i, m in enumerate(masks):
+            if not m:
+                continue
+            bad = tuple(n for b, n in enumerate(self._guard_bit_names) if (m >> b) & 1)
+            digest = None
+            if feed is not None:
+                try:
+                    digest = resilience.feed_digest(
+                        {n: v[i] for n, v in feed.items()} if k > 1 else feed)
+                except Exception:  # digesting must never mask the incident
+                    digest = None
+            recorded.append(resilience.record_incident(
+                self.guard_incidents, base_step + i, bad or ("unknown",), digest))
+        self.guard_incident_total += len(recorded)
+        for inc in recorded:
+            resilience.escalate_if_needed(self.guard_incidents, self._guard, inc.step)
 
     def _warn_inert_nan_flag(self) -> None:
         """The check_nan_inf flag is read at startup: turned on later it
@@ -491,23 +653,25 @@ class Event:
     ``kind`` is begin_epoch, begin_step, end_step, end_epoch or preempted
     (once, after the boundary checkpoint, when fit returns on
     SIGTERM/SIGINT); ``step`` the trainer's global step when it fired;
-    ``metrics`` the step's fetched outputs on end_step; ``num_steps`` the
-    steps an event covers (1 until the fused-step slice)."""
+    ``metrics`` the step's fetched outputs on end_step (stacked ``(n,
+    ...)`` for a fused dispatch of n steps); ``num_steps`` the steps an
+    event covers; ``pipeline`` the input pipeline's report
+    (``Trainer.pipeline_report``) on end_epoch and preempted."""
 
     def __init__(self, kind: str, epoch: int, step: int, metrics=None,
-                 num_steps: int = 1):
+                 num_steps: int = 1, pipeline=None):
         self.kind = kind
         self.epoch = epoch
         self.step = step
         self.metrics = metrics or {}
         self.num_steps = num_steps
+        self.pipeline = pipeline
 
 
 # fit's arguments of later slices: (default, the slice that brings it)
 _FIT_LATER = {
     "elastic": (False, "elastic training, ROADMAP queue 1 item 22"),
     "resize": (None, "elastic training, ROADMAP queue 1 item 22"),
-    "steps_per_dispatch": (1, "fused steps, ROADMAP queue 1 item 18"),
     "feed_wire": (None, "data extras, ROADMAP queue 1 item 23"),
     "device_cache": (None, "data extras, ROADMAP queue 1 item 23"),
     "augment": (None, "data extras, ROADMAP queue 1 item 23"),
@@ -547,18 +711,30 @@ def fit(trainer: Trainer, reader, num_epochs: int, feed_names: Sequence[str],
     the batches of its epoch that it already consumed. ``preemption``
     (default: on with a checkpoint_config) catches SIGTERM/SIGINT: fit
     saves a boundary checkpoint after the current step, fires
-    ``"preempted"`` and returns."""
+    ``"preempted"`` and returns.
+
+    ``steps_per_dispatch=K`` fuses the steps: the batches come in K-batch
+    chunks (``DeviceFeeder(stack_k=K)``, or ``iter_chunked`` without the
+    prefetch) and each full chunk runs as one ``trainer.run_steps``;
+    remainder batches and batches of another shape go to
+    ``trainer.step``. Events fire once a dispatch (``Event.num_steps``,
+    stacked metrics), ``global_step`` advances by the steps taken,
+    ``step_interval`` checkpoints and preemption are checked at dispatch
+    boundaries (a save lands on the boundary that crossed the interval),
+    and a resume re-stacks the chunks from the restored position."""
     from . import io as _io
     from . import resilience
-    from .data.feeder import DataFeeder, DeviceFeeder
+    from .data.feeder import DataFeeder, DeviceFeeder, iter_chunked
 
-    given = {"elastic": elastic, "resize": resize,
-             "steps_per_dispatch": steps_per_dispatch, "feed_wire": feed_wire,
+    given = {"elastic": elastic, "resize": resize, "feed_wire": feed_wire,
              "device_cache": device_cache, "augment": augment,
              "profile_interval_steps": profile_interval_steps}
     for name, (default, later) in _FIT_LATER.items():
         if given[name] != default:
             raise NotYetPorted(f"fit({name}=...): {later}")
+    enforce(int(steps_per_dispatch) >= 1,
+            f"fit(steps_per_dispatch={steps_per_dispatch}): need >= 1")
+    k = int(steps_per_dispatch)
     feeder = DataFeeder(feed_names, dtypes)
 
     def emit(*args, **kw):
@@ -601,7 +777,8 @@ def fit(trainer: Trainer, reader, num_epochs: int, feed_names: Sequence[str],
           else contextlib.nullcontext()) as ph:
         for epoch in range(start_epoch, num_epochs):
             # a resume lands mid-epoch: skip the batches the restored
-            # checkpoint already consumed (one batch is one step)
+            # checkpoint already consumed (one batch is one step), and
+            # chunk the rest from there
             skip = skip_steps if epoch == start_epoch else 0
             steps_in_epoch = skip
             emit("begin_epoch", epoch, trainer.global_step)
@@ -611,16 +788,27 @@ def fit(trainer: Trainer, reader, num_epochs: int, feed_names: Sequence[str],
                     if i >= _skip:
                         yield feeder.feed(samples)
 
-            device_feeder = DeviceFeeder(batches, device=trainer.device) if prefetch else None
-            feeds = iter(device_feeder) if prefetch else map(trainer._put_feed, batches())
+            device_feeder = None
+            if prefetch:
+                device_feeder = DeviceFeeder(batches, device=trainer.device, stack_k=k,
+                                             metrics=trainer.pipeline_metrics)
+                items = iter(device_feeder)
+            elif k > 1:
+                items = iter_chunked(batches(), k, put_fn=trainer._put_feed,
+                                     put_stacked_fn=trainer._put_feed)
+            else:
+                items = map(trainer._put_feed, batches())
             preempted = False
             try:
-                for feed in feeds:
+                for item in items:
+                    n, feed = item if k > 1 else (1, item)
                     gs_before = trainer.global_step
-                    emit("begin_step", epoch, gs_before)
-                    out = trainer.step(feed)
-                    steps_in_epoch += 1
-                    emit("end_step", epoch, trainer.global_step, out)
+                    emit("begin_step", epoch, gs_before, num_steps=n)
+                    out = trainer.run_steps(feed, k=n) if n > 1 else trainer.step(feed)
+                    steps_in_epoch += n
+                    emit("end_step", epoch, trainer.global_step, out, num_steps=n)
+                    # a dispatch that crossed an interval multiple saves (the
+                    # exact multiple when n == 1)
                     if si and trainer.global_step // si > gs_before // si:
                         save(f"step_{trainer.global_step}", epoch, steps_in_epoch)
                     if ph is not None and ph.requested:
@@ -645,11 +833,12 @@ def fit(trainer: Trainer, reader, num_epochs: int, feed_names: Sequence[str],
                 # an earlier run does not count)
                 if last_saved_step[0] != trainer.global_step:
                     save(f"step_{trainer.global_step}", epoch, steps_in_epoch)
-                emit("preempted", epoch, trainer.global_step)
+                emit("preempted", epoch, trainer.global_step,
+                     pipeline=trainer.pipeline_report())
                 if guard_err is not None:
                     raise guard_err
                 return trainer
-            emit("end_epoch", epoch, trainer.global_step)
+            emit("end_epoch", epoch, trainer.global_step, pipeline=trainer.pipeline_report())
             if checkpoint_config and checkpoint_config.epoch_interval and \
                     (epoch + 1) % checkpoint_config.epoch_interval == 0:
                 save(f"epoch_{epoch}", epoch + 1, 0)

@@ -17,9 +17,10 @@ Where the port differs from the JAX package:
 - An rng key is a Python int. A parameter draws from its own CPU
   generator seeded from the key and its full name
   (:func:`initializer.param_generator`), so its values depend neither on
-  the device nor on the order of the other layers; ``next_rng_key``
-  returns a ``torch.Generator`` on the program's device, seeded from the
-  key and a per-run counter.
+  the device nor on the order of the other layers. A run's random ops
+  draw from its :class:`RngStream`: one generator on the program's
+  device, seeded once a run, whose state advances at every draw (so a
+  captured step replays it; ``Trainer.run_steps``).
 - The compute dtype of mixed precision is recorded on the context when
   ``init``/``apply`` starts (the active :func:`amp_guard`'s dtype, else the
   ``default_compute_dtype`` flag); layers read it from there through
@@ -42,7 +43,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -53,7 +54,7 @@ from .core.config import get_flag
 from .core.dtypes import convert_dtype
 from .core.errors import EnforceError, NotFoundError, NotYetPorted, enforce
 from .core.place import default_device
-from .initializer import mix_seed, param_generator
+from .initializer import param_generator
 
 Params = Dict[str, torch.Tensor]
 State = Dict[str, torch.Tensor]
@@ -110,25 +111,140 @@ class ParamInfo:
 # --------------------------------------------------------------------------
 
 
+class RngStream:
+    """The random numbers of one program run: a generator on the run's
+    device (``main``), seeded once a run by :meth:`reset`, whose state
+    advances at every draw. The draws of one run differ from each other
+    (each dropout mask, each layer), and one seed draws the same numbers
+    again. ``Trainer`` seeds its stream before each step from
+    ``mix_seed(seed + 1, global_step)`` or the step's ``rng``.
+
+    Side generators, taken in the order the run asks for them, serve
+    draws that must not come from the advancing main state:
+
+    - a :func:`maybe_remat` recompute, which must draw its forward's
+      numbers: :meth:`fork` sets a side generator at the state of the
+      generator the block's forward starts from;
+    - an op given its own ``seed`` (``dropout(seed=9)``) and a block under
+      :func:`rng_scope`: :meth:`seeded`.
+
+    A CUDA graph cannot create, seed or read a generator while it is
+    captured. A captured step (``Trainer.run_steps`` on the card) runs
+    its step once eagerly first, which records the side generators it
+    takes: their order, their seeds and, for a fork, the main state's
+    offset. :meth:`freeze` fixes that record; from then on :meth:`reset`
+    sets every generator on the host before each replay, where the
+    replay reads them (``CUDAGraph.register_generator_state``), and the
+    graph advances their Philox offsets on the card."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.main = torch.Generator(device=self.device)
+        self.seed: Optional[int] = None
+        self.used = False  # a draw took the main generator
+        self.frozen = False
+        self._side: List[torch.Generator] = []
+        # per side generator of the run: (its own seed, or None for the
+        # run's seed; the Philox offset it starts from)
+        self._plan: List[Tuple[Optional[int], int]] = []
+        self._taken = 0
+
+    def reset(self, seed: int) -> "RngStream":
+        """Seed the next run: the main generator at ``seed``, and (frozen)
+        each side generator where the recorded run took it."""
+        self.seed = int(seed)
+        self.main.manual_seed(self.seed)
+        self._taken = 0
+        if self.frozen:
+            for g, (own, offset) in zip(self._side, self._plan):
+                g.manual_seed(self.seed if own is None else own)
+                if offset:
+                    g.set_offset(offset)
+        else:
+            self._plan = []
+        return self
+
+    def freeze(self) -> None:
+        """Fix the side generators the last run took (see the class)."""
+        del self._side[len(self._plan):]
+        self.frozen = True
+
+    def generators(self) -> List[torch.Generator]:
+        """The generators the last run drew from: main (if it did), then
+        the side generators in the order it took them."""
+        return ([self.main] if self.used else []) + self._side[:len(self._plan)]
+
+    def generator(self, index: Optional[int] = None) -> torch.Generator:
+        """Side generator ``index``, or (None) the main generator."""
+        if index is None:
+            self.used = True
+            return self.main
+        return self._side[index]
+
+    def fork(self, index: Optional[int]) -> int:
+        """Take the next side generator, set at the current state of
+        generator ``index`` (None: main): it draws what ``index`` draws
+        from here on. Returns its index."""
+        src = self.main if index is None else self._side[index]
+        return self._take(None if index is None else self._plan[index][0], src)
+
+    def seeded(self, seed: int) -> int:
+        """Take the next side generator, seeded with ``seed``."""
+        return self._take(int(seed), None)
+
+    def _take(self, own: Optional[int], src: Optional[torch.Generator]) -> int:
+        i = self._taken
+        self._taken += 1
+        if self.frozen:
+            enforce(i < len(self._plan) and self._plan[i][0] == own,
+                    "a captured step asked for its random numbers in another order "
+                    "than the run it was recorded from (control flow that depends "
+                    "on the data?)")
+            return i
+        if i == len(self._side):
+            self._side.append(torch.Generator(device=self.device))
+        g = self._side[i]
+        if src is None:
+            g.manual_seed(own)
+            offset = 0
+        else:
+            g.set_state(src.get_state())
+            offset = src.get_offset() if self.device.type == "cuda" else 0
+        self._plan.append((own, offset))
+        return i
+
+
+def as_stream(rng: Union[None, int, RngStream], device) -> Optional[RngStream]:
+    """``rng`` as a run's :class:`RngStream`: a stream passes as it is,
+    an int seeds a new one on ``device``, None has none."""
+    if rng is None or isinstance(rng, RngStream):
+        return rng
+    return RngStream(device).reset(int(rng))
+
+
 class BuildContext:
     """Per-run context: parameter scope, name generator, rng, mode, the
     device, the compute dtype and the image layout.
 
     Mode 'init' creates parameters (the startup program); mode 'apply'
     fetches them. Name generation is context-local, so the init and apply
-    runs of one function agree."""
+    runs of one function agree. ``rng`` is an int seed or an
+    :class:`RngStream`; the parameters of init draw from the seed, the
+    run's random ops from the stream."""
 
-    def __init__(self, mode: str, params: Params, state: State, rng: Optional[int],
-                 training: bool, param_info: Dict[str, ParamInfo],
-                 device: torch.device, compute_dtype: torch.dtype,
-                 layout: str = "NCHW"):
+    def __init__(self, mode: str, params: Params, state: State,
+                 rng: Union[None, int, RngStream], training: bool,
+                 param_info: Dict[str, ParamInfo], device: torch.device,
+                 compute_dtype: torch.dtype, layout: str = "NCHW"):
         enforce(mode in ("init", "apply"), f"BuildContext mode {mode!r}")
         self.mode = mode
         self.params = params
         self.state = state
         self.new_state: State = {}
-        self.rng = rng
-        self._rng_count = 0
+        self.stream = as_stream(rng, device)
+        self.rng = None if self.stream is None else self.stream.seed
+        # the side generator of ``stream`` the run draws from (None: main)
+        self.gen_index: Optional[int] = None
         self.training = training
         self.param_info = param_info
         self.device = device
@@ -146,12 +262,10 @@ class BuildContext:
 
     # -- rng ---------------------------------------------------------------
     def next_rng_key(self) -> torch.Generator:
-        enforce(self.rng is not None,
+        enforce(self.stream is not None,
                 "This program needs an RNG (dropout/random op) but none was "
                 "passed; call apply(..., rng=seed).")
-        self._rng_count += 1
-        return torch.Generator(device=self.device).manual_seed(
-            mix_seed(self.rng, self._rng_count))
+        return self.stream.generator(self.gen_index)
 
     def param_rng_key(self, name: str) -> torch.Generator:
         # one generator per name: stable when unrelated layers are added or
@@ -260,49 +374,60 @@ def current_device(device=None) -> torch.device:
 
 
 def next_rng_key() -> torch.Generator:
+    """The generator the running program's random ops draw from."""
     return _ctx().next_rng_key()
+
+
+def seeded_generator(seed: int, device) -> torch.Generator:
+    """A generator seeded with ``seed``, for an op given its own seed: a
+    side generator of the running program's stream when it runs on
+    ``device`` (a captured step can set it before each replay), else a
+    new generator on ``device``."""
+    ctx = current_context()
+    device = torch.device(device)
+    if ctx is not None and ctx.stream is not None and ctx.stream.device == device:
+        return ctx.stream.generator(ctx.stream.seeded(seed))
+    return torch.Generator(device=device).manual_seed(int(seed))
 
 
 @contextlib.contextmanager
 def rng_fold(tag: int):
-    """Mix ``tag`` into the running program's rng for the block, so a body
-    run once per layer draws other numbers in each. No-op when no program
-    or no rng is active."""
-    ctx = current_context()
-    if ctx is None or ctx.rng is None:
-        yield
-        return
-    old = ctx.rng
-    ctx.rng = mix_seed(old, int(tag))
-    try:
-        yield
-    finally:
-        ctx.rng = old
+    """The JAX package folds ``tag`` into its rng for the block, so a body
+    traced once and run once per layer draws other numbers in each. The
+    port runs the body again for each layer, and its :class:`RngStream`
+    advances at every draw, so each layer already draws other numbers:
+    the block runs as it is (kept for the JAX package's API)."""
+    yield
 
 
 @contextlib.contextmanager
 def rng_scope(key: Optional[int]):
-    """REPLACE the running program's rng with ``key`` for the block. No-op
-    when ``key`` is None or no program is active."""
+    """REPLACE the running program's rng with ``key`` for the block: its
+    draws come from a generator seeded with ``key``. No-op when ``key``
+    is None or no program is active."""
     ctx = current_context()
     if ctx is None or key is None:
         yield
         return
-    old = ctx.rng
+    old = ctx.stream, ctx.gen_index, ctx.rng
+    if ctx.stream is None:
+        ctx.stream, ctx.gen_index = RngStream(ctx.device).reset(int(key)), None
+    else:
+        ctx.gen_index = ctx.stream.seeded(key)
     ctx.rng = int(key)
     try:
         yield
     finally:
-        ctx.rng = old
+        ctx.stream, ctx.gen_index, ctx.rng = old
 
 
 @contextlib.contextmanager
-def run_context(rng: Optional[int], training: bool, device):
+def run_context(rng: Union[None, int, RngStream], training: bool, device):
     """A context with no parameters, for a program that owns its params (an
     ``nn.Module`` such as GPT's, which ``Trainer`` runs): what runs inside
     sees ``in_training() == training`` and draws its dropout masks from
-    ``rng`` (:func:`next_rng_key`), and a :func:`maybe_remat` block inside
-    replays them."""
+    ``rng`` (an int seed or a stream; :func:`next_rng_key`), and a
+    :func:`maybe_remat` block inside replays them."""
     ctx = BuildContext("apply", {}, {}, rng, training, {}, torch.device(device),
                        _ambient_compute_dtype())
     with _use_ctx(ctx):
@@ -472,8 +597,11 @@ class Program:
         return params, state
 
     def apply(self, params: Params, state: Optional[State], *args, training: bool = False,
-              rng: Optional[int] = None, place=None, **kwargs) -> Tuple[Any, State]:
+              rng: Union[None, int, RngStream] = None, place=None,
+              **kwargs) -> Tuple[Any, State]:
         """Run the program on ``params``. Returns (outputs, new_state).
+        ``rng`` (an int seed, or a :class:`RngStream` seeded by the
+        caller) is what its random ops draw from.
 
         The program runs on ``place`` when given, else on the device of
         the first tensor among the params and inputs, else on the CUDA
@@ -611,11 +739,15 @@ def maybe_remat(fn: Callable, enabled: Optional[bool] = None,
     :func:`remat_enabled`). Never wraps during init.
 
     The backward's recompute runs ``fn`` again with the context's name
-    counters, name stack, rng (as :func:`rng_fold`/:func:`rng_scope` left
-    it), rng counter and layout as they were when the forward entered it,
-    so it fetches the same parameters, draws the same random numbers and
-    lays out its images the same way, on whichever thread autograd runs
-    it."""
+    counters, name stack and layout as they were when the forward entered
+    it, and draws from a side generator of the run's :class:`RngStream`
+    set at the state the forward's draws started from
+    (:meth:`RngStream.fork`), so it fetches the same parameters, draws
+    the same random numbers and lays out its images the same way, on
+    whichever thread autograd runs it, eagerly or in a captured step.
+    The process-wide generators are not stashed (``preserve_rng_state``
+    off): the port draws from its streams only, and a captured step
+    could not read them."""
     _no_remat_policy(policy)
     ctx = current_context()
     if ctx is not None and ctx.mode == "init":
@@ -626,33 +758,37 @@ def maybe_remat(fn: Callable, enabled: Optional[bool] = None,
     def run(*args, **kwargs):
         ctx = current_context()
         if ctx is None:
-            return checkpoint(fn, *args, use_reentrant=False, **kwargs)
-        start = (dict(ctx.namer.ids), list(ctx.name_stack), ctx.rng, ctx._rng_count,
-                 ctx.layout)
+            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                              **kwargs)
+        fork = None if ctx.stream is None else ctx.stream.fork(ctx.gen_index)
+        start = (dict(ctx.namer.ids), list(ctx.name_stack), ctx.layout)
         after = {}
 
         def replay(*a, **kw):
-            saved = (dict(ctx.namer.ids), ctx.name_stack, ctx.rng, ctx._rng_count,
-                     ctx.layout)
+            # the first call is the forward, which draws on from the run's
+            # generator; a later one is the recompute, which draws from
+            # the fork
+            saved = (dict(ctx.namer.ids), ctx.name_stack, ctx.layout, ctx.gen_index)
             ctx.namer.ids.clear()
             ctx.namer.ids.update(start[0])
             ctx.name_stack = list(start[1])
-            ctx.rng, ctx._rng_count, ctx.layout = start[2:]
+            ctx.layout = start[2]
+            if "names" in after:
+                ctx.gen_index = fork
             try:
                 with _use_ctx(ctx):
                     out = fn(*a, **kw)
-                after.setdefault("state", (dict(ctx.namer.ids), ctx._rng_count))
+                after.setdefault("names", dict(ctx.namer.ids))
                 return out
             finally:
                 ctx.namer.ids.clear()
                 ctx.namer.ids.update(saved[0])
-                ctx.name_stack = saved[1]
-                ctx.rng, ctx._rng_count, ctx.layout = saved[2:]
+                ctx.name_stack, ctx.layout, ctx.gen_index = saved[1:]
 
-        out = checkpoint(replay, *args, use_reentrant=False, **kwargs)
+        out = checkpoint(replay, *args, use_reentrant=False, preserve_rng_state=False,
+                         **kwargs)
         ctx.namer.ids.clear()
-        ctx.namer.ids.update(after["state"][0])
-        ctx._rng_count = after["state"][1]
+        ctx.namer.ids.update(after["names"])
         return out
 
     return run
@@ -737,7 +873,7 @@ __all__ = [
     "check_params", "compute_dtype", "create_parameter", "create_variable",
     "current_context", "current_device", "current_layout", "default_main_program",
     "default_startup_program", "in_training", "layout_mode", "maybe_remat",
-    "name_scope", "next_rng_key", "params_from_jax", "pipeline_mode",
-    "program_guard", "remat_enabled", "remat_mode", "reuse_names", "rng_fold",
-    "rng_scope", "run_context", "sp_mode",
+    "RngStream", "as_stream", "name_scope", "next_rng_key", "params_from_jax",
+    "pipeline_mode", "program_guard", "remat_enabled", "remat_mode", "reuse_names",
+    "rng_fold", "rng_scope", "run_context", "seeded_generator", "sp_mode",
 ]

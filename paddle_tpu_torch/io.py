@@ -371,6 +371,7 @@ def load_trainer(dirname: str, trainer, allow_reshard: bool = False) -> None:
     trainer.scope.params = params
     trainer.scope.state = _to_device(state, dev)
     trainer.scope.opt_state = opt_state
+    trainer._fused = None  # a captured step reads the state it replaced
     trainer.global_step = int(meta.get("global_step", 0))
     # fit(resume=True) reads epoch/epoch_step from here
     trainer._last_loaded_meta = dict(meta)

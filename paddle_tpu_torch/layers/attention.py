@@ -196,7 +196,10 @@ def positional_encoding(seq_len: int, d_model: int, dtype=torch.float32,
     transformer's position_encoding_init)."""
     pos = torch.arange(seq_len, device=device, dtype=torch.float32)[:, None]
     i = torch.arange(d_model // 2, device=device, dtype=torch.float32)[None, :]
-    angle = pos / torch.pow(torch.tensor(10000.0, device=device), 2 * i / d_model)
+    # the base filled in on the device: a copy from the host could not be
+    # captured in a CUDA graph of the step
+    base = torch.full((), 10000.0, dtype=torch.float32, device=device)
+    angle = pos / torch.pow(base, 2 * i / d_model)
     pe = torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
     return pe.to(dtype)
 

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from .. import initializer as init
 from ..core.errors import NotYetPorted, enforce
 from ..framework import (LayerHelper, cast_compute, compute_dtype, current_layout,
-                         in_training, next_rng_key)
+                         in_training, next_rng_key, seeded_generator)
 from ..quantize import refuse_int8
 from .ops import apply_activation
 
@@ -374,11 +374,12 @@ def dropout(x, dropout_prob: float, is_test: Optional[bool] = None,
     returns ``x·(1 − p)`` and ``upscale_in_train`` returns x.
 
     The mask is ``torch.rand(x.shape) < 1 − p`` drawn from a generator on
-    x's device: seeded from ``seed`` when given, else the running
-    program's next one (:func:`framework.next_rng_key`), so the same
-    program rng and step give the same mask, and a recomputed
-    :func:`framework.maybe_remat` block draws its forward's masks. The
-    JAX package draws threefry bits, so the masks agree in their
+    x's device: seeded with ``seed`` when given
+    (:func:`framework.seeded_generator`), else the running program's
+    stream (:func:`framework.next_rng_key`), so the same program rng and
+    step give the same masks, a captured step replays them, and a
+    recomputed :func:`framework.maybe_remat` block draws its forward's.
+    The JAX package draws threefry bits, so the masks agree in their
     statistics only."""
     training = in_training() if is_test is None else not is_test
     if dropout_prob == 0.0:
@@ -387,8 +388,7 @@ def dropout(x, dropout_prob: float, is_test: Optional[bool] = None,
         if dropout_implementation == "downgrade_in_infer":
             return x * _scalar_like(x, 1.0 - dropout_prob)
         return x
-    g = (torch.Generator(device=x.device).manual_seed(int(seed)) if seed is not None
-         else next_rng_key())
+    g = seeded_generator(seed, x.device) if seed is not None else next_rng_key()
     keep = torch.rand(x.shape, generator=g, device=x.device) < 1.0 - dropout_prob
     out = torch.where(keep, x, torch.zeros((), dtype=x.dtype, device=x.device))
     if dropout_implementation == "upscale_in_train":

@@ -12,10 +12,9 @@ sequentially, one Python loop over the layers in place of the JAX
 ``lax.scan``, with ``remat=True`` as per-layer
 ``framework.maybe_remat``. Dropout in training sits at the JAX package's
 four sites of a block (the attention probabilities, the two residual
-branches and the FFN's inner activation, ``upscale_in_train``), and each
-layer folds its index into the running program's rng
-(``framework.rng_fold``), so the layers draw different masks and a
-recomputed layer draws its forward's. Not carried yet, each raising
+branches and the FFN's inner activation, ``upscale_in_train``), drawn in
+turn from the running program's rng stream, so the layers draw
+different masks and a recomputed layer draws its forward's. Not carried yet, each raising
 :class:`NotYetPorted`: the sequence-parallel branch of ``_sdpa``,
 tensor-parallel psums and the int8 KV cache (``decode_block_q8``). ``apply_stacked``'s pipeline path is entered
 through ``DistStrategy.pp_microbatches``, which the port's ``Trainer``
@@ -31,7 +30,7 @@ import torch
 from torch import nn
 
 from ..core.errors import NotYetPorted
-from ..framework import cast_compute, maybe_remat, rng_fold
+from ..framework import cast_compute, maybe_remat
 from .. import initializer as init
 from .nn import dropout
 
@@ -237,9 +236,10 @@ def apply_stacked(x, stacked: Dict[str, torch.Tensor], make_block: Callable,
                   dropout_rate: float = 0.0, compute_dtype=torch.float32,
                   training: bool = False):
     """Run a parameter stack ``{name: [L, ...]}`` over ``x``, layer by
-    layer (the JAX package's sequential ``lax.scan``). Layer ``i`` runs
-    under ``framework.rng_fold(i)``, so its dropout masks differ from
-    the other layers' (stacked.py:432-439). ``remat=True`` runs each
+    layer (the JAX package's sequential ``lax.scan``). Each layer's
+    dropout masks differ from the other layers' because the program's rng
+    stream advances at every draw (the JAX package folds the layer index
+    into its key, stacked.py:432-439). ``remat=True`` runs each
     layer under :func:`framework.maybe_remat`: its activations are
     recomputed in the backward instead of kept, with the running
     program's context (names, rng, layout) replayed."""
@@ -248,15 +248,14 @@ def apply_stacked(x, stacked: Dict[str, torch.Tensor], make_block: Callable,
                        dropout_rate=dropout_rate, compute_dtype=compute_dtype,
                        training=training)
 
-    def layer(i, a, lp):
-        with rng_fold(i):
-            return block(a, lp) if extras is None else block(a, lp, extras)
+    def layer(a, lp):
+        return block(a, lp) if extras is None else block(a, lp, extras)
 
     layer = maybe_remat(layer, enabled=remat)
     num_layers = next(iter(stacked.values())).shape[0]
     for i in range(num_layers):
         lp = {name: t[i] for name, t in stacked.items()}
-        x = layer(i, x, lp)
+        x = layer(x, lp)
     return x
 
 

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..core.dtypes import convert_dtype
-from ..framework import current_device, next_rng_key
+from ..framework import current_device, next_rng_key, seeded_generator
 
 
 def cast(x, dtype):
@@ -176,7 +176,7 @@ def linspace(start, stop, num, dtype="float32", name=None, device=None):
 
 def _generator(seed, device):
     if seed:
-        return torch.Generator(device=device).manual_seed(int(seed))
+        return seeded_generator(seed, device)
     return next_rng_key()
 
 

@@ -146,8 +146,8 @@ def test_device_feeder_abandoned_iterator_stops_its_thread():
     assert not any(t.is_alive() for t in feeder._threads)
 
 
-@pytest.mark.parametrize("kw", [{"stack_k": 2}, {"encode_fn": lambda b: b},
-                                {"metrics": object()}])
+@pytest.mark.parametrize("kw", [{"journal": object()}, {"overlap_depth": 1},
+                                {"wait_fn": lambda dev, t0: None}])
 def test_device_feeder_options_of_later_slices_raise(kw):
     with pytest.raises(NotYetPorted):
         tdata.DeviceFeeder(_failing_batches(1), put_fn=lambda b: b, **kw)

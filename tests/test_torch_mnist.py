@@ -164,7 +164,6 @@ def test_fit_gives_the_jax_events_steps_and_losses():
 FIT_LATER = {
     "elastic": lambda tmp: True,
     "resize": lambda tmp: str(tmp / "resize"),
-    "steps_per_dispatch": lambda tmp: 2,
     "feed_wire": lambda tmp: {"image": object()},
     "device_cache": lambda tmp: True,
     "augment": lambda tmp: {"image": object()},

@@ -75,7 +75,8 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.data.feeder", "paddle_tpu_torch.models.mnist",
             "paddle_tpu_torch.resilience", "paddle_tpu_torch.models.transformer",
             "paddle_tpu_torch.models.bert", "paddle_tpu_torch.core.flops",
-            "paddle_tpu_torch.ops.attention_scores", "paddle_tpu_torch.nets"]
+            "paddle_tpu_torch.ops.attention_scores", "paddle_tpu_torch.nets",
+            "paddle_tpu_torch._captured_step", "paddle_tpu_torch.amp"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -205,6 +206,24 @@ def test_executor_and_trainer_run_programs_on_their_own_place():
         trainer.eval({})
     with pytest.raises(NoCudaDevice, match="Program.init"):
         trainer.startup(0)
+
+
+def test_run_steps_needs_a_card_on_a_cuda_place():
+    """A trainer holding the card's place runs its fused steps there: with
+    no card, run_steps raises NoCudaDevice before it puts or runs
+    anything."""
+    from paddle_tpu_torch import CPUPlace, Trainer, build, optimizer
+    from paddle_tpu_torch.data import stack_batches
+    from paddle_tpu_torch.models import mnist
+
+    sample = {"image": np.zeros((2, 784), np.float32), "label": np.zeros((2, 1), np.int64)}
+    trainer = Trainer(build(mnist.mlp), optimizer.SGD(0.1), place=CPUPlace()).startup(0, sample)
+    if torch.cuda.is_available():
+        return
+    trainer.device = torch.device("cuda", 0)
+    with pytest.raises(NoCudaDevice, match="Trainer.run_steps"):
+        trainer.run_steps(stack_batches([sample, sample]))
+    assert trainer.global_step == 0 and trainer._fused is None
 
 
 def test_device_feeder_refuses_a_cpu_target():
