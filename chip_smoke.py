@@ -141,7 +141,27 @@ Phases, each reported on its own lines; any failure exits non-zero:
    causal in the graph), each trainer alone on the card. Each path's ms per step eager
    against captured (in turns), throughput, peak memory, and the
    device's busy share, device time and operations a step of profiled
-   eager steps and of a profiled dispatch.
+   eager steps and of a profiled dispatch;
+13. captured decode — the GPT generator's decode steps as one captured
+   CUDA graph of a step, replayed (``GPTGenerator.__call__``), against
+   the same decode as a plain loop (``_generate_eager``), bf16 GPT-base at
+   phase 5's config, bucket 8, with the launch counts zeroed just before
+   the phase and read just after it: (a) greedy: ids bit-equal, ms per
+   decode step and generated tokens/s a call of each (in turns), a
+   profiled call's busy share, device ms and operations a decode step
+   (the captured call's; the eager call's in (a) only), peak memory,
+   the cache's bytes, 12 flash forward launches a call (the prefill's,
+   on the tensor-core route) and none in the replays;
+   (b) beam 4, read as (a) with the scores bit-equal too, and f32 beam
+   4 card against the CPU at phase 4's width (the best beam's score
+   within BEAM_SCORE_TOL, the share of equal ids reported); (c) the int8
+   KV cache, read as (a), its cache's bytes and ms per decode step
+   against the compute cache's, the share of ids equal to (a)'s
+   reported, and f32 beam 4 with the int8 cache card against the CPU
+   (the best beam's score within INT8_SCORE_TOL, at least INT8_IDS_SHARE
+   of the beams' ids equal); (d) an int8 ``export_decoder`` → ``decode_server``: each
+   reply equals its row of ``Predictor.run`` on the merged batch, as
+   phase 5 checks.
 
 The last lines are a JSON ``kernels`` record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -342,6 +362,18 @@ FUSED_K, FUSED_DISPATCHES, FUSED_REMAT_LAYERS = 4, 2, 2
 # times the distance between the two eager runs
 FUSED_LONG_K, FUSED_NONDET_RATIO, FUSED_LOSS_FLOOR = 2, 2.0, 1e-5
 
+# phase 13: the captured decode at phase 5's config (GPT_BASE bf16, prompt
+# PROMPT, NEW_TOKENS new tokens) at bucket DECODE_BUCKET, beam DECODE_BEAM;
+# the f32 beam checks at phase 4's width (PARITY_NEW_TOKENS new tokens),
+# card against CPU from the same params. With the compute cache, the best
+# beam's score within BEAM_SCORE_TOL absolute (read 1.53e-05 on an H100:
+# about 65x room). With the int8 cache, the best beam's score within
+# INT8_SCORE_TOL (read 3.05e-05 on an H100: about 33x room) and at least
+# INT8_IDS_SHARE of the beams' ids equal (read all 32: f32 rounding may
+# move a value across an int8 rounding boundary, so 4 may part)
+DECODE_BUCKET, DECODE_BEAM, BEAM_SCORE_TOL = 8, 4, 1e-3
+INT8_SCORE_TOL, INT8_IDS_SHARE = 1e-3, 0.875
+
 
 class SmokeFailure(RuntimeError):
     pass
@@ -404,6 +436,20 @@ def device_ms(fn, iters, repeats=5):
             cycles *= 4
     times.sort()
     return times[len(times) // 2]
+
+
+def _host_ms(fn, n=3):
+    """Median host-clock ms of ``n`` calls of ``fn``, each ending in a
+    synchronize."""
+    import torch
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
 
 
 # -- phase 3: the kernel against its plain version ---------------------------
@@ -828,34 +874,13 @@ def phase_served(dev, seed, card):
         decode.export_decoder(d, cfg, NEW_TOKENS, example,
                               batch_buckets=list(BUCKETS), seed=seed,
                               compute_dtype="bfloat16", device=dev)
-        # a wait budget far above the time the 16 submits take, so the
-        # requests coalesce as two full bucket-8 dispatches in submit order
-        # (the check below rebuilds exactly those batches); full batches
-        # dispatch at once, so the budget adds no latency
-        srv = decode.decode_server(d, max_wait_ms=1000.0, workers=1, device=dev)
-        try:
-            t0 = time.perf_counter()
-            pends = [srv.submit({"prompt_ids": prompts[i:i + 1]})
-                     for i in range(N_REQUESTS)]
-            outs = [p.result(timeout=600)["ids"].cpu().numpy() for p in pends]
-            wall = time.perf_counter() - t0
-            rep = srv.report()
-        finally:
-            srv.close(drain=True, timeout=120)
+        outs, lat, wall, rep = _serve_single_prompts(d, prompts, dev)
         launches = _launch_counts(fa)
         # ---- end of the main path
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        lat = sorted(p.latency for p in pends)
         big = max(BUCKETS)
         pred = pio.load_inference_model(d, device=dev)
-        rows_ok = 0
-        for g0 in range(0, N_REQUESTS, big):
-            group = prompts[g0:g0 + big]
-            fill = min(b for b in BUCKETS if b >= len(group)) - len(group)
-            group = np.concatenate([group, np.zeros((fill, PROMPT), np.int32)])
-            merged = pred.run({"prompt_ids": group})["ids"].cpu().numpy()
-            for i in range(g0, min(g0 + big, N_REQUESTS)):
-                rows_ok += int(np.array_equal(outs[i][0], merged[i - g0]))
+        rows_ok = _rows_of_merged_batches(pred, prompts, outs)
         alone = sum(int(np.array_equal(
             outs[i], pred.run({"prompt_ids": prompts[i:i + 1]})["ids"].cpu().numpy()))
             for i in range(N_REQUESTS))
@@ -882,6 +907,45 @@ def phase_served(dev, seed, card):
     return launches
 
 
+def _serve_single_prompts(d, prompts, dev):
+    """``decode_server`` over the artifact in ``d`` answers each row of
+    ``prompts`` as a single-prompt request. Returns (replies as numpy,
+    sorted latencies, wall seconds, the server's report)."""
+    from paddle_tpu_torch.fleet import decode
+
+    # a wait budget far above the time the submits take, so the requests
+    # coalesce as full bucket-sized dispatches in submit order (the check
+    # rebuilds exactly those batches); full batches dispatch at once, so
+    # the budget adds no latency
+    srv = decode.decode_server(d, max_wait_ms=1000.0, workers=1, device=dev)
+    try:
+        t0 = time.perf_counter()
+        pends = [srv.submit({"prompt_ids": prompts[i:i + 1]}) for i in range(len(prompts))]
+        outs = [p.result(timeout=600)["ids"].cpu().numpy() for p in pends]
+        wall = time.perf_counter() - t0
+        rep = srv.report()
+    finally:
+        srv.close(drain=True, timeout=120)
+    return outs, sorted(p.latency for p in pends), wall, rep
+
+
+def _rows_of_merged_batches(pred, prompts, outs):
+    """How many replies equal their row of ``Predictor.run`` on the batch
+    the server merged them into (submit order, the largest bucket, the
+    last group padded with zero rows up to its bucket)."""
+    import numpy as np
+    big = max(BUCKETS)
+    rows_ok = 0
+    for g0 in range(0, len(prompts), big):
+        group = prompts[g0:g0 + big]
+        fill = min(b for b in BUCKETS if b >= len(group)) - len(group)
+        group = np.concatenate([group, np.zeros((fill, group.shape[1]), np.int32)])
+        merged = pred.run({"prompt_ids": group})["ids"].cpu().numpy()
+        rows_ok += sum(int(np.array_equal(outs[i][0], merged[i - g0]))
+                       for i in range(g0, min(g0 + big, len(prompts))))
+    return rows_ok
+
+
 def served_breakdown(prog, ids, card):
     """Where one bucket-sized generate call spends its time: host-clock
     prefill and whole-call times (median of 3, each ending in a
@@ -891,20 +955,9 @@ def served_breakdown(prog, ids, card):
     from torch.profiler import ProfilerActivity, profile
 
     ids = torch.from_numpy(ids).to(prog.device)
-
-    def host_ms(fn):
-        times = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return sorted(times)[1]
-
     with torch.inference_mode():
-        prefill_ms = host_ms(lambda: prog.prefill(ids))
-        call_ms = host_ms(lambda: prog(ids))
+        prefill_ms = _host_ms(lambda: prog.prefill(ids))
+        call_ms = _host_ms(lambda: prog(ids))
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -3493,6 +3546,225 @@ def phase_fused(dev, seed, card_name):
     return {n: launches[n] + long_launches[n] for n in launches}, replayed
 
 
+# -- phase 13: the captured decode (GPTGenerator: one CUDA graph of a step) ----
+
+
+def _outputs_equal(a, b):
+    return sorted(a) == sorted(b) and all(_bits_equal(a[k], b[k]) for k in a)
+
+
+def _decode_path(path, gen, ids, card_name, profile_eager=False):
+    """One generator at one bucket, eager loop against captured replays:
+    outputs bit-equal, ms per decode step in turns, a profiled captured
+    call (and a profiled eager call where ``profile_eager``: the
+    profiler takes about a minute to sum an eager call's events), the
+    prefill's launches and the cache's bytes. Returns the captured
+    outputs and the numbers."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    b, steps = ids.shape[0], gen.max_new_tokens - 1
+    t_path = time.perf_counter()
+    eager_out = gen._generate_eager(ids)
+    before = fa.flash_fwd_launches
+    captured_out = gen(ids)  # the first call at this signature captures
+    per_call = fa.flash_fwd_launches - before
+    check(per_call == GPT_BASE["num_layers"],
+          f"captured decode {path}: {per_call} flash_fwd launches a call (the capture's "
+          "warm-up runs no prefill)")
+    dec = gen._decoders[tuple(ids.shape)]
+    check(dec.captures == 1 and dec.replays == steps,
+          f"captured decode {path}: {dec.captures} captures, {dec.replays} replays")
+    check(_outputs_equal(captured_out, eager_out),
+          f"captured decode {path}: the replayed steps differ from the eager loop")
+    with torch.inference_mode():
+        prefill_ms = _host_ms(lambda: gen.prefill(ids))
+    runs = {"eager": lambda: gen._generate_eager(ids), "captured": lambda: gen(ids)}
+    times, peaks = {n: [] for n in runs}, {n: 0.0 for n in runs}
+    for name in ("eager", "captured", "captured", "eager"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = runs[name]()
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3)
+        peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated() / 1e9)
+        check(_outputs_equal(out, eager_out),
+              f"captured decode {path}: a timed {name} call's outputs differ")
+    with torch.inference_mode():
+        pre = _profile_dispatch(lambda: gen.prefill(ids))
+    profiled = {n: _profile_dispatch(fn) for n, fn in runs.items()
+                if n == "captured" or profile_eager}
+    ms = {n: float(sum(v) / len(v)) for n, v in times.items()}
+    step_ms = {n: (ms[n] - prefill_ms) / steps for n in ms}
+    parts = []
+    for n, (wall, dev_us, n_ops, _) in profiled.items():
+        if dev_us == 0:
+            parts.append(f"{n} busy: not measured (the profiler saw no device time)")
+            continue
+        parts.append(f"{n} busy {100 * dev_us / 1e3 / wall:.1f}% of a profiled {wall:.1f} ms "
+                     f"call, {(dev_us - pre[1]) / 1e3 / steps:.4f} device ms and "
+                     f"{(n_ops - pre[2]) / steps:.1f} operations a decode step")
+    kernels = profiled["captured"][3]
+    wgmma = sum(c for k, (c, _) in kernels.items() if "flash_fwd_wgmma" in k)
+    cuda_core = sum(c for k, (c, _) in kernels.items() if "flash_fwd_kernel" in k)
+    say(f"captured decode ({card_name}): {path}, b={b}, p={ids.shape[1]}, new="
+        f"{gen.max_new_tokens}: eager {[round(t, 2) for t in times['eager']]} ms a call "
+        f"({step_ms['eager']:.4f} ms a decode step, "
+        f"{b * gen.max_new_tokens / ms['eager'] * 1e3:.1f} generated tokens/s), captured "
+        f"{[round(t, 2) for t in times['captured']]} ms a call ({step_ms['captured']:.4f} ms "
+        f"a decode step, {b * gen.max_new_tokens / ms['captured'] * 1e3:.1f} generated "
+        f"tokens/s), {step_ms['eager'] / step_ms['captured']:.2f}x a step; prefill "
+        f"{prefill_ms:.3f} ms ({pre[1] / 1e3:.4f} device ms, {pre[2]} operations); "
+        + "; ".join(parts)
+        + f"; peak memory eager {peaks['eager']:.3f} GB, captured {peaks['captured']:.3f} GB; "
+        f"cache {dec.cache_bytes()} bytes; flash_fwd {per_call} launches a call, "
+        f"profiled captured call: {wgmma} flash_fwd_wgmma and {cuda_core} flash_fwd_kernel "
+        f"kernels over {steps} replays; {time.perf_counter() - t_path:.1f} s")
+    if profiled["captured"][1]:
+        # the wrappers' counts say the call launched 12; the profile shows
+        # where they ran. It may drop events of a call of ~100k kernels
+        # (one run on an H100 showed 11 of the 12), never adds them, so a
+        # replay that launched the forward would show more than 12
+        check(0 < wgmma <= GPT_BASE["num_layers"] and cuda_core == 0,
+              f"captured decode {path}: the profiled call ran {wgmma} tensor-core and "
+              f"{cuda_core} CUDA-core forward kernels (want the prefill's "
+              f"{GPT_BASE['num_layers']} at most and none in the replays)")
+    return captured_out, {"step_ms": step_ms, "cache_bytes": dec.cache_bytes()}
+
+
+def _beam_card_against_cpu(dev, seed, card_name, kv_cache_dtype="compute"):
+    """(b), (c) f32 beam 4 at phase 4's width, card against CPU from the
+    same params: the best beam's score within BEAM_SCORE_TOL (the compute
+    cache), or within INT8_SCORE_TOL with at least INT8_IDS_SHARE of the
+    beams' ids equal (the int8 cache)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import gpt
+
+    t0 = time.perf_counter()
+    int8 = kv_cache_dtype == "int8"
+    cfg = gpt.base_config(max_len=PROMPT + NEW_TOKENS, dtype="float32",
+                          kv_cache_dtype=kv_cache_dtype, **GPT_BASE)
+    card = gpt.make_generator(cfg, PARITY_NEW_TOKENS, beam_size=DECODE_BEAM,
+                              device=dev).init_params(seed)
+    host = gpt.make_generator(cfg, PARITY_NEW_TOKENS, beam_size=DECODE_BEAM,
+                              device="cpu").load_params(
+        {k: v.cpu() for k, v in card.flat_params().items()})
+    prompts = np.random.RandomState(seed).randint(3, cfg.vocab_size,
+                                                  (8, PROMPT)).astype(np.int32)
+    t_init = time.perf_counter() - t0
+    got = card(torch.from_numpy(prompts).to(dev))
+    t_card = time.perf_counter() - t0 - t_init
+    want = host(torch.from_numpy(prompts))
+    best = (got["scores"][:, 0].cpu() - want["scores"][:, 0]).abs().max().item()
+    same = float((got["ids"].cpu() == want["ids"]).all(dim=-1).float().mean())
+    tol = INT8_SCORE_TOL if int8 else BEAM_SCORE_TOL
+    ids_rule = (f"(at least {100 * INT8_IDS_SHARE:g}% required)" if int8
+                else "(reported only)")
+    say(f"captured decode ({card_name}): f32 beam {DECODE_BEAM} GPT-base, {kv_cache_dtype} "
+        f"KV cache, b=8 p={PROMPT} new={PARITY_NEW_TOKENS}, card against CPU: best beam's "
+        f"score max|card - cpu|={best:.3g} (tol {tol}), {100 * same:.1f}% of beams with "
+        f"equal ids {ids_rule}; init {t_init:.1f} s, card {t_card:.1f} s, CPU "
+        f"{time.perf_counter() - t0 - t_init - t_card:.1f} s")
+    check(best <= tol, f"captured decode: f32 beam scores ({kv_cache_dtype} KV cache) differ "
+          "from the CPU's")
+    if int8:
+        check(same >= INT8_IDS_SHARE, "captured decode: f32 beam ids (int8 KV cache) differ "
+              "from the CPU's")
+    del card, host
+
+
+def _served_int8(dev, seed, card_name, params, tmp):
+    """(d) The int8 cache served: ``export_decoder`` → ``decode_server``,
+    each reply against its row of ``Predictor.run`` on the merged batch."""
+    import numpy as np
+    from paddle_tpu_torch import io as pio
+    from paddle_tpu_torch.fleet import decode
+    from paddle_tpu_torch.models import gpt
+
+    cfg = gpt.base_config(max_len=PROMPT + NEW_TOKENS, dtype="bfloat16",
+                          kv_cache_dtype="int8", **GPT_BASE)
+    rng = np.random.RandomState(seed + 3)
+    prompts = rng.randint(3, cfg.vocab_size, (N_REQUESTS, PROMPT)).astype(np.int32)
+    d = os.path.join(tmp, "int8_decoder")
+    t0 = time.perf_counter()
+    decode.export_decoder(d, cfg, NEW_TOKENS, prompts[:max(BUCKETS)], params=params,
+                          batch_buckets=list(BUCKETS), compute_dtype="bfloat16", device=dev)
+    t_export = time.perf_counter() - t0
+    outs, lat, wall, rep = _serve_single_prompts(d, prompts, dev)
+    t_serve = time.perf_counter() - t0 - t_export
+    rows_ok = _rows_of_merged_batches(pio.load_inference_model(d, device=dev), prompts, outs)
+    say(f"captured decode ({card_name}): int8 served, {N_REQUESTS} single-prompt requests, "
+        f"buckets={list(BUCKETS)}: {N_REQUESTS * NEW_TOKENS / wall:.1f} generated tokens/s, "
+        f"latency p50 {1e3 * float(np.percentile(lat, 50)):.1f} ms p99 "
+        f"{1e3 * float(np.percentile(lat, 99)):.1f} ms, coalesced {rep['coalesced_requests']} "
+        f"requests in {rep['coalesced_batches']} batches; {rows_ok}/{N_REQUESTS} replies "
+        f"equal their row of Predictor.run on the merged batch (required); export "
+        f"{t_export:.1f} s, load, warm-up and serving {t_serve:.1f} s, all "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(rows_ok == N_REQUESTS, "captured decode: int8 replies differ from Predictor.run")
+    check(rep["errors"] == 0 and rep["completed"] == N_REQUESTS,
+          f"captured decode: int8 served {rep['errors']} errors")
+
+
+def phase_captured_decode(dev, seed, card_name):
+    """Phase 13: (a) greedy, (b) beam, (c) int8, each eager loop against
+    captured replays, (d) the int8 cache served; then f32 beam card
+    against CPU with each cache dtype. Returns the launches of each kernel during (a)-(d)."""
+    import gc
+    import dataclasses
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    cfg = gpt.base_config(max_len=PROMPT + NEW_TOKENS, dtype="bfloat16", **GPT_BASE)
+    ids = torch.from_numpy(np.random.RandomState(seed + 2).randint(
+        3, cfg.vocab_size, (DECODE_BUCKET, PROMPT)).astype(np.int32)).to(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        _zero_launch_counts(fa)
+        # ---- the main path: (a)-(d)
+        t0 = time.perf_counter()
+        gen = gpt.make_generator(cfg, NEW_TOKENS, compute_dtype="bfloat16",
+                                 device=dev).init_params(seed)
+        params = gen.flat_params()
+        say(f"captured decode: GPT-base bf16 generator initialised in "
+            f"{time.perf_counter() - t0:.1f} s")
+        greedy, a = _decode_path("(a) greedy bf16", gen, ids, card_name, profile_eager=True)
+        del gen
+        beam = gpt.make_generator(cfg, NEW_TOKENS, beam_size=DECODE_BEAM,
+                                  compute_dtype="bfloat16", device=dev).load_params(params)
+        _decode_path(f"(b) beam {DECODE_BEAM} bf16", beam, ids, card_name)
+        del beam
+        int8 = gpt.make_generator(dataclasses.replace(cfg, kv_cache_dtype="int8"), NEW_TOKENS,
+                                  compute_dtype="bfloat16", device=dev).load_params(params)
+        q8_out, c = _decode_path("(c) greedy bf16, int8 KV cache", int8, ids, card_name)
+        del int8
+        same = float((q8_out["ids"] == greedy["ids"]).float().mean())
+        say(f"captured decode ({card_name}): (c) int8 against the compute cache: "
+            f"{c['step_ms']['captured']:.4f} against {a['step_ms']['captured']:.4f} ms a "
+            f"captured decode step ({c['step_ms']['eager']:.4f} against "
+            f"{a['step_ms']['eager']:.4f} eager), cache {c['cache_bytes']} against "
+            f"{a['cache_bytes']} bytes ({c['cache_bytes'] / a['cache_bytes']:.3f}x), "
+            f"{100 * same:.1f}% of ids equal (reported only)")
+        _served_int8(dev, seed, card_name, params, tmp)
+        launches = _launch_counts(fa)
+        # ---- end of the main path
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    _beam_card_against_cpu(dev, seed, card_name)
+    _beam_card_against_cpu(dev, seed, card_name, "int8")
+    say(f"captured decode: hand-kernel launches on the path {launches}")
+    check(launches["flash_fwd"] > 0 and launches["flash_fwd"] % GPT_BASE["num_layers"] == 0,
+          f"captured decode: {launches['flash_fwd']} flash_fwd launches is not a whole "
+          "number of generate calls")
+    check(launches["flash_bwd_dq"] == 0 and launches["flash_bwd_dkv"] == 0,
+          "captured decode: a backward kernel launched on the serving path")
+    return launches
+
+
 def _routes(fa, torch):
     """The route table's choices, as the kernels record reports them."""
     return {"bfloat16": fa.ROUTES[(torch.bfloat16, 64)],
@@ -3590,10 +3862,14 @@ def main(argv=None) -> int:
     # 12. captured steps (launch counts zeroed inside, around the GPT path)
     captured, replayed = phase_fused(dev, args.seed, smi)
     done("phase 12")
+
+    # 13. the captured decode (launch counts zeroed inside, around the path)
+    decoded = phase_captured_decode(dev, args.seed, smi)
+    done("phase 13")
     by_path = {name: {"served": served[name], "training": trained[name],
                       "persistence": persisted[name], "resnet": resnet_launches[name],
                       **{path: n[name] for path, n in seq2seq.items()},
-                      "captured": captured[name]}
+                      "captured": captured[name], "captured_decode": decoded[name]}
                for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 
     # the kernels record: each kernel's row at the training path's shape,

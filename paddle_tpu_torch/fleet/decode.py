@@ -1,13 +1,17 @@
-"""Decode-side serving workload: batched incremental decoding behind the
-continuous-batching scheduler (counterpart of ``paddle_tpu.fleet.decode``).
+"""Decode-side serving workload: batched incremental decoding, with the
+KV cache in the compute dtype or in int8, behind the continuous-batching
+scheduler (counterpart of ``paddle_tpu.fleet.decode``).
 
 ``models/gpt.make_generator`` (prefill through the flash-attention
-kernel, then greedy decode over a KV cache) exports through the ordinary
-``save_inference_model`` door with batch buckets, so single-prompt
-decode requests coalesce into one bucket-sized dispatch. Rows are
-independent through prefill and decode (per-row attention, per-row
-argmax), so a coalesced request's token ids equal the ids of its row in
-a ``Predictor.run`` of the same merged batch.
+kernel, then greedy decode over a KV cache, stored int8 where
+``cfg.kv_cache_dtype="int8"`` — ``layers/stacked.quantize_kv``; on the
+card the decode steps replay one captured CUDA graph a bucket) exports
+through the ordinary ``save_inference_model`` door with batch buckets,
+so single-prompt decode requests coalesce into one bucket-sized
+dispatch. Rows are independent through prefill and decode (per-row
+attention, per-vector quantization, per-row argmax), so a coalesced
+request's token ids equal the ids of its row in a ``Predictor.run`` of
+the same merged batch, and its pad-alone decode's.
 """
 
 from __future__ import annotations
@@ -22,8 +26,9 @@ def export_decoder(dirname: str, cfg, max_new_tokens: int,
                    batch_buckets: Sequence[int] = (),
                    seed: int = 0, compute_dtype="float32",
                    device=None) -> Tuple[Any, Dict[str, Any]]:
-    """Export a ``gpt.make_generator`` program (greedy decode over a KV
-    cache) as a multi-bucket ``save_inference_model`` artifact.
+    """Export a ``gpt.make_generator`` program (greedy decode over the
+    config's KV cache — ``cfg.kv_cache_dtype="int8"`` for the int8 cache)
+    as a multi-bucket ``save_inference_model`` artifact.
 
     ``example_prompt``: int32 ``[b, p]`` prompt ids — its batch size
     becomes a bucket; ``batch_buckets`` adds more. ``params`` is a flat
@@ -61,8 +66,9 @@ def decode_server(dirname: str, max_wait_ms: float = 5.0,
     from ..serving import PredictorServer
     from .batching import BatchPolicy
 
-    # load_inference_model has already run every bucket once, so the
-    # server does not warm them again
+    # load_inference_model has already run every bucket once (capturing
+    # each bucket's decode step on the card), so the server does not warm
+    # them again
     return PredictorServer(pio.load_inference_model(dirname, device=device),
                            workers=workers, queue_size=queue_size,
                            batch_policy=BatchPolicy(max_wait_ms=max_wait_ms),

@@ -764,6 +764,10 @@ class Predictor:
         self.batch_size = int(batch_size)
         self.batched_feeds = frozenset(batched_feeds)
         self._buckets = sorted(int(b) for b in batch_buckets)
+        if hasattr(program, "max_signatures"):
+            # a program that keeps state per input shape (the GPT generator's
+            # captured decode steps) keeps it for every bucket
+            program.max_signatures = max(program.max_signatures, len(self._buckets))
         if warmup:
             for b in self._buckets:
                 _block_on(self.run({k: np.zeros(shape, dtype) for k, (shape, dtype)

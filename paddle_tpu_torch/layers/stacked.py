@@ -14,11 +14,21 @@ sequentially, one Python loop over the layers in place of the JAX
 four sites of a block (the attention probabilities, the two residual
 branches and the FFN's inner activation, ``upscale_in_train``), drawn in
 turn from the running program's rng stream, so the layers draw
-different masks and a recomputed layer draws its forward's. Not carried yet, each raising
-:class:`NotYetPorted`: the sequence-parallel branch of ``_sdpa``,
-tensor-parallel psums and the int8 KV cache (``decode_block_q8``). ``apply_stacked``'s pipeline path is entered
-through ``DistStrategy.pp_microbatches``, which the port's ``Trainer``
-does not take yet.
+different masks and a recomputed layer draws its forward's.
+
+Incremental decoding (:func:`decode_block`, and :func:`decode_block_q8`
+over the int8 KV cache of :func:`quantize_kv`) takes the cache index as a
+0-dim integer tensor on the caches' device, or a Python int. A tensor
+index is used on the device only (the cache write, the mask and, in the
+generator, the positional row), never read back to the host, so a decode
+step can be captured as a CUDA graph and replayed with the index advanced
+on the card.
+
+Not carried yet, each raising :class:`NotYetPorted`: the
+sequence-parallel branch of ``_sdpa`` and tensor-parallel psums.
+``apply_stacked``'s pipeline path is entered through
+``DistStrategy.pp_microbatches``, which the port's ``Trainer`` does not
+take yet.
 """
 
 from __future__ import annotations
@@ -267,17 +277,68 @@ def prefill_block(x, p, num_heads: int, use_flash: bool = False,
     return _ffn(x, p, compute_dtype), (k, v)
 
 
-def decode_block(x, p, k_cache, v_cache, index: int, num_heads: int,
+def quantize_kv(x):
+    """Symmetric per-vector int8 quantization of a cache entry over the
+    head_dim axis (``quantize._quant_dynamic``), with the scale converted
+    to the multiply-direct convention the decode products factor out
+    (dequant = q·scale, ``scale / 127``). Returns (int8, [..., 1] f32);
+    zero vectors dequantize to exact 0."""
+    from ..quantize import _quant_dynamic
+
+    q, scale = _quant_dynamic(x, axes=(-1,))
+    return q, scale / 127.0
+
+
+def _write_at(cache, index, value):
+    """``cache[:, :, index] = value`` in place, ``index`` a Python int or a
+    0-dim integer tensor on the cache's device (no host read)."""
+    idx = torch.as_tensor(index, device=cache.device).reshape(1).long()
+    cache.index_copy_(2, idx, value.to(cache.dtype))
+
+
+def decode_block_q8(x, p, k_q, k_s, v_q, v_s, index, num_heads: int,
+                    compute_dtype=torch.float32):
+    """:func:`decode_block` over an int8 KV cache: ``k_q``/``v_q`` int8
+    [rows, h, T, hd] with per-position f32 scales ``k_s``/``v_s`` [rows,
+    h, T, 1], written in place at ``index``. The scales factor out of
+    both products, as in the JAX function (stacked.py:341-348): the
+    logits are ``(q · k_q) · k_s · 1/√hd``, the output ``(probs · v_s) ·
+    v_q``. Plain PyTorch: the int8 → compute-dtype converts are copies of
+    the cache here, where XLA fuses them into the dots. Returns (x, k_q,
+    k_s, v_q, v_s)."""
+    q, k1, v1 = _attn_qkv(x, p, num_heads, compute_dtype)
+    k1q, k1s = quantize_kv(k1)
+    v1q, v1s = quantize_kv(v1)
+    _write_at(k_q, index, k1q)
+    _write_at(k_s, index, k1s)
+    _write_at(v_q, index, v1q)
+    _write_at(v_s, index, v1s)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    # int8 and bf16 values are exact in f32: the f32 product is the JAX
+    # einsum's bf16 x bf16 -> f32 (preferred_element_type) product
+    logits = torch.matmul(q.float(), k_q.float().transpose(-1, -2))
+    logits = logits * k_s[..., 0][:, :, None, :] * scale
+    pos = torch.arange(k_q.shape[2], device=logits.device)
+    logits = logits.masked_fill(pos > index, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    pv = (probs * v_s[..., 0][:, :, None, :]).to(q.dtype)
+    o = torch.matmul(pv, v_q.to(q.dtype))
+    x = _attn_out(x, p, o, compute_dtype)
+    return _ffn(x, p, compute_dtype), k_q, k_s, v_q, v_s
+
+
+def decode_block(x, p, k_cache, v_cache, index, num_heads: int,
                  compute_dtype=torch.float32):
     """One-token step: x [rows, 1, d]; caches [rows, h, T, hd]; attends
-    to cache positions <= index. Returns (x, k_cache, v_cache).
+    to cache positions <= index (a Python int or a 0-dim integer tensor on
+    the caches' device). Returns (x, k_cache, v_cache).
 
     Unlike the JAX package's functional ``dynamic_update_slice``, the
     caches are updated IN PLACE at position ``index`` (the generator
     owns them; a copy per step would move the whole cache)."""
     q, k1, v1 = _attn_qkv(x, p, num_heads, compute_dtype)
-    k_cache[:, :, index:index + 1] = k1.to(k_cache.dtype)
-    v_cache[:, :, index:index + 1] = v1.to(v_cache.dtype)
+    _write_at(k_cache, index, k1)
+    _write_at(v_cache, index, v1)
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.matmul(q.float(), k_cache.float().transpose(-1, -2)) * scale
     pos = torch.arange(k_cache.shape[2], device=logits.device)
@@ -289,5 +350,5 @@ def decode_block(x, p, k_cache, v_cache, index: int, num_heads: int,
 
 
 __all__ = ["EncoderStack", "STACK_PARAMS", "StackedInit", "apply_stacked",
-           "decode_block", "encoder_stack_shapes", "make_encoder_block",
-           "prefill_block"]
+           "decode_block", "decode_block_q8", "encoder_stack_shapes",
+           "make_encoder_block", "prefill_block", "quantize_kv"]

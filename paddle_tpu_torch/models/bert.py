@@ -97,10 +97,13 @@ def make_pretrain_model(cfg: Union[BertConfig, dict]):
         seq = encode(input_ids, token_type_ids, cfg)
         dtype = seq.dtype
 
-        # masked LM head
+        # masked LM head. The rows are read by advanced indexing, whose
+        # backward (index_put_ with accumulate) sums the grads of a position
+        # masked twice in a fixed order on the card; torch.gather's backward
+        # adds them with atomics, in an order that changes from run to run
         b = seq.shape[0]
-        idx = mlm_positions.long()[..., None].expand(-1, -1, seq.shape[-1])
-        gathered = torch.gather(seq, 1, idx)  # [b, m, d]
+        rows = torch.arange(b, device=seq.device)[:, None]
+        gathered = seq[rows, mlm_positions.long()]  # [b, m, d]
         h = L.fc(gathered, cfg.d_model, num_flatten_dims=2, act="gelu",
                  name="mlm_transform")
         h = L.layer_norm(h, begin_norm_axis=2)

@@ -2,7 +2,8 @@
 ``paddle_tpu.models.transformer``): ``TransformerConfig``,
 ``base_config``, the pre-LN ``encoder_layer`` and ``decoder_layer``,
 ``encode``, ``decode_hidden``, ``decode``, the training program
-``make_model`` and the greedy incremental decoder ``make_decoder``.
+``make_model`` and the incremental decoder ``make_decoder`` (greedy, or
+beam search at ``beam_size > 1``).
 
 Both programs are ``build`` functions whose layers create their params
 through ``LayerHelper`` under the JAX package's names, so
@@ -16,9 +17,10 @@ decoder's cross-attention passes no ``use_flash`` and is dense, as in
 the JAX package (transformer.py:94-96). Both programs carry
 ``factory_spec``, by which an inference artifact rebuilds them.
 
-Not carried yet, each raising :class:`NotYetPorted`: ``stacked=True``
-(the stacked encoder and decoder blocks) and beam search
-(``beam_size > 1``), ROADMAP queue 1 item 17.
+Not carried yet, raising :class:`NotYetPorted`: ``stacked=True`` (the
+stacked encoder and decoder blocks), ROADMAP queue 1 item 17. The
+decoder's loop runs eagerly (its capture as a CUDA graph is item 17's
+too).
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from ..core.dtypes import convert_dtype
 from ..core.errors import NotYetPorted
 from ..framework import LayerHelper, maybe_remat, name_scope, reuse_names
 from ..layers import attention as A
-from ..layers.beam_search import greedy_search
+from ..layers.beam_search import beam_search, greedy_search
 from ..layers.nn import _scalar_like
 from ..ops.fused_ce import chunked_softmax_cross_entropy
 
@@ -207,21 +209,27 @@ def make_decoder(cfg: Union[TransformerConfig, dict], max_len: int,
                  beam_size: int = 1, bos_id: int = 1, eos_id: int = 2,
                  length_penalty_alpha: float = 0.0):
     """The incremental decoding program ``decode_program(src_ids [b, s])
-    -> {"ids": [b, max_len] int32}``, greedy: the encoder once, then one
-    token a step through the decoder with its self-attention K/V cached
-    ([b, h, max_len, hd] a layer, in ``cfg.dtype``). Its params are
-    ``make_model``'s, under the same names, so a trained scope serves
-    directly. It carries ``factory_spec``."""
+    -> {"ids": [b, max_len] int32}`` (greedy) or ``{"ids": [b, beam,
+    max_len] int32, "scores": [b, beam] f32}`` (beam search, best first):
+    the encoder once, then one token a step through the decoder with its
+    self-attention K/V cached ([b·beam, h, max_len, hd] a layer, in
+    ``cfg.dtype``; beam search repeats the encoder's output and mask per
+    beam and reorders the caches by the surviving beams, their int index
+    passing through). Its params are ``make_model``'s, under the same
+    names, so a trained scope serves directly. It carries
+    ``factory_spec``."""
     cfg = _config(cfg)
-    if beam_size > 1:
-        raise NotYetPorted("transformer.make_decoder(beam_size > 1): beam search "
-                           "comes with ROADMAP queue 1, item 17")
 
     def decode_program(src_ids):
         dtype = convert_dtype(cfg.dtype)
-        rows = src_ids.shape[0]
+        b = src_ids.shape[0]
+        K = beam_size
+        rows = b * K
         dev = src_ids.device
         enc_out, src_mask = encode(src_ids, cfg)
+        if K > 1:
+            enc_out = enc_out.repeat_interleave(K, dim=0)
+            src_mask = src_mask.repeat_interleave(K, dim=0)
         head_dim = cfg.d_model // cfg.num_heads
         caches = [
             {"k": torch.zeros((rows, cfg.num_heads, max_len, head_dim), dtype=dtype,
@@ -254,6 +262,12 @@ def make_decoder(cfg: Union[TransformerConfig, dict], max_len: int,
         # it creates the params); it writes position 0, which the loop's
         # first step writes again with the same values
         run_step(torch.full((rows,), bos_id, dtype=torch.int32, device=dev), caches)
+        if K > 1:
+            seqs, scores = beam_search(run_step, caches, b, K, max_len, bos_id=bos_id,
+                                       eos_id=eos_id,
+                                       length_penalty_alpha=length_penalty_alpha,
+                                       device=dev)
+            return {"ids": seqs, "scores": scores}
         seqs = greedy_search(run_step, caches, rows, max_len, bos_id=bos_id,
                              eos_id=eos_id, device=dev)
         return {"ids": seqs}
