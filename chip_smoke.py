@@ -37,12 +37,12 @@ Phases, each reported on its own lines; any failure exits non-zero:
    counts are zeroed just before this path and read just after it; a
    profiled bf16 generate call must show the forward's tensor-core
    kernel and none of its CUDA-core one;
-6. training parity — full-width GPT-base in f32: ``make_model`` +
+6. training parity — full-width GPT-base in f32: ``build(make_model)`` +
    ``Trainer`` with AdamW on the card (kernels) against the CPU (plain
    versions) from the same weights, 3 steps: the losses of every step and
    the step-1 grads of every param must agree;
 7. training — the bf16 GPT-base training path a user calls, at bench.py
-   ``bench_gpt``'s config and feeds: ``make_model`` → ``Trainer(AdamW)``
+   ``bench_gpt``'s config and feeds: ``build(make_model)`` → ``Trainer(AdamW)``
    → ``startup`` → ``step``, 3 warm-up and 10 timed steps, with the launch
    counts zeroed just before the path and read just after it (12 launches
    of each kernel per step); tokens/s, ms per step, peak memory, the
@@ -66,7 +66,7 @@ Phases, each reported on its own lines; any failure exits non-zero:
    The path runs no hand kernel: the launch counts, zeroed just before
    it, must read 0 after it;
 9. persistence and inference — (a) the bf16 GPT-base trainer of phase 7
-   (``make_model`` → ``Trainer(AdamW)``): two uninterrupted runs of 5
+   (``build(make_model)`` → ``Trainer(AdamW)``): two uninterrupted runs of 5
    steps, the second ``io.save_trainer``'d after step 3 (seconds, bytes,
    ``validate_checkpoint``'s verdict), and a fresh trainer ``load_trainer``'d
    from it takes steps 4-5, whose losses and params must equal the
@@ -135,7 +135,7 @@ Phases, each reported on its own lines; any failure exits non-zero:
    bf16 ResNet-50 with a dynamic loss scaler, K=4, one step fed infinite
    pixels: skipped on the device, the scale halved, batch-norm state
    carried; (d) bf16 Transformer-base at dropout 0.1, K=4, and under
-   ``remat_mode()`` on 2+2 layers; (e) the guard's NaN batch inside a
+   ``DistStrategy(remat=True)`` on 2+2 layers; (e) the guard's NaN batch inside a
    dispatch charged to its own step; (f) bf16 BERT-base (K=4) and the
    long-context Transformer (K=2, the three kernels under a key bias and
    causal in the graph), each trainer alone on the card. Each path's ms per step eager
@@ -161,7 +161,33 @@ Phases, each reported on its own lines; any failure exits non-zero:
    (the best beam's score within INT8_SCORE_TOL, at least INT8_IDS_SHARE
    of the beams' ids equal); (d) an int8 ``export_decoder`` → ``decode_server``: each
    reply equals its row of ``Predictor.run`` on the merged batch, as
-   phase 5 checks.
+   phase 5 checks;
+14. the rest of slice 7 — (a) the build GPT (``build(gpt.make_model(cfg))``,
+   which phases 6, 7, 9, 11 (f) and 12 (b) train) against the module GPT
+   it replaced: phase 7's device time and operations a step and phase
+   12 (b)'s captured ones against the module's last readings on the
+   card (quoted), within 3% on a 700 W card; (b) ``DistStrategy(remat=True,
+   remat_policy=p)`` at phase 7's config for None, "nothing",
+   "dots_no_batch", "dots" and "everything", and remat off, captured
+   (K=2): peak memory in the order nothing < dots_no_batch <= dots <
+   everything ~ off and what each setting leaves allocated, ms a step,
+   the flash forward's launches a step (12, or 24 recomputed), the steps'
+   losses, one batch's grads and the params after the steps against
+   remat off; the remat-off trainer's scope served by
+   ``GPTGenerator.load_params``; (c)
+   ``TransformerConfig(stacked=True)`` at bench.py's ``BENCH_STACKED=1``
+   config, eager against captured (K=4) bit for bit beside phase 11 (b)'s
+   unrolled model, and stacked transformer_long (K=2) with every flash
+   call of its eager steps (the stacked decoder's cross attention under
+   the source's key bias among them) held against the plain versions;
+   (d) ``DistStrategy(accum_steps=a)`` at phase 7's config for a = 1, 2,
+   4, captured (K=2): peak memory, ms a step, the steps' losses, one
+   batch's grads and the params after the steps against a = 1, a planted
+   fault (a microbatch's grads dropped) outside those limits, the flash
+   calls at the microbatches' shapes held against the plain versions;
+   and a ResNet-50 step at accum_steps 2, its batch-norm state
+   threaded through the microbatches. The launch counts are zeroed just
+   before (b)-(d) and read just after.
 
 The last lines are a JSON ``kernels`` record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -349,7 +375,7 @@ LONG_GRAD_RATIO, SERVE_LOGP_TOL = 2.0, 0.05
 # config), ResNet-50 (phase 10's, with a dynamic loss scaler) and
 # Transformer-base (phase 11's, dropout 0.1) at K=FUSED_K, FUSED_DISPATCHES
 # dispatches a timed turn, in turns eager, captured, captured, eager; the
-# Transformer under remat_mode() cut to FUSED_REMAT_LAYERS+FUSED_REMAT_LAYERS
+# Transformer under DistStrategy(remat=True) cut to FUSED_REMAT_LAYERS+FUSED_REMAT_LAYERS
 # layers; (e) the guard's NaN batch at step FUSED_GUARD_AT of a K=16
 # dispatch; (f) BERT-base (phase 11 (d)'s config, K=FUSED_K) and transformer_long
 # (K=FUSED_LONG_K). Every comparison of captured against eager steps is bit for bit.
@@ -373,6 +399,53 @@ FUSED_LONG_K, FUSED_NONDET_RATIO, FUSED_LOSS_FLOOR = 2, 2.0, 1e-5
 # move a value across an int8 rounding boundary, so 4 may part)
 DECODE_BUCKET, DECODE_BEAM, BEAM_SCORE_TOL = 8, 4, 1e-3
 INT8_SCORE_TOL, INT8_IDS_SHARE = 1e-3, 0.875
+
+
+# phase 14: (a) the build GPT's readings of phases 7 and 12(b) against the
+# module GPT's, which this script read at its last run before GPT became a
+# build program (NVIDIA H100 80GB HBM3, 700.00 W: quoted, not measured here),
+# device time a step within BUILD_DEVICE_TOL of it on a 700 W card; (b)
+# DistStrategy(remat=True, remat_policy=p) at phase 7's config, captured,
+# K=REMAT_K, REMAT_DISPATCHES timed dispatches each, peak memory over the
+# first dispatch (its capture: a warm-up that copies the training state,
+# the same for every setting); against the remat-off run: the K steps'
+# losses at BF16_ROUNDING (relative), the grads of one forward and backward
+# from the initial params (L2 distance over their norm) and the params
+# after the K steps (L2 distance over the remat-off params' move from their
+# initial values) each at REMAT_TOL, far below the 1 that zeroed grads give
+# and the 0.5 of halved ones (bit-equality reported); what each setting
+# leaves allocated after its trainer is gone within ALLOC_GROWTH_GB of what
+# the first left (less than one cuBLAS workspace);
+# the trained scope then served by GPTGenerator (HANDOFF_PROMPT prompt
+# tokens, HANDOFF_NEW new ones, bucket 2), captured against eager; (c) the
+# stacked Transformer at bench.py's BENCH_STACKED=1 config (phase 11 (b)'s,
+# stacked), eager against captured K=FUSED_K; stacked transformer_long (b=4,
+# s=4096, dropout 0) K=FUSED_LONG_K with its flash calls recorded; (d)
+# DistStrategy(accum_steps=a) at phase 7's config for a in ACCUM_STEPS,
+# captured K=REMAT_K, against accum_steps 1: the K steps' losses at
+# BF16_ROUNDING, the grads of the first batch from the initial params at
+# ACCUM_GRAD_TOL and the params after the K steps at ACCUM_PARAM_TOL (the
+# distances of (b)); a planted fault (accum_steps 2, every second
+# microbatch's grads dropped) must exceed both limits; ResNet-50 (phase
+# 10 (b)'s config) one step at
+# accum_steps 2, its batch-norm state against the same two microbatches'
+# forwards threaded by hand (RESNET_ACCUM_STATE_TOL of the state's largest
+# move, against the unthreaded state's distance)
+MODULE_GPT = {"eager_device_ms": 56.75, "captured_device_ms": 56.36,
+                   "captured_ops": 2949, "captured_ms": 56.0761}
+BUILD_DEVICE_TOL = 0.03
+REMAT_SETTINGS = ("off", None, "nothing", "dots_no_batch", "dots", "everything")
+REMAT_K, REMAT_DISPATCHES = 2, 3
+HANDOFF_PROMPT, HANDOFF_NEW = 16, 8
+ACCUM_STEPS, RESNET_ACCUM_STATE_TOL = (1, 2, 4), 1e-2
+BF16_ROUNDING, REMAT_TOL, ALLOC_GROWTH_GB = 2.0 ** -8, 1e-3, 0.016
+# near the geometric means of the sound readings (accum 2 and 4: grads
+# 0.0024, params 0.033 of the move) and the planted fault's (0.71, 0.85) on
+# an H100 80GB HBM3 at 700 W
+ACCUM_GRAD_TOL, ACCUM_PARAM_TOL = 0.04, 0.15
+
+# readings a later phase compares with: {path: {metric: value}}
+READINGS = {}
 
 
 class SmokeFailure(RuntimeError):
@@ -1038,12 +1111,14 @@ def plain_versions_on_card(fa):
         fa.flash_fwd_cuda, fa.flash_bwd_cuda = saved
 
 
-def _trainer(cfg, dev, compute="float32"):
-    from paddle_tpu_torch import Trainer, optimizer
+def _trainer(cfg, dev, strategy=None):
+    """bench_gpt's program and optimizer: ``build(gpt.make_model(cfg))``
+    and AdamW; it computes in the ambient ``amp_guard``'s dtype."""
+    from paddle_tpu_torch import Trainer, build, optimizer
     from paddle_tpu_torch.models import gpt
-    return Trainer(gpt.make_model(cfg, compute_dtype=compute, device=dev),
+    return Trainer(build(gpt.make_model(cfg)),
                    optimizer.AdamW(TRAIN_LR, weight_decay=TRAIN_WD),
-                   loss_name="loss", fetch_list=["loss"], device=dev)
+                   loss_name="loss", fetch_list=["loss"], device=dev, strategy=strategy)
 
 
 def phase_train_parity(dev, seed):
@@ -1055,13 +1130,13 @@ def phase_train_parity(dev, seed):
 
     cfg = gpt.base_config(max_len=PARITY_TRAIN_SEQ, dtype="float32", **GPT_BASE)
     t0 = time.perf_counter()
-    card = _trainer(cfg, dev).startup(seed)
-    host = _trainer(cfg, "cpu").startup(
-        params={k: v.detach().cpu() for k, v in card.scope.params.items()})
     feeds = _train_feeds(np.random.RandomState(seed + 2), PARITY_TRAIN_STEPS,
                          PARITY_TRAIN_BATCH, PARITY_TRAIN_SEQ, cfg.vocab_size)
     for f in feeds:
         f["labels"][0, -16:] = 0  # padding, masked out of the loss
+    card = _trainer(cfg, dev).startup(seed, sample_feed=feeds[0])
+    host = _trainer(cfg, "cpu").startup(
+        sample_feed=feeds[0], params={k: v.detach().cpu() for k, v in card.scope.params.items()})
     rel_loss, grad_err, grad_max_err, launches = [], {}, {}, []
     relu_in = {}
     for i, f in enumerate(feeds):
@@ -1141,8 +1216,15 @@ def _relu_flips(relu_in, g_card, g_cpu):
 
 
 def phase_train(dev, seed, card_name):
-    """The bf16 GPT-base training path (bench_gpt's config and feeds);
-    returns the launches of each kernel during the path."""
+    """The bf16 GPT-base training path (bench_gpt's config and feeds, the
+    program under ``amp_guard("bfloat16")``); returns the launches of each
+    kernel during the path."""
+    import paddle_tpu_torch as pt
+    with pt.amp_guard("bfloat16"):
+        return _train_path(dev, seed, card_name)
+
+
+def _train_path(dev, seed, card_name):
     import numpy as np
     import torch
     from paddle_tpu_torch.models import gpt
@@ -1152,7 +1234,7 @@ def phase_train(dev, seed, card_name):
     feeds = _train_feeds(np.random.RandomState(0), TRAIN_FEEDS, TRAIN_BATCH,
                          TRAIN_SEQ, cfg.vocab_size)
     n_steps = TRAIN_WARMUP + TRAIN_STEPS
-    trainer = _trainer(cfg, dev, "bfloat16").startup(seed, sample_feed=feeds[0])
+    trainer = _trainer(cfg, dev).startup(seed, sample_feed=feeds[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_launch_counts(fa)
@@ -1185,7 +1267,7 @@ def phase_train(dev, seed, card_name):
     del trainer
 
     # the same first steps through the plain versions on the card
-    plain = _trainer(cfg, dev, "bfloat16").startup(seed, sample_feed=feeds[0])
+    plain = _trainer(cfg, dev).startup(seed, sample_feed=feeds[0])
     before = _launch_counts(fa)
     with plain_versions_on_card(fa):
         plain_losses = [float(plain.step(feeds[i])["loss"]) for i in range(2)]
@@ -1223,7 +1305,7 @@ def train_breakdown(trainer, feed, card_name):
         trainer.step(feed)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    device_us, spans = 0.0, {}
+    device_us, spans, n_ops = 0.0, {}, 0
     # the three kernels' two families: the bf16 step must run on the
     # tensor-core ones alone
     tensor_core = ("flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")
@@ -1237,6 +1319,7 @@ def train_breakdown(trainer, feed, card_name):
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         device_us += evt.self_device_time_total
+        n_ops += evt.count
         for name in kernels:
             if name in evt.key:
                 kernels[name] += evt.self_device_time_total
@@ -1245,8 +1328,10 @@ def train_breakdown(trainer, feed, card_name):
     else:
         fwd = spans.get("trainer.forward", 0.0)
         upd = spans.get("trainer.update", 0.0)
+        READINGS["gpt_eager"] = {"device_ms": device_us / 1e3, "ops": n_ops}
         seen = (f"device busy {100 * device_us / 1e3 / wall_ms:.1f}% of a profiled "
-                f"{wall_ms:.1f} ms step ({device_us / 1e3:.2f} ms of device time: "
+                f"{wall_ms:.1f} ms step ({device_us / 1e3:.2f} ms of device time in "
+                f"{n_ops} operations: "
                 f"forward {fwd / 1e3:.2f} ms, update {upd / 1e3:.2f} ms, backward "
                 f"(the rest) {(device_us - fwd - upd) / 1e3:.2f} ms); "
                 + ", ".join(f"{k} {v / 1e3:.2f} ms ({100 * v / device_us:.1f}%)"
@@ -1636,14 +1721,19 @@ def gpt_checkpoint(dev, seed, card_name, tmp):
     feeds = _train_feeds(np.random.RandomState(1), n, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)
 
     def steps(trainer, fs):
-        return [float(x) for x in [trainer.step(f)["loss"] for f in fs]]
+        with pt.amp_guard("bfloat16"):
+            return [float(x) for x in [trainer.step(f)["loss"] for f in fs]]
 
-    first = _trainer(cfg, dev, "bfloat16").startup(seed)
+    def trainer(seed_):
+        with pt.amp_guard("bfloat16"):
+            return _trainer(cfg, dev).startup(seed_, sample_feed=feeds[0])
+
+    first = trainer(seed)
     ref = steps(first, feeds)
     ref_params = _host_params(first)
     del first
     torch.cuda.empty_cache()
-    second = _trainer(cfg, dev, "bfloat16").startup(seed)
+    second = trainer(seed)
     again = steps(second, feeds[:CKPT_STEPS])
     d = os.path.join(tmp, "gpt_base", "step_%d" % CKPT_STEPS)
     torch.cuda.synchronize()
@@ -1658,7 +1748,7 @@ def gpt_checkpoint(dev, seed, card_name, tmp):
     again_params = _host_params(second)
     del second
     torch.cuda.empty_cache()
-    resumed = _trainer(cfg, dev, "bfloat16").startup(seed + 1)
+    resumed = trainer(seed + 1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pt.io.load_trainer(d, resumed)
@@ -2377,11 +2467,11 @@ def _bert_cfg(**kw):
                             **kw)
 
 
-def _seq2seq_trainer(cfg, dev):
+def _seq2seq_trainer(cfg, dev, strategy=None):
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.models import transformer
     return pt.Trainer(pt.build(transformer.make_model(cfg)), pt.optimizer.Adam(TR_LR),
-                      loss_name="loss", fetch_list=["loss"], place=dev)
+                      loss_name="loss", fetch_list=["loss"], place=dev, strategy=strategy)
 
 
 def _bert_trainer(cfg, dev):
@@ -2406,12 +2496,15 @@ def record_kernel_calls(fa):
 
     def keep(kind, args, out):
         q, k, _, causal, bias, seg_q = args[:6]
+        # a cross attention's queries and keys come from two projections,
+        # a self-attention's from one
+        cross = q.untyped_storage().data_ptr() != k.untyped_storage().data_ptr()
         key = (kind, tuple(q.shape), tuple(k.shape), bool(causal), bias is None,
-               seg_q is None)
+               seg_q is None, cross)
         if key not in seen:
             seen.add(key)
             strided = not all(t.is_contiguous() for t in args[:3])
-            calls.append((kind, strided,
+            calls.append((kind, strided, cross,
                           [a.clone() if torch.is_tensor(a) else a for a in args],
                           [o.clone() for o in out]))
 
@@ -2439,7 +2532,7 @@ def check_recorded(fa, calls, path):
     BWD_TOL·max|plain|."""
     import torch
     check(calls, f"{path}: the path handed the kernels nothing")
-    for kind, strided, args, got in calls:
+    for kind, strided, cross, args, got in calls:
         q, k, _, causal, bias, seg_q = args[:6]
         dt = str(q.dtype).replace("torch.", "")
         if kind == "forward":  # allclose with atol = rtol = tol, as phase 3
@@ -2465,7 +2558,8 @@ def check_recorded(fa, calls, path):
             f"key bias masking {int((bias <= PAD_BIAS / 2).sum())} of {bias.numel()} keys")
         say(f"{path} {kind} as the path called it: [{q.shape[0]},{q.shape[1]},{q.shape[2]},"
             f"{k.shape[2]},{q.shape[3]}] {dt} {fa.ROUTES[(q.dtype, q.shape[3])]} "
-            f"{'strided views' if strided else 'contiguous'} causal={bool(causal)}, "
+            f"{'strided views' if strided else 'contiguous'}"
+            f"{', cross attention' if cross else ''} causal={bool(causal)}, "
             f"{masked}, segments={seg_q is not None} | {detail} | "
             f"{'ok' if ok else 'MISMATCH'}")
         check(ok, f"{path}: the {kind} kernel disagrees with its plain version on the "
@@ -2640,6 +2734,7 @@ def seq2seq_timed(dev, seed, card_name, model):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [float(x) for x in losses]
     ms = wall / SEQ_STEPS * 1e3
+    READINGS[model] = {"ms": ms, "peak_gb": peak_gb}
     say(f"{model} bf16 ({card_name}): b={b} s={s}, dropout {cfg.dropout}, "
         f"{type(trainer.optimizer).__name__}, {n_params} params, startup {startup_s:.2f} s; "
         f"{SEQ_WARMUP} warm-up + {SEQ_STEPS} timed steps: {b * s / ms * 1e3:.1f} tokens/s, "
@@ -2676,6 +2771,7 @@ def _seq2seq_breakdown(model, trainer, feed, card_name):
     if device_us == 0:
         say(f"{model} breakdown: not measured (the profiler saw no device time)")
         return rows
+    READINGS.setdefault(model, {}).update(device_ms=device_us / 1e3, ops=n_ops)
     say(f"{model} breakdown ({card_name}), one profiled step: {device_us / 1e3:.2f} ms of "
         f"device time in a {wall_ms:.2f} ms step, device busy "
         f"{100 * device_us / 1e3 / wall_ms:.1f}%, {n_ops} device operations")
@@ -2920,7 +3016,7 @@ def dropout_on_card(dev, seed, card_name):
     grads, losses, p0 = {}, {}, None
     for remat in (False, True):
         trainer = _trainer(dataclasses.replace(cfg, remat=remat), dev)
-        trainer.startup(seed, params=p0)
+        trainer.startup(seed, sample_feed=feed, params=p0)
         p0 = p0 or {k: v.detach().clone() for k, v in trainer.scope.params.items()}
         losses[remat] = float(trainer.step(feed)["loss"])
         grads[remat] = {k: p.grad.detach().clone() for k, p in trainer.scope.params.items()}
@@ -3035,15 +3131,18 @@ def _eager_against_captured(eager, fused, staged, stacked, n_dispatches, k):
     return times, peaks
 
 
-def _busy_against(eager, fused, staged, stacked):
+def _busy_against(eager, fused, staged, stacked, into=None):
     """The device's busy share, device ms and operations a step of K
     profiled eager steps and of one profiled dispatch of K, as a clause of
-    the timing line."""
+    the timing line; ``into`` (a dict) takes {"eager"/"captured": (device
+    ms, operations) a step}."""
     k = len(staged)
     parts = []
     for name, fn in (("eager", lambda: [eager.step(f) for f in staged]),
                      ("captured", lambda: fused.run_steps(stacked))):
         wall, dev_us, n_ops, _ = _profile_dispatch(fn)
+        if into is not None:
+            into[name] = (dev_us / 1e3 / k, n_ops / k)
         parts.append(f"{name} busy {100 * dev_us / 1e3 / wall:.1f}% ({dev_us / 1e3 / k:.2f} "
                      f"ms, {n_ops / k:.0f} operations a step)" if dev_us else
                      f"{name} busy: not measured")
@@ -3164,11 +3263,10 @@ def fused_gpt(dev, seed, card_name):
     k = FUSED_K
     cfg = gpt.base_config(**TRAIN)
     feeds = _train_feeds(np.random.RandomState(0), k, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)
-    _zero_launch_counts(fa)
     # ---- the main path, as a user drives it
-    eager = _trainer(cfg, dev, "bfloat16").startup(seed, sample_feed=feeds[0])
-    fused = _trainer(cfg, dev, "bfloat16").startup(seed, sample_feed=feeds[0],
-                                                  params=_params_of(eager))
+    eager = _trainer(cfg, dev).startup(seed, sample_feed=feeds[0])
+    fused = _trainer(cfg, dev).startup(seed, sample_feed=feeds[0], params=_params_of(eager))
+    _zero_launch_counts(fa)  # the startups' init forwards took the flash forward
     losses_eager = torch.stack([eager.step(f)["loss"] for f in feeds])
     stacked = fused._put_feed(pt.data.stack_batches(feeds))
     outs = fused.run_steps(stacked)
@@ -3186,6 +3284,7 @@ def fused_gpt(dev, seed, card_name):
     check(all(n == want for n in launches.values()),
           f"captured gpt: Python launch counts {launches}, want {want} each")
     wall, dev_us, n_ops, kernels = _profile_dispatch(lambda: fused.run_steps(stacked))
+    READINGS["gpt_captured"] = {"device_ms": dev_us / 1e3 / k, "ops": n_ops / k}
     tensor_core = ("flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")
     cuda_core = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
     seen = {n: [sum(c for key, (c, _) in kernels.items() if n in key),
@@ -3207,6 +3306,7 @@ def fused_gpt(dev, seed, card_name):
                       f"dispatches a turn", times, peaks, "tokens/s",
                       TRAIN_BATCH * TRAIN_SEQ, card_name, k,
                       _busy_against(eager, fused, staged, stacked))
+    READINGS["gpt_captured"]["ms"] = ms["captured"]
     del eager, fused
     gc.collect()
     torch.cuda.empty_cache()
@@ -3278,14 +3378,13 @@ def fused_resnet(dev, seed, card_name):
 def fused_transformer(dev, seed, card_name):
     """(d) Transformer-base at bench_transformer's config with dropout 0.1
     (b=32, s=256, Adam), K=4: captured against eager bit for bit; the same
-    under remat_mode() on the model cut to FUSED_REMAT_LAYERS +
+    under DistStrategy(remat=True) on the model cut to FUSED_REMAT_LAYERS +
     FUSED_REMAT_LAYERS layers (the only cut); eager against captured."""
     import dataclasses
     import gc
     import numpy as np
     import torch
     import paddle_tpu_torch as pt
-    from paddle_tpu_torch.framework import remat_mode
     from paddle_tpu_torch.ops import flash_attention as fa
 
     k = FUSED_K
@@ -3297,48 +3396,49 @@ def fused_transformer(dev, seed, card_name):
         cfg = _transformer_cfg(max_len=TR_SEQ, dropout=DROPOUT_P, dtype="bfloat16")
         if remat:
             cfg = dataclasses.replace(cfg, num_encoder_layers=cut, num_decoder_layers=cut)
-        with remat_mode(remat):
-            eager = _seq2seq_trainer(cfg, dev).startup(seed, feeds[0])
-            fused = _seq2seq_trainer(cfg, dev).startup(seed, feeds[0],
-                                                       params=_params_of(eager))
-            # the startups' init runs (not training) took the flash forward
-            _zero_launch_counts(fa)
-            losses_eager = torch.stack([eager.step(f)["loss"] for f in feeds])
-            stacked = fused._put_feed(pt.data.stack_batches(feeds))
-            outs = fused.run_steps(stacked)
-            differ = _states_differ(_state_of(eager), _state_of(fused))
-            same_losses = _bits_equal(losses_eager, outs["loss"])
-            gens = len(fused._fused.stream.generators())
-            say(f"captured transformer (d): bf16 Transformer-base b={TR_BATCH} s={TR_SEQ} "
-                f"dropout {DROPOUT_P}" + (f", remat_mode() on {cut}+{cut} layers (cut from "
-                                          f"{TRANSFORMER['num_encoder_layers']}+"
-                                          f"{TRANSFORMER['num_decoder_layers']})"
-                                          if remat else "")
-                + f": run_steps(K={k}) against {k} step() calls: losses "
-                f"{[round(x, 5) for x in outs['loss'].tolist()]}, bit-equal {same_losses}; "
-                f"state leaves differing {differ}; {gens} generators registered with the "
-                f"graph")
-            check(same_losses and not differ,
-                  f"captured transformer: run_steps differs from step() (remat {remat})")
-            check(len(set(outs["loss"].tolist())) == k, "captured transformer: repeated loss")
-            launches = _launch_counts(fa)
-            check(all(n == 0 for n in launches.values()),
-                  f"captured transformer: a flash kernel launched in training: {launches}")
-            if not remat:
-                staged = [eager._put_feed(f) for f in feeds]
-                times, peaks = _eager_against_captured(eager, fused, staged, stacked,
-                                                       FUSED_DISPATCHES, k)
-                ms = _timing_line(f"Transformer-base bf16 b={TR_BATCH} s={TR_SEQ} dropout "
-                                  f"{DROPOUT_P}, {FUSED_DISPATCHES} dispatches a turn",
-                                  times, peaks, "tokens/s", TR_BATCH * TR_SEQ, card_name, k,
-                                  _busy_against(eager, fused, staged, stacked))
+        strategy = pt.DistStrategy(remat=True) if remat else None
+        eager = _seq2seq_trainer(cfg, dev, strategy).startup(seed, feeds[0])
+        fused = _seq2seq_trainer(cfg, dev, strategy).startup(seed, feeds[0],
+                                                             params=_params_of(eager))
+        # the startups' init runs (not training) took the flash forward
+        _zero_launch_counts(fa)
+        losses_eager = torch.stack([eager.step(f)["loss"] for f in feeds])
+        stacked = fused._put_feed(pt.data.stack_batches(feeds))
+        outs = fused.run_steps(stacked)
+        differ = _states_differ(_state_of(eager), _state_of(fused))
+        same_losses = _bits_equal(losses_eager, outs["loss"])
+        gens = len(fused._fused.stream.generators())
+        say(f"captured transformer (d): bf16 Transformer-base b={TR_BATCH} s={TR_SEQ} "
+            f"dropout {DROPOUT_P}" + (f", remat on {cut}+{cut} layers (cut from "
+                                      f"{TRANSFORMER['num_encoder_layers']}+"
+                                      f"{TRANSFORMER['num_decoder_layers']})"
+                                      if remat else "")
+            + f": run_steps(K={k}) against {k} step() calls: losses "
+            f"{[round(x, 5) for x in outs['loss'].tolist()]}, bit-equal {same_losses}; "
+            f"state leaves differing {differ}; {gens} generators registered with the "
+            f"graph")
+        check(same_losses and not differ,
+              f"captured transformer: run_steps differs from step() (remat {remat})")
+        check(len(set(outs["loss"].tolist())) == k, "captured transformer: repeated loss")
+        launches = _launch_counts(fa)
+        check(all(n == 0 for n in launches.values()),
+              f"captured transformer: a flash kernel launched in training: {launches}")
+        if not remat:
+            staged = [eager._put_feed(f) for f in feeds]
+            times, peaks = _eager_against_captured(eager, fused, staged, stacked,
+                                                   FUSED_DISPATCHES, k)
+            ms = _timing_line(f"Transformer-base bf16 b={TR_BATCH} s={TR_SEQ} dropout "
+                              f"{DROPOUT_P}, {FUSED_DISPATCHES} dispatches a turn",
+                              times, peaks, "tokens/s", TR_BATCH * TR_SEQ, card_name, k,
+                              _busy_against(eager, fused, staged, stacked))
         del eager, fused
         gc.collect()
         torch.cuda.empty_cache()
     return {"Transformer-base": ms}
 
 
-def _fused_alone(make, feeds, k, path, card_name, unit, per_step, on_fused=None):
+def _fused_alone(make, feeds, k, path, card_name, unit, per_step, on_fused=None,
+                 record_into=None):
     """Eager and captured trainers from one state, one at a time (for
     paths whose trainers would not fit the card together): ``k`` eager
     steps, twice; then ``run_steps(k)``; then one more timed dispatch of
@@ -3349,8 +3449,9 @@ def _fused_alone(make, feeds, k, path, card_name, unit, per_step, on_fused=None)
     runs' own distance: the worst relative L2 distance of a state leaf,
     and the worst relative difference of a loss (at least
     FUSED_LOSS_FLOOR, should the eager runs' losses agree). ``on_fused`` runs just
-    before the captured trainer is made. Returns {"eager": ms,
-    "captured": ms}."""
+    before the captured trainer is made; ``record_into`` (a list) takes
+    :func:`record_kernel_calls`' record of the first eager run. Returns
+    {"eager": ms, "captured": ms}."""
     import gc
     import torch
     import paddle_tpu_torch as pt
@@ -3361,7 +3462,13 @@ def _fused_alone(make, feeds, k, path, card_name, unit, per_step, on_fused=None)
 
     eager = make(None)
     params = _params_of(eager)
-    losses_eager = torch.stack([eager.step(f)["loss"] for f in feeds])
+    if record_into is None:
+        losses_eager = torch.stack([eager.step(f)["loss"] for f in feeds])
+    else:
+        from paddle_tpu_torch.ops import flash_attention as fa
+        with record_kernel_calls(fa) as calls:
+            losses_eager = torch.stack([eager.step(f)["loss"] for f in feeds])
+        record_into.extend(calls)
     state_eager = _state_of(eager)
     staged = [eager._put_feed(f) for f in feeds]
     torch.cuda.synchronize()
@@ -3765,6 +3872,488 @@ def phase_captured_decode(dev, seed, card_name):
     return launches
 
 
+# -- phase 14: the build GPT, remat policies, the stacked Transformer, accumulation --
+
+
+def build_against_module(card_name):
+    """(a) The build GPT's readings of phases 7 and 12(b) against the module
+    GPT's last readings (MODULE_GPT, quoted): device time and
+    operations a step, eager and captured, and the captured ms a step. On
+    a card at its 700 W limit the device time a step must lie within
+    BUILD_DEVICE_TOL of the module's: the build program adds no work."""
+    eager, captured = READINGS.get("gpt_eager"), READINGS.get("gpt_captured")
+    check(eager is not None and captured is not None,
+          "phase 14 (a): phases 7 and 12(b) recorded no device time")
+    mod = MODULE_GPT
+    rel = {"eager": eager["device_ms"] / mod["eager_device_ms"] - 1,
+           "captured": captured["device_ms"] / mod["captured_device_ms"] - 1}
+    full_power = "700.00 W" in card_name
+    say(f"phase 14 (a) build GPT against the module GPT ({card_name}): phase 7 eager "
+        f"{eager['device_ms']:.2f} ms of device time in {eager['ops']} operations a step "
+        f"(module: {mod['eager_device_ms']:.2f} ms; {100 * rel['eager']:+.2f}%); "
+        f"phase 12(b) captured {captured['device_ms']:.2f} ms in {captured['ops']:.0f} "
+        f"operations a step (module {mod['captured_device_ms']:.2f} ms in "
+        f"{mod['captured_ops']}; {100 * rel['captured']:+.2f}%), {captured['ms']:.4f} ms a "
+        f"captured step (module {mod['captured_ms']:.4f}); tol {100 * BUILD_DEVICE_TOL:.0f}% "
+        f"on a 700 W card" + ("" if full_power else ": this card is not at 700 W, reported only"))
+    if full_power:
+        check(all(abs(r) <= BUILD_DEVICE_TOL for r in rel.values()),
+              f"phase 14 (a): the build GPT's device time a step is off the module's: {rel}")
+
+
+def _host_tree(tree):
+    """An f32 copy of a tree's leaves on the host (a copy also of a leaf
+    already there)."""
+    import torch
+    return {k: v.detach().to("cpu", torch.float32, copy=True) for k, v in tree.items()}
+
+
+def _tree_dist(a, b=None):
+    """sqrt(sum ||a - b||^2) over the leaves of ``a``, in f32 (``b`` None:
+    the norm of ``a``); a leaf of ``b`` may lie on the host."""
+    import torch
+    total = 0.0
+    for k, v in a.items():
+        d = v.detach().float()
+        if b is not None:
+            d = d - b[k].to(d.device).float()
+        total += float(d.pow(2).sum(dtype=torch.float64))
+    return total ** 0.5
+
+
+def _take_grads(tr):
+    """The grads a forward and backward left on the params (zeros where
+    none), taken off them."""
+    import torch
+    grads = {}
+    for k, p in tr.scope.params.items():
+        grads[k] = torch.zeros_like(p) if p.grad is None else p.grad.detach()
+        p.grad = None
+    return grads
+
+
+def _first_grads(tr, feed, seed, a):
+    """The grads of one batch from the trainer's current params: one
+    forward and backward, or under accum_steps ``a`` > 1 the microbatches'
+    summed f32 grads divided by ``a`` (``Trainer._accumulate``)."""
+    stream = tr._rng.reset(seed)
+    if a > 1:
+        grads = tr._accumulate(feed, stream, a)[2]
+        _take_grads(tr)
+        return grads
+    tr._forward_backward(feed, stream, tr.scope.state)
+    return _take_grads(tr)
+
+
+def _drop_every_second_microbatch(tr):
+    """A planted fault for phase 14 (d): every second microbatch's grads
+    are dropped before the trainer sums them."""
+    run, calls = tr._forward_backward, [0]
+
+    def dropped(*args):
+        out = run(*args)
+        calls[0] += 1
+        if calls[0] % 2 == 0:
+            for p in tr.scope.params.values():
+                p.grad = None
+        return out
+
+    tr._forward_backward = dropped
+
+
+def _gpt_handoff(trainer, cfg, dev, seed, card_name):
+    """A trained scope served unchanged: ``GPTGenerator.load_params(
+    trainer.scope.params)`` decodes bucket 2 captured and eagerly, the ids
+    bit-equal and in range."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import gpt
+
+    gcfg = dataclasses.replace(cfg, max_len=HANDOFF_PROMPT + HANDOFF_NEW)
+    ids = torch.from_numpy(np.random.RandomState(seed + 3).randint(
+        3, cfg.vocab_size, (2, HANDOFF_PROMPT)).astype(np.int32)).to(dev)
+    gen = gpt.make_generator(gcfg, HANDOFF_NEW, compute_dtype="bfloat16",
+                             device=dev).load_params(trainer.scope.params)
+    got, want = gen(ids)["ids"], gen._generate_eager(ids)["ids"]
+    ok = _bits_equal(got, want) and int(got.min()) >= 0 and int(got.max()) < cfg.vocab_size
+    say(f"phase 14 (b) the remat-off trainer's scope served by GPTGenerator.load_params "
+        f"({card_name}): bucket 2, {HANDOFF_PROMPT}+{HANDOFF_NEW} tokens, captured ids "
+        f"equal the eager loop's {ok}: {got[0].tolist()}")
+    check(ok, "phase 14 (b): the trained scope does not serve")
+
+
+def _peak_gb(fn):
+    """(what ``fn`` returns, the peak device memory while it runs and that
+    peak's rise over what was allocated before, in GB)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return out, peak / 1e9, (peak - before) / 1e9
+
+
+def remat_policies(dev, seed, card_name):
+    """(b) Phase 7's bf16 GPT-base under DistStrategy(remat=True,
+    remat_policy=p) for each policy, and with remat off, each from one
+    seed: the peak memory of one training forward and backward (before
+    any update: what the policy keeps) and its grads, then K=REMAT_K steps
+    captured, the peak over that first dispatch (its warm-up copies the
+    training state, and the update's new state outlasts the activations),
+    the flash forward's launches a step body (12, or 24 where the blocks
+    are recomputed), the K steps' losses and the params after them, and ms
+    a step over REMAT_DISPATCHES more dispatches. Against remat off: the
+    losses at BF16_ROUNDING, the grads and the params' move at REMAT_TOL.
+    The forward and backward's rise in memory and the dispatch's peak in
+    the order nothing < dots_no_batch <= dots < everything, which equals
+    off; what a setting leaves allocated does not grow from setting to
+    setting."""
+    import gc
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    cfg = gpt.base_config(**TRAIN)
+    feeds = _train_feeds(np.random.RandomState(0), REMAT_K, TRAIN_BATCH, TRAIN_SEQ,
+                         cfg.vocab_size)
+    rows, ref = {}, None
+    for policy in REMAT_SETTINGS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        allocated = torch.cuda.memory_allocated() / 1e9
+        strategy = None if policy == "off" else pt.DistStrategy(remat=True,
+                                                                 remat_policy=policy)
+        tr = _trainer(cfg, dev, strategy).startup(seed, sample_feed=feeds[0])
+        stacked = tr._put_feed(pt.data.stack_batches(feeds))
+        first = {k: v[0] for k, v in stacked.items()}
+        _, _, run_gb = _peak_gb(lambda: tr._forward_backward(first, tr._rng.reset(seed),
+                                                             tr.scope.state))
+        grads = _take_grads(tr)
+        if policy == "off":
+            ref = {"init": _host_tree(tr.scope.params), "grads": _host_tree(grads)}
+            ref["grad_norm"] = _tree_dist(ref["grads"])
+        grad_rel = _tree_dist(grads, ref["grads"]) / ref["grad_norm"]
+        del grads
+        before = _launch_counts(fa)
+        outs, dispatch_gb, _ = _peak_gb(lambda: tr.run_steps(stacked))
+        body = {n: (v - before[n]) / _captured_step_runs()
+                for n, v in _launch_counts(fa).items()}
+        # the K steps of the first dispatch, and the params after them
+        losses = outs["loss"].float().cpu()
+        if policy == "off":
+            ref.update(losses=losses, params=_host_tree(tr.scope.params))
+            ref["move"] = _tree_dist(ref["params"], ref["init"])
+        param_rel = _tree_dist(tr.scope.params, ref["params"]) / ref["move"]
+        t0 = time.perf_counter()
+        for _ in range(REMAT_DISPATCHES):
+            tr.run_steps(stacked)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / (REMAT_DISPATCHES * REMAT_K) * 1e3
+        if policy == "off":
+            _gpt_handoff(tr, cfg, dev, seed, card_name)
+        del tr, stacked, first, outs
+        gc.collect()
+        torch.cuda.empty_cache()
+        rows[policy] = {"allocated_gb": allocated,
+                        "left_gb": torch.cuda.memory_allocated() / 1e9, "run_gb": run_gb,
+                        "dispatch_gb": dispatch_gb, "ms": ms, "body": body,
+                        "losses": losses, "grad_rel": grad_rel, "param_rel": param_rel}
+    for policy, r in rows.items():
+        r["loss_rel"] = float(((r["losses"] - ref["losses"]).abs()
+                               / ref["losses"].abs()).max())
+        r["bits"] = (torch.equal(r["losses"], ref["losses"]) and r["grad_rel"] == 0
+                     and r["param_rel"] == 0)
+        say(f"phase 14 (b) remat {policy!r} ({card_name}): allocated before the setting "
+            f"{r['allocated_gb']:.4f} GB, after it {r['left_gb']:.4f} GB; a training forward and backward raises memory by "
+            f"{r['run_gb']:.3f} GB; peak over the first captured dispatch "
+            f"{r['dispatch_gb']:.3f} GB; {r['ms']:.4f} ms a captured step (K={REMAT_K}); "
+            f"launches a step {r['body']}; losses {r['losses'].tolist()}, rel to off "
+            f"{r['loss_rel']:.3g} (tol {BF16_ROUNDING:.3g}); first grads' L2 distance to "
+            f"off's {r['grad_rel']:.3g} of their norm, params' after {REMAT_K} steps "
+            f"{r['param_rel']:.3g} of off's move from the initial params (off's move "
+            f"{ref['move']:.4g}; tol {REMAT_TOL}); bit-equal to off {r['bits']}")
+    layers = cfg.num_layers
+    for policy, r in rows.items():
+        recompute = policy not in ("off", "everything")
+        want = {"flash_fwd": 2 * layers if recompute else layers,
+                "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+        check(r["body"] == want, f"phase 14 (b): remat {policy!r} launches a step "
+              f"{r['body']}, want {want}")
+        check(r["loss_rel"] <= BF16_ROUNDING and r["grad_rel"] <= REMAT_TOL
+              and r["param_rel"] <= REMAT_TOL,
+              f"phase 14 (b): remat {policy!r} trains away from remat off")
+        check(r["left_gb"] <= rows["off"]["left_gb"] + ALLOC_GROWTH_GB,
+              f"phase 14 (b): remat {policy!r} left {r['left_gb']:.4f} GB allocated, "
+              f"against {rows['off']['left_gb']:.4f} after off")
+    # equal programs (dots and dots_no_batch with flash on; everything and
+    # off) may part by the allocator's block rounding: 1%
+    for what, key in (("the forward and backward's rise in memory", "run_gb"),
+                      ("the first captured dispatch's peak memory", "dispatch_gb")):
+        gb = {p: r[key] for p, r in rows.items()}
+        check(gb["nothing"] < gb["dots_no_batch"] <= 1.01 * gb["dots"]
+              and gb["dots"] < gb["everything"]
+              and abs(gb["everything"] - gb["off"]) <= 0.01 * gb["off"],
+              f"phase 14 (b): {what} out of the order nothing < dots_no_batch <= dots < "
+              f"everything ~ off: {gb}")
+    return rows
+
+
+def stacked_transformer(dev, seed, card_name):
+    """(c) The stacked Transformer: Transformer-base at bench.py's
+    BENCH_STACKED=1 config (phase 11 (b)'s: b=32, s=256, dropout 0.1, bf16,
+    Adam, fuse_qkv, fused_ce), eager against captured K=FUSED_K bit for
+    bit, with ms a step, device time and operations a step and peak memory
+    against phase 11 (b)'s unrolled model; then stacked transformer_long
+    (b=4, s=4096, dropout 0), eager against captured K=FUSED_LONG_K, every
+    flash call of its first eager steps held against the plain versions
+    (the stacked decoder's cross attention among them)."""
+    import gc
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    k = FUSED_K
+    cfg = _transformer_cfg(max_len=TR_SEQ, dropout=DROPOUT_P, dtype="bfloat16", stacked=True)
+    feeds = _seq2seq_feeds(np.random.RandomState(0), k, TR_BATCH, TR_SEQ)
+    eager = _seq2seq_trainer(cfg, dev).startup(seed, feeds[0])
+    fused = _seq2seq_trainer(cfg, dev).startup(seed, feeds[0], params=_params_of(eager))
+    _zero_launch_counts(fa)  # the startups' init forwards took the flash forward
+    losses_eager = torch.stack([eager.step(f)["loss"] for f in feeds])
+    stacked = fused._put_feed(pt.data.stack_batches(feeds))
+    outs = fused.run_steps(stacked)
+    differ = _states_differ(_state_of(eager), _state_of(fused))
+    same = _bits_equal(losses_eager, outs["loss"])
+    finite = bool(torch.isfinite(outs["loss"]).all() and torch.isfinite(losses_eager).all())
+    launches = _launch_counts(fa)
+    say(f"phase 14 (c) stacked Transformer-base bf16 b={TR_BATCH} s={TR_SEQ} dropout "
+        f"{DROPOUT_P} ({card_name}): run_steps(K={k}) against {k} step() calls: losses "
+        f"{[round(x, 5) for x in outs['loss'].tolist()]}, bit-equal {same}, finite {finite}; "
+        f"state leaves differing {differ}; launches in training {launches} (want 0: dropout "
+        f"takes the dense path)")
+    check(same and not differ and finite, "phase 14 (c): stacked run_steps differs from step()")
+    check(all(n == 0 for n in launches.values()),
+          "phase 14 (c): a flash kernel launched in training at dropout 0.1")
+    staged = [eager._put_feed(f) for f in feeds]
+    times, peaks = _eager_against_captured(eager, fused, staged, stacked, FUSED_DISPATCHES, k)
+    busy = {}
+    ms = _timing_line(f"stacked Transformer-base bf16 b={TR_BATCH} s={TR_SEQ} dropout "
+                      f"{DROPOUT_P}, {FUSED_DISPATCHES} dispatches a turn", times, peaks,
+                      "tokens/s", TR_BATCH * TR_SEQ, card_name, k,
+                      _busy_against(eager, fused, staged, stacked, into=busy))
+    unrolled = READINGS.get("transformer", {})
+    dev_ms, n_ops = busy.get("eager", (0.0, 0))
+    say(f"phase 14 (c) stacked against unrolled Transformer-base ({card_name}): eager "
+        f"{ms['eager']:.4f} ms a step (phase 11 (b) unrolled {unrolled.get('ms', 0):.4f}), "
+        f"captured {ms['captured']:.4f}; device {dev_ms:.2f} ms in {n_ops:.0f} operations a "
+        f"profiled eager step (unrolled {unrolled.get('device_ms', 0):.2f} ms in "
+        f"{unrolled.get('ops', 0)}); peak memory eager {peaks['eager']:.3f} GB (unrolled "
+        f"{unrolled.get('peak_gb', 0):.3f})")
+    del eager, fused, staged, stacked
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    k = FUSED_LONG_K
+    cfg = _transformer_cfg(max_len=LONG_SEQ, dropout=0.0, dtype="bfloat16", stacked=True)
+    feeds = _seq2seq_feeds(np.random.RandomState(0), k, LONG_BATCH, LONG_SEQ)
+
+    def make(params):
+        tr = _seq2seq_trainer(cfg, dev).startup(seed, feeds[0], params=params)
+        _zero_launch_counts(fa)  # after the startup's init forwards
+        return tr
+
+    calls, launches = [], {}
+    ms_long = _fused_alone(make, feeds, k, f"stacked transformer_long (c): bf16 "
+                           f"b={LONG_BATCH} s={LONG_SEQ}", card_name, "tokens/s",
+                           LONG_BATCH * LONG_SEQ,
+                           on_fused=lambda: launches.update(_launch_counts(fa)),
+                           record_into=calls)
+    captured = _launch_counts(fa)
+    layers = cfg.num_encoder_layers + 2 * cfg.num_decoder_layers  # + the cross attention
+    want = {n: k * layers for n in launches}
+    say(f"phase 14 (c) stacked transformer_long: launches of the second eager run's steps "
+        f"{launches} (want {want}: 6 encoder, 6 causal decoder and 6 cross attentions a "
+        f"step), of the captured trainer {captured}")
+    check(launches == want, "phase 14 (c): stacked transformer_long eager launch counts")
+    check(all(n == _captured_step_runs() * layers for n in captured.values()),
+          "phase 14 (c): stacked transformer_long capture launch counts")
+    check(any(c[2] for c in calls), "phase 14 (c): no cross attention reached the kernels")
+    check_recorded(fa, calls, "stacked transformer_long")
+    del calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"stacked Transformer-base": ms, "stacked transformer_long": ms_long}, \
+        {n: launches[n] + captured[n] for n in captured}
+
+
+def accumulation(dev, seed, card_name):
+    """(d) DistStrategy(accum_steps=a) at phase 7's config, captured
+    K=REMAT_K, for a in ACCUM_STEPS: peak memory over the first dispatch
+    and of an eager step, ms a step, and against a=1 (bench.py's feeds
+    have no pad: each microbatch counts the same tokens) the K steps'
+    losses at BF16_ROUNDING, the first batch's grads from the initial
+    params at ACCUM_GRAD_TOL and the params after the K steps at
+    ACCUM_PARAM_TOL (of a=1's move from the initial params); a planted
+    fault, accum_steps 2 with every second microbatch's grads dropped (K
+    eager steps), must exceed both limits; the flash calls at the
+    microbatches' shapes held against the plain versions; then ResNet-50
+    at phase 10 (b)'s config, one step at accum_steps 2: finite, its
+    batch-norm state the two microbatches' threaded one after the other."""
+    import gc
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import gpt
+
+    cfg = gpt.base_config(**TRAIN)
+    feeds = _train_feeds(np.random.RandomState(0), REMAT_K, TRAIN_BATCH, TRAIN_SEQ,
+                         cfg.vocab_size)
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    rows, ref = {}, None
+    # the planted fault last, keyed "2, dropped"
+    for a in ACCUM_STEPS + ("2, dropped",):
+        planted = a == "2, dropped"
+        n = 2 if planted else a
+        gc.collect()
+        torch.cuda.empty_cache()
+        tr = _trainer(cfg, dev, pt.DistStrategy(accum_steps=n) if n > 1 else None)
+        tr.startup(seed, sample_feed=feeds[0])
+        if planted:
+            _drop_every_second_microbatch(tr)
+        stacked = tr._put_feed(pt.data.stack_batches(feeds))
+        grads = _first_grads(tr, {k: v[0] for k, v in stacked.items()}, seed, n)
+        if a == 1:
+            ref = {"init": _host_tree(tr.scope.params), "grads": _host_tree(grads)}
+            ref["grad_norm"] = _tree_dist(ref["grads"])
+        grad_rel = _tree_dist(grads, ref["grads"]) / ref["grad_norm"]
+        del grads
+        row = {"grad_rel": grad_rel}
+        if planted:
+            losses = torch.stack([tr.step({k: v[i] for k, v in stacked.items()})["loss"]
+                                  for i in range(REMAT_K)])
+        else:
+            # the capture's warm-up hands the kernels the microbatches' shapes
+            with record_kernel_calls(fa) as calls:
+                outs, row["dispatch_gb"], _ = _peak_gb(lambda: tr.run_steps(stacked))
+            if a > 1:
+                check_recorded(fa, calls, f"accum_steps {a} GPT-base")
+            del calls
+            losses = outs["loss"]
+        row["losses"] = losses.float().cpu()
+        if a == 1:
+            ref["params"] = _host_tree(tr.scope.params)
+            ref["move"] = _tree_dist(ref["params"], ref["init"])
+        row["param_rel"] = _tree_dist(tr.scope.params, ref["params"]) / ref["move"]
+        if not planted:
+            t0 = time.perf_counter()
+            for _ in range(REMAT_DISPATCHES):
+                tr.run_steps(stacked)
+            torch.cuda.synchronize()
+            row["ms"] = (time.perf_counter() - t0) / (REMAT_DISPATCHES * REMAT_K) * 1e3
+            # an eager step on the main stream: the step's own peak
+            _, row["step_gb"], _ = _peak_gb(
+                lambda: tr.step({k: v[0] for k, v in stacked.items()}))
+        rows[a] = row
+        del tr, stacked, losses
+    base = rows[1]["losses"]
+    for a, r in rows.items():
+        r["rel"] = float(((r["losses"] - base).abs() / base.abs()).max())
+        sound = a != "2, dropped"
+        n = 2 if not sound else a
+        say(f"phase 14 (d) accum_steps {a} GPT-base bf16 b={TRAIN_BATCH} ({TRAIN_BATCH // n} "
+            f"a microbatch) s={TRAIN_SEQ} ({card_name}): "
+            + (f"peak memory of an eager step {r['step_gb']:.3f} GB, over the first "
+               f"captured dispatch {r['dispatch_gb']:.3f} GB; {r['ms']:.4f} ms a captured "
+               f"step (K={REMAT_K}); " if sound else f"planted fault, {REMAT_K} eager steps; ")
+            + f"losses {r['losses'].tolist()}, rel to accum_steps 1 {r['rel']:.3g} (tol "
+            f"{BF16_ROUNDING:.3g}); first grads' L2 distance to accum_steps 1's "
+            f"{r['grad_rel']:.3g} of their norm (tol {ACCUM_GRAD_TOL}), params' after "
+            f"{REMAT_K} steps {r['param_rel']:.3g} of accum_steps 1's move from the "
+            f"initial params ({ref['move']:.4g}; tol {ACCUM_PARAM_TOL})")
+        check(bool(torch.isfinite(r["losses"]).all()), f"phase 14 (d): accum {a} not finite")
+        if not sound:
+            check(r["grad_rel"] > ACCUM_GRAD_TOL and r["param_rel"] > ACCUM_PARAM_TOL,
+                  "phase 14 (d): the planted fault (a microbatch's grads dropped) passes "
+                  "the limits")
+            continue
+        check(r["rel"] <= BF16_ROUNDING, f"phase 14 (d): accum {a}'s losses differ from "
+              "one batch's")
+        check(r["grad_rel"] <= ACCUM_GRAD_TOL and r["param_rel"] <= ACCUM_PARAM_TOL,
+              f"phase 14 (d): accum {a} trains away from one batch")
+        check(r["step_gb"] <= rows[1]["step_gb"],
+              f"phase 14 (d): accum {a} raised an eager step's peak memory")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ResNet-50, one step at accum_steps 2: the batch-norm state threaded
+    with pt.amp_guard("bfloat16"):
+        feed = _resnet_feeds(np.random.RandomState(0), 1, RESNET_BATCH, RESNET["image_size"],
+                             "NHWC")[0]
+        tr = _resnet_trainer(dev, "NHWC", strategy=pt.DistStrategy(accum_steps=2))
+        tr.startup(seed, feed)
+        p0, s0 = _params_of(tr), {k: v.clone() for k, v in tr.scope.state.items()}
+        half = RESNET_BATCH // 2
+        micro = [{k: torch.from_numpy(v[i * half:(i + 1) * half]).to(dev)
+                  for k, v in feed.items()} for i in range(2)]
+        with torch.no_grad():
+            _, s1 = tr.program.apply(p0, s0, training=True, place=dev, **micro[0])
+            _, s2 = tr.program.apply(p0, s1, training=True, place=dev, **micro[1])
+            _, s2_alone = tr.program.apply(p0, s0, training=True, place=dev, **micro[1])
+        loss = float(tr.step(feed)["loss"])
+    state = tr.scope.state
+    moved = max(float((s2[k].float() - s0[k].float()).abs().max()) for k in s0)
+    err = max(float((state[k].float() - s2[k].float()).abs().max()) for k in s0) / moved
+    apart = max(float((s2_alone[k].float() - s2[k].float()).abs().max()) for k in s0) / moved
+    say(f"phase 14 (d) ResNet-50 bf16 NHWC b={RESNET_BATCH} accum_steps 2 ({card_name}): loss "
+        f"{loss:.5f}; batch-norm state after the step against the two microbatches' forwards "
+        f"threaded by hand: max |diff| {err:.3g} of the state's largest move (tol "
+        f"{RESNET_ACCUM_STATE_TOL}), the unthreaded state {apart:.3g} away")
+    check(np.isfinite(loss), "phase 14 (d): the ResNet-50 step is not finite")
+    check(err <= RESNET_ACCUM_STATE_TOL < apart,
+          "phase 14 (d): the batch-norm state was not threaded through the microbatches")
+    del tr, p0, s0, s1, s2, s2_alone, micro
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_remat_accum_stacked(dev, seed, card_name):
+    """Phase 14: (a) the build GPT against the module GPT, (b) remat
+    policies, (c) the stacked Transformer, (d) gradient accumulation. The
+    launch counts are zeroed just before (b)-(d) and read just after;
+    returns them."""
+    import gc
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    build_against_module(card_name)
+    counts = []
+    with pt.amp_guard("bfloat16"):
+        # ---- the main path, as a user drives it ((c) zeroes the counts after
+        # each trainer's startup and returns its own)
+        for part, run in (("(b)", remat_policies), ("(c)", stacked_transformer),
+                          ("(d)", accumulation)):
+            t0 = time.perf_counter()
+            _zero_launch_counts(fa)
+            out = run(dev, seed, card_name)
+            counts.append(out[1] if part == "(c)" else _launch_counts(fa))
+            say(f"phase 14 {part} took {time.perf_counter() - t0:.1f} s")
+        # ---- end of the main path
+    launches = {n: sum(c[n] for c in counts) for n in counts[0]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 14: hand-kernel launches on the paths {launches}")
+    check(all(n > 0 for n in launches.values()), "phase 14: a flash kernel never launched")
+    return launches
+
+
 def _routes(fa, torch):
     """The route table's choices, as the kernels record reports them."""
     return {"bfloat16": fa.ROUTES[(torch.bfloat16, 64)],
@@ -3866,10 +4455,16 @@ def main(argv=None) -> int:
     # 13. the captured decode (launch counts zeroed inside, around the path)
     decoded = phase_captured_decode(dev, args.seed, smi)
     done("phase 13")
+
+    # 14. the build GPT, remat policies, the stacked Transformer and gradient
+    # accumulation (launch counts zeroed inside, around each part)
+    slice7 = phase_remat_accum_stacked(dev, args.seed, smi)
+    done("phase 14")
     by_path = {name: {"served": served[name], "training": trained[name],
                       "persistence": persisted[name], "resnet": resnet_launches[name],
                       **{path: n[name] for path, n in seq2seq.items()},
-                      "captured": captured[name], "captured_decode": decoded[name]}
+                      "captured": captured[name], "captured_decode": decoded[name],
+                      "remat_stacked_accum": slice7[name]}
                for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 
     # the kernels record: each kernel's row at the training path's shape,

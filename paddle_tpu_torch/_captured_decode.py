@@ -56,7 +56,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from ._captured_step import CAPTURE_MODE, WARMUP_RUNS, CaptureError
+from ._captured_step import CAPTURE_MODE, WARMUP_RUNS, CaptureError, side_stream
 from .layers.beam_search import (beam_rows, beam_select, finish_beams, frozen_row,
                                  greedy_select, initial_scores)
 
@@ -189,7 +189,7 @@ class CapturedDecode:
 
     def _capture(self) -> None:
         main = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
+        side = side_stream(self.device)
         side.wait_stream(main)
         with torch.cuda.stream(side):
             for _ in range(WARMUP_RUNS):

@@ -31,7 +31,8 @@ and advances their Philox offsets on the card, so the replay draws what
 the eager step draws.
 
 Capture. The body first runs eagerly on a side stream (the warm-up
-PyTorch asks for): it builds and loads every kernel the step launches
+PyTorch asks for), one stream a device for every capture
+(:func:`side_stream`): it builds and loads every kernel the step launches
 (``ops/_build``), runs cuDNN's algorithm search, and records the step's
 side generators. The training state is copied before the warm-up and
 copied back after it, so the warm-up takes no step; the capture itself
@@ -81,13 +82,31 @@ def state_key(trainer) -> Tuple:
 
 def signature(trainer, feed_k: Dict[str, torch.Tensor]) -> Tuple:
     """What a captured step is specific to, besides the state's tensors:
-    the feed, the fetch set, the loss scaler and guard, and the ambient
-    switches a run reads when it starts (``amp_guard``'s compute dtype,
-    ``remat_mode``)."""
+    the feed, the fetch set, the loss scaler and guard, the strategy's
+    remat and accumulation (the Trainer's ``remat_mode``, whatever the
+    ambient one), and ``amp_guard``'s compute dtype, the ambient switch a
+    run reads when it starts."""
     feed = tuple((k, tuple(v.shape[1:]), v.dtype, v.device) for k, v in sorted(feed_k.items()))
     fetch = None if trainer.fetch_list is None else tuple(trainer.fetch_list)
+    s = trainer.strategy
+    strategy = None if s is None else (s.remat, s.remat_policy, s.accum_steps)
     return (feed, fetch, trainer.loss_name, id(trainer.loss_scaler), id(trainer._guard),
-            trainer.device, framework.compute_dtype(), framework.remat_enabled())
+            trainer.device, strategy, framework.compute_dtype())
+
+
+_SIDE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def side_stream(device) -> "torch.cuda.Stream":
+    """The one side stream the captures on ``device`` warm up on. cuBLAS
+    keeps a workspace for each stream it has run on, for the life of the
+    process, so a new stream a capture would leave one more workspace
+    allocated after every trainer or generator."""
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    if index not in _SIDE_STREAMS:
+        _SIDE_STREAMS[index] = torch.cuda.Stream(index)
+    return _SIDE_STREAMS[index]
 
 
 def _clone(tree):
@@ -158,7 +177,7 @@ class FusedSteps:
         trees = tr._state_trees()
         saved = _clone(trees)
         main = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
+        side = side_stream(self.device)
         side.wait_stream(main)
         try:
             with torch.cuda.stream(side):
@@ -184,4 +203,5 @@ class FusedSteps:
         self.captures += 1
 
 
-__all__ = ["CAPTURE_MODE", "CaptureError", "FusedSteps", "signature", "state_key"]
+__all__ = ["CAPTURE_MODE", "CaptureError", "FusedSteps", "side_stream", "signature",
+           "state_key"]

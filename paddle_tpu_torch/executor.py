@@ -8,10 +8,9 @@ and the optimizer's pure update, whose results are copied into the
 parameters in place (the analog of buffer donation). The grads of the
 last step stay on the parameters (``param.grad``) until the next step.
 
-``Trainer`` takes a ``Program`` built by :func:`framework.build` — its
-params and state live in ``trainer.scope`` under their JAX names — or an
-``nn.Module`` whose ``forward(**feed)`` returns a dict of tensors and
-which owns its params (``models.gpt.make_model``). ``fit`` drives a
+``Trainer`` takes a ``Program`` built by :func:`framework.build` (every
+model of the port, GPT's included: ``build(gpt.make_model(cfg))``); its
+params and state live in ``trainer.scope`` under their JAX names. ``fit`` drives a
 Trainer from a reader: DataFeeder → DeviceFeeder (the prefetch on the
 card) or a plain put → ``step``, with the JAX package's events, interval
 checkpoints (:class:`CheckpointConfig`), resume from the newest valid
@@ -31,6 +30,15 @@ waits on the card: the guard's host half examines the flag later
 (``defer_readback``), and a captured step (which cannot read the host)
 takes the same body.
 
+Rematerialization and gradient accumulation, as in the JAX package:
+``DistStrategy(remat=True, remat_policy=...)`` runs the program's
+training forward under ``framework.remat_mode`` (and without ``remat``
+with remat off, whatever the ambient ``remat_mode``); ``DistStrategy(accum_steps=a)`` splits
+every feed along dim 0 into ``a`` microbatches, runs forward and backward
+on each (the program state threaded from one to the next), sums the
+grads in f32, divides them by ``a`` and updates once, the fetched
+outputs the microbatches' mean (executor.py:1008-1029).
+
 K steps a dispatch, as the JAX package's ``lax.scan``:
 ``Trainer.run_steps(stacked_feed)`` runs K steps of the same body from a
 ``{name: (K, ...)}`` feed, on the card as one captured CUDA graph of the
@@ -40,7 +48,8 @@ chunks (``DeviceFeeder(stack_k=K)``).
 
 Not carried yet, each raising :class:`NotYetPorted` with the slice that
 brings it: meshes and sharding rules, the ``DistStrategy`` fields other
-than loss scaling (pipeline, sequence parallelism, accumulation, ZeRO),
+than loss scaling, remat and accumulation (pipeline, sequence
+parallelism, the accumulated exchanges, ZeRO),
 feed wire formats, on-device augmentation, elastic resizes, the HBM
 dataset cache and interval profile events; the journal and telemetry of
 checkpoint saves and guard incidents come with the observability slice.
@@ -60,11 +69,11 @@ from torch.profiler import record_function
 
 from .amp import LossScaler
 from .core.config import get_flag
-from .core.errors import NotYetPorted, enforce
+from .core.errors import EnforceError, NotYetPorted, enforce
 from .core.place import default_device
 from .data.feeder import PipelineMetrics, host_feed_nbytes
 from .framework import (Program, RngStream, build, check_params, params_from_jax,
-                        run_context)
+                        remat_mode, resolve_remat_policy)
 from .initializer import mix_seed
 from .parallel.strategy import DistStrategy, unported_fields
 from .resilience import GuardPolicy
@@ -123,6 +132,21 @@ def _loss_scaler(strategy) -> Optional[LossScaler]:
     return LossScaler(init_scale=strategy.loss_scale or 2.0 ** 15,
                       dynamic=strategy.dynamic_loss_scale,
                       growth_interval=strategy.loss_scale_growth_interval)
+
+
+def _strategy_accum(strategy) -> int:
+    """The microbatches a step runs: ``DistStrategy.accum_steps`` (1
+    without a strategy)."""
+    a = 1 if strategy is None else int(strategy.accum_steps)
+    enforce(a >= 1, f"DistStrategy(accum_steps={a}): need >= 1")
+    return a
+
+
+def _mean_of(values: List[torch.Tensor]) -> torch.Tensor:
+    """The mean over microbatches of one output (``jnp.mean(x, axis=0)``:
+    an integer output's mean is f32)."""
+    t = torch.stack(values)
+    return t.mean(0) if t.is_floating_point() else t.float().mean(0)
 
 
 def _leaves(tree):
@@ -233,8 +257,8 @@ class Trainer:
     """Eager train loop on one device: forward, backward and the optimizer
     update per :meth:`step`.
 
-    ``program`` is a :class:`framework.Program` or an ``nn.Module`` (see
-    the module docstring). ``place`` (the JAX package's argument) or
+    ``program`` is a :class:`framework.Program` (anything else raises
+    :class:`EnforceError`). ``place`` (the JAX package's argument) or
     ``device`` is where it runs: the CUDA card unless the caller passes
     the CPU (no card: :class:`NoCudaDevice`). ``fetch_list`` prunes what
     ``step`` returns to those outputs and the loss."""
@@ -254,15 +278,20 @@ class Trainer:
         if place is not None and device is not None:
             enforce(torch.device(place) == torch.device(device),
                     f"Trainer(place={place}, device={device}): two devices")
+        if not isinstance(program, Program):
+            raise EnforceError(f"Trainer(program={type(program).__name__}): expected a "
+                               "framework.Program, e.g. build(gpt.make_model(cfg))")
         self.device = default_device(device if device is not None else place, "Trainer")
         self.place = self.device
-        self.is_program = isinstance(program, Program)
-        self.program = program if self.is_program else program.to(self.device)
+        self.program = program
         self.optimizer = optimizer
         self.loss_name = loss_name
         self.fetch_list = list(fetch_list) if fetch_list is not None else None
         self.strategy = strategy
         self.loss_scaler = _loss_scaler(strategy)
+        _strategy_accum(strategy)
+        if strategy is not None:
+            resolve_remat_policy(strategy.remat_policy)  # an unknown name raises here
         # the NaN/Inf guard: True is the default policy; None defers to the
         # check_nan_inf flag, read at startup; False opts out, flag or not
         self.guard_policy = GuardPolicy() if guard is True else (guard or None)
@@ -289,30 +318,22 @@ class Trainer:
                 params: Optional[Dict[str, Any]] = None):
         """Initialise the params and build the optimizer state.
 
-        A ``Program`` runs its init on zeros of ``sample_feed``'s shapes
-        and dtypes on this trainer's device; an ``nn.Module`` initialises
-        its own params (``init_params``; its shapes come from its config).
-        ``params`` ({JAX name: tensor}, e.g. from ``params_from_jax``)
+        The program runs its init on zeros of ``sample_feed``'s shapes
+        and dtypes on this trainer's device. ``params`` ({JAX name:
+        tensor}, e.g. from ``params_from_jax``)
         replaces the initial values; they are copied, so training never
         writes to the caller's tensors. ``rng`` is an int seed; None takes
         the ``seed`` flag."""
         seed = get_flag("seed") if rng is None else int(rng)
-        if self.is_program:
-            example = {k: torch.zeros_like(_put(v, "cpu"), device=self.device)
-                       for k, v in (sample_feed or {}).items()}
-            fresh, state = self.program.init(seed, place=self.device, **example)
-            if params is not None:
-                check_params(params, self.program.param_info, "Trainer.startup(params=)")
-                fresh = {k: params[k].detach().to(self.device, copy=True) for k in fresh}
-            for p in fresh.values():
-                p.requires_grad_(p.is_floating_point())
-            self.scope.params, self.scope.state = fresh, state
-        else:
-            if params is not None:
-                self.program.load_params(params)
-            else:
-                self.program.init_params(seed)
-            self.scope.params = self.program.flat_params()
+        example = {k: torch.zeros_like(_put(v, "cpu"), device=self.device)
+                   for k, v in (sample_feed or {}).items()}
+        fresh, state = self.program.init(seed, place=self.device, **example)
+        if params is not None:
+            check_params(params, self.program.param_info, "Trainer.startup(params=)")
+            fresh = {k: params[k].detach().to(self.device, copy=True) for k in fresh}
+        for p in fresh.values():
+            p.requires_grad_(p.is_floating_point())
+        self.scope.params, self.scope.state = fresh, state
         with torch.no_grad():
             self.scope.opt_state = self.optimizer.init(
                 {k: p.detach() for k, p in self.scope.params.items()})
@@ -361,17 +382,14 @@ class Trainer:
             return mix_seed(get_flag("seed") + 1, step)
         return mix_seed(int(rng), step) if fused else int(rng)
 
-    def _run(self, feed: Feed, training: bool, rng=None):
-        """(outputs as a dict, new state) of one run of the program;
-        ``rng`` is an int seed or an ``RngStream``."""
-        if self.is_program:
-            out, new_state = self.program.apply(self.scope.params, self.scope.state,
-                                                training=training, rng=rng,
-                                                place=self.device, **feed)
-        else:
-            self.program.train(training)
-            with run_context(rng, training, self.device):
-                out, new_state = self.program(**feed), self.scope.state
+    def _run(self, feed: Feed, training: bool, rng=None, state=None):
+        """(outputs as a dict, new state) of one run of the program from
+        ``state`` (None: the scope's); ``rng`` is an int seed or an
+        ``RngStream``."""
+        out, new_state = self.program.apply(self.scope.params,
+                                            self.scope.state if state is None else state,
+                                            training=training, rng=rng,
+                                            place=self.device, **feed)
         if not isinstance(out, dict):
             out = {self.loss_name: out}
         return out, new_state
@@ -424,16 +442,73 @@ class Trainer:
         return {"params": self.scope.params, "opt": self.scope.opt_state,
                 "state": self.scope.state, "ls": self.scope.loss_scale_state or {}}
 
+    def _remat_scope(self):
+        """``remat_mode`` as the strategy sets it for a training run, in
+        place of any ambient one (executor.py:615): ``remat`` switches it
+        on, ``remat_policy`` chooses what a block keeps."""
+        s = self.strategy
+        return remat_mode(bool(s is not None and s.remat),
+                          policy=None if s is None else s.remat_policy)
+
+    def _forward_backward(self, feed: Feed, stream: RngStream, state):
+        """One training run of the program from ``state`` and its
+        backward, the loss scaled under a loss scaler: (fetched outputs,
+        new state); the grads are left on the params."""
+        scaler, ls = self.loss_scaler, self.scope.loss_scale_state
+        # profiler ranges (``trainer.forward`` ...): a profiled step splits
+        # its device time by them; about a microsecond each when no
+        # profiler runs
+        with record_function("trainer.forward"), self._remat_scope():
+            out, new_state = self._run(feed, training=True, rng=stream, state=state)
+        with record_function("trainer.backward"):
+            loss = out[self.loss_name]
+            (loss if scaler is None else scaler.scale_loss(loss, ls)).backward()
+        return self._fetch(out), new_state
+
+    def _accumulate(self, feed: Feed, stream: RngStream, a: int):
+        """``a`` microbatches, rows ``[i·b/a, (i+1)·b/a)`` of every feed
+        (the JAX package's ``reshape((a, b // a) + ...)``), each drawing
+        its masks from the step's stream in turn, the program state
+        threaded from one to the next: (the outputs' means, the last
+        state, the grads summed in f32 and divided by ``a``). A param left
+        unreached gets zeros, as ``jax.grad`` gives."""
+        params = self.scope.params
+        for k, v in feed.items():
+            enforce(v.dim() >= 1 and v.shape[0] % a == 0,
+                    f"DistStrategy(accum_steps={a}): feed {k!r} of shape "
+                    f"{tuple(v.shape)} does not split into {a} microbatches")
+        acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for k, p in params.items()}
+        state, outs, reached = self.scope.state, [], set()
+        for i in range(a):
+            micro = {k: v[i * (v.shape[0] // a):(i + 1) * (v.shape[0] // a)]
+                     for k, v in feed.items()}
+            out, state = self._forward_backward(micro, stream, state)
+            state = {k: v.detach() for k, v in state.items()}
+            outs.append(out)
+            with torch.no_grad():
+                for k, p in params.items():
+                    if p.grad is not None:
+                        acc[k].add_(p.grad)
+                        p.grad = None
+                        reached.add(k)
+        grads = {k: g.div_(a) for k, g in acc.items()}
+        # the step's grads stay on the params, in their dtypes
+        for k in reached:
+            p = params[k]
+            p.grad = grads[k] if grads[k].dtype == p.dtype else grads[k].to(p.dtype)
+        return {k: _mean_of([o[k] for o in outs]) for k in outs[0]}, state, grads
+
     def _step_body(self, feed: Dict[str, torch.Tensor],
                    stream: RngStream) -> Dict[str, torch.Tensor]:
         """One step on the device, with no read back to the host: the
-        forward (random ops drawing from ``stream``), the backward, the
-        unscale and finiteness flag, the guard's mask, the update, and the
-        select of the old values where the step is skipped
-        (``LossScaler.select``, as the JAX package's step,
-        executor.py:1044-1115; the loss-scale state is not rolled back).
-        The results are written into the training state's own tensors
-        (:func:`write_in_place`). Returns the fetched outputs.
+        forward (random ops drawing from ``stream``) and backward, on each
+        microbatch under gradient accumulation, the unscale and finiteness
+        flag, the guard's mask, the update, and the select of the old
+        values where the step is skipped (``LossScaler.select``, as the JAX
+        package's step, executor.py:1008-1115; the loss-scale state is not
+        rolled back). The results are written into the training state's
+        own tensors (:func:`write_in_place`). Returns the fetched outputs.
 
         ``step`` runs it eagerly; ``run_steps`` runs it from fixed feed
         slots, captured as a CUDA graph on the card (``_captured_step``)."""
@@ -441,22 +516,16 @@ class Trainer:
         scaler, ls = self.loss_scaler, self.scope.loss_scale_state
         for p in params.values():
             p.grad = None
-        # profiler ranges (``trainer.forward`` ...): a profiled step splits
-        # its device time by them; about a microsecond each when no
-        # profiler runs
-        with record_function("trainer.forward"):
-            out, new_state = self._run(feed, training=True, rng=stream)
-        with record_function("trainer.backward"):
-            loss = out[self.loss_name]
-            (loss if scaler is None else scaler.scale_loss(loss, ls)).backward()
-        grads = {k: p.grad for k, p in params.items()}
-        if self.is_program:
+        a = _strategy_accum(self.strategy)
+        if a > 1:
+            out, new_state, grads = self._accumulate(feed, stream, a)
+        else:
+            out, new_state = self._forward_backward(feed, stream, self.scope.state)
             # jax.grad gives every param a grad, zeros where the program did
             # not reach it (a frozen param is detached); its regularizer and a
             # global-norm clip see those zeros, and the update skips frozen ones
-            grads = {k: torch.zeros_like(params[k]) if g is None else g
-                     for k, g in grads.items()}
-        out = self._fetch(out)
+            grads = {k: torch.zeros_like(p) if p.grad is None else p.grad
+                     for k, p in params.items()}
         # an output that is training state (a state variable the program
         # returns) is copied: the update below writes that tensor in place
         owned = {t.untyped_storage().data_ptr() for t in _leaves(self._state_trees())}
@@ -480,8 +549,7 @@ class Trainer:
             values = {k: p.detach() for k, p in params.items()}
             new_state = {k: v.detach() for k, v in new_state.items()}
             new_params, new_opt = self.optimizer.update(
-                grads, self.scope.opt_state, values,
-                self.program.param_info if self.is_program else None)
+                grads, self.scope.opt_state, values, self.program.param_info)
             if keep is not None:
                 new_params = LossScaler.select(keep, new_params, values)
                 new_opt = LossScaler.select(keep, new_opt, self.scope.opt_state)
@@ -626,12 +694,8 @@ class Trainer:
         """Forward pass in inference mode (no dropout), no update; returns
         every output."""
         feed = self._put_feed(feed)
-        try:
-            with torch.no_grad():
-                out, _ = self._run(feed, training=False)
-        finally:
-            if not self.is_program:
-                self.program.train(True)
+        with torch.no_grad():
+            out, _ = self._run(feed, training=False)
         return {k: v.detach() for k, v in out.items()}
 
 

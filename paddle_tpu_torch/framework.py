@@ -26,28 +26,32 @@ Where the port differs from the JAX package:
   ``default_compute_dtype`` flag); layers read it from there through
   :func:`compute_dtype`, never from a process global.
   :func:`cast_compute` takes it as an explicit argument, as the GPT
-  modules call it. The program's image layout is recorded there too, and
+  generator calls it. The program's image layout is recorded there too, and
   :func:`current_layout` reads it, so a block recomputed by
   :func:`maybe_remat` on autograd's thread sees the layout its forward
   saw.
 - ``trainable=False`` detaches the parameter: its grad is None where the
   JAX package's ``stop_gradient`` gives zeros; the optimizer skips both.
+- A remat policy (:func:`resolve_remat_policy`) is a selective
+  activation-checkpoint policy of ``torch.utils.checkpoint``, not a
+  ``jax.checkpoint_policies`` callable; the names map onto it.
 - Not carried yet, each raising :class:`NotYetPorted`: ``Program.desc``
   and ``desc_flat`` (jaxprs; an FX form comes with ROADMAP queue 1 item
-  25), ``pipeline_mode`` and ``sp_mode`` (the multi-GPU slice), and remat
-  policies other than None.
+  25), ``pipeline_mode`` and ``sp_mode`` (the multi-GPU slice).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                     create_selective_checkpoint_contexts, noop_context_fn)
 
 from .core import unique_name as _unique_name
 from .core.config import get_flag
@@ -421,19 +425,6 @@ def rng_scope(key: Optional[int]):
         ctx.stream, ctx.gen_index, ctx.rng = old
 
 
-@contextlib.contextmanager
-def run_context(rng: Union[None, int, RngStream], training: bool, device):
-    """A context with no parameters, for a program that owns its params (an
-    ``nn.Module`` such as GPT's, which ``Trainer`` runs): what runs inside
-    sees ``in_training() == training`` and draws its dropout masks from
-    ``rng`` (an int seed or a stream; :func:`next_rng_key`), and a
-    :func:`maybe_remat` block inside replays them."""
-    ctx = BuildContext("apply", {}, {}, rng, training, {}, torch.device(device),
-                       _ambient_compute_dtype())
-    with _use_ctx(ctx):
-        yield ctx
-
-
 # --------------------------------------------------------------------------
 # Parameter / variable creation — the LayerHelper primitives
 # --------------------------------------------------------------------------
@@ -707,36 +698,96 @@ def current_layout(explicit=None) -> str:
 
 _remat_mode = threading.local()
 
+_aten = torch.ops.aten
+# the matrix products a policy may keep: torch.matmul reaches mm/addmm
+# for a product with no batch dimensions (a [.., d] activation times a
+# [d, e] weight is folded to 2-D) and bmm/baddbmm for one with them
+_PRODUCTS_NO_BATCH = frozenset((_aten.mm.default, _aten.addmm.default))
+_PRODUCTS_BATCH = frozenset((_aten.bmm.default, _aten.baddbmm.default))
 
-def _no_remat_policy(policy):
-    if policy is not None:
-        raise NotYetPorted(f"remat policy {policy!r}: only full recompute "
-                           "(policy=None) is ported (ROADMAP queue 1, item 17)")
+
+def _saving(ops):
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in ops else CheckpointPolicy.PREFER_RECOMPUTE
+    return policy
+
+
+def nothing_saveable(ctx, op, *args, **kwargs):
+    """Keep nothing inside the block: full recompute (also what policy
+    None gives)."""
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def everything_saveable(ctx, op, *args, **kwargs):
+    """Keep everything: :func:`maybe_remat` then runs the block as it is,
+    with no checkpoint at all."""
+    return CheckpointPolicy.MUST_SAVE
+
+
+dots_saveable = _saving(_PRODUCTS_NO_BATCH | _PRODUCTS_BATCH)
+dots_saveable.__doc__ = "Keep the output of every matrix product."
+dots_with_no_batch_dims_saveable = _saving(_PRODUCTS_NO_BATCH)
+dots_with_no_batch_dims_saveable.__doc__ = ("Keep the output of the matrix products "
+                                            "with no batch dimensions (mm, addmm).")
+
+_REMAT_POLICIES = {
+    "nothing": nothing_saveable,
+    "everything": everything_saveable,
+    "dots": dots_saveable,
+    "dots_no_batch": dots_with_no_batch_dims_saveable,
+}
+
+
+def resolve_remat_policy(policy):
+    """A policy name as the selective-checkpoint policy it stands for
+    (``torch.utils.checkpoint``'s ``(ctx, op, *args, **kwargs) ->
+    CheckpointPolicy``, the analog of ``jax.checkpoint_policies``); a
+    callable passes through, None is full recompute. The ops a policy
+    sees are those the block dispatches: the flash kernels launch from
+    inside their ``autograd.Function`` into ``torch.empty`` outputs, so no
+    policy keeps them and a recomputed block launches them again (the
+    Pallas call is no ``dot_general`` to ``jax.checkpoint`` either)."""
+    if policy is None or callable(policy):
+        return policy
+    enforce(policy in _REMAT_POLICIES,
+            f"unknown remat policy {policy!r}; options: {sorted(_REMAT_POLICIES)}"
+            " or a torch.utils.checkpoint selective-checkpoint policy callable")
+    return _REMAT_POLICIES[policy]
 
 
 @contextlib.contextmanager
 def remat_mode(enabled: bool = True, policy=None):
     """Ambient rematerialization switch (memory_optimization_transpiler
     analog): blocks wrapped in :func:`maybe_remat` keep only their inputs
-    and recompute the rest in the backward (``torch.utils.checkpoint``)."""
-    _no_remat_policy(policy)
-    old = getattr(_remat_mode, "on", False)
-    _remat_mode.on = bool(enabled)
+    (and what ``policy`` keeps, a name of :func:`resolve_remat_policy` or
+    a callable) and recompute the rest in the backward
+    (``torch.utils.checkpoint``). ``Trainer`` enters it when
+    ``DistStrategy.remat`` is set."""
+    resolved = resolve_remat_policy(policy)  # may raise: before any write
+    old = (getattr(_remat_mode, "on", False), getattr(_remat_mode, "policy", None))
+    _remat_mode.on, _remat_mode.policy = bool(enabled), resolved
     try:
         yield
     finally:
-        _remat_mode.on = old
+        _remat_mode.on, _remat_mode.policy = old
 
 
 def remat_enabled() -> bool:
     return getattr(_remat_mode, "on", False)
 
 
-def maybe_remat(fn: Callable, enabled: Optional[bool] = None,
-                policy: Optional[Callable] = None) -> Callable:
+def remat_policy():
+    return getattr(_remat_mode, "policy", None)
+
+
+def maybe_remat(fn: Callable, enabled: Optional[bool] = None, policy=None) -> Callable:
     """Wrap ``fn`` in ``torch.utils.checkpoint`` when remat is requested —
     explicitly (``enabled=True``) or ambiently (``enabled=None`` and
-    :func:`remat_enabled`). Never wraps during init.
+    :func:`remat_enabled`). Never wraps during init. ``policy`` (else the
+    ambient :func:`remat_policy`) chooses what the block keeps: None and
+    ``"nothing"`` recompute it whole, ``"everything"`` keeps it whole (no
+    checkpoint), other policies run as selective checkpointing
+    (``create_selective_checkpoint_contexts``).
 
     The backward's recompute runs ``fn`` again with the context's name
     counters, name stack and layout as they were when the forward entered
@@ -748,18 +799,22 @@ def maybe_remat(fn: Callable, enabled: Optional[bool] = None,
     The process-wide generators are not stashed (``preserve_rng_state``
     off): the port draws from its streams only, and a captured step
     could not read them."""
-    _no_remat_policy(policy)
     ctx = current_context()
     if ctx is not None and ctx.mode == "init":
         return fn
     if not (enabled or (enabled is None and remat_enabled())):
         return fn
+    policy = resolve_remat_policy(policy) or remat_policy()
+    if policy is everything_saveable:
+        return fn
+    context_fn = noop_context_fn if policy in (None, nothing_saveable) else \
+        functools.partial(create_selective_checkpoint_contexts, policy)
 
     def run(*args, **kwargs):
         ctx = current_context()
         if ctx is None:
             return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
-                              **kwargs)
+                              context_fn=context_fn, **kwargs)
         fork = None if ctx.stream is None else ctx.stream.fork(ctx.gen_index)
         start = (dict(ctx.namer.ids), list(ctx.name_stack), ctx.layout)
         after = {}
@@ -786,7 +841,7 @@ def maybe_remat(fn: Callable, enabled: Optional[bool] = None,
                 ctx.name_stack, ctx.layout, ctx.gen_index = saved[1:]
 
         out = checkpoint(replay, *args, use_reentrant=False, preserve_rng_state=False,
-                         **kwargs)
+                         context_fn=context_fn, **kwargs)
         ctx.namer.ids.clear()
         ctx.namer.ids.update(after["names"])
         return out
@@ -874,6 +929,7 @@ __all__ = [
     "current_context", "current_device", "current_layout", "default_main_program",
     "default_startup_program", "in_training", "layout_mode", "maybe_remat",
     "RngStream", "as_stream", "name_scope", "next_rng_key", "params_from_jax",
-    "pipeline_mode", "program_guard", "remat_enabled", "remat_mode", "reuse_names",
-    "rng_fold", "rng_scope", "run_context", "seeded_generator", "sp_mode",
+    "pipeline_mode", "program_guard", "remat_enabled", "remat_mode", "remat_policy",
+    "resolve_remat_policy", "reuse_names", "rng_fold", "rng_scope", "seeded_generator",
+    "sp_mode",
 ]

@@ -317,10 +317,8 @@ def load_trainer(dirname: str, trainer, allow_reshard: bool = False) -> None:
     ``allow_reshard``. A started trainer's params must match the
     checkpoint's names, shapes and dtypes.
 
-    A ``Program`` trainer's params become fresh tensors on its device,
-    with ``requires_grad`` as ``startup`` sets it; an ``nn.Module``
-    trainer's params are written into the module (``load_params``) and
-    re-read from it, so the next step trains the restored values."""
+    The trainer's params become fresh tensors on its device, with
+    ``requires_grad`` as ``startup`` sets it."""
     if not allow_reshard:
         man = resilience.read_manifest(dirname)  # None for legacy
         saved = ((man or {}).get("meta") or {})
@@ -362,12 +360,8 @@ def load_trainer(dirname: str, trainer, allow_reshard: bool = False) -> None:
             opt_state["accums"].setdefault(k, {})
         opt_state = _to_device(opt_state, dev)
         opt_state["step"] = opt_state["step"].to(torch.int32)
-    if trainer.is_program:
-        params = {k: v.to(dev).requires_grad_(v.is_floating_point())
-                  for k, v in params.items()}
-    else:
-        trainer.program.load_params(params)
-        params = trainer.program.flat_params()
+    params = {k: v.to(dev).requires_grad_(v.is_floating_point())
+              for k, v in params.items()}
     trainer.scope.params = params
     trainer.scope.state = _to_device(state, dev)
     trainer.scope.opt_state = opt_state

@@ -1,20 +1,27 @@
 """Stacked transformer blocks (counterpart of ``paddle_tpu.layers.stacked``).
 
 Per-layer parameters live stacked on a leading ``[num_layers, ...]``
-axis, under the JAX package's names (``ln1/scale``, ``qkv/w`` ...), owned
-by :class:`EncoderStack`. The block functions are plain functions of
-``(activation, layer_params)`` as in the JAX package, with the compute
-dtype passed in (``framework.cast_compute``) instead of read from a flag.
-Weights stay ``[in, out]``; the fused qkv weight stays ``[d, 3, d]``.
+axis, under the JAX package's names (``ln1/scale``, ``qkv/w`` ...):
+created through ``LayerHelper`` by :func:`encoder_stack_params` and
+:func:`decoder_stack_params` inside a ``build`` program, or owned by
+:class:`EncoderStack` (the GPT generator's module). The block functions
+are plain functions of ``(activation, layer_params[, extra])`` as in the
+JAX package, with the compute dtype passed in
+(``framework.cast_compute``) instead of read from a flag. Weights stay
+``[in, out]``; the fused qkv weight stays ``[d, 3, d]`` and the cross
+attention's K/V weight ``[d, 2, d]``, each applied as one 2-D product
+(``aten.mm``), so a remat policy that keeps products with no batch
+dimensions keeps them.
 
-Training runs :func:`apply_stacked` over :func:`make_encoder_block`
-sequentially, one Python loop over the layers in place of the JAX
-``lax.scan``, with ``remat=True`` as per-layer
-``framework.maybe_remat``. Dropout in training sits at the JAX package's
-four sites of a block (the attention probabilities, the two residual
-branches and the FFN's inner activation, ``upscale_in_train``), drawn in
-turn from the running program's rng stream, so the layers draw
-different masks and a recomputed layer draws its forward's.
+Training runs :func:`apply_stacked` over :func:`make_encoder_block` or
+:func:`make_decoder_block` sequentially, one Python loop over the layers
+in place of the JAX ``lax.scan``, each layer under
+``framework.maybe_remat`` (``remat=True`` forces it, False defers to the
+ambient ``remat_mode``). Dropout in training sits at the JAX package's
+sites of a block (the attention probabilities, the residual branches and
+the FFN's inner activation, ``upscale_in_train``), drawn in turn from the
+running program's rng stream, so the layers draw different masks and a
+recomputed layer draws its forward's.
 
 Incremental decoding (:func:`decode_block`, and :func:`decode_block_q8`
 over the int8 KV cache of :func:`quantize_kv`) takes the cache index as a
@@ -39,8 +46,9 @@ from typing import Callable, Dict, Optional
 import torch
 from torch import nn
 
-from ..core.errors import NotYetPorted
-from ..framework import cast_compute, maybe_remat
+from ..core.errors import NotYetPorted, enforce
+from ..framework import (LayerHelper, cast_compute, compute_dtype as _compute_dtype,
+                         in_training, maybe_remat)
 from .. import initializer as init
 from .nn import dropout
 
@@ -92,20 +100,53 @@ def encoder_stack_shapes(num_layers: int, d_model: int, d_inner: int):
     }
 
 
+def _create_stack(name: str, specs) -> Dict[str, torch.Tensor]:
+    """``{param: (shape, initializer)}`` created (init) or fetched (apply)
+    in f32 under ``LayerHelper(name)``."""
+    helper = LayerHelper(name, name=name)
+    return {k: helper.create_parameter(k, shape, torch.float32, initializer=i)
+            for k, (shape, i) in specs.items()}
+
+
+def encoder_stack_params(num_layers: int, d_model: int, d_inner: int,
+                         name: str = "encoder_stack") -> Dict[str, torch.Tensor]:
+    """The stacked f32 params of ``num_layers`` pre-LN self-attention
+    blocks through ``LayerHelper``, under ``<scope>/<name>/ln1/scale`` ...
+    (layers/stacked.py:150)."""
+    shapes = encoder_stack_shapes(num_layers, d_model, d_inner)
+    return _create_stack(name, {k: (shapes[k], i) for k, (_, i) in STACK_PARAMS.items()})
+
+
+def decoder_stack_params(num_layers: int, d_model: int, d_inner: int,
+                         name: str = "decoder_stack") -> Dict[str, torch.Tensor]:
+    """:func:`encoder_stack_params` plus the cross attention's
+    (layers/stacked.py:178): ``lnx/*``, ``xq/*``, ``xkv/w`` ``[L, d, 2,
+    d]``, ``xkv/b`` ``[L, 2, d]`` and ``xout/*``."""
+    L, d = num_layers, d_model
+    ones, zeros, xavier = init.Constant(1.0), init.Constant(0.0), StackedInit(init.Xavier())
+    p = encoder_stack_params(num_layers, d_model, d_inner, name=name)
+    p.update(_create_stack(name, {
+        "lnx/scale": ((L, d), ones), "lnx/bias": ((L, d), zeros),
+        "xq/w": ((L, d, d), xavier), "xq/b": ((L, d), zeros),
+        "xkv/w": ((L, d, 2, d), xavier), "xkv/b": ((L, 2, d), zeros),
+        "xout/w": ((L, d, d), xavier), "xout/b": ((L, d), zeros)}))
+    return p
+
+
 class EncoderStack(nn.Module):
     """The stacked params of ``num_layers`` pre-LN self-attention blocks
-    (``encoder_stack_params``): float32 tensors ``[L, ...]`` under the
-    attributes of :data:`STACK_PARAMS`, trainable when ``trainable``."""
+    (:func:`encoder_stack_params`' names and shapes) as a module the GPT
+    generator owns: float32 tensors ``[L, ...]`` under the attributes of
+    :data:`STACK_PARAMS`, not trainable."""
 
-    def __init__(self, num_layers: int, d_model: int, d_inner: int,
-                 device=None, trainable: bool = False):
+    def __init__(self, num_layers: int, d_model: int, d_inner: int, device=None):
         super().__init__()
         self.num_layers = num_layers
         for name, shape in encoder_stack_shapes(num_layers, d_model,
                                                 d_inner).items():
             self.register_parameter(STACK_PARAMS[name][0], nn.Parameter(
                 torch.empty(shape, dtype=torch.float32, device=device),
-                requires_grad=trainable))
+                requires_grad=False))
 
     def get(self, name: str) -> torch.Tensor:
         return getattr(self, STACK_PARAMS[name][0])
@@ -240,28 +281,73 @@ def make_encoder_block(num_heads: int, use_flash: bool = False,
     return block
 
 
+def make_decoder_block(num_heads: int, use_flash: bool = False,
+                       causal: bool = True, tp_axis: Optional[str] = None,
+                       sp_cfg: Optional[dict] = None,
+                       dropout_rate: float = 0.0,
+                       compute_dtype=torch.float32,
+                       training: bool = False) -> Callable:
+    """``layer_fn(x, layer_params, extra)`` with ``extra = {"enc": the
+    encoder's output [b, s, d], "enc_bias": its additive [b, s] padding
+    bias}`` (layers/stacked.py:245): causal self-attention, the cross
+    attention, then the FFN. The cross attention runs through
+    :func:`_sdpa` non-causal under ``enc_bias`` with ``use_flash``, so
+    where dropout is a no-op it takes the flash kernels, queries from the
+    decoder and keys from the encoder."""
+    enforce(sp_cfg is None,
+            "sequence parallelism is wired for the self-attention-only "
+            "stack (models/gpt.py); the encoder-decoder cross-attention "
+            "path does not support it")
+    if tp_axis is not None:
+        raise NotYetPorted("tensor-parallel stacked blocks (multi-GPU slice)")
+
+    def block(x, p, extra):
+        head_dim = x.shape[-1] // num_heads
+        x = _self_attention(x, p, num_heads, causal, use_flash, None, compute_dtype,
+                            dropout_rate, training)
+        h = _ln(x, p["lnx/scale"], p["lnx/bias"])
+        h, wq, wkv, enc = cast_compute(compute_dtype, h, p["xq/w"], p["xkv/w"], extra["enc"])
+        q = torch.matmul(h, wq) + p["xq/b"].to(h.dtype)
+        # einsum "bsd,dke->bske" as one [d, 2d] product
+        b, s, _ = enc.shape
+        kv = torch.matmul(enc, wkv.reshape(wkv.shape[0], -1)).view(b, s, 2, -1) \
+            + p["xkv/b"].to(h.dtype)
+        q = _split_heads(q, head_dim)
+        k, v = (_split_heads(kv[:, :, i], head_dim) for i in range(2))
+        o = _merge_heads(_sdpa(q, k, v, extra.get("enc_bias"), False, use_flash,
+                               dropout_rate=dropout_rate, training=training))
+        o, ow = cast_compute(compute_dtype, o, p["xout/w"])
+        o = torch.matmul(o, ow)
+        x = x + _drop(o + p["xout/b"].to(o.dtype), dropout_rate, training)
+        return _ffn(x, p, compute_dtype, dropout_rate, training)
+
+    return block
+
+
 def apply_stacked(x, stacked: Dict[str, torch.Tensor], make_block: Callable,
                   extras=None, num_heads: int = 8, use_flash: bool = False,
                   causal: bool = False, remat: bool = False,
-                  dropout_rate: float = 0.0, compute_dtype=torch.float32,
-                  training: bool = False):
+                  dropout_rate: float = 0.0):
     """Run a parameter stack ``{name: [L, ...]}`` over ``x``, layer by
     layer (the JAX package's sequential ``lax.scan``). Each layer's
     dropout masks differ from the other layers' because the program's rng
     stream advances at every draw (the JAX package folds the layer index
-    into its key, stacked.py:432-439). ``remat=True`` runs each
-    layer under :func:`framework.maybe_remat`: its activations are
-    recomputed in the backward instead of kept, with the running
-    program's context (names, rng, layout) replayed."""
+    into its key, stacked.py:432-439). Each layer runs under
+    :func:`framework.maybe_remat`: ``remat=True`` forces the recompute,
+    False defers to the ambient ``remat_mode`` and its policy (as
+    stacked.py:436), with the running program's context (names, rng,
+    layout) replayed. The blocks compute in the running program's dtype
+    and mode (``framework.compute_dtype``, ``in_training``)."""
     block = make_block(num_heads=num_heads, use_flash=use_flash,
                        causal=causal, tp_axis=None, sp_cfg=None,
-                       dropout_rate=dropout_rate, compute_dtype=compute_dtype,
-                       training=training)
+                       dropout_rate=dropout_rate, compute_dtype=_compute_dtype(),
+                       training=in_training())
 
     def layer(a, lp):
         return block(a, lp) if extras is None else block(a, lp, extras)
 
-    layer = maybe_remat(layer, enabled=remat)
+    # remat=False defers to the ambient switch
+    layer = maybe_remat(layer, enabled=remat or None)
     num_layers = next(iter(stacked.values())).shape[0]
     for i in range(num_layers):
         lp = {name: t[i] for name, t in stacked.items()}
@@ -349,6 +435,7 @@ def decode_block(x, p, k_cache, v_cache, index, num_heads: int,
     return _ffn(x, p, compute_dtype), k_cache, v_cache
 
 
-__all__ = ["EncoderStack", "STACK_PARAMS", "StackedInit", "apply_stacked",
-           "decode_block", "decode_block_q8", "encoder_stack_shapes",
+__all__ = ["EncoderStack", "STACK_PARAMS", "StackedInit",
+           "apply_stacked", "decode_block", "decode_block_q8", "decoder_stack_params",
+           "encoder_stack_params", "encoder_stack_shapes", "make_decoder_block",
            "make_encoder_block", "prefill_block", "quantize_kv"]

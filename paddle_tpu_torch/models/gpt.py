@@ -2,22 +2,29 @@
 generation (counterpart of ``paddle_tpu.models.gpt``: ``GPTConfig``,
 ``base_config``, ``make_model``, ``make_generator``).
 
-Both programs are ``nn.Module``s that own their parameters under the JAX
-package's names (:data:`PARAM_TABLE`), so params trained or initialised
-in ``paddle_tpu`` load through :func:`params_from_jax`, params trained
-by :func:`make_model` load straight into :func:`make_generator`, and the
-port produces the JAX package's losses and token ids. Both run the
-stacked blocks causally through the flash-attention kernels
-(``use_flash``, the config default); training differentiates through
-the forward kernel and the two backward kernels. At ``dropout > 0``
-training takes the dense attention instead (the kernels have no
-dropout), with its masks drawn from the rng that ``Trainer`` gives the
-step (``framework.run_context``).
+``make_model(cfg)`` returns the training program's function, which the
+caller wraps in ``build``, as in the JAX package: its layers create their
+params through ``LayerHelper`` under the JAX package's names
+(``tok/embedding_0/w``, ``gpt/encoder_stack/*``, ``gpt/layer_norm_0/*``,
+``lm_head_0/w``), with the dtypes the JAX package's ``Program.init``
+gives, so params trained or initialised in ``paddle_tpu`` load through
+``params_from_jax`` and a trained ``Trainer.scope.params`` loads straight
+into :func:`make_generator`. The compute dtype is the running program's
+(``amp_guard`` or the ``default_compute_dtype`` flag). The stacked blocks
+run causally through the flash-attention kernels (``use_flash``, the
+config default); training differentiates through the forward kernel and
+the two backward kernels. At ``dropout > 0`` training takes the dense
+attention instead (the kernels have no dropout), with its masks drawn
+from the step's rng stream. Sequence parallelism (the JAX function's
+zigzag and ulysses branches) comes with the multi-GPU slice: its switch,
+``framework.sp_mode``, raises :class:`NotYetPorted` there.
 
-The generator decodes greedily or by beam search (``beam_size > 1``, the
-caches grown to ``b·beam`` rows), over a KV cache in the compute dtype or
-in int8 with f32 scales (``kv_cache_dtype="int8"``). Each call runs the
-prefill eagerly, then its decode steps from static buffers through
+The generator is a module that owns its params under the same names
+(:data:`PARAM_TABLE`). It decodes greedily or by beam search
+(``beam_size > 1``, the caches grown to ``b·beam`` rows), over a KV cache
+in the compute dtype or in int8 with f32 scales
+(``kv_cache_dtype="int8"``). Each call runs the prefill eagerly, then its
+decode steps from static buffers through
 :mod:`paddle_tpu_torch._captured_decode`: on the card one captured CUDA
 graph of a decode step, replayed, with the cache index on the device; on
 the CPU the same step body as a plain call.
@@ -27,7 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Dict, List
+from typing import Dict, List, Union
 
 import numpy as np
 import torch
@@ -38,7 +45,7 @@ from ..core.dtypes import convert_dtype, dtype_name
 from ..core.errors import EnforceError, NotFoundError, enforce
 from ..core.place import default_device
 from .. import framework
-from ..framework import cast_compute
+from ..framework import cast_compute, name_scope
 from ..layers import attention as A
 from ..layers import nn as L
 from ..layers import stacked as S
@@ -72,8 +79,43 @@ def base_config(**kw) -> GPTConfig:
     return GPTConfig(**kw)
 
 
-# JAX param name -> (module attribute path, initializer); the one table
-# between the JAX package's flat param dict and this module
+def _config(cfg: Union[GPTConfig, dict]) -> GPTConfig:
+    """A config, from itself or from its ``dataclasses.asdict`` form (how
+    ``factory_spec`` records it)."""
+    return cfg if isinstance(cfg, GPTConfig) else GPTConfig(**cfg)
+
+
+def make_model(cfg: Union[GPTConfig, dict]):
+    """The training program's function ``gpt(ids [b, s], labels [b, s]) ->
+    {"loss", "token_count"}``, next-token CE over non-pad labels (pad id
+    0), for ``build`` (models/gpt.py:65). It carries ``factory_spec``."""
+    cfg = _config(cfg)
+
+    def gpt(ids, labels):
+        dtype = convert_dtype(cfg.dtype)
+        s = ids.shape[1]
+        enforce(s <= cfg.max_len, f"seq {s} exceeds max_len {cfg.max_len}")
+        with name_scope("tok"):
+            x = L.embedding(ids, size=[cfg.vocab_size, cfg.d_model], dtype=cfg.dtype)
+        # rows 0..s-1 of the max_len table, which are this table
+        x = x + A.positional_encoding(s, cfg.d_model, dtype, device=x.device)[None]
+        with name_scope("gpt"):
+            stack = S.encoder_stack_params(cfg.num_layers, cfg.d_model, cfg.d_inner)
+            x = S.apply_stacked(x, stack, S.make_encoder_block, num_heads=cfg.num_heads,
+                                use_flash=cfg.use_flash, causal=True, remat=cfg.remat,
+                                dropout_rate=cfg.dropout)
+            x = L.layer_norm(x, begin_norm_axis=2)
+        loss, token_count = lm_head_loss(x, labels, cfg.vocab_size, dtype, cfg.fused_ce,
+                                         cfg.ce_chunk)
+        return {"loss": loss, "token_count": token_count}
+
+    gpt.factory_spec = {"factory": f"{__name__}:make_model",
+                        "kwargs": {"cfg": dataclasses.asdict(cfg)}}
+    return gpt
+
+
+# JAX param name -> (the generator's attribute path, initializer): the one
+# table between the JAX package's flat param dict and the generator
 PARAM_TABLE = {
     "tok/embedding_0/w": ("w_emb", init.Xavier()),
     **{f"gpt/encoder_stack/{k}": (f"stack.{a}", i)
@@ -84,110 +126,7 @@ PARAM_TABLE = {
 }
 
 
-class _JaxNamedParams(nn.Module):
-    """What both GPT programs do with their params under the JAX names
-    of :data:`PARAM_TABLE`."""
-
-    @property
-    def device(self) -> torch.device:
-        return self.w_emb.device
-
-    def flat_params(self) -> Dict[str, torch.Tensor]:
-        """{JAX param name: tensor} (the tensors themselves, not copies)."""
-        return {name: self.get_parameter(attr)
-                for name, (attr, _) in PARAM_TABLE.items()}
-
-    def load_params(self, flat: Dict[str, torch.Tensor]):
-        """Take every parameter from ``flat`` (JAX names; dtypes kept as
-        given, copied to this module's device, so training in place never
-        writes to the caller's tensors). Missing, extra or misshapen
-        entries raise."""
-        extra = sorted(set(flat) - set(PARAM_TABLE))
-        enforce(not extra, f"load_params: not params of this program: {extra}")
-        for name, (attr, _) in PARAM_TABLE.items():
-            if name not in flat:
-                raise NotFoundError(f"load_params: missing param {name!r}")
-            p = self.get_parameter(attr)
-            t = torch.as_tensor(flat[name])
-            if tuple(t.shape) != tuple(p.shape):
-                raise EnforceError(f"load_params: {name} has shape "
-                                   f"{tuple(t.shape)}, expected {tuple(p.shape)}")
-            p.data = t.to(self.device, copy=True)
-        return self
-
-    def init_params(self, seed: int = 0):
-        """Fresh init through the port's initializers: each param draws
-        from its own CPU generator seeded from (seed, its name), so the
-        values do not depend on the device or on the order of params."""
-        for name, (attr, initializer) in PARAM_TABLE.items():
-            p = self.get_parameter(attr)
-            g = init.param_generator(seed, name)
-            p.data = initializer(g, tuple(p.shape), p.dtype).to(self.device)
-        return self
-
-
-class GPTModel(_JaxNamedParams):
-    """``make_model``'s program: ``forward(ids [b, s], labels [b, s]) ->
-    {"loss", "token_count"}``, the next-token CE over labels that are not
-    the pad id 0. Parameter dtypes follow the JAX package's
-    ``Program.init``: the embedding and ``lm_head_0/w`` in ``cfg.dtype``,
-    the stack in f32, and ``gpt/layer_norm_0`` in the dtype of the
-    activations it normalises (the JAX layer creates it in its input's
-    dtype), which is the wider of the compute dtype and ``cfg.dtype``."""
-
-    def __init__(self, cfg: GPTConfig, compute_dtype="float32", device=None):
-        super().__init__()
-        dev = default_device(device, "make_model")
-        self.cfg = cfg
-        self.compute_dtype = convert_dtype(compute_dtype)
-        dt = convert_dtype(cfg.dtype)
-        V, d = cfg.vocab_size, cfg.d_model
-
-        def param(shape, dtype):
-            return nn.Parameter(torch.empty(shape, dtype=dtype, device=dev))
-
-        self.w_emb = param((V, d), dt)
-        self.stack = S.EncoderStack(cfg.num_layers, d, cfg.d_inner, device=dev,
-                                    trainable=True)
-        ln_dtype = torch.promote_types(self.compute_dtype, dt)
-        self.ln_scale = param((d,), ln_dtype)
-        self.ln_bias = param((d,), ln_dtype)
-        self.w_head = param((d, V), dt)
-        self.register_buffer(
-            "pe", A.positional_encoding(cfg.max_len, d, dt, device=dev),
-            persistent=False)
-
-    def forward(self, ids, labels) -> Dict[str, torch.Tensor]:
-        cfg = self.cfg
-        ids = torch.as_tensor(ids, device=self.device)
-        labels = torch.as_tensor(labels, device=self.device)
-        s = ids.shape[1]
-        enforce(s <= cfg.max_len, f"seq {s} exceeds max_len {cfg.max_len}")
-        x = L._embedding_lookup(ids, self.w_emb, self.compute_dtype) + self.pe[:s][None]
-        x = S.apply_stacked(x, self.stack.params(), S.make_encoder_block,
-                            num_heads=cfg.num_heads, use_flash=cfg.use_flash,
-                            causal=True, remat=cfg.remat,
-                            dropout_rate=cfg.dropout,
-                            compute_dtype=self.compute_dtype,
-                            training=self.training)
-        x = L._layer_norm_given(x, self.ln_scale, self.ln_bias, begin_norm_axis=2)
-        loss, token_count = lm_head_loss(x, labels, self.w_head, cfg.fused_ce,
-                                         cfg.ce_chunk)
-        return {"loss": loss, "token_count": token_count}
-
-
-def make_model(cfg: GPTConfig, compute_dtype="float32", device=None) -> GPTModel:
-    """The training program: ``(ids [b, s], labels [b, s]) -> {"loss",
-    "token_count"}``, next-token CE over non-pad labels (pad id 0).
-
-    ``compute_dtype`` replaces the JAX package's ``default_compute_dtype``
-    flag. Parameters are allocated on ``device`` (the CUDA card by
-    default) uninitialised: call ``init_params`` or ``load_params``, or
-    let ``Trainer.startup`` do it."""
-    return GPTModel(cfg, compute_dtype=compute_dtype, device=device)
-
-
-class GPTGenerator(_JaxNamedParams):
+class GPTGenerator(nn.Module):
     """``make_generator``'s program: ``forward(prompt_ids [b, p] int32)
     -> {"ids": [b, max_new_tokens] int32}`` (greedy) or ``{"ids": [b,
     beam, max_new_tokens] int32, "scores": [b, beam] f32}`` (beam search,
@@ -255,13 +194,43 @@ class GPTGenerator(_JaxNamedParams):
     def int8_kv(self) -> bool:
         return self.cfg.kv_cache_dtype == "int8"
 
+    @property
+    def device(self) -> torch.device:
+        return self.w_emb.device
+
+    def flat_params(self) -> Dict[str, torch.Tensor]:
+        """{JAX param name: tensor} (the tensors themselves, not copies)."""
+        return {name: self.get_parameter(attr)
+                for name, (attr, _) in PARAM_TABLE.items()}
+
     def load_params(self, flat: Dict[str, torch.Tensor]):
-        super().load_params(flat)
+        """Take every parameter from ``flat`` (JAX names, e.g. a trained
+        ``Trainer.scope.params``; dtypes kept as given, copied to this
+        module's device). Missing, extra or misshapen entries raise. Drops
+        the captured steps and the weight casts."""
+        extra = sorted(set(flat) - set(PARAM_TABLE))
+        enforce(not extra, f"load_params: not params of this program: {extra}")
+        for name, (attr, _) in PARAM_TABLE.items():
+            if name not in flat:
+                raise NotFoundError(f"load_params: missing param {name!r}")
+            p = self.get_parameter(attr)
+            t = torch.as_tensor(flat[name]).detach()
+            if tuple(t.shape) != tuple(p.shape):
+                raise EnforceError(f"load_params: {name} has shape "
+                                   f"{tuple(t.shape)}, expected {tuple(p.shape)}")
+            p.data = t.to(self.device, copy=True)
         self.drop_captured()
         return self
 
     def init_params(self, seed: int = 0):
-        super().init_params(seed)
+        """Fresh init through the port's initializers: each param draws
+        from its own CPU generator seeded from (seed, its name), so the
+        values do not depend on the device or on the order of params.
+        Drops the captured steps and the weight casts."""
+        for name, (attr, initializer) in PARAM_TABLE.items():
+            p = self.get_parameter(attr)
+            g = init.param_generator(seed, name)
+            p.data = initializer(g, tuple(p.shape), p.dtype).to(self.device)
         self.drop_captured()
         return self
 
@@ -464,5 +433,5 @@ def build_from_spec(spec: Dict, device=None) -> GPTGenerator:
                           compute_dtype=spec["compute_dtype"], device=device)
 
 
-__all__ = ["GPTConfig", "GPTGenerator", "GPTModel", "PARAM_TABLE",
+__all__ = ["GPTConfig", "GPTGenerator", "PARAM_TABLE",
            "base_config", "make_generator", "make_model", "params_from_jax"]

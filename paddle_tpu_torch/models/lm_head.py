@@ -1,21 +1,26 @@
 """Shared causal-LM output head (counterpart of
 ``paddle_tpu.models.lm_head``): the vocab projection and next-token CE
 over non-pad labels, with the chunked logits-free CE (``ops/fused_ce.py``)
-as the production path. The caller owns the ``lm_head_N/w`` parameter
-and passes it in (the port has no ``LayerHelper`` yet)."""
+as the production path."""
 
 from __future__ import annotations
 
 import torch
 
+from .. import initializer as init
+from ..framework import LayerHelper
 from ..ops.fused_ce import chunked_softmax_cross_entropy
 
 
-def lm_head_loss(x: torch.Tensor, labels: torch.Tensor, w: torch.Tensor,
+def lm_head_loss(x: torch.Tensor, labels: torch.Tensor, vocab_size: int, dtype,
                  fused_ce: bool, ce_chunk: int, pad_id: int = 0):
     """(loss, token_count) for hidden states x [b, t, d] against labels
-    [b, t] and the head weight w [d, vocab]: the mean CE over labels that
-    are not ``pad_id``, token_count = max(non-pad count, 1) (f32)."""
+    [b, t]: the mean CE over labels that are not ``pad_id``, token_count =
+    max(non-pad count, 1) (f32). Creates or fetches the head weight
+    ``lm_head_N/w`` [d, vocab_size] in ``dtype``."""
+    helper = LayerHelper("lm_head")
+    w = helper.create_parameter("w", (x.shape[-1], vocab_size), dtype,
+                                initializer=init.Xavier())
     lab = labels.long()
     nonpad = (labels != pad_id).float()
     token_count = nonpad.sum().clamp_min(1.0)

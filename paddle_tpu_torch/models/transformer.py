@@ -12,15 +12,19 @@ decoder serves the params of a trained ``make_model`` (the names are
 shared). Attention takes the flash kernels where ``use_flash`` is set
 and dropout is a no-op (the routing rule of ``layers/attention.py``):
 the encoder's self-attention with the padding key bias and the
-decoder's causal self-attention, at eval and at dropout 0. The
+decoder's causal self-attention, at eval and at dropout 0. The unrolled
 decoder's cross-attention passes no ``use_flash`` and is dense, as in
 the JAX package (transformer.py:94-96). Both programs carry
 ``factory_spec``, by which an inference artifact rebuilds them.
 
-Not carried yet, raising :class:`NotYetPorted`: ``stacked=True`` (the
-stacked encoder and decoder blocks), ROADMAP queue 1 item 17. The
-decoder's loop runs eagerly (its capture as a CUDA graph is item 17's
-too).
+``stacked=True`` trains the stacked form (``layers/stacked.py``): each
+side's params stacked on a leading layer axis under
+``encoder/encoder_stack/*`` and ``decoder/decoder_stack/*``, the layers
+run by ``apply_stacked``. There the decoder's cross-attention takes
+``use_flash`` too (non-causal, under the source's padding bias), as in
+the JAX package. ``make_decoder`` serves the per-layer form only, as the
+JAX package's does. The decoder's loop runs eagerly (its capture as a
+CUDA graph is ROADMAP queue 1 item 17 (d)).
 """
 
 from __future__ import annotations
@@ -33,9 +37,10 @@ import torch
 from .. import initializer as init
 from .. import layers as L
 from ..core.dtypes import convert_dtype
-from ..core.errors import NotYetPorted
+from ..core.errors import enforce
 from ..framework import LayerHelper, maybe_remat, name_scope, reuse_names
 from ..layers import attention as A
+from ..layers import stacked as S
 from ..layers.beam_search import beam_search, greedy_search
 from ..layers.nn import _scalar_like
 from ..ops.fused_ce import chunked_softmax_cross_entropy
@@ -62,7 +67,7 @@ class TransformerConfig:
     # per-layer recompute in the backward (framework.maybe_remat); False
     # still honours the ambient framework.remat_mode
     remat: bool = False
-    # the stacked-block representation (not carried yet: item 17)
+    # the stacked-block representation (layers/stacked.py)
     stacked: bool = False
     dtype: str = "float32"
 
@@ -74,11 +79,7 @@ def base_config(**kw) -> TransformerConfig:
 def _config(cfg: Union[TransformerConfig, dict]) -> TransformerConfig:
     """A config, from itself or from its ``dataclasses.asdict`` form (how
     ``factory_spec`` records it)."""
-    cfg = cfg if isinstance(cfg, TransformerConfig) else TransformerConfig(**cfg)
-    if cfg.stacked:
-        raise NotYetPorted("TransformerConfig(stacked=True): the stacked encoder "
-                           "and decoder blocks come with ROADMAP queue 1, item 17")
-    return cfg
+    return cfg if isinstance(cfg, TransformerConfig) else TransformerConfig(**cfg)
 
 
 def _embed(ids, vocab, d_model, dtype, scope_name):
@@ -136,9 +137,15 @@ def encode(src_ids, cfg: TransformerConfig):
     x = _drop(x, cfg)
     mask = A.padding_mask(src_ids)
     with name_scope("encoder"):
-        for _ in range(cfg.num_encoder_layers):
-            x = maybe_remat(lambda a, m: encoder_layer(a, cfg, m),
-                            enabled=cfg.remat or None)(x, mask)
+        if cfg.stacked:
+            stack = S.encoder_stack_params(cfg.num_encoder_layers, cfg.d_model, cfg.d_inner)
+            x = S.apply_stacked(x, stack, S.make_encoder_block, extras=mask[:, 0, 0, :],
+                                num_heads=cfg.num_heads, use_flash=cfg.use_flash,
+                                remat=cfg.remat, dropout_rate=cfg.dropout)
+        else:
+            for _ in range(cfg.num_encoder_layers):
+                x = maybe_remat(lambda a, m: encoder_layer(a, cfg, m),
+                                enabled=cfg.remat or None)(x, mask)
         x = L.layer_norm(x, begin_norm_axis=2)
     return x, mask
 
@@ -158,9 +165,16 @@ def decode_hidden(trg_ids, enc_out, cross_mask, cfg: TransformerConfig):
                                   device=x.device)[None]
     x = _drop(x, cfg)
     with name_scope("decoder"):
-        for _ in range(cfg.num_decoder_layers):
-            x = maybe_remat(lambda a, e, cm: decoder_layer(a, e, cfg, None, cm),
-                            enabled=cfg.remat or None)(x, enc_out, cross_mask)
+        if cfg.stacked:
+            stack = S.decoder_stack_params(cfg.num_decoder_layers, cfg.d_model, cfg.d_inner)
+            extras = {"enc": enc_out, "enc_bias": cross_mask[:, 0, 0, :]}
+            x = S.apply_stacked(x, stack, S.make_decoder_block, extras=extras,
+                                num_heads=cfg.num_heads, use_flash=cfg.use_flash,
+                                causal=True, remat=cfg.remat, dropout_rate=cfg.dropout)
+        else:
+            for _ in range(cfg.num_decoder_layers):
+                x = maybe_remat(lambda a, e, cm: decoder_layer(a, e, cfg, None, cm),
+                                enabled=cfg.remat or None)(x, enc_out, cross_mask)
         x = L.layer_norm(x, begin_norm_axis=2)
     return x, _logits_weight(cfg, dtype)
 
@@ -217,8 +231,12 @@ def make_decoder(cfg: Union[TransformerConfig, dict], max_len: int,
     beam and reorders the caches by the surviving beams, their int index
     passing through). Its params are ``make_model``'s, under the same
     names, so a trained scope serves directly. It carries
-    ``factory_spec``."""
+    ``factory_spec``. The stacked form has no incremental decoder, as in
+    the JAX package."""
     cfg = _config(cfg)
+    enforce(not cfg.stacked,
+            "make_decoder (incremental decoding) supports the per-layer "
+            "param layout only; build it with cfg.stacked=False")
 
     def decode_program(src_ids):
         dtype = convert_dtype(cfg.dtype)

@@ -3,10 +3,12 @@
 DistributeTranspilerConfig analog): the knob surface as a dataclass, with
 every field of the JAX package's, so configs written for it construct.
 
-The port acts on the loss-scaling fields alone (``loss_scale``,
-``dynamic_loss_scale``, ``loss_scale_growth_interval``); ``Trainer``
-raises :class:`NotYetPorted` for any other field set away from its
-default, naming the slice that brings it (:func:`unported_fields`).
+The port acts on the loss-scaling fields (``loss_scale``,
+``dynamic_loss_scale``, ``loss_scale_growth_interval``), on
+rematerialization (``remat``, ``remat_policy``) and on gradient
+accumulation over one device (``accum_steps``); ``Trainer`` raises
+:class:`NotYetPorted` for any other field set away from its default,
+naming the ROADMAP item that brings it (:func:`unported_fields`).
 """
 
 from __future__ import annotations
@@ -54,21 +56,40 @@ class DistStrategy:
     async_mode: bool = False
 
 
-_LOSS_SCALE_FIELDS = ("loss_scale", "dynamic_loss_scale", "loss_scale_growth_interval")
+# the fields the port acts on
+PORTED_FIELDS = ("loss_scale", "dynamic_loss_scale", "loss_scale_growth_interval",
+                 "remat", "remat_policy", "accum_steps")
+
+_MULTI_GPU = "slice 9, multi-GPU"
+# field -> the ROADMAP queue 1 item that brings it; item 20 (meshes,
+# sharding and the rest of this module) for any field not listed
+_LATER = {
+    "accum_exchange": f"items 20-21 ({_MULTI_GPU}: the hoisted exchange needs a mesh)",
+    "opt_state_dtype": "item 16 (reduced-precision optimizer state)",
+    "dump_hlo_path": "item 25 (the program's graph form)",
+    "pp_microbatches": f"item 21 ({_MULTI_GPU})",
+    "pp_interleave": f"item 21 ({_MULTI_GPU})",
+    "sequence_parallel": f"item 21 ({_MULTI_GPU})",
+    "sp_impl": f"item 21 ({_MULTI_GPU})",
+    "quantized_allreduce": f"item 21 ({_MULTI_GPU})",
+    "quant_block_size": f"item 21 ({_MULTI_GPU})",
+    "error_feedback": f"item 21 ({_MULTI_GPU})",
+    "quant_stochastic_rounding": f"item 21 ({_MULTI_GPU})",
+    "zero_sharding": f"item 21 ({_MULTI_GPU})",
+    "async_mode": f"item 21 ({_MULTI_GPU})",
+}
 
 
 def unported_fields(strategy: DistStrategy) -> Dict[str, str]:
-    """{field: the ROADMAP slice that brings it} for every field of
-    ``strategy`` set away from its default, other than the loss-scaling
-    ones: slice 7 (fused K-step dispatch) for ``accum_steps``, slice 9
-    (multi-GPU) for the rest."""
+    """{field: the ROADMAP queue 1 item that brings it} for every field of
+    ``strategy`` set away from its default, other than those the port
+    acts on (:data:`PORTED_FIELDS`)."""
     out = {}
     for f in dataclasses.fields(DistStrategy):
-        if f.name in _LOSS_SCALE_FIELDS or getattr(strategy, f.name) == f.default:
+        if f.name in PORTED_FIELDS or getattr(strategy, f.name) == f.default:
             continue
-        out[f.name] = "slice 7 (ROADMAP queue 1)" if f.name == "accum_steps" \
-            else "slice 9, multi-GPU (ROADMAP queue 1, items 20-21)"
+        out[f.name] = "ROADMAP queue 1, " + _LATER.get(f.name, f"item 20 ({_MULTI_GPU})")
     return out
 
 
-__all__ = ["DistStrategy", "unported_fields"]
+__all__ = ["DistStrategy", "PORTED_FIELDS", "unported_fields"]

@@ -320,7 +320,7 @@ def test_dist_strategy_has_every_field_of_paddle_tpu():
 
 
 @pytest.mark.parametrize("field, value, slice_", [
-    ("accum_steps", 2, "slice 7"), ("remat", True, "slice 9"),
+    ("opt_state_dtype", "bfloat16", "item 16"), ("accum_exchange", "hoisted", "slice 9"),
     ("pp_microbatches", 2, "slice 9"), ("zero_sharding", True, "slice 9"),
     ("quantized_allreduce", "int8", "slice 9")])
 def test_strategy_fields_of_later_slices_raise(field, value, slice_):

@@ -500,10 +500,10 @@ SMALL_GPT = dict(vocab_size=50, max_len=32, d_model=64, d_inner=128, num_heads=2
 
 
 def _gpt_trainer(seed=0):
-    model = tgpt.make_model(tgpt.base_config(**SMALL_GPT), compute_dtype="bfloat16",
-                            device="cpu")
-    return tpt.Trainer(model, topt.AdamW(1e-3, weight_decay=0.01), fetch_list=["loss"],
-                       device="cpu").startup(seed)
+    prog = tpt.build(tgpt.make_model(tgpt.base_config(**SMALL_GPT)))
+    with tpt.amp_guard("bfloat16"):
+        return tpt.Trainer(prog, topt.AdamW(1e-3, weight_decay=0.01), fetch_list=["loss"],
+                           device="cpu").startup(seed, _gpt_feeds(1)[0])
 
 
 def _gpt_feeds(n=5):
@@ -519,10 +519,12 @@ def _gpt_feeds(n=5):
 def test_gpt_trainer_round_trip_continues_the_uninterrupted_run(tmp_path):
     feeds = _gpt_feeds()
     ref = _gpt_trainer()
-    ref_losses = [float(ref.step(f)["loss"]) for f in feeds]
+    with tpt.amp_guard("bfloat16"):
+        ref_losses = [float(ref.step(f)["loss"]) for f in feeds]
     saver = _gpt_trainer()
-    for f in feeds[:3]:
-        saver.step(f)
+    with tpt.amp_guard("bfloat16"):
+        for f in feeds[:3]:
+            saver.step(f)
     d = str(tmp_path / "gpt")
     tio.save_trainer(d, saver)
     man = tres.validate_checkpoint(d)
@@ -531,11 +533,11 @@ def test_gpt_trainer_round_trip_continues_the_uninterrupted_run(tmp_path):
     resumed = _gpt_trainer(seed=1)  # other initial values: all must be replaced
     tio.load_trainer(d, resumed)
     assert resumed.global_step == 3
-    # the module's own parameters hold the restored values
-    assert all(p is resumed.program.get_parameter(a) for p, a in
-               zip(resumed.scope.params.values(),
-                   (a for a, _ in tgpt.PARAM_TABLE.values())))
-    losses = [float(resumed.step(f)["loss"]) for f in feeds[3:]]
+    # the restored params are the trainer's leaves, in the program's dtypes
+    assert all(p.is_leaf and p.requires_grad and p.dtype == saver.scope.params[k].dtype
+               for k, p in resumed.scope.params.items())
+    with tpt.amp_guard("bfloat16"):
+        losses = [float(resumed.step(f)["loss"]) for f in feeds[3:]]
     assert losses == ref_losses[3:]
     _assert_trees_identical(ref.scope.params, resumed.scope.params)
     # the bf16 leaves read back in the JAX package with the same bits

@@ -31,7 +31,7 @@ from paddle_tpu_torch import initializer as tinit
 from paddle_tpu_torch import layers as tL
 from paddle_tpu_torch import regularizer as treg
 from paddle_tpu_torch.core.dtypes import dtype_name
-from paddle_tpu_torch.core.errors import NotYetPorted
+from paddle_tpu_torch.core.errors import EnforceError, NotYetPorted
 from paddle_tpu_torch.layers import stacked as S
 from paddle_tpu_torch.models import mnist as tmnist
 
@@ -274,9 +274,12 @@ def test_maybe_remat_recomputes_with_the_same_params_and_grads():
     assert sorted(grads[True]) == sorted(params)
     for k in params:
         torch.testing.assert_close(grads[True][k], grads[False][k], rtol=0, atol=0)
-    with pytest.raises(NotYetPorted):
-        with F.remat_mode(True, policy="dots"):
+    # an unknown policy name raises, listing the options, before the mode
+    # changes
+    with pytest.raises(EnforceError, match="dots_no_batch.*everything.*nothing"):
+        with F.remat_mode(True, policy="dot"):
             pass
+    assert not F.remat_enabled() and F.remat_policy() is None
 
 
 def _scaled_noise(t):

@@ -8,7 +8,7 @@ sequential steps and against ``paddle_tpu``.
   ``mnist.conv_net`` with its batch-norm statistics, a dynamic loss
   scaler with an overflowing step inside the dispatch, the guard with a
   NaN batch at step i, a 1+1-layer Transformer at dropout 0.1 with and
-  without ``remat_mode()``, and a 1-layer GPT module program. On the CPU
+  without ``DistStrategy(remat=True)``, and a 1-layer GPT program. On the CPU
   ``run_steps`` runs the same static-slot body it captures on the card.
 - Against ``paddle_tpu``'s ``run_steps`` (one device, on the CPU, as
   tests/test_fused_steps.py:71 and :91 run it): the same numpy params and
@@ -45,7 +45,7 @@ from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch.core.errors import EnforceError
 from paddle_tpu_torch.data import feeder as tfeeder
 from paddle_tpu_torch.data import stack_batches
-from paddle_tpu_torch.framework import params_from_jax, remat_mode
+from paddle_tpu_torch.framework import params_from_jax
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.models import mnist as tmnist
 from paddle_tpu_torch.models import transformer as ttr
@@ -223,14 +223,14 @@ def test_run_steps_matches_sequential_with_dropout(remat):
 
     def make():
         tr = tpt.Trainer(tpt.build(ttr.make_model(cfg)), topt.Adam(1e-3),
-                         loss_name="loss", fetch_list=["loss"], place=CPU)
+                         loss_name="loss", fetch_list=["loss"], place=CPU,
+                         strategy=tpt.DistStrategy(remat=True) if remat else None)
         return tr.startup(0, feeds[0])
 
-    with remat_mode(remat):
-        seq, _, outs = _fused_against_sequential(make, feeds)
-        # the masks move the loss: the same step at eval differs
-        seq.global_step = 0
-        assert float(seq.eval(feeds[0])["loss"]) != float(outs["loss"][0])
+    seq, _, outs = _fused_against_sequential(make, feeds)
+    # the masks move the loss: the same step at eval differs
+    seq.global_step = 0
+    assert float(seq.eval(feeds[0])["loss"]) != float(outs["loss"][0])
     if remat:
         # the recompute drew from forks of the stream, one per remat block
         assert any(own is None for own, _ in seq._rng._plan)
@@ -265,8 +265,8 @@ def test_run_steps_matches_sequential_gpt_module():
         feeds.append({"ids": ids, "labels": np.roll(ids, -1, axis=1)})
 
     def make():
-        return tpt.Trainer(tgpt.make_model(cfg, device=CPU), topt.AdamW(1e-3),
-                           loss_name="loss", fetch_list=["loss"], device=CPU).startup(0)
+        return tpt.Trainer(tpt.build(tgpt.make_model(cfg)), topt.AdamW(1e-3),
+                           loss_name="loss", fetch_list=["loss"], device=CPU).startup(0, feeds[0])
 
     _fused_against_sequential(make, feeds)
 

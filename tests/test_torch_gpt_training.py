@@ -1,7 +1,8 @@
 """The GPT training slice of the port against the JAX package: a small
 GPT (vocab 50 in CE chunks of 16, d_model 64, 2 heads of 32, d_inner
 128, 2 layers, seq 16, batch 2, use_flash=True, fused_ce=True) is built
-and initialised in ``paddle_tpu``, its params are jittered from a numpy
+(``build(gpt.make_model(cfg))`` in both packages, the compute dtype from
+``amp_guard``) and initialised in ``paddle_tpu``, its params are jittered from a numpy
 seed (so norms and biases are not constants) and carried across with
 ``params_from_jax``, and both packages' Trainers take the same AdamW
 steps on the same feeds, whose labels hold pad ids 0. The JAX flash
@@ -31,10 +32,12 @@ from paddle_tpu import optimizer as jopt
 from paddle_tpu.framework import amp_guard
 from paddle_tpu.models import gpt as jgpt
 
+import paddle_tpu_torch as tpt
 from paddle_tpu_torch import Trainer
+from paddle_tpu_torch import framework as tF
 from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch.parallel import DistStrategy
-from paddle_tpu_torch.core.errors import NotYetPorted
+from paddle_tpu_torch.core.errors import EnforceError, NotYetPorted
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.ops import flash_attention as tfa
 
@@ -113,20 +116,23 @@ def jax_bf16():
     return _jax_training("bfloat16", "bfloat16")
 
 
-def _port_training(params, dtype, compute, **cfg_kw):
+def _program(dtype="float32", **cfg_kw):
+    return tpt.build(tgpt.make_model(tgpt.base_config(dtype=dtype, **{**SMALL, **cfg_kw})))
+
+
+def _port_training(params, dtype, compute, strategy=None, **cfg_kw):
     """(step-1 grads, per-step losses, trainer) of the port's Trainer
-    from the carried-over params."""
-    cfg = tgpt.base_config(dtype=dtype, **{**SMALL, **cfg_kw})
-    model = tgpt.make_model(cfg, compute_dtype=compute, device=CPU)
-    tr = Trainer(model, topt.AdamW(LR, weight_decay=WD), loss_name="loss",
-                 fetch_list=["loss"], device=CPU)
-    tr.startup(params=tgpt.params_from_jax(params, device=CPU))
-    losses, grads = [], None
-    for f in _feeds():
-        losses.append(float(tr.step(f)["loss"]))
-        if grads is None:
-            grads = {k: p.grad.float().numpy().copy()
-                     for k, p in tr.scope.params.items()}
+    from the carried-over params, under ``amp_guard(compute)``."""
+    with tF.amp_guard(compute):
+        tr = Trainer(_program(dtype, **cfg_kw), topt.AdamW(LR, weight_decay=WD),
+                     loss_name="loss", fetch_list=["loss"], device=CPU, strategy=strategy)
+        tr.startup(sample_feed=_feeds(1)[0], params=tgpt.params_from_jax(params, device=CPU))
+        losses, grads = [], None
+        for f in _feeds():
+            losses.append(float(tr.step(f)["loss"]))
+            if grads is None:
+                grads = {k: p.grad.float().numpy().copy()
+                         for k, p in tr.scope.params.items()}
     return grads, losses, tr
 
 
@@ -141,9 +147,9 @@ def test_param_names_shapes_and_dtypes_are_program_init_s(dtype, compute):
     with amp_guard(compute):
         prog = pt.build(jgpt.make_model(jgpt.base_config(dtype=dtype, **SMALL)))
         params, _ = prog.init(jax.random.PRNGKey(0), **feed)
-    model = tgpt.make_model(tgpt.base_config(dtype=dtype, **SMALL),
-                            compute_dtype=compute, device=CPU)
-    flat = model.flat_params()
+    with tF.amp_guard(compute):
+        tr = Trainer(_program(dtype), topt.AdamW(LR), device=CPU).startup(0, feed)
+    flat = tr.scope.params
     assert sorted(flat) == sorted(params)
     for name, a in params.items():
         assert tuple(flat[name].shape) == a.shape, name
@@ -185,9 +191,8 @@ def test_bf16_training_steps_match_jax(jax_bf16):
 
 def test_eval_matches_jax_and_does_not_update(jax_f32):
     params, _, jlosses, jcount = jax_f32
-    model = tgpt.make_model(tgpt.base_config(**SMALL), device=CPU)
-    tr = Trainer(model, topt.AdamW(LR), device=CPU)
-    tr.startup(params=tgpt.params_from_jax(params, device=CPU))
+    tr = Trainer(_program(), topt.AdamW(LR), device=CPU)
+    tr.startup(sample_feed=_feeds(1)[0], params=tgpt.params_from_jax(params, device=CPU))
     before = {k: v.clone() for k, v in tr.scope.params.items()}
     out = tr.eval(_feeds()[0])
     # step 1's loss is computed before its update: the same number
@@ -221,6 +226,32 @@ def test_trained_params_serve_in_both_generators(jax_f32):
     want, _ = jprog.apply({k: jnp.asarray(v) for k, v in trained.items()}, state,
                           prompts)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want["ids"]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_trained_scope_serves_unchanged_through_export_decoder(jax_f32, tmp_path, dtype):
+    """A trained ``Trainer.scope.params`` (leaves that require grad, the
+    layer norm in bf16 under a bf16 config) goes unchanged into
+    ``GPTGenerator.load_params`` and into ``export_decoder``; the artifact
+    loaded back serves the ids the generator gives."""
+    from paddle_tpu_torch import io as tio
+    from paddle_tpu_torch.fleet import decode
+
+    compute = dtype
+    with tF.amp_guard(compute):
+        tr = Trainer(_program(dtype), topt.AdamW(LR), device=CPU).startup(0, _feeds(1)[0])
+        tr.step(_feeds(1)[0])
+    scope = tr.scope.params
+    assert all(p.requires_grad for p in scope.values())
+    prompts = np.random.RandomState(6).randint(3, 50, (2, 6)).astype(np.int32)
+    cfg = tgpt.base_config(dtype=dtype, **SMALL)
+    gen = tgpt.make_generator(cfg, 4, compute_dtype=compute, device=CPU).load_params(scope)
+    want = gen(prompts)["ids"]
+    art = str(tmp_path / "gen")
+    decode.export_decoder(art, cfg, 4, prompts, params=scope, compute_dtype=compute,
+                          device=CPU)
+    got = tio.load_inference_model(art, device=CPU).run({"prompt_ids": prompts})
+    np.testing.assert_array_equal(np.asarray(got["ids"]), want.numpy())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -265,8 +296,8 @@ def test_training_never_writes_to_the_callers_params(jax_f32):
     leave the caller's tensors as they were."""
     given = tgpt.params_from_jax(jax_f32[0], device=CPU)
     kept = {k: v.clone() for k, v in given.items()}
-    model = tgpt.make_model(tgpt.base_config(**SMALL), device=CPU)
-    tr = Trainer(model, topt.AdamW(LR), device=CPU).startup(params=given)
+    tr = Trainer(_program(), topt.AdamW(LR), device=CPU).startup(
+        sample_feed=_feeds(1)[0], params=given)
     tr.step(_feeds(1)[0])
     assert tr.global_step == 1
     assert all(torch.equal(given[k], kept[k]) for k in given)
@@ -282,9 +313,8 @@ def test_dropout_in_training_is_not_ported():
     feed = _feeds(1)[0]
     losses, grads = {}, {}
     for remat in (False, True):
-        model = tgpt.make_model(tgpt.base_config(dropout=0.1, remat=remat, **SMALL),
-                                device=CPU)
-        tr = Trainer(model, topt.AdamW(LR), device=CPU).startup(0)
+        tr = Trainer(_program(dropout=0.1, remat=remat), topt.AdamW(LR),
+                     device=CPU).startup(0, feed)
         launches = tfa.flash_fwd_launches
         calls = []
         plain = tfa.flash_attention_reference
@@ -304,8 +334,37 @@ def test_dropout_in_training_is_not_ported():
 @pytest.mark.parametrize("kw", ["mesh", "sharding_rules", "strategy",
                                 "feed_wire", "augment"])
 def test_trainer_options_of_later_slices_raise(kw):
-    model = tgpt.make_model(tgpt.base_config(**SMALL), device=CPU)
-    # a strategy raises for its fields of later slices (loss scaling is ported)
+    # a strategy raises for its fields of later slices (loss scaling,
+    # remat and accumulation are ported)
     value = DistStrategy(pp_microbatches=2) if kw == "strategy" else object()
     with pytest.raises(NotYetPorted):
-        Trainer(model, topt.AdamW(LR), device=CPU, **{kw: value})
+        Trainer(_program(), topt.AdamW(LR), device=CPU, **{kw: value})
+
+
+def test_trainer_takes_a_program_only():
+    """``Trainer`` has one code path: a ``build`` program. Anything else,
+    a module among them, raises."""
+    with pytest.raises(EnforceError, match="framework.Program"):
+        Trainer(torch.nn.Linear(2, 2), topt.AdamW(LR), device=CPU)
+    with pytest.raises(EnforceError, match="framework.Program"):
+        Trainer(tgpt.make_model(tgpt.base_config(**SMALL)), topt.AdamW(LR), device=CPU)
+
+
+def test_make_model_is_a_build_function_with_the_jax_names():
+    """``make_model(cfg)`` returns the program's function (the caller
+    builds it), with no compute dtype of its own: under ``amp_guard`` the
+    same program computes in bf16."""
+    fn = tgpt.make_model(tgpt.base_config(**SMALL))
+    assert callable(fn) and not isinstance(fn, torch.nn.Module)
+    assert fn.factory_spec["factory"] == "paddle_tpu_torch.models.gpt:make_model"
+    prog = tpt.build(fn)
+    feed = {k: torch.from_numpy(v) for k, v in _feeds(1)[0].items()}
+    params, _ = prog.init(0, place=CPU, **feed)
+    assert sorted(params) == sorted(
+        ["tok/embedding_0/w", "gpt/layer_norm_0/scale", "gpt/layer_norm_0/bias",
+         "lm_head_0/w"] + [f"gpt/encoder_stack/{k}" for k in tgpt.S.STACK_PARAMS])
+    f32, _ = prog.apply(params, {}, place=CPU, **feed)
+    with tF.amp_guard("bfloat16"):
+        bf16, _ = prog.apply(params, {}, place=CPU, **feed)
+    assert float(f32["loss"]) != float(bf16["loss"])
+    assert abs(float(f32["loss"]) - float(bf16["loss"])) < 0.05 * float(f32["loss"])

@@ -183,8 +183,9 @@ def test_fit_arguments_of_later_slices_raise(arg, tmp_path):
 @pytest.mark.parametrize("kw", ["mesh", "sharding_rules", "strategy", "feed_wire",
                                 "augment"])
 def test_trainer_arguments_of_later_slices_raise(kw):
-    # a strategy raises for its fields of later slices (loss scaling is ported)
-    value = tpt.DistStrategy(accum_steps=2) if kw == "strategy" else object()
+    # a strategy raises for its fields of later slices (loss scaling, remat
+    # and accumulation are ported)
+    value = tpt.DistStrategy(pp_microbatches=2) if kw == "strategy" else object()
     with pytest.raises(NotYetPorted):
         tpt.Trainer(tpt.build(tmnist.mlp), topt.SGD(0.05), place=CPU, **{kw: value})
 

@@ -141,8 +141,9 @@ def _entry_points(tmp_path):
         "framework.params_from_jax": lambda: framework.params_from_jax(
             {"w": np.zeros(2, np.float32)}),
         "make_generator": lambda: gpt.make_generator(_tiny_cfg(), 2),
-        "make_model": lambda: gpt.make_model(_tiny_cfg()),
-        "Trainer": lambda: Trainer(gpt.make_model(_tiny_cfg(), device="cpu"),
+        "make_model": lambda: build(gpt.make_model(_tiny_cfg())).init(
+            0, ids=prompts, labels=prompts),
+        "Trainer": lambda: Trainer(build(gpt.make_model(_tiny_cfg())),
                                    optimizer.AdamW(1e-4)),
         "params_from_jax": lambda: gpt.params_from_jax(
             {"w": np.zeros(2, np.float32)}),
