@@ -187,7 +187,30 @@ Phases, each reported on its own lines; any failure exits non-zero:
    calls at the microbatches' shapes held against the plain versions;
    and a ResNet-50 step at accum_steps 2, its batch-norm state
    threaded through the microbatches. The launch counts are zeroed just
-   before (b)-(d) and read just after.
+   before (b)-(d) and read just after;
+15. DeepFM, the recommender and the rest of the optimizers — (a) f32
+   ``build(deepfm.make_model())`` at bench.py ``bench_deepfm``'s config
+   (b=2048, 26 fields x 1000 rows, embedding 16, 13 dense, 400-400-400,
+   Adagrad(0.01)), card against CPU from the same params, 3 steps: the
+   losses, the step-1 grads and the params' moves; then the paths a user
+   drives, with the launch counts zeroed just before them and read just
+   after (none runs a hand kernel): (b) ``bench_deepfm`` 3 warm-up and 20
+   timed steps eager, then the same steps through ``run_steps`` (K=4),
+   bit-equal (losses, params, Adagrad moments): samples/s, ms a step,
+   TFLOP/s by ``core/flops.py``, a profiled step's device time, busy share,
+   operations and kernel families, peak memory; (c) ``bench_deepfm_10m``
+   (26 x 400,000 = 10.4 M rows), read as (b), with the step's bytes bound
+   and the share of it reached; (d) ``fit(steps_per_dispatch=4)`` over
+   synthetic ``datasets.ctr`` (batch 256), the loss falling, and (b)'s
+   trainer saved and loaded, the resumed steps bit-equal; (e) the book
+   recommender at its default widths on synthetic MovieLens, eager against
+   captured bit for bit, the loss falling; (f) LarsMomentum, Adagrad,
+   Adamax, DecayedAdagrad, Adadelta, RMSProp, Ftrl (both ``lr_power``
+   branches), Lamb and Adam under ``DistStrategy(opt_state_dtype=
+   "bfloat16")`` on phase 8's MNIST MLP, card against CPU; Lamb and
+   LarsMomentum captured against eager; ``sparse.apply_adagrad`` and
+   ``apply_adam_lazy`` on (c)'s factor table with one batch's 53,248 ids,
+   card against CPU, two card runs bit-equal.
 
 The last lines are a JSON ``kernels`` record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -443,6 +466,65 @@ BF16_ROUNDING, REMAT_TOL, ALLOC_GROWTH_GB = 2.0 ** -8, 1e-3, 0.016
 # 0.0024, params 0.033 of the move) and the planted fault's (0.71, 0.85) on
 # an H100 80GB HBM3 at 700 W
 ACCUM_GRAD_TOL, ACCUM_PARAM_TOL = 0.04, 0.15
+
+# phase 15: DeepFM as bench.py trains it (_bench_deepfm_config, bench.py:541-582:
+# 26 fields, embedding 16, 13 dense, 400-400-400, batch 2048, Adagrad(0.01),
+# 4 random feeds from RandomState(0)) at 1000 rows a field (bench_deepfm) and
+# 400,000 (bench_deepfm_10m: 10.4 M rows), f32, nothing cut. (a) card against
+# CPU from the same params, DEEPFM_PARITY_STEPS steps: losses at rel
+# DEEPFM_LOSS_TOL (f32 sums of the same products in another order, TF32 off);
+# step-1 grads at DEEPFM_GRAD_TOL relative L2 per param (a bias's grad sums
+# 2048 terms of either sign, ~45x cancellation, and a ReLU input within
+# rounding of 0 may take the other branch on one side, as in phase 6); the
+# params' moves over the steps at DEEPFM_MOVE_TOL relative L2 (Adagrad's first
+# step is lr·g/(|g| + eps), which moves by at most lr·δ/4 for a relative
+# error δ of g). (b), (c) DEEPFM_WARMUP warm-up and DEEPFM_STEPS timed steps
+# eager, then the same steps captured at K=DEEPFM_K, bit-equal. (d) fit over
+# synthetic ctr at (b)'s widths, DEEPFM_FIT_EPOCHS epochs of DEEPFM_FIT_BATCH,
+# K=DEEPFM_K; save_trainer/load_trainer of (b)'s trainer, DEEPFM_RESUME_STEPS
+# resumed steps bit-equal. (e) the recommender at its default widths
+# (recommender.py:14-16) on synthetic MovieLens, batch REC_BATCH, Adam(REC_LR),
+# REC_EPOCHS epochs eager and captured, as tests/test_srl_recommender.py:42-60
+# trains it. (f) the optimizers new in the slice, OPT_STEPS steps of phase 8's
+# MNIST MLP at rates around OPT_LR, card against CPU, held three ways:
+# - the losses at MNIST_LOSS_TOL;
+# - the params' moves at DEEPFM_MOVE_TOL relative L2, not at MNIST_PARAM_TOL
+#   element by element: an adaptive first step moves a weight by
+#   lr·g/(|g| + eps), so a weight whose grad lies within a few eps of 0
+#   moves by an amount the grad's rounding sets (Adamax's params read
+#   8.2e-5 apart at lr 1e-3 on an H100). Ftrl runs at l1 = l2 = 0: its L1
+#   threshold |lin| > l1 is a step (3.7e-2 apart at l1 1e-4 on an H100),
+#   and with l2 > 0 the first step scales a weight by r/(l2 + r), r =
+#   |g|^(−2·lr_power)/lr, which the grads near 1e-10 set at lr_power −0.3
+#   (3.1e-3 apart at l2 1e-4);
+# - one more update from the card's params, grads and state, on both,
+#   within OPT_UPDATE_TOL of the largest update after one f32 rounding of
+#   the new value (the optimizer alone: the same f32 operations, the norms
+#   of Lamb and LarsMomentum summed in another order; LarsMomentum's updates
+#   are ~1e-4 of the params, so a last-bit difference moves the rounded
+#   param by an ulp).
+# Then sparse.apply_adagrad/apply_adam_lazy on (c)'s factor table with one
+# batch's 53,248 ids, card against CPU within SPARSE_TOL of the largest
+# value (the same sorted, in-order sums and IEEE operations; pow may round
+# differently).
+DEEPFM = dict(num_sparse_fields=26, sparse_feature_dim=1000, embedding_size=16,
+              num_dense=13, hidden_dims=(400, 400, 400))
+DEEPFM_BATCH, DEEPFM_FEEDS, DEEPFM_LR, DEEPFM_10M_DIM = 2048, 4, 0.01, 400_000
+DEEPFM_WARMUP, DEEPFM_STEPS, DEEPFM_K, DEEPFM_PARITY_STEPS = 3, 20, 4, 3
+DEEPFM_LOSS_TOL, DEEPFM_GRAD_TOL, DEEPFM_MOVE_TOL = 1e-5, 1e-3, 1e-3
+DEEPFM_FIT_BATCH, DEEPFM_FIT_EPOCHS, DEEPFM_RESUME_STEPS = 256, 3, 2
+REC_BATCH, REC_LR, REC_EPOCHS = 64, 1e-2, 3
+REC_NAMES = ["user_id", "gender_id", "age_id", "job_id", "movie_id", "category_ids",
+             "title_ids", "score"]
+OPT_STEPS, OPT_LR, OPT_UPDATE_TOL, SPARSE_TOL = 3, 1e-3, 1e-5, 1e-6
+DEEPFM_TOP_OPS = 6
+DEEPFM_FAMILIES = (
+    ("matmuls", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
+    ("gathers and index_put", ("index", "gather", "scatter", "sort", "radix", "cub::")),
+    ("reductions", ("reduce_kernel",)),
+    # the step's write of the new values into the state (foreach copies)
+    ("copies and fills", ("copy", "Memcpy", "Memset", "fill", "Fill", "multi_tensor_apply")),
+    ("elementwise", ("elementwise",)))
 
 # readings a later phase compares with: {path: {metric: value}}
 READINGS = {}
@@ -4354,6 +4436,452 @@ def phase_remat_accum_stacked(dev, seed, card_name):
     return launches
 
 
+# -- phase 15: DeepFM, the recommender, the rest of the optimizers --------------
+
+
+def _deepfm_feeds(dim):
+    """bench.py _bench_deepfm_config's feeds (bench.py:551-556)."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    f, d = DEEPFM["num_sparse_fields"], DEEPFM["num_dense"]
+    return [{"dense": rng.randn(DEEPFM_BATCH, d).astype(np.float32),
+             "sparse_ids": rng.randint(0, dim, (DEEPFM_BATCH, f)).astype(np.int32),
+             "label": rng.randint(0, 2, (DEEPFM_BATCH, 1)).astype(np.int64)}
+            for _ in range(DEEPFM_FEEDS)]
+
+
+def _deepfm_trainer(dev, dim, sample, seed=0, params=None, lr=DEEPFM_LR):
+    """bench.py's DeepFM trainer: ``build(deepfm.make_model(...))`` and
+    Adagrad, the loss fetched."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import deepfm
+    prog = pt.build(deepfm.make_model(**dict(DEEPFM, sparse_feature_dim=dim)))
+    return pt.Trainer(prog, pt.optimizer.Adagrad(lr), loss_name="loss", fetch_list=["loss"],
+                      place=dev).startup(seed, sample, params=params)
+
+
+def _families(kernels):
+    """Device us by kernel family of a ``_profile_dispatch`` kernel table."""
+    out = dict.fromkeys([f for f, _ in DEEPFM_FAMILIES] + ["other"], 0.0)
+    for key, (_, us) in kernels.items():
+        fam = next((f for f, keys in DEEPFM_FAMILIES if any(k in key for k in keys)), "other")
+        out[fam] += us
+    return out
+
+
+def deepfm_parity(dev, seed):
+    """(a) f32 bench_deepfm, card against CPU from the card's initial params,
+    DEEPFM_PARITY_STEPS Adagrad steps."""
+    import numpy as np
+
+    feeds = _deepfm_feeds(DEEPFM["sparse_feature_dim"])
+    card = _deepfm_trainer(dev, DEEPFM["sparse_feature_dim"], feeds[0], seed)
+    p0 = {k: v.detach().cpu().clone() for k, v in card.scope.params.items()}
+    host = _deepfm_trainer("cpu", DEEPFM["sparse_feature_dim"], feeds[0], params=p0)
+    lc, lh, grads = [], [], {}
+    for i in range(DEEPFM_PARITY_STEPS):
+        lc.append(float(card.step(feeds[i % DEEPFM_FEEDS])["loss"]))
+        lh.append(float(host.step(feeds[i % DEEPFM_FEEDS])["loss"]))
+        if i == 0:
+            grads = {k: _rel_l2(p.grad.cpu(), host.scope.params[k].grad)
+                     for k, p in card.scope.params.items()}
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    moves = {k: _rel_l2(p.detach().cpu() - p0[k], host.scope.params[k].detach() - p0[k])
+             for k, p in card.scope.params.items()}
+    say(f"deepfm parity f32 card - cpu, bench_deepfm's config, {DEEPFM_PARITY_STEPS} "
+        f"Adagrad({DEEPFM_LR}) steps from the same params: losses {lc} (cpu {lh}), max rel "
+        f"{loss_rel:.3g} (tol {DEEPFM_LOSS_TOL}); step-1 grads relative L2 by param "
+        f"{ {k: f'{v:.3g}' for k, v in grads.items()} } (tol {DEEPFM_GRAD_TOL}); the params' "
+        f"moves over the steps, relative L2 by param "
+        f"{ {k: f'{v:.3g}' for k, v in moves.items()} } (tol {DEEPFM_MOVE_TOL})")
+    check(all(np.isfinite(lc)), "deepfm parity: a loss is not finite")
+    check(loss_rel <= DEEPFM_LOSS_TOL, "deepfm parity: losses differ between card and CPU")
+    check(max(grads.values()) <= DEEPFM_GRAD_TOL,
+          "deepfm parity: step-1 grads differ between card and CPU")
+    check(max(moves.values()) <= DEEPFM_MOVE_TOL,
+          "deepfm parity: the params moved differently on card and CPU")
+
+
+def deepfm_timed(dev, seed, card_name, dim, path):
+    """(b)/(c) bench_deepfm at ``dim`` rows a field: DEEPFM_WARMUP warm-up and
+    DEEPFM_STEPS timed steps eager, then the same steps captured through
+    run_steps at K=DEEPFM_K from the same state, bit-equal; the readings.
+    Returns (the eager trainer, its feeds on the card, readings)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core import flops
+
+    feeds = _deepfm_feeds(dim)
+    t0 = time.perf_counter()
+    eager = _deepfm_trainer(dev, dim, feeds[0], seed)
+    fused = _deepfm_trainer(dev, dim, feeds[0], params=eager.scope.params)
+    startup_s = time.perf_counter() - t0
+    staged = [eager._put_feed(f) for f in feeds]
+    for i in range(DEEPFM_WARMUP):
+        eager.step(staged[i % DEEPFM_FEEDS])
+        fused.step(staged[i % DEEPFM_FEEDS])
+    order = [(DEEPFM_WARMUP + i) % DEEPFM_FEEDS for i in range(DEEPFM_K)]
+    stacked = fused._put_feed(pt.data.stack_batches([feeds[i] for i in order]))
+    dispatches = DEEPFM_STEPS // DEEPFM_K
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eager_losses = [eager.step(staged[(DEEPFM_WARMUP + i) % DEEPFM_FEEDS])["loss"]
+                    for i in range(DEEPFM_STEPS)]
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / DEEPFM_STEPS * 1e3
+    eager_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs = [fused.run_steps(stacked)["loss"]]  # captures, then replays K steps
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    outs += [fused.run_steps(stacked)["loss"] for _ in range(dispatches - 1)]
+    torch.cuda.synchronize()
+    captured_ms = (time.perf_counter() - t0) / ((dispatches - 1) * DEEPFM_K) * 1e3
+    captured_peak = torch.cuda.max_memory_allocated() / 1e9
+    same_losses = _bits_equal(torch.stack(eager_losses), torch.cat(outs))
+    differ = _states_differ(_state_of(eager), _state_of(fused))
+    losses = torch.stack(eager_losses).cpu().numpy()
+
+    readings = {}
+    for name, fn in (("eager", lambda: [eager.step(staged[i]) for i in order]),
+                     ("captured", lambda: fused.run_steps(stacked))):
+        wall, dev_us, n_ops, kernels = _profile_dispatch(fn)
+        readings[name] = (wall / DEEPFM_K, dev_us / 1e3 / DEEPFM_K, n_ops / DEEPFM_K,
+                          _families(kernels), sorted(kernels.items(), key=lambda kv: -kv[1][1]))
+    tflop = flops.deepfm_train_flops(DEEPFM_BATCH, DEEPFM["num_sparse_fields"],
+                                     DEEPFM["embedding_size"], DEEPFM["num_dense"],
+                                     DEEPFM["hidden_dims"]) / 1e12
+    tables = ("deepfm_0/fm_w1/w", "deepfm_0/fm_v/w")
+    table_elems = sum(eager.scope.params[k].numel() for k in tables)
+    other_elems = sum(p.numel() for k, p in eager.scope.params.items() if k not in tables)
+    feed_bytes = sum(v.numel() * v.element_size() for v in staged[0].values())
+    # the least a dense step moves: each param's grad written once, Adagrad
+    # reading p, g and m and writing p and m, all f32; the feed read once
+    bound_bytes = 6 * 4 * (table_elems + other_elems) + feed_bytes
+    bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
+    say(f"deepfm {path} ({card_name}): {DEEPFM['num_sparse_fields']} fields x {dim} rows "
+        f"({table_elems // (DEEPFM['embedding_size'] + 1)} table rows, "
+        f"{table_elems * 4 / 1e9:.3f} GB of tables, as much again of Adagrad moments), "
+        f"b={DEEPFM_BATCH}, Adagrad({DEEPFM_LR}), startup {startup_s:.2f} s; "
+        f"{DEEPFM_WARMUP} warm-up + {DEEPFM_STEPS} steps eager: {eager_ms:.4f} ms per step, "
+        f"{DEEPFM_BATCH / eager_ms * 1e3:.1f} samples/s, {tflop / eager_ms * 1e3:.3f} "
+        f"TFLOP/s, peak memory {eager_peak:.3f} GB; the same steps captured K={DEEPFM_K} "
+        f"(capture and first dispatch {capture_s:.2f} s): {captured_ms:.4f} ms per step, "
+        f"{DEEPFM_BATCH / captured_ms * 1e3:.1f} samples/s, {tflop / captured_ms * 1e3:.3f} "
+        f"TFLOP/s ({tflop * 1e3:.3f} GFLOP a step by core/flops.py: the MLP tower and "
+        f"the dense head; the gathers, their scatter-add backward and the FM term are "
+        f"left out), peak memory {captured_peak:.3f} GB; losses bit-equal {same_losses}, "
+        f"state leaves differing {differ}; losses {losses[0]:.5f} -> {losses[-1]:.5f}")
+    for name, (wall, dms, ops, fam, top) in readings.items():
+        if dms == 0:
+            say(f"deepfm {path} {name} profile: not measured (no device time seen)")
+            continue
+        say(f"deepfm {path} {name} profile ({card_name}): {wall:.4f} ms a step, "
+            f"{dms:.4f} ms of device time ({100 * dms / wall:.1f}% busy), {ops:.0f} device "
+            f"operations a step; by family "
+            + ", ".join(f"{k} {v / 1e3 / DEEPFM_K:.4f} ms" for k, v in fam.items()))
+        for key, (calls, us) in top[:DEEPFM_TOP_OPS]:
+            say(f"  deepfm {path} {name} top op {us / 1e3 / DEEPFM_K:8.4f} ms a step "
+                f"{calls // DEEPFM_K:4d} calls  {key[:110]}")
+    dev_captured = readings["captured"][1]
+    say(f"deepfm {path} bytes bound ({card_name}): {bound_bytes / 1e9:.4f} GB a step "
+        f"(6 f32 passes over {table_elems + other_elems} params: the grad written, "
+        f"Adagrad's p, g, m read and p, m written) -> {bound_ms:.4f} ms at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; captured step {captured_ms:.4f} ms ("
+        + (f"{dev_captured:.4f} ms of device time, {100 * bound_ms / dev_captured:.1f}% "
+           f"of the bound reached)" if dev_captured else "device time not measured)"))
+    check(bool(np.isfinite(losses).all()), f"deepfm {path}: a loss is not finite")
+    check(same_losses and not differ, f"deepfm {path}: captured steps differ from eager ones")
+    check(fused._fused is not None and fused._fused.captures == 1,
+          f"deepfm {path}: run_steps did not capture its step once")
+    del fused
+    return eager, staged, {"eager_ms": eager_ms, "captured_ms": captured_ms,
+                           "device_ms": dev_captured, "bound_ms": bound_ms}
+
+
+def deepfm_fit_and_resume(dev, seed, card_name, trainer, staged, tmp):
+    """(d) fit(steps_per_dispatch=DEEPFM_K) over datasets.ctr at (b)'s widths;
+    save_trainer/load_trainer of (b)'s trainer, the resumed steps bit-equal
+    to the uninterrupted ones."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import data
+    from paddle_tpu_torch import io as pio
+
+    names = ["dense", "sparse_ids", "label"]
+    reader = data.batch(data.map_readers(lambda s: (s[0], s[1], np.array([s[2]])),
+                                         data.datasets.ctr("train")), DEEPFM_FIT_BATCH)
+    sample = data.DataFeeder(names).feed(next(iter(reader())))
+    tr = _deepfm_trainer(dev, DEEPFM["sparse_feature_dim"], sample, seed)
+    losses, sizes = [], []
+    t0 = time.perf_counter()
+    pt.fit(tr, reader, DEEPFM_FIT_EPOCHS, names, steps_per_dispatch=DEEPFM_K,
+           event_handler=lambda e: (losses.append(e.metrics["loss"].reshape(-1)),
+                                    sizes.append(e.num_steps))
+           if e.kind == "end_step" else None)
+    fit_s = time.perf_counter() - t0
+    losses = torch.cat(losses).cpu().numpy()
+    epoch = len(losses) // DEEPFM_FIT_EPOCHS
+    first, last = float(losses[:epoch].mean()), float(losses[-epoch:].mean())
+    say(f"deepfm (d) fit({DEEPFM_FIT_EPOCHS} epochs of synthetic ctr, b={DEEPFM_FIT_BATCH}, "
+        f"steps_per_dispatch={DEEPFM_K}, prefetch on): {len(losses)} steps in "
+        f"{len(sizes)} dispatches {sorted(set(sizes))}, {fit_s:.2f} s; mean loss first "
+        f"epoch {first:.5f}, last {last:.5f} (want below half)")
+    check(bool(np.isfinite(losses).all()), "deepfm fit: a loss is not finite")
+    check(max(sizes) == DEEPFM_K, "deepfm fit: no fused dispatch ran")
+    check(last < 0.5 * first, "deepfm fit: the loss did not fall")
+
+    ckpt = os.path.join(tmp, "deepfm")
+    t0 = time.perf_counter()
+    pio.save_trainer(ckpt, trainer)
+    save_s = time.perf_counter() - t0
+    whole = [trainer.step(staged[i % DEEPFM_FEEDS])["loss"] for i in range(DEEPFM_RESUME_STEPS)]
+    resumed = _deepfm_trainer(dev, DEEPFM["sparse_feature_dim"], sample, seed + 1)
+    t0 = time.perf_counter()
+    pio.load_trainer(ckpt, resumed)
+    load_s = time.perf_counter() - t0
+    again = [resumed.step(staged[i % DEEPFM_FEEDS])["loss"] for i in range(DEEPFM_RESUME_STEPS)]
+    same = _bits_equal(torch.stack(whole), torch.stack(again))
+    differ = _states_differ(_state_of(trainer), _state_of(resumed))
+    say(f"deepfm (d) save_trainer {save_s:.2f} s, load_trainer {load_s:.2f} s; "
+        f"{DEEPFM_RESUME_STEPS} resumed steps against the uninterrupted ones: losses "
+        f"bit-equal {same}, state leaves differing {differ}")
+    check(same and not differ, "deepfm resume: the resumed steps differ")
+
+
+def recommender_on_card(dev, seed, card_name):
+    """(e) the book recommender at its default widths on synthetic
+    MovieLens (batch REC_BATCH, Adam(REC_LR)), REC_EPOCHS epochs eager and
+    captured (K=DEEPFM_K) from the same params, bit for bit; the loss falls."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import data
+    from paddle_tpu_torch.models import recommender
+
+    feeder = data.DataFeeder(REC_NAMES)
+    batches = [feeder.feed(b) for b in data.batch(data.datasets.movielens("train"),
+                                                  REC_BATCH, drop_last=True)()]
+
+    def trainer(params=None):
+        return pt.Trainer(pt.build(recommender.make_model()), pt.optimizer.Adam(REC_LR),
+                          loss_name="loss", fetch_list=["loss", "pred"],
+                          place=dev).startup(seed, batches[0], params=params)
+
+    eager = trainer()
+    fused = trainer(eager.scope.params)
+    staged = [eager._put_feed(b) for b in batches]
+    chunks = [fused._put_feed(pt.data.stack_batches(batches[i:i + DEEPFM_K]))
+              for i in range(0, len(batches) - DEEPFM_K + 1, DEEPFM_K)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    epoch = staged[:len(chunks) * DEEPFM_K]
+    le = [eager.step(b)["loss"] for _ in range(REC_EPOCHS) for b in epoch]
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / len(le) * 1e3
+    t0 = time.perf_counter()
+    lf = [fused.run_steps(c)["loss"] for _ in range(REC_EPOCHS) for c in chunks]
+    torch.cuda.synchronize()
+    fused_ms = (time.perf_counter() - t0) / len(le) * 1e3
+    same = _bits_equal(torch.stack(le), torch.cat(lf))
+    differ = _states_differ(_state_of(eager), _state_of(fused))
+    losses = torch.stack(le).cpu().numpy()
+    n = len(chunks) * DEEPFM_K
+    first, last = float(losses[:n].mean()), float(losses[-n:].mean())
+    n_params = sum(p.numel() for p in eager.scope.params.values())
+    say(f"recommender (e) ({card_name}): default widths ({n_params} params), "
+        f"b={REC_BATCH}, Adam({REC_LR}), {REC_EPOCHS} epochs of {n} steps: eager "
+        f"{eager_ms:.4f} ms per step, captured K={DEEPFM_K} {fused_ms:.4f} ms per step "
+        f"(the capture included); losses bit-equal {same}, state leaves differing {differ}; "
+        f"mean loss first epoch {first:.5f}, last {last:.5f} (want below 0.7 of it)")
+    check(bool(np.isfinite(losses).all()), "recommender: a loss is not finite")
+    check(same and not differ, "recommender: captured steps differ from eager ones")
+    check(last < 0.7 * first, "recommender: the loss did not fall")
+
+
+def _update_err(got, want, old):
+    """How far a new param ``got`` lies from ``want``, over the largest
+    update ``want − old``, after one f32 rounding of the new value (2^-23 of
+    its magnitude: an update far below the param's size, as LarsMomentum's,
+    rounds to a neighbouring float when it differs in its last bits)."""
+    slack = (got - want).abs() - 2.0 ** -23 * want.abs()
+    return float(slack.clamp_min(0).max() / (want - old).abs().max().clamp_min(1e-30))
+
+
+def optimizers_on_card(dev, seed, card_name, table_trainer, table_feed):
+    """(f) the optimizers new in this slice on phase 8's MNIST MLP, card
+    against CPU; Lamb and LarsMomentum captured against eager; the row-wise
+    Adagrad and lazy Adam on the 10.4 M-row table, card against CPU and
+    card against card."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import sparse
+    from paddle_tpu_torch.models import mnist
+
+    o = pt.optimizer
+    makers = {
+        "LarsMomentum": lambda: o.LarsMomentum(OPT_LR * 10, lars_coeff=0.01),
+        "Adagrad": lambda: o.Adagrad(OPT_LR), "Adamax": lambda: o.Adamax(OPT_LR),
+        "DecayedAdagrad": lambda: o.DecayedAdagrad(OPT_LR),
+        "Adadelta": lambda: o.Adadelta(1.0),
+        "RMSProp centered": lambda: o.RMSProp(OPT_LR, momentum=0.5, centered=True),
+        # l1 and l2 0 (the CPU tests hold their branches against the JAX package)
+        "Ftrl": lambda: o.Ftrl(OPT_LR * 10),
+        "Ftrl lr_power -0.3": lambda: o.Ftrl(OPT_LR * 10, lr_power=-0.3),
+        "Lamb": lambda: o.Lamb(OPT_LR), "Adam bf16 state": lambda: o.Adam(OPT_LR)}
+    feeds = _mnist_feeds()
+
+    def trainer(name, place, params=None):
+        strategy = pt.DistStrategy(opt_state_dtype="bfloat16") if "bf16" in name else None
+        return pt.Trainer(pt.build(mnist.mlp), makers[name](), loss_name="loss",
+                          fetch_list=["loss"], place=place,
+                          strategy=strategy).startup(seed, feeds[0], params=params)
+
+    def on_cpu(tree):
+        if isinstance(tree, dict):
+            return {k: on_cpu(v) for k, v in tree.items()}
+        return tree.detach().cpu()
+
+    worst = {}
+    for name in makers:
+        card = trainer(name, dev)
+        p0 = on_cpu(card.scope.params)
+        host = trainer(name, "cpu", p0)
+        lc = [float(card.step(feeds[i])["loss"]) for i in range(OPT_STEPS)]
+        lh = [float(host.step(feeds[i])["loss"]) for i in range(OPT_STEPS)]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+        perr = max(float((card.scope.params[k].detach().cpu() - p.detach()).abs().max())
+                   for k, p in host.scope.params.items())
+        moves = max(_rel_l2(card.scope.params[k].detach().cpu() - p0[k], p.detach() - p0[k])
+                    for k, p in host.scope.params.items())
+        # the optimizer alone: one more update from the card's params, last
+        # grads and state, on the card and on the CPU
+        params = {k: p.detach() for k, p in card.scope.params.items()}
+        grads = {k: p.grad for k, p in card.scope.params.items()}
+        with torch.no_grad():
+            new_c, _ = card.optimizer.update(grads, card.scope.opt_state, params,
+                                             card.program.param_info)
+            new_h, _ = makers[name]().set_state_dtype(card.optimizer.state_dtype).update(
+                on_cpu(grads), on_cpu(card.scope.opt_state), on_cpu(params),
+                card.program.param_info)
+        upd = max(_update_err(new_c[k].cpu(), new_h[k], params[k].cpu()) for k in params)
+        worst[name] = (rel, perr, moves, upd)
+        check(all(np.isfinite(lc)), f"optimizers: {name} gave a non-finite loss")
+        check(rel <= MNIST_LOSS_TOL and moves <= DEEPFM_MOVE_TOL and upd <= OPT_UPDATE_TOL,
+              f"optimizers: {name} differs between card and CPU ({rel:.3g}, {moves:.3g}, "
+              f"{upd:.3g})")
+        if "bf16" in name:
+            dtypes = {v.dtype for a in card.scope.opt_state["accums"].values()
+                      for v in a.values()}
+            check(dtypes == {torch.bfloat16}, f"optimizers: {name} stored {dtypes}")
+    say(f"optimizers (f): {OPT_STEPS} steps of MNIST MLP b={MNIST_BATCH}, card against CPU "
+        f"from the same params; by optimizer (max rel loss (tol {MNIST_LOSS_TOL}), max abs "
+        f"param (reported), the params' moves relative L2 (tol {DEEPFM_MOVE_TOL}), one "
+        f"update from the same params, grads and state, max abs beyond one rounding over "
+        f"the largest update (tol {OPT_UPDATE_TOL})): "
+        + ", ".join(f"{k} ({a:.3g}, {b:.3g}, {c:.3g}, {d:.3g})"
+                    for k, (a, b, c, d) in worst.items()))
+
+    for name in ("Lamb", "LarsMomentum"):
+        eager = trainer(name, dev)
+        fused = trainer(name, dev, eager.scope.params)
+        stacked = fused._put_feed(pt.data.stack_batches(feeds[:DEEPFM_K]))
+        le = torch.stack([eager.step(f)["loss"] for f in feeds[:DEEPFM_K]])
+        lf = fused.run_steps(stacked)["loss"]
+        same = _bits_equal(le, lf)
+        differ = _states_differ(_state_of(eager), _state_of(fused))
+        say(f"optimizers (f): {name} captured K={DEEPFM_K} against eager: losses bit-equal "
+            f"{same}, state leaves differing {differ}")
+        check(same and not differ, f"optimizers: captured {name} differs from eager")
+
+    # the row-wise updates on the 10.4 M-row factor table, one batch's ids
+    table = table_trainer.scope.params["deepfm_0/fm_v/w"].detach()
+    moment = table_trainer.scope.opt_state["accums"]["deepfm_0/fm_v/w"]["moment"]
+    f, dim = DEEPFM["num_sparse_fields"], DEEPFM_10M_DIM
+    rows = (table_feed["sparse_ids"].long()
+            + torch.arange(f, device=table.device) * dim).reshape(-1).to(torch.int32)
+    vals = torch.from_numpy(np.random.RandomState(seed).randn(
+        rows.numel(), table.shape[1]).astype(np.float32) * 1e-3).to(table.device)
+    sr = sparse.SelectedRows(rows, vals, table.shape[0])
+    sr_cpu = sparse.SelectedRows(rows.cpu(), vals.cpu(), table.shape[0])
+    runs = {
+        "apply_adagrad": (lambda: sparse.apply_adagrad(table, moment, sr, DEEPFM_LR),
+                          lambda: sparse.apply_adagrad(table.cpu(), moment.cpu(), sr_cpu,
+                                                       DEEPFM_LR)),
+        "apply_adam_lazy": (lambda: sparse.apply_adam_lazy(table, moment * 1e-3, moment, sr,
+                                                           1e-3, 3),
+                            lambda: sparse.apply_adam_lazy(table.cpu(), moment.cpu() * 1e-3,
+                                                           moment.cpu(), sr_cpu, 1e-3, 3))}
+    distinct = int(torch.unique(rows).numel())
+    for name, (on_card, on_cpu) in runs.items():
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")  # a read back to the host raises
+        try:
+            a = on_card()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        b = on_card()
+        twice = all(_bits_equal(x, y) for x, y in zip(a, b))
+        host = on_cpu()
+        err = max(float((x.cpu() - y).abs().max() / y.abs().max().clamp_min(1e-30))
+                  for x, y in zip(a, host))
+        moved = int((a[0] != table).any(dim=1).sum())
+        ms = device_ms(on_card, 5)
+        say(f"optimizers (f) sparse.{name} ({card_name}): {rows.numel()} ids "
+            f"({distinct} distinct) into {table.shape[0]} rows x {table.shape[1]}: "
+            f"{moved} rows moved, no read back to the host, two card runs bit-equal "
+            f"{twice}, card against CPU max "
+            f"abs {err:.3g} of the largest value (tol {SPARSE_TOL}); {ms:.4f} ms on the "
+            f"card (out of place: each result a new full-size tensor)")
+        check(twice, f"sparse.{name}: two card runs differ")
+        check(moved == distinct, f"sparse.{name}: {moved} rows moved, want {distinct}")
+        check(err <= SPARSE_TOL, f"sparse.{name}: card and CPU differ")
+        del a, b, host
+
+
+def phase_deepfm(dev, seed, card_name):
+    """Phase 15: DeepFM at bench_deepfm's and bench_deepfm_10m's configs,
+    the recommender and the rest of the optimizers, (a)-(f). The path runs
+    no hand kernel: the launch counts, zeroed just before it, must read 0
+    after it; returns them."""
+    import gc
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    _zero_launch_counts(fa)
+    # ---- the main path, as a user drives it
+    with tempfile.TemporaryDirectory() as tmp:
+        deepfm_parity(dev, seed)
+        trainer, staged, small = deepfm_timed(dev, seed, card_name,
+                                              DEEPFM["sparse_feature_dim"], "(b)")
+        deepfm_fit_and_resume(dev, seed, card_name, trainer, staged, tmp)
+        del trainer, staged
+        gc.collect()
+        torch.cuda.empty_cache()
+        big_trainer, big_staged, big = deepfm_timed(dev, seed, card_name, DEEPFM_10M_DIM,
+                                                    "(c) 10m")
+        recommender_on_card(dev, seed, card_name)
+        optimizers_on_card(dev, seed, card_name, big_trainer, big_staged[0])
+    launches = _launch_counts(fa)
+    # ---- end of the main path
+    del big_trainer, big_staged
+    gc.collect()
+    torch.cuda.empty_cache()
+    READINGS["deepfm"], READINGS["deepfm_10m"] = small, big
+    say(f"phase 15 took {time.perf_counter() - t_phase:.1f} s; hand-kernel launches on the "
+        f"DeepFM paths {launches} (they run none)")
+    check(all(n == 0 for n in launches.values()), "deepfm: a flash kernel launched")
+    return launches
+
+
 def _routes(fa, torch):
     """The route table's choices, as the kernels record reports them."""
     return {"bfloat16": fa.ROUTES[(torch.bfloat16, 64)],
@@ -4460,11 +4988,16 @@ def main(argv=None) -> int:
     # accumulation (launch counts zeroed inside, around each part)
     slice7 = phase_remat_accum_stacked(dev, args.seed, smi)
     done("phase 14")
+
+    # 15. DeepFM, the recommender and the rest of the optimizers (launch
+    # counts zeroed inside, around the path)
+    deepfm = phase_deepfm(dev, args.seed, smi)
+    done("phase 15")
     by_path = {name: {"served": served[name], "training": trained[name],
                       "persistence": persisted[name], "resnet": resnet_launches[name],
                       **{path: n[name] for path, n in seq2seq.items()},
                       "captured": captured[name], "captured_decode": decoded[name],
-                      "remat_stacked_accum": slice7[name]}
+                      "remat_stacked_accum": slice7[name], "deepfm": deepfm[name]}
                for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 
     # the kernels record: each kernel's row at the training path's shape,

@@ -17,7 +17,7 @@ __version__ = "0.1.0"
 
 from . import amp, clip, core, data, framework, initializer, io, layers  # noqa: E402
 from . import lr_scheduler, metrics, models, nets, optimizer, parallel  # noqa: E402
-from . import quantize, regularizer, resilience  # noqa: E402
+from . import quantize, regularizer, resilience, sparse  # noqa: E402
 from .core.config import enable_determinism, get_flag  # noqa: E402
 from .core.place import CPUPlace, CUDAPlace  # noqa: E402
 from .executor import (CheckpointConfig, Event, Executor, Inferencer, Scope,  # noqa: E402

@@ -57,4 +57,23 @@ def bert_train_flops(bs: int, seq: int, num_masked: int, cfg) -> float:
     return f
 
 
-__all__ = ["bert_train_flops", "transformer_train_flops"]
+def mlp_train_flops(bs: int, dims) -> float:
+    """Train-step FLOPs of a dense MLP with layer widths ``dims``
+    (flops.py:302): 6 · (matmul params) · batch."""
+    params = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+    return 6.0 * params * bs
+
+
+def deepfm_train_flops(bs: int, num_fields: int, emb_size: int, num_dense: int,
+                       hidden_dims) -> float:
+    """Train-step FLOPs of DeepFM (``models/deepfm.py``; flops.py:343): the
+    deep tower over the concatenated embeddings and dense features, and
+    the dense linear head. The embedding gathers, their scatter-add
+    backward and the FM interaction are left out (they move bytes, not
+    matmul FLOPs): an undercount."""
+    dims = [num_fields * emb_size + num_dense, *hidden_dims, 1]
+    return mlp_train_flops(bs, dims) + 6.0 * num_dense * bs
+
+
+__all__ = ["bert_train_flops", "deepfm_train_flops", "mlp_train_flops",
+           "transformer_train_flops"]

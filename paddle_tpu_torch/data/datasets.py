@@ -1,5 +1,6 @@
 """Datasets (counterpart of ``paddle_tpu.data.datasets``; so far MNIST,
-copied so that it yields the same arrays bit for bit).
+the Criteo-style CTR data and MovieLens, copied so that each yields the
+same arrays bit for bit).
 
 Each dataset loads from a local path when its files are there (the
 standard file formats, under ``PDTPU_DATA_HOME``) and otherwise falls
@@ -87,3 +88,64 @@ def mnist_train():
 
 def mnist_test():
     return mnist("test")
+
+
+# ---------------------------------------------------------------------------
+# ctr (dist_ctr.py analog) and movielens (dataset/movielens.py analog):
+# synthetic only, as in the JAX package
+# ---------------------------------------------------------------------------
+
+
+def ctr(split: str = "train", num_sparse_fields: int = 26, sparse_dim: int = 1000,
+        num_dense: int = 13, synthetic_size: int = 4096) -> Callable:
+    """Criteo-style CTR data for DeepFM (datasets.py:205): (dense[13],
+    sparse_ids[26] in [0, sparse_dim) per field, label 0/1)."""
+
+    def reader():
+        # the labelling weights are split-independent (a fixed seed), so
+        # train and test follow one rule; only the samples differ
+        wrng = np.random.RandomState(42)
+        w_d = wrng.randn(num_dense).astype(np.float32)
+        w_s = wrng.randn(num_sparse_fields, sparse_dim).astype(np.float32) * 0.5
+        rng = np.random.RandomState(10 if split == "train" else 11)
+        for _ in range(synthetic_size):
+            dense = rng.randn(num_dense).astype(np.float32)
+            sparse = rng.randint(0, sparse_dim, num_sparse_fields).astype(np.int64)
+            score = dense @ w_d + sum(w_s[f, sparse[f]] for f in range(num_sparse_fields))
+            y = np.int64(score + 0.5 * rng.randn() > 0)
+            yield dense, sparse, y
+    reader.synthetic = True
+    return reader
+
+
+def movielens(split: str = "train", num_users: int = 944, num_movies: int = 1683,
+              num_categories: int = 18, title_vocab: int = 1000,
+              max_categories: int = 4, title_len: int = 6,
+              synthetic_size: int = 1024) -> Callable:
+    """MovieLens-style data (datasets.py:252): (user_id[1], gender_id[1],
+    age_id[1], job_id[1], movie_id[1], category_ids[max_categories],
+    title_ids[title_len], score[1]); categories and titles 0-padded.
+    Ratings follow latent user and movie factors, so a model can learn."""
+
+    def reader():
+        rng = np.random.RandomState(14 if split == "train" else 15)
+        uf = rng.randn(num_users, 4).astype(np.float32)
+        mf = rng.randn(num_movies, 4).astype(np.float32)
+        for _ in range(synthetic_size):
+            u = rng.randint(0, num_users)
+            m = rng.randint(0, num_movies)
+            ncat = rng.randint(1, max_categories + 1)
+            cats = np.zeros(max_categories, np.int64)
+            cats[:ncat] = rng.randint(1, num_categories, ncat)
+            title = np.zeros(title_len, np.int64)
+            nt = rng.randint(1, title_len + 1)
+            title[:nt] = rng.randint(1, title_vocab, nt)
+            raw = float(uf[u] @ mf[m])
+            score = np.clip(2.5 + raw, 1.0, 5.0).astype(np.float32)
+            yield (np.array([u], np.int64), np.array([rng.randint(0, 2)], np.int64),
+                   np.array([rng.randint(0, 7)], np.int64),
+                   np.array([rng.randint(0, 21)], np.int64),
+                   np.array([m], np.int64), cats, title,
+                   np.array([score], np.float32))
+    reader.synthetic = True
+    return reader

@@ -30,6 +30,10 @@ waits on the card: the guard's host half examines the flag later
 (``defer_readback``), and a captured step (which cannot read the host)
 takes the same body.
 
+A reduced optimizer state, as in the JAX package:
+``DistStrategy(opt_state_dtype="bfloat16")`` stores the accumulators in
+that dtype (``Optimizer.set_state_dtype``, set at ``startup``).
+
 Rematerialization and gradient accumulation, as in the JAX package:
 ``DistStrategy(remat=True, remat_policy=...)`` runs the program's
 training forward under ``framework.remat_mode`` (and without ``remat``
@@ -48,7 +52,7 @@ chunks (``DeviceFeeder(stack_k=K)``).
 
 Not carried yet, each raising :class:`NotYetPorted` with the slice that
 brings it: meshes and sharding rules, the ``DistStrategy`` fields other
-than loss scaling, remat and accumulation (pipeline, sequence
+than loss scaling, remat, accumulation and the optimizer state's dtype (pipeline, sequence
 parallelism, the accumulated exchanges, ZeRO),
 feed wire formats, on-device augmentation, elastic resizes, the HBM
 dataset cache and interval profile events; the journal and telemetry of
@@ -334,6 +338,9 @@ class Trainer:
         for p in fresh.values():
             p.requires_grad_(p.is_floating_point())
         self.scope.params, self.scope.state = fresh, state
+        sd = None if self.strategy is None else self.strategy.opt_state_dtype
+        if sd is not None:  # before init, as the JAX Trainer (executor.py:400-402)
+            self.optimizer.set_state_dtype(sd)
         with torch.no_grad():
             self.scope.opt_state = self.optimizer.init(
                 {k: p.detach() for k, p in self.scope.params.items()})

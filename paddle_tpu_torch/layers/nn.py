@@ -1,6 +1,7 @@
 """Neural-network layers (counterpart of ``paddle_tpu.layers.nn``): ``fc``,
 ``mean``, ``softmax``/``log_softmax``, ``softmax_with_cross_entropy`` and
-``cross_entropy``, ``conv2d``, ``pool2d`` and ``batch_norm`` with
+``cross_entropy``, ``sigmoid_cross_entropy_with_logits``,
+``square_error_cost``, ``cos_sim``, ``conv2d``, ``pool2d`` and ``batch_norm`` with
 ``to_chw_order``, ``embedding``, ``layer_norm``, ``matmul``, ``mul`` and
 ``dropout``.
 
@@ -29,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import initializer as init
-from ..core.errors import NotYetPorted, enforce
+from ..core.errors import enforce
 from ..framework import (LayerHelper, cast_compute, compute_dtype, current_layout,
                          in_training, next_rng_key, seeded_generator)
 from ..quantize import refuse_int8
@@ -273,14 +274,18 @@ def embedding(input, size: Sequence[int], is_sparse: bool = False,
     says otherwise), read with :func:`_embedding_lookup`'s index rule and
     cast to the compute dtype. ``padding_idx`` (negative: counted from the
     end) zeroes its rows by a mask. An id input with a trailing dim of 1
-    loses it, as in the JAX package."""
-    if is_sparse or is_distributed:
-        raise NotYetPorted("embedding(is_sparse=True / is_distributed=True): "
-                           "sparse and row-sharded tables come with the DeepFM "
-                           "slice (ROADMAP queue 1, item 19)")
+    loses it, as in the JAX package.
+
+    ``is_sparse`` and ``is_distributed`` are markers, as in the JAX
+    package: ``is_distributed`` is recorded in the table's ``ParamInfo``
+    (the row-sharded placement a mesh would give it), and the lookup and
+    its gradient stay dense either way. The row-wise sparse gradient and
+    updates are :mod:`paddle_tpu_torch.sparse`'s functions, which the
+    ``Trainer`` does not take, as the JAX Trainer does not."""
     helper = LayerHelper("embedding", name=name)
     vocab, dim = int(size[0]), int(size[1])
-    table = helper.create_parameter("w", shape=(vocab, dim), dtype=dtype, attr=param_attr)
+    table = helper.create_parameter("w", shape=(vocab, dim), dtype=dtype, attr=param_attr,
+                                    is_distributed=is_distributed)
     ids = input.long()
     if ids.dim() >= 2 and ids.shape[-1] == 1:
         ids = ids[..., 0]
@@ -451,6 +456,33 @@ def mean(x, name=None):
     return torch.mean(x if torch.is_floating_point(x) else x.float())
 
 
-__all__ = ["batch_norm", "conv2d", "cross_entropy", "dropout", "embedding", "fc",
-           "layer_norm", "log_softmax", "matmul", "mean", "mul", "pool2d", "softmax",
-           "softmax_with_cross_entropy", "take_rows", "to_chw_order"]
+def square_error_cost(input, label):
+    """(input − label)² elementwise (layers/nn.py:621)."""
+    return torch.square(input - label)
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index: int = -100, name=None):
+    """The logistic loss of logits ``x`` against ``label`` (layers/nn.py:640),
+    in its stable form ``max(x, 0) − x·label + log1p(exp(−|x|))``; 0 where
+    ``label == ignore_index``."""
+    # at x == 0 the grads are jnp's: maximum splits its grad in halves, and
+    # |x| has the slope 1 (torch.abs has 0 there)
+    neg_abs = torch.where(x >= 0, -x, x)
+    loss = torch.maximum(x, torch.zeros_like(x)) - x * label + torch.log1p(torch.exp(neg_abs))
+    return torch.where(label == ignore_index, torch.zeros_like(loss), loss)
+
+
+def cos_sim(x, y, name=None):
+    """Cosine similarity over the last dim, kept as a dim of 1
+    (layers/nn.py:687): ``Σxy / max(‖x‖·‖y‖, 1e-12)``. The clamp is on the
+    product of the norms, not on each norm as ``F.cosine_similarity``
+    clamps, so a zero vector gives 0."""
+    xn = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
+    yn = torch.sqrt(torch.sum(y * y, dim=-1, keepdim=True))
+    return torch.sum(x * y, dim=-1, keepdim=True) / torch.clamp_min(xn * yn, 1e-12)
+
+
+__all__ = ["batch_norm", "conv2d", "cos_sim", "cross_entropy", "dropout", "embedding", "fc",
+           "layer_norm", "log_softmax", "matmul", "mean", "mul", "pool2d",
+           "sigmoid_cross_entropy_with_logits", "softmax", "softmax_with_cross_entropy",
+           "square_error_cost", "take_rows", "to_chw_order"]

@@ -13,7 +13,6 @@ from typing import Callable, Sequence
 
 import torch
 
-from .core.errors import NotYetPorted
 
 Schedule = Callable  # step (0-d int tensor) -> 0-d f32 tensor
 
@@ -118,5 +117,13 @@ def linear_lr_warmup(learning_rate, warmup_steps: int, start_lr: float, end_lr: 
 
 def append_LARS(params_grads, learning_rate, weight_decay: float = 0.0,
                 epsilon: float = 1e-9):
-    raise NotYetPorted("append_LARS: layer-wise rate scaling comes with the "
-                       "LarsMomentum optimizer (ROADMAP queue 1, item 19)")
+    """Layer-wise adaptive rate scaling (learning_rate_scheduler.py
+    append_LARS; lr_scheduler.py:110): for each (param, grad) pair the
+    rate ``lr·‖p‖ / (‖g‖ + weight_decay·‖p‖ + epsilon)``, a 0-d tensor on
+    the pair's device. ``LarsMomentum`` is the optimizer that applies it."""
+    out = []
+    for p, g in params_grads:
+        pn = torch.sqrt(torch.sum(torch.square(p)))
+        gn = torch.sqrt(torch.sum(torch.square(g)))
+        out.append(learning_rate * pn / (gn + weight_decay * pn + epsilon))
+    return out

@@ -1,2 +1,3 @@
 """Model zoo of the port: GPT (serving and training), the MNIST MLP and
-conv net, and ResNet-50/101/152."""
+conv net, ResNet-50/101/152, Transformer-base, BERT-base, DeepFM and the
+book recommender."""

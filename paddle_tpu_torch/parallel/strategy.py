@@ -5,8 +5,9 @@ every field of the JAX package's, so configs written for it construct.
 
 The port acts on the loss-scaling fields (``loss_scale``,
 ``dynamic_loss_scale``, ``loss_scale_growth_interval``), on
-rematerialization (``remat``, ``remat_policy``) and on gradient
-accumulation over one device (``accum_steps``); ``Trainer`` raises
+rematerialization (``remat``, ``remat_policy``), on gradient
+accumulation over one device (``accum_steps``) and on the optimizer
+state's storage dtype (``opt_state_dtype``); ``Trainer`` raises
 :class:`NotYetPorted` for any other field set away from its default,
 naming the ROADMAP item that brings it (:func:`unported_fields`).
 """
@@ -58,14 +59,13 @@ class DistStrategy:
 
 # the fields the port acts on
 PORTED_FIELDS = ("loss_scale", "dynamic_loss_scale", "loss_scale_growth_interval",
-                 "remat", "remat_policy", "accum_steps")
+                 "remat", "remat_policy", "accum_steps", "opt_state_dtype")
 
 _MULTI_GPU = "slice 9, multi-GPU"
 # field -> the ROADMAP queue 1 item that brings it; item 20 (meshes,
 # sharding and the rest of this module) for any field not listed
 _LATER = {
     "accum_exchange": f"items 20-21 ({_MULTI_GPU}: the hoisted exchange needs a mesh)",
-    "opt_state_dtype": "item 16 (reduced-precision optimizer state)",
     "dump_hlo_path": "item 25 (the program's graph form)",
     "pp_microbatches": f"item 21 ({_MULTI_GPU})",
     "pp_interleave": f"item 21 ({_MULTI_GPU})",

@@ -317,10 +317,11 @@ def test_dist_strategy_has_every_field_of_paddle_tpu():
     got = {f.name: f.default for f in dataclasses.fields(DistStrategy)}
     assert got == want
     assert unported_fields(DistStrategy(**AMP, loss_scale_growth_interval=5)) == {}
+    assert unported_fields(DistStrategy(opt_state_dtype="bfloat16")) == {}
 
 
 @pytest.mark.parametrize("field, value, slice_", [
-    ("opt_state_dtype", "bfloat16", "item 16"), ("accum_exchange", "hoisted", "slice 9"),
+    ("dump_hlo_path", "/nonexistent", "item 25"), ("accum_exchange", "hoisted", "slice 9"),
     ("pp_microbatches", 2, "slice 9"), ("zero_sharding", True, "slice 9"),
     ("quantized_allreduce", "int8", "slice 9")])
 def test_strategy_fields_of_later_slices_raise(field, value, slice_):

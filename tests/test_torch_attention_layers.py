@@ -40,7 +40,7 @@ from paddle_tpu.ops import attention_scores as jscores
 import paddle_tpu_torch as tpt
 from paddle_tpu_torch import layers as tL
 from paddle_tpu_torch import nets as tnets
-from paddle_tpu_torch.core.errors import EnforceError, NotYetPorted
+from paddle_tpu_torch.core.errors import EnforceError
 from paddle_tpu_torch.framework import amp_guard as tamp
 from paddle_tpu_torch.framework import params_from_jax
 from paddle_tpu_torch.layers import attention as tA
@@ -307,11 +307,19 @@ def test_embedding_matches_jax(dtype, padding_idx):
 
 
 def test_embedding_sparse_and_distributed_are_not_ported():
-    ids = np.zeros((2, 3), np.int32)
+    """Ported since the DeepFM slice, as markers: ``is_distributed`` is
+    recorded in the table's ``ParamInfo``, and the lookup stays the dense
+    one (the parity with the JAX layer is in test_torch_deepfm.py)."""
+    ids = np.array([[0, 4, 2], [1, 1, 3]], np.int32)
+    plain = tpt.build(lambda ids: {"e": tL.embedding(ids, size=[5, 4])})
+    params, _ = plain.init(0, place=CPU, ids=ids)
+    want = plain.apply(params, {}, ids=ids, place=CPU)[0]["e"]
     for kw in ({"is_sparse": True}, {"is_distributed": True}):
         prog = tpt.build(lambda ids: {"e": tL.embedding(ids, size=[5, 4], **kw)})
-        with pytest.raises(NotYetPorted, match="item 19"):
-            prog.init(0, place=CPU, ids=ids)
+        prog.init(0, place=CPU, ids=ids)
+        info = prog.param_info["embedding_0/w"]
+        assert info.is_distributed == kw.get("is_distributed", False)
+        assert torch.equal(prog.apply(params, {}, ids=ids, place=CPU)[0]["e"], want)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -30,7 +30,6 @@ from paddle_tpu_torch import framework as tF
 from paddle_tpu_torch import lr_scheduler as tlr
 from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch import regularizer as treg
-from paddle_tpu_torch.core.errors import NotYetPorted
 
 TOL = 1e-6
 
@@ -184,5 +183,9 @@ def test_a_schedule_drives_the_optimizer_without_reading_the_step_back():
 
 
 def test_lars_is_not_ported():
-    with pytest.raises(NotYetPorted):
-        tlr.append_LARS([], 0.1)
+    """Ported since the DeepFM slice: ``append_LARS`` gives one rate per
+    pair (held against the JAX package in test_torch_optimizers_rest.py)."""
+    assert tlr.append_LARS([], 0.1) == []
+    p, g = torch.full((4,), 2.0), torch.full((4,), 0.5)
+    (rate,) = tlr.append_LARS([(p, g)], 0.1, weight_decay=0.0, epsilon=0.0)
+    np.testing.assert_allclose(float(rate), 0.1 * 4.0 / 1.0, rtol=1e-6)

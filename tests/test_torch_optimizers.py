@@ -15,7 +15,7 @@ import torch
 
 from paddle_tpu import optimizer as jopt
 from paddle_tpu_torch import optimizer as topt
-from paddle_tpu_torch.core.errors import EnforceError, NotYetPorted
+from paddle_tpu_torch.core.errors import EnforceError
 
 RTOL, ATOL = 1e-6, 1e-7
 
@@ -108,7 +108,13 @@ def test_regularization_and_clipping_are_not_ported(kw):
 
 
 def test_reduced_state_dtype_is_not_ported():
+    """Ported since the DeepFM slice: a reduced state dtype stores the
+    float accumulators in it (the parity with the JAX package's bf16
+    values is in test_torch_optimizers_rest.py); None restores f32."""
     o = topt.Adam(0.01)
-    assert o.set_state_dtype(None) is o
-    with pytest.raises(NotYetPorted):
-        o.set_state_dtype("bfloat16")
+    assert o.set_state_dtype(None) is o and o.state_dtype is None
+    params, _ = _params_and_grads(2)
+    state = o.set_state_dtype("bfloat16").init(_to_torch(params))
+    assert {v.dtype for a in state["accums"].values() for v in a.values()} == {torch.bfloat16}
+    state = o.set_state_dtype(None).init(_to_torch(params))
+    assert {v.dtype for a in state["accums"].values() for v in a.values()} == {torch.float32}

@@ -78,7 +78,8 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.ops.attention_scores", "paddle_tpu_torch.nets",
             "paddle_tpu_torch._captured_step", "paddle_tpu_torch.amp",
             "paddle_tpu_torch._captured_decode", "paddle_tpu_torch.layers.beam_search",
-            "paddle_tpu_torch.quantize"]
+            "paddle_tpu_torch.quantize", "paddle_tpu_torch.sparse",
+            "paddle_tpu_torch.models.deepfm", "paddle_tpu_torch.models.recommender"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -114,7 +115,7 @@ def _entry_points(tmp_path):
     tio.save_inference_model(mlp_art, build(mnist.mlp), mlp_params, {}, sample)
     reader = data.batch(data.datasets.mnist("train", synthetic_size=8), 4)
 
-    from paddle_tpu_torch.models import bert, transformer
+    from paddle_tpu_torch.models import bert, deepfm, recommender, transformer
     tcfg = transformer.base_config(src_vocab=17, trg_vocab=17, max_len=8, d_model=16,
                                    d_inner=32, num_heads=2, num_encoder_layers=1,
                                    num_decoder_layers=1)
@@ -160,6 +161,11 @@ def _entry_points(tmp_path):
         "transformer.make_decoder": lambda: build(transformer.make_decoder(tcfg, 3)).init(
             0, src_ids=src),
         "load_inference_model_decoder": lambda: tio.load_inference_model(dec_art),
+        "Trainer_deepfm": lambda: Trainer(build(deepfm.make_model(num_sparse_fields=2,
+                                                                  sparse_feature_dim=5)),
+                                          optimizer.Adagrad(0.01)),
+        "Trainer_recommender": lambda: Trainer(build(recommender.make_model()),
+                                               optimizer.Adam(1e-2)),
     }
 
 
@@ -172,7 +178,8 @@ def _entry_points(tmp_path):
                                    "load_inference_model_program", "Inferencer",
                                    "Trainer_transformer", "Trainer_bert",
                                    "transformer.make_decoder",
-                                   "load_inference_model_decoder"])
+                                   "load_inference_model_decoder", "Trainer_deepfm",
+                                   "Trainer_recommender"])
 def test_entry_points_refuse_to_run_without_a_card(tmp_path, entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the entry points run on it")
