@@ -113,10 +113,15 @@ Phases, each reported on its own lines; any failure exits non-zero:
    memory, a profiled step's device time, busy share, operations and top
    ops), then ``trainer.eval`` (12 flash forwards) against the same eval
    through the plain versions on the card; (c) its params served by
-   ``make_decoder`` through ``save_inference_model`` and
-   ``load_inference_model``: 8 source rows of 256 decoded greedily (6
-   flash forwards a call), the ids against the program run directly and
-   against the CPU's in f32; (d) bf16 BERT-base at ``bench_bert``'s config,
+   ``make_decoder`` (greedy, and beam 4 at length penalty 0.6) through
+   ``save_inference_model`` and ``load_inference_model``: 8 source rows
+   of 256, each call the encoder (6 flash forwards) then 64 replays of
+   one captured CUDA graph of a decoder step; the ids (and scores) bit
+   for bit against the eager loop on the card, ms a call eager against
+   captured, a profiled captured call's device time and busy share, the
+   eager loop's log-probabilities against the CPU's in f32, a second
+   params set through the same program, and a captured call under
+   ``set_sync_debug_mode("error")``; (d) bf16 BERT-base at ``bench_bert``'s config,
    read as (b); (e) ``bench_transformer_long`` (b=4, s=4096, dropout 0): 12
    launches of each kernel a step on the tensor-core route, the first
    loss against the plain versions; (f) dropout on the card: the keep
@@ -210,7 +215,18 @@ Phases, each reported on its own lines; any failure exits non-zero:
    "bfloat16")`` on phase 8's MNIST MLP, card against CPU; Lamb and
    LarsMomentum captured against eager; ``sparse.apply_adagrad`` and
    ``apply_adam_lazy`` on (c)'s factor table with one batch's 53,248 ids,
-   card against CPU, two card runs bit-equal.
+   card against CPU, two card runs bit-equal;
+16. the image zoo — (a) VGG-16, AlexNet, GoogLeNet and SE-ResNeXt-50 in
+   f32 NHWC at small sizes with dropout off, card against CPU (eval
+   logits, train-mode loss, logits and grads); then the path a user
+   drives, with the launch counts zeroed just before it and read just
+   after (none runs a hand kernel): (b) each net at bench.py's config
+   (``_bench_convnet``: 224x224, NHWC, bf16, Momentum(0.01, 0.9), 1000
+   classes; batch 64, 256, 64 and 32), eager steps and the same steps
+   through ``run_steps`` (K=4) bit for bit, ms a step eager against
+   captured, images/s, TFLOP/s by ``core/flops.py``, peak memory, the busy
+   share and top op families of profiled steps, and for SE-ResNeXt-50 the
+   share of its grouped 3x3 convs.
 
 The last lines are a JSON ``kernels`` record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -308,7 +324,7 @@ SERVE_BUCKETS, SERVE_REQUESTS = (1, 8, 128), 64
 # phase 10: ResNet-50 as bench.py bench_resnet50 trains it (depth 50, 1000
 # classes, 224x224, batch 64, NHWC, bf16 compute, Momentum(0.1, 0.9), 4 random
 # feeds from seed 0; 3 warm-up and 10 timed steps), 3 forward passes' FLOPs a
-# training image (:func:`_resnet_fwd_flops`, the JAX package's core/flops.py).
+# training image (the port's core/flops.py ``resnet_fwd_flops``).
 # (a) f32 parity card against CPU at 64x64 images, batch 16, 3 steps of
 # Momentum(1e-4, 0.9). ResNet-50 at init on random data is ill-conditioned
 # (backprop through 53 batch norms amplifies rounding; measured on the CPU by
@@ -378,6 +394,7 @@ BERT_BASE = dict(max_len=512)
 BERT_BATCH, BERT_SEQ, BERT_MASKED, BERT_LR, BERT_WD = 32, 128, 20, 1e-4, 0.01
 BERT_PARITY_BATCH, BERT_PARITY_SEQ, BERT_PARITY_STEPS = 4, 128, 2
 SEQ_SERVE_ROWS, SEQ_SERVE_SRC, SEQ_SERVE_MAX_LEN, SEQ_SERVE_CALLS = 8, 256, 64, 3
+SEQ_SERVE_BEAM, SEQ_SERVE_ALPHA = 4, 0.6
 LONG_BATCH, LONG_SEQ, LONG_WARMUP, LONG_STEPS = 4, 4096, 2, 5
 DROPOUT_N, DROPOUT_P, SEQ_REMAT_TOL = 10 ** 7, 0.1, 1e-6
 SEQ_TOP_OPS = 8
@@ -525,6 +542,26 @@ DEEPFM_FAMILIES = (
     # the step's write of the new values into the state (foreach copies)
     ("copies and fills", ("copy", "Memcpy", "Memset", "fill", "Fill", "multi_tensor_apply")),
     ("elementwise", ("elementwise",)))
+
+# phase 16: the image zoo as bench.py trains it (_bench_convnet, bench.py:344-384:
+# NHWC, bf16 compute, Momentum(0.01, 0.9), 1000 classes, 224x224, 4 feeds of f32
+# randn images and int64 labels from RandomState(0)): bench_vgg16 (:335, batch
+# 64), bench_alexnet (:387, 256), bench_googlenet (:397, 64) and
+# bench_se_resnext (:407, 32); nothing cut. Each eager, then captured
+# (run_steps, K=ZOO_K) from the same params, bit for bit; ZOO_DISPATCHES
+# dispatches a timed turn. (a) f32 parity, card against CPU, dropout off, at
+# the CPU tests' sizes but VGG-16's batch: (image size, batch, grads' relative
+# L2 tolerance). The batch-normed nets' f32 grads at init are ill-conditioned,
+# as tests/test_torch_convnets.py measures against float64; VGG-16's fc batch
+# norm over a batch of 2 normalises two values a feature (a sign), and card and
+# CPU part there by 7.3e-4 in the logits and 1.6e-2 in the grads (an H100),
+# so the card holds it at batch 8
+ZOO = {"vgg16": 64, "alexnet": 256, "googlenet": 64, "se_resnext50": 32}
+ZOO_IMAGE, ZOO_K, ZOO_DISPATCHES, ZOO_LR, ZOO_MOMENTUM = 224, 4, 2, 0.01, 0.9
+ZOO_TOP_OPS = 6
+ZOO_PARITY = {"vgg16": (32, 8, 1e-2), "alexnet": (64, 2, 1e-4),
+              "googlenet": (64, 2, 1e-4), "se_resnext50": (64, 4, 5e-2)}
+ZOO_PARITY_CLASSES, ZOO_OUT_TOL = 5, 1e-4
 
 # readings a later phase compares with: {path: {metric: value}}
 READINGS = {}
@@ -2020,26 +2057,6 @@ def mnist_serving(dev, seed, card_name, tmp):
 # -- phase 10: ResNet-50 and mixed precision ----------------------------------
 
 
-def _resnet_fwd_flops(image_size):
-    """Forward FLOPs of one ResNet-50 image (2 a multiply-add; the JAX
-    package's core/flops.py resnet_fwd_flops, 8.18 G at 224)."""
-    def conv(cin, cout, k, hw):
-        return 2.0 * k * k * cin * cout * hw * hw
-    s = image_size
-    f = conv(3, 64, 7, s // 2)
-    s //= 4
-    cin = 64
-    for stage, n in enumerate((3, 4, 6, 3)):
-        width = 64 * 2 ** stage
-        for b in range(n):
-            so = s // (1 if stage == 0 or b else 2)
-            f += conv(cin, width, 1, s) + conv(width, width, 3, so) + conv(width, 4 * width, 1, so)
-            if b == 0:
-                f += conv(cin, 4 * width, 1, so)
-            cin, s = 4 * width, so
-    return f + 2.0 * cin * RESNET["class_num"]
-
-
 def _resnet_feeds(rng, n, batch, size, fmt):
     """bench_resnet50's feeds (bench.py:368-374): f32 randn images and
     int64 labels in [0, 1000), image then label from one rng per feed."""
@@ -2266,6 +2283,7 @@ def resnet_timed(dev, seed, card_name):
     card), then 10 on feeds already on the card, and one profiled step."""
     import numpy as np
     import torch
+    from paddle_tpu_torch.core import flops
 
     feeds = _resnet_feeds(np.random.RandomState(0), RESNET_FEEDS, RESNET_BATCH,
                           RESNET["image_size"], "NHWC")
@@ -2293,7 +2311,8 @@ def resnet_timed(dev, seed, card_name):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [float(x) for x in losses]
     ms, ms_staged = wall / RESNET_STEPS * 1e3, wall_staged / RESNET_STEPS * 1e3
-    tflop = 3 * _resnet_fwd_flops(RESNET["image_size"]) * RESNET_BATCH / 1e12
+    tflop = flops.convnet_train_flops(flops.resnet_fwd_flops(
+        RESNET["depth"], RESNET["image_size"], RESNET["class_num"]), RESNET_BATCH) / 1e12
     say(f"resnet bf16 NHWC ({card_name}): depth {RESNET['depth']}, {RESNET['image_size']}x"
         f"{RESNET['image_size']}, b={RESNET_BATCH}, Momentum({RESNET_LR}, {RESNET_MOMENTUM}), "
         f"{n_params} params, startup {startup_s:.2f} s; {RESNET_WARMUP} warm-up + "
@@ -2865,16 +2884,24 @@ def _seq2seq_breakdown(model, trainer, feed, card_name):
 
 def transformer_served(dev, trainer, cfg, card_name, tmp):
     """(c) The (b) trainer's params served: ``save_inference_model`` of
-    ``make_decoder(cfg, max_len=64)``, ``load_inference_model`` on the card,
-    8 padded source rows of 256 decoded greedily SEQ_SERVE_CALLS times (6
-    flash forwards a call, the encoder's), with what the path hands the
-    kernel held against the plain version. The served ids must equal those
-    of the same program run on the card directly. That run's
-    log-probabilities are held against the plain CPU run's from the same
-    params in f32 at SERVE_LOGP_TOL, at every step whose inputs agree (up
-    to each row's first differing id, that step included), so a row's ids
-    may part from the CPU's only at a near-tie. Returns the launches during
-    the served calls."""
+    ``make_decoder(cfg, max_len=64)`` greedy and at beam SEQ_SERVE_BEAM
+    with length penalty SEQ_SERVE_ALPHA, ``load_inference_model`` on the
+    card (its warm-up captures each bucket's decoder step), 8 padded
+    source rows of 256 decoded SEQ_SERVE_CALLS times each way: 6 flash
+    forwards a call (the encoder's, under the key bias), what the path
+    hands the kernel held against the plain version, and each call's
+    ``max_len`` steps replays of one captured CUDA graph. Then, outside the
+    main path: the captured ids (and beam scores) bit-equal to the eager
+    loop's on the card; ms per served call eager against captured, in
+    turns; a profiled captured call's device time, busy share and device
+    operations; the cross attention's K/V projections' device time a
+    step; the eager loop's log-probabilities against the plain CPU run's
+    in f32 at SERVE_LOGP_TOL at every step whose inputs agree (so a row's
+    ids may part from the CPU's only at a near-tie); a second params set
+    (the trainer after two more steps) through the same program giving
+    its own eager ids; and one captured call under
+    ``torch.cuda.set_sync_debug_mode("error")``. Returns the launches
+    during the served calls."""
     import dataclasses
     import numpy as np
     import torch
@@ -2882,44 +2909,108 @@ def transformer_served(dev, trainer, cfg, card_name, tmp):
     from paddle_tpu_torch.models import transformer
     from paddle_tpu_torch.ops import flash_attention as fa
 
+    t_part = time.perf_counter()
     rng = np.random.RandomState(7)
     src = rng.randint(3, cfg.src_vocab, (SEQ_SERVE_ROWS, SEQ_SERVE_SRC)).astype(np.int32)
     for i in range(SEQ_SERVE_ROWS):  # ragged rows, padded with 0
         src[i, SEQ_SERVE_SRC - 16 * i:] = 0
-    prog = pt.build(transformer.make_decoder(cfg, max_len=SEQ_SERVE_MAX_LEN))
-    d = os.path.join(tmp, "transformer_decoder")
-    t0 = time.perf_counter()
-    pt.io.save_inference_model(d, prog, trainer.scope.params, {}, {"src_ids": src})
-    save_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    pred = pt.io.load_inference_model(d, device=dev)
-    load_s = time.perf_counter() - t0
+    feed = {"src_ids": src}
+    progs = {"greedy": pt.build(transformer.make_decoder(cfg, max_len=SEQ_SERVE_MAX_LEN)),
+             f"beam {SEQ_SERVE_BEAM}": pt.build(transformer.make_decoder(
+                 cfg, max_len=SEQ_SERVE_MAX_LEN, beam_size=SEQ_SERVE_BEAM,
+                 length_penalty_alpha=SEQ_SERVE_ALPHA))}
+    preds, io_s = {}, {}
+    for name, prog in progs.items():
+        d = os.path.join(tmp, f"transformer_decoder_{name.replace(' ', '')}")
+        t0 = time.perf_counter()
+        pt.io.save_inference_model(d, prog, trainer.scope.params, {}, feed)
+        t1 = time.perf_counter()
+        preds[name] = pt.io.load_inference_model(d, device=dev)
+        io_s[name] = (t1 - t0, time.perf_counter() - t1)
     torch.cuda.synchronize()
     _zero_launch_counts(fa)
     # ---- the main path, as a user drives it
+    served, wall = {}, {}
     with record_kernel_calls(fa) as calls:
-        t0 = time.perf_counter()
-        for _ in range(SEQ_SERVE_CALLS):
-            ids = pred.run({"src_ids": src})["ids"]
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        for name, pred in preds.items():
+            t0 = time.perf_counter()
+            for _ in range(SEQ_SERVE_CALLS):
+                served[name] = pred.run(feed)
+            torch.cuda.synchronize()
+            wall[name] = (time.perf_counter() - t0) / SEQ_SERVE_CALLS * 1e3
     launches = _launch_counts(fa)
     # ---- end of the main path
-    ms_call = wall / SEQ_SERVE_CALLS * 1e3
     check_recorded(fa, calls, "transformer served")
     del calls
+    check(launches == {"flash_fwd": cfg.num_encoder_layers * SEQ_SERVE_CALLS * len(preds),
+                       "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
+          f"transformer served: launches {launches}")
+    states = {n: p.program.program.fn._states for n, p in preds.items()}
+    for name, st in states.items():
+        dec = next(iter(st.values()))
+        check(len(st) == 1 and dec.captures == 1 and dec.replays == SEQ_SERVE_MAX_LEN * (
+            SEQ_SERVE_CALLS + 1), f"transformer served {name}: {len(st)} states, "
+            f"{dec.captures} captures, {dec.replays} replays (want 1 capture and "
+            f"{SEQ_SERVE_MAX_LEN} replays a call, the loader's warm-up among them)")
+    out_g = served["greedy"]["ids"]
+    check(tuple(out_g.shape) == (SEQ_SERVE_ROWS, SEQ_SERVE_MAX_LEN)
+          and int(out_g.min()) >= 0 and int(out_g.max()) < cfg.trg_vocab,
+          "transformer served: ids out of shape or range")
+    # the captured decode against the eager loop, bit for bit, and timed in turns
+    eager, lines = {}, []
+    for name, pred in preds.items():
+        with transformer._eager_decode():
+            eager[name] = pred.run(feed)
+        same = _outputs_equal(served[name], eager[name])
+        runs = {"eager": lambda: _eager_call(pred, feed), "captured": lambda: pred.run(feed)}
+        times = {n: [] for n in runs}
+        for turn in ("eager", "captured", "captured", "eager"):
+            times[turn].append(_host_ms(runs[turn], n=1))
+        wall_p, dev_us, n_ops, _ = _profile_dispatch(lambda: pred.run(feed))
+        ms = {n: sum(v) / len(v) for n, v in times.items()}
+        dec = next(iter(states[name].values()))
+        lines.append(
+            f"{name}: ids{' and scores' if 'scores' in eager[name] else ''} bit-equal to the "
+            f"eager loop {same}; ms a call eager {[round(t, 2) for t in times['eager']]}, "
+            f"captured {[round(t, 2) for t in times['captured']]} ({ms['eager'] / ms['captured']:.1f}"
+            f"x; {SEQ_SERVE_ROWS * SEQ_SERVE_MAX_LEN / ms['captured'] * 1e3:.1f} decoded "
+            f"tokens/s); a profiled captured call "
+            + (f"{dev_us / 1e3:.2f} device ms, busy {100 * dev_us / 1e3 / wall_p:.1f}% of "
+               f"{wall_p:.2f} ms, {n_ops} device operations ({n_ops / SEQ_SERVE_MAX_LEN:.0f} a "
+               f"step with the encoder's spread over them)" if dev_us else
+               "busy: not measured (the profiler saw no device time)")
+            + f"; cache {dec.cache_bytes()} bytes")
+        READINGS[f"transformer_served_{name}"] = {"eager_ms": ms["eager"],
+                                                  "captured_ms": ms["captured"],
+                                                  "device_ms": dev_us / 1e3, "ops": n_ops}
+        check(same, f"transformer served {name}: the captured decode differs from the eager "
+              "loop's on the card")
+    kv_ms = _cross_kv_ms(trainer, cfg, src, dev)
+    say(f"transformer served ({card_name}): make_decoder(max_len={SEQ_SERVE_MAX_LEN}) "
+        f"greedy and beam {SEQ_SERVE_BEAM} (alpha {SEQ_SERVE_ALPHA}) exported and loaded on "
+        f"{dev} in {[(round(a, 3), round(b, 3)) for a, b in io_s.values()]} s; "
+        f"{SEQ_SERVE_ROWS} rows of {SEQ_SERVE_SRC} source tokens (lengths "
+        f"{[int((r != 0).sum()) for r in src]}), {SEQ_SERVE_CALLS} calls each: "
+        f"{[round(w, 2) for w in wall.values()]} ms per call; launches {launches} (want "
+        f"{cfg.num_encoder_layers} forwards a call); " + "; ".join(lines)
+        + f"; the cross attention's K/V projections of the source, recomputed every step as "
+        f"the JAX scan does: {kv_ms:.4f} device ms a step (all {cfg.num_decoder_layers} "
+        "layers, greedy rows)")
+    # the eager loop's log-probabilities against the plain CPU run in f32
     params = {k: v.detach() for k, v in trainer.scope.params.items()}
-    with torch.no_grad(), record_greedy_logp(transformer) as logp_card:
+    prog = progs["greedy"]
+    with torch.no_grad(), transformer._eager_decode(), \
+            record_greedy_logp(transformer) as logp_card:
         direct = prog.apply(params, {}, src_ids=src, place=dev)[0]["ids"]
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     t0 = time.perf_counter()
-    with pt.amp_guard("float32"), torch.no_grad(), \
+    with pt.amp_guard("float32"), torch.no_grad(), transformer._eager_decode(), \
             record_greedy_logp(transformer) as logp_host:
         host = pt.build(transformer.make_decoder(cfg32, max_len=SEQ_SERVE_MAX_LEN)).apply(
             {k: v.float().cpu() for k, v in params.items()}, {}, src_ids=src,
             place="cpu")[0]["ids"]
     host_s = time.perf_counter() - t0
-    got, want = ids.cpu().numpy(), host.numpy()
+    got, want = out_g.cpu().numpy(), host.numpy()
     differ = got != want
     first = [int(np.argmax(row)) if row.any() else None for row in differ]
     # per row: the largest |logp card - logp cpu| over the steps whose
@@ -2932,35 +3023,70 @@ def transformer_served(dev, trainer, cfg, card_name, tmp):
                             for i in range(last + 1)))
         margin.append(None if t is None else
                       (logp_host[t][r, want[r, t]] - logp_host[t][r, got[r, t]]).item())
-    say(f"transformer served ({card_name}): make_decoder(max_len={SEQ_SERVE_MAX_LEN}) "
-        f"exported in {save_s:.3f} s, loaded on {dev} in {load_s:.3f} s; "
-        f"{SEQ_SERVE_ROWS} rows of {SEQ_SERVE_SRC} source tokens (lengths "
-        f"{[int((r != 0).sum()) for r in src]}), {SEQ_SERVE_CALLS} greedy calls: "
-        f"{ms_call:.2f} ms per call, {ms_call / (SEQ_SERVE_MAX_LEN + 1):.3f} ms a step "
-        f"averaged over the call's {SEQ_SERVE_MAX_LEN + 1} decoder steps (the step before "
-        f"the loop included, and the encoder's time spread over them), launches {launches} "
-        f"(want {cfg.num_encoder_layers} forwards a call); served ids equal the program "
-        f"run directly on the card: {bool(torch.equal(ids, direct))}; against the plain "
-        f"CPU run in f32 ({host_s:.1f} s): {int((~differ).all(axis=1).sum())} of "
+    # a second params set through the same program: its own ids, not the first's
+    src_dev = torch.from_numpy(src).to(dev)
+    prog.apply(params, {}, src_ids=src_dev, place=dev)
+    for f in _seq2seq_feeds(np.random.RandomState(11), 2, TR_BATCH, TR_SEQ):
+        trainer.step(f)
+    params2 = {k: v.detach().clone() for k, v in trainer.scope.params.items()}
+    second = prog.apply(params2, {}, src_ids=src_dev, place=dev)[0]["ids"]
+    with transformer._eager_decode():
+        second_eager = prog.apply(params2, {}, src_ids=src_dev, place=dev)[0]["ids"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        synced = None
+        prog.apply(params2, {}, src_ids=src_dev, place=dev)
+    except RuntimeError as e:
+        synced = str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    say(f"transformer served ({card_name}): served greedy ids equal the eager loop run "
+        f"directly on the card: {bool(torch.equal(out_g, direct))}; against the plain CPU "
+        f"run in f32 ({host_s:.1f} s): {int((~differ).all(axis=1).sum())} of "
         f"{SEQ_SERVE_ROWS} rows equal, first differing step per row {first}, CPU margin "
         f"there {[None if m is None else f'{m:.3g}' for m in margin]}; max|logp card - "
         f"cpu| per row over the steps whose inputs agree "
-        f"{[f'{e:.3g}' for e in logp_err]} (tol {SERVE_LOGP_TOL})")
-    check(tuple(ids.shape) == (SEQ_SERVE_ROWS, SEQ_SERVE_MAX_LEN)
-          and int(ids.min()) >= 0 and int(ids.max()) < cfg.trg_vocab,
-          "transformer served: ids out of shape or range")
-    check(torch.equal(ids, direct), "transformer served: the artifact's ids differ from "
-          "the program's on the card")
+        f"{[f'{e:.3g}' for e in logp_err]} (tol {SERVE_LOGP_TOL}); a second params set (two "
+        f"more steps) through the same program: its eager ids {bool(torch.equal(second, second_eager))}"
+        f", {int((second != direct).sum())} of {second.numel()} ids differ from the first "
+        f"set's; a captured call under set_sync_debug_mode('error'): "
+        f"{'no host sync' if synced is None else synced}; {time.perf_counter() - t_part:.1f} s")
+    check(torch.equal(out_g, direct), "transformer served: the artifact's ids differ from "
+          "the eager loop's on the card")
     check(len(logp_card) == len(logp_host) == SEQ_SERVE_MAX_LEN,
           "transformer served: a greedy step's log-probabilities were not recorded")
     check(max(logp_err) <= SERVE_LOGP_TOL, "transformer served: the log-probabilities "
           "differ from the plain CPU run's")
     check(all(m is None or m <= 2 * SERVE_LOGP_TOL for m in margin),
           "transformer served: the ids part from the plain CPU run's other than at a near-tie")
-    check(launches == {"flash_fwd": cfg.num_encoder_layers * SEQ_SERVE_CALLS,
-                       "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
-          f"transformer served: launches {launches}")
+    check(torch.equal(second, second_eager), "transformer served: a second params set gave "
+          "other ids than its eager loop (a stale weight read?)")
+    check(synced is None, f"transformer served: a captured call synchronised: {synced}")
     return launches
+
+
+def _eager_call(pred, feed):
+    from paddle_tpu_torch.models import transformer
+    with transformer._eager_decode():
+        return pred.run(feed)
+
+
+def _cross_kv_ms(trainer, cfg, src, dev):
+    """Device ms of the decoder's cross-attention K/V projections of the
+    encoder's output for one step (every layer, the greedy call's rows),
+    which the JAX scan body recomputes every step."""
+    import torch
+    from paddle_tpu_torch.framework import compute_dtype
+    params = trainer.scope.params
+    names = sorted(n for n in params if n.startswith("decoder/") and n.endswith("/kv_proj/w"))
+    check(len(names) == cfg.num_decoder_layers,
+          f"transformer served: cross-attention kv_proj weights {names}")
+    cd = compute_dtype()
+    enc = torch.randn(src.shape[0], src.shape[1], cfg.d_model, device=dev).to(cd)
+    ws = [params[n].detach().to(cd).reshape(cfg.d_model, -1) for n in names]
+    bs = [params[n[:-1] + "b"].detach().to(cd).reshape(-1) for n in names]
+    return device_ms(lambda: [torch.matmul(enc, w) + b for w, b in zip(ws, bs)], 20)
 
 
 def transformer_long(dev, seed, card_name):
@@ -4882,6 +5008,224 @@ def phase_deepfm(dev, seed, card_name):
     return launches
 
 
+# -- phase 16: the image zoo (VGG-16, AlexNet, GoogLeNet, SE-ResNeXt-50) ------
+
+
+def _zoo_model(name, class_num):
+    """The program function of a zoo net, from the port's models."""
+    from paddle_tpu_torch.models import convnets, vgg
+    return {"vgg16": lambda: vgg.make_model(depth=16, class_num=class_num),
+            "alexnet": lambda: convnets.make_alexnet(class_num=class_num),
+            "googlenet": lambda: convnets.make_googlenet(class_num=class_num),
+            "se_resnext50": lambda: convnets.make_se_resnext(depth=50, class_num=class_num),
+            }[name]()
+
+
+def _zoo_fwd_flops(name, size, class_num):
+    """Forward FLOPs of one image, by the port's core/flops.py."""
+    from paddle_tpu_torch.core import flops
+    return {"vgg16": lambda: flops.vgg_fwd_flops(16, size, class_num),
+            "alexnet": lambda: flops.alexnet_fwd_flops(size, class_num),
+            "googlenet": lambda: flops.googlenet_fwd_flops(size, class_num),
+            "se_resnext50": lambda: flops.se_resnext_fwd_flops(50, size, class_num),
+            }[name]()
+
+
+@contextlib.contextmanager
+def _dropout_off():
+    """The port's dropout replaced by the identity (the zoo's f32 parity
+    runs, as the CPU tests hold them)."""
+    from paddle_tpu_torch import layers
+    inner = layers.dropout
+    layers.dropout = lambda x, *a, **k: x
+    try:
+        yield
+    finally:
+        layers.dropout = inner
+
+
+def zoo_parity(dev, seed, card_name):
+    """(a) Each net in f32 NHWC at ZOO_PARITY's small size, dropout off,
+    card against CPU from the CPU's initial params: eval logits, then the
+    train-mode loss, logits and every grad."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import layout_mode
+
+    parts = []
+    for name, (size, batch, grad_tol) in ZOO_PARITY.items():
+        with layout_mode("NHWC"):
+            prog = pt.build(_zoo_model(name, ZOO_PARITY_CLASSES))
+        rng = np.random.RandomState(seed)
+        feed = {"image": rng.randn(batch, size, size, 3).astype(np.float32),
+                "label": (np.arange(batch) % ZOO_PARITY_CLASSES).reshape(batch, 1)
+                .astype(np.int64)}
+        params, state = prog.init(seed, place="cpu", **feed)
+        out = {}
+        for where in ("cpu", dev):
+            p = {k: v.detach().to(where).requires_grad_(True) for k, v in params.items()}
+            st = {k: v.to(where) for k, v in state.items()}
+            with torch.no_grad(), pt.amp_guard("float32"):
+                ev = prog.apply(p, st, place=where, **feed)[0]["logits"]
+            with _dropout_off(), pt.amp_guard("float32"):
+                tr, _ = prog.apply(p, st, training=True, place=where, **feed)
+            tr["loss"].backward()
+            out[where] = (ev.cpu(), tr["loss"].detach().cpu(), tr["logits"].detach().cpu(),
+                          {k: v.grad.cpu() for k, v in p.items()})
+        (ev_h, loss_h, lg_h, g_h), (ev_c, loss_c, lg_c, g_c) = out["cpu"], out[dev]
+        errs = (_rel_max(ev_c, ev_h), float((loss_c - loss_h).abs() / loss_h.abs()),
+                _rel_max(lg_c, lg_h),
+                float(torch.sqrt(sum(((g_c[k] - g_h[k]) ** 2).sum() for k in g_h)
+                                 / sum((g_h[k] ** 2).sum() for k in g_h))))
+        parts.append(f"{name} {size}x{size} b={batch}: eval logits {errs[0]:.3g}, loss "
+                     f"{errs[1]:.3g}, logits {errs[2]:.3g}, grads rel L2 {errs[3]:.3g} "
+                     f"(tol {grad_tol})")
+        check(errs[0] <= ZOO_OUT_TOL and errs[1] <= ZOO_OUT_TOL and errs[2] <= ZOO_OUT_TOL
+              and errs[3] <= grad_tol, f"zoo parity {name}: card against CPU {errs}")
+    say(f"zoo parity ({card_name}): f32 NHWC, dropout off, card against CPU from the same "
+        f"params (outputs tol {ZOO_OUT_TOL}): " + "; ".join(parts))
+
+
+def _grouped_conv_ms(batch, image_size):
+    """Device ms of SE-ResNeXt-50's grouped 3x3 convs, forward and both
+    grads, as one training step runs them (bf16, channels-last), each
+    block's at its own shape."""
+    import torch
+    import torch.nn.functional as F
+    s = image_size // 4  # the stem's stride 2 and the max pool's
+    total = 0.0
+    for stage, blocks in enumerate((3, 4, 6, 3)):
+        filters = 128 * 2 ** stage
+        for b in range(blocks):
+            stride = 2 if stage > 0 and b == 0 else 1
+            x = torch.randn(batch, filters, s, s, device="cuda", dtype=torch.bfloat16) \
+                .to(memory_format=torch.channels_last).requires_grad_(True)
+            w = torch.randn(filters, filters // 32, 3, 3, device="cuda", dtype=torch.bfloat16) \
+                .to(memory_format=torch.channels_last).requires_grad_(True)
+            out = F.conv2d(x, w, stride=stride, padding=1, groups=32)
+            g = torch.randn_like(out)
+            total += device_ms(lambda: torch.autograd.grad(
+                F.conv2d(x, w, stride=stride, padding=1, groups=32), (x, w), g), 5)
+            s //= stride
+    return total
+
+
+def zoo_path(dev, seed, card_name, name):
+    """(b) One net as bench.py trains it: eager steps, then the same steps
+    captured (``run_steps``, K=ZOO_K) from the same params, bit for bit
+    (losses, params, Momentum's velocities, batch-norm state); ms a step
+    eager against captured in turns, images/s, TFLOP/s by core/flops.py,
+    peak memory, the busy share of profiled eager steps and of a profiled
+    dispatch, and a profiled eager step's top op families."""
+    import gc
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core import flops
+    from paddle_tpu_torch.framework import layout_mode
+
+    t_path = time.perf_counter()
+    batch, size, k = ZOO[name], ZOO_IMAGE, ZOO_K
+    feeds = _resnet_feeds(np.random.RandomState(0), k, batch, size, "NHWC")
+    with layout_mode("NHWC"):
+        prog = pt.build(_zoo_model(name, RESNET["class_num"]))
+
+    def make(params):
+        return pt.Trainer(prog, pt.optimizer.Momentum(ZOO_LR, ZOO_MOMENTUM), loss_name="loss",
+                          fetch_list=["loss"], place=dev).startup(seed, feeds[0], params=params)
+
+    t0 = time.perf_counter()
+    eager = make(None)
+    startup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in eager.scope.params.values())
+    params0 = _params_of(eager)
+    staged = _on_card(feeds, dev)
+    losses_eager = torch.stack([eager.step(f)["loss"] for f in staged])
+    state_eager = _state_of(eager)
+    fused = make(params0)
+    stacked = fused._put_feed(pt.data.stack_batches(feeds))
+    outs = fused.run_steps(stacked)
+    differ = _states_differ(state_eager, _state_of(fused))
+    same = _bits_equal(losses_eager, outs["loss"]) and not differ
+    del state_eager
+    times, peaks = _eager_against_captured(eager, fused, staged, stacked, ZOO_DISPATCHES, k)
+    # k profiled eager steps and one profiled dispatch of k; the families and
+    # top ops are the dispatch's (the eager steps run the same kernels)
+    prof = {n: _profile_dispatch(fn) for n, fn in (
+        ("eager", lambda: [eager.step(f) for f in staged]),
+        ("captured", lambda: fused.run_steps(stacked)))}
+    busy_clause = "; profiled {} steps: ".format(k) + ", ".join(
+        f"{n} busy {100 * dev / 1e3 / wall:.1f}% ({dev / 1e3 / k:.2f} ms, {ops / k:.0f} "
+        f"operations a step)" if dev else f"{n} busy: not measured"
+        for n, (wall, dev, ops, _) in prof.items())
+    dev_ms = prof["captured"][1] / 1e3 / k
+    families = dict.fromkeys([f for f, _ in RESNET_FAMILIES] + ["other"], 0.0)
+    for key, (_, us) in prof["captured"][3].items():
+        families[next((f for f, keys in RESNET_FAMILIES if any(t in key for t in keys)),
+                      "other")] += us / 1e3 / k
+    rows = sorted(((us / k, calls // k, key) for key, (calls, us) in prof["captured"][3].items()),
+                  reverse=True)
+    grouped = ""
+    if name == "se_resnext50" and dev_ms:
+        g_ms = _grouped_conv_ms(batch, size)
+        grouped = (f"; its 16 grouped 3x3 convs (32 groups, forward and grads, timed alone at "
+                   f"the step's shapes) {g_ms:.3f} device ms, {100 * g_ms / dev_ms:.1f}% of a "
+                   "captured step's device time")
+    ms = {n: float(np.mean(v)) for n, v in times.items()}
+    tflop = flops.convnet_train_flops(_zoo_fwd_flops(name, size, RESNET["class_num"]),
+                                      batch) / 1e12
+    fam = (", ".join(f"{f} {100 * v / dev_ms:.1f}%" for f, v in
+                     sorted(families.items(), key=lambda kv: -kv[1]) if v)
+           if dev_ms else "not measured")
+    top = ", ".join(f"{key[:60]} x{calls} {us / 1e3:.3f} ms" for us, calls, key in rows[:ZOO_TOP_OPS])
+    say(f"zoo {name} ({card_name}): bf16 NHWC {size}x{size}, b={batch}, "
+        f"Momentum({ZOO_LR}, {ZOO_MOMENTUM}), {n_params} params, startup {startup_s:.2f} s; "
+        f"losses {[round(x, 5) for x in losses_eager.tolist()]}; run_steps(K={k}) against "
+        f"{k} step() calls from one state: losses and state bit-equal {same}"
+        f"{'' if same else f' (differing leaves {differ[:5]})'}; eager "
+        f"{[round(t, 3) for t in times['eager']]} ms a step (mean {ms['eager']:.3f}, "
+        f"{batch / ms['eager'] * 1e3:.1f} images/s, {tflop / ms['eager'] * 1e3:.1f} TFLOP/s), "
+        f"captured {[round(t, 3) for t in times['captured']]} (mean {ms['captured']:.3f}, "
+        f"{batch / ms['captured'] * 1e3:.1f} images/s, {tflop / ms['captured'] * 1e3:.1f} "
+        f"TFLOP/s, {ms['eager'] / ms['captured']:.2f}x) at {tflop:.3f} TFLOP a step; peak "
+        f"memory eager {peaks['eager']:.3f} GB, captured {peaks['captured']:.3f} GB"
+        f"{busy_clause}; a captured step's device time by family: {fam}; top ops a step: "
+        f"{top}{grouped}; {time.perf_counter() - t_path:.1f} s")
+    READINGS[f"zoo_{name}"] = {"eager_ms": ms["eager"], "captured_ms": ms["captured"],
+                               "tflop": tflop, "captured_device_ms": dev_ms}
+    check(bool(torch.isfinite(losses_eager).all()), f"zoo {name}: a loss is not finite")
+    check(same, f"zoo {name}: run_steps differs from step()")
+    del eager, fused, staged, stacked
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_zoo(dev, seed, card_name):
+    """Phase 16: (a) the zoo's f32 parity, card against CPU; then the path
+    a user drives, each net at bench.py's config eager and captured (b).
+    The path runs no hand kernel: the launch counts, zeroed just before
+    it, must read 0 after it; returns them."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    zoo_parity(dev, seed, card_name)
+    _zero_launch_counts(fa)
+    # ---- the main path, as a user drives it
+    with pt.amp_guard("bfloat16"):
+        for name in ZOO:
+            zoo_path(dev, seed, card_name, name)
+    launches = _launch_counts(fa)
+    # ---- end of the main path
+    torch.cuda.empty_cache()
+    say(f"phase 16 took {time.perf_counter() - t_phase:.1f} s; hand-kernel launches on the "
+        f"zoo paths {launches} (they run none)")
+    check(all(n == 0 for n in launches.values()), "zoo: a flash kernel launched")
+    return launches
+
+
 def _routes(fa, torch):
     """The route table's choices, as the kernels record reports them."""
     return {"bfloat16": fa.ROUTES[(torch.bfloat16, 64)],
@@ -4993,11 +5337,17 @@ def main(argv=None) -> int:
     # counts zeroed inside, around the path)
     deepfm = phase_deepfm(dev, args.seed, smi)
     done("phase 15")
+
+    # 16. the image zoo at bench.py's configs (launch counts zeroed inside,
+    # around the path)
+    zoo = phase_zoo(dev, args.seed, smi)
+    done("phase 16")
     by_path = {name: {"served": served[name], "training": trained[name],
                       "persistence": persisted[name], "resnet": resnet_launches[name],
                       **{path: n[name] for path, n in seq2seq.items()},
                       "captured": captured[name], "captured_decode": decoded[name],
-                      "remat_stacked_accum": slice7[name], "deepfm": deepfm[name]}
+                      "remat_stacked_accum": slice7[name], "deepfm": deepfm[name],
+                      "zoo": zoo[name]}
                for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 
     # the kernels record: each kernel's row at the training path's shape,

@@ -558,6 +558,18 @@ class _ProgramRunner:
         self.device = device
         self.compute_dtype = compute_dtype
 
+    @property
+    def max_signatures(self) -> int:
+        """The program function's bound on the call signatures it keeps
+        state for (``transformer.make_decoder``'s captured decodes); an
+        AttributeError when it keeps none, so a :class:`Predictor` leaves
+        it alone."""
+        return self.program.fn.max_signatures
+
+    @max_signatures.setter
+    def max_signatures(self, n: int) -> None:
+        self.program.fn.max_signatures = n
+
     def __call__(self, **feed):
         from .framework import amp_guard
 

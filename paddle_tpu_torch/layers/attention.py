@@ -81,13 +81,17 @@ def multi_head_attention(queries, keys=None, values=None, num_heads: int = 8,
       ``kv_proj``. Each sub-projection keeps its own Xavier fan. The heads
       are strided views of the one product, so they reach the flash
       kernel without a copy.
-    - ``cache`` ``{"k", "v": [b, h, T, hd], "index": int}``: incremental
+    - ``cache`` ``{"k", "v": [b, h, T, hd], "index"}``: incremental
       decoding. This step's K/V are written at ``index`` and the step
       attends to the cache positions ``<= index`` (not causally). The
       JAX package updates the cache functionally; here the writes go
       into the given tensors IN PLACE (the decode loop owns them; a copy
       a step would move the whole cache), and the returned cache holds
-      the same tensors with ``index`` advanced. Returns ``(out, cache)``.
+      the same tensors with ``index`` advanced. ``index`` is a Python
+      int, or a 0-dim integer tensor on the cache's device (the JAX
+      package's traced index) that is never read to the host, so a
+      captured step can hold it; the advanced index is then a tensor
+      too. Returns ``(out, cache)``.
     """
     helper = LayerHelper("mha", name=name)
     self_attn = keys is None
@@ -144,10 +148,17 @@ def multi_head_attention(queries, keys=None, values=None, num_heads: int = 8,
 
     new_cache = None
     if cache is not None:
-        idx = int(cache["index"])
+        idx = cache["index"]
         ck, cv = cache["k"], cache["v"]
-        ck[:, :, idx:idx + k.shape[2]] = k.to(ck.dtype)
-        cv[:, :, idx:idx + v.shape[2]] = v.to(cv.dtype)
+        if isinstance(idx, torch.Tensor):
+            # a device index: written by index, never read to the host
+            pos = idx.reshape(1).long() + torch.arange(k.shape[2], device=ck.device)
+            ck.index_copy_(2, pos, k.to(ck.dtype))
+            cv.index_copy_(2, pos, v.to(cv.dtype))
+        else:
+            idx = int(idx)
+            ck[:, :, idx:idx + k.shape[2]] = k.to(ck.dtype)
+            cv[:, :, idx:idx + v.shape[2]] = v.to(cv.dtype)
         k, v = ck, cv
         new_cache = {"k": ck, "v": cv, "index": idx + q.shape[2]}
         # mask out the cache positions beyond the current step

@@ -23,14 +23,17 @@ side's params stacked on a leading layer axis under
 run by ``apply_stacked``. There the decoder's cross-attention takes
 ``use_flash`` too (non-causal, under the source's padding bias), as in
 the JAX package. ``make_decoder`` serves the per-layer form only, as the
-JAX package's does. The decoder's loop runs eagerly (its capture as a
-CUDA graph is ROADMAP queue 1 item 17 (d)).
+JAX package's does. On the card its loop replays one captured CUDA
+graph of a decoder step ``max_len`` times, the cache index a device
+``int32``, as the JAX package compiles the loop as one ``scan``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Optional, Union
+import threading
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -38,7 +41,8 @@ from .. import initializer as init
 from .. import layers as L
 from ..core.dtypes import convert_dtype
 from ..core.errors import enforce
-from ..framework import LayerHelper, maybe_remat, name_scope, reuse_names
+from ..framework import (BuildContext, LayerHelper, _use_ctx, current_context, maybe_remat,
+                         name_scope, reuse_names)
 from ..layers import attention as A
 from ..layers import stacked as S
 from ..layers.beam_search import beam_search, greedy_search
@@ -219,29 +223,113 @@ def make_model(cfg: Union[TransformerConfig, dict]):
     return transformer
 
 
-def make_decoder(cfg: Union[TransformerConfig, dict], max_len: int,
-                 beam_size: int = 1, bos_id: int = 1, eos_id: int = 2,
-                 length_penalty_alpha: float = 0.0):
-    """The incremental decoding program ``decode_program(src_ids [b, s])
-    -> {"ids": [b, max_len] int32}`` (greedy) or ``{"ids": [b, beam,
-    max_len] int32, "scores": [b, beam] f32}`` (beam search, best first):
-    the encoder once, then one token a step through the decoder with its
-    self-attention K/V cached ([b·beam, h, max_len, hd] a layer, in
-    ``cfg.dtype``; beam search repeats the encoder's output and mask per
-    beam and reorders the caches by the surviving beams, their int index
-    passing through). Its params are ``make_model``'s, under the same
-    names, so a trained scope serves directly. It carries
-    ``factory_spec``. The stacked form has no incremental decoder, as in
-    the JAX package."""
-    cfg = _config(cfg)
-    enforce(not cfg.stacked,
-            "make_decoder (incremental decoding) supports the per-layer "
-            "param layout only; build it with cfg.stacked=False")
+_EAGER = threading.local()
 
-    def decode_program(src_ids):
+
+@contextlib.contextmanager
+def _eager_decode():
+    """Run the decode programs this thread calls as the plain loop (the
+    JAX program's form, over a state each step replaces) instead of the
+    captured replay: the reference the captured steps are held to. Not a
+    public switch."""
+    prev = getattr(_EAGER, "on", False)
+    _EAGER.on = True
+    try:
+        yield
+    finally:
+        _EAGER.on = prev
+
+
+def _decoder_step(tokens, caches, enc_out, src_mask, pe, cfg: TransformerConfig):
+    """One incremental decoder step (the JAX ``run_step``): ``tokens``
+    [rows] int32 embedded at the cache index (``caches[0]["index"]``, a
+    Python int or a 0-dim integer tensor on the device), the decoder
+    layers writing each layer's cache at the index in place, the final
+    norm and the vocab projection. Returns (log-probs [rows, vocab] f32,
+    the caches with the index advanced). With a tensor index nothing is
+    read back to the host."""
+    dtype = convert_dtype(cfg.dtype)
+    with reuse_names():
+        pos = caches[0]["index"]
+        with name_scope("trg"):
+            x = L.embedding(tokens, size=[cfg.trg_vocab, cfg.d_model], dtype=cfg.dtype)
+            x = x * _scalar_like(x, cfg.d_model ** 0.5)
+        if isinstance(pos, torch.Tensor):
+            pe_row = pe.index_select(0, pos.reshape(1).long())
+        else:
+            pe_row = pe[pos:pos + 1]
+        x = x[:, None, :] + pe_row[None]
+        new_caches = []
+        with name_scope("decoder"):
+            for li in range(cfg.num_decoder_layers):
+                x, c = decoder_layer(x, enc_out, cfg, None, src_mask, cache=caches[li])
+                new_caches.append(c)
+            x = L.layer_norm(x, begin_norm_axis=2)
+        logits = L.matmul(x[:, 0], _logits_weight(cfg, dtype))
+        return torch.log_softmax(logits.float(), dim=-1), new_caches
+
+
+class _Reads(dict):
+    """A params dict that records the names read from it, in order."""
+
+    def __init__(self, params):
+        super().__init__(params)
+        self.names: Dict[str, None] = {}
+
+    def __getitem__(self, name):
+        self.names[name] = None
+        return super().__getitem__(name)
+
+
+class _DecodeProgram:
+    """``make_decoder``'s program function (see there). In apply mode it
+    runs the encoder eagerly, then the decode from the static buffers of
+    a :class:`~paddle_tpu_torch._captured_decode.CapturedEncDecDecode`
+    for the call's signature (source shape, device, compute dtype): its
+    decoder step captured once as a CUDA graph and replayed ``max_len``
+    times on the card, called as a plain function on the CPU. At most
+    ``max_signatures`` of them are kept, the least recently called
+    dropped first with its graph (a ``Predictor`` raises the bound to its
+    bucket count). Every one reads one set of static copies of the params
+    the decoder step reads, copied from the call's params once a call, so
+    a call with another params dict never reads the last one's. Calls are
+    serialised (the buffers are shared). In init mode, in training mode
+    and under :func:`_eager_decode` it runs the plain loop."""
+
+    # call signatures whose static buffers and graph are kept (each holds
+    # its caches: 6.3 MB for Transformer-base bf16 at 8 rows and max_len
+    # 64, 25.2 MB at beam 4)
+    max_signatures = 8
+
+    def __init__(self, cfg: TransformerConfig, max_len: int, beam_size: int, bos_id: int,
+                 eos_id: int, length_penalty_alpha: float):
+        self.cfg = cfg
+        self.max_len, self.beam_size = int(max_len), int(beam_size)
+        self.bos_id, self.eos_id = int(bos_id), int(eos_id)
+        self.length_penalty_alpha = float(length_penalty_alpha)
+        self.__name__ = "decode_program"
+        self.factory_spec = {
+            "factory": f"{__name__}:make_decoder",
+            "kwargs": {"cfg": dataclasses.asdict(cfg), "max_len": max_len,
+                       "beam_size": beam_size, "bos_id": bos_id, "eos_id": eos_id,
+                       "length_penalty_alpha": length_penalty_alpha}}
+        self._states: Dict = {}  # signature -> CapturedEncDecDecode, oldest first
+        self._weights: Optional[Dict[str, torch.Tensor]] = None  # name -> static copy
+        self._lock = threading.Lock()
+
+    def __call__(self, src_ids):
+        ctx = current_context()
+        if (ctx is None or ctx.mode == "init" or ctx.training
+                or getattr(_EAGER, "on", False)):
+            return self._eager(src_ids)
+        return self._captured(src_ids, ctx)
+
+    def _eager(self, src_ids):
+        """The decode as a plain loop over a state each step replaces,
+        the JAX program's form."""
+        cfg, K, max_len = self.cfg, self.beam_size, self.max_len
         dtype = convert_dtype(cfg.dtype)
         b = src_ids.shape[0]
-        K = beam_size
         rows = b * K
         dev = src_ids.device
         enc_out, src_mask = encode(src_ids, cfg)
@@ -259,43 +347,109 @@ def make_decoder(cfg: Union[TransformerConfig, dict], max_len: int,
         pe = A.positional_encoding(max_len, cfg.d_model, dtype, device=dev)
 
         def run_step(tokens, caches):
-            with reuse_names():
-                pos = caches[0]["index"]
-                with name_scope("trg"):
-                    x = L.embedding(tokens, size=[cfg.trg_vocab, cfg.d_model],
-                                    dtype=cfg.dtype)
-                    x = x * _scalar_like(x, cfg.d_model ** 0.5)
-                x = x[:, None, :] + pe[pos:pos + 1][None]
-                new_caches = []
-                with name_scope("decoder"):
-                    for li in range(cfg.num_decoder_layers):
-                        x, c = decoder_layer(x, enc_out, cfg, None, src_mask,
-                                             cache=caches[li])
-                        new_caches.append(c)
-                    x = L.layer_norm(x, begin_norm_axis=2)
-                logits = L.matmul(x[:, 0], _logits_weight(cfg, dtype))
-                return torch.log_softmax(logits.float(), dim=-1), new_caches
+            return _decoder_step(tokens, caches, enc_out, src_mask, pe, cfg)
 
         # one step before the loop, as the JAX package runs it (in init mode
         # it creates the params); it writes position 0, which the loop's
         # first step writes again with the same values
-        run_step(torch.full((rows,), bos_id, dtype=torch.int32, device=dev), caches)
+        run_step(torch.full((rows,), self.bos_id, dtype=torch.int32, device=dev), caches)
         if K > 1:
-            seqs, scores = beam_search(run_step, caches, b, K, max_len, bos_id=bos_id,
-                                       eos_id=eos_id,
-                                       length_penalty_alpha=length_penalty_alpha,
+            seqs, scores = beam_search(run_step, caches, b, K, max_len, bos_id=self.bos_id,
+                                       eos_id=self.eos_id,
+                                       length_penalty_alpha=self.length_penalty_alpha,
                                        device=dev)
             return {"ids": seqs, "scores": scores}
-        seqs = greedy_search(run_step, caches, rows, max_len, bos_id=bos_id,
-                             eos_id=eos_id, device=dev)
+        seqs = greedy_search(run_step, caches, rows, max_len, bos_id=self.bos_id,
+                             eos_id=self.eos_id, device=dev)
         return {"ids": seqs}
 
-    decode_program.factory_spec = {
-        "factory": f"{__name__}:make_decoder",
-        "kwargs": {"cfg": dataclasses.asdict(cfg), "max_len": max_len,
-                   "beam_size": beam_size, "bos_id": bos_id, "eos_id": eos_id,
-                   "length_penalty_alpha": length_penalty_alpha}}
-    return decode_program
+    def _captured(self, src_ids, ctx):
+        with self._lock, torch.inference_mode():
+            enc_out, src_mask = encode(src_ids, self.cfg)
+            # the unique-name counters the decoder step resolves its params from
+            names = dict(ctx.namer.ids)
+            if not self._refresh(ctx.params):
+                self._states.clear()
+                self._weights = None
+            sig = (tuple(src_ids.shape), ctx.device, ctx.compute_dtype, enc_out.dtype)
+            state = self._states.pop(sig, None)
+            if state is None:
+                while len(self._states) >= self.max_signatures:
+                    del self._states[next(iter(self._states))]
+                state = self._new_state(src_ids, enc_out, ctx, names)
+            self._states[sig] = state  # the most recently called last
+            return state.run(enc_out, src_mask)
+
+    def _refresh(self, params) -> bool:
+        """Copy ``params`` into the static weights; False (nothing copied)
+        when there are none yet or ``params`` does not fit them."""
+        if self._weights is None:
+            return False
+        src = [params.get(n) for n in self._weights]
+        if any(p is None or p.shape != w.shape or p.dtype != w.dtype or p.device != w.device
+               for p, w in zip(src, self._weights.values())):
+            return False
+        torch._foreach_copy_(list(self._weights.values()), src)
+        return True
+
+    def _bind(self, params, ctx, names):
+        """The decoder step over a static state's buffers, reading
+        ``params`` in a context of its own (the call's device, compute
+        dtype and layout, its name counters at ``names``)."""
+        cfg = self.cfg
+        step_ctx = BuildContext("apply", params, {}, None, False, ctx.param_info, ctx.device,
+                                ctx.compute_dtype, ctx.layout)
+        step_ctx.namer.ids.update(names)
+        pe = A.positional_encoding(self.max_len, cfg.d_model, convert_dtype(cfg.dtype),
+                                   device=ctx.device)
+
+        def step(tokens, caches, index, enc_out, src_mask):
+            with _use_ctx(step_ctx):
+                state = [{"k": k, "v": v, "index": index} for k, v in caches]
+                return _decoder_step(tokens, state, enc_out, src_mask, pe, cfg)[0]
+
+        return step
+
+    def _new_state(self, src_ids, enc_out, ctx, names):
+        from .._captured_decode import CapturedEncDecDecode
+
+        cfg = self.cfg
+        state = CapturedEncDecDecode(
+            None, src_ids.shape[0], self.beam_size, self.max_len, src_ids.shape[1],
+            cfg.d_model, cfg.num_heads, cfg.num_decoder_layers, cfg.trg_vocab,
+            convert_dtype(cfg.dtype), enc_out.dtype, self.bos_id, self.eos_id,
+            self.length_penalty_alpha, ctx.device)
+        if self._weights is None:
+            # one plain step over the new buffers finds the params the step
+            # reads (every call writes all the state it reads)
+            reads = _Reads(ctx.params)
+            self._bind(reads, ctx, names)(state.tokens, state.caches, state.index,
+                                          state.enc_out, state.src_mask)
+            self._weights = {n: ctx.params[n].detach().clone() for n in reads.names}
+        state.step_fn = self._bind(self._weights, ctx, names)
+        return state
+
+
+def make_decoder(cfg: Union[TransformerConfig, dict], max_len: int,
+                 beam_size: int = 1, bos_id: int = 1, eos_id: int = 2,
+                 length_penalty_alpha: float = 0.0):
+    """The incremental decoding program ``decode_program(src_ids [b, s])
+    -> {"ids": [b, max_len] int32}`` (greedy) or ``{"ids": [b, beam,
+    max_len] int32, "scores": [b, beam] f32}`` (beam search, best first):
+    the encoder once, then ``max_len`` steps from ``bos_id``, one token a
+    step through the decoder with its self-attention K/V cached ([b·beam,
+    h, max_len, hd] a layer, in ``cfg.dtype``; beam search repeats the
+    encoder's output and mask per beam and reorders the caches by the
+    surviving beams). On the card the steps replay one captured CUDA
+    graph of a step, its cache index on the device (``_DecodeProgram``).
+    Its params are ``make_model``'s, under the same names, so a trained
+    scope serves directly. It carries ``factory_spec``. The stacked form
+    has no incremental decoder, as in the JAX package."""
+    cfg = _config(cfg)
+    enforce(not cfg.stacked,
+            "make_decoder (incremental decoding) supports the per-layer "
+            "param layout only; build it with cfg.stacked=False")
+    return _DecodeProgram(cfg, max_len, beam_size, bos_id, eos_id, length_penalty_alpha)
 
 
 __all__ = ["TransformerConfig", "base_config", "decode", "decode_hidden",

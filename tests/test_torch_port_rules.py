@@ -79,7 +79,9 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch._captured_step", "paddle_tpu_torch.amp",
             "paddle_tpu_torch._captured_decode", "paddle_tpu_torch.layers.beam_search",
             "paddle_tpu_torch.quantize", "paddle_tpu_torch.sparse",
-            "paddle_tpu_torch.models.deepfm", "paddle_tpu_torch.models.recommender"]
+            "paddle_tpu_torch.models.deepfm", "paddle_tpu_torch.models.recommender",
+            "paddle_tpu_torch.models.vgg", "paddle_tpu_torch.models.convnets",
+            "paddle_tpu_torch.models"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -115,7 +117,7 @@ def _entry_points(tmp_path):
     tio.save_inference_model(mlp_art, build(mnist.mlp), mlp_params, {}, sample)
     reader = data.batch(data.datasets.mnist("train", synthetic_size=8), 4)
 
-    from paddle_tpu_torch.models import bert, deepfm, recommender, transformer
+    from paddle_tpu_torch.models import bert, convnets, deepfm, recommender, transformer, vgg
     tcfg = transformer.base_config(src_vocab=17, trg_vocab=17, max_len=8, d_model=16,
                                    d_inner=32, num_heads=2, num_encoder_layers=1,
                                    num_decoder_layers=1)
@@ -166,6 +168,18 @@ def _entry_points(tmp_path):
                                           optimizer.Adagrad(0.01)),
         "Trainer_recommender": lambda: Trainer(build(recommender.make_model()),
                                                optimizer.Adam(1e-2)),
+        "transformer.make_decoder_apply": lambda: build(transformer.make_decoder(tcfg, 3)).apply(
+            dec_params, {}, src_ids=src),
+        "Trainer_vgg": lambda: Trainer(build(vgg.make_model(depth=16, class_num=3)),
+                                       optimizer.Momentum(0.01, 0.9)),
+        "Trainer_alexnet": lambda: Trainer(build(convnets.make_alexnet(class_num=3)),
+                                           optimizer.Momentum(0.01, 0.9)),
+        "Trainer_googlenet": lambda: Trainer(build(convnets.make_googlenet(class_num=3)),
+                                             optimizer.Momentum(0.01, 0.9)),
+        "Trainer_se_resnext": lambda: Trainer(build(convnets.make_se_resnext(class_num=3)),
+                                              optimizer.Momentum(0.01, 0.9)),
+        "convnets.Program.init": lambda: build(convnets.make_alexnet(class_num=3)).init(
+            0, image=np.zeros((1, 3, 64, 64), np.float32), label=np.zeros((1, 1), np.int64)),
     }
 
 
@@ -179,7 +193,9 @@ def _entry_points(tmp_path):
                                    "Trainer_transformer", "Trainer_bert",
                                    "transformer.make_decoder",
                                    "load_inference_model_decoder", "Trainer_deepfm",
-                                   "Trainer_recommender"])
+                                   "Trainer_recommender", "transformer.make_decoder_apply",
+                                   "Trainer_vgg", "Trainer_alexnet", "Trainer_googlenet",
+                                   "Trainer_se_resnext", "convnets.Program.init"])
 def test_entry_points_refuse_to_run_without_a_card(tmp_path, entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the entry points run on it")
