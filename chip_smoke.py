@@ -227,6 +227,22 @@ Phases, each reported on its own lines; any failure exits non-zero:
    captured, images/s, TFLOP/s by ``core/flops.py``, peak memory, the busy
    share and top op families of profiled steps, and for SE-ResNeXt-50 the
    share of its grouped 3x3 convs.
+17. the recurrent family (f32, TF32 off), with the launch counts zeroed
+   just before the phase and read just after it (none runs a hand kernel):
+   (a) card against CPU at small widths with ragged lengths:
+   ``dynamic_lstm``, ``dynamic_gru`` and ``dynamic_lstmp`` (forward and
+   reverse; outputs, last states, grads), one Adam step of lstm, seq2seq,
+   srl and word2vec (loss, grads), seq2seq's beam-4 decode and the CRF's
+   Viterbi ids equal, and the sequence reductions over 200,000 rows, two
+   card runs bit-equal; (b) ``bench_lstm``, (c) ``bench_lstm_big`` and (d)
+   ``bench_seq2seq`` at bench.py's configs: eager steps and ``run_steps``
+   (K=4) bit for bit, ms a step eager against captured, samples/s or
+   tokens/s, TFLOP/s by ``core/flops.py``, peak memory, a profiled eager
+   step's device time, operations and op families; (e) bench_lstm's widths
+   with lengths drawn from 16-128, captured bit-equal to eager, each row's
+   last state its state at its end; (f) ``seq2seq.make_decoder(beam_size=4,
+   max_len=30)`` served from (d)'s params on 8 source rows, ms a call, then
+   ``beam_search_decode_lod``'s 2-level LoD.
 
 The last lines are a JSON ``kernels`` record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -5226,6 +5242,517 @@ def phase_zoo(dev, seed, card_name):
     return launches
 
 
+# -- phase 17: the recurrent family (dynamic LSTM/GRU, sequence ops, the CRF) --
+
+
+# bench.py's three recurrent rows, nothing cut: bench_lstm (:1775: vocab 10000,
+# emb = hidden = 512, 2 layers, b=64, s=128, full lengths, Adam(1e-3)),
+# bench_lstm_big (:1797: b=256, emb = hidden = 1280) and bench_seq2seq (:1804:
+# b=128, s=30, emb 512, hidden 512, vocab 30000, Adam(1e-3), fetch_list=["loss"]),
+# in f32 (the JAX default bench.py trains them in) with TF32 off; 4 feeds each
+# from RandomState(0) as bench.py makes them. Each trains eagerly, then through
+# run_steps (K=RNN_K) from the same params, bit for bit, then in turns.
+RNN_PATHS = {
+    "lstm": dict(model=dict(vocab_size=10000, emb_dim=512, hidden_dim=512, num_layers=2),
+                 batch=64, seq=128),
+    "lstm_big": dict(model=dict(vocab_size=10000, emb_dim=1280, hidden_dim=1280,
+                                num_layers=2), batch=256, seq=128),
+    "seq2seq": dict(model=dict(src_vocab=30000, trg_vocab=30000, emb_dim=512, hidden=512),
+                    batch=128, seq=30),
+}
+RNN_LR, RNN_K, RNN_DISPATCHES, RNN_TOP_OPS = 1e-3, 4, 1, 6
+# (a) f32 parity card against CPU at small widths, ragged lengths: each
+# layer's outputs, last states and grads within RNN_TOL of the largest element
+# (f32 GEMMs summed in another order through 12 steps of recurrence; 4.2e-7 on
+# an H100); a train step's loss within RNN_TOL relative and its grads within
+# RNN_GRAD_TOL relative L2 by param (a grad whose terms cancel, as the
+# attention's projections' in seq2seq, amplifies the rounding: 1.39e-5 on an
+# H100, PR 14 call 2); decoded ids equal exactly, beam scores within RNN_TOL;
+# the sequence reductions at SEQ_ROWS rows bit-equal over two card runs and
+# within RNN_TOL of the CPU's largest element, their grads within RNN_GRAD_TOL
+# relative L2 (the softmax's grad y·(g − Σy·g) cancels: its worst element lay
+# 4.11e-5 and 9.23e-5 of the largest from the CPU's in two calls, PR 14 calls
+# 2-3, the CPU's own multi-threaded sums moving it).
+RNN_SMALL = dict(b=4, t=12, d=16, h=32)
+RNN_TOL, RNN_GRAD_TOL, SEQ_ROWS, SEQ_SEGMENTS, SEQ_DIM = 1e-5, 1e-4, 200_000, 1000, 64
+# (e) bench_lstm's widths with lengths drawn from RNN_RAGGED
+RNN_RAGGED = (16, 128)
+# (f) the served decoder: make_decoder(beam 4, max_len 30) from (d)'s params
+S2S_SERVE_ROWS, S2S_BEAM, S2S_MAX_LEN, S2S_CALLS = 8, 4, 30, 3
+
+
+def _rnn_feeds(path, lengths=None):
+    """bench_lstm's or bench_seq2seq's feeds (bench.py:1786-1790, :1818-1826):
+    RNN_K batches from RandomState(0); ``lengths`` replaces bench_lstm's full
+    sequence_length."""
+    import numpy as np
+    spec = RNN_PATHS[path]
+    b, s = spec["batch"], spec["seq"]
+    rng = np.random.RandomState(0)
+    feeds = []
+    for i in range(RNN_K):
+        if path == "seq2seq":
+            v = spec["model"]["src_vocab"]
+            src = rng.randint(3, v, (b, s)).astype(np.int64)
+            trg = np.zeros_like(src)
+            trg[:, 0] = 1
+            trg[:, 1:] = src[:, :-1]
+            labels = np.concatenate([trg[:, 1:], np.full((b, 1), 2)], axis=1).astype(np.int64)
+            feeds.append({"src_ids": src, "trg_ids": trg, "labels": labels,
+                          "src_lengths": np.full((b,), s, np.int64)})
+        else:
+            v = spec["model"]["vocab_size"]
+            feeds.append({"word_ids": rng.randint(0, v, (b, s)).astype(np.int64),
+                          "label": rng.randint(0, 2, (b, 1)).astype(np.int64),
+                          "sequence_length": np.full((b,), s, np.int64) if lengths is None
+                          else lengths[i]})
+    return feeds
+
+
+def _rnn_trainer(path, dev, sample, seed=0, params=None):
+    """bench.py's recurrent trainer: ``build(lstm/seq2seq.make_model(...))``
+    and Adam(1e-3); seq2seq fetches the loss only, as bench_seq2seq."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import lstm, seq2seq
+    module = seq2seq if path == "seq2seq" else lstm
+    return pt.Trainer(pt.build(module.make_model(**RNN_PATHS[path]["model"])),
+                      pt.optimizer.Adam(RNN_LR), loss_name="loss",
+                      fetch_list=["loss"] if path == "seq2seq" else None,
+                      place=dev).startup(seed, sample, params=params)
+
+
+def _rnn_layer_parity(dev, seed):
+    """(a) dynamic_lstm, dynamic_gru and dynamic_lstmp, forward and reverse,
+    ragged lengths: outputs, last states and the grads of one weighted sum
+    of them, card against CPU from the same params. Returns the worst
+    errors by check."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.layers import rnn
+
+    b, t, d, h = (RNN_SMALL[k] for k in "btdh")
+    rng = np.random.RandomState(seed + 170)
+    x = rng.randn(b, t, d).astype(np.float32)
+    lens = np.array([t, 3, 7, 1][:b], np.int64)
+    layers = {
+        "dynamic_lstm": lambda x, l, rev: rnn.dynamic_lstm(x, h, l, is_reverse=rev,
+                                                           forget_bias=1.0),
+        "dynamic_gru": lambda x, l, rev: (rnn.dynamic_gru(x, h, l, is_reverse=rev),),
+        "dynamic_lstmp": lambda x, l, rev: rnn.dynamic_lstmp(x, h, 8, l, is_reverse=rev,
+                                                             proj_clip=0.5, cell_clip=2.0),
+    }
+    worst = {}
+    for name, layer in layers.items():
+        for rev in (False, True):
+            prog = pt.build(lambda x, l, layer=layer, rev=rev: layer(x, l, rev))
+            params, _ = prog.init(seed, torch.from_numpy(x), torch.from_numpy(lens),
+                                  place="cpu")
+            runs = []
+            for where in ("cpu", dev):
+                p = {k: v.detach().to(where).requires_grad_(True) for k, v in params.items()}
+                xt = torch.from_numpy(x).to(where).requires_grad_(True)
+                out, _ = prog.apply(p, {}, xt, torch.from_numpy(lens).to(where), place=where)
+                leaves = [out[0], *out[1]] if len(out) == 2 else list(out)
+                cots = [torch.from_numpy(np.random.RandomState(i).randn(*o.shape)
+                                         .astype(np.float32)).to(where)
+                        for i, o in enumerate(leaves)]
+                sum((o * c).sum() for o, c in zip(leaves, cots)).backward()
+                runs.append(([o.detach().cpu() for o in leaves],
+                             [xt.grad.cpu()] + [p[k].grad.cpu() for k in sorted(p)]))
+            (oc, gc), (od, gd) = runs
+            worst[f"{name}{' reverse' if rev else ''}"] = (
+                max(_rel_max(a, b) for a, b in zip(od, oc)),
+                max(_rel_max(a, b) for a, b in zip(gd, gc)))
+    return worst
+
+
+RNN_PARITY_MODELS = {
+    "lstm": dict(model=dict(vocab_size=100, emb_dim=16, hidden_dim=32, num_layers=2)),
+    "seq2seq": dict(model=dict(src_vocab=60, trg_vocab=60, emb_dim=16, hidden=32)),
+    "srl": dict(model=dict(vocab_size=80, num_labels=7, word_dim=8, hidden_dim=16, depth=3)),
+    "word2vec": dict(model=dict(dict_size=100, emb_dim=8, hidden=32)),
+}
+
+
+def _rnn_parity_feed(name, rng):
+    import numpy as np
+    b, t = RNN_SMALL["b"], RNN_SMALL["t"]
+    lens = np.array([t, 3, 7, 1][:b], np.int64)
+    if name == "lstm":
+        return {"word_ids": rng.randint(0, 100, (b, t)).astype(np.int64),
+                "label": rng.randint(0, 2, (b, 1)).astype(np.int64), "sequence_length": lens}
+    if name == "seq2seq":
+        src = rng.randint(3, 60, (b, t)).astype(np.int64)
+        trg = np.concatenate([np.ones((b, 1), np.int64), src[:, :-1]], axis=1)
+        labels = np.concatenate([trg[:, 1:], np.full((b, 1), 2)], axis=1).astype(np.int64)
+        return {"src_ids": src, "trg_ids": trg, "labels": labels, "src_lengths": lens}
+    if name == "srl":
+        return {"word_ids": rng.randint(0, 80, (b, t)).astype(np.int64),
+                "mark_ids": rng.randint(0, 2, (b, t)).astype(np.int64),
+                "label": rng.randint(0, 7, (b, t)).astype(np.int64), "lengths": lens}
+    return {"context_ids": rng.randint(0, 100, (b, 4)).astype(np.int64),
+            "label": rng.randint(0, 100, (b, 1)).astype(np.int64)}
+
+
+def _rnn_model_parity(dev, seed):
+    """(a) one Adam(1e-3) step of lstm, seq2seq, srl and word2vec, card
+    against CPU from the same params: the loss and every param's grad; and
+    seq2seq's beam-4 decode from the stepped params, ids equal. Returns
+    ({model: (loss rel, worst grad rel L2, card loss)}, seq2seq's decode (ids
+    equal, score error), srl's CRF decode equal)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import seq2seq, srl, word2vec, lstm
+
+    modules = {"lstm": lstm, "seq2seq": seq2seq, "srl": srl, "word2vec": word2vec}
+    errs, decode, decode_srl = {}, None, None
+    for name, spec in RNN_PARITY_MODELS.items():
+        feed = _rnn_parity_feed(name, np.random.RandomState(seed + 171))
+        prog_of = lambda: pt.build(modules[name].make_model(**spec["model"]))  # noqa: E731
+        card = pt.Trainer(prog_of(), pt.optimizer.Adam(RNN_LR), place=dev).startup(seed, feed)
+        host = pt.Trainer(prog_of(), pt.optimizer.Adam(RNN_LR), place="cpu").startup(
+            seed, feed, params=_host_tree(card.scope.params))
+        lc, lh = float(card.step(feed)["loss"]), float(host.step(feed)["loss"])
+        grads = {k: _rel_l2(p.grad.cpu(), host.scope.params[k].grad)
+                 for k, p in card.scope.params.items()}
+        errs[name] = (abs(lc - lh) / abs(lh), max(grads.values()), lc)
+        if name == "seq2seq":
+            dims = dict(spec["model"], max_len=10, beam_size=4)
+            src = {k: feed[k] for k in ("src_ids", "src_lengths")}
+            outs = []
+            for where, tr in ((dev, card), ("cpu", host)):
+                dec = pt.build(seq2seq.make_decoder(**dims))
+                with torch.no_grad():
+                    outs.append(dec.apply(tr.scope.params, {}, place=where, **src)[0])
+            decode = (torch.equal(outs[0]["ids"].cpu(), outs[1]["ids"]),
+                      _rel_max(outs[0]["scores"].cpu(), outs[1]["scores"]))
+        if name == "srl":  # the CRF's Viterbi path from the stepped params' emissions
+            decode_srl = torch.equal(card.eval(feed)["decoded"].cpu(),
+                                     host.eval(feed)["decoded"])
+    return errs, decode, decode_srl
+
+
+def _crf_and_sequence_on_card(dev, seed):
+    """(a) crf_decoding and crf_nll card against CPU; the sequence reductions
+    (sum, average, max pools, softmax and their grads) over SEQ_ROWS rows in
+    the padded layout's interleaved ids: two card runs bit-equal, within
+    RNN_TOL of the CPU. Returns readings."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.layers import crf, sequence
+
+    rng = np.random.RandomState(seed + 172)
+    em = torch.from_numpy(rng.randn(16, 20, 9).astype(np.float32))
+    tr = torch.from_numpy(rng.randn(11, 9).astype(np.float32))
+    label = torch.from_numpy(rng.randint(0, 9, (16, 20)))
+    lens = torch.from_numpy(rng.randint(1, 21, 16))
+    ids_cpu = crf.crf_decoding(em, lens, tr)
+    ids_card = crf.crf_decoding(em.to(dev), lens.to(dev), tr.to(dev))
+    nll_err = _rel_max(crf.crf_nll(em.to(dev), label.to(dev), lens.to(dev), tr.to(dev)).cpu(),
+                       crf.crf_nll(em, label, lens, tr))
+    out = {"crf_ids_equal": torch.equal(ids_card.cpu(), ids_cpu), "crf_nll": nll_err}
+
+    # the padded layout: SEQ_SEGMENTS rows of ragged lengths, tails given id b
+    t = SEQ_ROWS // SEQ_SEGMENTS
+    seq_lens = torch.from_numpy(rng.randint(0, t + 1, SEQ_SEGMENTS))
+    padded = torch.from_numpy(rng.randn(SEQ_SEGMENTS, t, SEQ_DIM).astype(np.float32))
+    flat, seg = sequence.sequence_unpad(padded, seq_lens)
+    cot = torch.from_numpy(rng.randn(SEQ_SEGMENTS, SEQ_DIM).astype(np.float32))
+
+    def run(where):
+        x = flat.to(where).requires_grad_(True)
+        res = {}
+        for pool in ("sum", "average", "max"):
+            y = sequence.sequence_pool(x, seg.to(where), SEQ_SEGMENTS, pool)
+            g, = torch.autograd.grad((y * cot.to(where)).sum(), x)
+            res[pool], res[pool + " grad"] = y.detach(), g
+        y = sequence.sequence_softmax(x[:, 0], seg.to(where), SEQ_SEGMENTS)
+        g, = torch.autograd.grad((y * x[:, 1].detach()).sum(), x)
+        res["softmax"], res["softmax grad"] = y.detach(), g
+        return res
+
+    def err(name, got, want):  # an empty segment's max is -inf in both, or it is an error
+        inf = torch.isinf(want)
+        if not torch.equal(torch.isinf(got), inf):
+            return float("inf")
+        got, want = torch.where(inf, 0.0, got), torch.where(inf, 0.0, want)
+        return _rel_l2(got, want) if name.endswith("grad") else _rel_max(got, want)
+
+    a, b, host = run(dev), run(dev), run("cpu")
+    out["seq_bits_equal"] = all(_bits_equal(a[k], b[k]) for k in a)
+    out["seq_err"] = {k: err(k, a[k].cpu(), host[k]) for k in a}
+    out["seq_rows"] = int(flat.shape[0])
+    return out
+
+
+def rnn_parity(dev, seed, card_name):
+    """(a) f32 parity, card against CPU, at small widths."""
+    t0 = time.perf_counter()
+    layer = _rnn_layer_parity(dev, seed)
+    models, decode, srl_decode = _rnn_model_parity(dev, seed)
+    other = _crf_and_sequence_on_card(dev, seed)
+    say(f"recurrent (a) f32 parity card - cpu ({card_name}), b={RNN_SMALL['b']}, "
+        f"t={RNN_SMALL['t']}, lengths [12, 3, 7, 1]: layers (outputs and last states, grads) "
+        "max error over the largest element "
+        + ", ".join(f"{k} {o:.3g}, {g:.3g}" for k, (o, g) in layer.items())
+        + f" (tol {RNN_TOL}); one Adam step (loss rel, worst grad rel L2): "
+        + ", ".join(f"{k} {lr:.3g}, {gr:.3g} (loss {loss:.5f})"
+                    for k, (lr, gr, loss) in models.items())
+        + f" (tol {RNN_TOL}, grads {RNN_GRAD_TOL}); seq2seq beam-4 decode ids equal "
+        f"{decode[0]}, scores {decode[1]:.3g}; srl's CRF decode equal {srl_decode}; "
+        f"crf_decoding ids equal {other['crf_ids_equal']}, crf_nll {other['crf_nll']:.3g}; "
+        "sequence ops over "
+        f"{other['seq_rows']} rows ({SEQ_SEGMENTS} segments x {SEQ_DIM}, the padded "
+        f"layout's interleaved ids): two card runs bit-equal {other['seq_bits_equal']}, card "
+        "- cpu " + ", ".join(f"{k} {v:.3g}" for k, v in other["seq_err"].items())
+        + f" (tol {RNN_TOL} of the largest element, grads {RNN_GRAD_TOL} relative L2); "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(all(o <= RNN_TOL and g <= RNN_TOL for o, g in layer.values()),
+          "recurrent (a): a layer differs between card and CPU")
+    check(all(lr <= RNN_TOL and gr <= RNN_GRAD_TOL for lr, gr, _ in models.values()),
+          "recurrent (a): a model's step differs between card and CPU")
+    check(decode[0] and decode[1] <= RNN_TOL, "recurrent (a): seq2seq beam decode differs")
+    check(srl_decode and other["crf_ids_equal"] and other["crf_nll"] <= RNN_TOL,
+          "recurrent (a): the CRF differs between card and CPU")
+    check(other["seq_bits_equal"], "recurrent (a): a sequence reduction changed its bits "
+          "between two card runs")
+    check(all(v <= (RNN_GRAD_TOL if k.endswith("grad") else RNN_TOL)
+              for k, v in other["seq_err"].items()),
+          "recurrent (a): a sequence reduction differs between card and CPU")
+
+
+def rnn_timed(dev, seed, card_name, path):
+    """(b)-(d) one bench row: RNN_K eager steps, then run_steps(K) from the
+    same params, bit for bit (losses, params, Adam moments); ms a step eager
+    against captured in turns, samples/s (tokens/s for seq2seq), TFLOP/s by
+    core/flops.py, peak memory, and a profiled eager step's device time,
+    operations and op families (a captured step runs the same kernels:
+    its ms over that device time says how near the device it runs; a
+    dispatch is not profiled, its ~46,000 kernels take the profiler tens
+    of seconds to sum). Returns the eager trainer."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core import flops
+
+    t_path = time.perf_counter()
+    spec = RNN_PATHS[path]
+    b, s, m = spec["batch"], spec["seq"], spec["model"]
+    feeds = _rnn_feeds(path)
+    t0 = time.perf_counter()
+    eager = _rnn_trainer(path, dev, feeds[0], seed)
+    startup_s = time.perf_counter() - t0
+    params0 = _params_of(eager)
+    staged = _on_card(feeds, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = torch.stack([eager.step(f)["loss"] for f in staged])
+    torch.cuda.synchronize()
+    first_peak = torch.cuda.max_memory_allocated() / 1e9
+    state_eager = _state_of(eager)
+    fused = _rnn_trainer(path, dev, feeds[0], params=params0)
+    stacked = fused._put_feed(pt.data.stack_batches(feeds))
+    t0 = time.perf_counter()
+    outs = fused.run_steps(stacked)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    differ = _states_differ(state_eager, _state_of(fused))
+    same = _bits_equal(losses, outs["loss"]) and not differ
+    del state_eager, params0
+    times, peaks = _eager_against_captured(eager, fused, staged, stacked, RNN_DISPATCHES,
+                                           RNN_K)
+    wall, dev_us, n_ops, kernels = _profile_dispatch(lambda: eager.step(staged[0]))
+    ms = {n: float(np.mean(v)) for n, v in times.items()}
+    if path == "seq2seq":
+        tflop = flops.seq2seq_train_flops(b, s, s, m["emb_dim"], m["hidden"],
+                                          m["trg_vocab"]) / 1e12
+        unit, per_step = "tokens/s", b * s
+    else:
+        tflop = flops.lstm_train_flops(b, s, m["hidden_dim"], m["num_layers"],
+                                       m["emb_dim"]) / 1e12
+        unit, per_step = "samples/s", b
+    dev_ms = dev_us / 1e3
+    fam = _families(kernels)
+    rows = sorted(((us, calls, key) for key, (calls, us) in kernels.items()), reverse=True)
+    n_params = sum(p.numel() for p in eager.scope.params.values())
+    profile = (f"a profiled eager step: {wall:.3f} ms, {dev_ms:.3f} ms of device time "
+               f"({100 * dev_ms / wall:.1f}% busy), {n_ops} device operations; the captured "
+               f"step's ms {ms['captured'] / dev_ms:.3f}x that device time; by "
+               "family " + ", ".join(f"{k} {v / 1e3:.3f} ms" for k, v in fam.items() if v)
+               + "; top ops " + ", ".join(f"{key[:60]} x{calls} {us / 1e3:.3f} ms"
+                                          for us, calls, key in rows[:RNN_TOP_OPS])
+               if dev_us else "profile: not measured (no device time seen)")
+    say(f"recurrent {path} ({card_name}): f32, b={b}, s={s}, {m}, Adam({RNN_LR}), "
+        f"{n_params} params, startup {startup_s:.2f} s; losses "
+        f"{[round(x, 5) for x in losses.tolist()]}; run_steps(K={RNN_K}) against {RNN_K} "
+        f"step() calls from one state (capture and dispatch {capture_s:.2f} s): losses and "
+        f"state bit-equal {same}{'' if same else f' (differing leaves {differ[:5]})'}; eager "
+        f"{[round(t, 3) for t in times['eager']]} ms a step (mean {ms['eager']:.3f}, "
+        f"{per_step / ms['eager'] * 1e3:.1f} {unit}, {tflop / ms['eager'] * 1e3:.2f} "
+        f"TFLOP/s), captured {[round(t, 3) for t in times['captured']]} (mean "
+        f"{ms['captured']:.3f}, {per_step / ms['captured'] * 1e3:.1f} {unit}, "
+        f"{tflop / ms['captured'] * 1e3:.2f} TFLOP/s, {ms['eager'] / ms['captured']:.2f}x) "
+        f"at {tflop:.4f} TFLOP a step by core/flops.py; peak memory first eager steps "
+        f"{first_peak:.3f} GB, eager {peaks['eager']:.3f} GB, captured "
+        f"{peaks['captured']:.3f} GB; {profile}; {time.perf_counter() - t_path:.1f} s")
+    READINGS[f"recurrent_{path}"] = {"eager_ms": ms["eager"], "captured_ms": ms["captured"],
+                                     "tflop": tflop, "device_ms": dev_ms,
+                                     "peak_gb": max(peaks.values())}
+    check(bool(torch.isfinite(losses).all()), f"recurrent {path}: a loss is not finite")
+    check(same, f"recurrent {path}: run_steps differs from step()")
+    del fused, stacked, staged
+    return eager
+
+
+def rnn_ragged(dev, seed, card_name):
+    """(e) bench_lstm's widths with lengths drawn from RNN_RAGGED: run_steps
+    bit-equal to step(); and one dynamic_lstm at those widths: each row's
+    h_last is its state at its own end (the last valid step; the first in
+    reverse), and its outputs past the end are that state (in reverse the
+    zero state the row starts from)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.layers import rnn
+
+    t0 = time.perf_counter()
+    spec = RNN_PATHS["lstm"]
+    b, s, h = spec["batch"], spec["seq"], spec["model"]["hidden_dim"]
+    rng = np.random.RandomState(seed + 173)
+    lengths = [rng.randint(RNN_RAGGED[0], RNN_RAGGED[1] + 1, b).astype(np.int64)
+               for _ in range(RNN_K)]
+    feeds = _rnn_feeds("lstm", lengths=lengths)
+    eager = _rnn_trainer("lstm", dev, feeds[0], seed)
+    fused = _rnn_trainer("lstm", dev, feeds[0], params=_params_of(eager))
+    losses = torch.stack([eager.step(f)["loss"] for f in feeds])
+    outs = fused.run_steps(fused._put_feed(pt.data.stack_batches(feeds)))
+    differ = _states_differ(_state_of(eager), _state_of(fused))
+    same = _bits_equal(losses, outs["loss"]) and not differ
+    del eager, fused
+
+    lens = torch.from_numpy(lengths[0]).to(dev)
+    x = torch.randn(b, s, h, generator=torch.Generator(dev).manual_seed(seed), device=dev)
+    ends = {}
+    for rev in (False, True):
+        prog = pt.build(lambda x, l, rev=rev: rnn.dynamic_lstm(x, h, l, is_reverse=rev))
+        params, _ = prog.init(seed, x, lens, place=dev)
+        with torch.no_grad():
+            out, (h_last, _) = prog.apply(params, {}, x, lens, place=dev)[0]
+        rows = torch.arange(b, device=dev)
+        at_end = torch.equal(h_last, out[rows, torch.zeros_like(lens) if rev else lens - 1])
+        past = torch.arange(s, device=dev)[None, :] >= lens[:, None]
+        expect = torch.zeros_like(out) if rev else h_last[:, None].expand_as(out)
+        ends["reverse" if rev else "forward"] = (at_end, torch.equal(out[past], expect[past]))
+    say(f"recurrent (e) ragged ({card_name}): bench_lstm's widths, lengths "
+        f"{int(min(x.min() for x in lengths))}-{int(max(x.max() for x in lengths))} "
+        f"(drawn from {RNN_RAGGED}); losses {[round(x, 5) for x in losses.tolist()]}; "
+        f"run_steps(K={RNN_K}) bit-equal to step() {same}"
+        f"{'' if same else f' (differing leaves {differ[:5]})'}; dynamic_lstm at h={h}: "
+        + ", ".join(f"{k} h_last at each row's end {a}, past the end held {p}"
+                    for k, (a, p) in ends.items())
+        + f"; {time.perf_counter() - t0:.1f} s")
+    check(same, "recurrent (e): run_steps differs from step() on ragged lengths")
+    check(all(a and p for a, p in ends.values()),
+          "recurrent (e): a row's last state is not its state at its end")
+
+
+def seq2seq_served(dev, seed, card_name, trainer):
+    """(f) make_decoder(beam_size=S2S_BEAM, max_len=S2S_MAX_LEN) applied with
+    (d)'s trained params to S2S_SERVE_ROWS source rows of ragged length,
+    eagerly; ms a call; then beam_search_decode_lod on its ids: the 2-level
+    LoD of the hypotheses, its tokens those up to each first EOS."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.layers import beam_search_decode_lod
+    from paddle_tpu_torch.models import seq2seq
+
+    spec = RNN_PATHS["seq2seq"]
+    m, s = spec["model"], spec["seq"]
+    rng = np.random.RandomState(seed + 174)
+    src = torch.from_numpy(rng.randint(3, m["src_vocab"], (S2S_SERVE_ROWS, s))).to(dev)
+    lens = torch.from_numpy(rng.randint(s // 3, s + 1, S2S_SERVE_ROWS)).to(dev)
+    dec = pt.build(seq2seq.make_decoder(**m, max_len=S2S_MAX_LEN, beam_size=S2S_BEAM))
+
+    def call():
+        with torch.no_grad():
+            return dec.apply(trainer.scope.params, {}, src_ids=src, src_lengths=lens,
+                             place=dev)[0]
+
+    first = call()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(S2S_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    same = torch.equal(first["ids"], out["ids"]) and _bits_equal(first["scores"],
+                                                                  out["scores"])
+    ids, scores = out["ids"], out["scores"]
+    is_eos = (ids == 2).int()
+    valid = (torch.cumsum(is_eos, -1) - is_eos) == 0
+    t0 = time.perf_counter()
+    lod, lod_scores = beam_search_decode_lod(ids, valid, scores)
+    lod_ms = (time.perf_counter() - t0) * 1e3
+    hyp = [int(n) for n in valid.sum(-1).reshape(-1).tolist()]
+    lod_ok = (lod.recursive_sequence_lengths() == [[S2S_BEAM] * S2S_SERVE_ROWS, hyp]
+              and torch.equal(lod.values, ids[valid].to(torch.int32))
+              and lod.values.device == ids.device
+              and lod_scores.recursive_sequence_lengths()[1] == [1] * len(hyp))
+    ordered = bool((scores[:, :-1] >= scores[:, 1:]).all())
+    in_range = bool(((ids >= 0) & (ids < m["trg_vocab"])).all())
+    med = sorted(times)[len(times) // 2]
+    say(f"recurrent (f) served seq2seq decoder ({card_name}): make_decoder(beam_size="
+        f"{S2S_BEAM}, max_len={S2S_MAX_LEN}) from (d)'s trained params, {S2S_SERVE_ROWS} "
+        f"source rows of lengths {lens.tolist()}, eager: {[round(t, 2) for t in times]} ms a "
+        f"call (median {med:.2f}, {S2S_SERVE_ROWS * S2S_BEAM * S2S_MAX_LEN / med * 1e3:.1f} "
+        f"beam tokens/s); two calls bit-equal {same}; scores best first {ordered}, finite "
+        f"{bool(torch.isfinite(scores).all())}; beam_search_decode_lod in {lod_ms:.2f} ms: "
+        f"LoD levels [{S2S_SERVE_ROWS} x {S2S_BEAM}], hypothesis lengths "
+        f"{hyp[:8]}..., tokens {int(lod.values.numel())}, matching the valid ids {lod_ok}")
+    READINGS["recurrent_served"] = {"ms_a_call": med}
+    check(same and ordered and in_range and bool(torch.isfinite(scores).all()),
+          "recurrent (f): the served decoder's output is wrong")
+    check(lod_ok, "recurrent (f): beam_search_decode_lod's LoD does not match the ids")
+
+
+def phase_recurrent(dev, seed, card_name):
+    """Phase 17: the recurrent family. The path runs no hand kernel: the
+    launch counts, zeroed just before the phase, must read 0 after it;
+    returns them."""
+    import gc
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    _zero_launch_counts(fa)
+    # ---- the phase, as a user drives it
+    rnn_parity(dev, seed, card_name)
+    s2s = None
+    for path in ("lstm", "lstm_big", "seq2seq"):
+        trainer = rnn_timed(dev, seed, card_name, path)
+        if path == "seq2seq":
+            s2s = trainer
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    rnn_ragged(dev, seed, card_name)
+    seq2seq_served(dev, seed, card_name, s2s)
+    launches = _launch_counts(fa)
+    # ---- end of the phase
+    del s2s
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 17 took {time.perf_counter() - t_phase:.1f} s; hand-kernel launches on the "
+        f"recurrent paths {launches} (they run none)")
+    check(all(n == 0 for n in launches.values()), "recurrent: a flash kernel launched")
+    return launches
+
+
 def _routes(fa, torch):
     """The route table's choices, as the kernels record reports them."""
     return {"bfloat16": fa.ROUTES[(torch.bfloat16, 64)],
@@ -5342,12 +5869,17 @@ def main(argv=None) -> int:
     # around the path)
     zoo = phase_zoo(dev, args.seed, smi)
     done("phase 16")
+
+    # 17. the recurrent family at bench.py's lstm, lstm_big and seq2seq rows
+    # (launch counts zeroed inside, around the phase)
+    recurrent = phase_recurrent(dev, args.seed, smi)
+    done("phase 17")
     by_path = {name: {"served": served[name], "training": trained[name],
                       "persistence": persisted[name], "resnet": resnet_launches[name],
                       **{path: n[name] for path, n in seq2seq.items()},
                       "captured": captured[name], "captured_decode": decoded[name],
                       "remat_stacked_accum": slice7[name], "deepfm": deepfm[name],
-                      "zoo": zoo[name]}
+                      "zoo": zoo[name], "recurrent": recurrent[name]}
                for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 
     # the kernels record: each kernel's row at the training path's shape,

@@ -75,6 +75,37 @@ def deepfm_train_flops(bs: int, num_fields: int, emb_size: int, num_dense: int,
     return mlp_train_flops(bs, dims) + 6.0 * num_dense * bs
 
 
+def lstm_train_flops(bs: int, seq: int, hidden: int, num_layers: int,
+                     emb_dim=None) -> float:
+    """Train-step FLOPs of the stacked LSTM (``models/lstm.py``;
+    flops.py:307): the input and recurrent GEMMs of the 4 gates a step a
+    layer, ×6; the gates' elementwise math and the head are left out."""
+    emb_dim = emb_dim or hidden
+    f = 0.0
+    for layer in range(num_layers):
+        xin = emb_dim if layer == 0 else hidden
+        f += 6.0 * (4 * hidden * (xin + hidden)) * bs * seq
+    return f
+
+
+def seq2seq_train_flops(bs: int, src_len: int, trg_len: int, emb_dim: int, hidden: int,
+                        trg_vocab: int) -> float:
+    """Train-step FLOPs of the GRU seq2seq with additive attention
+    (``models/seq2seq.py``; flops.py:318): the gate, attention and output
+    matmuls at the train factor 6; the embedding gathers, softmaxes and
+    elementwise attention math are left out (an undercount)."""
+    f = 2 * 6.0 * (3 * hidden * (emb_dim + hidden)) * bs * src_len  # bi-GRU encoder
+    f += 6.0 * (2 * hidden * hidden) * bs * src_len                 # attention's enc proj
+    # a decoder step: query proj, scores, context, the GRU's x and h GEMMs
+    f += 6.0 * (hidden * hidden) * bs * trg_len
+    f += 6.0 * (src_len * hidden) * bs * trg_len
+    f += 6.0 * (src_len * 2 * hidden) * bs * trg_len
+    f += 6.0 * (3 * hidden * (emb_dim + 2 * hidden)) * bs * trg_len
+    f += 6.0 * (3 * hidden * hidden) * bs * trg_len
+    f += 6.0 * (hidden * trg_vocab) * bs * trg_len                  # the output head
+    return f
+
+
 # -- convnets (flops.py:166-300) ----------------------------------------------
 
 

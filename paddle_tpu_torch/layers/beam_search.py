@@ -15,14 +15,16 @@ beam lanes start at ``NEG_INF`` and tie at step 0, so ties are real.
 ``torch.topk`` promises no order among ties on the card, so the beam
 selection takes the first ``beam`` entries of a stable descending sort.
 
-Not carried yet: ``beam_search_decode_lod``, which packages beams as the
-JAX package's ``LoDTensor`` (``layers/sequence.py``, ROADMAP queue 1,
-item 26).
+:func:`beam_search_decode_lod` packages decoded beams as the reference's
+2-level LoD output (a :class:`sequence.LoDTensor`).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from .sequence import LoDTensor
 
 NEG_INF = -1e9
 
@@ -179,6 +181,36 @@ def beam_search_decode(step_ids, step_parents, end_id: int = 2, name=None):
     return seqs, ended_before == 0
 
 
-__all__ = ["NEG_INF", "beam_rows", "beam_search", "beam_search_decode", "beam_select",
+def beam_search_decode_lod(seqs, valid, scores=None, place=None):
+    """Package decoded beams as the reference's 2-level LoD output
+    (beam_search_decode_op.cc): level 0 groups the hypotheses of each
+    source sentence, level 1 gives each hypothesis's token count.
+
+    ``seqs``/``valid``: [B, K, T] from :func:`beam_search_decode` (or from
+    :func:`beam_search`, ``valid`` marking tokens up to the first EOS).
+    Returns a ``LoDTensor`` of int32 token ids with ``recursive_seq_lens =
+    [[K]*B, per-hypothesis lengths]``; with ``scores`` [B, K], also a
+    2-level LoDTensor of the scores whose innermost lengths are 1 (the
+    sentenceScores output). Ragged bookkeeping on the host, as the
+    reference computes it on the CPU; the results go to ``place``, else to
+    ``seqs``' device when it is a tensor, else to the card."""
+    if place is None and isinstance(seqs, torch.Tensor):
+        place = seqs.device
+
+    def host(x):
+        return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    seqs_np, valid_np = host(seqs), host(valid).astype(bool)
+    b, k, _ = seqs_np.shape
+    tokens = [seqs_np[i, j][valid_np[i, j]] for i in range(b) for j in range(k)]
+    flat = np.concatenate(tokens) if tokens else np.zeros((0,), seqs_np.dtype)
+    ids = LoDTensor(flat.astype(np.int32), [[k] * b, [len(t) for t in tokens]], place)
+    if scores is None:
+        return ids
+    return ids, LoDTensor(host(scores).reshape(b * k), [[k] * b, [1] * (b * k)], place)
+
+
+__all__ = ["NEG_INF", "beam_rows", "beam_search", "beam_search_decode",
+           "beam_search_decode_lod", "beam_select",
            "finish_beams", "frozen_row", "greedy_search", "greedy_select",
            "initial_scores"]

@@ -81,7 +81,11 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.quantize", "paddle_tpu_torch.sparse",
             "paddle_tpu_torch.models.deepfm", "paddle_tpu_torch.models.recommender",
             "paddle_tpu_torch.models.vgg", "paddle_tpu_torch.models.convnets",
-            "paddle_tpu_torch.models"]
+            "paddle_tpu_torch.models", "paddle_tpu_torch.layers.rnn",
+            "paddle_tpu_torch.layers.sequence", "paddle_tpu_torch.layers.crf",
+            "paddle_tpu_torch.layers.control_flow", "paddle_tpu_torch.models.lstm",
+            "paddle_tpu_torch.models.seq2seq", "paddle_tpu_torch.models.srl",
+            "paddle_tpu_torch.models.word2vec", "paddle_tpu_torch.models.fit_a_line"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -117,7 +121,9 @@ def _entry_points(tmp_path):
     tio.save_inference_model(mlp_art, build(mnist.mlp), mlp_params, {}, sample)
     reader = data.batch(data.datasets.mnist("train", synthetic_size=8), 4)
 
-    from paddle_tpu_torch.models import bert, convnets, deepfm, recommender, transformer, vgg
+    from paddle_tpu_torch.models import (bert, convnets, deepfm, fit_a_line, lstm, recommender,
+                                         seq2seq, srl, transformer, vgg, word2vec)
+    from paddle_tpu_torch.layers import beam_search, sequence
     tcfg = transformer.base_config(src_vocab=17, trg_vocab=17, max_len=8, d_model=16,
                                    d_inner=32, num_heads=2, num_encoder_layers=1,
                                    num_decoder_layers=1)
@@ -180,6 +186,23 @@ def _entry_points(tmp_path):
                                               optimizer.Momentum(0.01, 0.9)),
         "convnets.Program.init": lambda: build(convnets.make_alexnet(class_num=3)).init(
             0, image=np.zeros((1, 3, 64, 64), np.float32), label=np.zeros((1, 1), np.int64)),
+        "Trainer_lstm": lambda: Trainer(build(lstm.make_model(vocab_size=9, emb_dim=4,
+                                                              hidden_dim=4)),
+                                        optimizer.Adam(1e-3)),
+        "Trainer_seq2seq": lambda: Trainer(build(seq2seq.make_model(9, 9, 4, 4)),
+                                           optimizer.Adam(1e-3)),
+        "Trainer_srl": lambda: Trainer(build(srl.make_model(9, 3, 4, 4, 2)),
+                                       optimizer.Adam(1e-3)),
+        "Trainer_word2vec": lambda: Trainer(build(word2vec.make_model(9, 4, 4)),
+                                            optimizer.Adam(1e-3)),
+        "Trainer_fit_a_line": lambda: Trainer(build(fit_a_line.make_model()),
+                                              optimizer.SGD(1e-3)),
+        "seq2seq.make_decoder": lambda: build(seq2seq.make_decoder(9, 9, 4, 4, 3)).init(
+            0, src_ids=src, src_lengths=np.full((2,), 4, np.int64)),
+        "create_lod_tensor": lambda: sequence.create_lod_tensor(
+            np.zeros((3, 1), np.float32), [[1, 2]]),
+        "beam_search_decode_lod": lambda: beam_search.beam_search_decode_lod(
+            np.ones((1, 2, 3), np.int32), np.ones((1, 2, 3), bool)),
     }
 
 
@@ -195,7 +218,11 @@ def _entry_points(tmp_path):
                                    "load_inference_model_decoder", "Trainer_deepfm",
                                    "Trainer_recommender", "transformer.make_decoder_apply",
                                    "Trainer_vgg", "Trainer_alexnet", "Trainer_googlenet",
-                                   "Trainer_se_resnext", "convnets.Program.init"])
+                                   "Trainer_se_resnext", "convnets.Program.init",
+                                   "Trainer_lstm", "Trainer_seq2seq", "Trainer_srl",
+                                   "Trainer_word2vec", "Trainer_fit_a_line",
+                                   "seq2seq.make_decoder", "create_lod_tensor",
+                                   "beam_search_decode_lod"])
 def test_entry_points_refuse_to_run_without_a_card(tmp_path, entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the entry points run on it")
