@@ -243,6 +243,24 @@ Phases, each reported on its own lines; any failure exits non-zero:
    last state its state at its end; (f) ``seq2seq.make_decoder(beam_size=4,
    max_len=30)`` served from (d)'s params on 8 source rows, ms a call, then
    ``beam_search_decode_lod``'s 2-level LoD.
+18. the multi-GPU slice's first half on one card: (a) a world of one
+   over NCCL (``parallel.initialize`` through a TCP store on 127.0.0.1),
+   bf16 GPT-base at ``bench_gpt``'s config: 3 steps each of
+   ``replicated()`` on ``make_mesh({"dp": 1})``, ``fsdp()`` on
+   ``{"fsdp": 1}`` and ``DistStrategy(zero_sharding=True)`` against the
+   unmeshed Trainer from the same params (losses, the params' largest
+   difference or bit-equal), ``run_steps(K=4)`` under the mesh captured
+   against 4 ``step()`` calls of the mesh bit for bit, and ms a step of
+   the unmeshed eager step, the mesh's eager step and its captured step
+   in turns; (b) ring attention's steps for 4 shards of bench_gpt's
+   attention ([8, 12, 1024, 64] bf16, causal) driven in one process, a
+   rotation of the shard list standing for the exchange, plain ring and
+   zigzag, and Ulysses' head shards: out, lse and dq/dk/dv against flash
+   attention on the whole sequence and against the plain versions, and
+   each step's kernel ms against the whole-sequence kernels'; (c) the
+   quantized codec (int8, int4, blocks of 256) card against CPU bit for
+   bit at GPT-base's gradient count, with encode and decode ms. Launch
+   counts are zeroed before (a)'s and (b)'s paths and read after them.
 
 The last lines are a JSON ``kernels`` record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -5753,6 +5771,321 @@ def phase_recurrent(dev, seed, card_name):
     return launches
 
 
+# -- phase 18: the multi-GPU slice's first half on one card --------------------
+
+MESH_STEPS, MESH_K = 3, 4
+# ring attention at bench_gpt's attention shape, its sequence split over
+# RING_SP shards driven in this one process
+RING_SHAPE, RING_SP = (8, 12, 1024, 64), 4
+QUANT_BLOCK = 256
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _local_state(trainer):
+    """The training state's local tensors (a DTensor's shard), cloned, by
+    path."""
+    from paddle_tpu_torch.executor import _local
+    return {k: _local(v) for k, v in _state_of(trainer).items()}
+
+
+def _max_diff(a, b):
+    """The largest element difference of two {name: tensor} dicts, as f32
+    (0.0 when every leaf is bit-equal)."""
+    return max(float((x.float() - b[k].float()).abs().max()) if x.numel() else 0.0
+               for k, x in a.items())
+
+
+def _logical(trainer):
+    from paddle_tpu_torch.executor import _full
+    return {k: _full(v.detach()).clone() for k, v in trainer._logical_params().items()}
+
+
+def _mesh_trainer(cfg, dev, mesh, rules=None, strategy=None):
+    from paddle_tpu_torch import Trainer, build, optimizer
+    from paddle_tpu_torch.models import gpt
+    return Trainer(build(gpt.make_model(cfg)),
+                   optimizer.AdamW(TRAIN_LR, weight_decay=TRAIN_WD), loss_name="loss",
+                   fetch_list=["loss"], device=dev, mesh=mesh, sharding_rules=rules,
+                   strategy=strategy)
+
+
+def mesh_world_of_one(dev, seed, card_name):
+    """(a) bf16 GPT-base at bench_gpt's config on meshes of a world of one:
+    3 steps each of replicated() on {dp: 1}, fsdp() on {fsdp: 1} and
+    zero_sharding on {dp: 1} against the unmeshed Trainer from the same
+    params; run_steps(K=4) under the {dp: 1} mesh, captured, against 4
+    step() calls of the mesh; ms a step eager (unmeshed, mesh) and
+    captured (mesh) in turns. Returns (launch counts of the path, the
+    param count)."""
+    import gc
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import parallel as par
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    cfg = gpt.base_config(**TRAIN)
+    feeds = _train_feeds(np.random.RandomState(0), MESH_K, TRAIN_BATCH, TRAIN_SEQ,
+                         cfg.vocab_size)
+    dp, fs = par.make_mesh({"dp": 1}), par.make_mesh({"fsdp": 1})
+    base = _trainer(cfg, dev).startup(seed, sample_feed=feeds[0])
+    params0 = _params_of(base)
+    n_params = sum(p.numel() for p in params0.values())
+    variants = {"replicated": (dp, par.replicated(), None), "fsdp": (fs, par.fsdp(), None),
+                "zero": (dp, None, pt.DistStrategy(zero_sharding=True))}
+    trainers = {name: _mesh_trainer(cfg, dev, m, r, s).startup(seed, sample_feed=feeds[0],
+                                                             params=params0)
+                for name, (m, r, s) in variants.items()}
+    seq = _mesh_trainer(cfg, dev, dp).startup(seed, sample_feed=feeds[0], params=params0)
+    fused = _mesh_trainer(cfg, dev, dp).startup(seed, sample_feed=feeds[0], params=params0)
+    _zero_launch_counts(fa)  # the startups' init forwards took the flash forward
+    # ---- the main path, as a user drives it
+    losses = {"unmeshed": [base.step(f)["loss"] for f in feeds[:MESH_STEPS]]}
+    for name, tr in trainers.items():
+        losses[name] = [tr.step(f)["loss"] for f in feeds[:MESH_STEPS]]
+    seq_losses = torch.stack([seq.step(f)["loss"] for f in feeds])
+    stacked = fused._put_feed(pt.data.stack_batches(feeds), stacked=True)
+    outs = fused.run_steps(stacked)
+    torch.cuda.synchronize()
+    launches = _launch_counts(fa)
+    # ---- end of the main path
+    want_l = {k: float(v) for k, v in zip(range(MESH_STEPS), losses["unmeshed"])}
+    ref = _logical(base)
+    for name, tr in trainers.items():
+        got = [float(x) for x in losses[name]]
+        diff = _max_diff(_logical(tr), ref)
+        bit_equal = got == list(want_l.values()) and diff == 0.0
+        say(f"mesh (a) {name} ({card_name}): bf16 GPT-base b={TRAIN_BATCH} s={TRAIN_SEQ} "
+            f"AdamW, {MESH_STEPS} steps on {tr.mesh.shape} against the unmeshed Trainer: "
+            f"losses {got} vs {list(want_l.values())}, params' largest difference {diff} "
+            f"({'bit-equal' if bit_equal else 'not bit-equal'})"
+            + (f"; ZeRO rows {tuple(next(iter(tr.scope.params.values())).to_local().shape)}, "
+               f"collective bytes {tr.collective_bytes}" if name == "zero" else ""))
+        check(all(np.isfinite(got)), f"mesh {name}: a loss is not finite")
+        check(max(abs(a - b) / abs(b) for a, b in zip(got, want_l.values())) <= 1e-2,
+              f"mesh {name}: losses part from the unmeshed Trainer's")
+    same = _bits_equal(seq_losses, outs["loss"])
+    differ = _states_differ(_local_state(seq), _local_state(fused))
+    say(f"mesh (a) captured: run_steps(K={MESH_K}) on {fused.mesh.shape} against {MESH_K} "
+        f"step() calls of the mesh from one state: losses {outs['loss'].tolist()}, "
+        f"bit-equal {same}; state leaves differing {differ}; launches of the path "
+        f"{launches}")
+    check(same and not differ, "mesh captured: run_steps differs from step()")
+    want = cfg.num_layers * (MESH_STEPS * 4 + MESH_K + _captured_step_runs())
+    check(all(n == want for n in launches.values()),
+          f"mesh (a): launch counts {launches}, want {want} each")
+    del trainers
+    gc.collect()
+    # ms a step in turns: the unmeshed eager step, the mesh's eager step
+    # (DTensor's host dispatch) and the mesh's captured step
+    staged = [base._put_feed(f) for f in feeds]
+    mstaged = [seq._put_feed(f) for f in feeds]
+    runs = {"unmeshed eager": lambda: [base.step(f) for f in staged],
+            "mesh eager": lambda: [seq.step(f) for f in mstaged],
+            "mesh captured": lambda: fused.run_steps(stacked)}
+    times = {n: [] for n in runs}
+    for name in list(runs) + list(runs)[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name]()
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) / MESH_K * 1e3)
+    ms = {n: float(np.mean(v)) for n, v in times.items()}
+    quoted = {k: READINGS.get(k) for k in ("gpt_eager", "gpt_captured")}
+    say(f"mesh (a) timing ({card_name}): ms a step over {MESH_K} steps, two turns each: "
+        + ", ".join(f"{n} {[round(t, 2) for t in v]} (mean {ms[n]:.2f})"
+                    for n, v in times.items())
+        + f"; phase 7/12's unmeshed readings {quoted}")
+    del base, seq, fused
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, n_params, ms
+
+
+def _ring_shards(t, order, n):
+    return [c.contiguous() for c in t[:, :, order].chunk(n, 2)]
+
+
+def ring_on_one_card(dev, seed, card_name):
+    """(b) ring attention's steps for RING_SP shards driven in this process
+    (a rotation of the shard list standing for the exchange) at bench_gpt's
+    attention shape, bf16 causal, plain ring and zigzag; Ulysses' head
+    shards. Returns (launch counts of the ring's steps, the comparisons'
+    rows)."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.parallel import ring_attention as ra
+
+    b, h, s, d = RING_SHAPE
+    n = RING_SP
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, g = (torch.randn(RING_SHAPE, generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(4))
+    _zero_launch_counts(fa)
+    # ---- the path: every ring step of both schedules, forward and backward
+    results = {}
+    for name in ("ring", "zigzag"):
+        order = (ra.zigzag_order(s, n, device=dev) if name == "zigzag"
+                 else torch.arange(s, device=dev))
+        sched = ra._ZigzagSchedule() if name == "zigzag" else ra._RingSchedule(True)
+        qs, ks, vs, gs = (_ring_shards(t, order, n) for t in (q, k, v, g))
+        outs, lses = [], []
+        for idx in range(n):
+            acc = torch.zeros(qs[idx].shape, dtype=torch.float32, device=dev)
+            lse = torch.full(qs[idx].shape[:3], ra.NEG_INF, dtype=torch.float32, device=dev)
+            for i in range(n):
+                src = (idx - i) % n
+                acc, lse = ra.fwd_step(sched, qs[idx], ks[src], vs[src], acc, lse, idx, src)
+            outs.append(acc.to(q.dtype))
+            lses.append(lse)
+        dq = [torch.zeros(x.shape, dtype=torch.float32, device=dev) for x in qs]
+        dk = [torch.zeros(x.shape, dtype=torch.float32, device=dev) for x in ks]
+        dv = [torch.zeros(x.shape, dtype=torch.float32, device=dev) for x in vs]
+        for idx in range(n):
+            delta = (outs[idx].float() * gs[idx].float()).sum(-1)
+            for i in range(n):
+                src = (idx - i) % n
+                dq[idx], dk[src], dv[src] = ra.bwd_step(
+                    sched, qs[idx], ks[src], vs[src], outs[idx], lses[idx], gs[idx], delta,
+                    dq[idx], dk[src], dv[src], idx, src)
+        inv = torch.argsort(order)
+        results[name] = {"out": torch.cat(outs, 2)[:, :, inv],
+                         "lse": torch.cat(lses, 2)[:, :, inv],
+                         **{n_: torch.cat([x.to(q.dtype) for x in t], 2)[:, :, inv]
+                            for n_, t in (("dq", dq), ("dk", dk), ("dv", dv))}}
+    # Ulysses: each rank's heads over the whole sequence (the all-to-alls
+    # only move data)
+    hs = h // n
+    parts = [fa.flash_attention(q[:, j * hs:(j + 1) * hs], k[:, j * hs:(j + 1) * hs],
+                                v[:, j * hs:(j + 1) * hs], causal=True, return_lse=True)
+             for j in range(n)]
+    ugrads = [fa._flash_bwd(q[:, j * hs:(j + 1) * hs], k[:, j * hs:(j + 1) * hs],
+                            v[:, j * hs:(j + 1) * hs], None, None, None, True, parts[j][0],
+                            parts[j][1], g[:, j * hs:(j + 1) * hs]) for j in range(n)]
+    results["ulysses"] = {"out": torch.cat([p[0] for p in parts], 1),
+                          "lse": torch.cat([p[1] for p in parts], 1),
+                          **{n_: torch.cat([u[i] for u in ugrads], 1)
+                             for i, n_ in enumerate(("dq", "dk", "dv"))}}
+    torch.cuda.synchronize()
+    launches = _launch_counts(fa)
+    # ---- end of the path; the comparisons below launch more
+    o_w, lse_w = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    whole = dict(zip(("dq", "dk", "dv"), fa._flash_bwd(q, k, v, None, None, None, True,
+                                                       o_w, lse_w, g)), out=o_w, lse=lse_w)
+    po, plse = fa.flash_attention_reference(q, k, v, True)
+    plain = dict(zip(("dq", "dk", "dv"), fa.flash_attention_bwd_reference(
+        q, k, v, True, None, None, None, g, plse, (po.float() * g.float()).sum(-1))),
+        out=po, lse=plse)
+    rows = {}
+    for name, res in results.items():
+        errs = {}
+        for key, ref_ in (("whole", whole), ("plain", plain)):
+            for t in ("out", "lse", "dq", "dk", "dv"):
+                e = float((res[t].float() - ref_[t].float()).abs().max())
+                scale = 1.0 if t in ("out", "lse") else float(ref_[t].float().abs().max())
+                tol = (LSE_TOL if t == "lse" else TOL["bfloat16"] if t == "out"
+                       else BWD_TOL["bfloat16"]) * scale
+                errs[f"{t}/{key}"] = e
+                check(e <= tol, f"ring (b) {name}: {t} against the {key} attention "
+                      f"{e} > {tol}")
+        rows[name] = errs
+        say(f"ring (b) {name} bf16 {list(RING_SHAPE)} causal, sp={n} in one process: "
+            f"max |diff| against flash on the whole sequence and against the plain "
+            f"versions {errs} (tol out {TOL['bfloat16']}, lse {LSE_TOL}, grads "
+            f"{BWD_TOL['bfloat16']}·max|grad|)")
+    check(all(n_ > 0 for n_ in launches.values()), f"ring (b): launches {launches}")
+    # each ring step's kernels against the whole-sequence kernels
+    sl = s // n
+    shapes = {"whole causal": (s, s, True), "shard full": (sl, sl, False),
+              "shard causal": (sl, sl, True), "zigzag earlier": (sl, sl // 2, False),
+              "zigzag later": (sl // 2, sl, False)}
+    step_ms = {}
+    for label, (sq, sk, causal) in shapes.items():
+        qq, kk, vv, gg = q[:, :, :sq], k[:, :, :sk], v[:, :, :sk], g[:, :, :sq]
+        oo, ll = fa.flash_attention(qq, kk, vv, causal=causal, return_lse=True)
+        step_ms[label] = (device_ms(lambda: fa.flash_attention(qq, kk, vv, causal=causal,
+                                                               return_lse=True), 10),
+                          device_ms(lambda: fa._flash_bwd(qq, kk, vv, None, None, None,
+                                                          causal, oo, ll, gg), 10))
+    say(f"ring (b) step kernels ({card_name}): [forward ms, backward ms] at "
+        f"[b, h, sq, sk] = [{b}, {h}, sq, sk]: "
+        + ", ".join(f"{k_} {sq_}x{sk_} {[round(x, 4) for x in step_ms[k_]]}"
+                    for k_, (sq_, sk_, _) in shapes.items())
+        + f"; one rank's causal ring does rank+1 shard steps (ring) or {n} half-steps "
+          f"(zigzag: earlier/later {n - 1}, own 1)")
+    return launches, rows, step_ms
+
+
+def quantized_codec_on_card(dev, seed, card_name, n):
+    """(c) the quantized exchange's block codec, card against CPU, bit for
+    bit, int8 and int4 at ``n`` gradient elements (GPT-base's), with its
+    encode and decode ms on the card."""
+    import torch
+    from paddle_tpu_torch.parallel import quantized_collectives as qc
+
+    gen = torch.Generator().manual_seed(seed)
+    n_pad = -(-n // QUANT_BLOCK) * QUANT_BLOCK
+    x = torch.randn(n_pad, generator=gen) * 1e-3
+    x[:QUANT_BLOCK] = 0.0                  # an all-zero block
+    x[QUANT_BLOCK + 7] = float("nan")      # a poisoned block
+    x[5 * QUANT_BLOCK + 3] = 3.0           # an outlier's block
+    xc = x.to(dev)
+    for bits in (8, 4):
+        pc, sc = qc._encode(xc, bits, QUANT_BLOCK)
+        pcpu, scpu = qc._encode(x, bits, QUANT_BLOCK)
+        dc = qc._decode(pc, sc, bits, QUANT_BLOCK)
+        dcpu = qc._decode(pcpu, scpu, bits, QUANT_BLOCK)
+        eq = (torch.equal(pc.cpu(), pcpu), torch.equal(sc.cpu().nan_to_num(-1.0),
+                                                       scpu.nan_to_num(-1.0)),
+              torch.equal(dc.cpu().nan_to_num(-1.0), dcpu.nan_to_num(-1.0)))
+        enc_ms = device_ms(lambda: qc._encode(xc, bits, QUANT_BLOCK), 3, repeats=3)
+        dec_ms = device_ms(lambda: qc._decode(pc, sc, bits, QUANT_BLOCK), 3, repeats=3)
+        gb = n_pad * 4 / 1e9
+        say(f"quant (c) int{bits} blocks of {QUANT_BLOCK} over {n} elements ({card_name}): "
+            f"card against CPU bit-equal (payload, scales, decode) {eq}; encode "
+            f"{enc_ms:.3f} ms ({gb / max(enc_ms, 1e-9) * 1e3:.1f} GB/s of f32 in), decode "
+            f"{dec_ms:.3f} ms; payload {pc.numel() * pc.element_size() / 1e6:.1f} MB + "
+            f"scales {sc.numel() * 4 / 1e6:.2f} MB for {gb * 1e3:.1f} MB of f32")
+        check(all(eq), f"quant (c) int{bits}: card and CPU codecs differ")
+        del pc, sc, dc, pcpu, scpu, dcpu
+
+
+def phase_multi_gpu(dev, seed, card_name):
+    """Phase 18: (a) meshes in a world of one over NCCL, (b) ring and
+    Ulysses attention's steps on one card, (c) the quantized codec.
+    Returns the launch counts of (a)'s and (b)'s paths, summed."""
+    import torch
+    import torch.distributed as dist
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import parallel as par
+
+    # the world of one meets itself through a store on the loopback: the
+    # sealed machine has no other network
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    t0 = time.perf_counter()
+    par.initialize(place=dev, init_method=f"tcp://127.0.0.1:{_free_port()}",
+                   world_size=1, rank=0)
+    say(f"mesh: world of one, backend {dist.get_backend()}, initialised in "
+        f"{time.perf_counter() - t0:.2f} s")
+    try:
+        with pt.amp_guard("bfloat16"):
+            mesh_launches, n_params, _ = mesh_world_of_one(dev, seed, card_name)
+        ring_launches, _, _ = ring_on_one_card(dev, seed, card_name)
+        quantized_codec_on_card(dev, seed, card_name, n_params)
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    return {k: mesh_launches[k] + ring_launches[k] for k in mesh_launches}
+
+
 def _routes(fa, torch):
     """The route table's choices, as the kernels record reports them."""
     return {"bfloat16": fa.ROUTES[(torch.bfloat16, 64)],
@@ -5874,12 +6207,18 @@ def main(argv=None) -> int:
     # (launch counts zeroed inside, around the phase)
     recurrent = phase_recurrent(dev, args.seed, smi)
     done("phase 17")
+
+    # 18. meshes in a world of one, ring and Ulysses attention's steps, the
+    # quantized codec (launch counts zeroed inside, around each path)
+    multi_gpu = phase_multi_gpu(dev, args.seed, smi)
+    done("phase 18")
     by_path = {name: {"served": served[name], "training": trained[name],
                       "persistence": persisted[name], "resnet": resnet_launches[name],
                       **{path: n[name] for path, n in seq2seq.items()},
                       "captured": captured[name], "captured_decode": decoded[name],
                       "remat_stacked_accum": slice7[name], "deepfm": deepfm[name],
-                      "zoo": zoo[name], "recurrent": recurrent[name]}
+                      "zoo": zoo[name], "recurrent": recurrent[name],
+                      "multi_gpu": multi_gpu[name]}
                for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 
     # the kernels record: each kernel's row at the training path's shape,

@@ -76,8 +76,8 @@ class CaptureError(EnforceError):
 def state_key(trainer) -> Tuple:
     """Which tensors, at which addresses, hold the trainer's training
     state, leaf by leaf."""
-    from .executor import _leaves
-    return tuple((id(t), t.data_ptr()) for t in _leaves(trainer._state_trees()))
+    from .executor import _leaves, _local
+    return tuple((id(t), _local(t).data_ptr()) for t in _leaves(trainer._state_trees()))
 
 
 def signature(trainer, feed_k: Dict[str, torch.Tensor]) -> Tuple:
@@ -89,7 +89,9 @@ def signature(trainer, feed_k: Dict[str, torch.Tensor]) -> Tuple:
     feed = tuple((k, tuple(v.shape[1:]), v.dtype, v.device) for k, v in sorted(feed_k.items()))
     fetch = None if trainer.fetch_list is None else tuple(trainer.fetch_list)
     s = trainer.strategy
-    strategy = None if s is None else (s.remat, s.remat_policy, s.accum_steps)
+    strategy = None if s is None else (s.remat, s.remat_policy, s.accum_steps,
+                                       s.accum_exchange, s.quantized_allreduce,
+                                       s.zero_sharding, s.sequence_parallel, s.sp_impl)
     return (feed, fetch, trainer.loss_name, id(trainer.loss_scaler), id(trainer._guard),
             trainer.device, strategy, framework.compute_dtype())
 
@@ -107,6 +109,13 @@ def side_stream(device) -> "torch.cuda.Stream":
     if index not in _SIDE_STREAMS:
         _SIDE_STREAMS[index] = torch.cuda.Stream(index)
     return _SIDE_STREAMS[index]
+
+
+def _copy(dsts: List[torch.Tensor], srcs: List[torch.Tensor]) -> None:
+    """One multi-tensor copy; a mesh's DTensors copy their local shards
+    (the slots share their placements with what fills them)."""
+    from .executor import _local
+    torch._foreach_copy_([_local(t) for t in dsts], [_local(t) for t in srcs])
 
 
 def _clone(tree):
@@ -147,12 +156,12 @@ class FusedSteps:
         names = list(self.feed)
         results: Optional[Dict[str, torch.Tensor]] = None
         for i, seed in enumerate(seeds):
-            torch._foreach_copy_([self.feed[n] for n in names], [feed_k[n][i] for n in names])
+            _copy([self.feed[n] for n in names], [feed_k[n][i] for n in names])
             out = self._step(seed)
             if results is None:
                 results = {n: torch.empty((len(seeds), *v.shape), dtype=v.dtype,
                                           device=v.device) for n, v in out.items()}
-            torch._foreach_copy_([results[n][i] for n in out], list(out.values()))
+            _copy([results[n][i] for n in out], list(out.values()))
         if self.on_card:
             # the grads of the last step stay on the params, as after step()
             for k, p in self.trainer.scope.params.items():

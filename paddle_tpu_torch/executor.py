@@ -50,11 +50,26 @@ step replayed K times (``_captured_step``), bit for bit the K ``step()``
 calls it stands for; ``fit(steps_per_dispatch=K)`` feeds it K-batch
 chunks (``DeviceFeeder(stack_k=K)``).
 
+A mesh, as in the JAX package: ``Trainer(mesh=make_mesh(...),
+sharding_rules=...)`` runs one process a device (``parallel.initialize``).
+``startup`` places the scope as DTensors by the rule table
+(``parallel.api.shard_scope``), each step takes the WHOLE batch on every
+rank and keeps the rank's slice (``parallel.api.put_batch(...,
+global_batch=True)``; a DTensor feed is used as given), and the step runs
+on the DTensors: their propagation inserts the collectives of the
+default ("gspmd") exchange, each param's grad coming back ``Partial`` and
+reduced to its param's placements. ``DistStrategy(accum_exchange=
+"hoisted")`` and ``quantized_allreduce="int8"|"int4"`` run the model on
+each rank's local tensors instead and exchange the grads explicitly once
+a step (one ``all_reduce``, or the block-scaled quantized ring with its
+error-feedback residual); ``zero_sharding=True`` keeps params and
+optimizer state as (N, k) rows (``parallel.zero``); and
+``sequence_parallel=True`` enters ``framework.sp_mode`` around the
+forward. The fetched outputs come back as full tensors on every rank.
+
 Not carried yet, each raising :class:`NotYetPorted` with the slice that
-brings it: meshes and sharding rules, the ``DistStrategy`` fields other
-than loss scaling, remat, accumulation and the optimizer state's dtype (pipeline, sequence
-parallelism, the accumulated exchanges, ZeRO),
-feed wire formats, on-device augmentation, elastic resizes, the HBM
+brings it: the ``DistStrategy`` fields of pipeline parallelism, the
+parameter server and the program dump, feed wire formats, on-device augmentation, elastic resizes, the HBM
 dataset cache and interval profile events; the journal and telemetry of
 checkpoint saves and guard incidents come with the observability slice.
 """
@@ -77,7 +92,7 @@ from .core.errors import EnforceError, NotYetPorted, enforce
 from .core.place import default_device
 from .data.feeder import PipelineMetrics, host_feed_nbytes
 from .framework import (Program, RngStream, build, check_params, params_from_jax,
-                        remat_mode, resolve_remat_policy)
+                        remat_mode, resolve_remat_policy, sp_mode)
 from .initializer import mix_seed
 from .parallel.strategy import DistStrategy, unported_fields
 from .resilience import GuardPolicy
@@ -161,6 +176,17 @@ def _leaves(tree):
         yield tree
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local tensor (a plain tensor is its own)."""
+    return t._local_tensor if hasattr(t, "_local_tensor") else t
+
+
+def _full(t):
+    """A DTensor output as the full tensor every rank holds (a plain tensor
+    as it is)."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
 def _leaf_pairs(dst, src, pairs):
     """(dst leaf, src leaf) of two trees of dicts, where src is another
     tensor; a key src has and dst lacks is added to dst."""
@@ -184,6 +210,14 @@ def write_in_place(dst, src) -> None:
     copy per dtype."""
     groups: Dict[Any, List] = {}
     for d, v in _leaf_pairs(dst, src, []):
+        if hasattr(d, "to_local"):
+            # a mesh's DTensors: the copy is of this rank's shards, at the
+            # destination's placements
+            if hasattr(v, "to_local"):
+                if tuple(v.placements) != tuple(d.placements):
+                    v = v.redistribute(placements=d.placements)
+                v = v._local_tensor
+            d = d._local_tensor
         groups.setdefault((d.dtype, v.dtype), []).append((d, v))
     with torch.no_grad():
         for pairs in groups.values():
@@ -196,7 +230,7 @@ def _to_numpy(tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_to_numpy(v) for v in tree)
     if isinstance(tree, torch.Tensor):
-        t = tree.detach().cpu()
+        t = _full(tree.detach()).cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return tree
 
@@ -207,6 +241,80 @@ def _put(value, device: torch.device) -> torch.Tensor:
             return params_from_jax({"v": value}, device=device)["v"]
         value = torch.from_numpy(np.ascontiguousarray(value))
     return torch.as_tensor(value).to(device, non_blocking=True)
+
+
+def _microbatch_major(v, a: int, n: int, stacked: bool):
+    """A whole batch reordered so that each of ``n`` equal contiguous rank
+    slices holds, microbatch after microbatch, its share of each of the
+    ``a`` microbatches (microbatch ``i`` = rows ``[i·b/a, (i+1)·b/a)``)."""
+    t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
+    d = 1 if stacked else 0
+    b = t.shape[d]
+    enforce(b % (a * n) == 0, f"DistStrategy(accum_steps={a}) on {n} data ranks: a batch "
+            f"of {b} does not split into {a} microbatches of {n} equal rank slices")
+    head, tail = tuple(t.shape[:d]), tuple(t.shape[d + 1:])
+    t = t.reshape(head + (a, n, b // (a * n)) + tail).transpose(d, d + 1)
+    return t.reshape(head + (b,) + tail)
+
+
+def _reduced_grad(p: torch.Tensor) -> torch.Tensor:
+    """``p.grad``; for a DTensor param, reduced to the param's placements
+    (a grad comes back ``Partial`` over the axes its inputs were sharded
+    on: this is the default exchange's all-reduce or reduce-scatter)."""
+    g = p.grad
+    if hasattr(g, "redistribute") and tuple(g.placements) != tuple(p.placements):
+        g = g.redistribute(placements=p.placements)
+    return g
+
+
+def _allreduce_mean(grads: Dict[str, torch.Tensor], group, n: int) -> Dict[str, torch.Tensor]:
+    """The grads' mean over ``group``: one ``all_reduce`` of all of them
+    packed in one f32 buffer a dtype."""
+    import torch.distributed as dist
+
+    out = {}
+    by_dtype: Dict[Any, List[str]] = {}
+    for k, g in grads.items():
+        by_dtype.setdefault(g.dtype, []).append(k)
+    for dtype, keys in by_dtype.items():
+        flat = torch.cat([grads[k].reshape(-1) for k in keys])
+        dist.all_reduce(flat, group=group)
+        flat = flat / n
+        off = 0
+        for k in keys:
+            m = grads[k].numel()
+            out[k] = flat[off:off + m].view(grads[k].shape)
+            off += m
+    return out
+
+
+def _micro_slice(v: torch.Tensor, i: int, a: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``a`` of a feed: rows ``[i·b/a, (i+1)·b/a)`` of
+    a plain tensor, or of each rank's local rows of a DTensor (whose rows
+    :func:`_microbatch_major` ordered), as a DTensor of the same
+    placements."""
+    if hasattr(v, "to_local"):
+        from torch.distributed.tensor import DTensor
+        loc = v.to_local()
+        m = loc.shape[0] // a
+        return DTensor.from_local(loc[i * m:(i + 1) * m], v.device_mesh, v.placements,
+                                  run_check=False)
+    m = v.shape[0] // a
+    return v[i * m:(i + 1) * m]
+
+
+@contextlib.contextmanager
+def _sp_consumed(mesh, impl: str):
+    """``sp_mode`` around a training forward, warning when the model never
+    read it (executor.py:392): its attention then is not sequence
+    parallel."""
+    with sp_mode(mesh, impl=impl) as cfg:
+        yield cfg
+    if not cfg["consumed"]:
+        import warnings
+        warnings.warn("DistStrategy.sequence_parallel is set but the model never consumed "
+                      "the context — attention is NOT sequence-parallel. Use an sp-aware "
+                      "model (models/gpt.py).")
 
 
 class Executor:
@@ -258,35 +366,66 @@ class Executor:
 
 
 class Trainer:
-    """Eager train loop on one device: forward, backward and the optimizer
-    update per :meth:`step`.
+    """Eager train loop: forward, backward and the optimizer update per
+    :meth:`step`, on one device or, with ``mesh``, on every rank of a mesh.
 
     ``program`` is a :class:`framework.Program` (anything else raises
     :class:`EnforceError`). ``place`` (the JAX package's argument) or
     ``device`` is where it runs: the CUDA card unless the caller passes
-    the CPU (no card: :class:`NoCudaDevice`). ``fetch_list`` prunes what
-    ``step`` returns to those outputs and the loss."""
+    the CPU (no card: :class:`NoCudaDevice`); under a ``mesh``
+    (:class:`parallel.Mesh`) it is this rank's device of the mesh.
+    ``sharding_rules`` (:class:`parallel.ShardingRules`, default
+    ``replicated()``) places the params on the mesh. ``fetch_list`` prunes
+    what ``step`` returns to those outputs and the loss."""
 
     def __init__(self, program, optimizer, loss_name: str = "loss", place=None,
                  mesh=None, sharding_rules=None, strategy=None,
                  fetch_list: Optional[Sequence[str]] = None, guard=None, feed_wire=None,
                  augment=None, device=None):
-        unported = {"mesh": mesh, "sharding_rules": sharding_rules,
-                    "feed_wire": feed_wire, "augment": augment}
+        from .parallel.mesh import Mesh
+        from .parallel.sharding import ShardingRules
+
+        unported = {"feed_wire": feed_wire, "augment": augment}
         for name, value in unported.items():
             if value is not None:
                 raise NotYetPorted(f"Trainer({name}=...): a later slice "
                                    "(ROADMAP queue 1)")
         enforce(guard is None or isinstance(guard, (bool, GuardPolicy)),
                 f"Trainer(guard={guard!r}): expected True, False, None or a GuardPolicy")
+        enforce(mesh is None or isinstance(mesh, Mesh),
+                f"Trainer(mesh={mesh!r}): expected a parallel.Mesh (parallel.make_mesh)")
+        enforce(sharding_rules is None or isinstance(sharding_rules, ShardingRules),
+                f"Trainer(sharding_rules={sharding_rules!r}): expected a "
+                "parallel.ShardingRules")
         if place is not None and device is not None:
             enforce(torch.device(place) == torch.device(device),
                     f"Trainer(place={place}, device={device}): two devices")
         if not isinstance(program, Program):
             raise EnforceError(f"Trainer(program={type(program).__name__}): expected a "
                                "framework.Program, e.g. build(gpt.make_model(cfg))")
-        self.device = default_device(device if device is not None else place, "Trainer")
+        asked = device if device is not None else place
+        if mesh is not None:
+            # the mesh's device, checked to exist: a CUDA mesh with no card
+            # raises here, never runs on the CPU
+            enforce(asked is None or torch.device(asked).type == mesh.device.type,
+                    f"Trainer(place={asked}, mesh on {mesh.device}): the mesh's ranks "
+                    "run on their own devices")
+            asked = mesh.device
+        self.device = default_device(asked, "Trainer")
         self.place = self.device
+        self.mesh = mesh
+        self.sharding_rules_raw = sharding_rules
+        self.sharding_rules = (sharding_rules.adapted_to(mesh)
+                               if sharding_rules is not None and mesh is not None
+                               else sharding_rules)
+        # set at startup: the exchange ("gspmd", "local" or None off-mesh),
+        # its data axes, the quantized wire's settings, the ZeRO layout
+        self._exchange: Optional[str] = None
+        self._exchange_axes: tuple = ()
+        self._logical_shapes: Dict[str, tuple] = {}
+        self._quant: Optional[Dict[str, Any]] = None
+        self._zero = None
+        self.collective_bytes: Optional[Dict[str, Any]] = None
         self.program = program
         self.optimizer = optimizer
         self.loss_name = loss_name
@@ -294,6 +433,14 @@ class Trainer:
         self.strategy = strategy
         self.loss_scaler = _loss_scaler(strategy)
         _strategy_accum(strategy)
+        if mesh is None and strategy is not None:
+            # the exchange knobs act on a mesh's ranks: without one they
+            # would do nothing, so they raise (executor.py:456)
+            for name, off in (("accum_exchange", "gspmd"), ("quantized_allreduce", "none"),
+                              ("zero_sharding", False)):
+                value = getattr(strategy, name)
+                enforce(value in (off, None), f"DistStrategy.{name}={value!r} needs a mesh "
+                        "(it is the cross-shard exchange policy): pass Trainer(mesh=...)")
         if strategy is not None:
             resolve_remat_policy(strategy.remat_policy)  # an unknown name raises here
         # the NaN/Inf guard: True is the default policy; None defers to the
@@ -335,17 +482,21 @@ class Trainer:
         if params is not None:
             check_params(params, self.program.param_info, "Trainer.startup(params=)")
             fresh = {k: params[k].detach().to(self.device, copy=True) for k in fresh}
-        for p in fresh.values():
-            p.requires_grad_(p.is_floating_point())
-        self.scope.params, self.scope.state = fresh, state
         sd = None if self.strategy is None else self.strategy.opt_state_dtype
         if sd is not None:  # before init, as the JAX Trainer (executor.py:400-402)
             self.optimizer.set_state_dtype(sd)
         with torch.no_grad():
-            self.scope.opt_state = self.optimizer.init(
-                {k: p.detach() for k, p in self.scope.params.items()})
-        if self.loss_scaler is not None:
-            self.scope.loss_scale_state = self.loss_scaler.init_state(self.device)
+            opt_state = self.optimizer.init({k: p.detach() for k, p in fresh.items()})
+        ls = (self.loss_scaler.init_state(self.device)
+              if self.loss_scaler is not None else None)
+        self.scope.quant_resid = None
+        if self.mesh is not None:
+            fresh, state, opt_state, ls = self._place_on_mesh(fresh, state, opt_state, ls)
+        for p in fresh.values():
+            p.requires_grad_(p.is_floating_point())
+        self.scope.params, self.scope.state = fresh, state
+        self.scope.opt_state = opt_state
+        self.scope.loss_scale_state = ls
         # the check_nan_inf flag is read here, as the JAX package reads it
         # when it builds the step (executor.py:948-957): the legacy flag
         # aborts at the step at fault
@@ -360,13 +511,194 @@ class Trainer:
         self.pipeline_metrics.reset()
         return self
 
-    def _put_feed(self, feed: Feed) -> Feed:
+    # -- the mesh (executor.py:404-463, :638-730) ------------------------------
+    def _place_on_mesh(self, params, state, opt_state, ls):
+        """Resolve the exchange and place the scope on the mesh: ZeRO rows,
+        or DTensors by the rule table; the loss-scale state replicated, and
+        the quantized exchange's error-feedback residual (one f32 slot per
+        data-parallel rank per param, ``(dshard,) + shape`` sharded on its
+        leading axis, zeros at startup and not checkpointed)."""
+        from .parallel import api as par_api
+        from .parallel import zero as zero_mod
+
+        s = self.strategy
+        self._logical_shapes = {k: tuple(v.shape) for k, v in params.items()}
+        mode = "gspmd" if s is None else s.accum_exchange
+        enforce(mode in ("gspmd", "hoisted"),
+                f"DistStrategy.accum_exchange={mode!r} (gspmd|hoisted)")
+        a = _strategy_accum(s)
+        enforce(mode == "gspmd" or a > 1,
+                "accum_exchange='hoisted' without accum_steps>1 is a misconfiguration "
+                "(there is no loop to hoist out of)")
+        qmode = "none" if s is None else (s.quantized_allreduce or "none")
+        enforce(qmode in ("none", "int8", "int4"),
+                f"DistStrategy.quantized_allreduce={qmode!r} (none|int8|int4)")
+        if s is not None:
+            enforce(s.reduce_strategy in ("allreduce", "sharded"),
+                    f"DistStrategy.reduce_strategy={s.reduce_strategy!r} (allreduce|sharded)")
+            enforce(s.sp_impl in ("ring", "ulysses"),
+                    f"DistStrategy.sp_impl={s.sp_impl!r} (ring|ulysses)")
+        self._quant = None
+        self._exchange, self._exchange_axes = "gspmd", ()
+        if qmode != "none":
+            from .parallel import quantized_collectives as qc
+            bits = 8 if qmode == "int8" else 4
+            block = int(s.quant_block_size)
+            qc.wire_block_bytes(1, bits=bits, block_size=block)  # validates
+            self._quant = {"bits": bits, "block_size": block,
+                           "error_feedback": bool(s.error_feedback),
+                           "stochastic_rounding": bool(s.quant_stochastic_rounding)}
+            self._exchange_axes = self._local_exchange_axes(
+                f"quantized_allreduce={qmode!r}", params, state)
+            self._exchange = "local"
+        elif mode == "hoisted":
+            self._exchange_axes = self._local_exchange_axes(
+                "accum_exchange='hoisted'", params, state)
+            self._exchange = "local"
+        self._zero = None
+        if s is not None and s.zero_sharding:
+            zaxes = self._local_exchange_axes("zero_sharding=True", params, state)
+            self._zero = zero_mod.make_spec(self.mesh, zaxes, params, state, opt_state)
+        params, state, opt_state = self._mesh_placement(params, state, opt_state)
+        if ls is not None:
+            ls = {k: par_api.replicate(self.mesh, v) for k, v in ls.items()}
+        if self._quant is not None and self._quant["error_feedback"]:
+            from torch.distributed.tensor import DTensor, Replicate, Shard
+            axes = self._exchange_axes
+            pl = [Shard(0) if a in axes else Replicate() for a in self.mesh.axis_names]
+            self.scope.quant_resid = {
+                k: DTensor.from_local(torch.zeros((1,) + shape, dtype=torch.float32,
+                                                  device=self.device),
+                                      self.mesh.device_mesh, pl, run_check=False)
+                for k, shape in self._logical_shapes.items()}
+        self.collective_bytes = self._collective_bytes_summary()
+        return params, state, opt_state, ls
+
+    def _mesh_placement(self, params, state, opt_state):
+        """Full logical trees (the same on every rank) placed on the mesh:
+        ZeRO rows when ``zero_sharding`` is on, else by the rule table. A
+        checkpoint restore places what it loaded the same way."""
+        from .parallel import api as par_api
+        from .parallel import zero as zero_mod
+
+        if self._zero is not None:
+            return (zero_mod.partition_params(params, self._zero, self.mesh),
+                    {k: par_api.replicate(self.mesh, v) for k, v in state.items()},
+                    zero_mod.partition_opt_state(opt_state, self._zero, self.mesh))
+        return par_api.shard_scope(self.mesh, self.sharding_rules, params, state, opt_state)
+
+    def _local_exchange_axes(self, why: str, params, state) -> tuple:
+        """The data axes of a rank-local gradient path (the hoisted
+        exchange, the quantized ring, ZeRO), each precondition enforced
+        (executor.py:649): a mesh with a data axis, no sequence
+        parallelism, no program state, every param replicated."""
+        axes = tuple(a for a in ("dp", "fsdp") if a in self.mesh.axis_names
+                     and self.mesh.shape[a] > 1)
+        if not axes:
+            # a world of one: its data axes of size 1 (one shard, N = 1),
+            # which the JAX package, whose meshes span a host's devices,
+            # has no use for
+            axes = tuple(a for a in ("dp", "fsdp") if a in self.mesh.axis_names)
+        enforce(axes, f"{why}: mesh has no data axis")
+        enforce(not (self.strategy is not None and self.strategy.sequence_parallel),
+                f"{why} composes only with pure data parallelism (no pp/sp: their "
+                "schedules cannot nest inside the local gradient path)")
+        enforce(not state, f"{why} requires stateless models: per-shard mutable "
+                "state (e.g. BN running stats) would silently diverge across shards")
+        if self.sharding_rules is not None:
+            for name, leaf in params.items():
+                spec = self.sharding_rules.spec_for(name, tuple(leaf.shape), self.mesh)
+                enforce(all(e is None for e in spec),
+                        f"{why} requires fully replicated params; {name} is sharded "
+                        f"{spec} (use fsdp/tp with the default gspmd exchange instead)")
+        return axes
+
+    def _collective_bytes_summary(self) -> Optional[Dict[str, Any]]:
+        """Bytes-on-wire of one optimizer step's gradient exchange
+        (executor.py:682): one rank's ring all-reduce bytes summed over the
+        grads and data axes, f32 against the configured wire; with ZeRO,
+        the top-of-step all-gather too. None when the mesh has no data
+        axis larger than 1."""
+        from .parallel import quantized_collectives as qc
+
+        axes = self._exchange_axes or tuple(
+            a for a in ("dp", "fsdp") if a in self.mesh.axis_names and self.mesh.shape[a] > 1)
+        if not axes:
+            return None
+        zero, quant = self._zero, self._quant
+        sizes = [int(np.prod(sh)) if sh else 1 for sh in self._logical_shapes.values()]
+        ranks = {a: int(self.mesh.shape[a]) for a in axes}
+        fp32 = sum(qc.ring_wire_bytes(n, p) for n in sizes for p in ranks.values())
+        wire = fp32 if quant is None else sum(
+            qc.ring_wire_bytes(n, p, bits=quant["bits"], block_size=quant["block_size"])
+            for n in sizes for p in ranks.values())
+        out = {"mode": "none" if quant is None else f"int{quant['bits']}",
+               "bits": None if quant is None else quant["bits"],
+               "block_size": None if quant is None else quant["block_size"],
+               "error_feedback": bool(quant and quant["error_feedback"]),
+               "axes": axes, "ranks": ranks, "grad_elems": int(sum(sizes)),
+               "fp32_bytes_per_step": int(fp32), "wire_bytes_per_step": int(wire),
+               "reduction": (float(fp32) / wire) if wire else 1.0}
+        if zero is not None:
+            from .parallel import zero as zero_mod
+            out["zero"] = {"shards": zero.n, "axes": zero.axes,
+                           "allgather_bytes_per_step": zero_mod.allgather_bytes_per_step(zero)}
+        return out
+
+    def _logical_params(self) -> Dict[str, torch.Tensor]:
+        """The params at their logical shapes: the ZeRO rows gathered
+        (collective: every rank calls it), else ``scope.params``."""
+        if self._zero is None:
+            return self.scope.params
+        from .parallel import zero as zero_mod
+        with torch.no_grad():
+            return zero_mod.combine_params(self.scope.params, self._zero, self.mesh)
+
+    def _mesh_scope(self):
+        """Plain tensors a step makes (masks, positions, the loss-scale
+        arithmetic's constants) take part as replicated DTensors."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import implicit_replication
+        return implicit_replication()
+
+    def _sp_scope(self):
+        """``framework.sp_mode`` as the strategy asks for it
+        (``sequence_parallel``, ``sp_impl``), warning when the mesh has
+        no ``sp`` axis larger than 1 (executor.py:375)."""
+        s = self.strategy
+        if s is None or not s.sequence_parallel:
+            return contextlib.nullcontext()
+        if self.mesh is None or self.mesh.shape.get("sp", 1) <= 1:
+            import warnings
+            warnings.warn(f"DistStrategy.sequence_parallel is set but the mesh "
+                          f"{None if self.mesh is None else self.mesh.shape} has no 'sp' "
+                          "axis (size>1); training proceeds WITHOUT it")
+            return contextlib.nullcontext()
+        return _sp_consumed(self.mesh, s.sp_impl)
+
+    def _put_feed(self, feed: Feed, stacked: bool = False) -> Feed:
         """The feed's values as tensors on this trainer's device (a
         ``(K, ...)`` super-batch as one tensor a name); its host bytes and
-        the put's submission time go to ``pipeline_metrics``."""
+        the put's submission time go to ``pipeline_metrics``. Under a mesh
+        the feed is the whole batch on every rank, and each value becomes a
+        DTensor holding this rank's slice (``parallel.api.put_batch``); a
+        step that accumulates microbatches through the default exchange
+        takes its slice of each microbatch, so that microbatch ``i`` is
+        the batch's rows ``[i·b/a, (i+1)·b/a)`` as on one device."""
         nbytes = host_feed_nbytes(feed)
         t0 = time.perf_counter()
-        out = {k: _put(v, self.device) for k, v in feed.items()}
+        if self.mesh is None:
+            out = {k: _put(v, self.device) for k, v in feed.items()}
+        else:
+            from .parallel import api as par_api
+            a = _strategy_accum(self.strategy)
+            if a > 1 and self._exchange == "gspmd":
+                from .parallel.mesh import data_parallel_size
+                n = data_parallel_size(self.mesh)
+                feed = {k: _microbatch_major(v, a, n, stacked) for k, v in feed.items()}
+            out = par_api.put_batch(self.mesh, self.sharding_rules, feed, stacked=stacked,
+                                    global_batch=True)
         if nbytes:
             self.pipeline_metrics.record_h2d(nbytes, time.perf_counter() - t0)
         return out
@@ -386,14 +718,21 @@ class Trainer:
         itself, a ``run_steps(rng=r)`` from ``mix_seed(r, step)``
         (executor.py:1193)."""
         if rng is None:
-            return mix_seed(get_flag("seed") + 1, step)
-        return mix_seed(int(rng), step) if fused else int(rng)
+            seed = mix_seed(get_flag("seed") + 1, step)
+        else:
+            seed = mix_seed(int(rng), step) if fused else int(rng)
+        if self._exchange == "local":
+            # each rank's masks differ, as the JAX package folds the shard
+            # index into the key (executor.py:625)
+            for a in self._exchange_axes:
+                seed = mix_seed(seed, f"{a}{self.mesh.coord(a)}")
+        return seed
 
-    def _run(self, feed: Feed, training: bool, rng=None, state=None):
+    def _run(self, feed: Feed, training: bool, rng=None, state=None, params=None):
         """(outputs as a dict, new state) of one run of the program from
-        ``state`` (None: the scope's); ``rng`` is an int seed or an
-        ``RngStream``."""
-        out, new_state = self.program.apply(self.scope.params,
+        ``params`` and ``state`` (None: the scope's); ``rng`` is an int seed
+        or an ``RngStream``."""
+        out, new_state = self.program.apply(self.scope.params if params is None else params,
                                             self.scope.state if state is None else state,
                                             training=training, rng=rng,
                                             place=self.device, **feed)
@@ -445,9 +784,11 @@ class Trainer:
 
     def _state_trees(self) -> Dict[str, Any]:
         """The training state a step reads and writes in place: params,
-        optimizer state, program state and loss-scale state."""
+        optimizer state, program state, loss-scale state and the quantized
+        exchange's residual."""
         return {"params": self.scope.params, "opt": self.scope.opt_state,
-                "state": self.scope.state, "ls": self.scope.loss_scale_state or {}}
+                "state": self.scope.state, "ls": self.scope.loss_scale_state or {},
+                "resid": getattr(self.scope, "quant_resid", None) or {}}
 
     def _remat_scope(self):
         """``remat_mode`` as the strategy sets it for a training run, in
@@ -457,46 +798,53 @@ class Trainer:
         return remat_mode(bool(s is not None and s.remat),
                           policy=None if s is None else s.remat_policy)
 
-    def _forward_backward(self, feed: Feed, stream: RngStream, state):
-        """One training run of the program from ``state`` and its
-        backward, the loss scaled under a loss scaler: (fetched outputs,
+    def _forward_backward(self, feed: Feed, stream: RngStream, state, params=None, ls=None):
+        """One training run of the program from ``params`` (None: the
+        scope's) and ``state`` and its backward, the loss scaled under a
+        loss scaler (by ``ls``, None: the scope's state): (fetched outputs,
         new state); the grads are left on the params."""
-        scaler, ls = self.loss_scaler, self.scope.loss_scale_state
+        scaler = self.loss_scaler
+        ls = self.scope.loss_scale_state if ls is None else ls
         # profiler ranges (``trainer.forward`` ...): a profiled step splits
         # its device time by them; about a microsecond each when no
         # profiler runs
-        with record_function("trainer.forward"), self._remat_scope():
-            out, new_state = self._run(feed, training=True, rng=stream, state=state)
+        with record_function("trainer.forward"), self._remat_scope(), self._sp_scope():
+            out, new_state = self._run(feed, training=True, rng=stream, state=state,
+                                       params=params)
         with record_function("trainer.backward"):
             loss = out[self.loss_name]
             (loss if scaler is None else scaler.scale_loss(loss, ls)).backward()
         return self._fetch(out), new_state
 
-    def _accumulate(self, feed: Feed, stream: RngStream, a: int):
+    def _accumulate(self, feed: Feed, stream: RngStream, a: int, params=None, ls=None,
+                    state=None):
         """``a`` microbatches, rows ``[i·b/a, (i+1)·b/a)`` of every feed
-        (the JAX package's ``reshape((a, b // a) + ...)``), each drawing
-        its masks from the step's stream in turn, the program state
-        threaded from one to the next: (the outputs' means, the last
-        state, the grads summed in f32 and divided by ``a``). A param left
-        unreached gets zeros, as ``jax.grad`` gives."""
-        params = self.scope.params
+        (the JAX package's ``reshape((a, b // a) + ...)``; under a mesh,
+        of each rank's rows, see :meth:`_put_feed`), each drawing its masks
+        from the step's stream in turn, the program state threaded from
+        one to the next: (the outputs' means, the last state, the grads
+        summed in f32 and divided by ``a``). A param left unreached gets
+        zeros, as ``jax.grad`` gives. A DTensor param's grad is reduced to
+        its placements after each microbatch (as GSPMD exchanges inside
+        the JAX package's microbatch scan)."""
+        params = self.scope.params if params is None else params
         for k, v in feed.items():
-            enforce(v.dim() >= 1 and v.shape[0] % a == 0,
+            n = _local(v).shape[0] if v.dim() >= 1 else 0
+            enforce(v.dim() >= 1 and n % a == 0,
                     f"DistStrategy(accum_steps={a}): feed {k!r} of shape "
                     f"{tuple(v.shape)} does not split into {a} microbatches")
-        acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for k, p in params.items()}
-        state, outs, reached = self.scope.state, [], set()
+        acc = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
+        state = self.scope.state if state is None else state
+        outs, reached = [], set()
         for i in range(a):
-            micro = {k: v[i * (v.shape[0] // a):(i + 1) * (v.shape[0] // a)]
-                     for k, v in feed.items()}
-            out, state = self._forward_backward(micro, stream, state)
+            micro = {k: _micro_slice(v, i, a) for k, v in feed.items()}
+            out, state = self._forward_backward(micro, stream, state, params, ls)
             state = {k: v.detach() for k, v in state.items()}
             outs.append(out)
             with torch.no_grad():
                 for k, p in params.items():
                     if p.grad is not None:
-                        acc[k].add_(p.grad)
+                        acc[k].add_(_reduced_grad(p))
                         p.grad = None
                         reached.add(k)
         grads = {k: g.div_(a) for k, g in acc.items()}
@@ -510,62 +858,210 @@ class Trainer:
                    stream: RngStream) -> Dict[str, torch.Tensor]:
         """One step on the device, with no read back to the host: the
         forward (random ops drawing from ``stream``) and backward, on each
-        microbatch under gradient accumulation, the unscale and finiteness
-        flag, the guard's mask, the update, and the select of the old
-        values where the step is skipped (``LossScaler.select``, as the JAX
-        package's step, executor.py:1008-1115; the loss-scale state is not
-        rolled back). The results are written into the training state's
-        own tensors (:func:`write_in_place`). Returns the fetched outputs.
+        microbatch under gradient accumulation, the exchange under a mesh,
+        the unscale and finiteness flag, the guard's mask, the update, and
+        the select of the old values where the step is skipped
+        (``LossScaler.select``, as the JAX package's step,
+        executor.py:1008-1115; the loss-scale state is not rolled back).
+        The results are written into the training state's own tensors
+        (:func:`write_in_place`). Returns the fetched outputs (under a mesh
+        as full tensors on every rank).
 
         ``step`` runs it eagerly; ``run_steps`` runs it from fixed feed
         slots, captured as a CUDA graph on the card (``_captured_step``)."""
         params = self.scope.params
         scaler, ls = self.loss_scaler, self.scope.loss_scale_state
+        resid = self.scope.quant_resid if self.mesh is not None else None
         for p in params.values():
             p.grad = None
+        with self._mesh_scope():
+            if self._exchange == "local":
+                out, new_state, grads, new_resid, unscaled = self._local_grads(feed, stream)
+            else:
+                out, new_state, grads = self._grads(feed, stream)
+                new_resid, unscaled = None, False
+            # an output that is training state (a state variable the program
+            # returns) is copied: the update below writes that tensor in place
+            owned = {_local(t).untyped_storage().data_ptr()
+                     for t in _leaves(self._state_trees())}
+            out = {k: v.clone() if _local(v).untyped_storage().data_ptr() in owned else v
+                   for k, v in out.items()}
+            keep = None  # 0-d bool on the device: whether this step's update stands
+            with torch.no_grad():
+                if scaler is not None:
+                    present = {k: g for k, g in grads.items() if g is not None}
+                    if not unscaled:
+                        grads.update(scaler.unscale(present, ls))
+                    keep = scaler.all_finite([grads[k] for k in present])
+                    new_ls = scaler.update(ls, keep)
+                    out["loss_scale"] = new_ls["scale"]
+                if self._guard is not None:
+                    # with a loss scaler a grad overflow is the scaler's to skip
+                    # and back off from; the guard then watches the outputs only
+                    mask = self._guard_mask(out, None if scaler is not None else grads)
+                    out["guard_nonfinite"] = mask
+                    keep = mask == 0 if keep is None else keep & (mask == 0)
+            with torch.no_grad(), record_function("trainer.update"):
+                values = {k: p.detach() for k, p in params.items()}
+                new_state = {k: v.detach() for k, v in new_state.items()}
+                new_params, new_opt = self.optimizer.update(
+                    grads, self.scope.opt_state, values, self.program.param_info)
+                if keep is not None:
+                    new_params = LossScaler.select(keep, new_params, values)
+                    new_opt = LossScaler.select(keep, new_opt, self.scope.opt_state)
+                    new_state = LossScaler.select(keep, new_state, self.scope.state)
+                    if new_resid is not None:
+                        # a skipped step banks no residual (executor.py:1077)
+                        new_resid = LossScaler.select(keep, new_resid, resid)
+                write_in_place({"params": values, "opt": self.scope.opt_state,
+                                "state": self.scope.state, "ls": ls or {},
+                                "resid": resid if new_resid is not None else {}},
+                               {"params": new_params, "opt": new_opt, "state": new_state,
+                                "ls": new_ls if scaler is not None else {},
+                                "resid": new_resid or {}})
+            if self.mesh is not None:
+                out = {k: _full(v) for k, v in out.items()}
+        return out
+
+    def _grads(self, feed: Feed, stream: RngStream):
+        """(fetched outputs, new state, grads) of the step on one device or
+        through the mesh's default exchange: the program runs on the
+        DTensors (under ZeRO on params gathered from the rows) and each
+        grad is reduced to its param's placements (under ZeRO
+        reduce-scattered to rows)."""
+        from .parallel import zero as zero_mod
+
+        model = self.scope.params
+        if self._zero is not None:
+            with torch.no_grad():
+                model = zero_mod.combine_params(model, self._zero, self.mesh)
+            for p in model.values():
+                p.requires_grad_(p.is_floating_point())
         a = _strategy_accum(self.strategy)
         if a > 1:
-            out, new_state, grads = self._accumulate(feed, stream, a)
+            out, new_state, grads = self._accumulate(feed, stream, a, model)
         else:
-            out, new_state = self._forward_backward(feed, stream, self.scope.state)
+            out, new_state = self._forward_backward(feed, stream, self.scope.state, model)
             # jax.grad gives every param a grad, zeros where the program did
             # not reach it (a frozen param is detached); its regularizer and a
             # global-norm clip see those zeros, and the update skips frozen ones
+            grads = {k: (torch.zeros_like(p) if p.grad is None
+                         else (p.grad if self._zero is not None else _reduced_grad(p)))
+                     for k, p in model.items()}
+        if self._zero is not None:
+            with torch.no_grad():
+                grads = zero_mod.partition_grads(grads, self._zero, self.mesh)
+            for k, p in self.scope.params.items():
+                p.grad = grads[k]
+        return out, new_state, grads
+
+    def _local_grads(self, feed: Feed, stream: RngStream):
+        """The rank-local gradient path (executor.py:590-880): the program
+        runs on this rank's local tensors with no collective, over its
+        ``accum_steps`` microbatches, and the grads are exchanged ONCE: one
+        ``all_reduce`` of all of them in one buffer (the hoisted
+        exchange), or per grad the quantized ring with its error feedback.
+        The float scalar outputs are averaged over the ranks. Returns
+        (outputs, state, grads as replicated DTensors, new residual or
+        None, whether the grads are already unscaled)."""
+        import torch.distributed as dist
+        from .parallel import api as par_api
+
+        mesh, axes = self.mesh, self._exchange_axes
+        group = mesh.axes_group(axes)
+        dshard = int(np.prod([mesh.shape[x] for x in axes]))
+        a = _strategy_accum(self.strategy)
+        scaler = self.loss_scaler
+        ls = self.scope.loss_scale_state
+        ls_local = None if ls is None else {k: v.to_local() for k, v in ls.items()}
+        src = self.scope.params
+        if self._zero is not None:
+            from .parallel import zero as zero_mod
+            with torch.no_grad():
+                src = zero_mod.combine_params(src, self._zero, mesh)
+        lparams = {k: p.to_local().detach().requires_grad_(p.is_floating_point())
+                   for k, p in src.items()}
+        lfeed = {k: v.to_local() if hasattr(v, "to_local") else v for k, v in feed.items()}
+        b = next(iter(lfeed.values())).shape[0]
+        enforce(b % a == 0, f"batch {b * dshard} must divide accum_steps*data shards "
+                            f"({a}*{dshard}) for the rank-local exchange")
+        if a > 1:
+            out, _, grads = self._accumulate(lfeed, stream, a, lparams, ls_local, state={})
+        else:
+            out, _ = self._forward_backward(lfeed, stream, {}, lparams, ls_local)
             grads = {k: torch.zeros_like(p) if p.grad is None else p.grad
-                     for k, p in params.items()}
-        # an output that is training state (a state variable the program
-        # returns) is copied: the update below writes that tensor in place
-        owned = {t.untyped_storage().data_ptr() for t in _leaves(self._state_trees())}
-        out = {k: v.clone() if v.untyped_storage().data_ptr() in owned else v
-               for k, v in out.items()}
-        keep = None  # 0-d bool on the device: whether this step's update stands
+                     for k, p in lparams.items()}
+        for k, v in out.items():
+            enforce(v.is_floating_point() and v.dim() == 0,
+                    f"accum_exchange='hoisted': output {k!r} is {v.dtype}"
+                    f"{tuple(v.shape)} per rank — only float scalar outputs (loss/metrics) "
+                    "can be averaged across ranks; pass fetch_list=[...] to prune "
+                    "per-sample or integer outputs")
         with torch.no_grad():
+            names = sorted(out)
+            if names:
+                outs = torch.stack([out[k].float() for k in names])
+                dist.all_reduce(outs, group=group)
+                out = {k: (outs[i] / dshard).to(out[k].dtype) for i, k in enumerate(names)}
+            new_resid, unscaled = None, False
+            if self._quant is None:
+                grads = _allreduce_mean(grads, group, dshard)
+            else:
+                grads, new_resid = self._quantized_exchange(grads, ls_local, stream)
+                unscaled = scaler is not None
+            grads = {k: par_api.replicate(mesh, g) for k, g in grads.items()}
+            if self._zero is not None:
+                # the exchanged grads are whole on every rank: each keeps its row
+                grads = zero_mod.partition_grads(grads, self._zero, mesh)
+        for k, p in self.scope.params.items():
+            p.grad = grads[k]
+        return out, {}, grads, new_resid, unscaled
+
+    def _quantized_exchange(self, grads, ls_local, stream: RngStream):
+        """The quantized exchange of the local path (executor.py:542): per
+        grad, unscale (the residual lives in unscaled units), add this
+        rank's error-feedback residual, round-trip through the wire grid
+        (the new residual is what did not make it onto the wire), then the
+        quantized ring over each data axis and the mean. Stochastic
+        rounding draws from a ``torch.Generator`` seeded from the step's
+        seed, the grad's index and the axis."""
+        from torch.distributed.tensor import DTensor
+        from .parallel import quantized_collectives as qc
+
+        q, mesh, axes = self._quant, self.mesh, self._exchange_axes
+        dshard = int(np.prod([mesh.shape[x] for x in axes]))
+        resid = self.scope.quant_resid
+        scaler = self.loss_scaler
+        out, new_resid = {}, ({} if resid is not None else None)
+
+        def gen(*tags):
+            if not q["stochastic_rounding"]:
+                return None
+            seed = mix_seed(stream.seed, 0x7157)
+            for t in tags:
+                seed = mix_seed(seed, t)
+            return torch.Generator(device=self.device).manual_seed(seed)
+
+        for i, (k, g) in enumerate(sorted(grads.items())):
             if scaler is not None:
-                present = {k: g for k, g in grads.items() if g is not None}
-                grads.update(scaler.unscale(present, ls))
-                keep = scaler.all_finite([grads[k] for k in present])
-                new_ls = scaler.update(ls, keep)
-                out["loss_scale"] = new_ls["scale"]
-            if self._guard is not None:
-                # with a loss scaler a grad overflow is the scaler's to skip
-                # and back off from; the guard then watches the outputs only
-                mask = self._guard_mask(out, None if scaler is not None else grads)
-                out["guard_nonfinite"] = mask
-                keep = mask == 0 if keep is None else keep & (mask == 0)
-        with torch.no_grad(), record_function("trainer.update"):
-            values = {k: p.detach() for k, p in params.items()}
-            new_state = {k: v.detach() for k, v in new_state.items()}
-            new_params, new_opt = self.optimizer.update(
-                grads, self.scope.opt_state, values, self.program.param_info)
-            if keep is not None:
-                new_params = LossScaler.select(keep, new_params, values)
-                new_opt = LossScaler.select(keep, new_opt, self.scope.opt_state)
-                new_state = LossScaler.select(keep, new_state, self.scope.state)
-            write_in_place({"params": values, "opt": self.scope.opt_state,
-                            "state": self.scope.state, "ls": ls or {}},
-                           {"params": new_params, "opt": new_opt, "state": new_state,
-                            "ls": new_ls if scaler is not None else {}})
-        return out
+                g = g * (1.0 / ls_local["scale"]).to(g.dtype)
+            key = gen(i)
+            if resid is not None:
+                v = g.float() + resid[k].to_local()[0]
+                x = qc.block_roundtrip(v, bits=q["bits"], block_size=q["block_size"],
+                                       generator=key)
+                r = resid[k]
+                new_resid[k] = DTensor.from_local((v - x)[None], r.device_mesh, r.placements,
+                                                  run_check=False)
+                key = None  # the ring re-encodes x exactly; the rounding is spent
+            else:
+                x = g
+            for j, ax in enumerate(axes):
+                x = qc.quantized_psum(x, mesh.group(ax), bits=q["bits"],
+                                      block_size=q["block_size"],
+                                      generator=None if key is None else gen(i, j))
+            out[k] = (x / dshard).to(g.dtype)
+        return out, new_resid
 
     def run_steps(self, stacked_feed: Feed, k: Optional[int] = None,
                   rng: Optional[int] = None,
@@ -597,7 +1093,7 @@ class Trainer:
         k = feed_k if k is None else int(k)
         enforce(k == feed_k, f"run_steps(k={k}): stacked feed carries {feed_k} step "
                              "batches on its leading axis")
-        feed = self._put_feed(stacked_feed)
+        feed = self._put_feed(stacked_feed, stacked=True)
         base = self.global_step
         seeds = [self._step_seed(rng, base + i, fused=True) for i in range(k)]
         if self._fused is None or not self._fused.valid_for(self, feed):
@@ -701,9 +1197,9 @@ class Trainer:
         """Forward pass in inference mode (no dropout), no update; returns
         every output."""
         feed = self._put_feed(feed)
-        with torch.no_grad():
-            out, _ = self._run(feed, training=False)
-        return {k: v.detach() for k, v in out.items()}
+        with torch.no_grad(), self._mesh_scope():
+            out, _ = self._run(feed, training=False, params=self._logical_params())
+        return {k: _full(v.detach()) for k, v in out.items()}
 
 
 class CheckpointConfig:
@@ -866,7 +1362,7 @@ def fit(trainer: Trainer, reader, num_epochs: int, feed_names: Sequence[str],
                 items = iter(device_feeder)
             elif k > 1:
                 items = iter_chunked(batches(), k, put_fn=trainer._put_feed,
-                                     put_stacked_fn=trainer._put_feed)
+                                     put_stacked_fn=lambda f: trainer._put_feed(f, stacked=True))
             else:
                 items = map(trainer._put_feed, batches())
             preempted = False

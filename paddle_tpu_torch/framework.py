@@ -35,9 +35,12 @@ Where the port differs from the JAX package:
 - A remat policy (:func:`resolve_remat_policy`) is a selective
   activation-checkpoint policy of ``torch.utils.checkpoint``, not a
   ``jax.checkpoint_policies`` callable; the names map onto it.
+- :func:`sp_mode` is the JAX package's ambient sequence-parallel
+  switch; the Trainer enters it from ``DistStrategy(sequence_parallel=
+  True, sp_impl=...)``.
 - Not carried yet, each raising :class:`NotYetPorted`: ``Program.desc``
   and ``desc_flat`` (jaxprs; an FX form comes with ROADMAP queue 1 item
-  25), ``pipeline_mode`` and ``sp_mode`` (the multi-GPU slice).
+  25) and ``pipeline_mode`` (the multi-GPU slice's second half, item 21).
 """
 
 from __future__ import annotations
@@ -855,9 +858,40 @@ def pipeline_mode(mesh, microbatches: int, axis: str = "pp", interleave: int = 1
                        "multi-GPU slice (ROADMAP queue 1, item 21)")
 
 
+_sp_mode = threading.local()
+
+
+@contextlib.contextmanager
 def sp_mode(mesh, axis: str = "sp", impl: str = "ring"):
-    raise NotYetPorted("sp_mode: sequence parallelism comes with the "
-                       "multi-GPU slice (ROADMAP queue 1, item 21)")
+    """Ambient sequence-parallel switch (framework.py:692). The Trainer
+    enters it around a training forward when ``DistStrategy.
+    sequence_parallel`` is set and the mesh has an ``sp`` axis; sp-aware
+    models (models/gpt.py) then run their attention as ring attention
+    (``impl="ring"``, zigzag layout) or as Ulysses all-to-all attention
+    (``impl="ulysses"``) over that axis."""
+    enforce(impl in ("ring", "ulysses"),
+            f"unknown sequence-parallel impl {impl!r} (ring|ulysses)")
+    enforce(mesh is not None and axis in getattr(mesh, "axis_names", ()),
+            f"sp_mode needs a parallel.Mesh with an {axis!r} axis, got {mesh!r}")
+    old = getattr(_sp_mode, "cfg", None)
+    cfg = {"mesh": mesh, "axis": axis, "impl": impl, "consumed": False}
+    _sp_mode.cfg = cfg
+    try:
+        yield cfg
+    finally:
+        _sp_mode.cfg = old
+
+
+def sp_config() -> Optional[dict]:
+    """The active sequence-parallel context, or None (always None while a
+    program initialises, as in the JAX package)."""
+    ctx = current_context()
+    if ctx is not None and ctx.mode == "init":
+        return None
+    cfg = getattr(_sp_mode, "cfg", None)
+    if cfg is not None:
+        cfg["consumed"] = True
+    return cfg
 
 
 # --------------------------------------------------------------------------
@@ -931,5 +965,5 @@ __all__ = [
     "RngStream", "as_stream", "name_scope", "next_rng_key", "params_from_jax",
     "pipeline_mode", "program_guard", "remat_enabled", "remat_mode", "remat_policy",
     "resolve_remat_policy", "reuse_names", "rng_fold", "rng_scope", "seeded_generator",
-    "sp_mode",
+    "sp_config", "sp_mode",
 ]

@@ -27,7 +27,18 @@ a GPT generator by its builder and arguments (``spec()``). The loader
 rebuilds the program from there. Not carried yet, each raising
 :class:`NotYetPorted`: an exported graph per bucket (``torch.export``
 cannot trace a kernel called through ctypes; ROADMAP queue 1, item 9),
-``save_train_artifact`` (item 27) and ZeRO and orbax checkpoints (item 21).
+``save_train_artifact`` (item 27) and sharded/orbax checkpoints (item 21).
+
+A trainer on a mesh saves unsharded, as the JAX package does: every rank
+takes part in gathering the full tensors and rank 0 writes them, so the
+checkpoint moves between meshes and between the packages. The exception
+is ``DistStrategy(zero_sharding=True)`` (io.py:21-25): params and the
+partitioned optimizer leaves go to per-shard ``*.zero{i}.npz`` files (one
+``(k,)`` row each), with the shard count and the logical flat spec in
+``meta.zero``. A restore at the same shard layout reads each rank's own
+shard files only; any other layout change is gated (``ReshardError``
+unless ``allow_reshard``), and :func:`load_persistables` gathers the rows
+back to logical tensors.
 """
 
 from __future__ import annotations
@@ -207,22 +218,69 @@ def _load_collection(dirname: str, name: str) -> Optional[Dict[str, Any]]:
         return _unflatten({k: z[k] for k in z.files})
 
 
+def _merge_nested(dst: Dict[str, Any], src: Dict[str, Any]) -> Dict[str, Any]:
+    for k, v in src.items():
+        if isinstance(v, dict) and isinstance(dst.get(k), dict):
+            _merge_nested(dst[k], v)
+        else:
+            dst[k] = v
+    return dst
+
+
+def _load_flat(path: str) -> Dict[str, np.ndarray]:
+    with np.load(path, allow_pickle=False) as z:
+        return {k: np.array(z[k]) for k in z.files}
+
+
+def _gather_zero_collection(dirname: str, stem: str,
+                            zero_meta: Dict[str, Any]) -> Dict[str, Any]:
+    """A ZeRO checkpoint's per-shard ``(k,)`` rows concatenated back into
+    logical leaves (io.py:290, the host-side gather); {} when the
+    collection has no partitioned leaves."""
+    n = int(zero_meta["shards"])
+    spec = (zero_meta.get("arrays") or {}).get(f"{stem}.npz") or {}
+    paths = [os.path.join(dirname, f"{stem}.zero{i}.npz") for i in range(n)]
+    if not any(os.path.exists(p) for p in paths):
+        return {}
+    missing = [os.path.basename(p) for p in paths if not os.path.exists(p)]
+    if missing:
+        raise FileNotFoundError(f"ZeRO checkpoint is missing shard files {missing[:3]} "
+                                f"({len(missing)} of {n})")
+    flats = [_load_flat(p) for p in paths]
+    flat: Dict[str, np.ndarray] = {}
+    for key in flats[0]:
+        ent = spec.get(key)
+        if ent is None:
+            raise KeyError(f"{stem} shard member {key!r} is absent from the "
+                           "checkpoint's meta.zero.arrays spec")
+        shape = tuple(ent["shape"])
+        size = int(np.prod(shape)) if shape else 1
+        flat[key] = np.concatenate([f[key] for f in flats])[:size].reshape(shape)
+    return _unflatten(flat)
+
+
 def load_persistables(dirname: str) -> Tuple[Dict[str, Any], Dict[str, Any],
                                              Optional[Dict[str, Any]], Dict[str, Any]]:
     """Load (params, state, opt_state, meta) as CPU tensors
-    (load_persistables analog). A ZeRO checkpoint raises
-    :class:`NotYetPorted`."""
+    (load_persistables analog). A ZeRO checkpoint (``meta.zero``) is
+    gathered back to logical tensors."""
     meta: Dict[str, Any] = {}
     meta_path = os.path.join(dirname, "meta.json")
     if os.path.exists(meta_path):
         with open(meta_path) as f:
             meta = json.load(f)
-    if meta.get("zero"):
-        raise NotYetPorted(f"{dirname!r} is a ZeRO (shard-aware) checkpoint: ZeRO "
-                           "comes with ROADMAP queue 1, item 21")
-    params = _load_collection(dirname, "params.npz") or {}
-    state = _load_collection(dirname, "state.npz") or {}
-    opt_state = _load_collection(dirname, "opt_state.npz")
+    zero = meta.get("zero")
+    if zero:
+        params = _gather_zero_collection(dirname, "params", zero)
+        state = _load_collection(dirname, "state.npz") or {}
+        opt_state = _load_collection(dirname, "opt_state.npz")
+        opart = _gather_zero_collection(dirname, "opt_state", zero)
+        if opart:
+            opt_state = _merge_nested(opt_state if opt_state is not None else {}, opart)
+    else:
+        params = _load_collection(dirname, "params.npz") or {}
+        state = _load_collection(dirname, "state.npz") or {}
+        opt_state = _load_collection(dirname, "opt_state.npz")
     if opt_state is not None:
         # a stateless optimizer's empty "global"/"accums" flatten to nothing
         opt_state.setdefault("global", {})
@@ -276,17 +334,34 @@ def save_trainer(dirname: str, trainer, extra_meta: Optional[Dict[str, Any]] = N
             "mesh_axes": resilience.trainer_mesh_axes(trainer) or {}}
     ls = trainer.scope.loss_scale_state
     if ls:
-        meta["loss_scale_state"] = {k: float(v) for k, v in ls.items()}
+        meta["loss_scale_state"] = {k: float(_full(v)) for k, v in ls.items()}
+    zero = getattr(trainer, "_zero", None)
+    if zero is not None:
+        meta["zero_axes"] = dict(zero.axes_dict)
+        meta["zero"] = {"shards": zero.n, "axes": dict(zero.axes_dict), "arrays": zero.arrays}
     if extra_meta:
         meta.update(extra_meta)
+    mesh = getattr(trainer, "mesh", None)
+    params, state, opt_state = trainer.scope.params, trainer.scope.state, \
+        trainer.scope.opt_state
+    if mesh is not None:
+        # every rank gathers (the DTensors' full tensors, ZeRO's (N, k)
+        # rows); rank 0 writes, and the others wait for it at the end
+        import torch.distributed as dist
+        params, state, opt_state = (_full_tree(t) for t in (params, state, opt_state))
+        if dist.get_rank() != 0:
+            dist.barrier()
+            return
     path = os.path.abspath(dirname)
     parent = os.path.dirname(path)
     os.makedirs(parent, exist_ok=True)
     # a prior process's torn save of this tag leaves <tag>.tmp.<pid>
     resilience.sweep_tmp_dirs(parent, tag=os.path.basename(path))
     tmp = f"{path}{TMP_MARKER}{os.getpid()}"
-    spec = save_persistables(tmp, trainer.scope.params, trainer.scope.state,
-                             trainer.scope.opt_state, meta=meta)
+    if zero is not None:
+        spec = _save_zero_persistables(tmp, zero, params, state, opt_state, meta)
+    else:
+        spec = save_persistables(tmp, params, state, opt_state, meta=meta)
     resilience.crash_point("save_trainer:files-written")
     _fsync_tree(tmp)
     resilience.write_manifest(tmp, meta=meta, arrays=spec)
@@ -297,6 +372,80 @@ def save_trainer(dirname: str, trainer, extra_meta: Optional[Dict[str, Any]] = N
         shutil.rmtree(path)
     os.rename(tmp, path)
     _fsync_dir(parent)
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.barrier()
+
+
+def _full(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _full_tree(tree):
+    """A tree's DTensors as full tensors (collective: every rank calls it)."""
+    if isinstance(tree, dict):
+        return {k: _full_tree(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return _full(tree.detach())
+    return tree
+
+
+def _zero_split_flat(tree: Any, n: int, partitioned) -> Tuple[List[Dict[str, np.ndarray]],
+                                                              Dict[str, np.ndarray]]:
+    """A ZeRO tree (its partitioned leaves as full (N, k) rows) split into
+    n per-shard flat dicts, one ``(k,)`` row a leaf, and one flat dict of
+    the replicated leaves (io.py:213)."""
+    shards: List[Dict[str, np.ndarray]] = [dict() for _ in range(n)]
+    base: Dict[str, np.ndarray] = {}
+    for mkey, leaf in _flatten_leaves(tree):
+        if mkey not in partitioned:
+            base[mkey] = _to_numpy(leaf)
+            continue
+        rows = _to_numpy(leaf)
+        for i in range(n):
+            shards[i][mkey] = rows[i]
+    return shards, base
+
+
+def _flatten_leaves(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
+    """(npz member name, leaf) of every leaf of a tree."""
+    if isinstance(tree, dict):
+        return [kv for k, v in tree.items()
+                for kv in _flatten_leaves(v, f"{prefix}{SEP}{k}" if prefix else str(k))]
+    if tree is None:
+        return []
+    return [(_mangle_key(prefix, _logical_dtype(tree))[0], tree)]
+
+
+def _save_zero_persistables(dirname: str, zero, params, state, opt_state,
+                            meta) -> Dict[str, Dict[str, Any]]:
+    """The ZeRO form of :func:`save_persistables` (io.py:249): params and
+    the partitioned optimizer leaves in ``params.zero{i}.npz`` /
+    ``opt_state.zero{i}.npz``, the replicated optimizer leaves in
+    ``opt_state.npz``. Returns the spec of the files written."""
+    os.makedirs(dirname, exist_ok=True)
+    spec: Dict[str, Dict[str, Any]] = {}
+
+    def write(name, flat):
+        np.savez(os.path.join(dirname, name), **flat)
+        spec[name] = _spec_of(flat)
+
+    pshards, pbase = _zero_split_flat(params, zero.n, zero.partitioned["params.npz"])
+    enforce(not pbase, "zero_sharding partitions every param leaf")
+    for i, flat in enumerate(pshards):
+        write(f"params.zero{i}.npz", flat)
+    if state is not None:
+        write("state.npz", _flatten(state))
+    if opt_state is not None:
+        oshards, obase = _zero_split_flat(opt_state, zero.n,
+                                          zero.partitioned["opt_state.npz"])
+        write("opt_state.npz", obase)
+        if oshards[0]:
+            for i, flat in enumerate(oshards):
+                write(f"opt_state.zero{i}.npz", flat)
+    with open(os.path.join(dirname, "meta.json"), "w") as f:
+        json.dump(meta or {}, f)
+    return spec
 
 
 def _to_device(tree, device: torch.device):
@@ -306,19 +455,24 @@ def _to_device(tree, device: torch.device):
 
 
 def load_trainer(dirname: str, trainer, allow_reshard: bool = False) -> None:
-    """Restore a Trainer in place onto its device.
+    """Restore a Trainer in place onto its device or mesh.
 
     The directory is validated against its manifest first (CRC32 per
     file, format version); a mismatch, or an npz that fails to parse,
     raises :class:`CheckpointCorrupt`. Pre-manifest (legacy) directories
     load without validation. A checkpoint recorded at other mesh axes than
-    the trainer's (a single device: none) raises
-    :class:`~paddle_tpu_torch.resilience.ReshardError` unless
-    ``allow_reshard``. A started trainer's params must match the
-    checkpoint's names, shapes and dtypes.
+    the trainer's (a single device: none), or at another ZeRO shard
+    layout, raises :class:`~paddle_tpu_torch.resilience.ReshardError`
+    unless ``allow_reshard`` (io.py:486-520). A started trainer's params
+    must match the checkpoint's names, shapes and dtypes.
 
-    The trainer's params become fresh tensors on its device, with
-    ``requires_grad`` as ``startup`` sets it."""
+    The trainer's params become fresh tensors on its device (DTensors on
+    its mesh, placed as ``startup`` places them), with ``requires_grad``
+    as ``startup`` sets it. A ZeRO checkpoint restored at the same shard
+    layout reads only this rank's shard files (bit for bit the rows that
+    were saved); any other restore reads the logical tensors
+    (:func:`load_persistables`) and places them."""
+    tz = getattr(trainer, "_zero", None)
     if not allow_reshard:
         man = resilience.read_manifest(dirname)  # None for legacy
         saved = ((man or {}).get("meta") or {})
@@ -331,24 +485,37 @@ def load_trainer(dirname: str, trainer, allow_reshard: bool = False) -> None:
                 f"checkpoint was saved at mesh axes {saved_axes} but the target "
                 f"trainer runs {target_axes or 'a single device'} — restoring "
                 "across a mesh change is an elastic reshard (ROADMAP queue 1, "
-                "item 22)")
-        if resilience.normalize_mesh_axes(saved.get("zero_axes")):
+                "item 22; load_trainer(allow_reshard=True) places the saved tensors "
+                "on the new mesh without the feasibility check)")
+        target_zero = dict(tz.axes_dict) if tz is not None else {}
+        if man is not None and resilience.normalize_mesh_axes(saved.get("zero_axes")) \
+                != resilience.normalize_mesh_axes(target_zero):
             raise resilience.ReshardError(
                 dirname, saved_axes, target_axes,
-                f"checkpoint zero_sharding axes {saved['zero_axes']} differ from "
-                "the target trainer's None — restoring across a ZeRO shard-layout "
-                "change is an elastic reshard (ROADMAP queue 1, item 22)")
+                f"checkpoint zero_sharding axes {saved.get('zero_axes') or None} differ "
+                f"from the target trainer's {target_zero or None} — restoring across a "
+                "ZeRO shard-layout change is an elastic reshard (ROADMAP queue 1, item "
+                "22; load_trainer(allow_reshard=True) gathers and repartitions)")
     manifest = resilience.validate_checkpoint(dirname)  # None for legacy
+    zero_meta = ((manifest or {}).get("meta") or {}).get("zero")
+    if zero_meta is None:
+        meta_path = os.path.join(dirname, "meta.json")
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                zero_meta = json.load(f).get("zero")
+    if (tz is not None and zero_meta and int(zero_meta.get("shards", 0)) == tz.n
+            and resilience.normalize_mesh_axes(zero_meta.get("axes") or {})
+            == resilience.normalize_mesh_axes(tz.axes_dict)):
+        _load_zero_shard_local(dirname, trainer, zero_meta)
+        return
     try:
         params, state, opt_state, meta = load_persistables(dirname)
-    except NotYetPorted:
-        raise
     except Exception as e:
         raise CheckpointCorrupt(
             dirname, f"unreadable collection: {type(e).__name__}: {e}") from e
     if not params:
         raise CheckpointCorrupt(dirname, "no parameters found (params.npz missing or empty)")
-    if manifest:
+    if manifest and not zero_meta:
         _check_arrays_spec(manifest, dirname, params=params, state=state,
                            opt_state=opt_state)
     _check_trainer_param_drift(dirname, trainer, params)
@@ -360,16 +527,68 @@ def load_trainer(dirname: str, trainer, allow_reshard: bool = False) -> None:
             opt_state["accums"].setdefault(k, {})
         opt_state = _to_device(opt_state, dev)
         opt_state["step"] = opt_state["step"].to(torch.int32)
-    params = {k: v.to(dev).requires_grad_(v.is_floating_point())
-              for k, v in params.items()}
-    trainer.scope.params = params
-    trainer.scope.state = _to_device(state, dev)
+    params = {k: v.to(dev) for k, v in params.items()}
+    state = _to_device(state, dev)
+    if getattr(trainer, "mesh", None) is not None:
+        params, state, opt_state = trainer._mesh_placement(params, state, opt_state)
+    trainer.scope.params = {k: v.requires_grad_(v.is_floating_point())
+                            for k, v in params.items()}
+    trainer.scope.state = state
     trainer.scope.opt_state = opt_state
+    _finish_restore(dirname, trainer, meta)
+
+
+def _finish_restore(dirname: str, trainer, meta: Dict[str, Any]) -> None:
     trainer._fused = None  # a captured step reads the state it replaced
     trainer.global_step = int(meta.get("global_step", 0))
     # fit(resume=True) reads epoch/epoch_step from here
     trainer._last_loaded_meta = dict(meta)
     _restore_loss_scale(trainer, meta, dirname)
+
+
+def _load_zero_shard_local(dirname: str, trainer, zero_meta: Dict[str, Any]) -> None:
+    """Same-layout ZeRO restore (io.py:541): this rank reads its own
+    ``*.zero{i}.npz`` rows and the replicated leaves; no gather."""
+    from .parallel import api as par_api
+    from .parallel.zero import _rows
+
+    tz, mesh, dev = trainer._zero, trainer.mesh, trainer.device
+    i = mesh.axes_coord(tz.axes)
+    with open(os.path.join(dirname, "meta.json")) as f:
+        meta = json.load(f)
+    try:
+        prow = _unflatten(_load_flat(os.path.join(dirname, f"params.zero{i}.npz")))
+        state = _load_collection(dirname, "state.npz") or {}
+        base = _load_collection(dirname, "opt_state.npz")
+        opath = os.path.join(dirname, f"opt_state.zero{i}.npz")
+        orow = _unflatten(_load_flat(opath)) if os.path.exists(opath) else {}
+    except Exception as e:
+        raise CheckpointCorrupt(
+            dirname, f"unreadable ZeRO shard {i}: {type(e).__name__}: {e}") from e
+    params = {k: _rows(mesh, tz, v.to(dev)[None]).requires_grad_(v.is_floating_point())
+              for k, v in prow.items()}
+    enforce(set(params) == set(tz.shapes),
+            f"ZeRO checkpoint {dirname!r}: shard {i} holds params {sorted(params)[:3]}..., "
+            f"the trainer {sorted(tz.shapes)[:3]}...")
+
+    def place(tree, rows):
+        if isinstance(tree, dict):
+            return {k: place(v, rows) for k, v in tree.items()}
+        t = tree.to(dev)
+        return _rows(mesh, tz, t[None]) if rows else par_api.replicate(mesh, t)
+
+    opt_state = None
+    if base is not None or orow:
+        opt_state = _merge_nested(place(base or {}, False), place(orow, True))
+        opt_state.setdefault("global", {})
+        opt_state.setdefault("accums", {})
+        for k in params:
+            opt_state["accums"].setdefault(k, {})
+        opt_state["step"] = par_api.replicate(mesh, opt_state["step"].to_local().to(torch.int32))
+    trainer.scope.params = params
+    trainer.scope.state = {k: par_api.replicate(mesh, v.to(dev)) for k, v in state.items()}
+    trainer.scope.opt_state = opt_state
+    _finish_restore(dirname, trainer, meta)
 
 
 def _restore_loss_scale(trainer, meta: Dict[str, Any], dirname: str) -> None:
@@ -398,13 +617,16 @@ def _restore_loss_scale(trainer, meta: Dict[str, Any], dirname: str) -> None:
             f"checkpoint {dirname!r} loss_scale_state is missing {sorted(missing)} — "
             "those fields fall back to the scaler's initial values")
     dev = trainer.device
-    trainer.scope.loss_scale_state = {
-        "scale": torch.tensor(float(ls_meta.get("scale", float(init["scale"]))),
-                              dtype=torch.float32, device=dev),
-        "good_steps": torch.tensor(int(ls_meta.get("good_steps", int(init["good_steps"]))),
-                                   dtype=torch.int32, device=dev),
-        "overflows": torch.tensor(int(ls_meta.get("overflows", int(init["overflows"]))),
-                                  dtype=torch.int32, device=dev)}
+    ls = {"scale": torch.tensor(float(ls_meta.get("scale", float(init["scale"]))),
+                                dtype=torch.float32, device=dev),
+          "good_steps": torch.tensor(int(ls_meta.get("good_steps", int(init["good_steps"]))),
+                                     dtype=torch.int32, device=dev),
+          "overflows": torch.tensor(int(ls_meta.get("overflows", int(init["overflows"]))),
+                                    dtype=torch.int32, device=dev)}
+    if getattr(trainer, "mesh", None) is not None:
+        from .parallel.api import replicate
+        ls = {k: replicate(trainer.mesh, v) for k, v in ls.items()}
+    trainer.scope.loss_scale_state = ls
 
 
 def _check_trainer_param_drift(dirname: str, trainer, params) -> None:
@@ -415,7 +637,9 @@ def _check_trainer_param_drift(dirname: str, trainer, params) -> None:
     have = trainer.scope.params
     if not have:
         return
-    want, got = flat_spec(have), flat_spec(params)
+    tz = getattr(trainer, "_zero", None)
+    want = dict(tz.arrays["params.npz"]) if tz is not None else flat_spec(have)
+    got = flat_spec(params)
     if set(want) != set(got):
         missing = sorted(set(want) - set(got))[:3]
         extra = sorted(set(got) - set(want))[:3]

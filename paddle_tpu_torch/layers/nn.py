@@ -33,6 +33,7 @@ from .. import initializer as init
 from ..core.errors import enforce
 from ..framework import (LayerHelper, cast_compute, compute_dtype, current_layout,
                          in_training, next_rng_key, seeded_generator)
+from ..ops import _dtensor as _dt
 from ..quantize import refuse_int8
 from .ops import apply_activation
 
@@ -114,7 +115,8 @@ def conv2d(input, num_filters: int, filter_size: Int2, stride: Int2 = 1,
         w = w.to(cd, memory_format=torch.channels_last)
     else:
         w = cast_compute(cd, w)
-    out = _from_nchw(F.conv2d(x, w, stride=st, padding=pd, dilation=dl, groups=groups),
+    out = _from_nchw(_dt.rowwise(lambda a, b: F.conv2d(a, b, stride=st, padding=pd,
+                                                        dilation=dl, groups=groups), x, w),
                      data_format)
     if bias_attr is not False:
         b = helper.create_parameter("b", shape=(num_filters,), dtype=torch.float32,
@@ -155,25 +157,24 @@ def pool2d(input, pool_size: Int2 = 2, pool_type: str = "max", pool_stride: Int2
             span = x.shape[2 + i] + 2 * pd[i] - ps[i]
             hi[i] = pd[i] + (-(-span // st[i]) - span // st[i]) * st[i]
     padded = any(pd) or hi != list(pd)
-    if hi == list(pd) and all(2 * p <= k for p, k in zip(pd, ps)):
-        # PyTorch's own symmetric padding gives the same windows
-        if pool_type == "max":
-            out = F.max_pool2d(x, ps, st, pd)
-        else:
-            out = F.avg_pool2d(x, ps, st, pd, count_include_pad=not (exclusive and padded))
-        return _from_nchw(out, data_format)
     pads = (pd[1], hi[1], pd[0], hi[0])
-    if pool_type == "max":
-        out = F.max_pool2d(F.pad(x, pads, value=float("-inf")), ps, st)
-        return _from_nchw(out, data_format)
-    total = F.avg_pool2d(F.pad(x, pads), ps, st, divisor_override=1)
-    if exclusive and padded:
-        count = F.avg_pool2d(F.pad(torch.ones_like(x[:1, :1]), pads), ps, st,
-                             divisor_override=1)
-        out = total / count
-    else:
-        out = total / math.prod(ps)
-    return _from_nchw(out, data_format)
+
+    def pool(x):
+        if hi == list(pd) and all(2 * p <= k for p, k in zip(pd, ps)):
+            # PyTorch's own symmetric padding gives the same windows
+            if pool_type == "max":
+                return F.max_pool2d(x, ps, st, pd)
+            return F.avg_pool2d(x, ps, st, pd, count_include_pad=not (exclusive and padded))
+        if pool_type == "max":
+            return F.max_pool2d(F.pad(x, pads, value=float("-inf")), ps, st)
+        total = F.avg_pool2d(F.pad(x, pads), ps, st, divisor_override=1)
+        if exclusive and padded:
+            count = F.avg_pool2d(F.pad(torch.ones_like(x[:1, :1]), pads), ps, st,
+                                 divisor_override=1)
+            return total / count
+        return total / math.prod(ps)
+
+    return _from_nchw(_dt.rowwise(pool, x), data_format)
 
 
 def batch_norm(input, act: Optional[str] = None, is_test: Optional[bool] = None,

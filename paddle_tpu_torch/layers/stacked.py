@@ -31,11 +31,14 @@ generator, the positional row), never read back to the host, so a decode
 step can be captured as a CUDA graph and replayed with the index advanced
 on the card.
 
-Not carried yet, each raising :class:`NotYetPorted`: the
-sequence-parallel branch of ``_sdpa`` and tensor-parallel psums.
-``apply_stacked``'s pipeline path is entered through
+Under ``framework.sp_mode`` (the Trainer's ``DistStrategy(
+sequence_parallel=True)``) the self-attention of :func:`apply_stacked`'s
+blocks runs as ring or Ulysses attention over the mesh's sp axis
+(``_sdpa``'s sp route). Not carried yet, raising :class:`NotYetPorted`:
+the tensor-parallel psums of the blocks inside the pipeline
+(``tp_axis``); ``apply_stacked``'s pipeline path is entered through
 ``DistStrategy.pp_microbatches``, which the port's ``Trainer`` does not
-take yet.
+take yet (ROADMAP queue 1, item 21).
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ from torch import nn
 
 from ..core.errors import NotYetPorted, enforce
 from ..framework import (LayerHelper, cast_compute, compute_dtype as _compute_dtype,
-                         in_training, maybe_remat)
+                         in_training, maybe_remat, sp_config)
 from .. import initializer as init
 from .nn import dropout
 
@@ -191,7 +194,32 @@ def _sdpa(q, k, v, key_bias, causal: bool, use_flash: bool, sp_cfg=None,
     layers/attention.py), else the dense path with dropout on the
     probabilities."""
     if sp_cfg is not None:
-        raise NotYetPorted("sequence-parallel attention (multi-GPU slice)")
+        # the sequence-parallel route (stacked.py:85-110): ring attention
+        # over the sp axis in the layout the model set ("zigzag" when it
+        # permuted its own activations, as models/gpt.py does), or Ulysses
+        enforce(key_bias is None,
+                "sequence-parallel attention does not take a padding bias "
+                "(pack full sequences; pad-free is the long-context contract)")
+        enforce(dropout_rate == 0.0 or not training,
+                "sequence-parallel attention has no softmax-dropout site "
+                "(ring/ulysses kernels); train sp stacks with dropout 0")
+        if sp_cfg.get("impl", "ring") == "ulysses":
+            from ..parallel.ulysses import ulysses_attention
+
+            def inner(qh, kh, vh, caus):
+                if use_flash:
+                    from ..ops.flash_attention import flash_attention
+                    return flash_attention(qh, kh, vh, causal=caus)
+                return _sdpa(qh, kh, vh, None, caus, False)
+
+            return ulysses_attention(q, k, v, sp_cfg["mesh"], axis_name=sp_cfg["axis"],
+                                     causal=causal, attn_fn=inner)
+        from ..parallel.ring_attention import ring_attention
+        layout = sp_cfg.get("layout", "natural")
+        return ring_attention(q, k, v, sp_cfg["mesh"], axis_name=sp_cfg["axis"],
+                              causal=causal,
+                              schedule="zigzag" if (causal and layout == "zigzag") else "auto",
+                              layout=layout)
     if use_flash and (dropout_rate == 0.0 or not training):
         from ..ops.flash_attention import flash_attention
         return flash_attention(q, k, v, causal=causal, key_bias=key_bias)
@@ -249,9 +277,9 @@ def _ffn(x, p, compute_dtype, dropout_rate: float = 0.0, training: bool = False)
 
 def _self_attention(x, p, num_heads, causal, use_flash, key_bias,
                     compute_dtype, dropout_rate: float = 0.0,
-                    training: bool = False):
+                    training: bool = False, sp_cfg=None):
     q, k, v = _attn_qkv(x, p, num_heads, compute_dtype)
-    o = _sdpa(q, k, v, key_bias, causal, use_flash, dropout_rate=dropout_rate,
+    o = _sdpa(q, k, v, key_bias, causal, use_flash, sp_cfg, dropout_rate=dropout_rate,
               training=training)
     return _attn_out(x, p, o, compute_dtype, dropout_rate, training)
 
@@ -269,13 +297,12 @@ def make_encoder_block(num_heads: int, use_flash: bool = False,
     from its build context; a training pass with dropout draws its masks
     from the running program's rng (:func:`framework.next_rng_key`)."""
     if tp_axis is not None:
-        raise NotYetPorted("tensor-parallel stacked blocks (multi-GPU slice)")
-    if sp_cfg is not None:
-        raise NotYetPorted("sequence-parallel attention (multi-GPU slice)")
+        raise NotYetPorted("tensor-parallel stacked blocks inside the pipeline "
+                           "(ROADMAP queue 1, item 21)")
 
     def block(x, p, key_bias=None):
         x = _self_attention(x, p, num_heads, causal, use_flash, key_bias,
-                            compute_dtype, dropout_rate, training)
+                            compute_dtype, dropout_rate, training, sp_cfg)
         return _ffn(x, p, compute_dtype, dropout_rate, training)
 
     return block
@@ -299,7 +326,8 @@ def make_decoder_block(num_heads: int, use_flash: bool = False,
             "stack (models/gpt.py); the encoder-decoder cross-attention "
             "path does not support it")
     if tp_axis is not None:
-        raise NotYetPorted("tensor-parallel stacked blocks (multi-GPU slice)")
+        raise NotYetPorted("tensor-parallel stacked blocks inside the pipeline "
+                           "(ROADMAP queue 1, item 21)")
 
     def block(x, p, extra):
         head_dim = x.shape[-1] // num_heads
@@ -339,7 +367,7 @@ def apply_stacked(x, stacked: Dict[str, torch.Tensor], make_block: Callable,
     layout) replayed. The blocks compute in the running program's dtype
     and mode (``framework.compute_dtype``, ``in_training``)."""
     block = make_block(num_heads=num_heads, use_flash=use_flash,
-                       causal=causal, tp_axis=None, sp_cfg=None,
+                       causal=causal, tp_axis=None, sp_cfg=sp_config(),
                        dropout_rate=dropout_rate, compute_dtype=_compute_dtype(),
                        training=in_training())
 

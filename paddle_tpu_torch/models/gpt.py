@@ -15,9 +15,11 @@ run causally through the flash-attention kernels (``use_flash``, the
 config default); training differentiates through the forward kernel and
 the two backward kernels. At ``dropout > 0`` training takes the dense
 attention instead (the kernels have no dropout), with its masks drawn
-from the step's rng stream. Sequence parallelism (the JAX function's
-zigzag and ulysses branches) comes with the multi-GPU slice: its switch,
-``framework.sp_mode``, raises :class:`NotYetPorted` there.
+from the step's rng stream. Under ``framework.sp_mode`` (the Trainer's
+``DistStrategy(sequence_parallel=True, sp_impl=...)``) the program runs
+the JAX function's sequence-parallel branches: for ring attention it
+permutes ids, labels and positions into zigzag order once and keeps its
+activations there; for Ulysses it checks that the sequence divides.
 
 The generator is a module that owns its params under the same names
 (:data:`PARAM_TABLE`). It decodes greedily or by beam search
@@ -95,10 +97,30 @@ def make_model(cfg: Union[GPTConfig, dict]):
         dtype = convert_dtype(cfg.dtype)
         s = ids.shape[1]
         enforce(s <= cfg.max_len, f"seq {s} exceeds max_len {cfg.max_len}")
+        sp = framework.sp_config()
+        positions = None
+        if sp is not None and sp.get("impl", "ring") == "ring":
+            from ..parallel.ring_attention import zigzag_order
+            n = sp["mesh"].shape[sp["axis"]]
+            enforce(s % (2 * n) == 0,
+                    f"sequence parallelism needs seq {s} divisible by 2·sp={2 * n}")
+            # activations stay in zigzag order end to end (models/gpt.py:68-83):
+            # ids, labels and positions permuted once, the ring told so
+            positions = zigzag_order(s, n, device=ids.device)
+            ids, labels = ids[:, positions], labels[:, positions]
+            sp["layout"] = "zigzag"
+        elif sp is not None:  # ulysses: natural order, no permutation
+            n = sp["mesh"].shape[sp["axis"]]
+            enforce(s % n == 0,
+                    f"ulysses sequence parallelism needs seq {s} divisible by sp={n}")
         with name_scope("tok"):
             x = L.embedding(ids, size=[cfg.vocab_size, cfg.d_model], dtype=cfg.dtype)
-        # rows 0..s-1 of the max_len table, which are this table
-        x = x + A.positional_encoding(s, cfg.d_model, dtype, device=x.device)[None]
+        if positions is None:
+            # rows 0..s-1 of the max_len table, which are this table
+            x = x + A.positional_encoding(s, cfg.d_model, dtype, device=x.device)[None]
+        else:
+            pe = A.positional_encoding(cfg.max_len, cfg.d_model, dtype, device=x.device)
+            x = x + pe[positions][None]
         with name_scope("gpt"):
             stack = S.encoder_stack_params(cfg.num_layers, cfg.d_model, cfg.d_inner)
             x = S.apply_stacked(x, stack, S.make_encoder_block, num_heads=cfg.num_heads,

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from . import _dtensor as _dt
 from .fused_ce import _mm_f32
 
 
@@ -43,7 +44,12 @@ class _ScoresMxu(torch.autograd.Function):
 
 def scores_mxu(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
     """QKᵀ·scale over [b, h, s, d]: f32 out, f32 accumulation, and the
-    input-dtype backward products of the JAX package's custom VJP."""
+    input-dtype backward products of the JAX package's custom VJP.
+    DTensors run on their local shards with a batch or head shard kept."""
+    if _dt.is_dtensor(q):
+        pl = _dt.kept_placements(q, (0, 1))
+        out = _ScoresMxu.apply(_dt.local_at(q, q, pl), _dt.local_at(k, q, pl), float(scale))
+        return _dt.wrap(out, q, pl)
     return _ScoresMxu.apply(q, k, float(scale))
 
 

@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 
 from ..core.errors import EnforceError, enforce
+from . import _dtensor as _dt
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
@@ -79,7 +80,14 @@ def flash_attention(q, k, v, causal: bool = False,
       gradient.
 
     q, k and v are differentiable; the bias and the ids are not.
+
+    DTensors (a mesh's tensors) run on their local shards, with a batch or
+    head shard kept and the sequence and head dims gathered
+    (:func:`_flash_dtensor`).
     """
+    if _dt.is_dtensor(q):
+        return _flash_dtensor(q, k, v, causal, attn_mask, key_bias, segment_ids,
+                              kv_segment_ids, return_lse)
     enforce(kv_segment_ids is None or segment_ids is not None,
             "flash_attention: kv_segment_ids requires segment_ids (the "
             "query-side ids) as well")
@@ -103,6 +111,28 @@ def flash_attention(q, k, v, causal: bool = False,
         with torch.no_grad():
             return _flash_fwd(q, k, v, bias, seg_q, seg_k, causal)
     return _FlashCore.apply(q, k, v, bias, seg_q, seg_k, bool(causal))
+
+
+def _flash_dtensor(q, k, v, causal, attn_mask, key_bias, segment_ids, kv_segment_ids,
+                   return_lse):
+    """:func:`flash_attention` of DTensors: attention is independent per
+    (batch, head), so q, k and v go to their local shards with a shard of
+    dim 0 or 1 kept (the same for all three) and everything else
+    replicated; the bias and the ids follow the batch shard. The output
+    (and lse) come back as DTensors of those placements."""
+    enforce(attn_mask is None, "flash_attention on DTensors takes key_bias and "
+            "segment ids, not a dense attn_mask")
+    pl = _dt.kept_placements(q, (0, 1))
+    bpl = _dt.batch_placements(q)
+    ql, kl, vl = (_dt.local_at(t, q, pl) for t in (q, k, v))
+    out = flash_attention(ql, kl, vl, causal=causal,
+                          key_bias=_dt.local_at(key_bias, q, bpl),
+                          segment_ids=_dt.local_at(segment_ids, q, bpl),
+                          kv_segment_ids=_dt.local_at(kv_segment_ids, q, bpl),
+                          return_lse=return_lse)
+    if return_lse:
+        return _dt.wrap(out[0], q, pl), _dt.wrap(out[1], q, pl)
+    return _dt.wrap(out, q, pl)
 
 
 def _flash_fwd(q, k, v, bias, seg_q, seg_k, causal):
@@ -301,6 +331,7 @@ def flash_fwd_cuda(q, k, v, causal: bool, key_bias=None, seg_q=None, seg_k=None)
     """Launch ``csrc/flash_fwd.cu`` on CUDA tensors; returns (o, lse).
     Raises :class:`UnsupportedFlashInput` for what the kernel does not
     take and :class:`EnforceError` when the launch fails."""
+    _dt.refuse("flash_fwd_cuda", q, k, v, key_bias, seg_q, seg_k)
     global flash_fwd_launches
     q, k, v, key_bias, seg_q, seg_k = _cuda_operands(q, k, v, key_bias, seg_q, seg_k)
     b, h, sq, d = q.shape
@@ -337,6 +368,7 @@ def flash_bwd_dq_cuda(q, k, v, causal: bool, key_bias, seg_q, seg_k, g, lse,
     [b, h, sq] f32. Raises :class:`UnsupportedFlashInput` for what the
     kernel does not take and :class:`EnforceError` when the launch
     fails."""
+    _dt.refuse("flash_bwd_dq_cuda", q, k, v, key_bias, seg_q, seg_k, g, lse, delta)
     global flash_bwd_dq_launches
     ops, common, sizes = _bwd_operands(q, k, v, causal, key_bias, seg_q, seg_k,
                                        g, lse, delta)
@@ -355,6 +387,7 @@ def flash_bwd_dkv_cuda(q, k, v, causal: bool, key_bias, seg_q, seg_k, g, lse,
                        delta):
     """Launch ``flash_bwd_dkv`` of ``csrc/flash_bwd.cu``; returns (dk,
     dv). Takes what :func:`flash_bwd_dq_cuda` takes."""
+    _dt.refuse("flash_bwd_dkv_cuda", q, k, v, key_bias, seg_q, seg_k, g, lse, delta)
     global flash_bwd_dkv_launches
     ops, common, sizes = _bwd_operands(q, k, v, causal, key_bias, seg_q, seg_k,
                                        g, lse, delta)

@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from . import _dtensor as _dt
+
 from ..core.errors import NotYetPorted
 
 
@@ -135,6 +137,20 @@ def chunked_softmax_cross_entropy(hidden, weight, bias, labels,
     if logit_dtype != torch.float32:
         raise NotYetPorted("chunked_softmax_cross_entropy with logits in "
                            f"{logit_dtype} (float32 only so far)")
+    if _dt.is_dtensor(hidden) or _dt.is_dtensor(weight):
+        # a mesh's tensors: the rows' batch shard kept, the head's weight
+        # and bias gathered, the per-row nll back as a DTensor of the rows
+        like = hidden if _dt.is_dtensor(hidden) else weight
+        rows = (_dt.batch_placements(like) if like is hidden
+                else _dt.kept_placements(like, ()))
+        full = _dt.kept_placements(like, ())
+        part = _dt.partial_where_sharded(rows)
+        nll = _ChunkedCE.apply(_dt.local_at(hidden, like, rows),
+                               _dt.local_at(weight, like, full, part),
+                               _dt.local_at(bias, like, full, part),
+                               _dt.local_at(labels, like, rows),
+                               float(smooth_eps), int(chunk))
+        return _dt.wrap(nll, like, rows)
     return _ChunkedCE.apply(hidden, weight, bias, labels, float(smooth_eps),
                             int(chunk))
 

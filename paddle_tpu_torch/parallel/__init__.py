@@ -1,7 +1,29 @@
-"""Parallelism (counterpart of ``paddle_tpu.parallel``): so far the
-:class:`DistStrategy` knobs. Meshes, sharding and the collectives come
-with the multi-GPU slice (ROADMAP queue 1, item 21)."""
+"""Parallelism (counterpart of ``paddle_tpu.parallel``): meshes over the
+ranks of a ``torch.distributed`` world, sharding rules as DTensor
+placements, the :class:`DistStrategy` knobs, ZeRO, the quantized gradient
+exchange, and sequence parallelism through ring and Ulysses attention.
 
+Pipeline parallelism, MoE, the asynchronous parameter server and sharded
+checkpoints come with the multi-GPU slice's second half (ROADMAP queue 1,
+item 21)."""
+
+from . import api, mesh, quantized_collectives, ring_attention, sharding, strategy, ulysses
+from . import zero
+from .mesh import (DATA_AXES, DP, EP, FSDP, PP, SP, TP, DistributedInitError, Mesh,
+                   data_axis_names, data_parallel_size, initialize, make_mesh)
+from .quantized_collectives import quantized_pmean, quantized_psum
+from .ring_attention import ring_attention as ring_attention_fn
+from .sharding import (P, PartitionSpec, ShardingRules, ShardingRuleWarning, fsdp,
+                       replicated, transformer_tp_rules)
 from .strategy import DistStrategy, unported_fields
+from .ulysses import ulysses_attention
 
-__all__ = ["DistStrategy", "unported_fields"]
+__all__ = [
+    "api", "mesh", "quantized_collectives", "ring_attention", "sharding", "strategy",
+    "ulysses", "zero",
+    "quantized_pmean", "quantized_psum", "ring_attention_fn", "ulysses_attention",
+    "DATA_AXES", "DP", "EP", "FSDP", "PP", "SP", "TP", "DistributedInitError", "Mesh",
+    "data_axis_names", "data_parallel_size", "initialize", "make_mesh",
+    "P", "PartitionSpec", "ShardingRules", "ShardingRuleWarning", "fsdp", "replicated",
+    "transformer_tp_rules", "DistStrategy", "unported_fields",
+]

@@ -6,10 +6,15 @@ every field of the JAX package's, so configs written for it construct.
 The port acts on the loss-scaling fields (``loss_scale``,
 ``dynamic_loss_scale``, ``loss_scale_growth_interval``), on
 rematerialization (``remat``, ``remat_policy``), on gradient
-accumulation over one device (``accum_steps``) and on the optimizer
-state's storage dtype (``opt_state_dtype``); ``Trainer`` raises
-:class:`NotYetPorted` for any other field set away from its default,
-naming the ROADMAP item that brings it (:func:`unported_fields`).
+accumulation (``accum_steps``), on the optimizer state's storage dtype
+(``opt_state_dtype``) and, under a mesh, on the gradient exchange
+(``reduce_strategy``, ``accum_exchange``, ``quantized_allreduce``,
+``quant_block_size``, ``error_feedback``, ``quant_stochastic_rounding``),
+ZeRO (``zero_sharding``) and sequence parallelism
+(``sequence_parallel``, ``sp_impl``). ``Trainer`` raises
+:class:`NotYetPorted` for any other field set away from its default
+(pipeline parallelism, the parameter server, the program dump), naming
+the ROADMAP item that brings it (:func:`unported_fields`).
 """
 
 from __future__ import annotations
@@ -59,24 +64,19 @@ class DistStrategy:
 
 # the fields the port acts on
 PORTED_FIELDS = ("loss_scale", "dynamic_loss_scale", "loss_scale_growth_interval",
-                 "remat", "remat_policy", "accum_steps", "opt_state_dtype")
+                 "remat", "remat_policy", "accum_steps", "opt_state_dtype",
+                 "reduce_strategy", "accum_exchange", "zero_sharding",
+                 "sequence_parallel", "sp_impl", "quantized_allreduce",
+                 "quant_block_size", "error_feedback", "quant_stochastic_rounding",
+                 "donate_buffers")
 
 _MULTI_GPU = "slice 9, multi-GPU"
-# field -> the ROADMAP queue 1 item that brings it; item 20 (meshes,
-# sharding and the rest of this module) for any field not listed
+# field -> the ROADMAP queue 1 item that brings it
 _LATER = {
-    "accum_exchange": f"items 20-21 ({_MULTI_GPU}: the hoisted exchange needs a mesh)",
     "dump_hlo_path": "item 25 (the program's graph form)",
-    "pp_microbatches": f"item 21 ({_MULTI_GPU})",
-    "pp_interleave": f"item 21 ({_MULTI_GPU})",
-    "sequence_parallel": f"item 21 ({_MULTI_GPU})",
-    "sp_impl": f"item 21 ({_MULTI_GPU})",
-    "quantized_allreduce": f"item 21 ({_MULTI_GPU})",
-    "quant_block_size": f"item 21 ({_MULTI_GPU})",
-    "error_feedback": f"item 21 ({_MULTI_GPU})",
-    "quant_stochastic_rounding": f"item 21 ({_MULTI_GPU})",
-    "zero_sharding": f"item 21 ({_MULTI_GPU})",
-    "async_mode": f"item 21 ({_MULTI_GPU})",
+    "pp_microbatches": f"item 21 ({_MULTI_GPU}: pipeline parallelism)",
+    "pp_interleave": f"item 21 ({_MULTI_GPU}: pipeline parallelism)",
+    "async_mode": f"item 21 ({_MULTI_GPU}: the asynchronous parameter server)",
 }
 
 

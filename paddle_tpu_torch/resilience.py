@@ -323,9 +323,10 @@ def normalize_mesh_axes(axes: Optional[Dict[str, Any]]) -> Dict[str, int]:
 
 
 def trainer_mesh_axes(trainer) -> Optional[Dict[str, int]]:
-    """The ``meta.mesh_axes`` of a trainer: None, since the port's trainers
-    run on one device (meshes come with ROADMAP queue 1, item 20)."""
-    return None
+    """The ``meta.mesh_axes`` of a trainer: its mesh's ``{axis: size}``,
+    or None on one device."""
+    mesh = getattr(trainer, "mesh", None)
+    return dict(mesh.shape) if mesh is not None else None
 
 
 def reshard_restore(checkpoint_dir: str, trainer, sample_feed=None):

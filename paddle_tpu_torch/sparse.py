@@ -27,8 +27,9 @@ that row's old moment beside the new one, and which write wins is not
 defined (on the CPU the old one wins). Here only the valid slots write
 their rows' moments.
 
-``sharded_embedding_lookup`` needs a device mesh and comes with the
-multi-GPU slice (ROADMAP queue 1, slice 9, item 20).
+``sharded_embedding_lookup`` looks ids up in a table row-sharded over a
+mesh axis (``ep``): each rank gathers its rows' hits and one sum over the
+axis merges them.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ import dataclasses
 
 import torch
 
-from .core.errors import NotYetPorted
+from .core.errors import enforce
 
 
 @dataclasses.dataclass
@@ -179,10 +180,61 @@ def apply_adam_lazy(table: torch.Tensor, m1: torch.Tensor, m2: torch.Tensor,
 
 def sharded_embedding_lookup(table, ids, mesh, axis: str = "ep",
                              batch_axes=("dp", "fsdp")):
-    """A lookup into a table row-sharded over a mesh axis (sparse.py:133):
-    not carried yet."""
-    raise NotYetPorted("sharded_embedding_lookup: a row-sharded table needs a device "
-                       "mesh (ROADMAP queue 1, slice 9, item 20)")
+    """A lookup into a table row-sharded over a mesh axis (sparse.py:131,
+    the distributed lookup table): ``table`` [vocab, d] is a DTensor
+    sharded on dim 0 over ``axis`` (or a full tensor, which each rank
+    slices to its rows), ``ids`` [...] are replicated over ``axis`` (a
+    DTensor with its batch shard, or a plain tensor). Each rank gathers
+    the ids that fall in its rows, zeros elsewhere, and one sum over the
+    axis merges them (the reduction of a ``Partial`` DTensor). Returns a
+    DTensor [..., d] with the ids' batch shard, differentiable in the
+    table's local rows. Without the axis (or at size 1) it is a plain
+    lookup."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from .ops import _dtensor as _dt
+
+    if axis not in mesh.axis_names or mesh.shape[axis] == 1:
+        t = table.full_tensor() if _dt.is_dtensor(table) else table
+        i = ids.full_tensor() if _dt.is_dtensor(ids) else ids
+        return t[i.long()]
+    n = mesh.shape[axis]
+    vocab = table.shape[0]
+    enforce(vocab % n == 0, f"sharded_embedding_lookup: vocab {vocab} does not split "
+                            f"over {axis}={n}")
+    shard = vocab // n
+    ax = mesh.dim(axis)
+    if _dt.is_dtensor(ids):
+        ipl = [Replicate() if d == ax else (pl if isinstance(pl, Shard) and pl.dim == 0
+                                            else Replicate())
+               for d, pl in enumerate(ids.placements)]
+        loc_ids = ids.redistribute(placements=ipl).to_local()
+    else:
+        ipl = [Replicate()] * len(mesh.axis_names)
+        loc_ids = ids
+    if _dt.is_dtensor(table):
+        enforce(isinstance(table.placements[ax], Shard) and table.placements[ax].dim == 0,
+                f"sharded_embedding_lookup: the table must be sharded on dim 0 over "
+                f"{axis!r}, it is {table.placements}")
+        tpl = [Shard(0) if d == ax else Replicate() for d in range(len(mesh.axis_names))]
+        # the local rows' grad sums over the batch shards this rank saw
+        gpl = [Shard(0) if d == ax else (Partial() if isinstance(ipl[d], Shard)
+                                         else Replicate())
+               for d in range(len(mesh.axis_names))]
+        tbl = table.redistribute(placements=tpl).to_local(grad_placements=gpl)
+    else:
+        k = mesh.coord(axis)
+        tbl = table[k * shard:(k + 1) * shard]
+    lo = mesh.coord(axis) * shard
+    local = loc_ids.long() - lo
+    hit = (local >= 0) & (local < shard)
+    vals = tbl[local.clamp(0, shard - 1)]
+    vals = torch.where(hit[..., None], vals, torch.zeros((), dtype=vals.dtype,
+                                                         device=vals.device))
+    opl = [Partial() if d == ax else pl for d, pl in enumerate(ipl)]
+    out = DTensor.from_local(vals, mesh.device_mesh, opl, run_check=False)
+    return out.redistribute(placements=[Replicate() if d == ax else pl
+                                        for d, pl in enumerate(opl)])
 
 
 __all__ = ["SelectedRows", "apply_adagrad", "apply_adam_lazy", "apply_sgd",

@@ -321,15 +321,24 @@ def test_dist_strategy_has_every_field_of_paddle_tpu():
 
 
 @pytest.mark.parametrize("field, value, slice_", [
-    ("dump_hlo_path", "/nonexistent", "item 25"), ("accum_exchange", "hoisted", "slice 9"),
-    ("pp_microbatches", 2, "slice 9"), ("zero_sharding", True, "slice 9"),
-    ("quantized_allreduce", "int8", "slice 9")])
+    ("dump_hlo_path", "/nonexistent", "item 25"), ("pp_interleave", 2, "slice 9"),
+    ("pp_microbatches", 2, "slice 9"), ("async_mode", True, "slice 9")])
 def test_strategy_fields_of_later_slices_raise(field, value, slice_):
     with pytest.raises(NotYetPorted, match=f"{field}.*{slice_}"):
         tpt.Trainer(_PROG, topt.SGD(0.1), place=CPU,
                     strategy=DistStrategy(**{field: value}, **AMP))
     with pytest.raises(EnforceError, match="DistStrategy"):
         tpt.Trainer(_PROG, topt.SGD(0.1), place=CPU, strategy=object())
+
+
+@pytest.mark.parametrize("field, value", [
+    ("accum_exchange", "hoisted"), ("zero_sharding", True), ("quantized_allreduce", "int8")])
+def test_exchange_fields_need_a_mesh(field, value):
+    """The multi-GPU slice's exchange knobs act on a mesh: without one they
+    raise rather than do nothing (the JAX Trainer's _local_exchange_axes)."""
+    with pytest.raises(EnforceError, match=f"{field}.*needs a mesh"):
+        tpt.Trainer(_PROG, topt.SGD(0.1), place=CPU,
+                    strategy=DistStrategy(**{field: value}, **AMP))
 
 
 # -- the NaN/Inf guard ------------------------------------------------------------

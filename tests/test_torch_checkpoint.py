@@ -404,7 +404,6 @@ def test_mesh_checkpoint_raises_reshard_error(tmp_path):
 
 
 NOT_PORTED = {
-    "zero_checkpoint": lambda d: tio.load_persistables(d),
     "restore_latest_elastic": lambda d: tres.restore_latest(os.path.dirname(d),
                                                             _trainer(), elastic=True),
     "reshard_restore": lambda d: tres.reshard_restore(d, _trainer()),
@@ -420,6 +419,16 @@ def test_later_slices_raise_not_yet_ported(tmp_path, call):
     tio.save_trainer(d, _trainer(), extra_meta={"zero": {"shards": 2}})
     with pytest.raises(NotYetPorted):
         NOT_PORTED[call](d)
+
+
+def test_a_zero_checkpoint_missing_shard_files_is_refused(tmp_path):
+    """A ZeRO checkpoint's meta names its shard count; a directory that
+    lacks some of the shard files does not load half a model."""
+    d = str(tmp_path / "ck")
+    tio.save_trainer(d, _trainer(), extra_meta={"zero": {"shards": 2, "arrays": {}}})
+    np.savez(os.path.join(d, "params.zero0.npz"), w=np.zeros(3, np.float32))
+    with pytest.raises(FileNotFoundError, match="shard files"):
+        tio.load_persistables(d)
 
 
 # -- against paddle_tpu --------------------------------------------------------

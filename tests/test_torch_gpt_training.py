@@ -331,14 +331,21 @@ def test_dropout_in_training_is_not_ported():
     assert np.isfinite(eval_loss) and float(tr.eval(feed)["loss"]) == eval_loss
 
 
-@pytest.mark.parametrize("kw", ["mesh", "sharding_rules", "strategy",
-                                "feed_wire", "augment"])
+@pytest.mark.parametrize("kw", ["strategy", "feed_wire", "augment"])
 def test_trainer_options_of_later_slices_raise(kw):
     # a strategy raises for its fields of later slices (loss scaling,
-    # remat and accumulation are ported)
+    # remat, accumulation and the multi-GPU slice's first half are ported)
     value = DistStrategy(pp_microbatches=2) if kw == "strategy" else object()
     with pytest.raises(NotYetPorted):
         Trainer(_program(), topt.AdamW(LR), device=CPU, **{kw: value})
+
+
+@pytest.mark.parametrize("kw", ["mesh", "sharding_rules"])
+def test_trainer_mesh_arguments_are_typed(kw):
+    """A mesh is a parallel.Mesh and rules a parallel.ShardingRules
+    (meshes are ported: tests/test_torch_dist_training.py)."""
+    with pytest.raises(EnforceError, match=kw):
+        Trainer(_program(), topt.AdamW(LR), device=CPU, **{kw: object()})
 
 
 def test_trainer_takes_a_program_only():

@@ -180,14 +180,19 @@ def test_fit_arguments_of_later_slices_raise(arg, tmp_path):
     assert tt.global_step == 0
 
 
-@pytest.mark.parametrize("kw", ["mesh", "sharding_rules", "strategy", "feed_wire",
-                                "augment"])
+@pytest.mark.parametrize("kw", ["strategy", "feed_wire", "augment"])
 def test_trainer_arguments_of_later_slices_raise(kw):
-    # a strategy raises for its fields of later slices (loss scaling, remat
-    # and accumulation are ported)
+    # a strategy raises for its fields of later slices (loss scaling, remat,
+    # accumulation and the multi-GPU slice's first half are ported)
     value = tpt.DistStrategy(pp_microbatches=2) if kw == "strategy" else object()
     with pytest.raises(NotYetPorted):
         tpt.Trainer(tpt.build(tmnist.mlp), topt.SGD(0.05), place=CPU, **{kw: value})
+
+
+@pytest.mark.parametrize("kw", ["mesh", "sharding_rules"])
+def test_trainer_mesh_arguments_are_typed(kw):
+    with pytest.raises(EnforceError, match=kw):
+        tpt.Trainer(tpt.build(tmnist.mlp), topt.SGD(0.05), place=CPU, **{kw: object()})
 
 
 def test_fit_will_not_prefetch_for_a_cpu_trainer():

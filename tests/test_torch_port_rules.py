@@ -85,7 +85,13 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.layers.sequence", "paddle_tpu_torch.layers.crf",
             "paddle_tpu_torch.layers.control_flow", "paddle_tpu_torch.models.lstm",
             "paddle_tpu_torch.models.seq2seq", "paddle_tpu_torch.models.srl",
-            "paddle_tpu_torch.models.word2vec", "paddle_tpu_torch.models.fit_a_line"]
+            "paddle_tpu_torch.models.word2vec", "paddle_tpu_torch.models.fit_a_line",
+            "paddle_tpu_torch.parallel", "paddle_tpu_torch.parallel.mesh",
+            "paddle_tpu_torch.parallel.sharding", "paddle_tpu_torch.parallel.api",
+            "paddle_tpu_torch.parallel.zero", "paddle_tpu_torch.parallel.ring_attention",
+            "paddle_tpu_torch.parallel.ulysses",
+            "paddle_tpu_torch.parallel.quantized_collectives",
+            "paddle_tpu_torch.ops._dtensor"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -112,7 +118,7 @@ def _entry_points(tmp_path):
     prompts = np.full((2, 4), 3, np.int32)
     decode.export_decoder(art, _tiny_cfg(), 2, prompts, device="cpu")
     from paddle_tpu_torch import (Executor, Inferencer, Trainer, build, data, fit, framework,
-                                  layers, optimizer)
+                                  layers, optimizer, parallel)
     from paddle_tpu_torch.models import mnist
     sample = {"image": np.zeros((2, 784), np.float32), "label": np.zeros((2, 1), np.int64)}
     mlp_params = {k: np.zeros(v.shape, np.float32) for k, v in
@@ -203,7 +209,18 @@ def _entry_points(tmp_path):
             np.zeros((3, 1), np.float32), [[1, 2]]),
         "beam_search_decode_lod": lambda: beam_search.beam_search_decode_lod(
             np.ones((1, 2, 3), np.int32), np.ones((1, 2, 3), bool)),
+        "parallel.initialize": lambda: parallel.initialize(),
+        "Trainer_mesh": lambda: Trainer(build(mnist.mlp), optimizer.SGD(0.01),
+                                        mesh=_cuda_mesh(parallel)),
     }
+
+
+def _cuda_mesh(parallel):
+    """A mesh that says its ranks are on the card (what ``make_mesh`` gives
+    under NCCL), without a process group."""
+    mesh = parallel.Mesh.__new__(parallel.Mesh)
+    mesh.device, mesh.axis_names, mesh.shape = torch.device("cuda", 0), ("dp",), {"dp": 1}
+    return mesh
 
 
 @pytest.mark.parametrize("entry", ["make_generator", "params_from_jax",
@@ -222,7 +239,8 @@ def _entry_points(tmp_path):
                                    "Trainer_lstm", "Trainer_seq2seq", "Trainer_srl",
                                    "Trainer_word2vec", "Trainer_fit_a_line",
                                    "seq2seq.make_decoder", "create_lod_tensor",
-                                   "beam_search_decode_lod"])
+                                   "beam_search_decode_lod", "parallel.initialize",
+                                   "Trainer_mesh"])
 def test_entry_points_refuse_to_run_without_a_card(tmp_path, entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the entry points run on it")

@@ -25,7 +25,6 @@ import torch
 
 from paddle_tpu import sparse as jsp
 from paddle_tpu_torch import sparse as tsp
-from paddle_tpu_torch.core.errors import NotYetPorted
 
 RTOL, ATOL = 1e-6, 1e-7
 H = 12
@@ -208,7 +207,12 @@ def test_a_negative_row_changes_nothing():
     assert torch.equal(p, table) and not m.any()
 
 
-def test_sharded_lookup_waits_for_the_multi_gpu_slice():
-    with pytest.raises(NotYetPorted, match="item 20"):
-        tsp.sharded_embedding_lookup(torch.zeros(4, 2), torch.zeros(3, dtype=torch.long),
-                                     mesh=None)
+def test_sharded_lookup_without_its_axis_is_a_plain_lookup():
+    """On a mesh without the ``ep`` axis the lookup is ``table[ids]`` (the
+    sharded path runs on gloo worlds: tests/test_torch_mesh_sharding.py)."""
+    class _Mesh:
+        axis_names, shape = ("dp",), {"dp": 4}
+
+    table = torch.arange(12.0).reshape(6, 2)
+    ids = torch.tensor([[5, 0], [2, 2]])
+    assert torch.equal(tsp.sharded_embedding_lookup(table, ids, _Mesh()), table[ids])

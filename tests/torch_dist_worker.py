@@ -1,0 +1,477 @@
+"""One rank of the port's multi-rank CPU tests: a gloo world of spawned
+processes, each running every case of one suite on the port alone
+(torch, numpy and ``paddle_tpu_torch``: no JAX here) and rank 0 writing
+the results to ``<outdir>/<suite>.npz`` for the test file to hold against
+the JAX package.
+
+    python tests/torch_dist_worker.py SUITE RANK WORLD PORT OUTDIR [INDIR]
+
+``INDIR`` holds what the test process wrote first (the JAX package's
+initial params, a JAX-written checkpoint). :func:`spawn_world` starts a
+world and waits for it. The data (:func:`mnist_feeds`, :func:`gpt_feeds`,
+:func:`qkv`) is made here from numpy seeds, and the test files import it
+from here, so both packages see the same inputs.
+"""
+
+from __future__ import annotations
+
+import os
+import socket
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+MNIST_BATCH, STEPS = 16, 5
+GPT = dict(vocab_size=50, max_len=64, d_model=64, d_inner=128, num_heads=4, num_layers=2,
+           use_flash=True, fused_ce=True, ce_chunk=16)
+GPT_BATCH, GPT_SEQ = 8, 64
+LR, MOMENTUM = 0.05, 0.9
+
+
+# -- data, shared with the test files ---------------------------------------------
+
+
+def mnist_feeds(n=STEPS, seed=0):
+    rng = np.random.RandomState(seed)
+    return [{"image": rng.randn(MNIST_BATCH, 784).astype(np.float32),
+             "label": rng.randint(0, 10, (MNIST_BATCH, 1)).astype(np.int64)}
+            for _ in range(n)]
+
+
+def gpt_feeds(n=STEPS, seed=0, batch=GPT_BATCH, seq=GPT_SEQ):
+    rng = np.random.RandomState(seed)
+    feeds = []
+    for _ in range(n):
+        ids = rng.randint(3, GPT["vocab_size"], (batch, seq)).astype(np.int32)
+        labels = np.concatenate([ids[:, 1:], np.full((batch, 1), 2)], 1).astype(np.int32)
+        labels[0, -4:] = 0  # padding: out of the loss and the count
+        feeds.append({"ids": ids, "labels": labels})
+    return feeds
+
+
+def qkv(b=2, h=4, s=32, d=16, seed=0):
+    """q, k, v [b, h, s, d] f32 and a cotangent of the output's shape."""
+    rng = np.random.RandomState(seed)
+    return tuple(rng.randn(b, h, s, d).astype(np.float32) for _ in range(4))
+
+
+# the training cases: name -> (model, mesh axes, rules, strategy kwargs);
+# the default exchange under each rule table
+TRAIN_CASES = {
+    "mnist_dp": ("mnist", {"dp": 4}, None, {}),
+    "mnist_fsdp": ("mnist", {"fsdp": 4}, "fsdp", {}),
+    "mnist_dp_tp": ("mnist", {"dp": 2, "tp": 2}, "tp", {}),
+    "gpt_dp": ("gpt", {"dp": 4}, None, {}),
+    "gpt_fsdp": ("gpt", {"fsdp": 4}, "fsdp", {}),
+    "gpt_dp_tp": ("gpt", {"dp": 2, "tp": 2}, "tp", {}),
+}
+# the other exchanges, the loss scaler's skip and batch norm, at dp=4
+EXCHANGE_CASES = {
+    "mnist_dp_accum": ("mnist", {"dp": 4}, None, {"accum_steps": 2}),
+    "mnist_hoisted": ("mnist", {"dp": 4}, None, {"accum_steps": 2,
+                                                 "accum_exchange": "hoisted"}),
+    "mnist_int8": ("mnist", {"dp": 4}, None, {"quantized_allreduce": "int8",
+                                              "quant_block_size": 64}),
+    "mnist_int8_sr": ("mnist", {"dp": 4}, None, {"quantized_allreduce": "int8",
+                                                 "quant_block_size": 64,
+                                                 "quant_stochastic_rounding": True}),
+    "mnist_int4": ("mnist", {"dp": 4}, None, {"quantized_allreduce": "int4",
+                                              "quant_block_size": 64}),
+    "mnist_inf_scaler": ("mnist_inf", {"dp": 4}, None, {"loss_scale": 2.0 ** 10,
+                                                        "dynamic_loss_scale": True}),
+    "conv_dp": ("conv", {"dp": 4}, None, {}),
+}
+ZERO_CASES = {
+    "mnist_zero": ("mnist", {"dp": 4}, None, {"zero_sharding": True}),
+    "mnist_zero_int8": ("mnist", {"dp": 4}, None, {"zero_sharding": True,
+                                                   "quantized_allreduce": "int8",
+                                                   "quant_block_size": 64}),
+    "gpt_zero": ("gpt", {"dp": 4}, None, {"zero_sharding": True}),
+}
+SP_CASES = {
+    "gpt_sp_ring": ("gpt", {"sp": 4}, None, {"sequence_parallel": True, "sp_impl": "ring"}),
+    "gpt_sp_ulysses": ("gpt", {"sp": 4}, None, {"sequence_parallel": True,
+                                               "sp_impl": "ulysses"}),
+}
+# attention cases: name -> (impl, causal, schedule, mesh axes)
+ATTN_CASES = {
+    "ring": ("ring", False, "ring", {"sp": 4}),
+    "ring_causal": ("ring", True, "ring", {"sp": 4}),
+    "zigzag": ("ring", True, "zigzag", {"sp": 4}),
+    "zigzag_dp": ("ring", True, "zigzag", {"dp": 2, "sp": 2}),
+    "ulysses": ("ulysses", False, None, {"sp": 4}),
+    "ulysses_causal": ("ulysses", True, None, {"sp": 4}),
+}
+FSDP_MIN = 64
+
+
+def spawn_world(suite: str, outdir: str, indir: str = "", world: int = 4,
+                timeout: float = 240.0) -> str:
+    """Run ``suite`` on a gloo world of ``world`` processes; return the
+    path of its results. A rank that fails fails the world, with its
+    output in the error."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
+    env.pop("JAX_PLATFORMS", None)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), suite, str(r),
+                               str(world), str(port), outdir, indir],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env)
+             for r in range(world)]
+    deadline = time.time() + timeout
+    logs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=max(1.0, deadline - time.time()))
+            logs.append(out.decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [i for i, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise RuntimeError(f"{suite}: ranks {bad} failed:\n" + "\n".join(
+            logs[i][-4000:] for i in bad))
+    return os.path.join(outdir, f"{suite}.npz")
+
+
+# -- the port's side ------------------------------------------------------------------
+
+
+def _rank():
+    import torch.distributed as dist
+    return dist.get_rank()
+
+
+def _np(t):
+    t = t.full_tensor() if hasattr(t, "full_tensor") else t
+    return t.detach().float().cpu().numpy()
+
+
+def _rules(name):
+    from paddle_tpu_torch import parallel as par
+    return {None: None, "fsdp": par.fsdp(FSDP_MIN), "tp": par.transformer_tp_rules()}[name]
+
+
+def _program(model):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import gpt, mnist
+    return pt.build({"mnist": mnist.mlp, "conv": mnist.conv_net}.get(model) or
+                    gpt.make_model(gpt.base_config(**GPT)))
+
+
+def _feeds(model):
+    if model == "gpt":
+        return gpt_feeds()
+    feeds = mnist_feeds()
+    if model == "mnist_inf":
+        # an infinite pixel in one row of the third batch: a loss-scaled
+        # step that every rank must skip, whichever holds the row
+        feeds[2]["image"][13, 7] = np.inf
+    return feeds
+
+
+def _trainer(model, axes, rules, skw, indir, mesh=None):
+    """A Momentum Trainer of ``model`` on ``axes`` (None: one device) from
+    the JAX package's initial params where the test wrote them, else from
+    the port's init at seed 0 (the same on every rank)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import framework, optimizer, parallel as par
+
+    path = os.path.join(indir, f"params_{model.split('_')[0]}.npz")
+    init = (framework.params_from_jax(dict(np.load(path)), device="cpu")
+            if os.path.exists(path) else None)
+    if axes is not None and mesh is None:
+        mesh = par.make_mesh(axes)
+    tr = pt.Trainer(_program(model.split("_")[0]), optimizer.Momentum(LR, MOMENTUM),
+                    place=pt.CPUPlace(), mesh=mesh, sharding_rules=_rules(rules),
+                    strategy=pt.DistStrategy(**skw) if skw else None, fetch_list=["loss"])
+    tr.startup(0, _feeds(model)[0], params=init)
+    return tr
+
+
+# the strategy fields a single-rank reference run keeps
+SINGLE_FIELDS = ("accum_steps", "loss_scale", "dynamic_loss_scale")
+
+
+def _train(res, name, case, indir, single=True):
+    model, axes, rules, skw = case
+    feeds = _feeds(model)
+    tr = _trainer(model, axes, rules, skw, indir)
+    outs = [tr.step(f) for f in feeds]
+    res[f"{name}/losses"] = np.array([float(o["loss"]) for o in outs])
+    if "loss_scale" in outs[0]:
+        res[f"{name}/scales"] = np.array([float(o["loss_scale"]) for o in outs])
+    for k, v in tr._logical_params().items():
+        res[f"{name}/param/{k}"] = _np(v)
+    for k, v in tr.scope.state.items():
+        res[f"{name}/state/{k}"] = _np(v)
+    if single and _rank() == 0:
+        # the port's own single-rank Trainer on the whole batches (rank 0,
+        # which writes the results, runs it alone)
+        ref = _trainer(model, None, None, {k: v for k, v in skw.items()
+                                           if k in SINGLE_FIELDS}, indir)
+        routs = [ref.step(f) for f in feeds]
+        res[f"{name}/single_losses"] = np.array([float(o["loss"]) for o in routs])
+        if "loss_scale" in routs[0]:
+            res[f"{name}/single_scales"] = np.array([float(o["loss_scale"]) for o in routs])
+        for k, v in ref.scope.params.items():
+            res[f"{name}/single_param/{k}"] = _np(v)
+        for k, v in ref.scope.state.items():
+            res[f"{name}/single_state/{k}"] = _np(v)
+    return tr
+
+
+def suite_training(res, indir):
+    from paddle_tpu_torch.parallel import sharding
+    for name, case in TRAIN_CASES.items():
+        tr = _train(res, name, case, indir)
+        if name in ("gpt_fsdp", "gpt_dp_tp"):
+            # the placements the rule tables gave: each param's spec and its
+            # local shard's shape on this rank
+            for k, p in tr.scope.params.items():
+                res[f"{name}/spec/{k}"] = np.array(repr(sharding.spec_of(
+                    p.placements, tr.mesh, p.dim())))
+                res[f"{name}/local_shape/{k}"] = np.array(p.to_local().shape)
+
+
+def suite_exchanges(res, indir):
+    import paddle_tpu_torch as pt
+    for name, case in EXCHANGE_CASES.items():
+        tr = _train(res, name, case, indir)
+        cb = tr.collective_bytes
+        res[f"{name}/wire_bytes"] = np.array([cb["fp32_bytes_per_step"],
+                                              cb["wire_bytes_per_step"]])
+    # fit and eval on a mesh: fit takes the step loop's steps, eval gives
+    # the single-rank Trainer's loss from the same params
+    model, axes, rules, skw = TRAIN_CASES["mnist_dp"]
+    loop = _train(res, "loop", TRAIN_CASES["mnist_dp"], indir, single=False)
+    del loop
+    tr = _trainer(model, axes, rules, skw, indir)
+    feeds = _feeds(model)
+    reader = lambda: iter([list(zip(f["image"], f["label"])) for f in feeds])  # noqa: E731
+    pt.fit(tr, reader, 1, ["image", "label"], prefetch=False)
+    for k, v in tr._logical_params().items():
+        res[f"fit/param/{k}"] = _np(v)
+    res["fit/global_step"] = np.array(tr.global_step)
+    ref = _trainer(model, None, None, {}, indir)
+    for f in feeds:
+        ref.step(f)
+    res["eval/loss"] = np.array([float(tr.eval(feeds[0])["loss"]),
+                                 float(ref.eval(feeds[0])["loss"])])
+
+
+def suite_zero(res, indir):
+    import torch
+    import torch.distributed as dist
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import io, parallel as par
+
+    for name, case in ZERO_CASES.items():
+        tr = _train(res, name, case, indir)
+        cb = tr.collective_bytes
+        res[f"{name}/allgather_bytes"] = np.array(cb["zero"]["allgather_bytes_per_step"])
+        res[f"{name}/row_shape"] = np.array(next(iter(tr.scope.params.values()))
+                                            .to_local().shape)
+    # same-N save and restore: bit for bit, and the next step equal
+    model, axes, rules, skw = ZERO_CASES["mnist_zero"]
+    feeds = _feeds(model)
+    tr = _trainer(model, axes, rules, skw, indir)
+    tr.step(feeds[0])
+    ck = os.path.join(indir, "port_zero_ck")
+    io.save_trainer(ck, tr)
+    back = _trainer(model, axes, rules, skw, indir)
+    io.load_trainer(ck, back)
+    saved = {k: _np(v) for k, v in back._logical_params().items()}
+    same = all(torch.equal(a.to_local(), b.to_local())
+               for a, b in zip(tr.scope.params.values(), back.scope.params.values()))
+    same &= all(torch.equal(tr.scope.opt_state["accums"][k]["velocity"].to_local(),
+                            back.scope.opt_state["accums"][k]["velocity"].to_local())
+                for k in tr.scope.params)
+    flags = torch.tensor([float(same)])
+    dist.all_reduce(flags, op=dist.ReduceOp.MIN)
+    res["restore/bit_equal"] = flags.numpy()
+    res["restore/next_loss"] = np.array([float(tr.step(feeds[1])["loss"]),
+                                         float(back.step(feeds[1])["loss"])])
+    res["restore/files"] = np.array(sorted(os.listdir(ck)))
+    # a layout change is gated: a replicated trainer refuses the ZeRO dir
+    plain = _trainer(model, axes, rules, {}, indir)
+    try:
+        io.load_trainer(ck, plain)
+        res["restore/gated"] = np.array(0)
+    except Exception as e:  # ReshardError
+        res["restore/gated"] = np.array(int(type(e).__name__ == "ReshardError"))
+    # and with allow_reshard the gathered tensors are placed replicated
+    io.load_trainer(ck, plain, allow_reshard=True)
+    res["restore/gathered_equal"] = np.array(int(all(
+        np.array_equal(_np(plain.scope.params[k]), v) for k, v in saved.items())))
+    # the JAX-written ZeRO checkpoint, restored shard-locally
+    jck = os.path.join(indir, "jax_zero_ck")
+    if os.path.isdir(jck):
+        jt = _trainer(model, axes, rules, skw, indir)
+        io.load_trainer(jck, jt)
+        for k, v in jt._logical_params().items():
+            res[f"jax_ck/param/{k}"] = _np(v)
+        res["jax_ck/global_step"] = np.array(jt.global_step)
+        res["jax_ck/next_loss"] = np.array(float(jt.step(feeds[2])["loss"]))
+    # a mesh trainer's checkpoint is saved unsharded: one params.npz
+    dp = _trainer("gpt", {"fsdp": 4}, "fsdp", {}, indir)
+    dck = os.path.join(indir, "port_fsdp_ck")
+    io.save_trainer(dck, dp)
+    if dist.get_rank() == 0:
+        p, _, _, meta = io.load_persistables(dck)
+        res["fsdp_ck/mesh_axes"] = np.array(repr(meta["mesh_axes"]))
+        for k, v in p.items():
+            res[f"fsdp_ck/param/{k}"] = v.float().numpy()
+    dist.barrier()
+
+
+def suite_sequence(res, indir):
+    import torch
+    from paddle_tpu_torch import parallel as par
+    from paddle_tpu_torch.ops.flash_attention import flash_attention
+    from paddle_tpu_torch.parallel import api, ring_attention as ra, ulysses
+
+    q0, k0, v0, g0 = qkv()
+    meshes = {}
+    for name, (impl, causal, schedule, axes) in ATTN_CASES.items():
+        key = tuple(axes.items())
+        if key not in meshes:
+            meshes[key] = par.make_mesh(axes)
+        mesh = meshes[key]
+        ts = [api.replicate(mesh, torch.from_numpy(a.copy())).requires_grad_(True)
+              for a in (q0, k0, v0)]
+        if impl == "ring":
+            out = ra.ring_attention(*ts, mesh, causal=causal, schedule=schedule)
+        else:
+            out = ulysses.ulysses_attention(*ts, mesh, causal=causal,
+                                            attn_fn=lambda a, b, c, cz:
+                                            flash_attention(a, b, c, causal=cz))
+        res[f"{name}/out"] = _np(out)
+        (out * api.replicate(mesh, torch.from_numpy(g0))).sum().backward()
+        for n_, t in zip("qkv", ts):
+            res[f"{name}/d{n_}"] = _np(t.grad)
+    for name, case in SP_CASES.items():
+        _train(res, name, case, indir)
+
+
+QUANT_CASES = {"int8_b16": (8, 16), "int8_chunk": (8, None), "int4_b16": (4, 16)}
+
+
+def quant_input(rank: int, shape=(3, 37)):
+    """Rank ``rank``'s input to the quantized all-reduce (an outlier in
+    one block)."""
+    x = np.random.RandomState(100 + rank).randn(*shape).astype(np.float32)
+    x[1, 5] = 40.0 * (rank + 1)
+    return x
+
+
+def suite_mesh(res, indir):
+    import torch
+    import torch.distributed as dist
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import parallel as par, sparse
+    from paddle_tpu_torch.core.errors import EnforceError
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.parallel import api, quantized_collectives as qc
+
+    rank = dist.get_rank()
+    m = par.make_mesh({"dp": 2, "tp": -1})
+    res["mesh/shape"] = np.array(list(m.shape.items()), dtype=object).astype(str)
+    res["mesh/dp_size"] = np.array(par.data_parallel_size(m))
+    res["mesh/devices"] = m.devices
+    for name, axes in (("mismatch", {"dp": 3}), ("infer", {"dp": 3, "tp": -1})):
+        try:
+            par.make_mesh(axes)
+            res[f"mesh/err_{name}"] = np.array("")
+        except ValueError as e:
+            res[f"mesh/err_{name}"] = np.array(str(e))
+    # put_batch: the local contract, the whole batch sliced, stacked feeds
+    feed = mnist_feeds(1)[0]
+    loc = {k: v[rank * 4:(rank + 1) * 4] for k, v in feed.items()}
+    mesh4 = par.make_mesh({"dp": 4})
+    for name, kw, f in (("local", {}, loc), ("global", {"global_batch": True}, feed)):
+        out = api.put_batch(mesh4, None, f, **kw)
+        res[f"put/{name}/shape"] = np.array(out["image"].shape)
+        res[f"put/{name}/image"] = _np(out["image"])
+    st = api.put_batch(mesh4, None, {"x": np.arange(2 * 8 * 3, dtype=np.float32)
+                                     .reshape(2, 8, 3)}, stacked=True, global_batch=True)
+    res["put/stacked/local"] = st["x"].to_local().numpy()
+    # the quantized ring: the same bits on every rank
+    for name, (bits, block) in QUANT_CASES.items():
+        y = qc.quantized_psum(torch.from_numpy(quant_input(rank)), None, bits=bits,
+                              block_size=block)
+        allv = [torch.empty_like(y) for _ in range(dist.get_world_size())]
+        dist.all_gather(allv, y)
+        res[f"quant/{name}"] = y.numpy()
+        res[f"quant/{name}/same_on_ranks"] = np.array(int(all(torch.equal(a, y)
+                                                              for a in allv)))
+        res[f"quant/{name}/pmean"] = qc.quantized_pmean(
+            torch.from_numpy(quant_input(rank)), None, bits=bits, block_size=block).numpy()
+    # a sharded lookup over ep, against the plain lookup, with grads
+    rng = np.random.RandomState(7)
+    table = rng.randn(16, 6).astype(np.float32)
+    ids = rng.randint(0, 16, (4, 5)).astype(np.int64)
+    cot = rng.randn(4, 5, 6).astype(np.float32)
+    for name, axes in (("ep", {"ep": 4}), ("dp_ep", {"dp": 2, "ep": 2})):
+        mesh = par.make_mesh(axes)
+        from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+        ep = mesh.dim("ep")
+        tpl = [Shard(0) if d == ep else Replicate() for d in range(len(mesh.axis_names))]
+        tbl = distribute_tensor(torch.from_numpy(table), mesh.device_mesh, tpl)
+        tbl.requires_grad_(True)
+        ipl = [Shard(0) if a == "dp" else Replicate() for a in mesh.axis_names]
+        dids = distribute_tensor(torch.from_numpy(ids), mesh.device_mesh, ipl)
+        out = sparse.sharded_embedding_lookup(tbl, dids, mesh)
+        res[f"lookup/{name}/out"] = _np(out)
+        res[f"lookup/{name}/placements"] = np.array(repr(out.placements))
+        (out * api.replicate(mesh, torch.from_numpy(cot))).sum().backward()
+        res[f"lookup/{name}/dtable"] = _np(tbl.grad)
+    # a DTensor handed to a kernel launch raises, before any device work
+    d = api.replicate(mesh4, torch.zeros(1, 1, 4, 32))
+    try:
+        fa.flash_fwd_cuda(d, d, d, False)
+        res["kernel/refused"] = np.array("")
+    except EnforceError as e:
+        res["kernel/refused"] = np.array(str(e))
+    # a Trainer's place must agree with its mesh
+    try:
+        pt.Trainer(_program("mnist"), None, place="cuda", mesh=mesh4)
+        res["trainer/place_mismatch"] = np.array("")
+    except EnforceError as e:
+        res["trainer/place_mismatch"] = np.array(str(e))
+
+
+SUITES = {"mesh": suite_mesh, "training": suite_training, "exchanges": suite_exchanges,
+          "zero": suite_zero, "sequence": suite_sequence}
+
+
+def main():
+    suite, rank, world, port, outdir = sys.argv[1:6]
+    indir = sys.argv[6] if len(sys.argv) > 6 else ""
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=port, RANK=rank,
+                      WORLD_SIZE=world)
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import parallel as par
+
+    par.initialize(place=pt.CPUPlace())
+    res = {}
+    SUITES[suite](res, indir)
+    if int(rank) == 0:
+        np.savez(os.path.join(outdir, f"{suite}.npz"), **res)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
