@@ -261,6 +261,27 @@ Phases, each reported on its own lines; any failure exits non-zero:
    quantized codec (int8, int4, blocks of 256) card against CPU bit for
    bit at GPT-base's gradient count, with encode and decode ms. Launch
    counts are zeroed before (a)'s and (b)'s paths and read after them.
+19. the multi-GPU slice's second half (a) on one card, its ranks driven
+   in this process (``parallel.pipeline.LocalRanks``: every rank's tick in
+   turn, a rotation of the rank list standing for the exchange, so the
+   ms a step is not a pipeline's speed): (a) bench_gpt's GPT-base program
+   under ``framework.pipeline_mode(LocalRanks(4), 8)``, GPipe (3 layers a
+   stage) and interleaved V=3 (1 layer a chunk, its rows in
+   ``interleave_perm`` order), one forward and backward each against the
+   sequential stacked step from the same params, the flash launches per
+   tick counted; ``bubble_fraction``; a world-of-one Trainer on
+   ``{dp: 1, tp: 1, pp: 1}`` with ``pp_microbatches=8`` bit-equal to the
+   unmeshed Trainer, eager and captured, and with ``transformer_tp_rules``
+   within bf16 rounding of it; (b) the stacked Transformer-base
+   at bench_transformer_long's widths and shape through a pp=2, 4-microbatch
+   schedule with the decoder's extras delivered per microbatch, against
+   the sequential stacked step; (c) the MoE LM at its ``base_config``
+   widths (bf16, flash) at batch 8 × seq 1024: eager steps, ``run_steps``
+   captured bit-equal to eager, f32 card against CPU at a small width, one
+   MoE layer's 4 ep ranks emulated in this process against each shard's
+   dense route, ms a step, tokens/s, peak memory and the dispatch and
+   combine products' share of device time. Launch counts are zeroed
+   around (a)+(b) (``pipeline``) and around (c) (``moe``).
 
 The last lines are a JSON ``kernels`` record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -6086,6 +6107,516 @@ def phase_multi_gpu(dev, seed, card_name):
     return {k: mesh_launches[k] + ring_launches[k] for k in mesh_launches}
 
 
+# phase 19: pipeline parallelism and the MoE transformer, their ranks driven
+# in this process. (a) bench_gpt's GPT-base (TRAIN, TRAIN_BATCH x TRAIN_SEQ,
+# bf16) under pipeline_mode(LocalRanks(PP_RANKS), PP_MICRO): GPipe and
+# interleaved PP_V, one forward and backward each against the sequential
+# stacked step from the same params, the loss at BF16_ROUNDING relative and
+# the grads at ACCUM_GRAD_TOL relative L2 (phase 14 (d)'s limits: the same
+# math, the microbatches' products in other shapes); a world-of-one Trainer
+# on {dp: 1, tp: 1, pp: 1} with pp_microbatches=PP_MICRO (no pp axis larger
+# than 1: the degenerate, layer-by-layer route) bit-equal to the unmeshed
+# Trainer for MESH_STEPS steps and its run_steps(K=MESH_K) captured
+# bit-equal to MESH_K step() calls; with transformer_tp_rules (the fused
+# projections run one product a q/k/v on tp-sharded DTensor weights) its
+# losses within BF16_ROUNDING relative. (b) the stacked Transformer-base at
+# bench_transformer_long's widths and shape (TRANSFORMER, LONG_BATCH x
+# LONG_SEQ, dropout 0, flash, bf16) through PP_TR_RANKS ranks and
+# PP_TR_MICRO microbatches, extras per microbatch, against the sequential
+# stacked step at the same limits. (c) the MoE LM at base_config widths,
+# bf16, flash, at MOE_BATCH x MOE_SEQ: MOE_EAGER eager steps on one batch
+# (the loss falls), run_steps(K=MOE_K) captured against MOE_K step() calls
+# bit for bit; f32 card against CPU at MOE_PARITY's widths (the loss at
+# MOE_LOSS_TOL, the grads at MOE_GRAD_TOL relative L2 and each grad's distance
+# at MOE_GRAD_TOL of the largest grad's norm); one MoE layer's
+# MOE_EP ranks emulated here (each rank's tokens routed at the capacity of
+# its shard, the all-to-all by slicing and concatenating) against each
+# shard's dense route at BF16_ROUNDING (outputs) and ACCUM_GRAD_TOL (grads)
+# relative L2.
+PP_RANKS, PP_MICRO, PP_V = 4, 8, 3
+PP_TR_RANKS, PP_TR_MICRO = 2, 4
+MOE_BATCH, MOE_SEQ, MOE_LR, MOE_EAGER, MOE_K, MOE_EP = 8, 1024, 1e-3, 4, 4, 4
+MOE_PARITY = dict(vocab_size=512, max_len=64, d_model=64, d_inner=128, d_expert=64,
+                  num_heads=2, num_layers=2, num_experts=4)
+MOE_PARITY_BATCH, MOE_PARITY_SEQ = 2, 64
+MOE_LOSS_TOL, MOE_GRAD_TOL = 1e-5, 1e-3
+
+
+def _rel_dist(a, b):
+    """‖a − b‖ / ‖b‖ over two {name: tensor} trees, in f32."""
+    return _tree_dist(a, b) / max(_tree_dist(b), 1e-30)
+
+
+def _loss_and_grads(prog, params, feed, dev, seed, pp=None):
+    """One training forward and backward of ``prog`` from a copy of
+    ``params``, under ``pp`` (a pipeline_mode, or nothing): (loss, grads)."""
+    import torch
+    ps = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    with pp or contextlib.nullcontext():
+        out, _ = prog.apply(ps, {}, training=True, rng=seed, place=dev, **feed)
+    out["loss"].backward()
+    torch.cuda.synchronize()
+    return out["loss"].detach().float(), {k: p.grad.detach() for k, p in ps.items()}
+
+
+def _held(name, loss, grads, want_loss, want_grads, card_name, extra=""):
+    """Say and check a schedule's loss and grads against the sequential
+    step's."""
+    import torch
+    rl = float((loss - want_loss).abs() / want_loss.abs())
+    rg = _rel_dist(grads, want_grads)
+    say(f"phase 19 {name} ({card_name}): loss {float(loss):.6f} against the sequential "
+        f"step's {float(want_loss):.6f} (relative {rl:.2e}, limit {BF16_ROUNDING:.2e}); "
+        f"grads' relative L2 distance {rg:.2e} (limit {ACCUM_GRAD_TOL}){extra}")
+    check(bool(torch.isfinite(loss)), f"phase 19 {name}: the loss is not finite")
+    check(rl <= BF16_ROUNDING, f"phase 19 {name}: the loss parts from the sequential step's")
+    check(rg <= ACCUM_GRAD_TOL, f"phase 19 {name}: the grads part from the sequential step's")
+
+
+def pipeline_gpt(dev, seed, card_name):
+    """(a) The one-process pipeline on bench_gpt's GPT-base, and the
+    world-of-one pp Trainer. Returns the launch counts of the two
+    schedules, and those of the world-of-one Trainers (which take the
+    layer-by-layer route, not the schedule)."""
+    import gc
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import framework, parallel as par
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.parallel import pipeline as pp
+
+    cfg = gpt.base_config(**TRAIN)
+    feeds = _train_feeds(np.random.RandomState(0), MESH_K, TRAIN_BATCH, TRAIN_SEQ,
+                         cfg.vocab_size)
+    prog = pt.build(gpt.make_model(cfg))
+    base = _trainer(cfg, dev).startup(seed, sample_feed=feeds[0])
+    params0 = _params_of(base)
+    feed = base._put_feed(feeds[0])
+    want_loss, want = _loss_and_grads(prog, params0, feed, dev, seed)
+    launches = {n: 0 for n in _launch_counts(fa)}
+    perm = pp.interleave_perm(cfg.num_layers, PP_RANKS, PP_V)
+    say(f"phase 19 (a) bubble_fraction({PP_RANKS}, {PP_MICRO}, 1) = "
+        f"{pp.bubble_fraction(PP_RANKS, PP_MICRO, 1):.6f} (3/11 = {3 / 11:.6f}), "
+        f"bubble_fraction({PP_RANKS}, {PP_MICRO}, {PP_V}) = "
+        f"{pp.bubble_fraction(PP_RANKS, PP_MICRO, PP_V):.6f} (3/27 = {3 / 27:.6f})")
+    check(abs(pp.bubble_fraction(PP_RANKS, PP_MICRO, 1) - 3 / 11) < 1e-12
+          and abs(pp.bubble_fraction(PP_RANKS, PP_MICRO, PP_V) - 3 / 27) < 1e-12,
+          "phase 19 (a): bubble_fraction")
+    for name, v, layout in (("GPipe", 1, "stacked"), (f"interleaved V={PP_V}", PP_V,
+                                                       "interleaved")):
+        params = dict(params0)
+        rows = torch.as_tensor(perm, device=dev)
+        if layout == "interleaved":
+            params = {k: (t[rows] if "_stack/" in k else t) for k, t in params.items()}
+        ticks = pp._schedule_ticks(PP_MICRO, PP_RANKS, v)
+        lc = cfg.num_layers // (PP_RANKS * v)
+        mode = framework.pipeline_mode(pp.LocalRanks(PP_RANKS), PP_MICRO, interleave=v,
+                                       param_layout=layout)
+        _zero_launch_counts(fa)
+        t0 = time.perf_counter()
+        with record_kernel_calls(fa) as calls:
+            # ---- the path: one forward and backward through the schedule
+            loss, grads = _loss_and_grads(prog, params, feed, dev, seed, pp=mode)
+            # ---- end
+        secs = time.perf_counter() - t0
+        got = _launch_counts(fa)
+        for n in launches:
+            launches[n] += got[n]
+        check_recorded(fa, calls, f"phase 19 (a) {name}")
+        del calls
+        if layout == "interleaved":
+            back = torch.as_tensor(np.argsort(perm), device=dev)
+            grads = {k: (g[back] if "_stack/" in k else g) for k, g in grads.items()}
+        per_tick = PP_RANKS * lc
+        _held(f"(a) {name} pp={PP_RANKS} M={PP_MICRO} bf16 GPT-base b={TRAIN_BATCH} "
+              f"s={TRAIN_SEQ}", loss, grads, want_loss, want, card_name,
+              f"; {ticks} ticks, flash launches {got} ({per_tick} a tick: {PP_RANKS} ranks "
+              f"x {lc} layers, each rank every tick); {secs:.2f} s on the host clock "
+              "(one process drives all ranks in turn: not a pipeline's speed)")
+        check(all(n == ticks * per_tick for n in got.values()),
+              f"phase 19 (a) {name}: launch counts {got}, want {ticks * per_tick} each")
+    del base
+    gc.collect()
+    # the world-of-one Trainer with pp_microbatches: its mesh has no pp axis
+    # larger than 1, so it warns and trains layer by layer
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    par.initialize(place=dev, init_method=f"tcp://127.0.0.1:{_free_port()}",
+                   world_size=1, rank=0)
+    try:
+        mesh = par.make_mesh({"dp": 1, "tp": 1, "pp": 1})
+        strategy = pt.DistStrategy(pp_microbatches=PP_MICRO)
+        unmeshed = _trainer(cfg, dev).startup(seed, sample_feed=feeds[0], params=params0)
+        meshed, seq, fused = (_mesh_trainer(cfg, dev, mesh, None, strategy).startup(
+            seed, sample_feed=feeds[0], params=params0) for _ in range(3))
+        tp = _mesh_trainer(cfg, dev, mesh, par.transformer_tp_rules(), strategy).startup(
+            seed, sample_feed=feeds[0], params=params0)
+        _zero_launch_counts(fa)
+        import warnings
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            # ---- the path: the Trainer a user builds with the knob
+            got = [float(meshed.step(f)["loss"]) for f in feeds[:MESH_STEPS]]
+            tp_got = [float(tp.step(f)["loss"]) for f in feeds[:MESH_STEPS]]
+            seq_losses = torch.stack([seq.step(f)["loss"] for f in feeds])
+            outs = fused.run_steps(fused._put_feed(pt.data.stack_batches(feeds),
+                                                   stacked=True))
+            torch.cuda.synchronize()
+            # ---- end
+        trained = _launch_counts(fa)
+        want_l = [float(unmeshed.step(f)["loss"]) for f in feeds[:MESH_STEPS]]
+        diff = _max_diff(_logical(meshed), _logical(unmeshed))
+        same = _bits_equal(seq_losses, outs["loss"])
+        differ = _states_differ(_local_state(seq), _local_state(fused))
+        note = [str(w.message) for w in warned if "pp_microbatches" in str(w.message)]
+        tp_rel = max(abs(a - b) / abs(b) for a, b in zip(tp_got, want_l))
+        say(f"phase 19 (a) world-of-one Trainer ({card_name}): {mesh.shape}, "
+            f"DistStrategy(pp_microbatches={PP_MICRO}): losses {got} against the unmeshed "
+            f"Trainer's {want_l}, params' largest difference {diff}; run_steps(K={MESH_K}) "
+            f"captured against {MESH_K} step() calls: bit-equal {same}, state leaves "
+            f"differing {differ}; warned: {note[:1]}; with transformer_tp_rules (the fused "
+            f"projections one product a q/k/v on tp-sharded weights): losses {tp_got}, "
+            f"{tp_rel:.2e} relative (limit {BF16_ROUNDING:.2e})")
+        check(got == want_l and diff == 0.0,
+              "phase 19 (a): the world-of-one pp Trainer is not bit-equal to the unmeshed one")
+        check(tp_rel <= BF16_ROUNDING, "phase 19 (a): the tp-rules Trainer parts from the "
+              "unmeshed one")
+        check(same and not differ, "phase 19 (a): the pp Trainer's run_steps differs")
+        check(bool(note), "phase 19 (a): no warning that the mesh has no pp axis")
+        want_n = cfg.num_layers * (2 * MESH_STEPS + MESH_K + _captured_step_runs())
+        check(all(n == want_n for n in trained.values()),
+              f"phase 19 (a): the Trainers' launch counts {trained}, want {want_n} each")
+    finally:
+        dist.destroy_process_group()
+    del unmeshed, meshed, seq, fused, tp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, trained
+
+
+def pipeline_transformer(dev, seed, card_name):
+    """(b) The stacked Transformer-base through a pp=2 schedule with the
+    decoder's extras per microbatch. Returns the launch counts."""
+    import gc
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.parallel import pipeline as pp
+
+    cfg = _transformer_cfg(max_len=LONG_SEQ, dropout=0.0, dtype="bfloat16", stacked=True)
+    feeds = _seq2seq_feeds(np.random.RandomState(0), 1, LONG_BATCH, LONG_SEQ)
+    tr = _seq2seq_trainer(cfg, dev).startup(seed, feeds[0])
+    params = _params_of(tr)
+    feed = tr._put_feed(feeds[0])
+    del tr
+    prog = pt.build(transformer.make_model(cfg))
+    want_loss, want = _loss_and_grads(prog, params, feed, dev, seed)
+    mode = framework.pipeline_mode(pp.LocalRanks(PP_TR_RANKS), PP_TR_MICRO)
+    _zero_launch_counts(fa)
+    t0 = time.perf_counter()
+    with record_kernel_calls(fa) as calls:
+        # ---- the path: one forward and backward through both stacks' schedules
+        loss, grads = _loss_and_grads(prog, params, feed, dev, seed, pp=mode)
+        # ---- end
+    secs = time.perf_counter() - t0
+    got = _launch_counts(fa)
+    check_recorded(fa, calls, "phase 19 (b) stacked Transformer-base pp schedule")
+    del calls
+    ticks = pp._schedule_ticks(PP_TR_MICRO, PP_TR_RANKS, 1)
+    lc = cfg.num_encoder_layers // PP_TR_RANKS
+    # a tick: each rank's encoder layers (self attention), then in the
+    # decoder's schedule its layers' self and cross attention
+    want_n = ticks * PP_TR_RANKS * lc * 3
+    _held(f"(b) stacked Transformer-base pp={PP_TR_RANKS} M={PP_TR_MICRO} bf16 "
+          f"b={LONG_BATCH} s={LONG_SEQ}", loss, grads, want_loss, want, card_name,
+          f"; flash launches {got} (want {want_n}: {ticks} ticks of {PP_TR_RANKS} ranks x "
+          f"{lc} layers, encoder self, decoder self and cross attention); {secs:.2f} s "
+          "on the host clock (one process drives both ranks: not a pipeline's speed)")
+    check(all(n == want_n for n in got.values()),
+          f"phase 19 (b): launch counts {got}, want {want_n} each")
+    del params, grads, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+
+def _moe_cfg(**kw):
+    from paddle_tpu_torch.models import moe_transformer
+    return moe_transformer.base_config(**{"use_flash": True, "dtype": "bfloat16", **kw})
+
+
+def _moe_trainer(cfg, dev):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import moe_transformer
+    return pt.Trainer(pt.build(moe_transformer.make_model(cfg)),
+                      pt.optimizer.Adam(MOE_LR), loss_name="loss",
+                      fetch_list=["loss", "ce_loss", "aux_loss"], place=dev)
+
+
+def moe_parity(dev, seed, card_name):
+    """(c) f32 MoE LM, card against CPU, one forward and backward from the
+    same params at MOE_PARITY's widths."""
+    import numpy as np
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import moe_transformer
+
+    cfg = _moe_cfg(**MOE_PARITY, dtype="float32")
+    feed = _train_feeds(np.random.RandomState(1), 1, MOE_PARITY_BATCH, MOE_PARITY_SEQ,
+                        cfg.vocab_size)[0]
+    prog = pt.build(moe_transformer.make_model(cfg))
+    params, _ = prog.init(seed, place="cpu", **{k: _put_cpu(v) for k, v in feed.items()})
+    results = {}
+    for where in (dev, "cpu"):
+        f = {k: _put_cpu(v).to(where) for k, v in feed.items()}
+        ps = {k: v.to(where) for k, v in params.items()}
+        loss, grads = _loss_and_grads_any(prog, ps, f, where, seed)
+        results[where] = (loss.cpu(), {k: g.cpu() for k, g in grads.items()})
+    (lc, gc_), (lp, gp) = results[dev], results["cpu"]
+    rl = float((lc - lp).abs() / lp.abs())
+    # each grad's distance against the largest grad's norm: a key
+    # projection's bias has a grad of 0 in exact arithmetic, so its own
+    # relative distance is rounding over rounding
+    top = max(_tree_dist({k: g}) for k, g in gp.items())
+    worst = max((_tree_dist({k: gc_[k]}, {k: gp[k]}) / top, k) for k in gp)
+    whole = _rel_dist(gc_, gp)
+    say(f"phase 19 (c) MoE LM f32 card against CPU ({card_name}): {MOE_PARITY}, "
+        f"b={MOE_PARITY_BATCH} s={MOE_PARITY_SEQ}: loss {float(lc):.7f} vs {float(lp):.7f} "
+        f"(relative {rl:.2e}, limit {MOE_LOSS_TOL}); grads' relative L2 {whole:.2e}, the "
+        f"worst grad's distance over the largest grad's norm {worst[0]:.2e} ({worst[1]}; "
+        f"limit {MOE_GRAD_TOL} for both)")
+    check(rl <= MOE_LOSS_TOL, "phase 19 (c): the f32 loss parts card from CPU")
+    check(whole <= MOE_GRAD_TOL and worst[0] <= MOE_GRAD_TOL,
+          "phase 19 (c): an f32 grad parts card from CPU")
+
+
+def _put_cpu(v):
+    import numpy as np
+    import torch
+    return torch.from_numpy(np.ascontiguousarray(v))
+
+
+def _loss_and_grads_any(prog, params, feed, where, seed):
+    ps = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    out, _ = prog.apply(ps, {}, training=True, rng=seed, place=where, **feed)
+    out["loss"].backward()
+    return out["loss"].detach().float(), {k: p.grad.detach() for k, p in ps.items()}
+
+
+def moe_ep_emulated(dev, seed, card_name):
+    """(c) One MoE layer at base_config widths, MOE_BATCH x MOE_SEQ tokens,
+    through ``moe(mesh=LocalRanks(MOE_EP, "ep"))``: the port's ep path with
+    its ranks run in this process (each rank routes its row block at its
+    shard's capacity, the port's send and receive layouts around an
+    all-to-all that slices and concatenates, each rank's experts over the
+    slots it received); forward and backward against each shard's dense
+    route at the same capacity."""
+    import math
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.layers.ops import apply_activation
+    from paddle_tpu_torch.parallel import moe as M
+    from paddle_tpu_torch.parallel.pipeline import LocalRanks
+
+    cfg = _moe_cfg()
+    d, e, ff, k = cfg.d_model, cfg.num_experts, cfg.d_expert, cfg.top_k
+    t = MOE_BATCH * MOE_SEQ
+    tl = t // MOE_EP
+    cap = max(1, int(math.ceil(tl * k / e * cfg.capacity_factor)))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    base = {"router_w": rand(d, e, scale=d ** -0.5),
+            "expert_w1": rand(e, d, ff, scale=d ** -0.5), "expert_b1": rand(e, ff, scale=0.02),
+            "expert_w2": rand(e, ff, d, scale=ff ** -0.5), "expert_b2": rand(e, d, scale=0.02)}
+    x0 = rand(MOE_BATCH, MOE_SEQ, d, dtype=torch.bfloat16)
+    g0 = rand(MOE_BATCH, MOE_SEQ, d, dtype=torch.bfloat16)
+    act = lambda h: apply_activation(h, "gelu")  # noqa: E731
+
+    def layer(x):
+        out, aux = M.moe(x, e, ff, top_k=k, capacity_factor=cfg.capacity_factor,
+                         mesh=LocalRanks(MOE_EP, "ep"))
+        return {"out": out, "aux": aux}
+
+    prog = pt.build(layer)
+    names = {n.rsplit("/", 1)[-1]: n for n in prog.init(seed, x=x0, place=dev)[0]}
+
+    def run(ep):
+        p = {n: v.clone().requires_grad_(True) for n, v in base.items()}
+        x = x0.clone().requires_grad_(True)
+        if ep:
+            with M.capture_moe_configs() as log:
+                out = prog.apply({names[n]: v for n, v in p.items()}, {}, x=x,
+                                 place=dev)[0]["out"]
+            check(log[0]["capacity"] == cap and log[0]["ep"] == MOE_EP,
+                  f"phase 19 (c): the ep layer's config {log[0]}")
+        else:
+            out = torch.cat([M._route_compute(
+                [shard.reshape(tl, d)], p["router_w"],
+                [tuple(p[f"expert_{n}"] for n in ("w1", "b1", "w2", "b2"))], top_k=k,
+                capacity=cap, act=act, normalize_gates=True)[0][0].reshape(shard.shape)
+                for shard in x.chunk(MOE_EP)]).to(x.dtype)
+        (out.float() * g0.float()).sum().backward()
+        torch.cuda.synchronize()
+        return out.detach(), {"x": x.grad, **{n: v.grad for n, v in p.items()}}
+
+    out_e, g_e = run(True)
+    out_d, g_d = run(False)
+    ro = _rel_dist({"o": out_e}, {"o": out_d})
+    rg = _rel_dist(g_e, g_d)
+    say(f"phase 19 (c) one MoE layer, moe(mesh=LocalRanks({MOE_EP}, 'ep')) ({card_name}): "
+        f"d={d} E={e} top-{k} d_expert={ff}, {t} tokens, {tl} a rank, capacity {cap}, "
+        f"{e // MOE_EP} experts a rank, bf16: output relative L2 {ro:.2e} (limit "
+        f"{BF16_ROUNDING:.2e}), grads {rg:.2e} (limit {ACCUM_GRAD_TOL}) against each "
+        "shard's dense route")
+    check(cap == 640, f"phase 19 (c): capacity {cap}, want 640")
+    check(ro <= BF16_ROUNDING, "phase 19 (c): the ep layer parts from the dense route")
+    check(rg <= ACCUM_GRAD_TOL, "phase 19 (c): the ep grads part from the dense route")
+
+
+def _moe_trace(eager, feed, e, cap):
+    """One profiled eager step of the MoE LM, read from its trace: (the
+    step's device ms, {family: [device ms, operations]}) for the products
+    over a [t, E·C] dispatch or combine matrix (``aten::mm`` with an E·C
+    operand dim), the other operations on such a matrix (its zeros,
+    scatters, casts and their grads) and the expert bank's batched
+    products (``aten::bmm`` with a capacity dim)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        eager.step(feed)
+        torch.cuda.synchronize()
+    device_us = sum(evt.self_device_time_total for evt in prof.key_averages()
+                    if evt.device_type == torch.autograd.DeviceType.CUDA
+                    and not evt.key.startswith(("trainer.", "DeviceFeeder.")))
+    fams = {"dispatch and combine products": [0.0, 0], "other [t, E*C] operations": [0.0, 0],
+            "expert bank products": [0.0, 0]}
+    for evt in prof.events():
+        us = evt.self_device_time_total if evt.device_type == torch.autograd.DeviceType.CPU \
+            else 0
+        if not us:
+            continue
+        shapes = [shape for shape in evt.input_shapes if isinstance(shape, list)]
+        wide = any(e * cap in shape for shape in shapes)
+        if evt.name in ("aten::mm", "aten::addmm") and wide:
+            fam = "dispatch and combine products"
+        elif evt.name in ("aten::bmm", "aten::baddbmm") and any(
+                len(shape) == 3 and cap in shape for shape in shapes):
+            fam = "expert bank products"
+        elif wide:
+            fam = "other [t, E*C] operations"
+        else:
+            continue
+        fams[fam][0] += us / 1e3
+        fams[fam][1] += 1
+    return device_us / 1e3, fams
+
+
+def moe_lm(dev, seed, card_name):
+    """(c) The MoE LM at base_config widths: eager steps, run_steps captured
+    bit-equal, timings, memory and the products' share. Returns the launch
+    counts of the path."""
+    import gc
+    import math
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    cfg = _moe_cfg()
+    feeds = _train_feeds(np.random.RandomState(0), MOE_K, MOE_BATCH, MOE_SEQ, cfg.vocab_size)
+    eager = _moe_trainer(cfg, dev).startup(seed, sample_feed=feeds[0])
+    params0 = _params_of(eager)
+    fused = _moe_trainer(cfg, dev).startup(seed, sample_feed=feeds[0], params=params0)
+    again = _moe_trainer(cfg, dev).startup(seed, sample_feed=feeds[0], params=params0)
+    staged = [eager._put_feed(f) for f in feeds]
+    stacked = fused._put_feed(pt.data.stack_batches(feeds), stacked=True)
+    _zero_launch_counts(fa)
+    # ---- the path: eager steps on one batch, then K steps eager and captured
+    with record_kernel_calls(fa) as calls:
+        falling = [float(again.step(staged[0])["loss"]) for _ in range(MOE_EAGER)]
+    losses = torch.stack([eager.step(f)["loss"] for f in staged])
+    outs = fused.run_steps(stacked)
+    torch.cuda.synchronize()
+    # ---- end
+    launches = _launch_counts(fa)
+    check_recorded(fa, calls, "phase 19 (c) MoE LM eager step")
+    del calls
+    same = _bits_equal(losses, outs["loss"])
+    differ = _states_differ(_state_of(eager), _state_of(fused))
+    say(f"phase 19 (c) MoE LM ({card_name}): d={cfg.d_model} {cfg.num_layers} layers, "
+        f"{cfg.num_experts} experts top-{cfg.top_k} d_expert={cfg.d_expert} "
+        f"d_inner={cfg.d_inner} vocab {cfg.vocab_size}, bf16, flash, b={MOE_BATCH} "
+        f"s={MOE_SEQ}, Adam({MOE_LR}): {MOE_EAGER} eager steps on one batch, losses "
+        f"{[round(x, 5) for x in falling]}; run_steps(K={MOE_K}) against {MOE_K} step() "
+        f"calls: losses {[round(x, 5) for x in outs['loss'].tolist()]}, bit-equal {same}, "
+        f"state leaves differing {differ}; launches {launches}")
+    check(all(np.isfinite(falling)) and falling[-1] < falling[0],
+          "phase 19 (c): the MoE LM's loss does not fall")
+    check(same and not differ, "phase 19 (c): the MoE LM's run_steps differs from step()")
+    want_n = cfg.num_layers * (MOE_EAGER + MOE_K + _captured_step_runs())
+    check(all(n == want_n for n in launches.values()),
+          f"phase 19 (c): launch counts {launches}, want {want_n} each")
+    times, peaks = _eager_against_captured(eager, fused, staged, stacked, 1, MOE_K)
+    ms = _timing_line(f"MoE LM bf16 b={MOE_BATCH} s={MOE_SEQ} (phase 19 (c))", times, peaks,
+                      "tokens/s", MOE_BATCH * MOE_SEQ, card_name, MOE_K,
+                      _busy_against(eager, fused, staged, stacked))
+    t = MOE_BATCH * MOE_SEQ
+    cap = max(1, int(math.ceil(t * cfg.top_k / cfg.num_experts * cfg.capacity_factor)))
+    e_c = cfg.num_experts * cap
+    dev_ms, fams = _moe_trace(eager, staged[0], cfg.num_experts, cap)
+    del eager, fused, again, staged, stacked
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_moe = cfg.num_layers // cfg.moe_every
+    flop = 2 * t * e_c * cfg.d_model
+    f32_gb, bf_gb = t * e_c * 4 / 1e9, t * e_c * 2 / 1e9
+    shares = (", ".join(f"{f} {v[0]:.3f} ms in {v[1]} operations, {100 * v[0] / dev_ms:.1f}%"
+                        for f, v in fams.items()) if dev_ms and any(v[1] for v in fams.values())
+              else "not measured (the trace holds no device time for the operations)")
+    say(f"phase 19 (c) MoE dispatch and combine from one profiled eager step's trace "
+        f"({card_name}): capacity {cap}, E*C = {e_c}, {n_moe} MoE layers, "
+        f"{flop / 1e9:.1f} GFLOP a product (2*t*E*C*d) "
+        f"against {2 * 2 * e_c * cfg.d_model * cfg.d_expert / 1e9:.1f} GFLOP for the expert "
+        f"bank's forward; of the step's {dev_ms:.2f} device ms: {shares}. The JAX einsum's "
+        "[t, k, E, C] intermediate is not formed: _topk_dispatch writes f32 zeros "
+        f"[t, E*C] and scatters the k choices into two f32 copies of them (3 x {f32_gb:.3f} "
+        "GB a layer, freed after the cast), and the products take bf16 casts of the "
+        f"dispatch and combine matrices ({bf_gb:.3f} GB each, kept for the backward)")
+    return launches, ms
+
+
+def phase_pipeline_moe(dev, seed, card_name):
+    """Phase 19: (a) the pipelined GPT-base and the world-of-one pp Trainer,
+    (b) the pipelined stacked Transformer-base, (c) the MoE LM. Returns the
+    launch counts of the pipeline's schedules ((a)+(b)), of (a)'s
+    world-of-one Trainers (the layer-by-layer route) and of the MoE path."""
+    import paddle_tpu_torch as pt
+
+    t0 = time.perf_counter()
+    with pt.amp_guard("bfloat16"):
+        a, world_of_one = pipeline_gpt(dev, seed, card_name)
+        say(f"phase 19 (a) done in {time.perf_counter() - t0:.1f} s")
+        b = pipeline_transformer(dev, seed, card_name)
+        say(f"phase 19 (b) done in {time.perf_counter() - t0:.1f} s")
+        moe_launches, _ = moe_lm(dev, seed, card_name)
+        moe_ep_emulated(dev, seed, card_name)
+    moe_parity(dev, seed, card_name)
+    say(f"phase 19 (c) done in {time.perf_counter() - t0:.1f} s")
+    return {"pipeline": {n: a[n] + b[n] for n in a}, "pp_world_of_one": world_of_one,
+            "moe": moe_launches}
+
+
 def _routes(fa, torch):
     """The route table's choices, as the kernels record reports them."""
     return {"bfloat16": fa.ROUTES[(torch.bfloat16, 64)],
@@ -6212,13 +6743,20 @@ def main(argv=None) -> int:
     # quantized codec (launch counts zeroed inside, around each path)
     multi_gpu = phase_multi_gpu(dev, args.seed, smi)
     done("phase 18")
+
+    # 19. pipeline parallelism and the MoE transformer, their ranks driven in
+    # this process (launch counts zeroed inside, around each path)
+    second = phase_pipeline_moe(dev, args.seed, smi)
+    done("phase 19")
     by_path = {name: {"served": served[name], "training": trained[name],
                       "persistence": persisted[name], "resnet": resnet_launches[name],
                       **{path: n[name] for path, n in seq2seq.items()},
                       "captured": captured[name], "captured_decode": decoded[name],
                       "remat_stacked_accum": slice7[name], "deepfm": deepfm[name],
                       "zoo": zoo[name], "recurrent": recurrent[name],
-                      "multi_gpu": multi_gpu[name]}
+                      "multi_gpu": multi_gpu[name], "pipeline": second["pipeline"][name],
+                      "pp_world_of_one": second["pp_world_of_one"][name],
+                      "moe": second["moe"][name]}
                for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 
     # the kernels record: each kernel's row at the training path's shape,

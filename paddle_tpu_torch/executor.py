@@ -65,10 +65,16 @@ a step (one ``all_reduce``, or the block-scaled quantized ring with its
 error-feedback residual); ``zero_sharding=True`` keeps params and
 optimizer state as (N, k) rows (``parallel.zero``); and
 ``sequence_parallel=True`` enters ``framework.sp_mode`` around the
-forward. The fetched outputs come back as full tensors on every rank.
+forward. ``pp_microbatches=M`` (with ``pp_interleave=V``) enters
+``framework.pipeline_mode`` around it on a mesh with a ``pp`` axis, and
+the stacked blocks run through ``parallel.pipeline.pipeline_apply``; with
+V > 1 ``startup`` stores each pp-sharded stacked leaf's rows in the
+interleaved rest order once, and checkpoints go through
+:meth:`Trainer.stacked_to_logical` so they stay in logical layer order.
+The fetched outputs come back as full tensors on every rank.
 
 Not carried yet, each raising :class:`NotYetPorted` with the slice that
-brings it: the ``DistStrategy`` fields of pipeline parallelism, the
+brings it: the ``DistStrategy`` fields of the
 parameter server and the program dump, feed wire formats, on-device augmentation, elastic resizes, the HBM
 dataset cache and interval profile events; the journal and telemetry of
 checkpoint saves and guard incidents come with the observability slice.
@@ -92,7 +98,7 @@ from .core.errors import EnforceError, NotYetPorted, enforce
 from .core.place import default_device
 from .data.feeder import PipelineMetrics, host_feed_nbytes
 from .framework import (Program, RngStream, build, check_params, params_from_jax,
-                        remat_mode, resolve_remat_policy, sp_mode)
+                        pipeline_mode, remat_mode, resolve_remat_policy, sp_mode)
 from .initializer import mix_seed
 from .parallel.strategy import DistStrategy, unported_fields
 from .resilience import GuardPolicy
@@ -463,6 +469,8 @@ class Trainer:
         # first dispatch and dropped when the training state is replaced
         self._fused = None
         self.pipeline_metrics = PipelineMetrics()
+        # the interleaved pipeline's row permutation of each stacked leaf
+        self._pp_perm: Dict[str, np.ndarray] = {}
 
     # ------------------------------------------------------------------
     def startup(self, rng: Optional[int] = None, sample_feed: Optional[Feed] = None,
@@ -482,6 +490,7 @@ class Trainer:
         if params is not None:
             check_params(params, self.program.param_info, "Trainer.startup(params=)")
             fresh = {k: params[k].detach().to(self.device, copy=True) for k in fresh}
+        fresh = self._interleave_stacked_params(fresh)
         sd = None if self.strategy is None else self.strategy.opt_state_dtype
         if sd is not None:  # before init, as the JAX Trainer (executor.py:400-402)
             self.optimizer.set_state_dtype(sd)
@@ -510,6 +519,110 @@ class Trainer:
         self._fused = None
         self.pipeline_metrics.reset()
         return self
+
+    # -- the pipeline's rest layout (executor.py:477-556) ------------------------
+    def _pp_settings(self):
+        """(``pp_microbatches``, ``pp_interleave`` at least 1)."""
+        s = self.strategy
+        pp_m = 0 if s is None else int(s.pp_microbatches)
+        pp_v = 1 if s is None else int(s.pp_interleave)
+        return pp_m, max(1, pp_v)
+
+    def _interleave_stacked_params(self, params):
+        """The interleaved pipeline's rest layout: each pp-sharded stacked
+        leaf's rows permuted ONCE, at startup, into the rank-major chunk
+        order (``parallel.pipeline.interleave_perm``), so a rank's chunks
+        are its own shard and a step needs no re-layout. Checkpoints stay
+        in logical order (:meth:`stacked_to_logical`)."""
+        self._pp_perm = {}
+        pp_m, pp_v = self._pp_settings()
+        if (pp_m <= 0 or pp_v <= 1 or self.mesh is None
+                or self.mesh.shape.get("pp", 1) <= 1 or self.sharding_rules is None):
+            return params
+        from .parallel.pipeline import interleave_perm
+        p = self.mesh.shape["pp"]
+        out = dict(params)
+        for name, leaf in params.items():
+            spec = self.sharding_rules.spec_for(name, tuple(leaf.shape), self.mesh)
+            lead = spec[0] if len(spec) > 0 else None
+            if not (lead == "pp" or (isinstance(lead, tuple) and "pp" in lead)):
+                continue
+            if leaf.dim() < 1 or leaf.shape[0] % (p * pp_v) != 0:
+                continue
+            perm = interleave_perm(leaf.shape[0], p, pp_v)
+            out[name] = leaf[torch.as_tensor(perm, device=leaf.device)]
+            self._pp_perm[name] = perm
+        return out
+
+    def _apply_row_perm(self, params, opt_state, index_of):
+        """Each permuted leaf's rows (and every per-param optimizer subtree
+        under that param's name, at any depth: the arrays whose leading dim
+        is the permutation's length) taken by ``index_of(perm)``. Never
+        changes its inputs."""
+        perms = self._pp_perm
+        if not perms:
+            return params, opt_state
+
+        def rows(t, perm):
+            return t[torch.as_tensor(index_of(perm), device=t.device)]
+
+        params = dict(params)
+        for name, perm in perms.items():
+            if name in params:
+                params[name] = rows(params[name], perm)
+
+        def permute(sub, perm):
+            if isinstance(sub, dict):
+                return {k: permute(v, perm) for k, v in sub.items()}
+            if isinstance(sub, torch.Tensor) and sub.dim() >= 1 and sub.shape[0] == len(perm):
+                return rows(sub, perm)
+            return sub
+
+        def walk(tree):
+            if not isinstance(tree, dict):
+                return tree
+            return {k: (permute(v, perms[k]) if k in perms else walk(v))
+                    for k, v in tree.items()}
+
+        return params, (walk(opt_state) if opt_state is not None else None)
+
+    def stacked_to_logical(self, params, opt_state=None):
+        """Undo the interleaved rest layout (checkpoint order), on whole
+        tensors."""
+        return self._apply_row_perm(params, opt_state, lambda perm: np.argsort(perm))
+
+    def stacked_from_logical(self, params, opt_state=None):
+        """Apply the interleaved rest layout to logical-order whole tensors
+        (a checkpoint restored into an interleaved trainer)."""
+        return self._apply_row_perm(params, opt_state, lambda perm: perm)
+
+    @contextlib.contextmanager
+    def _pp_scope(self):
+        """``framework.pipeline_mode`` as the strategy asks for it
+        (executor.py:603-625): warned and skipped when the mesh has no
+        ``pp`` axis larger than 1, and warned when the model never
+        consumed it."""
+        import warnings
+
+        pp_m, pp_v = self._pp_settings()
+        if pp_m <= 0:
+            yield None
+            return
+        if self.mesh is None or self.mesh.shape.get("pp", 1) <= 1:
+            warnings.warn(f"DistStrategy.pp_microbatches={pp_m} is set but the mesh "
+                          f"{None if self.mesh is None else self.mesh.shape} has no 'pp' "
+                          "axis (size>1); training proceeds WITHOUT it")
+            yield None
+            return
+        layout = "interleaved" if self._pp_perm else "stacked"
+        with pipeline_mode(self.mesh, pp_m, interleave=pp_v, param_layout=layout) as cfg:
+            yield cfg
+        if not cfg["consumed"]:
+            warnings.warn("DistStrategy.pp_microbatches is set but the model never consumed "
+                          "the context — no stacked block stack routed through the "
+                          "pipeline; every pp rank redundantly computes the full model. "
+                          "Build the model with its stacked representation (e.g. "
+                          "TransformerConfig(stacked=True)).")
 
     # -- the mesh (executor.py:404-463, :638-730) ------------------------------
     def _place_on_mesh(self, params, state, opt_state, ls):
@@ -600,7 +713,8 @@ class Trainer:
             # has no use for
             axes = tuple(a for a in ("dp", "fsdp") if a in self.mesh.axis_names)
         enforce(axes, f"{why}: mesh has no data axis")
-        enforce(not (self.strategy is not None and self.strategy.sequence_parallel),
+        enforce(not (self.strategy is not None and (self.strategy.sequence_parallel
+                                                    or self._pp_settings()[0] > 0)),
                 f"{why} composes only with pure data parallelism (no pp/sp: their "
                 "schedules cannot nest inside the local gradient path)")
         enforce(not state, f"{why} requires stateless models: per-shard mutable "
@@ -808,7 +922,8 @@ class Trainer:
         # profiler ranges (``trainer.forward`` ...): a profiled step splits
         # its device time by them; about a microsecond each when no
         # profiler runs
-        with record_function("trainer.forward"), self._remat_scope(), self._sp_scope():
+        with record_function("trainer.forward"), self._remat_scope(), self._sp_scope(), \
+                self._pp_scope():
             out, new_state = self._run(feed, training=True, rng=stream, state=state,
                                        params=params)
         with record_function("trainer.backward"):
@@ -1195,9 +1310,24 @@ class Trainer:
 
     def eval(self, feed: Feed) -> Dict[str, torch.Tensor]:
         """Forward pass in inference mode (no dropout), no update; returns
-        every output."""
+        every output. With the interleaved rest layout the stacked rows make
+        sense only through the schedule, so eval enters the training
+        pipeline (executor.py:1215-1245) and its batch must divide into
+        ``pp_microbatches``; a plain-pp trainer evaluates layer by layer at
+        any batch."""
         feed = self._put_feed(feed)
-        with torch.no_grad(), self._mesh_scope():
+        pp = contextlib.nullcontext()
+        if self._pp_perm:
+            pp_m, pp_v = self._pp_settings()
+            b = next(iter(feed.values())).shape[0]
+            enforce(b % pp_m == 0,
+                    f"Trainer.eval with pp_interleave={pp_v}>1 runs the training pipeline "
+                    f"schedule, so the eval batch ({b}) must be divisible by "
+                    f"pp_microbatches={pp_m} (and its microbatches by the dp shard "
+                    "product) — pad or re-batch the eval feed; plain-pp trainers keep "
+                    "the any-batch layer-by-layer path")
+            pp = pipeline_mode(self.mesh, pp_m, interleave=pp_v, param_layout="interleaved")
+        with torch.no_grad(), self._mesh_scope(), pp:
             out, _ = self._run(feed, training=False, params=self._logical_params())
         return {k: _full(v.detach()) for k, v in out.items()}
 

@@ -35,12 +35,16 @@ Where the port differs from the JAX package:
 - A remat policy (:func:`resolve_remat_policy`) is a selective
   activation-checkpoint policy of ``torch.utils.checkpoint``, not a
   ``jax.checkpoint_policies`` callable; the names map onto it.
-- :func:`sp_mode` is the JAX package's ambient sequence-parallel
-  switch; the Trainer enters it from ``DistStrategy(sequence_parallel=
-  True, sp_impl=...)``.
-- Not carried yet, each raising :class:`NotYetPorted`: ``Program.desc``
-  and ``desc_flat`` (jaxprs; an FX form comes with ROADMAP queue 1 item
-  25) and ``pipeline_mode`` (the multi-GPU slice's second half, item 21).
+- :func:`sp_mode` and :func:`pipeline_mode` are the JAX package's
+  ambient sequence- and pipeline-parallel switches; the Trainer enters
+  them from ``DistStrategy(sequence_parallel=True, sp_impl=...)`` and
+  ``DistStrategy(pp_microbatches=..., pp_interleave=...)``. Where the
+  JAX package folds a key per (layer, microbatch, data shard) inside the
+  pipeline, the port draws from a side generator seeded from the run's
+  seed and that tag (:func:`rng_derived`), so a captured step reseeds it
+  before each replay.
+- Not carried yet, raising :class:`NotYetPorted`: ``Program.desc`` and
+  ``desc_flat`` (jaxprs; an FX form comes with ROADMAP queue 1 item 25).
 """
 
 from __future__ import annotations
@@ -133,7 +137,9 @@ class RngStream:
       numbers: :meth:`fork` sets a side generator at the state of the
       generator the block's forward starts from;
     - an op given its own ``seed`` (``dropout(seed=9)``) and a block under
-      :func:`rng_scope`: :meth:`seeded`.
+      :func:`rng_scope`: :meth:`seeded`;
+    - a block under :func:`rng_derived` (a pipeline layer's draws for one
+      microbatch): :meth:`derived`, seeded from the run's seed and a tag.
 
     A CUDA graph cannot create, seed or read a generator while it is
     captured. A captured step (``Trainer.run_steps`` on the card) runs
@@ -164,7 +170,7 @@ class RngStream:
         self._taken = 0
         if self.frozen:
             for g, (own, offset) in zip(self._side, self._plan):
-                g.manual_seed(self.seed if own is None else own)
+                g.manual_seed(self._seed_of(own))
                 if offset:
                     g.set_offset(offset)
         else:
@@ -199,6 +205,22 @@ class RngStream:
         """Take the next side generator, seeded with ``seed``."""
         return self._take(int(seed), None)
 
+    def derived(self, tag: int) -> int:
+        """Take the next side generator, seeded with ``mix_seed(run seed,
+        tag)``: it follows the run's seed (a captured step reseeds it at
+        every :meth:`reset`), unlike :meth:`seeded`'s fixed seed."""
+        return self._take(("run", int(tag)), None)
+
+    def _seed_of(self, own) -> int:
+        """The seed a side generator takes: the run's (None), the run's
+        mixed with a tag (``("run", tag)``) or its own."""
+        if own is None:
+            return self.seed
+        if isinstance(own, tuple):
+            from .initializer import mix_seed
+            return mix_seed(self.seed, own[1])
+        return own
+
     def _take(self, own: Optional[int], src: Optional[torch.Generator]) -> int:
         i = self._taken
         self._taken += 1
@@ -212,7 +234,7 @@ class RngStream:
             self._side.append(torch.Generator(device=self.device))
         g = self._side[i]
         if src is None:
-            g.manual_seed(own)
+            g.manual_seed(self._seed_of(own))
             offset = 0
         else:
             g.set_state(src.get_state())
@@ -426,6 +448,26 @@ def rng_scope(key: Optional[int]):
         yield
     finally:
         ctx.stream, ctx.gen_index, ctx.rng = old
+
+
+@contextlib.contextmanager
+def rng_derived(tag: int):
+    """Draw the block's random numbers from a side generator seeded from
+    the running program's seed and ``tag`` (:meth:`RngStream.derived`):
+    the JAX package's ``rng_scope(fold_in(key, tag))`` inside a pipeline
+    schedule, where each (layer, microbatch, data shard) has its own key.
+    Deterministic for a step's seed and different for another seed, eager
+    or captured. No-op when no program with an rng runs."""
+    ctx = current_context()
+    if ctx is None or ctx.stream is None:
+        yield
+        return
+    old = ctx.gen_index
+    ctx.gen_index = ctx.stream.derived(tag)
+    try:
+        yield
+    finally:
+        ctx.gen_index = old
 
 
 # --------------------------------------------------------------------------
@@ -852,10 +894,42 @@ def maybe_remat(fn: Callable, enabled: Optional[bool] = None, policy=None) -> Ca
     return run
 
 
+_pipeline_mode = threading.local()
+
+
+@contextlib.contextmanager
 def pipeline_mode(mesh, microbatches: int, axis: str = "pp", interleave: int = 1,
                   param_layout: str = "stacked"):
-    raise NotYetPorted("pipeline_mode: pipeline parallelism comes with the "
-                       "multi-GPU slice (ROADMAP queue 1, item 21)")
+    """Ambient pipeline-parallel switch (framework.py:649). The Trainer
+    enters it around a training forward when ``DistStrategy.
+    pp_microbatches`` is set and the mesh has a ``pp`` axis larger than 1;
+    ``layers.stacked.apply_stacked`` consumes it and runs
+    ``parallel.pipeline.pipeline_apply`` in place of its layer loop.
+    ``interleave`` > 1 selects the virtual-stage schedule;
+    ``param_layout="interleaved"`` declares that the stacked rows already
+    rest in the rank-major chunk order (``parallel.pipeline.
+    interleave_perm``, as ``Trainer.startup`` stores them)."""
+    old = getattr(_pipeline_mode, "cfg", None)
+    cfg = {"mesh": mesh, "microbatches": int(microbatches), "axis": axis,
+           "interleave": max(1, int(interleave)), "param_layout": param_layout,
+           "consumed": False}
+    _pipeline_mode.cfg = cfg
+    try:
+        yield cfg
+    finally:
+        _pipeline_mode.cfg = old
+
+
+def pipeline_config() -> Optional[dict]:
+    """The active pipeline context, or None. A program initialising always
+    sees None: its parameters are created whole, outside any schedule."""
+    ctx = current_context()
+    if ctx is not None and ctx.mode == "init":
+        return None
+    cfg = getattr(_pipeline_mode, "cfg", None)
+    if cfg is not None:
+        cfg["consumed"] = True
+    return cfg
 
 
 _sp_mode = threading.local()
@@ -963,7 +1037,8 @@ __all__ = [
     "current_context", "current_device", "current_layout", "default_main_program",
     "default_startup_program", "in_training", "layout_mode", "maybe_remat",
     "RngStream", "as_stream", "name_scope", "next_rng_key", "params_from_jax",
-    "pipeline_mode", "program_guard", "remat_enabled", "remat_mode", "remat_policy",
-    "resolve_remat_policy", "reuse_names", "rng_fold", "rng_scope", "seeded_generator",
+    "pipeline_config", "pipeline_mode", "program_guard", "remat_enabled", "remat_mode", "remat_policy",
+    "resolve_remat_policy", "reuse_names", "rng_derived", "rng_fold", "rng_scope",
+    "seeded_generator",
     "sp_config", "sp_mode",
 ]

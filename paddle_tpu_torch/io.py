@@ -349,6 +349,9 @@ def save_trainer(dirname: str, trainer, extra_meta: Optional[Dict[str, Any]] = N
         # rows); rank 0 writes, and the others wait for it at the end
         import torch.distributed as dist
         params, state, opt_state = (_full_tree(t) for t in (params, state, opt_state))
+        # checkpoints store logical layer order: the interleaved pipeline's
+        # rest layout is undone (io.py:452-455; no-op otherwise)
+        params, opt_state = trainer.stacked_to_logical(params, opt_state)
         if dist.get_rank() != 0:
             dist.barrier()
             return
@@ -529,6 +532,10 @@ def load_trainer(dirname: str, trainer, allow_reshard: bool = False) -> None:
         opt_state["step"] = opt_state["step"].to(torch.int32)
     params = {k: v.to(dev) for k, v in params.items()}
     state = _to_device(state, dev)
+    # a trainer running the interleaved pipeline layout re-permutes the
+    # logical rows on the way in (io.py:591-594; no-op otherwise)
+    if getattr(trainer, "_pp_perm", None):
+        params, opt_state = trainer.stacked_from_logical(params, opt_state)
     if getattr(trainer, "mesh", None) is not None:
         params, state, opt_state = trainer._mesh_placement(params, state, opt_state)
     trainer.scope.params = {k: v.requires_grad_(v.is_floating_point())

@@ -34,11 +34,13 @@ on the card.
 Under ``framework.sp_mode`` (the Trainer's ``DistStrategy(
 sequence_parallel=True)``) the self-attention of :func:`apply_stacked`'s
 blocks runs as ring or Ulysses attention over the mesh's sp axis
-(``_sdpa``'s sp route). Not carried yet, raising :class:`NotYetPorted`:
-the tensor-parallel psums of the blocks inside the pipeline
-(``tp_axis``); ``apply_stacked``'s pipeline path is entered through
-``DistStrategy.pp_microbatches``, which the port's ``Trainer`` does not
-take yet (ROADMAP queue 1, item 21).
+(``_sdpa``'s sp route). Under ``framework.pipeline_mode`` (the Trainer's
+``DistStrategy(pp_microbatches=...)``) the stack runs through
+``parallel.pipeline.pipeline_apply`` over the mesh's pp axis, and on a
+mesh with a tp axis the blocks take ``tp_axis``: their heads and FFN
+columns are the rank's tp shards (:func:`stack_tp_specs`) and the output
+projections sum their partials over tp (``parallel.pipeline.psum``), the
+Megatron pattern inside a stage.
 """
 
 from __future__ import annotations
@@ -49,9 +51,11 @@ from typing import Callable, Dict, Optional
 import torch
 from torch import nn
 
-from ..core.errors import NotYetPorted, enforce
+from ..core.errors import enforce
 from ..framework import (LayerHelper, cast_compute, compute_dtype as _compute_dtype,
-                         in_training, maybe_remat, sp_config)
+                         current_context, in_training, maybe_remat, pipeline_config,
+                         sp_config)
+from ..parallel.sharding import PartitionSpec as P
 from .. import initializer as init
 from .nn import dropout
 
@@ -248,40 +252,61 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(b, s, h * hd)
 
 
+def _fused_projection(h, w, bias):
+    """einsum "bsd,dke->bske" (a fused projection ``[d, k, e]``) as one
+    ``[d, k·e]`` product. A DTensor weight whose k or e dim is sharded (a tp
+    rule's) cannot be flattened in place: DTensor of torch 2.11 refuses to
+    redistribute inside the reshape, so such a weight runs one product per
+    k, each keeping its shard."""
+    if any(getattr(pl, "dim", 0) in (1, 2) for pl in getattr(w, "placements", ())):
+        return torch.stack([torch.matmul(h, w[:, i]) + bias[i] for i in range(w.shape[1])],
+                           dim=2)
+    b, s, _ = h.shape
+    return torch.matmul(h, w.reshape(w.shape[0], -1)).view(b, s, w.shape[1], -1) + bias
+
+
 def _attn_qkv(x, p, num_heads, compute_dtype):
     b, s, d = x.shape
     head_dim = d // num_heads
     h = _ln(x, p["ln1/scale"], p["ln1/bias"])
     h, w = cast_compute(compute_dtype, h, p["qkv/w"])
-    # einsum "bsd,dke->bske" as one [d, 3d] matmul
-    qkv = torch.matmul(h, w.reshape(w.shape[0], -1)).view(b, s, 3, -1) \
-        + p["qkv/b"].to(h.dtype)
+    qkv = _fused_projection(h, w, p["qkv/b"].to(h.dtype))
     return tuple(_split_heads(qkv[:, :, i], head_dim) for i in range(3))
 
 
+def _tp_sum(h, tp_axis):
+    """The partial sums of a row-parallel product summed over ``tp_axis``
+    (the JAX blocks' ``psum``); nothing without tensor parallelism."""
+    if not tp_axis:
+        return h
+    from ..parallel.pipeline import psum
+    return psum(h, tp_axis)
+
+
 def _attn_out(x, p, o, compute_dtype, dropout_rate: float = 0.0,
-              training: bool = False):
+              training: bool = False, tp_axis=None):
     o, ow = cast_compute(compute_dtype, _merge_heads(o), p["out/w"])
-    o = torch.matmul(o, ow)
+    o = _tp_sum(torch.matmul(o, ow), tp_axis)
     return x + _drop(o + p["out/b"].to(o.dtype), dropout_rate, training)
 
 
-def _ffn(x, p, compute_dtype, dropout_rate: float = 0.0, training: bool = False):
+def _ffn(x, p, compute_dtype, dropout_rate: float = 0.0, training: bool = False,
+         tp_axis=None):
     h = _ln(x, p["ln2/scale"], p["ln2/bias"])
     h, w1, w2 = cast_compute(compute_dtype, h, p["ffn_in/w"], p["ffn_out/w"])
     h = torch.relu(torch.matmul(h, w1) + p["ffn_in/b"].to(h.dtype))
     h = _drop(h, dropout_rate, training)
-    h = torch.matmul(h, w2)
+    h = _tp_sum(torch.matmul(h, w2), tp_axis)
     return x + _drop(h + p["ffn_out/b"].to(h.dtype), dropout_rate, training)
 
 
 def _self_attention(x, p, num_heads, causal, use_flash, key_bias,
                     compute_dtype, dropout_rate: float = 0.0,
-                    training: bool = False, sp_cfg=None):
+                    training: bool = False, sp_cfg=None, tp_axis=None):
     q, k, v = _attn_qkv(x, p, num_heads, compute_dtype)
     o = _sdpa(q, k, v, key_bias, causal, use_flash, sp_cfg, dropout_rate=dropout_rate,
               training=training)
-    return _attn_out(x, p, o, compute_dtype, dropout_rate, training)
+    return _attn_out(x, p, o, compute_dtype, dropout_rate, training, tp_axis)
 
 
 def make_encoder_block(num_heads: int, use_flash: bool = False,
@@ -295,15 +320,16 @@ def make_encoder_block(num_heads: int, use_flash: bool = False,
     four dropout sites in training. The compute dtype and whether this is
     a training pass are arguments here, where the JAX package reads them
     from its build context; a training pass with dropout draws its masks
-    from the running program's rng (:func:`framework.next_rng_key`)."""
-    if tp_axis is not None:
-        raise NotYetPorted("tensor-parallel stacked blocks inside the pipeline "
-                           "(ROADMAP queue 1, item 21)")
+    from the running program's rng (:func:`framework.next_rng_key`).
+    With ``tp_axis`` the layer params are the rank's tp shards
+    (:func:`stack_tp_specs`: whole heads, FFN columns) and the attention's
+    and FFN's output products sum their partials over that axis inside a
+    ``parallel.pipeline`` region."""
 
     def block(x, p, key_bias=None):
         x = _self_attention(x, p, num_heads, causal, use_flash, key_bias,
-                            compute_dtype, dropout_rate, training, sp_cfg)
-        return _ffn(x, p, compute_dtype, dropout_rate, training)
+                            compute_dtype, dropout_rate, training, sp_cfg, tp_axis)
+        return _ffn(x, p, compute_dtype, dropout_rate, training, tp_axis)
 
     return block
 
@@ -320,54 +346,94 @@ def make_decoder_block(num_heads: int, use_flash: bool = False,
     attention, then the FFN. The cross attention runs through
     :func:`_sdpa` non-causal under ``enc_bias`` with ``use_flash``, so
     where dropout is a no-op it takes the flash kernels, queries from the
-    decoder and keys from the encoder."""
+    decoder and keys from the encoder. ``tp_axis`` as in
+    :func:`make_encoder_block`; the cross attention's output sums over it
+    too."""
     enforce(sp_cfg is None,
             "sequence parallelism is wired for the self-attention-only "
             "stack (models/gpt.py); the encoder-decoder cross-attention "
             "path does not support it")
-    if tp_axis is not None:
-        raise NotYetPorted("tensor-parallel stacked blocks inside the pipeline "
-                           "(ROADMAP queue 1, item 21)")
 
     def block(x, p, extra):
         head_dim = x.shape[-1] // num_heads
         x = _self_attention(x, p, num_heads, causal, use_flash, None, compute_dtype,
-                            dropout_rate, training)
+                            dropout_rate, training, tp_axis=tp_axis)
         h = _ln(x, p["lnx/scale"], p["lnx/bias"])
         h, wq, wkv, enc = cast_compute(compute_dtype, h, p["xq/w"], p["xkv/w"], extra["enc"])
         q = torch.matmul(h, wq) + p["xq/b"].to(h.dtype)
-        # einsum "bsd,dke->bske" as one [d, 2d] product
-        b, s, _ = enc.shape
-        kv = torch.matmul(enc, wkv.reshape(wkv.shape[0], -1)).view(b, s, 2, -1) \
-            + p["xkv/b"].to(h.dtype)
+        kv = _fused_projection(enc, wkv, p["xkv/b"].to(h.dtype))
         q = _split_heads(q, head_dim)
         k, v = (_split_heads(kv[:, :, i], head_dim) for i in range(2))
         o = _merge_heads(_sdpa(q, k, v, extra.get("enc_bias"), False, use_flash,
                                dropout_rate=dropout_rate, training=training))
         o, ow = cast_compute(compute_dtype, o, p["xout/w"])
-        o = torch.matmul(o, ow)
+        o = _tp_sum(torch.matmul(o, ow), tp_axis)
         x = x + _drop(o + p["xout/b"].to(o.dtype), dropout_rate, training)
-        return _ffn(x, p, compute_dtype, dropout_rate, training)
+        return _ffn(x, p, compute_dtype, dropout_rate, training, tp_axis)
 
     return block
+
+
+# -- tensor-parallel specs (the non-layer dims; pipeline_apply's param_specs) -
+
+_ENCODER_TP_SPECS = {
+    "ln1/scale": P(), "ln1/bias": P(),
+    "qkv/w": P(None, None, "tp"), "qkv/b": P(None, "tp"),
+    "out/w": P("tp"), "out/b": P(),
+    "ln2/scale": P(), "ln2/bias": P(),
+    "ffn_in/w": P(None, "tp"), "ffn_in/b": P("tp"),
+    "ffn_out/w": P("tp"), "ffn_out/b": P(),
+}
+
+_DECODER_TP_SPECS = dict(_ENCODER_TP_SPECS, **{
+    "lnx/scale": P(), "lnx/bias": P(),
+    "xq/w": P(None, "tp"), "xq/b": P("tp"),
+    "xkv/w": P(None, None, "tp"), "xkv/b": P(None, "tp"),
+    "xout/w": P("tp"), "xout/b": P(),
+})
+
+
+def stack_tp_specs(stacked: Dict[str, torch.Tensor]) -> Dict[str, P]:
+    """The tp spec of each stacked leaf's non-layer dims (stacked.py:390)."""
+    table = _DECODER_TP_SPECS if "xq/w" in stacked else _ENCODER_TP_SPECS
+    return {k: table[k] for k in stacked}
 
 
 def apply_stacked(x, stacked: Dict[str, torch.Tensor], make_block: Callable,
                   extras=None, num_heads: int = 8, use_flash: bool = False,
                   causal: bool = False, remat: bool = False,
                   dropout_rate: float = 0.0):
-    """Run a parameter stack ``{name: [L, ...]}`` over ``x``, layer by
-    layer (the JAX package's sequential ``lax.scan``). Each layer's
-    dropout masks differ from the other layers' because the program's rng
-    stream advances at every draw (the JAX package folds the layer index
-    into its key, stacked.py:432-439). Each layer runs under
-    :func:`framework.maybe_remat`: ``remat=True`` forces the recompute,
-    False defers to the ambient ``remat_mode`` and its policy (as
-    stacked.py:436), with the running program's context (names, rng,
-    layout) replayed. The blocks compute in the running program's dtype
-    and mode (``framework.compute_dtype``, ``in_training``)."""
+    """Run a parameter stack ``{name: [L, ...]}`` over ``x``: pipelined
+    across the mesh's pp axis when the Trainer has entered
+    :func:`framework.pipeline_mode` (``DistStrategy.pp_microbatches``),
+    layer by layer otherwise (the JAX package's sequential ``lax.scan``).
+
+    Layer by layer, each layer's dropout masks differ from the other
+    layers' because the program's rng stream advances at every draw (the
+    JAX package folds the layer index into its key, stacked.py:432-439),
+    and each layer runs under :func:`framework.maybe_remat`: ``remat=True``
+    forces the recompute, False defers to the ambient ``remat_mode`` and
+    its policy (as stacked.py:436), with the running program's context
+    (names, rng, layout) replayed.
+
+    Pipelined (stacked.py:441-466), ``parallel.pipeline.pipeline_apply``
+    runs the blocks, with ``tp_axis`` when the mesh has a tp axis larger
+    than 1 (``num_heads`` divisible by it) and the rank's tp shards of
+    :func:`stack_tp_specs`; with dropout in training each (layer,
+    microbatch, data shard) draws from a generator of its own tag. The
+    pipeline and sequence parallelism cannot wrap the same stack. The
+    blocks compute in the running program's dtype and mode
+    (``framework.compute_dtype``, ``in_training``)."""
+    cfg = pipeline_config()
+    sp = sp_config()
+    enforce(not (cfg is not None and sp is not None),
+            "pipeline and sequence parallelism cannot wrap the same stack "
+            "(ring attention's shard_map cannot nest inside the pipeline's)")
+    if cfg is not None:
+        return _apply_pipelined(x, stacked, make_block, extras, num_heads, use_flash,
+                                causal, dropout_rate, cfg)
     block = make_block(num_heads=num_heads, use_flash=use_flash,
-                       causal=causal, tp_axis=None, sp_cfg=sp_config(),
+                       causal=causal, tp_axis=None, sp_cfg=sp,
                        dropout_rate=dropout_rate, compute_dtype=_compute_dtype(),
                        training=in_training())
 
@@ -381,6 +447,34 @@ def apply_stacked(x, stacked: Dict[str, torch.Tensor], make_block: Callable,
         lp = {name: t[i] for name, t in stacked.items()}
         x = layer(x, lp)
     return x
+
+
+def _apply_pipelined(x, stacked, make_block, extras, num_heads, use_flash, causal,
+                     dropout_rate, cfg):
+    from ..initializer import mix_seed
+    from ..parallel.pipeline import pipeline_apply
+
+    mesh = cfg["mesh"]
+    tp = "tp" if ("tp" in mesh.axis_names and mesh.shape["tp"] > 1) else None
+    if tp:
+        enforce(num_heads % mesh.shape["tp"] == 0,
+                f"stacked blocks with tp={mesh.shape['tp']} need num_heads "
+                f"({num_heads}) divisible by tp")
+    training = in_training()
+    block = make_block(num_heads=num_heads, use_flash=use_flash, causal=causal,
+                       tp_axis=tp, sp_cfg=None, dropout_rate=dropout_rate,
+                       compute_dtype=_compute_dtype(), training=training)
+    layer_fn = block if extras is not None else (lambda a, lp: block(a, lp))
+    # dropout: one tag a stack a run, folded per (layer, microbatch, data
+    # shard) in the schedule; eval draws nothing
+    rng_key = None
+    if dropout_rate > 0.0 and training:
+        rng_key = mix_seed(0x9191, current_context().unique_name("pipeline_rng"))
+    return pipeline_apply(
+        x, stacked, layer_fn, mesh, axis_name=cfg["axis"],
+        microbatches=cfg["microbatches"], interleave=cfg.get("interleave", 1),
+        param_specs=stack_tp_specs(stacked) if tp else None, extras=extras,
+        param_layout=cfg.get("param_layout", "stacked"), rng_key=rng_key)
 
 
 def prefill_block(x, p, num_heads: int, use_flash: bool = False,
@@ -466,4 +560,4 @@ def decode_block(x, p, k_cache, v_cache, index, num_heads: int,
 __all__ = ["EncoderStack", "STACK_PARAMS", "StackedInit",
            "apply_stacked", "decode_block", "decode_block_q8", "decoder_stack_params",
            "encoder_stack_params", "encoder_stack_shapes", "make_decoder_block",
-           "make_encoder_block", "prefill_block", "quantize_kv"]
+           "make_encoder_block", "prefill_block", "quantize_kv", "stack_tp_specs"]

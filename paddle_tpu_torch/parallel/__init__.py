@@ -1,14 +1,17 @@
 """Parallelism (counterpart of ``paddle_tpu.parallel``): meshes over the
 ranks of a ``torch.distributed`` world, sharding rules as DTensor
 placements, the :class:`DistStrategy` knobs, ZeRO, the quantized gradient
-exchange, and sequence parallelism through ring and Ulysses attention.
+exchange, sequence parallelism through ring and Ulysses attention,
+pipeline parallelism over stacked layers, and the mixture of experts with
+expert parallelism.
 
-Pipeline parallelism, MoE, the asynchronous parameter server and sharded
-checkpoints come with the multi-GPU slice's second half (ROADMAP queue 1,
-item 21)."""
+The asynchronous parameter server and sharded checkpoints come later
+(ROADMAP queue 1, item 21 (d)-(e))."""
 
 from . import api, mesh, quantized_collectives, ring_attention, sharding, strategy, ulysses
-from . import zero
+from . import moe, pipeline, zero
+from .moe import moe_ep_rules
+from .pipeline import bubble_fraction, interleave_perm, pipeline_apply
 from .mesh import (DATA_AXES, DP, EP, FSDP, PP, SP, TP, DistributedInitError, Mesh,
                    data_axis_names, data_parallel_size, initialize, make_mesh)
 from .quantized_collectives import quantized_pmean, quantized_psum
@@ -19,8 +22,9 @@ from .strategy import DistStrategy, unported_fields
 from .ulysses import ulysses_attention
 
 __all__ = [
-    "api", "mesh", "quantized_collectives", "ring_attention", "sharding", "strategy",
-    "ulysses", "zero",
+    "api", "mesh", "moe", "pipeline", "quantized_collectives", "ring_attention",
+    "sharding", "strategy", "ulysses", "zero",
+    "bubble_fraction", "interleave_perm", "moe_ep_rules", "pipeline_apply",
     "quantized_pmean", "quantized_psum", "ring_attention_fn", "ulysses_attention",
     "DATA_AXES", "DP", "EP", "FSDP", "PP", "SP", "TP", "DistributedInitError", "Mesh",
     "data_axis_names", "data_parallel_size", "initialize", "make_mesh",

@@ -7,7 +7,9 @@ drop warnings) and presets (:func:`replicated`, :func:`fsdp`,
 :func:`transformer_tp_rules`). Where the JAX package hands a spec to
 ``NamedSharding``, the port turns it into DTensor placements
 (:func:`placements`): tensor dim ``i`` naming mesh axis ``a`` is
-``Shard(i)`` on mesh dim ``a``; every other mesh dim is ``Replicate()``.
+``Shard(i)`` on mesh dim ``a``; every other mesh dim is ``Replicate()``. A
+dim split over axes listed out of the mesh's order takes DTensor's strided
+shard, so the first axis of the entry stays major.
 """
 
 from __future__ import annotations
@@ -203,36 +205,56 @@ def _validate(spec: PartitionSpec, shape: Tuple[int, ...], mesh, name: str) -> P
 def placements(spec: PartitionSpec, mesh) -> list:
     """DTensor placements of a (validated) spec on ``mesh``: ``Shard(i)``
     on mesh dim ``a`` where tensor dim ``i`` names axis ``a``, else
-    ``Replicate()``. A dim split over several axes lists them in mesh
-    order (the first axis major), as the JAX spec's tuple does."""
+    ``Replicate()``. A dim split over several axes is split with the first
+    axis of the entry major, as ``NamedSharding`` splits it: a plain
+    ``Shard`` on each mesh dim when the entry lists its axes in mesh order,
+    else a ``_StridedShard`` on each mesh dim that a later mesh dim of the
+    entry must precede (its ``split_factor`` the product of those axes'
+    sizes), so ``P(("fsdp", "dp"))`` on a ``(dp, fsdp)`` mesh shards with
+    fsdp major."""
     from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
 
     out = [Replicate() for _ in mesh.axis_names]
     for i, entry in enumerate(spec):
         if entry is None:
             continue
         axes = entry if isinstance(entry, tuple) else (entry,)
-        dims = [mesh.dim(a) for a in axes]
-        if dims != sorted(dims):
-            raise ValueError(f"spec entry {entry!r} lists its axes out of the mesh's "
-                             f"order {mesh.axis_names}; DTensor shards a dim over mesh "
-                             "dims in mesh order")
-        for d in dims:
-            out[d] = Shard(i)
+        for k, a in enumerate(axes):
+            d = mesh.dim(a)
+            sf = 1
+            for b in axes[:k]:
+                if mesh.dim(b) > d:
+                    sf *= mesh.shape[b]
+            out[d] = Shard(i) if sf == 1 else _StridedShard(i, split_factor=sf)
     return out
 
 
 def spec_of(placements_, mesh, ndim: int) -> PartitionSpec:
     """The spec a DTensor's placements stand for (the inverse of
-    :func:`placements` for Shard/Replicate placements)."""
+    :func:`placements` for Shard, strided Shard and Replicate
+    placements)."""
+    import itertools
+
     from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
 
     entries = [[] for _ in range(ndim)]
     for a, pl in zip(mesh.axis_names, placements_):
-        if isinstance(pl, Shard):
+        if isinstance(pl, (Shard, _StridedShard)):
             entries[pl.dim].append(a)
-    return PartitionSpec(*[None if not e else (e[0] if len(e) == 1 else tuple(e))
-                           for e in entries])
+    out = []
+    for i, axes in enumerate(entries):
+        if len(axes) > 1:
+            # the order of the axes whose placements these are
+            want = [placements_[mesh.dim(a)] for a in axes]
+            for order in itertools.permutations(axes):
+                pl = placements(PartitionSpec(*([None] * i), tuple(order)), mesh)
+                if [pl[mesh.dim(a)] for a in axes] == want:
+                    axes = list(order)
+                    break
+        out.append(None if not axes else (axes[0] if len(axes) == 1 else tuple(axes)))
+    return PartitionSpec(*out)
 
 
 # Preset rule tables ---------------------------------------------------------

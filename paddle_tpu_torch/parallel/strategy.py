@@ -10,11 +10,11 @@ accumulation (``accum_steps``), on the optimizer state's storage dtype
 (``opt_state_dtype``) and, under a mesh, on the gradient exchange
 (``reduce_strategy``, ``accum_exchange``, ``quantized_allreduce``,
 ``quant_block_size``, ``error_feedback``, ``quant_stochastic_rounding``),
-ZeRO (``zero_sharding``) and sequence parallelism
-(``sequence_parallel``, ``sp_impl``). ``Trainer`` raises
-:class:`NotYetPorted` for any other field set away from its default
-(pipeline parallelism, the parameter server, the program dump), naming
-the ROADMAP item that brings it (:func:`unported_fields`).
+ZeRO (``zero_sharding``), sequence parallelism (``sequence_parallel``,
+``sp_impl``) and pipeline parallelism (``pp_microbatches``,
+``pp_interleave``). ``Trainer`` raises :class:`NotYetPorted` for any other
+field set away from its default (the parameter server, the program dump),
+naming the ROADMAP item that brings it (:func:`unported_fields`).
 """
 
 from __future__ import annotations
@@ -68,14 +68,12 @@ PORTED_FIELDS = ("loss_scale", "dynamic_loss_scale", "loss_scale_growth_interval
                  "reduce_strategy", "accum_exchange", "zero_sharding",
                  "sequence_parallel", "sp_impl", "quantized_allreduce",
                  "quant_block_size", "error_feedback", "quant_stochastic_rounding",
-                 "donate_buffers")
+                 "donate_buffers", "pp_microbatches", "pp_interleave")
 
 _MULTI_GPU = "slice 9, multi-GPU"
 # field -> the ROADMAP queue 1 item that brings it
 _LATER = {
     "dump_hlo_path": "item 25 (the program's graph form)",
-    "pp_microbatches": f"item 21 ({_MULTI_GPU}: pipeline parallelism)",
-    "pp_interleave": f"item 21 ({_MULTI_GPU}: pipeline parallelism)",
     "async_mode": f"item 21 ({_MULTI_GPU}: the asynchronous parameter server)",
 }
 

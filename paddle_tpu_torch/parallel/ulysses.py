@@ -91,9 +91,10 @@ def ulysses_attention(q, k, v, mesh, axis_name: str = "sp", causal: bool = False
     """Attention over [b, h, s, d] DTensors with s sharded on ``axis_name``
     (ulysses.py:52). ``attn_fn(q, k, v, causal)`` is the whole-sequence
     inner attention on local tensors (default: plain softmax attention;
-    pass the flash kernel to compose with it). A batch shard stays;
+    pass the flash kernel to compose with it). A batch shard stays, and a
+    head shard on another axis (a tp rule's) is gathered first;
     ``batch_axes`` is read from the inputs' placements."""
-    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import DTensor, Replicate
 
     from .ring_attention import _as_dtensor, sp_placements
 
@@ -106,10 +107,11 @@ def ulysses_attention(q, k, v, mesh, axis_name: str = "sp", causal: bool = False
                          f"sp axis size ({n}); use ring_attention otherwise")
     enforce(q.shape[2] % n == 0, f"ulysses needs seq {q.shape[2]} divisible by sp={n}")
     q, k, v = (_as_dtensor(t, mesh) for t in (q, k, v))
-    pl = sp_placements(q, mesh, axis_name)
-    enforce(not any(getattr(p, "dim", None) == 1 for p in pl),
-            "ulysses reshards the heads over the sp axis: heads sharded on another "
-            "axis as well are not supported")
+    # the heads are gathered first: the JAX function's in_specs P(batch,
+    # None, sp, None) replicate a head shard that a tp rule left on another
+    # axis (ulysses.py:73), and this axis' all-to-all reshards them
+    pl = [Replicate() if getattr(p, "dim", None) == 1 else p
+          for p in sp_placements(q, mesh, axis_name)]
     q, k, v = (t.redistribute(placements=pl) for t in (q, k, v))
     out = ulysses_local(q.to_local(), k.to_local(), v.to_local(), mesh.group(axis_name),
                         causal, fn)

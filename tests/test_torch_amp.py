@@ -321,8 +321,7 @@ def test_dist_strategy_has_every_field_of_paddle_tpu():
 
 
 @pytest.mark.parametrize("field, value, slice_", [
-    ("dump_hlo_path", "/nonexistent", "item 25"), ("pp_interleave", 2, "slice 9"),
-    ("pp_microbatches", 2, "slice 9"), ("async_mode", True, "slice 9")])
+    ("dump_hlo_path", "/nonexistent", "item 25"), ("async_mode", True, "slice 9")])
 def test_strategy_fields_of_later_slices_raise(field, value, slice_):
     with pytest.raises(NotYetPorted, match=f"{field}.*{slice_}"):
         tpt.Trainer(_PROG, topt.SGD(0.1), place=CPU,

@@ -336,11 +336,10 @@ def test_remat_recompute_sees_the_forward_layout_and_rng_on_another_thread(route
                            losses[True])
 
 
-@pytest.mark.parametrize("call", ["desc", "desc_flat", "pipeline_mode"])
+@pytest.mark.parametrize("call", ["desc", "desc_flat"])
 def test_jaxpr_and_multi_gpu_parts_are_not_ported(call):
     prog = tpt.build(tmnist.mlp)
-    fn = {"desc": lambda: prog.desc({}, {}), "desc_flat": lambda: prog.desc_flat({}, {}),
-          "pipeline_mode": lambda: F.pipeline_mode(None, 2)}[call]
+    fn = {"desc": lambda: prog.desc({}, {}), "desc_flat": lambda: prog.desc_flat({}, {})}[call]
     with pytest.raises(NotYetPorted):
         fn()
 

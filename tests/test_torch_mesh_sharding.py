@@ -159,8 +159,29 @@ def test_placements_of_a_spec():
     assert tsh.placements(tsh.P(), m) == [Replicate()] * 3
     assert tsh.spec_of([Shard(0), Shard(0), Shard(2)], m, 3) == \
         tsh.P(("dp", "fsdp"), None, "tp")
-    with pytest.raises(ValueError, match="mesh order"):
-        tsh.placements(tsh.P(("fsdp", "dp")), m)
+    # axes out of the mesh's order: fsdp major, as NamedSharding splits it
+    from torch.distributed.tensor.placement_types import _StridedShard
+    pl = tsh.placements(tsh.P(("fsdp", "dp")), m)
+    assert pl == [_StridedShard(0, split_factor=2), Shard(0), Replicate()]
+    assert tsh.spec_of(pl, m, 1) == tsh.P(("fsdp", "dp"))
+
+
+@pytest.mark.parametrize("name, entry", [("fsdp_dp", ("fsdp", "dp")),
+                                         ("dp_fsdp", ("dp", "fsdp"))])
+def test_a_dim_over_two_axes_shards_as_paddle_tpu(world, name, entry):
+    """Each rank's block of an [8, 3] tensor split over dp and fsdp, in and
+    out of the mesh's order, against NamedSharding's block on the device
+    of the same mesh position."""
+    full = np.arange(8 * 3, dtype=np.float32).reshape(8, 3)
+    mesh = _jmesh({"dp": 2, "fsdp": 2})
+    arr = jax.device_put(full, jax.sharding.NamedSharding(
+        mesh, jax.sharding.PartitionSpec(entry)))
+    rank_of = {d.id: r for r, d in enumerate(mesh.devices.reshape(-1))}
+    blocks = world[f"g1/{name}/blocks"]
+    for sh in arr.addressable_shards:
+        np.testing.assert_array_equal(blocks[rank_of[sh.device.id]], np.asarray(sh.data))
+    np.testing.assert_array_equal(world[f"g1/{name}/full"], full * 2.0)
+    assert str(world[f"g1/{name}/spec"]) == repr(tsh.P(entry, None))
 
 
 def test_make_mesh_and_its_errors(world):
@@ -292,14 +313,11 @@ def test_a_cuda_mesh_without_a_card_raises():
 
 
 @pytest.mark.parametrize("field, value, item", [
-    ("pp_microbatches", 2, "item 21"), ("pp_interleave", 2, "item 21"),
     ("async_mode", True, "item 21"), ("dump_hlo_path", "/x", "item 25")])
 def test_fields_of_the_second_half_raise(field, value, item):
     with pytest.raises(NotYetPorted, match=f"{field}.*{item}"):
         tpt.Trainer(tF.build(lambda x: {"loss": x.sum()}), None, place=CPU,
                     strategy=tpar.DistStrategy(**{field: value}))
-    with pytest.raises(NotYetPorted, match="item 21"):
-        tF.pipeline_mode(None, 2)
 
 
 def test_strategy_knobs_match_paddle_tpu():

@@ -183,8 +183,8 @@ def test_fit_arguments_of_later_slices_raise(arg, tmp_path):
 @pytest.mark.parametrize("kw", ["strategy", "feed_wire", "augment"])
 def test_trainer_arguments_of_later_slices_raise(kw):
     # a strategy raises for its fields of later slices (loss scaling, remat,
-    # accumulation and the multi-GPU slice's first half are ported)
-    value = tpt.DistStrategy(pp_microbatches=2) if kw == "strategy" else object()
+    # accumulation and the multi-GPU slice's pipeline are ported)
+    value = tpt.DistStrategy(async_mode=True) if kw == "strategy" else object()
     with pytest.raises(NotYetPorted):
         tpt.Trainer(tpt.build(tmnist.mlp), topt.SGD(0.05), place=CPU, **{kw: value})
 

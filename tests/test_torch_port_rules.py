@@ -91,7 +91,8 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.parallel.zero", "paddle_tpu_torch.parallel.ring_attention",
             "paddle_tpu_torch.parallel.ulysses",
             "paddle_tpu_torch.parallel.quantized_collectives",
-            "paddle_tpu_torch.ops._dtensor"]
+            "paddle_tpu_torch.ops._dtensor", "paddle_tpu_torch.parallel.pipeline",
+            "paddle_tpu_torch.parallel.moe", "paddle_tpu_torch.models.moe_transformer"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -127,7 +128,8 @@ def _entry_points(tmp_path):
     tio.save_inference_model(mlp_art, build(mnist.mlp), mlp_params, {}, sample)
     reader = data.batch(data.datasets.mnist("train", synthetic_size=8), 4)
 
-    from paddle_tpu_torch.models import (bert, convnets, deepfm, fit_a_line, lstm, recommender,
+    from paddle_tpu_torch.models import (bert, convnets, deepfm, fit_a_line, lstm,
+                                         moe_transformer, recommender,
                                          seq2seq, srl, transformer, vgg, word2vec)
     from paddle_tpu_torch.layers import beam_search, sequence
     tcfg = transformer.base_config(src_vocab=17, trg_vocab=17, max_len=8, d_model=16,
@@ -212,6 +214,15 @@ def _entry_points(tmp_path):
         "parallel.initialize": lambda: parallel.initialize(),
         "Trainer_mesh": lambda: Trainer(build(mnist.mlp), optimizer.SGD(0.01),
                                         mesh=_cuda_mesh(parallel)),
+        "Trainer_moe": lambda: Trainer(build(moe_transformer.make_model(
+            moe_transformer.base_config(vocab_size=9, d_model=8, d_inner=8, d_expert=8,
+                                        num_heads=2, num_layers=2, num_experts=2))),
+            optimizer.Adam(1e-3)),
+        "Trainer_pipeline": lambda: Trainer(build(transformer.make_model(
+            transformer.base_config(src_vocab=9, trg_vocab=9, d_model=8, d_inner=8,
+                                    num_heads=2, num_encoder_layers=2,
+                                    num_decoder_layers=2, stacked=True))),
+            optimizer.Adam(1e-3), strategy=parallel.DistStrategy(pp_microbatches=2)),
     }
 
 
@@ -240,7 +251,7 @@ def _cuda_mesh(parallel):
                                    "Trainer_word2vec", "Trainer_fit_a_line",
                                    "seq2seq.make_decoder", "create_lod_tensor",
                                    "beam_search_decode_lod", "parallel.initialize",
-                                   "Trainer_mesh"])
+                                   "Trainer_mesh", "Trainer_moe", "Trainer_pipeline"])
 def test_entry_points_refuse_to_run_without_a_card(tmp_path, entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the entry points run on it")

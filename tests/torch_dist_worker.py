@@ -94,6 +94,9 @@ SP_CASES = {
     "gpt_sp_ring": ("gpt", {"sp": 4}, None, {"sequence_parallel": True, "sp_impl": "ring"}),
     "gpt_sp_ulysses": ("gpt", {"sp": 4}, None, {"sequence_parallel": True,
                                                "sp_impl": "ulysses"}),
+    # heads sharded by the tp rules, gathered before Ulysses' all-to-all
+    "gpt_tp_sp_ulysses": ("gpt", {"sp": 2, "tp": 2}, "tp", {"sequence_parallel": True,
+                                                            "sp_impl": "ulysses"}),
 }
 # attention cases: name -> (impl, causal, schedule, mesh axes)
 ATTN_CASES = {
@@ -439,6 +442,18 @@ def suite_mesh(res, indir):
         res["kernel/refused"] = np.array("")
     except EnforceError as e:
         res["kernel/refused"] = np.array(str(e))
+    # a dim split over two axes listed out of the mesh's order: fsdp major
+    from torch.distributed.tensor import distribute_tensor as _dist
+    from paddle_tpu_torch.parallel import sharding as tsh
+    m22 = par.make_mesh({"dp": 2, "fsdp": 2})
+    full = torch.arange(8 * 3, dtype=torch.float32).reshape(8, 3)
+    for name, spec in (("fsdp_dp", tsh.P(("fsdp", "dp"))), ("dp_fsdp", tsh.P(("dp", "fsdp")))):
+        dt = _dist(full, m22.device_mesh, tsh.placements(spec, m22))
+        blocks = [torch.empty_like(dt.to_local()) for _ in range(dist.get_world_size())]
+        dist.all_gather(blocks, dt.to_local().contiguous())
+        res[f"g1/{name}/blocks"] = np.stack([b.numpy() for b in blocks])
+        res[f"g1/{name}/full"] = _np(dt * 2.0)
+        res[f"g1/{name}/spec"] = np.array(repr(tsh.spec_of(dt.placements, m22, 2)))
     # a Trainer's place must agree with its mesh
     try:
         pt.Trainer(_program("mnist"), None, place="cuda", mesh=mesh4)
@@ -447,8 +462,330 @@ def suite_mesh(res, indir):
         res["trainer/place_mismatch"] = np.array(str(e))
 
 
+# -- pipeline parallelism (suite "pipeline") ------------------------------------------
+
+# the stacked Transformer of tests/test_pipeline_transformer_e2e.py:20-26; the
+# port's side takes the flash route (its plain version on the CPU)
+PP_CFG = dict(src_vocab=64, trg_vocab=64, d_model=32, d_inner=64, num_heads=4,
+              num_encoder_layers=4, num_decoder_layers=4, dropout=0.0, stacked=True)
+PP_BATCH, PP_SEQ, PP_STEPS, PP_LR = 8, 12, 3, 1e-3
+# name -> (mesh axes, strategy kwargs)
+PP_CASES = {
+    "pp4": ({"pp": 4}, {"pp_microbatches": 4}),
+    "dp2_pp2_v2": ({"dp": 2, "pp": 2}, {"pp_microbatches": 4, "pp_interleave": 2}),
+    "tp2_pp2": ({"pp": 2, "tp": 2}, {"pp_microbatches": 4}),
+}
+PP_ACCUM = ({"dp": 2, "pp": 2}, {"accum_steps": 2, "pp_microbatches": 2}, 16)
+
+
+def _tp_specs():
+    from paddle_tpu_torch.parallel.sharding import P
+    return {"w1": P(None, "tp"), "w2": P("tp")}
+
+
+# name -> (mesh axes, interleave, param_layout, param specs or None): the
+# schedule on a world, as tests/test_pipeline.py runs the JAX one
+PP_APPLY_CASES = {
+    "dp2_pp2_v2_stacked": ({"dp": 2, "pp": 2}, 2, "stacked", None),
+    "dp2_pp2_v2_interleaved": ({"dp": 2, "pp": 2}, 2, "interleaved", None),
+    "pp2_tp2_mlp": ({"pp": 2, "tp": 2}, 1, "stacked", "tp"),
+    "dp2_tp2_mlp": ({"dp": 2, "tp": 2}, 1, "stacked", "tp"),
+}
+
+
+def pp_apply_inputs(name):
+    """(stacked params, x, cotangent) of a case: 4 layers of d 8."""
+    rng = np.random.RandomState(5)
+    if PP_APPLY_CASES[name][3]:
+        st = {"w1": (rng.randn(4, 8, 16) * 0.3).astype(np.float32),
+              "w2": (rng.randn(4, 16, 8) * 0.3).astype(np.float32)}
+    else:
+        st = {"w": (rng.randn(4, 8, 8) * 0.3).astype(np.float32),
+              "b": (rng.randn(4, 8) * 0.1).astype(np.float32)}
+    if PP_APPLY_CASES[name][2] == "interleaved":
+        from paddle_tpu_torch.parallel.pipeline import interleave_perm
+        perm = interleave_perm(4, 2, PP_APPLY_CASES[name][1])
+        st = {k: a[perm] for k, a in st.items()}
+    return st, rng.randn(8, 8).astype(np.float32), rng.randn(8, 8).astype(np.float32)
+
+
+def pp_tanh_layer(x, p):
+    import torch
+    return torch.tanh(x @ p["w"] + p["b"])
+
+
+def pp_mlp_layer(x, p):
+    """tests/test_pipeline.py's Megatron MLP stage: w1 column-sharded, w2
+    row-sharded, the partial sums summed over tp."""
+    import torch
+    from paddle_tpu_torch.parallel.pipeline import psum
+    return psum(torch.relu(x @ p["w1"]) @ p["w2"], "tp") + x
+
+
+def pp_feed(bs, seq=PP_SEQ, vocab=64, seed=0):
+    """tests/test_pipeline_transformer_e2e.py's ``_feed``."""
+    rng = np.random.RandomState(seed)
+    src = rng.randint(3, vocab, (bs, seq)).astype(np.int32)
+    trg = np.roll(src, 1, axis=1)
+    trg[:, 0] = 1
+    labels = np.concatenate([trg[:, 1:], np.full((bs, 1), 2)], axis=1).astype(np.int32)
+    return {"src_ids": src, "trg_ids": trg, "labels": labels}
+
+
+def _pp_trainer(axes, skw, indir, use_flash=True):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import framework, optimizer, parallel as par
+    from paddle_tpu_torch.models import transformer
+
+    init = framework.params_from_jax(dict(np.load(os.path.join(indir, "params_pp.npz"))),
+                                     device="cpu")
+    cfg = transformer.base_config(**PP_CFG, use_flash=use_flash)
+    mesh = par.make_mesh(axes) if axes else None
+    tr = pt.Trainer(pt.build(transformer.make_model(cfg)), optimizer.Adam(PP_LR),
+                    place=pt.CPUPlace(), mesh=mesh,
+                    sharding_rules=par.transformer_tp_rules() if axes else None,
+                    strategy=pt.DistStrategy(**skw) if skw else None, fetch_list=["loss"])
+    return tr.startup(0, pp_feed(PP_BATCH), params=init)
+
+
+def _catch(fn):
+    try:
+        fn()
+        return ""
+    except Exception as e:  # the message is what the test holds
+        return f"{type(e).__name__}: {e}"
+
+
+def suite_pipeline(res, indir):
+    import warnings
+    import torch
+    import torch.distributed as dist
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import framework, io, optimizer, parallel as par
+    from paddle_tpu_torch.layers import stacked as S
+    from paddle_tpu_torch.layers.nn import dropout
+    from paddle_tpu_torch.models import mnist
+    from paddle_tpu_torch.parallel import pipeline as pp
+    from paddle_tpu_torch.parallel import sharding
+
+    rank = dist.get_rank()
+    feeds = [pp_feed(PP_BATCH, seed=i) for i in range(PP_STEPS)]
+    for name, (axes, skw) in PP_CASES.items():
+        tr = _pp_trainer(axes, skw, indir)
+        res[f"{name}/losses"] = np.array([float(tr.step(f)["loss"]) for f in feeds])
+        for k, p in tr.scope.params.items():
+            if "_stack/" in k:
+                res[f"{name}/spec/{k}"] = np.array(repr(sharding.spec_of(
+                    p.placements, tr.mesh, p.dim())))
+                res[f"{name}/local_shape/{k}"] = np.array(p.to_local().shape)
+        if name == "dp2_pp2_v2":
+            inter = tr
+    if rank == 0:
+        ref = _pp_trainer(None, None, indir)
+        res["single/losses"] = np.array([float(ref.step(f)["loss"]) for f in feeds])
+        res["single/eval"] = np.array(float(ref.eval(feeds[0])["loss"]))
+    # the interleaved trainer: its rest layout, eval through the schedule, its
+    # checkpoint in logical order, and its own round trip
+    res["inter/perm_names"] = np.array(sorted(inter._pp_perm))
+    res["inter/eval"] = np.array(float(inter.eval(feeds[0])["loss"]))
+    res["inter/eval_batch_error"] = np.array(_catch(lambda: inter.eval(pp_feed(6))))
+    ck = os.path.join(indir, "pp_inter_ck")
+    io.save_trainer(ck, inter)
+    first = sorted(inter._pp_perm)[0]
+    full = {k: v.full_tensor().detach() for k, v in inter.scope.params.items()}
+    m1 = inter.scope.opt_state["accums"][first]["moment1"].full_tensor()
+    logical, lopt = inter.stacked_to_logical(full, {"accums": {first: {"moment1": m1}}})
+    if rank == 0:
+        saved, _, opt, _ = io.load_persistables(ck)
+        res["ck/logical_equal"] = np.array(int(all(
+            torch.equal(saved[k], logical[k]) for k in logical)))
+        res["ck/rest_differs"] = np.array(int(all(
+            not torch.equal(saved[k], full[k]) for k in inter._pp_perm)))
+        res["ck/moment_logical"] = np.array(int(torch.equal(
+            opt["accums"][first]["moment1"], lopt["accums"][first]["moment1"])))
+        one = _pp_trainer(None, None, indir)
+        io.load_trainer(ck, one, allow_reshard=True)
+        res["ck/single_eval"] = np.array(float(one.eval(feeds[0])["loss"]))
+    before = {k: v.full_tensor().detach().clone() for k, v in inter.scope.params.items()}
+    io.load_trainer(ck, inter)
+    res["ck/roundtrip_equal"] = np.array(int(all(
+        torch.equal(inter.scope.params[k].full_tensor(), v) for k, v in before.items())))
+    res["ck/next_loss"] = np.array(float(inter.step(feeds[1])["loss"]))
+    # accum_steps x pp_microbatches
+    axes, skw, bs = PP_ACCUM
+    big = pp_feed(bs, seed=9)
+    acc = _pp_trainer(axes, skw, indir)
+    res["accum/loss"] = np.array(float(acc.step(big)["loss"]))
+    if rank == 0:
+        aref = _pp_trainer(None, {"accum_steps": 2}, indir)
+        res["accum/single_loss"] = np.array(float(aref.step(big)["loss"]))
+    # dropout on the pipeline path: an identity stack of dropout blocks
+    mesh = par.make_mesh({"dp": 2, "pp": 2})
+    L_, B_, D_ = 2, 4, 64
+
+    def make_block(num_heads, use_flash, causal, tp_axis, sp_cfg, dropout_rate=0.0,
+                   compute_dtype=None, training=False):
+        def block(x, lp):
+            return dropout(x * lp["w"][0], dropout_rate,
+                           dropout_implementation="upscale_in_train")
+        return block
+
+    def net(x):
+        stack = {"w": torch.ones((L_, 1))}
+        h = S.apply_stacked(x, stack, make_block, num_heads=1, dropout_rate=0.5)
+        return {"out": h}
+
+    prog = pt.build(net)
+    xin = torch.ones((B_, D_))
+    with framework.pipeline_mode(mesh, 2):
+        outs = [prog.apply({}, {}, x=xin, training=True, rng=r, place=pt.CPUPlace())[0]["out"]
+                for r in (7, 7, 8)]
+    kept = [(o != 0).float().numpy() for o in outs]
+    res["dropout/kept"] = np.stack(kept)
+    # pipeline_apply itself on plain tensors (taken as replicated): both
+    # layouts of the interleaved schedule, and tp stages with and without pp
+    for name, (axes, v, layout, specs) in PP_APPLY_CASES.items():
+        m_ = par.make_mesh(axes)
+        st, x, g = pp_apply_inputs(name)
+        ts = {k: torch.from_numpy(a).requires_grad_(True) for k, a in st.items()}
+        tx = torch.from_numpy(x).requires_grad_(True)
+        layer = pp_mlp_layer if specs else pp_tanh_layer
+        out = pp.pipeline_apply(tx, ts, layer, m_, microbatches=2, interleave=v,
+                                param_layout=layout,
+                                param_specs=_tp_specs() if specs else None)
+        res[f"apply/{name}/out"] = out.detach().numpy()
+        (out * torch.from_numpy(g)).sum().backward()
+        res[f"apply/{name}/dx"] = tx.grad.numpy()
+        for k, t in ts.items():
+            res[f"apply/{name}/d{k}"] = t.grad.numpy()
+    # the enforcements
+    x8 = torch.zeros(8, 4)
+    st8 = {"w": torch.zeros(4, 4, 4)}
+    lay = lambda a, p_: a @ p_["w"]  # noqa: E731
+    res["err/layers"] = np.array(_catch(lambda: pp.pipeline_apply(
+        x8, st8, lay, mesh, microbatches=2, interleave=3)))
+    res["err/batch"] = np.array(_catch(lambda: pp.pipeline_apply(
+        torch.zeros(6, 4), st8, lay, mesh, microbatches=4)))
+    res["err/dshard"] = np.array(_catch(lambda: pp.pipeline_apply(
+        torch.zeros(4, 4), st8, lay, mesh, microbatches=4)))
+    # a model with no stacked blocks never consumes the pipeline: warned
+    m4 = par.make_mesh({"pp": 4})
+    mtr = pt.Trainer(pt.build(mnist.mlp), optimizer.SGD(0.1), place=pt.CPUPlace(), mesh=m4,
+                     strategy=pt.DistStrategy(pp_microbatches=4), fetch_list=["loss"])
+    mtr.startup(0, mnist_feeds(1)[0])
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        mtr.step(mnist_feeds(1)[0])
+    res["warn/unconsumed"] = np.array([str(x.message) for x in w
+                                       if "never consumed" in str(x.message)] or [""])
+
+
+# -- mixture of experts (suite "moe") --------------------------------------------------
+
+MOE_LAYER = dict(b=8, s=4, d=16, E=8, ff=32, top_k=2, cf=8.0)
+MOE_CFG = dict(vocab_size=64, max_len=32, d_model=32, d_inner=64, d_expert=64,
+               num_heads=4, num_layers=2, num_experts=8, top_k=2, moe_every=2,
+               fused_ce=False, aux_weight=0.0, capacity_factor=4.0)
+MOE_BATCH, MOE_SEQ, MOE_STEPS, MOE_LR = 8, 16, 2, 1e-3
+# ep=4 and dp2×ep2 take the ep path; dp=4 the dense path on a mesh
+MOE_MESHES = {"ep4": {"ep": 4}, "dp2_ep2": {"dp": 2, "ep": 2}, "dp4": {"dp": 4}}
+
+
+def moe_input(c=MOE_LAYER, seed=0):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(c["b"], c["s"], c["d"]).astype(np.float32),
+            rng.randn(c["b"], c["s"], c["d"]).astype(np.float32))
+
+
+def moe_feed(bs=MOE_BATCH, seq=MOE_SEQ, vocab=64, seed=0):
+    """tests/test_moe_transformer.py's ``_feed``."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(3, vocab, (bs, seq)).astype(np.int32)
+    labels = np.concatenate([ids[:, 1:], np.full((bs, 1), 2)], axis=1).astype(np.int32)
+    return {"ids": ids, "labels": labels}
+
+
+def moe_layer_program(mesh=None, c=MOE_LAYER):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.parallel.moe import moe
+
+    def fn(x):
+        out, aux = moe(x, num_experts=c["E"], d_ff=c["ff"], top_k=c["top_k"],
+                       capacity_factor=c["cf"], mesh=mesh)
+        return {"out": out, "aux": aux}
+    return pt.build(fn)
+
+
+def _moe_trainer(mesh, indir):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import framework, optimizer, parallel as par
+    from paddle_tpu_torch.models import moe_transformer
+
+    init = framework.params_from_jax(dict(np.load(os.path.join(indir, "params_moe.npz"))),
+                                     device="cpu")
+    prog = pt.build(moe_transformer.make_model(moe_transformer.base_config(**MOE_CFG),
+                                               mesh=mesh))
+    rules = (par.ShardingRules(list(par.moe_ep_rules()), default=None)
+             if mesh is not None else None)
+    tr = pt.Trainer(prog, optimizer.Adam(MOE_LR), place=pt.CPUPlace(), mesh=mesh,
+                    sharding_rules=rules, fetch_list=["loss"])
+    return tr.startup(0, moe_feed(), params=init)
+
+
+def suite_moe(res, indir):
+    import torch
+    import torch.distributed as dist
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import framework, parallel as par
+    from paddle_tpu_torch.parallel import api, sharding
+
+    rank = dist.get_rank()
+    x0, g0 = moe_input()
+    lp = framework.params_from_jax(dict(np.load(os.path.join(indir, "params_moe_layer.npz"))),
+                                   device="cpu")
+    feeds = [moe_feed(seed=i) for i in range(MOE_STEPS)]
+    for name, axes in MOE_MESHES.items():
+        mesh = par.make_mesh(axes)
+        # the layer: each rank's params DTensors by moe_ep_rules, the input
+        # sharded over the data axes as the Trainer puts a batch
+        rules = par.ShardingRules(list(par.moe_ep_rules()), default=None).adapted_to(mesh)
+        params = rules.shard_params(mesh, lp)
+        for p in params.values():
+            p.requires_grad_(True)
+        x = api.put_batch(mesh, None, {"x": x0}, global_batch=True)["x"].requires_grad_(True)
+        from paddle_tpu_torch.parallel.moe import capture_moe_configs
+        with capture_moe_configs() as log:
+            out, _ = moe_layer_program(mesh).apply(params, {}, x=x, place=pt.CPUPlace())
+        res[f"{name}/layer/config"] = np.array(repr(sorted(log[0].items())))
+        res[f"{name}/layer/out"] = _np(out["out"])
+        res[f"{name}/layer/aux"] = _np(out["aux"])
+        g = api.put_batch(mesh, None, {"g": g0}, global_batch=True)["g"]
+        (out["out"] * g).sum().backward()
+        res[f"{name}/layer/dx"] = _np(x.grad)
+        for k, p in params.items():
+            res[f"{name}/layer/grad/{k}"] = _np(p.grad)
+            res[f"{name}/layer/spec/{k}"] = np.array(repr(sharding.spec_of(
+                p.placements, mesh, p.dim())))
+        if "ep" in axes:  # the LM, trained through the ep path
+            tr = _moe_trainer(mesh, indir)
+            res[f"{name}/losses"] = np.array([float(tr.step(f)["loss"]) for f in feeds])
+    if rank == 0:
+        ref = _moe_trainer(None, indir)
+        res["dense/losses"] = np.array([float(ref.step(f)["loss"]) for f in feeds])
+        dense = moe_layer_program(None)
+        ps = {k: v.clone().requires_grad_(True) for k, v in lp.items()}
+        xx = torch.from_numpy(x0).requires_grad_(True)
+        out, _ = dense.apply(ps, {}, x=xx, place=pt.CPUPlace())
+        (out["out"] * torch.from_numpy(g0)).sum().backward()
+        res["dense/layer/out"] = _np(out["out"])
+        res["dense/layer/dx"] = _np(xx.grad)
+        for k, p in ps.items():
+            res[f"dense/layer/grad/{k}"] = _np(p.grad)
+
+
 SUITES = {"mesh": suite_mesh, "training": suite_training, "exchanges": suite_exchanges,
-          "zero": suite_zero, "sequence": suite_sequence}
+          "zero": suite_zero, "sequence": suite_sequence, "pipeline": suite_pipeline,
+          "moe": suite_moe}
 
 
 def main():
