@@ -282,6 +282,31 @@ Phases, each reported on its own lines; any failure exits non-zero:
    dense route, ms a step, tokens/s, peak memory and the dispatch and
    combine products' share of device time. Launch counts are zeroed
    around (a)+(b) (``pipeline``) and around (c) (``moe``).
+20. sharded checkpoints and elastic training, on bench_gpt's bf16
+   GPT-base (``TRAIN``, AdamW, batch 8 × seq 1024): (a) 3 steps, then
+   ``io.save_trainer_sharded(async_save=True)`` and 2 steps at once while
+   the write runs, ``io.wait_for_checkpoints()``, and a fresh trainer
+   ``load_trainer_sharded`` from it replays the same 2 feeds: its params
+   and optimizer state bit-equal to the first trainer's at step 5; once
+   unmeshed and once on a world of one over NCCL (DCP coordinating over a
+   gloo group of its own), with the bytes written, the ms until the save
+   returns (the copy off the card), the s until the write ends, the load
+   s and the ms a step while the write runs against the same steps
+   without one; (b) a 2-rank gloo world on the CPU, spawned by this script
+   from its own code, trains GPT-base at full width one step with
+   ``zero_sharding`` over dp=2 and ``save_trainer``s it; on the card a
+   plain ``load_trainer`` raises ``ReshardError`` naming ``{'dp': 2}``,
+   ``resilience.restore_latest(elastic=True)`` restores it onto the
+   one-device trainer and onto the world-of-one trainer (params and
+   optimizer state bit-equal to ``load_persistables`` of the directory,
+   the report's bytes and seconds), then ``fit(resume=True,
+   elastic=True)`` trains 3 steps; (c) ``fit(resize=path)`` whose event
+   handler requests ``{'dp': 2}`` at step 2 returns there with a
+   ``resized`` event and a boundary checkpoint, and ``fit(resume=True,
+   elastic=True)`` goes on with losses bit-equal to bare steps from that
+   checkpoint. Launch counts are zeroed around (a) (``sharded_checkpoint``)
+   and around (b) and (c) (``elastic``), and the flash kernels' calls of
+   (a)'s and (b)'s steps are held against their plain versions.
 
 The last lines are a JSON ``kernels`` record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -6617,6 +6642,386 @@ def phase_pipeline_moe(dev, seed, card_name):
             "moe": moe_launches}
 
 
+# phase 20: sharded checkpoints and elastic training on bench_gpt's GPT-base.
+# (a) SHARD_STEPS steps, an async save_trainer_sharded, SHARD_OVERLAP steps
+# while it writes, a fresh trainer's load_trainer_sharded and the same
+# SHARD_OVERLAP feeds replayed (bit-equal state); (b) ELASTIC_WORLD CPU ranks
+# (this script's --elastic-world-rank) train GPT-base one step at
+# ELASTIC_WORLD_BATCH x ELASTIC_WORLD_SEQ with ZeRO and save it, restored
+# elastically on the card, then ELASTIC_FIT_STEPS steps of fit; (c) a fit
+# resized at step RESIZE_AT of RESIZE_BATCHES, resumed elastically.
+SHARD_STEPS, SHARD_OVERLAP = 3, 2
+ELASTIC_WORLD, ELASTIC_WORLD_BATCH, ELASTIC_WORLD_SEQ, ELASTIC_WORLD_THREADS = 2, 2, 64, 3
+ELASTIC_WORLD_TIMEOUT = 300
+ELASTIC_FIT_STEPS = 3
+RESIZE_AT, RESIZE_BATCHES = 2, 5
+
+
+def elastic_world_rank(rank, world, port, outdir):
+    """One rank of (b)'s CPU world: GPT-base at TRAIN's widths, bf16 amp,
+    AdamW with ZeRO over dp=world, one step, save_trainer to
+    <outdir>/step_1."""
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE=str(world))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(ELASTIC_WORLD_THREADS)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import parallel as par
+    from paddle_tpu_torch.models import gpt
+
+    par.initialize(place=pt.CPUPlace())
+    try:
+        cfg = gpt.base_config(**TRAIN)
+        feed = _train_feeds(np.random.RandomState(2), 1, ELASTIC_WORLD_BATCH,
+                            ELASTIC_WORLD_SEQ, cfg.vocab_size)[0]
+        with pt.amp_guard("bfloat16"):
+            tr = _mesh_trainer(cfg, "cpu", par.make_mesh({"dp": world}),
+                               strategy=pt.DistStrategy(zero_sharding=True))
+            tr.startup(0, sample_feed=feed)
+            loss = float(tr.step(feed)["loss"])
+        pt.io.save_trainer(os.path.join(outdir, "step_1"), tr)
+        if rank == 0:
+            print(f"elastic world: loss {loss}", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_elastic_world(outdir):
+    """(b)'s CPU world, started in the background: its processes."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS=str(ELASTIC_WORLD_THREADS),
+               GLOO_SOCKET_IFNAME="lo")
+    port = _free_port()
+    return [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                              "--elastic-world-rank", str(r), str(ELASTIC_WORLD), str(port),
+                              outdir], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             env=env)
+            for r in range(ELASTIC_WORLD)]
+
+
+def _wait_elastic_world(procs, t0):
+    logs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=max(1.0, ELASTIC_WORLD_TIMEOUT
+                                               - (time.perf_counter() - t0)))
+            logs.append(out.decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [i for i, p in enumerate(procs) if p.returncode != 0]
+    check(not bad, "elastic (b): CPU world ranks %s failed:\n%s"
+          % (bad, "\n".join(logs[i][-3000:] for i in bad)))
+    say(f"elastic (b) CPU world of {ELASTIC_WORLD} ranks done in "
+        f"{time.perf_counter() - t0:.1f} s: {logs[0].strip().splitlines()[-1]}")
+
+
+def _flat_state(params, opt_state):
+    """Params and optimizer state as the npz members save_trainer writes
+    (whole tensors, bit patterns)."""
+    import numpy as np
+    from paddle_tpu_torch import io
+    flat = io._flatten(io._full_tree({"params": params, "opt_state": opt_state}))
+    return {k: np.array(v) for k, v in flat.items()}  # copies, not views of the state
+
+
+def _flat_equal(a, b):
+    import numpy as np
+    return sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def _bytes_under(d):
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(d) for f in fs)
+
+
+def sharded_checkpoint(dev, seed, card_name, tmp, mesh=None, record=False):
+    """(a) on one trainer kind (unmeshed, or ``mesh``'s world of one).
+    Returns the recorded flash calls when ``record``."""
+    import gc
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    cfg = gpt.base_config(**TRAIN)
+    label = "world of one" if mesh is not None else "unmeshed"
+    feeds = _train_feeds(np.random.RandomState(3), SHARD_STEPS + SHARD_OVERLAP, TRAIN_BATCH,
+                         TRAIN_SEQ, cfg.vocab_size)
+
+    def make(s):
+        tr = _mesh_trainer(cfg, dev, mesh) if mesh is not None else _trainer(cfg, dev)
+        return tr.startup(s, sample_feed=feeds[0])
+
+    first = make(seed)
+    staged = [first._put_feed(f) for f in feeds]
+    calls = []
+    with (record_kernel_calls(fa) if record else contextlib.nullcontext(calls)) as calls:
+        for f in staged[:SHARD_STEPS]:
+            first.step(f)
+    d = os.path.join(tmp, "sharded_" + label.replace(" ", "_"))
+    done = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fut = pt.io.save_trainer_sharded(d, first, async_save=True)
+    return_ms = (time.perf_counter() - t0) * 1e3
+    fut.add_done_callback(lambda _: done.append(time.perf_counter()))
+    t1 = time.perf_counter()
+    losses = [first.step(f)["loss"] for f in staged[SHARD_STEPS:]]
+    torch.cuda.synchronize()
+    during_ms = (time.perf_counter() - t1) * 1e3 / SHARD_OVERLAP
+    writing_after_steps = not fut.done()
+    pt.io.wait_for_checkpoints()
+    write_s = done[0] - t0
+    want = _flat_state(first.scope.params, first.scope.opt_state)
+    want_losses = [float(x) for x in losses]
+    # the same steps' work without a write in flight, on the same trainer
+    t2 = time.perf_counter()
+    for f in staged[SHARD_STEPS:]:
+        first.step(f)
+    torch.cuda.synchronize()
+    quiet_ms = (time.perf_counter() - t2) * 1e3 / SHARD_OVERLAP
+    del first, staged
+    gc.collect()
+    torch.cuda.empty_cache()
+    second = make(seed + 1)
+    staged = [second._put_feed(f) for f in feeds[SHARD_STEPS:]]
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    pt.io.load_trainer_sharded(d, second)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t3
+    step_after_load = second.global_step
+    replay = [float(second.step(f)["loss"]) for f in staged]
+    equal = _flat_equal(_flat_state(second.scope.params, second.scope.opt_state), want)
+    nbytes = _bytes_under(d)
+    say(f"elastic (a) {label} ({card_name}): bf16 GPT-base b={TRAIN_BATCH} s={TRAIN_SEQ} "
+        f"AdamW; save_trainer_sharded(async_save=True) after step {SHARD_STEPS}: "
+        f"{nbytes} bytes ({nbytes / 1e9:.3f} GB) in {len(os.listdir(d))} files, returned in "
+        f"{return_ms:.1f} ms, the write ended {write_s:.3f} s after the call (still "
+        f"writing when the {SHARD_OVERLAP} steps ended: {writing_after_steps}); ms a step "
+        f"while it wrote {during_ms:.2f}, the same steps without a write {quiet_ms:.2f}; "
+        f"load_trainer_sharded into a fresh trainer {load_s:.3f} s (global_step "
+        f"{step_after_load}); replayed losses {replay} vs {want_losses}; params and "
+        f"optimizer state at step {SHARD_STEPS + SHARD_OVERLAP} bit-equal: {equal}")
+    check(all(np.isfinite(want_losses)), f"elastic (a) {label}: a loss is not finite")
+    check(step_after_load == SHARD_STEPS, f"elastic (a) {label}: global_step "
+          f"{step_after_load} after the load")
+    check(equal and replay == want_losses, f"elastic (a) {label}: the restored trainer's "
+          "state after the replay differs from the saved trainer's")
+    del second, staged
+    gc.collect()
+    torch.cuda.empty_cache()
+    return calls
+
+
+@contextlib.contextmanager
+def _reshard_reports():
+    """The reports of the ``reshard_restore`` calls made inside the block
+    (``restore_latest`` returns only the meta)."""
+    from paddle_tpu_torch import resilience
+    reports, orig = [], resilience.reshard_restore
+
+    def keep(*args, **kw):
+        reports.append(orig(*args, **kw))
+        return reports[-1]
+    resilience.reshard_restore = keep
+    try:
+        yield reports
+    finally:
+        resilience.reshard_restore = orig
+
+
+def _fit_feeds(feeds, names=("ids", "labels")):
+    """A reader of ``feeds`` (each a batch), as fit reads it: lists of
+    per-sample tuples."""
+    return lambda: ([tuple(f[n][j] for n in names) for j in range(len(f[names[0]]))]
+                    for f in feeds)
+
+
+def elastic_restore(dev, seed, card_name, root, mesh):
+    """(b) on the card: the CPU world's ZeRO dp=2 checkpoint under
+    ``root``. Returns the recorded flash calls of the fit."""
+    import gc
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    cfg = gpt.base_config(**TRAIN)
+    feeds = _train_feeds(np.random.RandomState(4), ELASTIC_FIT_STEPS, TRAIN_BATCH, TRAIN_SEQ,
+                         cfg.vocab_size)
+    ck = os.path.join(root, "step_1")
+    params, _, opt_state, meta = pt.io.load_persistables(ck)
+    want = _flat_state(params, opt_state)
+    del params, opt_state
+    for label, make in (("one device", lambda: _trainer(cfg, dev)),
+                        ("world of one", lambda: _mesh_trainer(cfg, dev, mesh))):
+        tr = make().startup(seed, sample_feed=feeds[0])
+        try:
+            pt.io.load_trainer(ck, tr)
+            err = ""
+        except pt.resilience.ReshardError as e:
+            err = str(e)
+        with _reshard_reports() as reports:
+            t0 = time.perf_counter()
+            got_meta = pt.resilience.restore_latest(root, tr, elastic=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rep = reports[0] if reports else {}
+        equal = _flat_equal(_flat_state(tr.scope.params, tr.scope.opt_state), want)
+        say(f"elastic (b) {label} ({card_name}): plain load_trainer of the dp=2 ZeRO "
+            f"checkpoint raised ReshardError: {err[:160]!r}...; restore_latest(elastic=True) "
+            f"in {wall:.3f} s: global_step {got_meta['global_step']}, report saved "
+            f"{rep.get('saved_axes')} -> target {rep.get('target_axes')}, bytes_moved "
+            f"{rep.get('bytes_moved')}, seconds {rep.get('seconds')}; params and optimizer "
+            f"state bit-equal to load_persistables: {equal}")
+        check("{'dp': 2}" in err, f"elastic (b) {label}: load_trainer did not raise a "
+              "ReshardError naming {'dp': 2}")
+        check(bool(reports) and rep["bytes_moved"] > 0 and tr.global_step == 1,
+              f"elastic (b) {label}: no reshard report")
+        check(equal, f"elastic (b) {label}: the restored state differs from the checkpoint")
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    tr = _trainer(cfg, dev).startup(seed + 2, sample_feed=feeds[0])
+    losses = []
+    with record_kernel_calls(fa) as calls:
+        pt.fit(tr, _fit_feeds(feeds), 1, ["ids", "labels"],
+               checkpoint_config=pt.CheckpointConfig(root, epoch_interval=0, step_interval=0),
+               resume=True, elastic=True,
+               event_handler=lambda e: losses.append(float(e.metrics["loss"]))
+               if e.kind == "end_step" else None)
+    say(f"elastic (b) fit(resume=True, elastic=True) ({card_name}): {len(losses)} steps at "
+        f"b={TRAIN_BATCH} s={TRAIN_SEQ}, losses {losses}, global_step {tr.global_step}")
+    check(len(losses) == ELASTIC_FIT_STEPS and all(np.isfinite(losses))
+          and tr.global_step == 1 + ELASTIC_FIT_STEPS, "elastic (b): the resumed fit")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return calls
+
+
+def scheduled_resize(dev, seed, card_name, tmp):
+    """(c): fit(resize=path) resized at step RESIZE_AT, then resumed."""
+    import gc
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import gpt
+
+    cfg = gpt.base_config(**TRAIN)
+    feeds = _train_feeds(np.random.RandomState(5), RESIZE_BATCHES, TRAIN_BATCH, TRAIN_SEQ,
+                         cfg.vocab_size)
+    root, path = os.path.join(tmp, "resize_ck"), os.path.join(tmp, "resize.json")
+    ck_cfg = pt.CheckpointConfig(root, epoch_interval=0, step_interval=0)
+    events = []
+
+    def handler(e):
+        events.append(e.kind)
+        if e.kind == "end_step" and e.step == RESIZE_AT:
+            pt.resilience.ResizeRequest(path).request({"dp": 2})
+
+    tr = _trainer(cfg, dev).startup(seed, sample_feed=feeds[0])
+    pt.fit(tr, _fit_feeds(feeds), 1, ["ids", "labels"], event_handler=handler,
+           checkpoint_config=ck_cfg, resize=path)
+    saved = [c.global_step for c in pt.resilience.list_checkpoints(root)]
+    target = pt.resilience.ResizeRequest(path).consume()
+    stopped = tr.global_step
+    del tr
+    gc.collect()
+    losses = []
+    resumed = _trainer(cfg, dev).startup(seed + 1, sample_feed=feeds[0])
+    pt.fit(resumed, _fit_feeds(feeds), 1, ["ids", "labels"], checkpoint_config=ck_cfg,
+           resume=True, elastic=True,
+           event_handler=lambda e: losses.append(float(e.metrics["loss"]))
+           if e.kind == "end_step" else None)
+    end = resumed.global_step
+    del resumed
+    gc.collect()
+    bare = _trainer(cfg, dev).startup(seed + 2, sample_feed=feeds[0])
+    pt.io.load_trainer(os.path.join(root, f"step_{RESIZE_AT}"), bare)
+    bare_losses = [float(bare.step(f)["loss"]) for f in feeds[RESIZE_AT:]]
+    del bare
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"elastic (c) ({card_name}): fit(resize=path) requested {target} at step "
+        f"{RESIZE_AT}: returned at step {stopped} with {events[-1]!r}, checkpoints "
+        f"{saved}; fit(resume=True, elastic=True) losses {losses} against bare steps from "
+        f"the checkpoint {bare_losses} (bit-equal {losses == bare_losses}), global_step {end}")
+    check(stopped == RESIZE_AT and events[-1] == "resized" and saved == [RESIZE_AT]
+          and target == {"dp": 2}, "elastic (c): fit did not stop at the resize")
+    check(losses == bare_losses and end == RESIZE_BATCHES and all(np.isfinite(losses)),
+          "elastic (c): the resumed fit differs from bare steps")
+
+
+def phase_elastic(dev, seed, card_name):
+    """Phase 20: (c) while (b)'s CPU world trains, then (a) unmeshed, a world
+    of one over NCCL, (a) on it, (b). Returns the launch counts of
+    ``sharded_checkpoint`` ((a)) and ``elastic`` ((b) + (c))."""
+    import torch
+    import torch.distributed as dist
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import parallel as par
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    t0 = time.perf_counter()
+    import torch.distributed.checkpoint  # noqa: F401  (its import is not (a)'s copy time)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "zero_dp2")
+        procs = _spawn_elastic_world(root)
+        try:
+            with pt.amp_guard("bfloat16"):
+                _zero_launch_counts(fa)
+                # ---- the main path (c)
+                scheduled_resize(dev, seed, card_name, tmp)
+                torch.cuda.synchronize()
+                elastic = _launch_counts(fa)
+                # ---- end of (c)
+                say(f"phase 20 (c) done in {time.perf_counter() - t0:.1f} s")
+                _wait_elastic_world(procs, t0)
+                _zero_launch_counts(fa)
+                # ---- the main path (a)
+                calls = sharded_checkpoint(dev, seed, card_name, tmp, record=True)
+                par.initialize(place=dev, init_method=f"tcp://127.0.0.1:{_free_port()}",
+                               world_size=1, rank=0)
+                try:
+                    mesh = par.make_mesh({"dp": 1})
+                    sharded_checkpoint(dev, seed, card_name, tmp, mesh=mesh)
+                    torch.cuda.synchronize()
+                    sharded = _launch_counts(fa)
+                    # ---- end of (a)
+                    say(f"phase 20 (a) done in {time.perf_counter() - t0:.1f} s")
+                    _zero_launch_counts(fa)
+                    # ---- the main path (b)
+                    fit_calls = elastic_restore(dev, seed, card_name, root, mesh)
+                    torch.cuda.synchronize()
+                    elastic = {k: v + _launch_counts(fa)[k] for k, v in elastic.items()}
+                    # ---- end of (b)
+                finally:
+                    dist.destroy_process_group()
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    check_recorded(fa, calls, "phase 20 (a)")
+    check_recorded(fa, fit_calls, "phase 20 (b)")
+    say(f"phase 20: launches sharded_checkpoint {sharded}, elastic {elastic}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(all(n > 0 for n in sharded.values()) and all(n > 0 for n in elastic.values()),
+          f"phase 20: a flash kernel never launched ({sharded}, {elastic})")
+    torch.cuda.empty_cache()
+    return sharded, elastic
+
+
 def _routes(fa, torch):
     """The route table's choices, as the kernels record reports them."""
     return {"bfloat16": fa.ROUTES[(torch.bfloat16, 64)],
@@ -6627,7 +7032,13 @@ def _routes(fa, torch):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    # one rank of phase 20 (b)'s CPU world, which this script spawns itself
+    ap.add_argument("--elastic-world-rank", nargs=4, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.elastic_world_rank:
+        rank, world, port, outdir = args.elastic_world_rank
+        elastic_world_rank(int(rank), int(world), int(port), outdir)
+        return 0
 
     import torch
     if not torch.cuda.is_available():
@@ -6748,6 +7159,11 @@ def main(argv=None) -> int:
     # this process (launch counts zeroed inside, around each path)
     second = phase_pipeline_moe(dev, args.seed, smi)
     done("phase 19")
+
+    # 20. sharded checkpoints and elastic training (launch counts zeroed
+    # inside, around each path)
+    sharded, elastic = phase_elastic(dev, args.seed, smi)
+    done("phase 20")
     by_path = {name: {"served": served[name], "training": trained[name],
                       "persistence": persisted[name], "resnet": resnet_launches[name],
                       **{path: n[name] for path, n in seq2seq.items()},
@@ -6756,7 +7172,8 @@ def main(argv=None) -> int:
                       "zoo": zoo[name], "recurrent": recurrent[name],
                       "multi_gpu": multi_gpu[name], "pipeline": second["pipeline"][name],
                       "pp_world_of_one": second["pp_world_of_one"][name],
-                      "moe": second["moe"][name]}
+                      "moe": second["moe"][name], "sharded_checkpoint": sharded[name],
+                      "elastic": elastic[name]}
                for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 
     # the kernels record: each kernel's row at the training path's shape,

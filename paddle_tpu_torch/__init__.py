@@ -15,7 +15,7 @@ card they raise :class:`paddle_tpu_torch.core.place.NoCudaDevice`.
 
 __version__ = "0.1.0"
 
-from . import amp, clip, core, data, framework, initializer, io, layers  # noqa: E402
+from . import amp, analysis, clip, core, data, framework, initializer, io, layers  # noqa: E402
 from . import lr_scheduler, metrics, models, nets, optimizer, parallel  # noqa: E402
 from . import quantize, regularizer, resilience, sparse  # noqa: E402
 from .core.config import enable_determinism, get_flag  # noqa: E402
@@ -47,6 +47,7 @@ __all__ = [
     "CPUPlace", "CUDAPlace", "CheckpointConfig", "DistStrategy", "Event", "Executor",
     "GuardPolicy", "Inferencer", "LayerHelper",
     "ParamAttr", "Program", "Scope", "Trainer", "WeightNormParamAttr", "amp", "amp_guard",
+    "analysis",
     "build", "clip", "create_parameter", "create_variable", "data",
     "default_main_program", "default_startup_program", "enable_determinism", "fit",
     "framework", "global_scope", "initializer", "io", "layers",

@@ -75,9 +75,10 @@ The fetched outputs come back as full tensors on every rank.
 
 Not carried yet, each raising :class:`NotYetPorted` with the slice that
 brings it: the ``DistStrategy`` fields of the
-parameter server and the program dump, feed wire formats, on-device augmentation, elastic resizes, the HBM
+parameter server and the program dump, feed wire formats, on-device augmentation, the HBM
 dataset cache and interval profile events; the journal and telemetry of
-checkpoint saves and guard incidents come with the observability slice.
+checkpoint saves, resizes and guard incidents come with the observability
+slice.
 """
 
 from __future__ import annotations
@@ -1347,13 +1348,14 @@ class CheckpointConfig:
 
 class Event:
     """Training events (contrib.trainer BeginEpochEvent/EndStepEvent…):
-    ``kind`` is begin_epoch, begin_step, end_step, end_epoch or preempted
+    ``kind`` is begin_epoch, begin_step, end_step, end_epoch, preempted
     (once, after the boundary checkpoint, when fit returns on
-    SIGTERM/SIGINT); ``step`` the trainer's global step when it fired;
-    ``metrics`` the step's fetched outputs on end_step (stacked ``(n,
-    ...)`` for a fused dispatch of n steps); ``num_steps`` the steps an
-    event covers; ``pipeline`` the input pipeline's report
-    (``Trainer.pipeline_report``) on end_epoch and preempted."""
+    SIGTERM/SIGINT) or resized (the same, on a ``ResizeRequest``);
+    ``step`` the trainer's global step when it fired; ``metrics`` the
+    step's fetched outputs on end_step (stacked ``(n, ...)`` for a fused
+    dispatch of n steps); ``num_steps`` the steps an event covers;
+    ``pipeline`` the input pipeline's report (``Trainer.pipeline_report``)
+    on end_epoch, preempted and resized."""
 
     def __init__(self, kind: str, epoch: int, step: int, metrics=None,
                  num_steps: int = 1, pipeline=None):
@@ -1367,8 +1369,6 @@ class Event:
 
 # fit's arguments of later slices: (default, the slice that brings it)
 _FIT_LATER = {
-    "elastic": (False, "elastic training, ROADMAP queue 1 item 22"),
-    "resize": (None, "elastic training, ROADMAP queue 1 item 22"),
     "feed_wire": (None, "data extras, ROADMAP queue 1 item 23"),
     "device_cache": (None, "data extras, ROADMAP queue 1 item 23"),
     "augment": (None, "data extras, ROADMAP queue 1 item 23"),
@@ -1410,6 +1410,17 @@ def fit(trainer: Trainer, reader, num_epochs: int, feed_names: Sequence[str],
     saves a boundary checkpoint after the current step, fires
     ``"preempted"`` and returns.
 
+    ``elastic=True`` (with ``resume``) restores a checkpoint written at
+    another mesh through ``resilience.reshard_restore``, its feasibility
+    checked on one batch peeked from the reader (an infeasible batch raises
+    ``ReshardError`` before any step). ``resize`` (a path or a
+    ``resilience.ResizeRequest``) is polled at each dispatch boundary after
+    the preemption flag: once requested, fit saves the boundary checkpoint
+    (unless this run just saved this step), waits for the sharded saves in
+    flight, fires ``"resized"`` and returns, for the launcher to relaunch
+    at the new size; a SIGTERM that arrived too is reported as
+    ``"preempted"``.
+
     ``steps_per_dispatch=K`` fuses the steps: the batches come in K-batch
     chunks (``DeviceFeeder(stack_k=K)``, or ``iter_chunked`` without the
     prefetch) and each full chunk runs as one ``trainer.run_steps``;
@@ -1423,8 +1434,7 @@ def fit(trainer: Trainer, reader, num_epochs: int, feed_names: Sequence[str],
     from . import resilience
     from .data.feeder import DataFeeder, DeviceFeeder, iter_chunked
 
-    given = {"elastic": elastic, "resize": resize, "feed_wire": feed_wire,
-             "device_cache": device_cache, "augment": augment,
+    given = {"feed_wire": feed_wire, "device_cache": device_cache, "augment": augment,
              "profile_interval_steps": profile_interval_steps}
     for name, (default, later) in _FIT_LATER.items():
         if given[name] != default:
@@ -1438,11 +1448,23 @@ def fit(trainer: Trainer, reader, num_epochs: int, feed_names: Sequence[str],
         if event_handler:
             event_handler(Event(*args, **kw))
 
+    enforce(resume or not elastic,
+            "fit(elastic=True) without resume=True does nothing: elastic names the "
+            "resume-across-a-mesh-change behavior")
     start_epoch, skip_steps = 0, 0
     if resume:
         enforce(checkpoint_config is not None,
                 "fit(resume=True) needs a checkpoint_config to scan")
-        meta = resilience.restore_latest(checkpoint_config.checkpoint_dir, trainer)
+        sample_feed = None
+        if elastic:
+            # one reader batch, peeked (each epoch calls reader() afresh), for
+            # the reshard's feasibility check: a batch the new data shards
+            # cannot split is a ReshardError here, not an error mid-run
+            first = next(iter(reader()), None)
+            if first is not None:
+                sample_feed = feeder.feed(first)
+        meta = resilience.restore_latest(checkpoint_config.checkpoint_dir, trainer,
+                                         elastic=elastic, sample_feed=sample_feed)
         if meta is not None:
             start_epoch = int(meta.get("epoch", 0))
             skip_steps = int(meta.get("epoch_step", 0))
@@ -1469,9 +1491,14 @@ def fit(trainer: Trainer, reader, num_epochs: int, feed_names: Sequence[str],
             shutil.rmtree(kept.pop(0), ignore_errors=True)
 
     use_preempt = preemption if preemption is not None else checkpoint_config is not None
+    # a scheduled resize: a path becomes a ResizeRequest; a request the
+    # caller made (and may hold a signal for) is used as it is
+    resize_ctx = (resilience.ResizeRequest(resize) if isinstance(resize, (str, os.PathLike))
+                  else resize)
     si = checkpoint_config.step_interval if checkpoint_config else 0
     with (resilience.PreemptionHandler() if use_preempt
-          else contextlib.nullcontext()) as ph:
+          else contextlib.nullcontext()) as ph, \
+            (resize_ctx if resize_ctx is not None else contextlib.nullcontext()) as rz:
         for epoch in range(start_epoch, num_epochs):
             # a resume lands mid-epoch: skip the batches the restored
             # checkpoint already consumed (one batch is one step), and
@@ -1495,7 +1522,7 @@ def fit(trainer: Trainer, reader, num_epochs: int, feed_names: Sequence[str],
                                      put_stacked_fn=lambda f: trainer._put_feed(f, stacked=True))
             else:
                 items = map(trainer._put_feed, batches())
-            preempted = False
+            preempted = resized = False
             try:
                 for item in items:
                     n, feed = item if k > 1 else (1, item)
@@ -1510,6 +1537,9 @@ def fit(trainer: Trainer, reader, num_epochs: int, feed_names: Sequence[str],
                         save(f"step_{trainer.global_step}", epoch, steps_in_epoch)
                     if ph is not None and ph.requested:
                         preempted = True
+                        break
+                    if rz is not None and rz.requested:
+                        preempted = resized = True
                         break
             finally:
                 # an abandoned epoch (exception, early exit, preemption)
@@ -1530,7 +1560,15 @@ def fit(trainer: Trainer, reader, num_epochs: int, feed_names: Sequence[str],
                 # an earlier run does not count)
                 if last_saved_step[0] != trainer.global_step:
                     save(f"step_{trainer.global_step}", epoch, steps_in_epoch)
-                emit("preempted", epoch, trainer.global_step,
+                _io.wait_for_checkpoints()
+                if ph is not None and ph.requested:
+                    # a SIGTERM that landed after the resize poll wins: a real
+                    # preemption is never reported as a planned resize
+                    resized = False
+                # (the JAX package journals fit.resized / fit.preempted, counts
+                # them and dumps its flight recorder here: ROADMAP queue 1,
+                # item 24)
+                emit("resized" if resized else "preempted", epoch, trainer.global_step,
                      pipeline=trainer.pipeline_report())
                 if guard_err is not None:
                     raise guard_err

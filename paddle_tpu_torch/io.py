@@ -26,8 +26,17 @@ with the factory's arguments (a function with ``factory_spec``, as
 a GPT generator by its builder and arguments (``spec()``). The loader
 rebuilds the program from there. Not carried yet, each raising
 :class:`NotYetPorted`: an exported graph per bucket (``torch.export``
-cannot trace a kernel called through ctypes; ROADMAP queue 1, item 9),
-``save_train_artifact`` (item 27) and sharded/orbax checkpoints (item 21).
+cannot trace a kernel called through ctypes; ROADMAP queue 1, item 9) and
+``save_train_artifact`` (item 27).
+
+Sharded checkpoints (:func:`save_sharded`, :func:`load_sharded`,
+:func:`wait_for_checkpoints`, :func:`save_trainer_sharded`,
+:func:`load_trainer_sharded`) are ``torch.distributed.checkpoint``'s
+where the JAX package's are orbax's: each rank writes its own shards,
+optionally from a background thread, and a restore re-places them at the
+target's placements. The two formats do not cross: neither package reads
+the other's sharded checkpoints, and the npz ``save_trainer`` directories
+stay the format they exchange.
 
 A trainer on a mesh saves unsharded, as the JAX package does: every rank
 takes part in gathering the full tensors and rank 0 writes them, so the
@@ -466,7 +475,9 @@ def load_trainer(dirname: str, trainer, allow_reshard: bool = False) -> None:
     load without validation. A checkpoint recorded at other mesh axes than
     the trainer's (a single device: none), or at another ZeRO shard
     layout, raises :class:`~paddle_tpu_torch.resilience.ReshardError`
-    unless ``allow_reshard`` (io.py:486-520). A started trainer's params
+    unless ``allow_reshard`` (io.py:486-554); its text names the remedy,
+    ``resilience.reshard_restore`` or ``fit(resume=True, elastic=True)``,
+    which prove the new layout feasible first. A started trainer's params
     must match the checkpoint's names, shapes and dtypes.
 
     The trainer's params become fresh tensors on its device (DTensors on
@@ -487,9 +498,10 @@ def load_trainer(dirname: str, trainer, allow_reshard: bool = False) -> None:
                 dirname, saved_axes, target_axes,
                 f"checkpoint was saved at mesh axes {saved_axes} but the target "
                 f"trainer runs {target_axes or 'a single device'} — restoring "
-                "across a mesh change is an elastic reshard (ROADMAP queue 1, "
-                "item 22; load_trainer(allow_reshard=True) places the saved tensors "
-                "on the new mesh without the feasibility check)")
+                "across a mesh change is an elastic reshard; use "
+                "resilience.reshard_restore(checkpoint_dir, trainer) or "
+                "fit(resume=True, elastic=True) (or load_trainer("
+                "allow_reshard=True) to skip the feasibility check)")
         target_zero = dict(tz.axes_dict) if tz is not None else {}
         if man is not None and resilience.normalize_mesh_axes(saved.get("zero_axes")) \
                 != resilience.normalize_mesh_axes(target_zero):
@@ -497,8 +509,10 @@ def load_trainer(dirname: str, trainer, allow_reshard: bool = False) -> None:
                 dirname, saved_axes, target_axes,
                 f"checkpoint zero_sharding axes {saved.get('zero_axes') or None} differ "
                 f"from the target trainer's {target_zero or None} — restoring across a "
-                "ZeRO shard-layout change is an elastic reshard (ROADMAP queue 1, item "
-                "22; load_trainer(allow_reshard=True) gathers and repartitions)")
+                "ZeRO shard-layout change is an elastic reshard (gather-then-repartition); "
+                "use resilience.reshard_restore(checkpoint_dir, trainer) or "
+                "fit(resume=True, elastic=True) (or load_trainer(allow_reshard=True) to "
+                "skip the feasibility check)")
     manifest = resilience.validate_checkpoint(dirname)  # None for legacy
     zero_meta = ((manifest or {}).get("meta") or {}).get("zero")
     if zero_meta is None:
@@ -704,6 +718,189 @@ def load_params(dirname: str):
 def load_vars(dirname: str):
     """load_vars analog."""
     return load_persistables(dirname)[0]
+
+
+# -- sharded checkpoints (io.py:1479-1596) -----------------------------------
+# The JAX package writes these with orbax; here torch.distributed.checkpoint
+# (DCP) writes them: each rank writes the shards it holds, and a restore
+# reads, for each target tensor, the pieces of its own placement. The
+# future of the async save in flight is kept here until
+# wait_for_checkpoints() (or the next sharded save or load) waits on it.
+
+_pending_save = None
+# (default process group, the CPU-backed group DCP coordinates over)
+_ckpt_group: Optional[Tuple[Any, Any]] = None
+
+
+def _ckpt_process_group():
+    """The process group DCP coordinates a sharded save or load over: None
+    without a world (DCP then runs in one process), else a gloo group over
+    the world of its own, made once per world. DCP moves its plans and
+    metadata (pickled, on the host) through it, from the writing thread of
+    an async save too, so it must not be the group the training steps'
+    collectives use (their order would interleave and deadlock), and DCP's
+    async save refuses a group without a CPU backend. No tensor of the
+    training state passes through it."""
+    import torch.distributed as dist
+
+    global _ckpt_group
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    world = dist.group.WORLD
+    if _ckpt_group is None or _ckpt_group[0] is not world:
+        _ckpt_group = (world, dist.new_group(backend="gloo"))
+    return _ckpt_group[1]
+
+
+def _snapshot(tree):
+    """A copy of every tensor leaf (a DTensor stays a DTensor, its shard
+    copied), so the steps that follow an async save, which write the
+    training state in place, cannot reach what the save writes."""
+    if isinstance(tree, dict):
+        return {k: _snapshot(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    return tree
+
+
+def save_sharded(dirname: str, tree: Dict[str, Any], async_save: bool = False):
+    """Save a tree of tensors (DTensors on a mesh: each rank writes its own
+    shards) with ``torch.distributed.checkpoint``. The directory is
+    replaced. With ``async_save`` the tensors are copied first (on their
+    device; DCP then stages the copies to host memory) and the call returns
+    while a thread writes the files: :func:`wait_for_checkpoints` (or the
+    next sharded save or load) waits for it, and raises its error. Returns
+    the write's future (async) or DCP's metadata. On a mesh every rank
+    calls it.
+
+    The files are DCP's ``.distcp`` and ``.metadata``, not orbax's: neither
+    package reads the other's sharded checkpoints. ``save_trainer``'s npz
+    directories are the format the two packages exchange."""
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+
+    global _pending_save
+    wait_for_checkpoints()  # an async save in flight may still own the dir
+    path = os.path.abspath(dirname)
+    pg = _ckpt_process_group()
+    if pg is None or dist.get_rank() == 0:
+        shutil.rmtree(path, ignore_errors=True)
+    if pg is not None:
+        dist.barrier(group=pg)
+    if not async_save:
+        return dcp.save(tree, checkpoint_id=path, process_group=pg)
+    fut = dcp.async_save(_snapshot(tree), checkpoint_id=path, process_group=pg)
+    # a newer DCP answers with its staging and upload futures
+    _pending_save = getattr(fut, "upload_completion", fut)
+    return _pending_save
+
+
+def wait_for_checkpoints() -> None:
+    """Wait for the async sharded save in flight, if any, and raise its
+    error if it failed."""
+    global _pending_save
+    fut, _pending_save = _pending_save, None
+    if fut is not None:
+        fut.result()
+
+
+def _tree_from_metadata(path: str, device: torch.device) -> Dict[str, Any]:
+    """An empty tree of the checkpoint's structure: each tensor at its
+    saved shape and dtype on ``device``, each other value None. The key
+    paths come from the planner's record, so a key holding '.' keeps its
+    place."""
+    import torch.distributed.checkpoint as dcp
+
+    md = dcp.FileSystemReader(path).read_metadata()
+    paths = md.planner_data or {}
+    out: Dict[str, Any] = {}
+    for fqn, ent in md.state_dict_metadata.items():
+        keys = paths.get(fqn)
+        enforce(keys is not None, f"sharded checkpoint {path!r}: entry {fqn!r} has no "
+                "key path in its metadata")
+        d = out
+        for k in keys[:-1]:
+            d = d.setdefault(k, {})
+        d[keys[-1]] = (torch.empty(tuple(ent.size), dtype=ent.properties.dtype,
+                                   device=device)
+                       if isinstance(ent, dcp.TensorStorageMetadata) else None)
+    return out
+
+
+def load_sharded(dirname: str, target: Optional[Dict[str, Any]] = None, device=None):
+    """Restore a :func:`save_sharded` checkpoint into ``target`` in place
+    and return it. ``target`` is a tree of tensors at the saved shapes:
+    DTensors are filled at their own placements, whatever placements the
+    checkpoint was written at (the restore across a mesh reshape). Without
+    a target the tree is built from the checkpoint's metadata, its tensors
+    on ``device`` (default: the card; no card: ``NoCudaDevice``). On a mesh
+    every rank calls it."""
+    import torch.distributed.checkpoint as dcp
+
+    wait_for_checkpoints()  # an async save in flight may still own the dir
+    path = os.path.abspath(dirname)
+    if target is None:
+        target = _tree_from_metadata(path, default_device(device, "io.load_sharded"))
+    dcp.load(target, checkpoint_id=path, process_group=_ckpt_process_group())
+    return target
+
+
+def save_trainer_sharded(dirname: str, trainer, async_save: bool = True):
+    """A Trainer's params, state, optimizer state and ``meta.global_step``
+    (and its loss-scale state, with a scaler) through :func:`save_sharded`,
+    async by default; stacked rows in logical layer order, as
+    ``save_trainer`` stores them."""
+    with torch.no_grad(), trainer._mesh_scope():
+        params, opt_state = trainer.stacked_to_logical(trainer.scope.params,
+                                                       trainer.scope.opt_state or {})
+    tree = {"params": params, "state": trainer.scope.state, "opt_state": opt_state,
+            "meta": {"global_step": trainer.global_step}}
+    if trainer.scope.loss_scale_state:
+        tree["loss_scale_state"] = trainer.scope.loss_scale_state
+    return save_sharded(dirname, tree, async_save=async_save)
+
+
+def _empty_like_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _empty_like_tree(v) for k, v in tree.items()}
+    return torch.empty_like(tree)
+
+
+def load_trainer_sharded(dirname: str, trainer) -> None:
+    """Restore a :func:`save_trainer_sharded` checkpoint into the trainer at
+    its own mesh and placements (across a mesh reshape too). The tensors
+    are read into new buffers first and copied into the trainer's own once
+    all of them are read. A checkpoint's loss-scale state is read when it
+    has one, and adopted only by a trainer that runs a loss scaler."""
+    import torch.distributed.checkpoint as dcp
+
+    wait_for_checkpoints()
+    md = dcp.FileSystemReader(os.path.abspath(dirname)).read_metadata()
+    saved = {keys[0] for keys in (md.planner_data or {}).values()}
+    scope = trainer.scope
+    target = {"params": _empty_like_tree(scope.params), "state": _empty_like_tree(scope.state),
+              "opt_state": _empty_like_tree(scope.opt_state or {}),
+              "meta": {"global_step": 0}}
+    if "loss_scale_state" in saved:
+        ls = scope.loss_scale_state
+        target["loss_scale_state"] = _empty_like_tree(ls) if ls else {
+            "scale": torch.zeros((), dtype=torch.float32, device=trainer.device),
+            "good_steps": torch.zeros((), dtype=torch.int32, device=trainer.device),
+            "overflows": torch.zeros((), dtype=torch.int32, device=trainer.device)}
+    restored = load_sharded(dirname, target)
+    from .executor import write_in_place
+    with torch.no_grad(), trainer._mesh_scope():
+        params, opt_state = trainer.stacked_from_logical(restored["params"],
+                                                         restored["opt_state"])
+        write_in_place(scope.params, params)
+        write_in_place(scope.state, restored["state"])
+        if scope.opt_state is not None:
+            write_in_place(scope.opt_state, opt_state)
+        # a trainer without a scaler has no state for it to adopt into
+        if "loss_scale_state" in restored and trainer.loss_scaler is not None:
+            write_in_place(scope.loss_scale_state, restored["loss_scale_state"])
+    trainer.global_step = int(restored["meta"]["global_step"])
+    trainer._fused = None  # a captured step reads the state it replaced
 
 
 # -- inference model ---------------------------------------------------------

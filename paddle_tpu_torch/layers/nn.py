@@ -247,6 +247,17 @@ def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     n = table.shape[0]
     ids = ids.long()
     ids = torch.where(ids < 0, ids + n, ids).clamp(0, n - 1)
+    from ..ops import _dtensor as D
+    if D.is_dtensor(ids) and (not D.is_dtensor(table) or not any(
+            D.is_shard(pl) for pl in table.placements)):
+        # a replicated table at a mesh's ids: this rank's rows gathered from
+        # its local copy, the table's grad a Partial sum over the mesh dims
+        # the ids are sharded on (torch 2.11's DTensor cannot propagate the
+        # sharding of this gather's index_put backward)
+        from torch.distributed.tensor import Replicate
+        local = D.local_at(table, ids, [Replicate()] * ids.device_mesh.ndim,
+                           grad_placements=D.partial_where_sharded(ids.placements))
+        return D.wrap(local[ids.to_local()], ids, list(ids.placements))
     return table[ids]
 
 

@@ -25,6 +25,13 @@ def refuse(what: str, *tensors) -> None:
                            "must pass this rank's local shards (ops/_dtensor.py)")
 
 
+def is_shard(pl) -> bool:
+    """Whether a placement shards its tensor (a ``Shard`` or strided shard)."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
+    return isinstance(pl, (Shard, _StridedShard))
+
+
 def kept_placements(x, dims: Sequence[int]):
     """``x``'s placements with a ``Shard`` of one of ``dims`` kept and every
     other mesh dim (a shard of another dim, a ``Partial``) replicated."""

@@ -157,6 +157,24 @@ class Mesh:
         return f"Mesh({self.shape}, device={self.device})"
 
 
+class AbstractMesh:
+    """A mesh's axis names and sizes with no ranks behind it (the
+    ``jax.sharding.AbstractMesh`` analog): the target layout that the
+    static checks read (``analysis.contracts.check_artifacts(mesh=)``,
+    ``ShardingRules.spec_for``), for a world that is not running."""
+
+    def __init__(self, axes: Dict[str, int]):
+        self.axis_names = tuple(str(a) for a in axes)
+        self.shape = {str(a): int(s) for a, s in axes.items()}
+        self.size = int(np.prod(list(self.shape.values()) or [1]))
+
+    def dim(self, axis: str) -> int:
+        return self.axis_names.index(axis)
+
+    def __repr__(self):
+        return f"AbstractMesh({self.shape})"
+
+
 def make_mesh(axes: Optional[Dict[str, int]] = None,
               devices: Optional[Sequence[int]] = None) -> Mesh:
     """A named mesh over the world (``make_mesh`` :58). ``axes`` maps axis
@@ -197,6 +215,6 @@ def data_parallel_size(mesh: Mesh) -> int:
     return int(np.prod([mesh.shape[a] for a in data_axis_names(mesh)] or [1]))
 
 
-__all__ = ["DATA_AXES", "DP", "DistributedInitError", "EP", "FSDP", "Mesh", "PP", "SP",
-           "TP", "data_axis_names", "data_parallel_size", "initialize", "make_mesh",
+__all__ = ["AbstractMesh", "DATA_AXES", "DP", "DistributedInitError", "EP", "FSDP", "Mesh",
+           "PP", "SP", "TP", "data_axis_names", "data_parallel_size", "initialize", "make_mesh",
            "mesh_device"]

@@ -72,7 +72,8 @@ class ShardingRules:
                 keep, dropped = _filter_axes(entry, nameset)
                 for a in dropped:
                     if a not in CANONICAL_AXES:
-                        _warn_drop(f"adapted_to: rule axis {a!r} is neither in the "
+                        _warn_drop(("adapt-typo", a),
+                                   f"adapted_to: rule axis {a!r} is neither in the "
                                    f"mesh {names} nor a canonical axis name "
                                    f"{sorted(CANONICAL_AXES)} — likely a typo; "
                                    f"that dim will be replicated")
@@ -154,13 +155,31 @@ class ShardingRuleWarning(UserWarning):
 # ambient filters, re-armed by reset_drop_warnings()
 _DROP_REGISTRY: dict = {}
 
+# the rule key's kind -> the finding's code when a report collects the drop
+_DROP_CODES = {
+    "missing": "sharding:unknown-axis",
+    "adapt-typo": "sharding:unknown-axis",
+    "divide": "sharding:indivisible",
+    "rank": "sharding:rank-mismatch",
+}
+
 
 def reset_drop_warnings():
     """Re-arm the once-per-key drop warnings (test helper)."""
     _DROP_REGISTRY.clear()
 
 
-def _warn_drop(msg: str) -> None:
+def _warn_drop(key: tuple, msg: str) -> None:
+    """One rule degradation (sharding.py:187): a finding of the active
+    ``analysis.report.LintReport`` when a check installed one
+    (``analysis.report.collect_into``), else warned once per message."""
+    from ..analysis import report as _lint
+
+    rep = _lint.active_report()
+    if rep is not None:
+        rep.add(_DROP_CODES.get(key[0], "sharding:dropped-axis"), "warning", msg,
+                where=str(key[1]) if len(key) > 1 else "")
+        return
     warnings.warn_explicit(msg, ShardingRuleWarning, __file__, 0,
                            module=__name__, registry=_DROP_REGISTRY)
 
@@ -177,7 +196,8 @@ def _validate(spec: PartitionSpec, shape: Tuple[int, ...], mesh, name: str) -> P
             continue
         kept, dropped = _filter_axes(entry, nameset)
         for a in dropped:
-            _warn_drop(f"sharding rule names axis {a!r} which is not in the "
+            _warn_drop(("missing", a, tuple(mesh.shape.items())),
+                       f"sharding rule names axis {a!r} which is not in the "
                        f"mesh {dict(mesh.shape)}; replicating that dim "
                        f"(warned once per axis and mesh shape)")
         keep = [] if kept is None else list(kept if isinstance(kept, tuple) else (kept,))
@@ -186,14 +206,16 @@ def _validate(spec: PartitionSpec, shape: Tuple[int, ...], mesh, name: str) -> P
             size *= mesh.shape[a]
         if i >= len(shape):
             if keep and size > 1:
-                _warn_drop(f"sharding rule for {name!r} has more entries than the "
+                _warn_drop(("rank", name, i),
+                           f"sharding rule for {name!r} has more entries than the "
                            f"param rank {len(shape)}; extra axes {keep} dropped")
             out.append(None)
         elif not keep:
             out.append(None)
         elif shape[i] % size != 0:
             if size > 1:
-                _warn_drop(f"sharding rule for {name!r}: dim {i} of shape {shape} "
+                _warn_drop(("divide", name, i),
+                           f"sharding rule for {name!r}: dim {i} of shape {shape} "
                            f"is not divisible by mesh axes {keep} (size {size}); "
                            f"replicating that dim")
             out.append(None)

@@ -23,13 +23,18 @@ the manifest half of ``paddle_tpu.resilience``).
   :func:`escalate_if_needed`, :func:`record_incident`): ``Trainer(guard=)``
   discards a non-finite step on the device and records an incident here.
 
-Not carried yet, each raising :class:`NotYetPorted`: elastic restores
-(``restore_latest(elastic=True)``, :func:`reshard_restore`,
-:class:`ResizeRequest`; ROADMAP queue 1 item 22), the CRC-framed segment
-log of the telemetry store (:func:`frame_record` and its siblings; item
-24; an incident is logged, not journaled, until then). A single-device trainer
-records ``mesh_axes`` as ``{}``; a checkpoint saved on a mesh raises
-:class:`ReshardError` at load.
+- **Elastic restores** (:func:`reshard_restore`,
+  ``restore_latest(elastic=True)``, :class:`ResizeRequest`): a checkpoint
+  written at one mesh restores at another, after
+  ``analysis.contracts.check_artifacts`` has proved it feasible; a
+  scheduled resize checkpoints at a step boundary and returns, for the
+  launcher to relaunch at the new size.
+
+Not carried yet: the CRC-framed segment log of the telemetry store
+(:func:`frame_record` and its siblings raise :class:`NotYetPorted`;
+ROADMAP queue 1, item 24; an incident is logged, not journaled, until
+then), and with it the journal lines, counters and flight dumps that the
+JAX package's elastic paths emit.
 """
 
 from __future__ import annotations
@@ -295,16 +300,29 @@ def restore_latest(root: str, trainer, elastic: bool = False,
                    ) -> Optional[Dict[str, Any]]:
     """Restore ``trainer`` from the newest checkpoint under ``root`` that
     validates and loads, falling back over corrupt ones (warning for
-    each). Returns the checkpoint's meta, or None when none restores. A
-    checkpoint saved on another mesh raises :class:`ReshardError`."""
+    each). Returns the checkpoint's meta, or None when none restores.
+
+    A checkpoint saved at other mesh axes than the trainer's is not
+    corrupt: without ``elastic`` its :class:`ReshardError` propagates
+    (falling back to an older checkpoint would discard progress); with
+    ``elastic=True`` the restore goes through :func:`reshard_restore`,
+    ``sample_feed`` giving the batch its feasibility check reads (the
+    ``fit(resume=True, elastic=True)`` path)."""
     from . import io as _io
 
-    if elastic:
-        raise NotYetPorted("restore_latest(elastic=True): elastic restores come "
-                           "with ROADMAP queue 1, item 22")
     for info in reversed(list_checkpoints(root)):
         try:
-            _io.load_trainer(info.path, trainer)
+            try:
+                _io.load_trainer(info.path, trainer)
+            except ReshardError:
+                # (the JAX package journals and flight-dumps the error here:
+                # ROADMAP queue 1, item 24)
+                if not elastic:
+                    raise
+                rep = reshard_restore(info.path, trainer, sample_feed=sample_feed)
+                _log().info("elastic resume: resharded %s from mesh %s onto %s "
+                            "(%d bytes re-placed in %.3fs)", info.path, rep["saved_axes"],
+                            rep["target_axes"], rep["bytes_moved"], rep["seconds"])
         except CheckpointCorrupt as e:
             _log().warning("skipping corrupt checkpoint %s (%s); falling back "
                            "to an older one", info.path, e.reason)
@@ -322,25 +340,156 @@ def normalize_mesh_axes(axes: Optional[Dict[str, Any]]) -> Dict[str, int]:
     return {str(k): int(v) for k, v in (axes or {}).items() if int(v) > 1}
 
 
+def mesh_axes(mesh) -> Optional[Dict[str, int]]:
+    """The ``meta.mesh_axes`` of a mesh (``parallel.Mesh`` or
+    ``parallel.mesh.AbstractMesh``): ``{axis: size}`` in axis order, or
+    None for no mesh. ``io.save_trainer`` records it, and the load gate and
+    ``analysis.contracts`` compare against it."""
+    if mesh is None:
+        return None
+    return {str(a): int(mesh.shape[a]) for a in mesh.axis_names}
+
+
 def trainer_mesh_axes(trainer) -> Optional[Dict[str, int]]:
-    """The ``meta.mesh_axes`` of a trainer: its mesh's ``{axis: size}``,
-    or None on one device."""
-    mesh = getattr(trainer, "mesh", None)
-    return dict(mesh.shape) if mesh is not None else None
+    """:func:`mesh_axes` of the trainer's mesh (None on one device)."""
+    return mesh_axes(getattr(trainer, "mesh", None))
 
 
-def reshard_restore(checkpoint_dir: str, trainer, sample_feed=None):
-    raise NotYetPorted("reshard_restore: elastic restores come with ROADMAP "
-                       "queue 1, item 22")
+def reshard_restore(checkpoint_dir: str, trainer,
+                    sample_feed: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """Restore a checkpoint onto a trainer whose mesh differs from the
+    saved ``meta.mesh_axes`` (resilience.py:535): dp N→M either way, one
+    device included, and a ZeRO layout change.
+
+    The checkpoint's arrays are stored unsharded (a ZeRO checkpoint's rows
+    gather back to them), so the reshard is the placement that the target
+    trainer's rule table gives them: ``io.load_trainer`` places them as
+    ``startup`` places its params. Params, optimizer state, program
+    state, the loss-scale state and the step restore bit for bit.
+
+    Feasibility is proved first, by ``analysis.contracts.check_artifacts``
+    on the manifest, the trainer and ``sample_feed`` (the batch the target
+    data shards must divide; without it the batch is unchecked): a
+    ``ckpt:reshard-infeasible`` finding raises :class:`ReshardError` with
+    that finding's text before any state of the trainer is touched.
+
+    Returns ``meta``, ``saved_axes``, ``target_axes``, ``global_step``,
+    ``bytes_moved`` (the checkpoint's bytes, from the manifest's file
+    sizes) and ``seconds`` (the restore's wall time)."""
+    from . import io as _io
+    from .analysis import contracts as _contracts
+
+    t0 = time.perf_counter()
+    man = read_manifest(checkpoint_dir)  # CheckpointCorrupt if unreadable
+    saved_axes = ((man or {}).get("meta") or {}).get("mesh_axes")
+    target_axes = trainer_mesh_axes(trainer)
+    report = _contracts.check_artifacts(trainer=trainer, checkpoint_dir=checkpoint_dir,
+                                        sample_feed=sample_feed)
+    infeasible = report.by_code("ckpt:reshard-infeasible")
+    if infeasible:
+        # (journaled and flight-dumped in the JAX package: item 24)
+        raise ReshardError(checkpoint_dir, saved_axes, target_axes, infeasible[0].message)
+    _io.load_trainer(checkpoint_dir, trainer, allow_reshard=True)
+    # (the JAX package drops its device dataset cache here, whose arrays
+    # are laid out for the old mesh: item 23; and counts the reshard in
+    # paddle_tpu_resilience_reshards_total: item 24)
+    bytes_moved = sum(int(spec.get("size", 0))
+                      for spec in ((man or {}).get("files") or {}).values())
+    return {
+        "meta": dict(trainer._last_loaded_meta or {}),
+        "saved_axes": dict(saved_axes) if saved_axes else None,
+        "target_axes": dict(target_axes) if target_axes else None,
+        "global_step": trainer.global_step,
+        "bytes_moved": bytes_moved,
+        "seconds": time.perf_counter() - t0,
+    }
 
 
 class ResizeRequest:
-    """``fit(elastic=True, resize=)``'s request file: ROADMAP queue 1,
-    item 22."""
+    """A scheduled grow or shrink of an elastic run (resilience.py:690).
+    Where :class:`PreemptionHandler` reacts to a SIGTERM nobody planned, a
+    ResizeRequest watches a request file that an operator or a scheduler
+    drops beside the run::
 
-    def __init__(self, *args, **kwargs):
-        raise NotYetPorted("ResizeRequest: elastic resizes come with ROADMAP "
-                           "queue 1, item 22")
+        with ResizeRequest("/run/resize.json") as rz:
+            fit(trainer, ..., resize=rz)
+
+        # elsewhere: echo '{"dp": 4}' > /run/resize.json
+
+    ``fit(resize=...)`` polls :attr:`requested` at the step boundary where
+    it polls preemption: once the file exists (or the optional
+    ``signal_num`` arrived), the run checkpoints there and returns with a
+    ``"resized"`` event, so the launcher can relaunch at the new size and
+    ``fit(resume=True, elastic=True)`` reshards the checkpoint onto the new
+    mesh. The file's JSON body (:attr:`target`, e.g. ``{"dp": 4}``) is
+    advisory; an empty or unparsable file reads as ``{}``.
+
+    :meth:`consume` removes the file and clears the flag (the launcher
+    calls it after acting, so a request does not trigger the next run).
+    The signal handler installs only in the main thread; the file watch
+    works from any thread."""
+
+    def __init__(self, path: str, signal_num: Optional[int] = None):
+        self.path = path
+        self.signal_num = signal_num
+        self._flag = threading.Event()
+        self._old: Any = None
+        self.installed = False
+
+    @property
+    def requested(self) -> bool:
+        return self._flag.is_set() or os.path.exists(self.path)
+
+    @property
+    def target(self) -> Dict[str, Any]:
+        """The request's body ({} when absent, empty or not a JSON object)."""
+        try:
+            with open(self.path) as f:
+                body = f.read().strip()
+            doc = json.loads(body) if body else {}
+            return doc if isinstance(doc, dict) else {}
+        except (OSError, ValueError):
+            return {}
+
+    def request(self, target: Optional[Dict[str, Any]] = None) -> None:
+        """Drop the request file, atomically (what an in-process scheduler
+        calls)."""
+        tmp = f"{self.path}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(dict(target or {}), f)
+        os.replace(tmp, self.path)
+
+    def consume(self) -> Dict[str, Any]:
+        """Read and clear: the target, with the file removed and the flag
+        reset."""
+        target = self.target
+        try:
+            os.remove(self.path)
+        except OSError:
+            pass
+        self._flag.clear()
+        return target
+
+    def _handle(self, signum, frame):
+        self._flag.set()
+        _log().warning("received %s: elastic resize requested; checkpointing at the "
+                       "next step boundary", signal.Signals(signum).name)
+
+    def __enter__(self) -> "ResizeRequest":
+        if self.signal_num is not None and \
+                threading.current_thread() is threading.main_thread():
+            self._old = signal.signal(self.signal_num, self._handle)
+            self.installed = True
+        return self
+
+    def __exit__(self, *exc):
+        if self.installed:
+            try:
+                signal.signal(self.signal_num, self._old)
+            except (ValueError, TypeError):
+                pass
+            self.installed = False
+        return False
 
 
 # -- preemption --------------------------------------------------------------
@@ -511,6 +660,6 @@ __all__ = ["CheckpointCorrupt", "CheckpointInfo", "GuardPolicy", "Incident",
            "InjectedCrash", "MANIFEST_NAME", "MANIFEST_VERSION", "MAX_INCIDENT_LOG",
            "PreemptionHandler", "ReshardError", "ResizeRequest", "TMP_MARKER",
            "crash_point", "escalate_if_needed", "feed_digest", "list_checkpoints",
-           "normalize_mesh_axes", "read_manifest", "record_incident", "reshard_restore",
-           "restore_latest", "sweep_tmp_dirs", "trainer_mesh_axes", "validate_checkpoint",
-           "write_manifest"]
+           "mesh_axes", "normalize_mesh_axes", "read_manifest", "record_incident",
+           "reshard_restore", "restore_latest", "sweep_tmp_dirs", "trainer_mesh_axes",
+           "validate_checkpoint", "write_manifest"]

@@ -404,12 +404,7 @@ def test_mesh_checkpoint_raises_reshard_error(tmp_path):
 
 
 NOT_PORTED = {
-    "restore_latest_elastic": lambda d: tres.restore_latest(os.path.dirname(d),
-                                                            _trainer(), elastic=True),
-    "reshard_restore": lambda d: tres.reshard_restore(d, _trainer()),
-    "ResizeRequest": lambda d: tres.ResizeRequest(d),
     "frame_record": lambda d: tres.frame_record(b"x"),
-    "fit_elastic": lambda d: _fit(_trainer(), None, resume=True, elastic=True),
 }
 
 
@@ -419,6 +414,60 @@ def test_later_slices_raise_not_yet_ported(tmp_path, call):
     tio.save_trainer(d, _trainer(), extra_meta={"zero": {"shards": 2}})
     with pytest.raises(NotYetPorted):
         NOT_PORTED[call](d)
+
+
+def _restores(src):
+    def check(tgt):
+        assert tgt.global_step == 1 and _params_equal(tgt.scope.params, src.scope.params)
+    return check
+
+
+def _resize_request(d):
+    rz = tres.ResizeRequest(d + ".resize")
+    assert not rz.requested
+    rz.request({"dp": 1})
+    assert rz.requested and rz.consume() == {"dp": 1} and not rz.requested
+
+
+ELASTIC = {
+    "restore_latest_elastic": lambda d, ok: ok(_restored_latest(d)),
+    "reshard_restore": lambda d, ok: ok(_resharded(d)),
+    "ResizeRequest": lambda d, ok: _resize_request(d),
+    "fit_elastic": lambda d, ok: _fit_elastic(d),
+}
+
+
+def _restored_latest(d):
+    tgt = _trainer()
+    assert tres.restore_latest(os.path.dirname(d), tgt, elastic=True)["global_step"] == 1
+    return tgt
+
+
+def _resharded(d):
+    tgt = _trainer()
+    rep = tres.reshard_restore(d, tgt, sample_feed=_FEED)
+    assert (rep["saved_axes"], rep["target_axes"], rep["global_step"]) == ({"dp": 2}, None, 1)
+    assert rep["bytes_moved"] > 0
+    return tgt
+
+
+def _fit_elastic(d):
+    cfg = tpt.CheckpointConfig(os.path.dirname(d), epoch_interval=0, step_interval=0)
+    assert _fit(_trainer(), cfg, resume=True, elastic=True).global_step == 2 * N_BATCHES
+
+
+@pytest.mark.parametrize("call", sorted(ELASTIC))
+def test_elastic_entry_points_restore_across_a_mesh_change(tmp_path, call):
+    """Once NotYetPorted (ROADMAP item 22), each restores a checkpoint saved
+    at {dp: 2} onto a one-device trainer, or requests a resize."""
+    src = _trainer()
+    src.step(_FEED)
+    d = str(tmp_path / "step_1")
+    tio.save_trainer(d, src, extra_meta={"mesh_axes": {"dp": 2}, "epoch": 0,
+                                         "epoch_step": 1})
+    with pytest.raises(tres.ReshardError, match="reshard_restore"):
+        tio.load_trainer(d, _trainer())
+    ELASTIC[call](d, _restores(src))
 
 
 def test_a_zero_checkpoint_missing_shard_files_is_refused(tmp_path):

@@ -162,8 +162,6 @@ def test_fit_gives_the_jax_events_steps_and_losses():
 
 
 FIT_LATER = {
-    "elastic": lambda tmp: True,
-    "resize": lambda tmp: str(tmp / "resize"),
     "feed_wire": lambda tmp: {"image": object()},
     "device_cache": lambda tmp: True,
     "augment": lambda tmp: {"image": object()},
@@ -178,6 +176,25 @@ def test_fit_arguments_of_later_slices_raise(arg, tmp_path):
         tpt.fit(tt, _small_reader(tdata), 1, ["image", "label"], prefetch=False,
                 **{arg: FIT_LATER[arg](tmp_path)})
     assert tt.global_step == 0
+
+
+@pytest.mark.parametrize("arg", ["elastic", "resize"])
+def test_fit_elastic_and_resize_are_ported(arg, tmp_path):
+    """Once NotYetPorted (ROADMAP item 22): elastic without resume is
+    refused as the JAX fit refuses it, and a resize path that no request
+    has written lets the epoch run to its end."""
+    tt = tpt.Trainer(tpt.build(tmnist.mlp), topt.SGD(0.05), place=CPU)
+    tt.startup(0, sample_feed=tdata.DataFeeder(["image", "label"]).feed(
+        next(iter(_small_reader(tdata)()))))
+    if arg == "elastic":
+        with pytest.raises(EnforceError, match=r"fit\(elastic=True\) without resume=True"):
+            tpt.fit(tt, _small_reader(tdata), 1, ["image", "label"], prefetch=False,
+                    elastic=True)
+        assert tt.global_step == 0
+    else:
+        tpt.fit(tt, _small_reader(tdata), 1, ["image", "label"], prefetch=False,
+                resize=str(tmp_path / "resize"))
+        assert tt.global_step == 3
 
 
 @pytest.mark.parametrize("kw", ["strategy", "feed_wire", "augment"])

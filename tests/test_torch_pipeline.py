@@ -62,14 +62,16 @@ def _jax_pp_trainer(**skw):
 
 @pytest.fixture(scope="module")
 def jax_losses():
-    """The JAX single-device Trainer's losses (and its initial params)."""
+    """The JAX single-device Trainer's losses, its initial params and its
+    eval loss after the steps."""
     tr = _jax_pp_trainer()
     params = {k: np.asarray(v) for k, v in tr.scope.params.items()}
     feeds = [W.pp_feed(W.PP_BATCH, seed=i) for i in range(W.PP_STEPS)]
     losses = np.array([float(tr.step(f)["loss"]) for f in feeds])
+    evaled = float(tr.eval(feeds[0])["loss"])
     acc = _jax_pp_trainer(accum_steps=2)
     accum = float(acc.step(W.pp_feed(W.PP_ACCUM[2], seed=9))["loss"])
-    return params, losses, accum
+    return params, losses, accum, evaled
 
 
 @pytest.fixture(scope="module")
@@ -298,6 +300,19 @@ def test_interleaved_rest_layout_eval_and_checkpoint(world):
     # the trainer restores its own checkpoint and trains on
     assert int(world["ck/roundtrip_equal"]) == 1
     assert np.isfinite(float(world["ck/next_loss"]))
+
+
+def test_interleaved_checkpoint_reshard_restores_on_one_device(world, jax_losses):
+    """tests/test_pipeline_transformer_e2e.py:247-288: the {dp: 2, pp: 2}
+    interleaved trainer's checkpoint restores on one device only through
+    resilience.reshard_restore, and that trainer's eval loss is the JAX
+    single-device Trainer's after the same steps, within 2e-4."""
+    assert "ReshardError" in str(world["ck/plain_load_error"])
+    assert "reshard_restore" in str(world["ck/plain_load_error"])
+    assert str(world["ck/reshard_axes"]) == repr(({"dp": 2, "pp": 2}, None))
+    got = float(world["ck/reshard_eval"])
+    np.testing.assert_allclose(got, float(world["inter/eval"]), atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(got, jax_losses[3], atol=2e-4, rtol=2e-4)
 
 
 def test_accumulation_composes_with_the_pipeline(world, jax_losses):

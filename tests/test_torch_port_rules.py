@@ -21,7 +21,7 @@ from paddle_tpu_torch.ops import flash_attention as tfa
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "paddle_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+FORBIDDEN = ("jax", "jaxlib", "orbax", "paddle_tpu")
 
 
 def _port_files():
@@ -55,6 +55,7 @@ def test_no_jax_or_jax_package_imports(path):
 
 def test_forbidden_name_check_does_not_match_the_port():
     assert _forbidden("paddle_tpu.ops") and _forbidden("jax.numpy")
+    assert _forbidden("orbax.checkpoint")
     assert not _forbidden("paddle_tpu_torch.ops") and not _forbidden("jaxtyping_x")
 
 
@@ -92,7 +93,9 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.parallel.ulysses",
             "paddle_tpu_torch.parallel.quantized_collectives",
             "paddle_tpu_torch.ops._dtensor", "paddle_tpu_torch.parallel.pipeline",
-            "paddle_tpu_torch.parallel.moe", "paddle_tpu_torch.models.moe_transformer"]
+            "paddle_tpu_torch.parallel.moe", "paddle_tpu_torch.models.moe_transformer",
+            "paddle_tpu_torch.analysis", "paddle_tpu_torch.analysis.report",
+            "paddle_tpu_torch.analysis.contracts", "paddle_tpu_torch.analysis.rules"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -146,7 +149,11 @@ def _entry_points(tmp_path):
     def constant():  # no params, no inputs: nothing says where it runs
         return {"out": layers.fill_constant([2], "float32", 1.0)}
 
+    sharded = str(tmp_path / "sharded")
+    tio.save_sharded(sharded, {"w": torch.zeros(2)})
+
     return {
+        "io.load_sharded": lambda: tio.load_sharded(sharded),
         "Executor": lambda: Executor(),
         "Trainer_program": lambda: Trainer(build(mnist.mlp), optimizer.SGD(0.01)),
         "fit": lambda: fit(Trainer(build(mnist.mlp), optimizer.SGD(0.01)), reader, 1,
@@ -251,7 +258,8 @@ def _cuda_mesh(parallel):
                                    "Trainer_word2vec", "Trainer_fit_a_line",
                                    "seq2seq.make_decoder", "create_lod_tensor",
                                    "beam_search_decode_lod", "parallel.initialize",
-                                   "Trainer_mesh", "Trainer_moe", "Trainer_pipeline"])
+                                   "Trainer_mesh", "Trainer_moe", "Trainer_pipeline",
+                                   "io.load_sharded"])
 def test_entry_points_refuse_to_run_without_a_card(tmp_path, entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the entry points run on it")

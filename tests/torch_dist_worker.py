@@ -606,6 +606,14 @@ def suite_pipeline(res, indir):
         one = _pp_trainer(None, None, indir)
         io.load_trainer(ck, one, allow_reshard=True)
         res["ck/single_eval"] = np.array(float(one.eval(feeds[0])["loss"]))
+        # the {dp, pp} -> one-device restore through the elastic door
+        # (tests/test_pipeline_transformer_e2e.py:247-288)
+        from paddle_tpu_torch import resilience
+        el = _pp_trainer(None, None, indir)
+        res["ck/plain_load_error"] = np.array(_catch(lambda: io.load_trainer(ck, el)))
+        rep = resilience.reshard_restore(ck, el, sample_feed=feeds[0])
+        res["ck/reshard_axes"] = np.array(repr((rep["saved_axes"], rep["target_axes"])))
+        res["ck/reshard_eval"] = np.array(float(el.eval(feeds[0])["loss"]))
     before = {k: v.full_tensor().detach().clone() for k, v in inter.scope.params.items()}
     io.load_trainer(ck, inter)
     res["ck/roundtrip_equal"] = np.array(int(all(
@@ -783,9 +791,277 @@ def suite_moe(res, indir):
             res[f"dense/layer/grad/{k}"] = _np(p.grad)
 
 
+# -- elastic training (suites "elastic4" and "elastic2") ------------------------------
+
+# tests/test_elastic_reshard.py's model and data: fc 6 -> 16 -> 4, batch 8
+E_DIM, E_CLASSES, E_BS, E_BATCHES = 6, 4, 8, 8
+E_FEED = {"x": np.zeros((E_BS, E_DIM), np.float32), "label": np.zeros((E_BS, 1), np.int64)}
+E_AMP = dict(loss_scale=2.0 ** 10, dynamic_loss_scale=True)
+
+
+def e_reader(n_batches=E_BATCHES, seed=7, bs=E_BS):
+    def reader():
+        rng = np.random.RandomState(seed)
+        for _ in range(n_batches):
+            x = rng.randn(bs, E_DIM).astype(np.float32)
+            y = rng.randint(0, E_CLASSES, (bs,)).astype(np.int64)
+            yield [(x[j], y[j:j + 1]) for j in range(bs)]
+    return reader
+
+
+def _e_net(x, label):
+    from paddle_tpu_torch import layers as L
+    h = L.fc(x, 16, name="fc1")
+    logits = L.fc(h, E_CLASSES, name="fc2")
+    return {"loss": L.mean(L.softmax_with_cross_entropy(logits, label))}
+
+
+def e_trainer(n, momentum=False, strategy=None, rules=None, place=None):
+    """The elastic tests' Trainer on {dp: n} (one device at n = 1)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import optimizer, parallel as par
+    tr = pt.Trainer(pt.build(_e_net),
+                    optimizer.Momentum(0.1, 0.9) if momentum else optimizer.SGD(0.1),
+                    loss_name="loss", place=place or pt.CPUPlace(),
+                    mesh=par.make_mesh({"dp": n}) if n > 1 else None,
+                    sharding_rules=rules, strategy=strategy)
+    return tr.startup(0, sample_feed=E_FEED)
+
+
+def e_rules(P):
+    """tests/test_elastic_reshard.py:153's rules: every weight over dp."""
+    from paddle_tpu_torch.parallel import ShardingRules
+    return ShardingRules([(r".*/w$", P(None, "dp"))])
+
+
+def e_fit(tr, root, reader=None, epochs=2, handler=None, step_interval=0, **kw):
+    import paddle_tpu_torch as pt
+    cfg = pt.CheckpointConfig(root, epoch_interval=0, step_interval=step_interval,
+                              max_num_checkpoints=3)
+    return pt.fit(tr, reader or e_reader(), num_epochs=epochs, feed_names=["x", "label"],
+                  dtypes=["float32", "int64"], checkpoint_config=cfg, event_handler=handler,
+                  prefetch=False, **kw)
+
+
+def e_manual(tr, meta, epochs=2, n_batches=E_BATCHES):
+    """fit's resumed tail as bare steps (tests/test_elastic_reshard.py:81)."""
+    from paddle_tpu_torch.data.feeder import DataFeeder
+    feeder = DataFeeder(["x", "label"], ["float32", "int64"])
+    losses = []
+    for epoch in range(int(meta.get("epoch", 0)), epochs):
+        skip = int(meta.get("epoch_step", 0)) if epoch == int(meta.get("epoch", 0)) else 0
+        for i, samples in enumerate(e_reader(n_batches)()):
+            if i >= skip:
+                losses.append(float(tr.step(feeder.feed(samples))["loss"]))
+    return losses
+
+
+def _exact(t):
+    """A tensor (a DTensor's whole value) as numpy, bit for bit (bfloat16
+    as its 16-bit pattern)."""
+    import torch
+    t = t.full_tensor() if hasattr(t, "full_tensor") else t
+    t = t.detach().cpu()
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+
+def _record_state(res, name, tr):
+    """A restored trainer's state, whole and bit-exact, under ``name``."""
+    from paddle_tpu_torch import io
+    for k, v in tr.scope.params.items():
+        res[f"{name}/param/{k}"] = _exact(v)
+    for k, v in io._flatten(io._full_tree(tr.scope.opt_state or {})).items():
+        res[f"{name}/opt/{k}"] = v.copy()
+    for k, v in (tr.scope.loss_scale_state or {}).items():
+        res[f"{name}/ls/{k}"] = _exact(v)
+    res[f"{name}/global_step"] = np.array(tr.global_step)
+
+
+def _reshard_case(res, name, ck, tr, feed=None):
+    from paddle_tpu_torch import resilience
+    rep = resilience.reshard_restore(ck, tr, sample_feed=E_FEED if feed is None else feed)
+    _record_state(res, name, tr)
+    res[f"{name}/report"] = np.array(repr((rep["saved_axes"], rep["target_axes"],
+                                           rep["global_step"], rep["bytes_moved"] > 0)))
+    res[f"{name}/next_loss"] = np.array(float(tr.step(E_FEED)["loss"]))
+
+
+def _reshard_error(res, name, fn):
+    from paddle_tpu_torch import resilience
+    try:
+        fn()
+        res[f"{name}/error"] = np.array("")
+    except resilience.ReshardError as e:
+        res[f"{name}/error"] = np.array(str(e))
+        res[f"{name}/axes"] = np.array(repr((e.saved_axes, e.target_axes)))
+
+
+def _fit_losses(res, name, tr, root, ref_ck, n, **kw):
+    """An elastic rejoin's losses and params, and the bare-step continuation
+    of the same checkpoint on a fresh trainer of the same mesh."""
+    from paddle_tpu_torch import resilience
+    losses = []
+
+    def collect(e):
+        if e.kind == "end_step":
+            m = e.metrics["loss"]
+            m = m.full_tensor() if hasattr(m, "full_tensor") else m
+            losses.extend(np.asarray(m.detach().float()).reshape(-1).tolist())
+    epochs = kw.pop("epochs", 2)
+    e_fit(tr, root, epochs=epochs, handler=collect, resume=True, elastic=True, **kw)
+    res[f"{name}/losses"] = np.float32(losses)
+    res[f"{name}/global_step"] = np.array(tr.global_step)
+    ref = e_trainer(n)
+    rep = resilience.reshard_restore(ref_ck, ref, sample_feed=E_FEED)
+    res[f"{name}/ref_losses"] = np.float32(e_manual(ref, rep["meta"], epochs=epochs))
+    res[f"{name}/params_equal"] = np.array(int(all(
+        np.array_equal(_exact(tr.scope.params[k]), _exact(ref.scope.params[k]))
+        for k in tr.scope.params)))
+
+
+def suite_elastic4(res, indir):
+    """dp=4: the sources the world of 2 restores, the restores of the JAX
+    package's dp=2 checkpoints, the infeasible batch, the kill at step 5,
+    the K=3 rejoin and the sharded restore across a mesh reshape."""
+    import signal
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch import io, parallel as par, resilience
+    from paddle_tpu_torch.analysis import check_artifacts
+    from paddle_tpu_torch.parallel import sharding
+
+    j = lambda name: os.path.join(indir, name)  # noqa: E731
+    # the dp=4 sources: Momentum after 2 steps; step_3 of the mismatch drill
+    src = e_trainer(4, momentum=True)
+    src.step(E_FEED)
+    src.step(E_FEED)
+    io.save_trainer(j("p4_mom_ck"), src)
+    newer = e_trainer(4)
+    newer.global_step = 3
+    io.save_trainer(os.path.join(j("mm_root"), "step_3"), newer,
+                    extra_meta={"epoch": 0, "epoch_step": 3})
+    # dp 2 -> 4 restores of the JAX package's checkpoints
+    _reshard_case(res, "r2to4", j("j2_mom_ck"), e_trainer(4, momentum=True))
+    _reshard_case(res, "amp", j("j2_amp_ck"), e_trainer(4, strategy=_strategy(E_AMP)))
+    rules_tr = e_trainer(4, rules=e_rules(sharding.P))
+    _reshard_case(res, "rules", j("j2_rules_ck"), rules_tr)
+    w = rules_tr.scope.params["fc1/w"]
+    res["rules/spec"] = np.array(repr(sharding.spec_of(w.placements, rules_tr.mesh, w.dim())))
+    res["rules/local_shape"] = np.array(w.to_local().shape)
+    # an infeasible batch raises before any state changes, with the
+    # static finding's own text
+    tgt = e_trainer(4)
+    before = {k: _exact(v) for k, v in tgt.scope.params.items()}
+    small = {"x": np.zeros((2, E_DIM), np.float32), "label": np.zeros((2, 1), np.int64)}
+    finding = check_artifacts(trainer=tgt, checkpoint_dir=j("j2_sgd_ck"), sample_feed=small)
+    _reshard_error(res, "infeasible", lambda: resilience.reshard_restore(
+        j("j2_sgd_ck"), tgt, sample_feed=small))
+    res["infeasible/finding"] = np.array(
+        finding.by_code("ckpt:reshard-infeasible")[0].message)
+    res["infeasible/untouched"] = np.array(int(tgt.global_step == 0 and all(
+        np.array_equal(_exact(v), before[k]) for k, v in tgt.scope.params.items())))
+    # an elastic fit whose batch of 6 does not split 4 ways
+    _reshard_error(res, "fit6", lambda: e_fit(e_trainer(4), j("j_fit6"),
+                                              reader=e_reader(4, seed=5, bs=6), epochs=1,
+                                              resume=True, elastic=True))
+    # the fit the world of 2 resumes without elastic
+    e_fit(e_trainer(4), j("fit4"), epochs=1, step_interval=4)
+    # kill at step 5 by SIGTERM: the boundary checkpoint
+    def kill5(e):
+        if e.kind == "end_step" and e.step == 5:
+            os.kill(os.getpid(), signal.SIGTERM)
+    killed = e_fit(e_trainer(4), j("kill"), handler=kill5)
+    res["kill/global_step"] = np.array(killed.global_step)
+    # the K=2 run's checkpoint (the JAX package's, at dp=2) rejoined at K=3
+    _fit_losses(res, "k3", e_trainer(4), j("j_k2"), j("j_k2_ref"), 4, epochs=1,
+                steps_per_dispatch=3)
+    # the sharded restore across a mesh reshape: dp4 -> dp2 x fsdp2 (an
+    # async save, the step after it at once)
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import optimizer
+    feeds = mnist_like_head_feeds()
+    dp4 = pt.Trainer(pt.build(_e_head), optimizer.Adam(1e-2), place=pt.CPUPlace(),
+                     mesh=par.make_mesh({"dp": 4}), sharding_rules=par.replicated())
+    dp4.startup(0, sample_feed=feeds[0])
+    dp4.step(feeds[0])
+    saved = {k: _exact(v) for k, v in dp4.scope.params.items()}
+    io.save_trainer_sharded(j("mesh_sharded"), dp4, async_save=True)
+    dp4.step(feeds[1])
+    io.wait_for_checkpoints()
+    m22 = par.make_mesh({"dp": 2, "fsdp": 2})
+    tgt = pt.Trainer(pt.build(_e_head), optimizer.Adam(1e-2), place=pt.CPUPlace(), mesh=m22,
+                     sharding_rules=par.fsdp(min_size_to_shard=4))
+    tgt.startup(1, sample_feed=feeds[0])
+    io.load_trainer_sharded(j("mesh_sharded"), tgt)
+    res["reshape/equal"] = np.array(int(all(np.array_equal(_exact(tgt.scope.params[k]), v)
+                                            for k, v in saved.items())))
+    w = tgt.scope.params["head/w"]
+    res["reshape/spec"] = np.array(repr(sharding.spec_of(w.placements, m22, w.dim())))
+    res["reshape/local_shape"] = np.array(w.to_local().shape)
+    res["reshape/global_step"] = np.array(tgt.global_step)
+    res["reshape/next_loss"] = np.array(float(tgt.step(feeds[1])["loss"]))
+    dist.barrier()
+
+
+def _e_head(x, label):
+    """tests/test_orbax_checkpoint.py's model: one fc head 6 -> 4."""
+    from paddle_tpu_torch import layers as L
+    return {"loss": L.mean(L.softmax_with_cross_entropy(L.fc(x, 4, name="head"), label))}
+
+
+def mnist_like_head_feeds(n=2, seed=1):
+    rng = np.random.RandomState(seed)
+    return [{"x": rng.randn(8, E_DIM).astype(np.float32),
+             "label": rng.randint(0, 3, (8, 1)).astype(np.int64)} for _ in range(n)]
+
+
+def _strategy(kw):
+    import paddle_tpu_torch as pt
+    return pt.DistStrategy(**kw)
+
+
+def suite_elastic2(res, indir):
+    """dp=2: the restores of the one-device and dp=4 checkpoints, the
+    structured errors of the implicit paths, and the rejoin after the kill."""
+    from paddle_tpu_torch import io, resilience
+
+    j = lambda name: os.path.join(indir, name)  # noqa: E731
+    src = e_trainer(2, momentum=True)
+    src.step(E_FEED)
+    src.step(E_FEED)
+    io.save_trainer(j("p2_mom_ck"), src)
+    _reshard_case(res, "r1to2", j("p1_mom_ck"), e_trainer(2, momentum=True))
+    _reshard_case(res, "r4to2", j("p4_mom_ck"), e_trainer(2, momentum=True))
+    # the mismatch drill: step_1 at dp=2 beside the dp=4 step_3
+    old = e_trainer(2)
+    old.step(E_FEED)
+    io.save_trainer(os.path.join(j("mm_root"), "step_1"), old,
+                    extra_meta={"epoch": 0, "epoch_step": 1})
+    _reshard_error(res, "mm_load", lambda: io.load_trainer(
+        os.path.join(j("mm_root"), "step_3"), e_trainer(2)))
+    _reshard_error(res, "mm_latest", lambda: resilience.restore_latest(j("mm_root"),
+                                                                       e_trainer(2)))
+    tgt = e_trainer(2)
+    meta = resilience.restore_latest(j("mm_root"), tgt, elastic=True)
+    res["mm_elastic/global_step"] = np.array(tgt.global_step)
+    res["mm_elastic/meta_step"] = np.array(meta["global_step"])
+    # fit(resume=True) across the change, and elastic without resume
+    _reshard_error(res, "fit_resume", lambda: e_fit(e_trainer(2), j("fit4"), resume=True))
+    try:
+        e_fit(e_trainer(2), j("fit4"), elastic=True)
+        res["fit_elastic_alone"] = np.array("")
+    except Exception as e:  # EnforceError
+        res["fit_elastic_alone"] = np.array(f"{type(e).__name__}: {e}")
+    # the one-device checkpoint is gated at dp=2, and restores elastically
+    _reshard_error(res, "single_gate", lambda: io.load_trainer(j("p1_sgd_ck"), e_trainer(2)))
+    _reshard_case(res, "single_to2", j("p1_sgd_ck"), e_trainer(2))
+    # the rejoin at dp=2 after the dp=4 run's kill at step 5
+    _fit_losses(res, "rejoin", e_trainer(2), j("kill"), os.path.join(j("kill"), "step_5"), 2)
+
+
 SUITES = {"mesh": suite_mesh, "training": suite_training, "exchanges": suite_exchanges,
           "zero": suite_zero, "sequence": suite_sequence, "pipeline": suite_pipeline,
-          "moe": suite_moe}
+          "moe": suite_moe, "elastic4": suite_elastic4, "elastic2": suite_elastic2}
 
 
 def main():
