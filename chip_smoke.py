@@ -307,6 +307,25 @@ Phases, each reported on its own lines; any failure exits non-zero:
    checkpoint. Launch counts are zeroed around (a) (``sharded_checkpoint``)
    and around (b) and (c) (``elastic``), and the flash kernels' calls of
    (a)'s and (b)'s steps are held against their plain versions.
+21. the asynchronous parameter server (``parallel/async_ps.py``; the C++
+   pserver built with g++ from the port's copy of ``native/pserver.cc``),
+   nothing cut: (a) bench_gpt's bf16 GPT-base through a lone
+   ``AsyncPSTrainer`` against one ``PServerProcess(optimizer="sgd")``,
+   ``pull_interval=1``, one warm and 3 timed steps: step 0's loss bit-equal
+   to a local ``Trainer``'s on the same pulled params, after every step the
+   ``EXPORT`` of every param equal to f32(pulled) − lr·g from the grads the
+   step pushed, 12 launches of each flash kernel a step (their calls held
+   against the plain versions); ms a step split into pull, the grad step's
+   device ms (CUDA events), the copy to the host and the push, wire bytes
+   each way, the grad step's TFLOP/s by ``core/flops.py`` against
+   ``device_peak_flops``; the same steps through ``PUSHQB`` int8; (b)
+   bench_deepfm's f32 DeepFM: a lone async trainer against a local
+   ``Trainer(SGD)`` over 4 steps (rtol 2e-4), then two trainer processes on
+   the card (this script's ``--ps-trainer``) against a ``PSShardGroup`` of
+   2 servers, ``pull_interval=2``, 6 steps each, trainer 0 resizing to 3
+   servers after step 3 and trainer 1 rebinding: finite losses, every push
+   counted on the servers, none lost. Launch counts are zeroed around (a)
+   and (b) (``async_ps``).
 
 The last lines are a JSON ``kernels`` record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -342,9 +361,11 @@ TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 TRAIN_LR, TRAIN_WD = 1e-4, 0.01
 PARITY_TRAIN_BATCH, PARITY_TRAIN_SEQ, PARITY_TRAIN_STEPS = 2, 256, 3
 
-# H100 SXM published peaks (dense): HBM bytes/s and FLOP/s by operand type
+# H100 SXM published peaks (dense): HBM bytes/s, and the f32 rate of the CUDA
+# cores that bounds the f32 kernel cases; the bf16 peak is the port's
+# core/flops.py device_peak_flops (its table, keyed by the card's name)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+F32_PEAK_FLOPS = 67e12
 
 # kernel against its plain version: outputs o compared at TOL[dtype]
 # (f32: the same products summed in another order; bf16: two bf16 ulps
@@ -842,6 +863,17 @@ def _visible_pairs(q, k, kw):
     return int(vis.sum().item()) * h
 
 
+def peak_flops(dtype):
+    """The card's peak FLOP/s for operands of ``dtype``: F32_PEAK_FLOPS for
+    f32, else ``core/flops.device_peak_flops``'s bf16 peak (read once)."""
+    if dtype == "float32":
+        return F32_PEAK_FLOPS
+    if "bf16" not in READINGS.setdefault("peak", {}):
+        from paddle_tpu_torch.core import flops
+        READINGS["peak"]["bf16"] = flops.device_peak_flops()
+    return READINGS["peak"]["bf16"][0]
+
+
 def bound_of(q, k, v, kw, like=None, rows=1, products=2):
     """(bound_ms, bound_by): the larger of the bytes the call must move
     over HBM bandwidth and its multiply-adds over the peak rate of the
@@ -861,7 +893,7 @@ def bound_of(q, k, v, kw, like=None, rows=1, products=2):
     flops = 2 * products * q.shape[-1] * _visible_pairs(q, k, kw)
     dt = str(q.dtype).replace("torch.", "")
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dt]
+    t_ops = flops / peak_flops(dt)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -7022,6 +7054,453 @@ def phase_elastic(dev, seed, card_name):
     return sharded, elastic
 
 
+# phase 21: the asynchronous parameter server (parallel/async_ps.py, and the C++
+# pserver the port builds from its copy of native/pserver.cc) from the card,
+# nothing cut. (a) bench_gpt's bf16 GPT-base (TRAIN, batch 8 x seq 1024)
+# through a lone AsyncPSTrainer against one PServerProcess(optimizer="sgd",
+# lr=PS_LR), pull_interval=1: PS_WARMUP warm and PS_STEPS timed steps, step 0's
+# loss against a local Trainer's on the same pulled params (bit-equal), every
+# server update after every step against f32(pulled) - lr*g on the host from
+# the grads the step pushed (exact: the server computes w - lr*g in f32, as
+# numpy does), then the same steps through PUSHQB int8
+# (DistStrategy(quantized_allreduce="int8")). (b) bench_deepfm's config (f32,
+# batch 2048): a lone async trainer on an SGD server against a local
+# Trainer(SGD) over PS_DEEPFM_STEPS steps at PS_DEEPFM_RTOL (the JAX test's
+# tolerance, tests/test_async_ps.py:164-184: the card's update p - lr*g may
+# fuse into one FMA where the server rounds twice), then PS_TRAINERS trainer
+# processes on the card (this script's --ps-trainer) against a PSShardGroup of
+# 2 servers, pull_interval=PS_PULL_INTERVAL, PS_TRAINER_STEPS steps each, the
+# coordinator resizing to 3 servers after step PS_RESIZE_AT and the other
+# trainer rebinding.
+PS_LR, PS_WARMUP, PS_STEPS = 1e-4, 1, 3
+PS_DEEPFM_LR, PS_DEEPFM_STEPS, PS_DEEPFM_RTOL = 0.01, 4, 2e-4
+PS_TRAINERS, PS_TRAINER_STEPS, PS_PULL_INTERVAL, PS_RESIZE_AT = 2, 6, 2, 3
+PS_TRAINER_TIMEOUT = 300
+
+
+def _addr_list(text):
+    return [(h, int(p)) for h, p in (a.rsplit(":", 1) for a in text.split(","))]
+
+
+def ps_trainer_process(tid, addrs, seed, dev):
+    """One trainer process of (b): DeepFM at bench_deepfm's config on ``dev``
+    (the card), an AsyncPSTrainer over a PSShardGroup of ``addrs``, driven by lines
+    on stdin (``step``, ``resize <addrs>``, ``rebind <addrs>``, ``quit``),
+    answering each on stdout."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import deepfm
+    from paddle_tpu_torch.parallel import async_ps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    feeds = _deepfm_feeds(DEEPFM["sparse_feature_dim"])
+    tr = async_ps.AsyncPSTrainer(pt.build(deepfm.make_model(**DEEPFM)), _addr_list(addrs),
+                                 trainer_id=tid, pull_interval=PS_PULL_INTERVAL,
+                                 fetch_list=["loss"], device=dev)
+    tr.startup(seed, feeds[0])
+    print(f"READY {len(tr.params)}", flush=True)
+    for line in sys.stdin:
+        cmd, _, arg = line.strip().partition(" ")
+        if cmd == "step":
+            i = tr.global_step
+            loss = float(tr.step(feeds[(i + tid) % len(feeds)])["loss"])
+            print(f"LOSS {i} {loss!r}", flush=True)
+        elif cmd == "resize":
+            print(f"RESIZED {len(tr.client.resize(_addr_list(arg)))}", flush=True)
+        elif cmd == "rebind":
+            tr.client.rebind(_addr_list(arg))
+            print("REBOUND", flush=True)
+        elif cmd == "quit":
+            rep = tr.report()
+            print("DONE " + json.dumps({"pushes_lost": rep["pushes_lost"],
+                                        "pushes": rep["client"]["pushes"]}), flush=True)
+            tr.client.close()
+            return
+
+
+class _PSChild:
+    """A --ps-trainer process, its output lines read by a thread."""
+
+    def __init__(self, tid, addrs, seed, dev):
+        import queue
+        import threading
+        from paddle_tpu_torch.parallel import async_ps
+        env = async_ps.child_python_env()
+        env["OMP_NUM_THREADS"] = "2"
+        self.tid, self.leaves = tid, None
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--ps-trainer", str(tid),
+             ",".join(f"{h}:{p}" for h, p in addrs), str(seed), str(dev)],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, env=env)
+        self.lines, self.log = queue.Queue(), []
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.log.append(line)
+            self.lines.put(line.strip())
+        self.lines.put(None)
+
+    def ask(self, cmd, want, deadline):
+        """Send ``cmd`` (None: send nothing) and return the first reply line
+        starting with ``want``."""
+        import queue
+        if cmd is not None:
+            self.proc.stdin.write(cmd + "\n")
+            self.proc.stdin.flush()
+        while True:
+            try:
+                line = self.lines.get(timeout=max(0.1, deadline - time.perf_counter()))
+            except queue.Empty:
+                line = None
+            check(line is not None, f"async ps (b): trainer {self.tid} gave no {want!r} "
+                  f"(exit {self.proc.poll()}):\n" + "".join(self.log)[-3000:])
+            if line.startswith(want):
+                return line[len(want):].strip()
+
+    def wait_ready(self, deadline):
+        """The param count of the trainer's READY line, read once: after it
+        the process waits on stdin and uses neither the host nor the card."""
+        if self.leaves is None:
+            self.leaves = int(self.ask(None, "READY", deadline))
+        return self.leaves
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+
+
+def _timed_parts(tr):
+    """Wrap the trainer's step parts to time them: pull (host ms, ended by a
+    synchronize), the grad step (CUDA events, device ms), the copy to the
+    host and the push (host ms). Returns {part: [ms a step]}."""
+    import torch
+    times = collections.defaultdict(list)
+
+    def host_timed(name, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    grad_step = tr._grad_step
+
+    def device_timed(*a, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = grad_step(*a, **kw)
+        end.record()
+        end.synchronize()
+        times["grad_device"].append(start.elapsed_time(end))
+        return out
+
+    tr._pull_into = host_timed("pull", tr._pull_into)
+    tr._grad_step = device_timed
+    tr._host_grads = host_timed("to_host", tr._host_grads)
+    tr._push = host_timed("push", tr._push)
+    return times
+
+
+def _ps_status(addr):
+    from paddle_tpu_torch.parallel import async_ps
+    c = async_ps.PSClient(addr)
+    try:
+        return c.status()
+    finally:
+        c.close()
+
+
+def _loopback_gbps(nbytes):
+    """GB/s of one ``nbytes`` transfer over a localhost TCP connection between
+    two threads of this process (sendall against recv_into): the ceiling of
+    a pull or push on this machine's loopback."""
+    import socket
+    import threading
+    srv = socket.create_server(("127.0.0.1", 0))
+    payload = bytearray(nbytes)
+
+    def send():
+        conn, _ = srv.accept()
+        with conn:
+            conn.sendall(payload)
+
+    t = threading.Thread(target=send)
+    t.start()
+    buf, got = memoryview(bytearray(nbytes)), 0
+    with socket.create_connection(srv.getsockname()) as c:
+        t0 = time.perf_counter()
+        while got < nbytes:
+            got += c.recv_into(buf[got:], nbytes - got)
+        secs = time.perf_counter() - t0
+    t.join()
+    srv.close()
+    return nbytes / secs / 1e9
+
+
+def _ps_steps(tr, feeds, on_step=None):
+    """PS_WARMUP + PS_STEPS steps of ``tr``; returns (losses, {part: ms} of the
+    timed steps' medians, step ms, wire bytes a step sent and received)."""
+    import numpy as np
+    import torch
+    times = _timed_parts(tr)
+    losses, step_ms, sent, recv = [], [], [], []
+    for i, f in enumerate(feeds):
+        b0, r0 = tr.client.bytes_sent, tr.client.bytes_received
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(tr.step(f)["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        sent.append(tr.client.bytes_sent - b0)
+        recv.append(tr.client.bytes_received - r0)
+        if on_step is not None:
+            on_step(i)
+    med = {k: float(np.median(v[PS_WARMUP:])) for k, v in times.items()}
+    return (losses, med, float(np.median(step_ms[PS_WARMUP:])), int(np.median(sent[PS_WARMUP:])),
+            int(np.median(recv[PS_WARMUP:])))
+
+
+def ps_gpt(dev, seed, card_name, settle):
+    """(a); returns the flash launches of the async steps. ``settle()`` is
+    called before the first step, and returns once no other process of the
+    phase competes for the host or the card while the steps are timed."""
+    import gc
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core import flops
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.parallel import async_ps
+
+    cfg = gpt.base_config(**TRAIN)
+    feeds = _train_feeds(np.random.RandomState(6), PS_WARMUP + PS_STEPS, TRAIN_BATCH,
+                         TRAIN_SEQ, cfg.vocab_size)
+    tflop = flops.gpt_train_flops(TRAIN_BATCH, TRAIN_SEQ, cfg) / 1e12
+    peak, peak_src = flops.device_peak_flops(dev)
+    launches = dict.fromkeys(_launch_counts(fa), 0)
+    with async_ps.PServerProcess(lr=PS_LR, optimizer="sgd") as srv:
+        t0 = time.perf_counter()
+        tr = async_ps.AsyncPSTrainer(pt.build(gpt.make_model(cfg)), srv.addr,
+                                     fetch_list=["loss"], device=dev)
+        tr.startup(seed, feeds[0])
+        start_s = time.perf_counter() - t0
+        names = [n for n, _ in async_ps._named_leaves(tr.params)]
+        n_elems = sum(p.numel() for p in tr.params.values())
+        # step 0's loss from a local Trainer on the same pulled params
+        local = pt.Trainer(pt.build(gpt.make_model(cfg)), pt.optimizer.SGD(PS_LR),
+                           fetch_list=["loss"], device=dev).startup(
+                               seed, feeds[0], params={k: p.detach() for k, p in
+                                                       tr.params.items()})
+        local_loss = float(local.step(feeds[0])["loss"])
+        del local
+        gc.collect()
+        torch.cuda.empty_cache()
+        # what each step pulled and pushed, for the server's updates
+        pulled, pushed, wire_ms = {}, {}, []
+        pull, host_grads = tr.client.pull, tr._host_grads
+
+        def keep_pull(name, *a, **kw):
+            t1 = time.perf_counter()
+            pulled[name] = out = pull(name, *a, **kw)
+            wire_ms.append((time.perf_counter() - t1) * 1e3)
+            return out
+
+        def keep_grads(grads):
+            out = host_grads(grads)
+            pushed.update(out)
+            return out
+
+        tr.client.pull, tr._host_grads = keep_pull, keep_grads
+        lr32, worst = np.float32(PS_LR), []
+        reader = async_ps.PSClient(srv.addr)
+        counts = []
+        settle()
+
+        def after(i):
+            counts.append(_launch_counts(fa))
+            bad = [n for n in names if not np.array_equal(
+                reader.export_param(n)[0], (pulled[n] - lr32 * pushed[n]).reshape(-1))]
+            worst.append(len(bad))
+
+        _zero_launch_counts(fa)
+        # ---- the main path (a), PUSH
+        with record_kernel_calls(fa) as calls:
+            losses, med, step_ms, sent, recv = _ps_steps(tr, feeds, after)
+        torch.cuda.synchronize()
+        for k in launches:
+            launches[k] += counts[-1][k]
+        per_step = [{k: c[k] - (counts[i - 1][k] if i else 0) for k in c}
+                    for i, c in enumerate(counts)]
+        status = reader.status()
+        reader.close()
+        tr.client.close()
+    # the pulls' own share of the pull: the requests and bodies, without the
+    # copies into the params (the last timed step's)
+    pull_wire = sum(wire_ms[-len(names):])
+    loopback = _loopback_gbps(n_elems * 4)
+    grad_tflops = tflop / (med["grad_device"] / 1e3)
+    say(f"async ps (a) ({card_name}): bench_gpt's bf16 GPT-base b={TRAIN_BATCH} "
+        f"s={TRAIN_SEQ}, {len(names)} params, {n_elems} elements, through a lone "
+        f"AsyncPSTrainer on PServerProcess(sgd, lr={PS_LR}), pull_interval=1 (PUSH): startup "
+        f"(init, INIT, pull) {start_s:.2f} s; losses {losses}, step 0 {losses[0]!r} against a "
+        f"local Trainer's {local_loss!r} on the same pulled params (bit-equal "
+        f"{losses[0] == local_loss}); server updates unequal to f32(pulled) - lr*g after each "
+        f"step: {worst} params; median of {PS_STEPS} timed steps: {step_ms:.1f} ms a step = "
+        f"pull {med['pull']:.1f} (its requests and bodies {pull_wire:.1f} in the last step, "
+        f"the rest the copies into the params) + grad step {med['grad_device']:.2f} device ms "
+        f"+ copy to the host {med['to_host']:.1f} + push {med['push']:.1f} (the grad step "
+        f"{med['grad_device'] / step_ms:.1%} of the step); wire a step {sent} bytes sent, "
+        f"{recv} received, {sent / med['push'] / 1e6:.3f} GB/s pushed and "
+        f"{recv / pull_wire / 1e6:.3f} pulled against this machine's loopback TCP "
+        f"{loopback:.3f} GB/s (one {n_elems * 4}-byte transfer between two threads); the grad step {tflop:.3f} TFLOP by core/flops.py gpt_train_flops, "
+        f"{grad_tflops:.1f} TFLOP/s, {grad_tflops * 1e12 / peak:.1%} of {peak / 1e12:.0f} "
+        f"TFLOP/s ({peak_src}); flash launches a step {per_step}; server {status}")
+    check(all(np.isfinite(losses)), "async ps (a): a loss is not finite")
+    check(losses[0] == local_loss, "async ps (a): step 0's loss differs from the local "
+          "Trainer's on the same params")
+    check(worst == [0] * len(feeds), "async ps (a): a server update differs from "
+          "f32(pulled) - lr*g")
+    check(all(c == {k: TRAIN["num_layers"] for k in c} for c in per_step),
+          f"async ps (a): a step did not launch {TRAIN['num_layers']} of each flash kernel")
+    check(status["pushes"] == len(feeds) * len(names), "async ps (a): pushes lost")
+    check_recorded(fa, calls, "async ps (a)")
+    del tr, pulled, pushed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same steps through PUSHQB int8
+    with async_ps.PServerProcess(lr=PS_LR, optimizer="sgd") as srv:
+        tr = async_ps.AsyncPSTrainer(pt.build(gpt.make_model(cfg)), srv.addr,
+                                     fetch_list=["loss"], device=dev,
+                                     strategy=pt.DistStrategy(quantized_allreduce="int8"))
+        tr.startup(seed, feeds[0])
+        _zero_launch_counts(fa)
+        # ---- the main path (a), PUSHQB
+        q_losses, q_med, q_step_ms, q_sent, q_recv = _ps_steps(tr, feeds)
+        torch.cuda.synchronize()
+        for k, n in _launch_counts(fa).items():
+            launches[k] += n
+        q_status = _ps_status(srv.addr)
+        tr.client.close()
+    say(f"async ps (a) PUSHQB int8 blocks of {tr.quant_block} ({card_name}): losses "
+        f"{q_losses}; {q_step_ms:.1f} ms a step = pull {q_med['pull']:.1f} + grad step "
+        f"{q_med['grad_device']:.2f} device ms + copy {q_med['to_host']:.1f} + encode and push "
+        f"{q_med['push']:.1f}; wire a step {q_sent} bytes sent ({q_sent / sent:.3f} of PUSH's), "
+        f"{q_recv} received; server {q_status}")
+    check(all(np.isfinite(q_losses)), "async ps (a) PUSHQB: a loss is not finite")
+    check(q_status["qpushes"] == q_status["pushes"] == len(feeds) * len(names),
+          "async ps (a) PUSHQB: not every push went as PUSHQB")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ps_deepfm(dev, seed, card_name, children, group, spare):
+    """(b): the lone trainer against local SGD, then the trainer processes."""
+    import numpy as np
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import deepfm
+    from paddle_tpu_torch.parallel import async_ps
+
+    feeds = _deepfm_feeds(DEEPFM["sparse_feature_dim"])
+    with async_ps.PServerProcess(lr=PS_DEEPFM_LR, optimizer="sgd") as srv:
+        tr = async_ps.AsyncPSTrainer(pt.build(deepfm.make_model(**DEEPFM)), srv.addr,
+                                     fetch_list=["loss"], device=dev)
+        p0 = {k: v.detach().clone() for k, v in tr.startup(seed, feeds[0]).items()}
+        t0 = time.perf_counter()
+        lone = [float(tr.step(feeds[i % len(feeds)])["loss"]) for i in range(PS_DEEPFM_STEPS)]
+        lone_ms = (time.perf_counter() - t0) * 1e3 / PS_DEEPFM_STEPS
+        tr.client.close()
+    local = pt.Trainer(pt.build(deepfm.make_model(**DEEPFM)), pt.optimizer.SGD(PS_DEEPFM_LR),
+                       fetch_list=["loss"], place=dev).startup(seed, feeds[0], params=p0)
+    want = [float(local.step(feeds[i % len(feeds)])["loss"]) for i in range(PS_DEEPFM_STEPS)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lone, want))
+    say(f"async ps (b) ({card_name}): f32 DeepFM at bench_deepfm's config (b={DEEPFM_BATCH}), "
+        f"a lone AsyncPSTrainer on PServerProcess(sgd, lr={PS_DEEPFM_LR}): losses {lone} "
+        f"({lone_ms:.1f} ms a step) against a local Trainer(SGD) from the same params {want}, "
+        f"max rel {rel:.3g} (tol {PS_DEEPFM_RTOL})")
+    check(all(np.isfinite(lone)) and rel <= PS_DEEPFM_RTOL,
+          "async ps (b): the lone async trainer differs from local SGD")
+
+    deadline = time.perf_counter() + PS_TRAINER_TIMEOUT
+    leaves = [c.wait_ready(deadline) for c in children]
+    losses = {c.tid: [] for c in children}
+    moved = None
+    t0 = time.perf_counter()
+    for step in range(PS_TRAINER_STEPS):
+        if step == PS_RESIZE_AT:
+            new = ",".join(f"{h}:{p}" for h, p in group + [spare])
+            moved = int(children[0].ask(f"resize {new}", "RESIZED", deadline))
+            for c in children[1:]:
+                c.ask(f"rebind {new}", "REBOUND", deadline)
+        for c in children:
+            losses[c.tid].append(float(c.ask("step", "LOSS", deadline).split()[1]))
+    ms = (time.perf_counter() - t0) * 1e3 / (PS_TRAINER_STEPS * len(children))
+    done = [json.loads(c.ask("quit", "DONE", deadline)) for c in children]
+    pushes = sum(_ps_status(a)["pushes"] for a in group + [spare])
+    want_pushes = len(children) * PS_TRAINER_STEPS * leaves[0]
+    say(f"async ps (b) ({card_name}): {len(children)} trainer processes on the card, "
+        f"PSShardGroup of {len(group)} servers, pull_interval={PS_PULL_INTERVAL}, "
+        f"{PS_TRAINER_STEPS} steps each ({ms:.1f} ms a step, the steps in turn); resized to "
+        f"{len(group) + 1} servers after step {PS_RESIZE_AT} by trainer 0 ({moved} of "
+        f"{leaves[0]} params moved), trainer 1 rebound; losses {losses}; pushes on the servers "
+        f"{pushes} (want {want_pushes}), per trainer {done}")
+    check(len(set(leaves)) == 1, "async ps (b): the trainers' param counts differ")
+    check(all(np.isfinite(v).all() and len(v) == PS_TRAINER_STEPS for v in losses.values()),
+          "async ps (b): a trainer's loss is not finite")
+    check(pushes == want_pushes and all(d["pushes_lost"] == 0 for d in done),
+          "async ps (b): a push was lost")
+
+
+def phase_async_ps(dev, seed, card_name):
+    """Phase 21: the trainer processes of (b) start first (their import and
+    startup overlap (a)'s set-up, and (a) waits for their READY before its
+    steps), then (a), then (b). Returns (a)'s flash launches ((b) runs
+    none)."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.parallel import async_ps
+
+    t0 = time.perf_counter()
+    servers = [async_ps.PServerProcess(lr=PS_DEEPFM_LR, optimizer="sgd") for _ in range(3)]
+    children = []
+    try:
+        group, spare = [s.addr for s in servers[:2]], servers[2].addr
+        children = [_PSChild(i, group, seed, dev) for i in range(PS_TRAINERS)]
+
+        def settle():
+            deadline = time.perf_counter() + PS_TRAINER_TIMEOUT
+            for c in children:
+                c.wait_ready(deadline)
+
+        with pt.amp_guard("bfloat16"):
+            launches = ps_gpt(dev, seed, card_name, settle)
+        say(f"phase 21 (a) done in {time.perf_counter() - t0:.1f} s")
+        _zero_launch_counts(fa)
+        # ---- the main path (b)
+        ps_deepfm(dev, seed, card_name, children, group, spare)
+        torch.cuda.synchronize()
+        launches = {k: v + _launch_counts(fa)[k] for k, v in launches.items()}
+        # ---- end of (b)
+    finally:
+        for c in children:
+            c.stop()
+        for s in servers:
+            s.stop()
+    say(f"phase 21: launches {launches}; {time.perf_counter() - t0:.1f} s")
+    check(all(n > 0 for n in launches.values()),
+          f"phase 21: a flash kernel never launched ({launches})")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _routes(fa, torch):
     """The route table's choices, as the kernels record reports them."""
     return {"bfloat16": fa.ROUTES[(torch.bfloat16, 64)],
@@ -7034,10 +7513,16 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     # one rank of phase 20 (b)'s CPU world, which this script spawns itself
     ap.add_argument("--elastic-world-rank", nargs=4, help=argparse.SUPPRESS)
+    # one trainer process of phase 21 (b), which this script spawns itself
+    ap.add_argument("--ps-trainer", nargs=4, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.elastic_world_rank:
         rank, world, port, outdir = args.elastic_world_rank
         elastic_world_rank(int(rank), int(world), int(port), outdir)
+        return 0
+    if args.ps_trainer:
+        tid, addrs, seed, dev = args.ps_trainer
+        ps_trainer_process(int(tid), addrs, int(seed), dev)
         return 0
 
     import torch
@@ -7164,6 +7649,11 @@ def main(argv=None) -> int:
     # inside, around each path)
     sharded, elastic = phase_elastic(dev, args.seed, smi)
     done("phase 20")
+
+    # 21. the asynchronous parameter server: GPT-base and DeepFM through the
+    # C++ pserver (launch counts zeroed inside, around each path)
+    async_ps = phase_async_ps(dev, args.seed, smi)
+    done("phase 21")
     by_path = {name: {"served": served[name], "training": trained[name],
                       "persistence": persisted[name], "resnet": resnet_launches[name],
                       **{path: n[name] for path, n in seq2seq.items()},
@@ -7173,7 +7663,7 @@ def main(argv=None) -> int:
                       "multi_gpu": multi_gpu[name], "pipeline": second["pipeline"][name],
                       "pp_world_of_one": second["pp_world_of_one"][name],
                       "moe": second["moe"][name], "sharded_checkpoint": sharded[name],
-                      "elastic": elastic[name]}
+                      "elastic": elastic[name], "async_ps": async_ps[name]}
                for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 
     # the kernels record: each kernel's row at the training path's shape,

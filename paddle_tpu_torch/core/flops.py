@@ -13,10 +13,84 @@ accounting):
   an overcount).
 
 A step's TFLOP/s is these FLOPs over its wall time; MFU divides that by
-the card's peak.
+the card's peak (:func:`device_peak_flops`).
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
+
+# -- the card's peak (flops.py:26-92) -----------------------------------------
+
+# bf16 dense peak FLOP/s of one CUDA device, by a substring of its lowercased
+# ``torch.cuda.get_device_name`` (first match wins: the PCIe and NVL parts
+# before the SXM part's plain "h100"). Sources: NVIDIA's H100 data sheet
+# (dense, without sparsity).
+_PEAK_BF16 = [
+    ("h100 pcie", 756e12),
+    ("h100 nvl", 835e12),
+    ("h100", 989e12),   # H100 SXM5, "NVIDIA H100 80GB HBM3"
+]
+
+
+def device_peak_flops(device=None, dtype: str = "bfloat16") -> Tuple[float, str]:
+    """(peak FLOP/s, source) of one device (default: the card if there is
+    one, else the CPU). The table holds bf16 peaks, returned whatever
+    ``dtype`` is asked for: MFU is bf16-denominated, so an f32 config shows
+    its (real) utilization hit. A device the table lacks (the CPU, another
+    card) falls back to a measured large-matmul rate."""
+    import torch
+
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = torch.device(device)
+    if device.type == "cuda":
+        kind = torch.cuda.get_device_name(device).lower()
+        for sub, peak in _PEAK_BF16:
+            if sub in kind:
+                return peak, f"table:{kind}"
+    return measured_matmul_peak(device=device, dtype=dtype), "measured_matmul"
+
+
+def measured_matmul_peak(device=None, dtype: str = "bfloat16", n: Optional[int] = None,
+                         iters: int = 4) -> float:
+    """Achieved FLOP/s of a chain of four n×n×n ``torch.matmul`` calls, timed
+    ``iters`` times after one warm chain: a practical peak proxy on devices
+    missing from the table. n is 1024 on the CPU and 4096 on the card. A
+    measurement, not a kernel."""
+    import time
+
+    import torch
+
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = torch.device(device)
+    if n is None:  # keep the CPU fallback cheap; the card gets a real tile
+        n = 1024 if device.type == "cpu" else 4096
+    dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    a = torch.ones((n, n), dtype=dt, device=device)
+    b = torch.ones((n, n), dtype=dt, device=device)
+
+    def chain(a, b):
+        for _ in range(4):
+            a = torch.matmul(a, b)
+        return a
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    chain(a, b)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = chain(a, b)
+    sync()
+    dtm = time.perf_counter() - t0
+    return 2.0 * n ** 3 * 4 * iters / dtm
+
+
+# -- the transformer family --------------------------------------------------
 
 
 def _attn_train_flops(tokens: int, seq: int, d_model: int, layers: int,
@@ -41,6 +115,37 @@ def transformer_train_flops(bs: int, seq: int, cfg) -> float:
     f += _attn_train_flops(tokens, seq, d, cfg.num_decoder_layers, causal=True)
     f += _attn_train_flops(tokens, seq, d, cfg.num_decoder_layers, causal=False)
     f += 6.0 * d * cfg.trg_vocab * tokens  # output projection
+    return f
+
+
+def gpt_train_flops(bs: int, seq: int, cfg) -> float:
+    """Train-step FLOPs of the decoder-only LM (``models/gpt.py``;
+    flops.py:120): the causal stack (attention halved) and the LM head over
+    every token."""
+    d, di, L = cfg.d_model, cfg.d_inner, cfg.num_layers
+    tokens = bs * seq
+    f = 6.0 * (4 * d * d + 2 * d * di) * tokens * L
+    f += _attn_train_flops(tokens, seq, d, L, causal=True)
+    f += 6.0 * d * cfg.vocab_size * tokens  # lm head
+    return f
+
+
+def gpt_decode_flops(bs: int, prompt: int, new_tokens: int, cfg) -> float:
+    """Forward-only FLOPs of prefill(prompt) and the incremental decode steps
+    the generator runs (flops.py:131): the first generated token comes from
+    the prefill's own head eval, so only new_tokens-1 incremental stack steps
+    run, with new_tokens head evals in all (forward only, no ×3; an
+    undercount, never an overcount)."""
+    d, di, L = cfg.d_model, cfg.d_inner, cfg.num_layers
+    params = (4 * d * d + 2 * d * di) * L
+    inc = max(new_tokens - 1, 0)
+    tokens = bs * (prompt + inc)
+    f = 2.0 * params * tokens
+    f += 2.0 * d * cfg.vocab_size * bs * new_tokens  # head: prefill + inc steps
+    # prefill causal attention (halved, forward only) + per-step cache attention
+    f += _attn_train_flops(bs * prompt, prompt, d, L, causal=True) / 3.0
+    avg_ctx = prompt + inc / 2.0
+    f += 4.0 * L * avg_ctx * d * bs * inc
     return f
 
 
@@ -244,6 +349,8 @@ def convnet_train_flops(fwd_flops_per_image: float, bs: int) -> float:
 
 
 __all__ = ["alexnet_fwd_flops", "bert_train_flops", "convnet_train_flops",
-           "deepfm_train_flops", "googlenet_fwd_flops", "mlp_train_flops",
-           "resnet_fwd_flops", "se_resnext_fwd_flops", "transformer_train_flops",
+           "deepfm_train_flops", "device_peak_flops", "googlenet_fwd_flops",
+           "gpt_decode_flops", "gpt_train_flops", "lstm_train_flops",
+           "measured_matmul_peak", "mlp_train_flops", "resnet_fwd_flops",
+           "se_resnext_fwd_flops", "seq2seq_train_flops", "transformer_train_flops",
            "vgg_fwd_flops"]

@@ -73,9 +73,11 @@ interleaved rest order once, and checkpoints go through
 :meth:`Trainer.stacked_to_logical` so they stay in logical layer order.
 The fetched outputs come back as full tensors on every rank.
 
+``DistStrategy(async_mode=True)`` raises :class:`EnforceError` pointing to
+``parallel.AsyncPSTrainer``, as the JAX Trainer does.
+
 Not carried yet, each raising :class:`NotYetPorted` with the slice that
-brings it: the ``DistStrategy`` fields of the
-parameter server and the program dump, feed wire formats, on-device augmentation, the HBM
+brings it: the ``DistStrategy`` field of the program dump, feed wire formats, on-device augmentation, the HBM
 dataset cache and interval profile events; the journal and telemetry of
 checkpoint saves, resizes and guard incidents come with the observability
 slice.
@@ -437,6 +439,11 @@ class Trainer:
         self.optimizer = optimizer
         self.loss_name = loss_name
         self.fetch_list = list(fetch_list) if fetch_list is not None else None
+        enforce(not getattr(strategy, "async_mode", False),
+                "DistStrategy.async_mode (DistributeTranspiler sync_mode="
+                "False) selects barrier-free parameter-server training — "
+                "use parallel.AsyncPSTrainer with a parallel.PServerProcess "
+                "instead of the SPMD Trainer")
         self.strategy = strategy
         self.loss_scaler = _loss_scaler(strategy)
         _strategy_accum(strategy)

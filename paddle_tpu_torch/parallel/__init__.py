@@ -2,14 +2,15 @@
 ranks of a ``torch.distributed`` world, sharding rules as DTensor
 placements, the :class:`DistStrategy` knobs, ZeRO, the quantized gradient
 exchange, sequence parallelism through ring and Ulysses attention,
-pipeline parallelism over stacked layers, and the mixture of experts with
-expert parallelism.
-
-The asynchronous parameter server comes later (ROADMAP queue 1, item
-21 (e)); sharded checkpoints are ``io.save_sharded`` and its siblings."""
+pipeline parallelism over stacked layers, the mixture of experts with
+expert parallelism, and the asynchronous parameter server
+(:mod:`async_ps`: ``PServerProcess`` runs the C++ pserver,
+``AsyncPSTrainer`` pushes gradients to it). Sharded checkpoints are
+``io.save_sharded`` and its siblings."""
 
 from . import api, mesh, quantized_collectives, ring_attention, sharding, strategy, ulysses
-from . import moe, pipeline, zero
+from . import async_ps, moe, pipeline, zero
+from .async_ps import AsyncPSTrainer, PSClient, PServerProcess
 from .moe import moe_ep_rules
 from .pipeline import bubble_fraction, interleave_perm, pipeline_apply
 from .mesh import (DATA_AXES, DP, EP, FSDP, PP, SP, TP, AbstractMesh, DistributedInitError,
@@ -22,7 +23,7 @@ from .strategy import DistStrategy, unported_fields
 from .ulysses import ulysses_attention
 
 __all__ = [
-    "api", "mesh", "moe", "pipeline", "quantized_collectives", "ring_attention",
+    "api", "async_ps", "mesh", "moe", "pipeline", "quantized_collectives", "ring_attention",
     "sharding", "strategy", "ulysses", "zero",
     "bubble_fraction", "interleave_perm", "moe_ep_rules", "pipeline_apply",
     "quantized_pmean", "quantized_psum", "ring_attention_fn", "ulysses_attention",
@@ -30,4 +31,5 @@ __all__ = [
     "Mesh", "data_axis_names", "data_parallel_size", "initialize", "make_mesh",
     "P", "PartitionSpec", "ShardingRules", "ShardingRuleWarning", "fsdp", "replicated",
     "transformer_tp_rules", "DistStrategy", "unported_fields",
+    "AsyncPSTrainer", "PSClient", "PServerProcess",
 ]

@@ -12,9 +12,12 @@ accumulation (``accum_steps``), on the optimizer state's storage dtype
 ``quant_block_size``, ``error_feedback``, ``quant_stochastic_rounding``),
 ZeRO (``zero_sharding``), sequence parallelism (``sequence_parallel``,
 ``sp_impl``) and pipeline parallelism (``pp_microbatches``,
-``pp_interleave``). ``Trainer`` raises :class:`NotYetPorted` for any other
-field set away from its default (the parameter server, the program dump),
-naming the ROADMAP item that brings it (:func:`unported_fields`).
+``pp_interleave``). ``async_mode`` selects the asynchronous parameter
+server: ``Trainer`` refuses it and points to
+``parallel.AsyncPSTrainer``, as the JAX Trainer does. ``Trainer`` raises
+:class:`NotYetPorted` for any other field set away from its default (the
+program dump), naming the ROADMAP item that brings it
+(:func:`unported_fields`).
 """
 
 from __future__ import annotations
@@ -68,13 +71,11 @@ PORTED_FIELDS = ("loss_scale", "dynamic_loss_scale", "loss_scale_growth_interval
                  "reduce_strategy", "accum_exchange", "zero_sharding",
                  "sequence_parallel", "sp_impl", "quantized_allreduce",
                  "quant_block_size", "error_feedback", "quant_stochastic_rounding",
-                 "donate_buffers", "pp_microbatches", "pp_interleave")
+                 "donate_buffers", "pp_microbatches", "pp_interleave", "async_mode")
 
-_MULTI_GPU = "slice 9, multi-GPU"
 # field -> the ROADMAP queue 1 item that brings it
 _LATER = {
     "dump_hlo_path": "item 25 (the program's graph form)",
-    "async_mode": f"item 21 ({_MULTI_GPU}: the asynchronous parameter server)",
 }
 
 
@@ -86,7 +87,7 @@ def unported_fields(strategy: DistStrategy) -> Dict[str, str]:
     for f in dataclasses.fields(DistStrategy):
         if f.name in PORTED_FIELDS or getattr(strategy, f.name) == f.default:
             continue
-        out[f.name] = "ROADMAP queue 1, " + _LATER.get(f.name, f"item 20 ({_MULTI_GPU})")
+        out[f.name] = "ROADMAP queue 1, " + _LATER[f.name]
     return out
 
 

@@ -334,8 +334,9 @@ def test_dropout_in_training_is_not_ported():
 @pytest.mark.parametrize("kw", ["strategy", "feed_wire", "augment"])
 def test_trainer_options_of_later_slices_raise(kw):
     # a strategy raises for its fields of later slices (loss scaling,
-    # remat, accumulation and the multi-GPU slice's pipeline are ported)
-    value = DistStrategy(async_mode=True) if kw == "strategy" else object()
+    # remat, accumulation, the multi-GPU slice and the parameter server are
+    # ported; the program dump is not)
+    value = DistStrategy(dump_hlo_path="/x") if kw == "strategy" else object()
     with pytest.raises(NotYetPorted):
         Trainer(_program(), topt.AdamW(LR), device=CPU, **{kw: value})
 

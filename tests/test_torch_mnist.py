@@ -200,8 +200,9 @@ def test_fit_elastic_and_resize_are_ported(arg, tmp_path):
 @pytest.mark.parametrize("kw", ["strategy", "feed_wire", "augment"])
 def test_trainer_arguments_of_later_slices_raise(kw):
     # a strategy raises for its fields of later slices (loss scaling, remat,
-    # accumulation and the multi-GPU slice's pipeline are ported)
-    value = tpt.DistStrategy(async_mode=True) if kw == "strategy" else object()
+    # accumulation, the multi-GPU slice and the parameter server are ported;
+    # the program dump is not)
+    value = tpt.DistStrategy(dump_hlo_path="/x") if kw == "strategy" else object()
     with pytest.raises(NotYetPorted):
         tpt.Trainer(tpt.build(tmnist.mlp), topt.SGD(0.05), place=CPU, **{kw: value})
 

@@ -95,7 +95,8 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.ops._dtensor", "paddle_tpu_torch.parallel.pipeline",
             "paddle_tpu_torch.parallel.moe", "paddle_tpu_torch.models.moe_transformer",
             "paddle_tpu_torch.analysis", "paddle_tpu_torch.analysis.report",
-            "paddle_tpu_torch.analysis.contracts", "paddle_tpu_torch.analysis.rules"]
+            "paddle_tpu_torch.analysis.contracts", "paddle_tpu_torch.analysis.rules",
+            "paddle_tpu_torch.parallel.async_ps", "paddle_tpu_torch.native"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -230,6 +231,8 @@ def _entry_points(tmp_path):
                                     num_heads=2, num_encoder_layers=2,
                                     num_decoder_layers=2, stacked=True))),
             optimizer.Adam(1e-3), strategy=parallel.DistStrategy(pp_microbatches=2)),
+        # refuses before it connects: no server listens at this address
+        "AsyncPSTrainer": lambda: parallel.AsyncPSTrainer(build(mnist.mlp), ("127.0.0.1", 9)),
     }
 
 
@@ -259,7 +262,7 @@ def _cuda_mesh(parallel):
                                    "seq2seq.make_decoder", "create_lod_tensor",
                                    "beam_search_decode_lod", "parallel.initialize",
                                    "Trainer_mesh", "Trainer_moe", "Trainer_pipeline",
-                                   "io.load_sharded"])
+                                   "io.load_sharded", "AsyncPSTrainer"])
 def test_entry_points_refuse_to_run_without_a_card(tmp_path, entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the entry points run on it")
