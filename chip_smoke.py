@@ -19,7 +19,7 @@ Phases, each reported on its own lines; any failure exits non-zero:
    its mask convention matches) and the card's least time for the same
    work;
 4. parity — full-width GPT-base (random weights from ``--seed``) in f32:
-   ``make_generator`` on the card (kernel) against the CPU (plain
+   ``build(make_generator)`` on the card (kernel) against the CPU (plain
    versions) from the same weights; 12 kernel launches per generate call;
 3b. backward — the two flash-attention backward kernels (dQ; dK/dV)
    against their plain PyTorch version on the card, on both routes (bf16
@@ -148,8 +148,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
    device's busy share, device time and operations a step of profiled
    eager steps and of a profiled dispatch;
 13. captured decode — the GPT generator's decode steps as one captured
-   CUDA graph of a step, replayed (``GPTGenerator.__call__``), against
-   the same decode as a plain loop (``_generate_eager``), bf16 GPT-base at
+   CUDA graph of a step, replayed (``build(gpt.make_generator(...))``
+   applied), against the same decode as a plain loop (under
+   ``_captured_decode.eager_decode``), bf16 GPT-base at
    phase 5's config, bucket 8, with the launch counts zeroed just before
    the phase and read just after it: (a) greedy: ids bit-equal, ms per
    decode step and generated tokens/s a call of each (in turns), a
@@ -179,7 +180,7 @@ Phases, each reported on its own lines; any failure exits non-zero:
    the flash forward's launches a step (12, or 24 recomputed), the steps'
    losses, one batch's grads and the params after the steps against
    remat off; the remat-off trainer's scope served by
-   ``GPTGenerator.load_params``; (c)
+   ``build(gpt.make_generator(...))``; (c)
    ``TransformerConfig(stacked=True)`` at bench.py's ``BENCH_STACKED=1``
    config, eager against captured (K=4) bit for bit beside phase 11 (b)'s
    unrolled model, and stacked transformer_long (K=2) with every flash
@@ -283,11 +284,11 @@ Phases, each reported on its own lines; any failure exits non-zero:
    combine products' share of device time. Launch counts are zeroed
    around (a)+(b) (``pipeline``) and around (c) (``moe``).
 20. sharded checkpoints and elastic training, on bench_gpt's bf16
-   GPT-base (``TRAIN``, AdamW, batch 8 × seq 1024): (a) 3 steps, then
+   GPT-base (``TRAIN``, AdamW, batch 8 × seq 1024): (a) 2 steps, then
    ``io.save_trainer_sharded(async_save=True)`` and 2 steps at once while
    the write runs, ``io.wait_for_checkpoints()``, and a fresh trainer
    ``load_trainer_sharded`` from it replays the same 2 feeds: its params
-   and optimizer state bit-equal to the first trainer's at step 5; once
+   and optimizer state bit-equal to the first trainer's at step 4; once
    unmeshed and once on a world of one over NCCL (DCP coordinating over a
    gloo group of its own), with the bytes written, the ms until the save
    returns (the copy off the card), the s until the write ends, the load
@@ -300,7 +301,7 @@ Phases, each reported on its own lines; any failure exits non-zero:
    one-device trainer and onto the world-of-one trainer (params and
    optimizer state bit-equal to ``load_persistables`` of the directory,
    the report's bytes and seconds), then ``fit(resume=True,
-   elastic=True)`` trains 3 steps; (c) ``fit(resize=path)`` whose event
+   elastic=True)`` trains 2 steps; (c) ``fit(resize=path)`` whose event
    handler requests ``{'dp': 2}`` at step 2 returns there with a
    ``resized`` event and a boundary checkpoint, and ``fit(resume=True,
    elastic=True)`` goes on with losses bit-equal to bare steps from that
@@ -326,6 +327,19 @@ Phases, each reported on its own lines; any failure exits non-zero:
    servers after step 3 and trainer 1 rebinding: finite losses, every push
    counted on the servers, none lost. Launch counts are zeroed around (a)
    and (b) (``async_ps``).
+22. telemetry (``paddle_tpu_torch/telemetry``, ``profiling.StepTimer``):
+   (a) bench_gpt's bf16 GPT-base under a fresh journal, one eager step and
+   captured K=4 dispatches with the StepTimer's journal on and off in
+   turns (ms a dispatch), one ``trainer.dispatch`` event a dispatch, the
+   cost of one ``record_dispatch`` as a share of that dispatch and of
+   MNIST's captured K=16 dispatch, the families ``Trainer.serve_metrics()``
+   serves over HTTP, 12 launches of each flash kernel a step; (b)
+   ``decode_server`` over a bucket-8 export of phase 5's decoder, 16
+   requests, each span's ``serving.submit`` → ``serving.dispatch`` →
+   ``serving.complete``, the registry's latency count 16; (c) a planted NaN
+   under ``GuardPolicy(max_incidents=0)`` escalates and its
+   ``guard_escalation`` flight dump validates against its manifest. Launch
+   counts are zeroed around (a) and (b) (``telemetry``).
 
 The last lines are a JSON ``kernels`` record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -539,6 +553,12 @@ FUSED_LONG_K, FUSED_NONDET_RATIO, FUSED_LOSS_FLOOR = 2, 2.0, 1e-5
 # INT8_IDS_SHARE of the beams' ids equal (read all 32: f32 rounding may
 # move a value across an int8 rounding boundary, so 4 may part)
 DECODE_BUCKET, DECODE_BEAM, BEAM_SCORE_TOL = 8, 4, 1e-3
+# the generator's readings at its last run as a module that owned its params,
+# before it became a build program (NVIDIA H100 80GB HBM3, 700.00 W: quoted,
+# not measured here): phase 5's decode ms a step, and each phase 13 path's
+# captured (ms, device ms, operations) a decode step, printed beside this run's
+MODULE_DECODE = {"served_step_ms": 1.76, "greedy": (1.7035, 1.5673, 668.5),
+                 "beam": (2.6641, 2.4117, 761.2), "int8": (2.5076, 2.1274, 1019.0)}
 INT8_SCORE_TOL, INT8_IDS_SHARE = 1e-3, 0.875
 
 
@@ -557,7 +577,7 @@ INT8_SCORE_TOL, INT8_IDS_SHARE = 1e-3, 0.875
 # and the 0.5 of halved ones (bit-equality reported); what each setting
 # leaves allocated after its trainer is gone within ALLOC_GROWTH_GB of what
 # the first left (less than one cuBLAS workspace);
-# the trained scope then served by GPTGenerator (HANDOFF_PROMPT prompt
+# the trained scope then served by the generator program (HANDOFF_PROMPT prompt
 # tokens, HANDOFF_NEW new ones, bucket 2), captured against eager; (c) the
 # stacked Transformer at bench.py's BENCH_STACKED=1 config (phase 11 (b)'s,
 # stacked), eager against captured K=FUSED_K; stacked transformer_long (b=4,
@@ -1117,6 +1137,64 @@ def phase_bwd_kernels(dev, seed):
 # -- phase 4: f32 path parity, card against CPU ------------------------------
 
 
+class _Generator:
+    """``build(gpt.make_generator(...))`` with its params and the compute
+    dtype it runs in, called as this script calls a generator: ``gen(ids)``
+    is ``Program.apply`` under ``amp_guard`` (the captured decode on the
+    card), ``gen.eager(ids)`` the same call under ``eager_decode`` (the
+    plain loop), ``gen.prefill(ids)`` the prefill alone. Without params it
+    initialises them through ``Program.init`` from ``seed``."""
+
+    def __init__(self, cfg, new_tokens, device, params=None, seed=0, beam_size=1,
+                 compute="float32", prog=None):
+        import numpy as np
+        import torch
+        from paddle_tpu_torch import amp_guard, build
+        from paddle_tpu_torch.models import gpt
+
+        self.prog = prog or build(gpt.make_generator(cfg, new_tokens, beam_size=beam_size))
+        self.fn = self.prog.fn
+        self.compute, self.device = compute, torch.device(device)
+        if params is None:
+            with amp_guard(compute):
+                params, _ = self.prog.init(seed, place=self.device,
+                                           prompt_ids=np.full((1, 1), 3, np.int32))
+        self.params = params
+
+    @classmethod
+    def of(cls, runner):
+        """The generator a loaded artifact's ``Predictor.program`` runs."""
+        return cls(None, None, runner.device, params=runner.params,
+                   compute=runner.compute_dtype, prog=runner.program)
+
+    @property
+    def max_new_tokens(self):
+        return self.fn.max_new_tokens
+
+    @property
+    def decoders(self):
+        return self.fn._decoders
+
+    def __call__(self, ids):
+        from paddle_tpu_torch import amp_guard
+        with amp_guard(self.compute):
+            return self.prog.apply(self.params, {}, prompt_ids=ids, place=self.device)[0]
+
+    def eager(self, ids):
+        from paddle_tpu_torch._captured_decode import eager_decode
+        with eager_decode():
+            return self(ids)
+
+    def prefill(self, ids):
+        import torch
+        from paddle_tpu_torch import amp_guard
+        with amp_guard(self.compute), torch.inference_mode():
+            ids = torch.as_tensor(ids).to(self.device)
+            w = self.fn.weights(self.params, self.device)
+            return self.fn.prefill(w, ids, torch.bfloat16 if self.compute == "bfloat16"
+                                   else torch.float32)
+
+
 def phase_parity(dev, seed):
     import numpy as np
     import torch
@@ -1126,14 +1204,13 @@ def phase_parity(dev, seed):
     cfg = gpt.base_config(max_len=PROMPT + NEW_TOKENS, dtype="float32",
                           **GPT_BASE)
     t0 = time.perf_counter()
-    card = gpt.make_generator(cfg, PARITY_NEW_TOKENS, device=dev).init_params(seed)
-    host = gpt.make_generator(cfg, PARITY_NEW_TOKENS, device="cpu").load_params(
-        {k: v.cpu() for k, v in card.flat_params().items()})
+    card = _Generator(cfg, PARITY_NEW_TOKENS, dev, seed=seed)
+    host = _Generator(cfg, PARITY_NEW_TOKENS, "cpu",
+                      params={k: v.cpu() for k, v in card.params.items()})
     prompts = np.random.RandomState(seed).randint(
         3, cfg.vocab_size, (8, PROMPT)).astype(np.int32)
-    with torch.inference_mode():
-        lp_card = card.prefill(torch.from_numpy(prompts).to(dev))[0].cpu()
-        lp_host = host.prefill(torch.from_numpy(prompts))[0]
+    lp_card = card.prefill(prompts)[0].cpu()
+    lp_host = host.prefill(prompts)[0]
     diff = (lp_card - lp_host).abs().max().item()
     before = fa.flash_fwd_launches
     ids_card = card(prompts)["ids"].cpu().numpy()
@@ -1188,7 +1265,7 @@ def phase_served(dev, seed, card):
         alone = sum(int(np.array_equal(
             outs[i], pred.run({"prompt_ids": prompts[i:i + 1]})["ids"].cpu().numpy()))
             for i in range(N_REQUESTS))
-        served_breakdown(pred.program, prompts[:big], card)
+        served_breakdown(_Generator.of(pred.program), prompts[:big], card)
     valid = all(o.shape == (1, NEW_TOKENS) and o.dtype == np.int32
                 and o.min() >= 0 and o.max() < cfg.vocab_size for o in outs)
     tok_s = N_REQUESTS * NEW_TOKENS / wall
@@ -1259,15 +1336,14 @@ def served_breakdown(prog, ids, card):
     from torch.profiler import ProfilerActivity, profile
 
     ids = torch.from_numpy(ids).to(prog.device)
-    with torch.inference_mode():
-        prefill_ms = _host_ms(lambda: prog.prefill(ids))
-        call_ms = _host_ms(lambda: prog(ids))
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            prog(ids)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+    prefill_ms = _host_ms(lambda: prog.prefill(ids))
+    call_ms = _host_ms(lambda: prog(ids))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prog(ids)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     device_us = 0.0
     n_kernels = 0
     # the forward's two kernels: the bf16 call must run the tensor-core one
@@ -1289,7 +1365,8 @@ def served_breakdown(prog, ids, card):
                  + " of device time")
     say(f"served breakdown ({card}), one generate call at b={ids.shape[0]}: "
         f"prefill {prefill_ms:.2f} ms, whole call {call_ms:.1f} ms, decode "
-        f"{(call_ms - prefill_ms) / steps:.2f} ms per step over {steps} steps; "
+        f"{(call_ms - prefill_ms) / steps:.2f} ms per step over {steps} steps (the module "
+        f"generator's last reading, quoted: {MODULE_DECODE['served_step_ms']}); "
         f"device busy {busy}")
     check(kernels["flash_fwd_wgmma"] > 0,
           "served: the profiled generate call shows no device time of the "
@@ -3018,6 +3095,7 @@ def transformer_served(dev, trainer, cfg, card_name, tmp):
     import numpy as np
     import torch
     import paddle_tpu_torch as pt
+    from paddle_tpu_torch._captured_decode import eager_decode
     from paddle_tpu_torch.models import transformer
     from paddle_tpu_torch.ops import flash_attention as fa
 
@@ -3071,7 +3149,7 @@ def transformer_served(dev, trainer, cfg, card_name, tmp):
     # the captured decode against the eager loop, bit for bit, and timed in turns
     eager, lines = {}, []
     for name, pred in preds.items():
-        with transformer._eager_decode():
+        with eager_decode():
             eager[name] = pred.run(feed)
         same = _outputs_equal(served[name], eager[name])
         runs = {"eager": lambda: _eager_call(pred, feed), "captured": lambda: pred.run(feed)}
@@ -3111,12 +3189,12 @@ def transformer_served(dev, trainer, cfg, card_name, tmp):
     # the eager loop's log-probabilities against the plain CPU run in f32
     params = {k: v.detach() for k, v in trainer.scope.params.items()}
     prog = progs["greedy"]
-    with torch.no_grad(), transformer._eager_decode(), \
+    with torch.no_grad(), eager_decode(), \
             record_greedy_logp(transformer) as logp_card:
         direct = prog.apply(params, {}, src_ids=src, place=dev)[0]["ids"]
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     t0 = time.perf_counter()
-    with pt.amp_guard("float32"), torch.no_grad(), transformer._eager_decode(), \
+    with pt.amp_guard("float32"), torch.no_grad(), eager_decode(), \
             record_greedy_logp(transformer) as logp_host:
         host = pt.build(transformer.make_decoder(cfg32, max_len=SEQ_SERVE_MAX_LEN)).apply(
             {k: v.float().cpu() for k, v in params.items()}, {}, src_ids=src,
@@ -3142,7 +3220,7 @@ def transformer_served(dev, trainer, cfg, card_name, tmp):
         trainer.step(f)
     params2 = {k: v.detach().clone() for k, v in trainer.scope.params.items()}
     second = prog.apply(params2, {}, src_ids=src_dev, place=dev)[0]["ids"]
-    with transformer._eager_decode():
+    with eager_decode():
         second_eager = prog.apply(params2, {}, src_ids=src_dev, place=dev)[0]["ids"]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -3179,8 +3257,8 @@ def transformer_served(dev, trainer, cfg, card_name, tmp):
 
 
 def _eager_call(pred, feed):
-    from paddle_tpu_torch.models import transformer
-    with transformer._eager_decode():
+    from paddle_tpu_torch._captured_decode import eager_decode
+    with eager_decode():
         return pred.run(feed)
 
 
@@ -3973,40 +4051,40 @@ def phase_fused(dev, seed, card_name):
     return {n: launches[n] + long_launches[n] for n in launches}, replayed
 
 
-# -- phase 13: the captured decode (GPTGenerator: one CUDA graph of a step) ----
+# -- phase 13: the captured decode (the generator program: one CUDA graph of a step) --
 
 
 def _outputs_equal(a, b):
     return sorted(a) == sorted(b) and all(_bits_equal(a[k], b[k]) for k in a)
 
 
-def _decode_path(path, gen, ids, card_name, profile_eager=False):
+def _decode_path(path, gen, ids, card_name, profile_eager=False, module=None):
     """One generator at one bucket, eager loop against captured replays:
     outputs bit-equal, ms per decode step in turns, a profiled captured
     call (and a profiled eager call where ``profile_eager``: the
     profiler takes about a minute to sum an eager call's events), the
-    prefill's launches and the cache's bytes. Returns the captured
+    prefill's launches and the cache's bytes, beside ``module``'s quoted
+    (ms, device ms, operations) a captured decode step. Returns the captured
     outputs and the numbers."""
     import torch
     from paddle_tpu_torch.ops import flash_attention as fa
 
     b, steps = ids.shape[0], gen.max_new_tokens - 1
     t_path = time.perf_counter()
-    eager_out = gen._generate_eager(ids)
+    eager_out = gen.eager(ids)
     before = fa.flash_fwd_launches
     captured_out = gen(ids)  # the first call at this signature captures
     per_call = fa.flash_fwd_launches - before
     check(per_call == GPT_BASE["num_layers"],
           f"captured decode {path}: {per_call} flash_fwd launches a call (the capture's "
           "warm-up runs no prefill)")
-    dec = gen._decoders[tuple(ids.shape)]
+    dec = gen.decoders[tuple(ids.shape)]
     check(dec.captures == 1 and dec.replays == steps,
           f"captured decode {path}: {dec.captures} captures, {dec.replays} replays")
     check(_outputs_equal(captured_out, eager_out),
           f"captured decode {path}: the replayed steps differ from the eager loop")
-    with torch.inference_mode():
-        prefill_ms = _host_ms(lambda: gen.prefill(ids))
-    runs = {"eager": lambda: gen._generate_eager(ids), "captured": lambda: gen(ids)}
+    prefill_ms = _host_ms(lambda: gen.prefill(ids))
+    runs = {"eager": lambda: gen.eager(ids), "captured": lambda: gen(ids)}
     times, peaks = {n: [] for n in runs}, {n: 0.0 for n in runs}
     for name in ("eager", "captured", "captured", "eager"):
         torch.cuda.synchronize()
@@ -4018,8 +4096,7 @@ def _decode_path(path, gen, ids, card_name, profile_eager=False):
         peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated() / 1e9)
         check(_outputs_equal(out, eager_out),
               f"captured decode {path}: a timed {name} call's outputs differ")
-    with torch.inference_mode():
-        pre = _profile_dispatch(lambda: gen.prefill(ids))
+    pre = _profile_dispatch(lambda: gen.prefill(ids))
     profiled = {n: _profile_dispatch(fn) for n, fn in runs.items()
                 if n == "captured" or profile_eager}
     ms = {n: float(sum(v) / len(v)) for n, v in times.items()}
@@ -4047,7 +4124,9 @@ def _decode_path(path, gen, ids, card_name, profile_eager=False):
         + f"; peak memory eager {peaks['eager']:.3f} GB, captured {peaks['captured']:.3f} GB; "
         f"cache {dec.cache_bytes()} bytes; flash_fwd {per_call} launches a call, "
         f"profiled captured call: {wgmma} flash_fwd_wgmma and {cuda_core} flash_fwd_kernel "
-        f"kernels over {steps} replays; {time.perf_counter() - t_path:.1f} s")
+        f"kernels over {steps} replays; the module generator's last reading, quoted: "
+        f"{module[0]} ms, {module[1]} device ms and {module[2]} operations a captured decode "
+        f"step; {time.perf_counter() - t_path:.1f} s")
     if profiled["captured"][1]:
         # the wrappers' counts say the call launched 12; the profile shows
         # where they ran. It may drop events of a call of ~100k kernels
@@ -4073,11 +4152,9 @@ def _beam_card_against_cpu(dev, seed, card_name, kv_cache_dtype="compute"):
     int8 = kv_cache_dtype == "int8"
     cfg = gpt.base_config(max_len=PROMPT + NEW_TOKENS, dtype="float32",
                           kv_cache_dtype=kv_cache_dtype, **GPT_BASE)
-    card = gpt.make_generator(cfg, PARITY_NEW_TOKENS, beam_size=DECODE_BEAM,
-                              device=dev).init_params(seed)
-    host = gpt.make_generator(cfg, PARITY_NEW_TOKENS, beam_size=DECODE_BEAM,
-                              device="cpu").load_params(
-        {k: v.cpu() for k, v in card.flat_params().items()})
+    card = _Generator(cfg, PARITY_NEW_TOKENS, dev, seed=seed, beam_size=DECODE_BEAM)
+    host = _Generator(cfg, PARITY_NEW_TOKENS, "cpu", beam_size=DECODE_BEAM,
+                      params={k: v.cpu() for k, v in card.params.items()})
     prompts = np.random.RandomState(seed).randint(3, cfg.vocab_size,
                                                   (8, PROMPT)).astype(np.int32)
     t_init = time.perf_counter() - t0
@@ -4153,20 +4230,22 @@ def phase_captured_decode(dev, seed, card_name):
         _zero_launch_counts(fa)
         # ---- the main path: (a)-(d)
         t0 = time.perf_counter()
-        gen = gpt.make_generator(cfg, NEW_TOKENS, compute_dtype="bfloat16",
-                                 device=dev).init_params(seed)
-        params = gen.flat_params()
+        gen = _Generator(cfg, NEW_TOKENS, dev, seed=seed, compute="bfloat16")
+        params = gen.params
         say(f"captured decode: GPT-base bf16 generator initialised in "
             f"{time.perf_counter() - t0:.1f} s")
-        greedy, a = _decode_path("(a) greedy bf16", gen, ids, card_name, profile_eager=True)
+        greedy, a = _decode_path("(a) greedy bf16", gen, ids, card_name, profile_eager=True,
+                                 module=MODULE_DECODE["greedy"])
         del gen
-        beam = gpt.make_generator(cfg, NEW_TOKENS, beam_size=DECODE_BEAM,
-                                  compute_dtype="bfloat16", device=dev).load_params(params)
-        _decode_path(f"(b) beam {DECODE_BEAM} bf16", beam, ids, card_name)
+        beam = _Generator(cfg, NEW_TOKENS, dev, params=params, beam_size=DECODE_BEAM,
+                          compute="bfloat16")
+        _decode_path(f"(b) beam {DECODE_BEAM} bf16", beam, ids, card_name,
+                     module=MODULE_DECODE["beam"])
         del beam
-        int8 = gpt.make_generator(dataclasses.replace(cfg, kv_cache_dtype="int8"), NEW_TOKENS,
-                                  compute_dtype="bfloat16", device=dev).load_params(params)
-        q8_out, c = _decode_path("(c) greedy bf16, int8 KV cache", int8, ids, card_name)
+        int8 = _Generator(dataclasses.replace(cfg, kv_cache_dtype="int8"), NEW_TOKENS, dev,
+                          params=params, compute="bfloat16")
+        q8_out, c = _decode_path("(c) greedy bf16, int8 KV cache", int8, ids, card_name,
+                                 module=MODULE_DECODE["int8"])
         del int8
         same = float((q8_out["ids"] == greedy["ids"]).float().mean())
         say(f"captured decode ({card_name}): (c) int8 against the compute cache: "
@@ -4282,9 +4361,9 @@ def _drop_every_second_microbatch(tr):
 
 
 def _gpt_handoff(trainer, cfg, dev, seed, card_name):
-    """A trained scope served unchanged: ``GPTGenerator.load_params(
-    trainer.scope.params)`` decodes bucket 2 captured and eagerly, the ids
-    bit-equal and in range."""
+    """A trained scope served unchanged: ``build(gpt.make_generator(...))``
+    applied to ``trainer.scope.params`` decodes bucket 2 captured and
+    eagerly, the ids bit-equal and in range."""
     import dataclasses
     import numpy as np
     import torch
@@ -4293,11 +4372,10 @@ def _gpt_handoff(trainer, cfg, dev, seed, card_name):
     gcfg = dataclasses.replace(cfg, max_len=HANDOFF_PROMPT + HANDOFF_NEW)
     ids = torch.from_numpy(np.random.RandomState(seed + 3).randint(
         3, cfg.vocab_size, (2, HANDOFF_PROMPT)).astype(np.int32)).to(dev)
-    gen = gpt.make_generator(gcfg, HANDOFF_NEW, compute_dtype="bfloat16",
-                             device=dev).load_params(trainer.scope.params)
-    got, want = gen(ids)["ids"], gen._generate_eager(ids)["ids"]
+    gen = _Generator(gcfg, HANDOFF_NEW, dev, params=trainer.scope.params, compute="bfloat16")
+    got, want = gen(ids)["ids"], gen.eager(ids)["ids"]
     ok = _bits_equal(got, want) and int(got.min()) >= 0 and int(got.max()) < cfg.vocab_size
-    say(f"phase 14 (b) the remat-off trainer's scope served by GPTGenerator.load_params "
+    say(f"phase 14 (b) the remat-off trainer's scope served by build(make_generator) "
         f"({card_name}): bucket 2, {HANDOFF_PROMPT}+{HANDOFF_NEW} tokens, captured ids "
         f"equal the eager loop's {ok}: {got[0].tolist()}")
     check(ok, "phase 14 (b): the trained scope does not serve")
@@ -6682,11 +6760,11 @@ def phase_pipeline_moe(dev, seed, card_name):
 # ELASTIC_WORLD_BATCH x ELASTIC_WORLD_SEQ with ZeRO and save it, restored
 # elastically on the card, then ELASTIC_FIT_STEPS steps of fit; (c) a fit
 # resized at step RESIZE_AT of RESIZE_BATCHES, resumed elastically.
-SHARD_STEPS, SHARD_OVERLAP = 3, 2
+SHARD_STEPS, SHARD_OVERLAP = 2, 2
 ELASTIC_WORLD, ELASTIC_WORLD_BATCH, ELASTIC_WORLD_SEQ, ELASTIC_WORLD_THREADS = 2, 2, 64, 3
 ELASTIC_WORLD_TIMEOUT = 300
-ELASTIC_FIT_STEPS = 3
-RESIZE_AT, RESIZE_BATCHES = 2, 5
+ELASTIC_FIT_STEPS = 2
+RESIZE_AT, RESIZE_BATCHES = 2, 4
 
 
 def elastic_world_rank(rank, world, port, outdir):
@@ -7501,6 +7579,254 @@ def phase_async_ps(dev, seed, card_name):
     return launches
 
 
+# phase 22: the process's own telemetry on the card. (a) bench_gpt's GPT-base
+# (phase 7's config, bf16) under a fresh journal and the registry: one eager
+# step, then run_steps(K=FUSED_K) dispatches in turns with the StepTimer's
+# journal on and off (TELEMETRY_DISPATCHES a turn; each dispatch waited for),
+# one trainer.dispatch event a journaled dispatch, /metrics scraped over
+# HTTP; TELEMETRY_RECORDS record_dispatch calls timed alone, their cost a
+# share of that dispatch and of MNIST's captured K=FUSED_MNIST_K dispatch
+# (phase 12 (a)'s config, TELEMETRY_MNIST_DISPATCHES timed). (b)
+# decode_server over a bucket-8 export of phase 5's bf16 decoder:
+# TELEMETRY_REQUESTS single-prompt requests, each span's journal events
+# serving.submit -> serving.dispatch -> serving.complete and the registry's
+# latency count equal to the requests. (c) MNIST with the guard at
+# max_incidents 0: a planted NaN escalates, and the guard_escalation flight
+# dump validates against its CRC manifest.
+TELEMETRY_DISPATCHES, TELEMETRY_RECORDS, TELEMETRY_MNIST_DISPATCHES = 3, 20000, 16
+TELEMETRY_REQUESTS = 16
+
+
+def _telemetry_families(url):
+    """The family names a ``GET /metrics`` at ``url`` declares."""
+    import urllib.request
+    text = urllib.request.urlopen(url + "/metrics", timeout=30).read().decode()
+    return sorted(ln.split()[2] for ln in text.splitlines() if ln.startswith("# TYPE "))
+
+
+def _record_dispatch_us():
+    """µs a ``StepTimer.record_dispatch`` with a journal costs the host (a
+    scratch timer and journal, so the process journal keeps its events)."""
+    from paddle_tpu_torch.profiling import StepTimer
+    from paddle_tpu_torch.telemetry import RunJournal
+
+    timer = StepTimer(journal=RunJournal(), inst="bench")
+    t0 = time.perf_counter()
+    for i in range(TELEMETRY_RECORDS):
+        timer.record_dispatch(1.0, 1.001, FUSED_K, "run_steps", base_step=i)
+    return (time.perf_counter() - t0) * 1e6 / TELEMETRY_RECORDS
+
+
+def telemetry_gpt(dev, seed, card_name, tmp):
+    """(a); returns the path's launches."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import telemetry
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    k = FUSED_K
+    cfg = gpt.base_config(**TRAIN)
+    feeds = _train_feeds(np.random.RandomState(6), k, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)
+    telemetry.set_journal(telemetry.RunJournal())
+    tr = _trainer(cfg, dev).startup(seed, sample_feed=feeds[0])
+    journal, timer = tr.journal, tr.step_timer
+    stacked = tr._put_feed(pt.data.stack_batches(feeds))
+    torch.cuda.synchronize()
+    _zero_launch_counts(fa)   # startup's init forward took the flash forward
+    # ---- the main path, as a user drives it
+    tr.step(feeds[0])
+    tr.run_steps(stacked)     # the capture
+    times = {"journal": [], "no journal": []}
+    for mode in ("journal", "no journal", "no journal", "journal"):
+        timer.journal = journal if mode == "journal" else None
+        for _ in range(TELEMETRY_DISPATCHES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.run_steps(stacked)
+            torch.cuda.synchronize()
+            times[mode].append((time.perf_counter() - t0) * 1e3)
+    timer.journal = journal
+    launches = _launch_counts(fa)
+    # ---- end of the main path
+    srv = tr.serve_metrics()
+    try:
+        families = _telemetry_families(srv.url)
+    finally:
+        srv.close()
+    events = journal.recent(kind="trainer.dispatch")
+    want_events = 2 + 2 * TELEMETRY_DISPATCHES   # the step, the capture, two journaled turns
+    record_us = _record_dispatch_us()
+    gpt_ms = {m: float(np.median(v)) for m, v in times.items()}
+    mnist_ms = _mnist_dispatch_ms(dev, seed)
+    say(f"telemetry (a) ({card_name}): bf16 GPT-base b={TRAIN_BATCH} s={TRAIN_SEQ} captured "
+        f"K={k}, ms a dispatch (each waited for) with the journal {times['journal']} "
+        f"(median {gpt_ms['journal']:.3f}), without {times['no journal']} (median "
+        f"{gpt_ms['no journal']:.3f}); one record_dispatch with a journal {record_us:.3f} us "
+        f"on the host = {100 * record_us / 1e3 / gpt_ms['no journal']:.5f}% of the GPT-base "
+        f"K={k} dispatch and {100 * record_us / 1e3 / mnist_ms:.4f}% of MNIST's captured "
+        f"K={FUSED_MNIST_K} dispatch ({mnist_ms:.4f} ms, {mnist_ms / FUSED_MNIST_K:.4f} ms a "
+        f"step); trainer.dispatch events {len(events)} (want {want_events}), StepTimer "
+        f"{timer.report()}; launches {launches}")
+    say(f"telemetry (a) /metrics families ({len(families)}): {families}")
+    check(len(events) == want_events and all(e["span"] for e in events),
+          f"telemetry (a): {len(events)} trainer.dispatch events, want {want_events}")
+    check(timer.dispatches == 2 + 2 * 2 * TELEMETRY_DISPATCHES,
+          f"telemetry (a): the StepTimer counted {timer.dispatches} dispatches")
+    want = {"paddle_tpu_trainer_dispatches_total", "paddle_tpu_trainer_steps_total",
+            "paddle_tpu_trainer_global_step", "paddle_tpu_trainer_guard_incidents_total",
+            "paddle_tpu_feeder_h2d_bytes_total"}
+    check(want <= set(families), f"telemetry (a): /metrics lacks {sorted(want - set(families))}")
+    per_step = cfg.num_layers * (1 + _captured_step_runs())
+    check(all(n == per_step for n in launches.values()),
+          f"telemetry (a): launch counts {launches}, want {per_step} each ({cfg.num_layers} a step: one "
+          "eager step, the capture's warm-up and capture)")
+    del tr
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _mnist_dispatch_ms(dev, seed):
+    """ms of one captured K=FUSED_MNIST_K MNIST dispatch, each waited for
+    (median of TELEMETRY_MNIST_DISPATCHES)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+
+    feeds = _mnist_feeds()
+    tr = _mnist_trainer(dev, pt.optimizer.SGD(0.01)).startup(seed, feeds[0])
+    stacked = tr._put_feed(pt.data.stack_batches(
+        [feeds[i % MNIST_FEEDS] for i in range(FUSED_MNIST_K)]))
+    tr.run_steps(stacked)
+    ms = []
+    for _ in range(TELEMETRY_MNIST_DISPATCHES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.run_steps(stacked)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms))
+
+
+def telemetry_served(dev, seed, card_name, tmp):
+    """(b); returns the path's launches."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import telemetry
+    from paddle_tpu_torch.fleet import decode
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    cfg = gpt.base_config(max_len=PROMPT + NEW_TOKENS, dtype="bfloat16", **GPT_BASE)
+    rng = np.random.RandomState(seed + 7)
+    big = max(BUCKETS)
+    prompts = rng.randint(3, cfg.vocab_size, (TELEMETRY_REQUESTS, PROMPT)).astype(np.int32)
+    d = os.path.join(tmp, "decoder8")
+    telemetry.set_journal(telemetry.RunJournal())
+    journal = telemetry.get_journal()
+    _zero_launch_counts(fa)
+    # ---- the main path, as a user drives it
+    t0 = time.perf_counter()
+    decode.export_decoder(d, cfg, NEW_TOKENS, prompts[:big], seed=seed,
+                          compute_dtype="bfloat16", device=dev)
+    srv = decode.decode_server(d, max_wait_ms=1000.0, workers=1, device=dev)
+    try:
+        pends = [srv.submit({"prompt_ids": prompts[i:i + 1]}) for i in range(len(prompts))]
+        outs = [p.result(timeout=600)["ids"] for p in pends]
+        # a reply is handed over before its latency is recorded: wait for the
+        # worker's last record before the scrape
+        deadline = time.perf_counter() + 30
+        while srv.metrics.snapshot()["latency_ms"]["count"] < len(pends) and \
+                time.perf_counter() < deadline:
+            time.sleep(0.01)
+        fams = {f.name: f for f in telemetry.get_registry().collect()}
+        hist = [v for lab, v in fams["paddle_tpu_serving_latency_seconds"].samples
+                if lab.get("inst") == srv.telemetry_inst]
+        rep = srv.report()
+    finally:
+        srv.close(drain=True, timeout=120)
+    torch.cuda.synchronize()
+    launches = _launch_counts(fa)
+    # ---- end of the main path
+    lives = [[e["kind"] for e in journal.recent(span=p.span)] for p in pends]
+    whole = ["serving.submit", "serving.dispatch", "serving.complete"]
+    n_whole = sum(life == whole for life in lives)
+    lat = sorted(p.latency for p in pends)
+    say(f"telemetry (b) ({card_name}): decode_server over a bucket-{big} export, "
+        f"{len(pends)} single-prompt requests: {n_whole}/{len(pends)} spans read "
+        f"{' -> '.join(whole)} (first: {pends[0].span} {lives[0]}); registry latency count "
+        f"{hist[0]['count'] if hist else None}, served latency p50 "
+        f"{1e3 * float(np.percentile(lat, 50)):.1f} ms; coalesced "
+        f"{rep['coalesced_requests']} requests in {rep['coalesced_batches']} batches; "
+        f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+    check(n_whole == len(pends), "telemetry (b): a request's span lacks an event")
+    check(len(hist) == 1 and hist[0]["count"] == len(pends),
+          "telemetry (b): the registry's latency count is not the requests'")
+    check(all(tuple(o.shape) == (1, NEW_TOKENS) for o in outs), "telemetry (b): reply shapes")
+    return launches
+
+
+def telemetry_guard(dev, seed, card_name, tmp):
+    """(c): no flash kernel runs here."""
+    import numpy as np
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import resilience, telemetry
+
+    from paddle_tpu_torch.models import mnist
+
+    telemetry.set_journal(telemetry.RunJournal())
+    journal = telemetry.get_journal()
+    rec = telemetry.get_recorder()
+    old_root = rec.root
+    rec.set_root(os.path.join(tmp, "flight"))
+    try:
+        feeds = _mnist_feeds()
+        tr = pt.Trainer(pt.build(mnist.mlp), pt.optimizer.SGD(0.01), place=dev,
+                        guard=resilience.GuardPolicy(max_incidents=0, defer_readback=False))
+        tr.startup(seed, feeds[0])
+        tr.step(feeds[0])
+        bad = {k: v.copy() for k, v in feeds[1].items()}
+        bad["image"][0, 0] = np.nan
+        raised = None
+        try:
+            tr.step(bad)
+        except FloatingPointError as e:
+            raised = str(e).splitlines()[0]
+        dumps = list(rec.dumps)
+        man = resilience.validate_checkpoint(dumps[-1]) if dumps else None
+        with open(os.path.join(dumps[-1], "events.jsonl")) as f:
+            kinds = [json.loads(ln)["kind"] for ln in f if ln.strip()]
+    finally:
+        rec.set_root(old_root)
+    say(f"telemetry (c) ({card_name}): a planted NaN under GuardPolicy(max_incidents=0) "
+        f"raised FloatingPointError ({raised!r}); flight dump {os.path.basename(dumps[-1])} "
+        f"validated against its manifest ({len((man or {}).get('files', {}))} files): events "
+        f"{kinds}")
+    check(raised is not None, "telemetry (c): the guard did not escalate")
+    check(bool(man) and kinds[-2:] == ["guard.incident", "guard.escalation"],
+          "telemetry (c): the guard_escalation dump")
+    check([e["kind"] for e in journal.recent(kind="guard.")] ==
+          ["guard.incident", "guard.escalation"], "telemetry (c): the journal")
+
+
+def phase_telemetry(dev, seed, card_name):
+    """Phase 22: (a), (b), (c). Returns the flash launches of (a) and (b)."""
+    import paddle_tpu_torch as pt
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        with pt.amp_guard("bfloat16"):
+            a = telemetry_gpt(dev, seed, card_name, tmp)
+        say(f"phase 22 (a) done in {time.perf_counter() - t0:.1f} s")
+        b = telemetry_served(dev, seed, card_name, tmp)
+        say(f"phase 22 (b) done in {time.perf_counter() - t0:.1f} s")
+        telemetry_guard(dev, seed, card_name, tmp)
+    launches = {k: a[k] + b[k] for k in a}
+    say(f"phase 22: launches {launches}; {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def _routes(fa, torch):
     """The route table's choices, as the kernels record reports them."""
     return {"bfloat16": fa.ROUTES[(torch.bfloat16, 64)],
@@ -7654,6 +7980,12 @@ def main(argv=None) -> int:
     # C++ pserver (launch counts zeroed inside, around each path)
     async_ps = phase_async_ps(dev, args.seed, smi)
     done("phase 21")
+
+    # 22. the process's own telemetry: journal, registry, /metrics, the
+    # served spans and a flight dump (launch counts zeroed inside, around
+    # each path)
+    tele = phase_telemetry(dev, args.seed, smi)
+    done("phase 22")
     by_path = {name: {"served": served[name], "training": trained[name],
                       "persistence": persisted[name], "resnet": resnet_launches[name],
                       **{path: n[name] for path, n in seq2seq.items()},
@@ -7663,7 +7995,8 @@ def main(argv=None) -> int:
                       "multi_gpu": multi_gpu[name], "pipeline": second["pipeline"][name],
                       "pp_world_of_one": second["pp_world_of_one"][name],
                       "moe": second["moe"][name], "sharded_checkpoint": sharded[name],
-                      "elastic": elastic[name], "async_ps": async_ps[name]}
+                      "elastic": elastic[name], "async_ps": async_ps[name],
+                      "telemetry": tele[name]}
                for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 
     # the kernels record: each kernel's row at the training path's shape,

@@ -15,12 +15,13 @@ over them (greedy or beam, with the beam gathers and the sequences'
 write, both counters advanced on the card); the capture and the replay.
 Its two decoders:
 
-- :class:`CapturedDecode`, a GPT generator's (rows = batch · beam, prompt
-  length, ``max_new_tokens``, beam, ``kv_cache_dtype``). Its caches are
-  ``k``, ``v`` in the compute dtype, or int8 ``k_q``, ``v_q`` with f32
-  scales. The weights it reads are the generator's
-  (``GPTGenerator._decode_weights``, copied from the params once a call).
-  A call runs the prefill eagerly (the flash forward, one launch a layer)
+- :class:`CapturedDecode`, the GPT generator's (``models.gpt.make_generator``;
+  rows = batch · beam, prompt length, ``max_new_tokens``, beam,
+  ``kv_cache_dtype``). Its caches are ``k``, ``v`` in the compute dtype,
+  or int8 ``k_q``, ``v_q`` with f32 scales. The weights it reads are the
+  program's static copies of its params (``models.gpt._Weights``, copied
+  from each call's params once a call, the matmul weights cast to the
+  compute dtype in that copy). A call runs the prefill eagerly (the flash forward, one launch a layer)
   and writes the prompt's cache entries (repeated per beam; int8
   quantized before it is grown; zeros beyond the prompt); runs the first
   step eagerly (it consumes the prefill's distribution and writes no
@@ -51,11 +52,15 @@ to eager steps. Capture, replays and buffers all live under
 ``torch.inference_mode()``.
 
 On the CPU nothing is captured: the same step runs as a plain call, so
-the CPU tests cover the body the card replays.
+the CPU tests cover the body the card replays. Under :func:`eager_decode`
+both programs run their plain loop instead, the reference the captured
+steps are held to.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Dict, List, Tuple
 
 import torch
@@ -63,6 +68,28 @@ import torch
 from ._captured_step import CAPTURE_MODE, WARMUP_RUNS, CaptureError, side_stream
 from .layers.beam_search import (beam_rows, beam_select, finish_beams, frozen_row,
                                  greedy_select, initial_scores)
+
+
+_EAGER = threading.local()
+
+
+@contextlib.contextmanager
+def eager_decode():
+    """Run the decode programs this thread calls as the plain loop (the
+    JAX program's form, over a state each step replaces) instead of the
+    static buffers: the reference the captured steps are held to. Not a
+    public switch."""
+    prev = getattr(_EAGER, "on", False)
+    _EAGER.on = True
+    try:
+        yield
+    finally:
+        _EAGER.on = prev
+
+
+def eager_decode_on() -> bool:
+    """Whether :func:`eager_decode` is in force on this thread."""
+    return getattr(_EAGER, "on", False)
 
 
 class StaticDecode:
@@ -199,51 +226,51 @@ class StaticDecode:
 
 
 class CapturedDecode(StaticDecode):
-    """One GPT generator's decode from static buffers at one call
-    signature: captured and replayed on the card, called on the CPU."""
+    """One GPT generator's decode (``models.gpt._GenerateProgram``) from
+    static buffers at one call signature: captured and replayed on the
+    card, called on the CPU. ``weights`` (``models.gpt._Weights``) are the
+    program's static copies, which every signature reads."""
 
-    def __init__(self, gen, batch: int, prompt_len: int, layers, w_head):
-        cfg = gen.cfg
-        self.gen = gen
+    def __init__(self, prog, weights, batch: int, prompt_len: int, compute_dtype):
+        cfg = prog.cfg
+        self.prog, self.weights = prog, weights
+        self.compute_dtype = compute_dtype
         self.prompt_len = int(prompt_len)
-        self.new = gen.max_new_tokens
-        rows = int(batch) * gen.beam_size
+        self.new = prog.max_new_tokens
+        rows = int(batch) * prog.beam_size
         total = self.prompt_len + self.new
         hd = cfg.d_model // cfg.num_heads
         shape = (rows, cfg.num_heads, total, hd)
-        if gen.int8_kv:
+        if prog.int8_kv:
             scale = (rows, cfg.num_heads, total, 1)
             kinds = ((shape, torch.int8), (scale, torch.float32)) * 2
         else:
-            kinds = ((shape, gen.compute_dtype),) * 2
-        super().__init__(batch, gen.beam_size, self.new, cfg.vocab_size, gen.eos_id, kinds,
-                         cfg.num_layers, gen.device)
+            kinds = ((shape, compute_dtype),) * 2
+        super().__init__(batch, prog.beam_size, self.new, cfg.vocab_size, prog.eos_id, kinds,
+                         cfg.num_layers, weights.pe.device)
         self.signature = (self.rows, self.prompt_len, self.new, self.beam,
                           cfg.kv_cache_dtype)
-        # the weights the step reads, the generator's: each layer's params
-        # (the matmul weights cast to the compute dtype) and the head's weight
-        self.layers, self.w_head = layers, w_head
 
     def _body(self) -> None:
-        logp = self.gen.decode_step(self.tokens, self.caches, self.index, self.layers,
-                                    self.w_head)
+        logp = self.prog.decode_step(self.weights, self.tokens, self.caches, self.index,
+                                     self.compute_dtype)
         self._select(logp)
         self.index.add_(1)
 
     def run(self, prompt_ids: torch.Tensor) -> Dict[str, torch.Tensor]:
-        gen, K, p = self.gen, self.beam, self.prompt_len
+        prog, K, p = self.prog, self.beam, self.prompt_len
         if self.on_card and self.graph is None and self.new > 1:
             self._capture()
-        logp0, ks, vs = gen.prefill(prompt_ids, self.layers)
-        for cache, prefix in zip(self.caches, gen.prefix_caches(ks, vs)):
+        logp0, ks, vs = prog.prefill(self.weights, prompt_ids, self.compute_dtype)
+        for cache, prefix in zip(self.caches, prog.prefix_caches(ks, vs)):
             for c, a in zip(cache, prefix):
                 c.view(self.batch, K, *c.shape[1:])[:, :, :, :p].copy_(a[:, None])
                 c[:, :, p:].zero_()
-        self._start(gen.bos_id, p)
+        self._start(prog.bos_id, p)
         # the first step: the prefill's distribution, no cache written
         self._select(logp0.repeat_interleave(K, dim=0) if K > 1 else logp0)
         self._steps(self.new - 1)
-        return self._outputs(gen.length_penalty_alpha)
+        return self._outputs(prog.length_penalty_alpha)
 
 
 class CapturedEncDecDecode(StaticDecode):
@@ -296,4 +323,5 @@ class CapturedEncDecDecode(StaticDecode):
         return self._outputs(self.length_penalty_alpha)
 
 
-__all__ = ["CapturedDecode", "CapturedEncDecDecode", "StaticDecode"]
+__all__ = ["CapturedDecode", "CapturedEncDecDecode", "StaticDecode", "eager_decode",
+           "eager_decode_on"]

@@ -18,11 +18,12 @@ super-batch ``{name: (K, batch, ...)}`` and stages it in one transfer —
 the feed side of ``Trainer.run_steps`` / ``fit(steps_per_dispatch=K)``;
 remainder and odd-shaped batches come singly. :class:`PipelineMetrics`
 attributes the fill thread's time to its stages (reader, encode, stack,
-h2d, dispatch wait) and the consumer's to starvation. Not carried yet,
-each raising :class:`NotYetPorted`: the journal's spans (observability,
-item 24) and the JAX package's staging-ring options ``overlap_depth`` and
-``wait_fn`` (data extras, item 23); this feeder overlaps through its side
-stream.
+h2d, dispatch wait) and the consumer's to starvation, and exports them
+as the JAX package's registry families; with a journal each chunk's fill
+is a ``feeder.fill`` event with a span the dispatch reuses. Not carried
+yet, each raising :class:`NotYetPorted`: the JAX package's staging-ring
+options ``overlap_depth`` and ``wait_fn`` (data extras, item 23); this
+feeder overlaps through its side stream.
 """
 
 from __future__ import annotations
@@ -43,8 +44,7 @@ from ..core.place import default_device
 
 class PipelineMetrics:
     """Input-pipeline stage accounting (thread-safe), the JAX package's
-    class (data/feeder.py:30) without its telemetry families (item 24):
-    per-stage wall time and byte counters accumulated by
+    class (data/feeder.py:30): per-stage wall time and byte counters accumulated by
     :class:`DeviceFeeder` (fill thread: reader / encode / stack / h2d /
     dispatch-wait) and by ``Trainer._put_feed`` on direct-step paths,
     surfaced through :meth:`report` / ``Trainer.pipeline_report()``.
@@ -60,7 +60,9 @@ class PipelineMetrics:
     crossed the link; ``encode_saved_bytes`` logical minus wire. The
     report keeps the JAX package's fields of its staging ring
     (``overlap_hidden_s``) and dataset cache (``cache_hit_bytes``,
-    ``cache_hits``), which stay 0 until those come (item 23)."""
+    ``cache_hits``), which stay 0 until those come (item 23).
+    :meth:`telemetry_families` exports the same accumulators as the JAX
+    package's ``paddle_tpu_feeder_*`` families."""
 
     _STAGES = ("reader", "encode", "stack", "h2d", "dispatch")
 
@@ -104,6 +106,62 @@ class PipelineMetrics:
     def record_starved(self, seconds: float):
         with self._lock:
             self.consumer_starved_s += seconds
+
+    def telemetry_families(self, inst: str = "0") -> list:
+        """The same accumulators as registry metric families under the
+        ``paddle_tpu_feeder_*`` names (scrape-time: the Trainer's
+        telemetry collector calls this, so the exported series can
+        never disagree with :meth:`report`)."""
+        from ..telemetry.registry import counter_family
+
+        with self._lock:
+            stages = dict(self.stage_s)
+            h2d_bytes, saved = self.h2d_bytes, self.encode_saved_bytes
+            starved = self.consumer_starved_s
+            batches, chunks = self.batches, self.chunks
+            hidden = self.overlap_hidden_s
+            cache_b, cache_n = self.cache_hit_bytes, self.cache_hits
+        labels = {"inst": inst}
+        return [
+            counter_family(
+                "paddle_tpu_feeder_stage_seconds_total",
+                "Input-pipeline seconds per stage "
+                "(reader/encode/stack/h2d/dispatch wait)",
+                [({**labels, "stage": s}, round(v, 6))
+                 for s, v in sorted(stages.items())]),
+            counter_family(
+                "paddle_tpu_feeder_batches_total",
+                "Host batches pulled from the reader", [(labels, batches)]),
+            counter_family(
+                "paddle_tpu_feeder_chunks_total",
+                "Device transfers (fused chunks count once)",
+                [(labels, chunks)]),
+            counter_family(
+                "paddle_tpu_feeder_h2d_bytes_total",
+                "Wire bytes moved host-to-device", [(labels, h2d_bytes)]),
+            counter_family(
+                "paddle_tpu_feeder_encode_saved_bytes_total",
+                "Logical-minus-wire bytes the feed wire encode saved",
+                [(labels, saved)]),
+            counter_family(
+                "paddle_tpu_feeder_consumer_starved_seconds_total",
+                "Training-loop seconds spent waiting for input",
+                [(labels, round(starved, 6))]),
+            counter_family(
+                "paddle_tpu_feeder_overlap_hidden_seconds_total",
+                "Transfer seconds hidden under host work / compute by "
+                "the double-buffered staging ring",
+                [(labels, round(hidden, 6))]),
+            counter_family(
+                "paddle_tpu_feeder_cache_hit_bytes_total",
+                "Wire bytes served device-to-device from the HBM "
+                "dataset cache (never crossed the host link)",
+                [(labels, cache_b)]),
+            counter_family(
+                "paddle_tpu_feeder_cache_hits_total",
+                "Chunks served from the HBM dataset cache",
+                [(labels, cache_n)]),
+        ]
 
     def report(self) -> Dict[str, Any]:
         """Per-stage attribution and an effective-link estimate:
@@ -262,6 +320,12 @@ class DeviceFeeder:
     event, so ``h2d_mbps`` measures the link) and the dispatch wait; the
     consumer's waits count as starvation.
 
+    ``journal`` (a :class:`paddle_tpu_torch.telemetry.RunJournal`) mints one
+    span a chunk on the fill thread and emits a ``feeder.fill`` event once
+    its transfer is put (``num_steps``, ``nbytes``, ``put_s``);
+    :attr:`last_span` holds the span of the item last yielded, which
+    ``fit`` passes to ``trainer.step``/``run_steps``.
+
     The fill thread is cancellable: abandoning the iterator (break,
     exception, gc) or calling :meth:`close` stops it even while it waits
     on a full queue. An exception on the fill thread (the reader's, or a
@@ -276,7 +340,6 @@ class DeviceFeeder:
                  logical_nbytes_fn: Optional[Callable] = None, journal=None,
                  overlap_depth: int = 2, wait_fn: Optional[Callable] = None):
         for arg, value, default, later in (
-                ("journal", journal, None, "observability, ROADMAP queue 1 item 24"),
                 ("overlap_depth", overlap_depth, 2, "data extras, ROADMAP queue 1 item 23"),
                 ("wait_fn", wait_fn, None, "data extras, ROADMAP queue 1 item 23")):
             if value != default:
@@ -287,6 +350,11 @@ class DeviceFeeder:
         self.encode_fn = encode_fn
         self.metrics = metrics
         self.logical_nbytes_fn = logical_nbytes_fn or host_feed_nbytes
+        self.journal = journal
+        # the span of the item the iterator last yielded (fit passes it to
+        # the dispatch, so the feeder.fill and trainer.dispatch events of
+        # one batch share it)
+        self.last_span: Optional[str] = None
         self._stream = None
         if put_fn is None:
             self.device = default_device(device, "DeviceFeeder")
@@ -359,7 +427,7 @@ class DeviceFeeder:
 
     def _deliver(self, item):
         """Consumer thread: make its stream wait for the batch's copies."""
-        n, item = item
+        n, item, self.last_span = item
         if isinstance(item, _Staged):
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(item.ready)
@@ -399,12 +467,27 @@ class DeviceFeeder:
                     continue
             return False
 
+        journal = self.journal
+
+        def fill_event(n, hb):
+            """One chunk's transfer and its ``feeder.fill`` event (the span
+            minted here, on the fill thread; the consumer reuses it for the
+            dispatch)."""
+            if journal is None:
+                return self._put(n, hb), None
+            span = journal.new_span()
+            t0 = time.perf_counter()
+            item = self._put(n, hb)
+            journal.emit("feeder.fill", span=span, num_steps=n, nbytes=host_feed_nbytes(hb),
+                         put_s=round(time.perf_counter() - t0, 6))
+            return item, span
+
         def fill():
             try:
                 chunks = (_host_chunks(self._host_batches(), self.stack_k, metrics)
                           if self.stack_k > 1 else ((1, b) for b in self._host_batches()))
                 for n, hb in chunks:
-                    if stop.is_set() or not put((n, self._put(n, hb))):
+                    if stop.is_set() or not put((n, *fill_event(n, hb))):
                         return
             except BaseException as e:  # re-raised on the consumer's side
                 err.append(e)

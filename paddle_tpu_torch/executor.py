@@ -76,11 +76,20 @@ The fetched outputs come back as full tensors on every rank.
 ``DistStrategy(async_mode=True)`` raises :class:`EnforceError` pointing to
 ``parallel.AsyncPSTrainer``, as the JAX Trainer does.
 
+Telemetry (:mod:`paddle_tpu_torch.telemetry`) as in the JAX package: a
+Trainer journals one ``trainer.dispatch`` event a dispatch through its
+:class:`~paddle_tpu_torch.profiling.steptime.StepTimer` (host clocks only,
+outside any CUDA graph, no device read), publishes its step, dispatch,
+guard and feeder counters through one scrape-time registry collector, and
+serves them (``serve_metrics``) or ships them (``ship_to``); a guard
+escalation is journaled and flight-dumped. ``fit`` journals epochs,
+checkpoint saves and restores, preemptions, resizes and errors, and
+re-roots the flight recorder under ``<checkpoint_dir>/flight``.
+
 Not carried yet, each raising :class:`NotYetPorted` with the slice that
-brings it: the ``DistStrategy`` field of the program dump, feed wire formats, on-device augmentation, the HBM
-dataset cache and interval profile events; the journal and telemetry of
-checkpoint saves, resizes and guard incidents come with the observability
-slice.
+brings it: the ``DistStrategy`` field of the program dump, feed wire
+formats, on-device augmentation, the HBM dataset cache (item 23) and
+interval profile events (item 24 (b)).
 """
 
 from __future__ import annotations
@@ -326,6 +335,32 @@ def _sp_consumed(mesh, impl: str):
                       "model (models/gpt.py).")
 
 
+def _register_trainer_telemetry(trainer) -> int:
+    """The trainer's scrape-time collector in the process registry
+    (executor.py:205): the global-step gauge, the guard-incident counter,
+    the StepTimer's and the PipelineMetrics' families, all read from what
+    the trainer already keeps on the host, so a scrape never touches the
+    card. Weakly bound to the trainer."""
+    from .telemetry import get_registry
+    from .telemetry.registry import counter_family, gauge_family
+
+    def collect(tr):
+        inst = tr.telemetry_inst
+        labels = {"inst": inst}
+        fams = [
+            gauge_family("paddle_tpu_trainer_global_step",
+                         "Current optimizer global step", [(labels, tr.global_step)]),
+            counter_family("paddle_tpu_trainer_guard_incidents_total",
+                           "Non-finite steps discarded by the NaN/Inf guard",
+                           [(labels, tr.guard_incident_total)]),
+        ]
+        fams.extend(tr.step_timer.telemetry_families(inst))
+        fams.extend(tr.pipeline_metrics.telemetry_families(inst))
+        return fams
+
+    return get_registry().add_collector(collect, owner=trainer)
+
+
 class Executor:
     """Forward/eval executor with a held scope (executor.py:256 analog).
 
@@ -397,8 +432,8 @@ class Trainer:
         unported = {"feed_wire": feed_wire, "augment": augment}
         for name, value in unported.items():
             if value is not None:
-                raise NotYetPorted(f"Trainer({name}=...): a later slice "
-                                   "(ROADMAP queue 1)")
+                raise NotYetPorted(f"Trainer({name}=...): data extras, ROADMAP queue 1 "
+                                   "item 23")
         enforce(guard is None or isinstance(guard, (bool, GuardPolicy)),
                 f"Trainer(guard={guard!r}): expected True, False, None or a GuardPolicy")
         enforce(mesh is None or isinstance(mesh, Mesh),
@@ -479,6 +514,19 @@ class Trainer:
         self.pipeline_metrics = PipelineMetrics()
         # the interleaved pipeline's row permutation of each stacked leaf
         self._pp_perm: Dict[str, np.ndarray] = {}
+        # telemetry: the process journal (one trainer.dispatch event a
+        # dispatch, through the StepTimer's host clocks), an instance label
+        # in the process registry, and the PDTPU_TELEMETRY_ADDR shipper
+        from .profiling.steptime import StepTimer
+        from .telemetry import get_journal, get_registry
+        from .telemetry.shipper import maybe_auto_ship
+        self.journal = get_journal()
+        self.telemetry_inst = get_registry().next_instance("trainer")
+        self._telemetry_server = None
+        maybe_auto_ship()
+        self.step_timer = StepTimer(journal=self.journal, inst=self.telemetry_inst)
+        # registered last: a scrape must never see a half-built trainer
+        self._telemetry_cid = _register_trainer_telemetry(self)
 
     # ------------------------------------------------------------------
     def startup(self, rng: Optional[int] = None, sample_feed: Optional[Feed] = None,
@@ -883,12 +931,16 @@ class Trainer:
         ``rng`` (an int seed) replaces the step's derived seed
         ``mix_seed(seed + 1, global_step)``; the program's random ops
         (dropout) draw from a stream seeded with it
-        (:class:`framework.RngStream`). ``span`` names the feeder batch of
-        a journal event in the JAX package; it is taken and unused until
-        the observability slice (ROADMAP queue 1, item 24)."""
+        (:class:`framework.RngStream`). ``span`` is the trace id of this
+        dispatch's ``trainer.dispatch`` journal event (``fit`` passes the
+        DeviceFeeder's chunk span; minted when omitted)."""
         enforce(self.scope.opt_state is not None, "call startup() before step()")
         feed = self._put_feed(feed)
-        out = self._step_body(feed, self._rng.reset(self._step_seed(rng, self.global_step)))
+        base = self.global_step
+        t0 = time.perf_counter()
+        out = self._step_body(feed, self._rng.reset(self._step_seed(rng, base)))
+        self.step_timer.record_dispatch(t0, time.perf_counter(), 1, "step", span=span,
+                                        base_step=base)
         self.global_step += 1
         self._after_dispatch(out, feed, 1)
         return out
@@ -1204,7 +1256,8 @@ class Trainer:
         failed capture or replay raises, and never runs eager steps. On the
         CPU the same body runs K times. ``k`` must equal the feed's
         leading dim; a remainder batch goes to :meth:`step`, as ``fit``
-        sends it. ``span`` is taken and unused until item 24."""
+        sends it. ``span`` is the trace id of the dispatch's journal event,
+        as in :meth:`step`."""
         from . import _captured_step
 
         enforce(self.scope.opt_state is not None, "call startup() before run_steps()")
@@ -1219,11 +1272,14 @@ class Trainer:
         feed = self._put_feed(stacked_feed, stacked=True)
         base = self.global_step
         seeds = [self._step_seed(rng, base + i, fused=True) for i in range(k)]
+        t0 = time.perf_counter()
         if self._fused is None or not self._fused.valid_for(self, feed):
             self._fused = None  # the old graph and its pool go first
             self._fused = _captured_step.FusedSteps(self, feed)
         with record_function("trainer.run_steps"):
             outs = self._fused.run(feed, seeds)
+        self.step_timer.record_dispatch(t0, time.perf_counter(), k, "run_steps", span=span,
+                                        base_step=base)
         self.global_step += k
         self._after_dispatch(outs, feed, k)
         return outs
@@ -1303,7 +1359,15 @@ class Trainer:
                 self.guard_incidents, base_step + i, bad or ("unknown",), digest))
         self.guard_incident_total += len(recorded)
         for inc in recorded:
-            resilience.escalate_if_needed(self.guard_incidents, self._guard, inc.step)
+            try:
+                resilience.escalate_if_needed(self.guard_incidents, self._guard, inc.step)
+            except FloatingPointError as e:
+                # flight-recorded before it unwinds: the ring still holds the
+                # incidents and dispatches that led up to it
+                from .telemetry import flight_dump
+                self.journal.emit("guard.escalation", step=inc.step, error=str(e)[:500])
+                flight_dump("guard_escalation", detail={"step": inc.step, "error": str(e)[:500]})
+                raise
 
     def _warn_inert_nan_flag(self) -> None:
         """The check_nan_inf flag is read at startup: turned on later it
@@ -1338,6 +1402,40 @@ class Trainer:
         with torch.no_grad(), self._mesh_scope(), pp:
             out, _ = self._run(feed, training=False, params=self._logical_params())
         return {k: _full(v.detach()) for k, v in out.items()}
+
+    # -- telemetry (executor.py:1597-1641) --------------------------------
+    def reset_profile(self) -> None:
+        """Zero the step timer and the pipeline-stage accumulators (e.g.
+        between a warm-up and a measured window)."""
+        self.step_timer.reset()
+        self.pipeline_metrics.reset()
+
+    def serve_metrics(self, port: int = 0, host: str = "127.0.0.1"):
+        """Start this process's ``GET /metrics`` (Prometheus text of the
+        process registry; this trainer's series carry its ``inst`` label)
+        and ``GET /healthz`` endpoint; port 0 picks a free port (``.port``).
+        Idempotent while the server runs; the caller owns ``.close()``."""
+        from .telemetry import serve_metrics as _serve
+
+        def health():
+            return {"live": True, "role": "trainer", "inst": self.telemetry_inst,
+                    "run": self.journal.run_id, "global_step": self.global_step,
+                    "guard_incidents": self.guard_incident_total}
+
+        srv = self._telemetry_server
+        if srv is None or not srv._thread.is_alive():
+            srv = self._telemetry_server = _serve(health_fn=health, port=port, host=host)
+        return srv
+
+    def ship_to(self, addr, origin=None, **kw):
+        """Attach the process telemetry shipper to a collector at ``addr``
+        (``"host:port"`` or a tuple): journal events and registry snapshots
+        stream there in the background (``PDTPU_TELEMETRY_ADDR`` does the
+        same with no code). Returns the
+        :class:`~paddle_tpu_torch.telemetry.shipper.Shipper`."""
+        from .telemetry.shipper import ship_to as _ship_to
+
+        return _ship_to(addr, origin=origin, **kw)
 
 
 class CheckpointConfig:
@@ -1379,7 +1477,7 @@ _FIT_LATER = {
     "feed_wire": (None, "data extras, ROADMAP queue 1 item 23"),
     "device_cache": (None, "data extras, ROADMAP queue 1 item 23"),
     "augment": (None, "data extras, ROADMAP queue 1 item 23"),
-    "profile_interval_steps": (0, "observability, ROADMAP queue 1 item 24"),
+    "profile_interval_steps": (0, "observability, ROADMAP queue 1 item 24 (b)"),
 }
 
 
@@ -1436,11 +1534,48 @@ def fit(trainer: Trainer, reader, num_epochs: int, feed_names: Sequence[str],
     stacked metrics), ``global_step`` advances by the steps taken,
     ``step_interval`` checkpoints and preemption are checked at dispatch
     boundaries (a save lands on the boundary that crossed the interval),
-    and a resume re-stacks the chunks from the restored position."""
+    and a resume re-stacks the chunks from the restored position.
+
+    Telemetry: fit journals ``fit.begin_epoch``, ``ckpt.restore``,
+    ``ckpt.save`` (and counts it in ``paddle_tpu_trainer_checkpoints_total``),
+    ``fit.preempted`` and ``fit.resized`` (with their counters and flight
+    dumps) and, for an unhandled error, ``fit.error`` with a
+    ``fit_exception`` dump. The DeviceFeeder's chunk spans reach each
+    dispatch's journal event. With a ``checkpoint_config`` the process
+    flight recorder writes under ``<checkpoint_dir>/flight``."""
+    from . import resilience
+    from .telemetry import flight_dump, get_recorder
+
+    if checkpoint_config is not None:
+        # crash artifacts live next to the checkpoints they explain
+        get_recorder().set_root(os.path.join(checkpoint_config.checkpoint_dir, "flight"))
+    try:
+        return _fit_impl(trainer, reader, num_epochs, feed_names, dtypes, event_handler,
+                         checkpoint_config, prefetch, steps_per_dispatch, resume, elastic,
+                         preemption, resize, feed_wire, profile_interval_steps,
+                         device_cache, augment)
+    except FloatingPointError:
+        raise  # a guard escalation is flight-dumped where it is raised
+    except resilience.ReshardError:
+        raise  # flight-dumped where it is raised (resilience)
+    except Exception as e:
+        # an unhandled abort: what the run was doing when it died
+        err = f"{type(e).__name__}: {e}"[:500]
+        trainer.journal.emit("fit.error", error=err, global_step=trainer.global_step)
+        flight_dump("fit_exception", detail={"error": err, "global_step": trainer.global_step})
+        raise
+
+
+def _fit_impl(trainer, reader, num_epochs, feed_names, dtypes, event_handler,
+              checkpoint_config, prefetch, steps_per_dispatch, resume, elastic, preemption,
+              resize, feed_wire, profile_interval_steps, device_cache, augment):
     from . import io as _io
     from . import resilience
     from .data.feeder import DataFeeder, DeviceFeeder, iter_chunked
+    from .telemetry import flight_dump, get_registry
 
+    ckpt_counter = get_registry().counter(
+        "paddle_tpu_trainer_checkpoints_total", "Checkpoints committed by fit", ("kind",))
     given = {"feed_wire": feed_wire, "device_cache": device_cache, "augment": augment,
              "profile_interval_steps": profile_interval_steps}
     for name, (default, later) in _FIT_LATER.items():
@@ -1475,6 +1610,8 @@ def fit(trainer: Trainer, reader, num_epochs: int, feed_names: Sequence[str],
         if meta is not None:
             start_epoch = int(meta.get("epoch", 0))
             skip_steps = int(meta.get("epoch_step", 0))
+            trainer.journal.emit("ckpt.restore", global_step=trainer.global_step,
+                                 epoch=start_epoch, epoch_step=skip_steps)
 
     kept: List[str] = []
     if checkpoint_config is not None:
@@ -1489,7 +1626,11 @@ def fit(trainer: Trainer, reader, num_epochs: int, feed_names: Sequence[str],
         if checkpoint_config is None:
             return
         d = os.path.join(checkpoint_config.checkpoint_dir, tag)
+        t0 = time.perf_counter()
         _io.save_trainer(d, trainer, extra_meta={"epoch": epoch, "epoch_step": epoch_step})
+        trainer.journal.emit("ckpt.save", tag=tag, path=d, global_step=trainer.global_step,
+                             seconds=round(time.perf_counter() - t0, 6))
+        ckpt_counter.inc(kind=tag.partition("_")[0] or "other")
         last_saved_step[0] = trainer.global_step
         if d in kept:  # a re-saved tag takes the newest place
             kept.remove(d)
@@ -1512,6 +1653,7 @@ def fit(trainer: Trainer, reader, num_epochs: int, feed_names: Sequence[str],
             # chunk the rest from there
             skip = skip_steps if epoch == start_epoch else 0
             steps_in_epoch = skip
+            trainer.journal.emit("fit.begin_epoch", epoch=epoch, global_step=trainer.global_step)
             emit("begin_epoch", epoch, trainer.global_step)
 
             def batches(_skip=skip):
@@ -1522,7 +1664,8 @@ def fit(trainer: Trainer, reader, num_epochs: int, feed_names: Sequence[str],
             device_feeder = None
             if prefetch:
                 device_feeder = DeviceFeeder(batches, device=trainer.device, stack_k=k,
-                                             metrics=trainer.pipeline_metrics)
+                                             metrics=trainer.pipeline_metrics,
+                                             journal=trainer.journal)
                 items = iter(device_feeder)
             elif k > 1:
                 items = iter_chunked(batches(), k, put_fn=trainer._put_feed,
@@ -1533,9 +1676,13 @@ def fit(trainer: Trainer, reader, num_epochs: int, feed_names: Sequence[str],
             try:
                 for item in items:
                     n, feed = item if k > 1 else (1, item)
+                    # the chunk's span, minted by the fill thread: its
+                    # dispatch event correlates with its feeder.fill event
+                    span = device_feeder.last_span if device_feeder is not None else None
                     gs_before = trainer.global_step
                     emit("begin_step", epoch, gs_before, num_steps=n)
-                    out = trainer.run_steps(feed, k=n) if n > 1 else trainer.step(feed)
+                    out = (trainer.run_steps(feed, k=n, span=span) if n > 1
+                           else trainer.step(feed, span=span))
                     steps_in_epoch += n
                     emit("end_step", epoch, trainer.global_step, out, num_steps=n)
                     # a dispatch that crossed an interval multiple saves (the
@@ -1572,9 +1719,25 @@ def fit(trainer: Trainer, reader, num_epochs: int, feed_names: Sequence[str],
                     # a SIGTERM that landed after the resize poll wins: a real
                     # preemption is never reported as a planned resize
                     resized = False
-                # (the JAX package journals fit.resized / fit.preempted, counts
-                # them and dumps its flight recorder here: ROADMAP queue 1,
-                # item 24)
+                # journaled and flight-recorded after the boundary save, so the
+                # dump's ring holds the ckpt.save event and any incidents
+                # drained above
+                signum = getattr(ph, "signum", None)
+                if resized:
+                    target = rz.target if rz is not None else {}
+                    trainer.journal.emit("fit.resized", epoch=epoch,
+                                         global_step=trainer.global_step, target=target)
+                    get_registry().counter("paddle_tpu_trainer_resizes_total",
+                                           "Scheduled elastic resizes handled by fit").inc()
+                    flight_dump("resized", detail={"global_step": trainer.global_step,
+                                                   "epoch": epoch, "target": target})
+                else:
+                    trainer.journal.emit("fit.preempted", epoch=epoch,
+                                         global_step=trainer.global_step, signum=signum)
+                    get_registry().counter("paddle_tpu_trainer_preemptions_total",
+                                           "SIGTERM/SIGINT preemptions handled by fit").inc()
+                    flight_dump("preempted", detail={"global_step": trainer.global_step,
+                                                     "epoch": epoch, "signum": signum})
                 emit("resized" if resized else "preempted", epoch, trainer.global_step,
                      pipeline=trainer.pipeline_report())
                 if guard_err is not None:

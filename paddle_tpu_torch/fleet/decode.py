@@ -2,11 +2,12 @@
 KV cache in the compute dtype or in int8, behind the continuous-batching
 scheduler (counterpart of ``paddle_tpu.fleet.decode``).
 
-``models/gpt.make_generator`` (prefill through the flash-attention
-kernel, then greedy decode over a KV cache, stored int8 where
-``cfg.kv_cache_dtype="int8"`` — ``layers/stacked.quantize_kv``; on the
-card the decode steps replay one captured CUDA graph a bucket) exports
-through the ordinary ``save_inference_model`` door with batch buckets,
+``build(models.gpt.make_generator(...))`` (prefill through the
+flash-attention kernel, then greedy decode over a KV cache, stored int8
+where ``cfg.kv_cache_dtype="int8"`` — ``layers/stacked.quantize_kv``; on
+the card the decode steps replay one captured CUDA graph a bucket)
+exports through the ordinary ``save_inference_model`` door with batch
+buckets,
 so single-prompt decode requests coalesce into one bucket-sized
 dispatch. Rows are independent through prefill and decode (per-row
 attention, per-vector quantization, per-row argmax), so a coalesced
@@ -24,33 +25,37 @@ import numpy as np
 def export_decoder(dirname: str, cfg, max_new_tokens: int,
                    example_prompt, params: Optional[Dict[str, Any]] = None,
                    batch_buckets: Sequence[int] = (),
-                   seed: int = 0, compute_dtype="float32",
+                   seed: int = 0, compute_dtype=None,
                    device=None) -> Tuple[Any, Dict[str, Any]]:
-    """Export a ``gpt.make_generator`` program (greedy decode over the
-    config's KV cache — ``cfg.kv_cache_dtype="int8"`` for the int8 cache)
-    as a multi-bucket ``save_inference_model`` artifact.
+    """Export ``build(gpt.make_generator(cfg, max_new_tokens))`` (greedy
+    decode over the config's KV cache — ``cfg.kv_cache_dtype="int8"`` for
+    the int8 cache) as a multi-bucket ``save_inference_model`` artifact.
 
     ``example_prompt``: int32 ``[b, p]`` prompt ids — its batch size
     becomes a bucket; ``batch_buckets`` adds more. ``params`` is a flat
-    ``{JAX param name: tensor or array}`` dict (``gpt.params_from_jax``
-    carries the JAX package's params across); None draws a fresh init
-    from ``seed`` through the port's initializers. ``compute_dtype``
-    stands in for the JAX package's ``default_compute_dtype`` flag.
-    The program is built on ``device`` (the CUDA card by default).
+    ``{JAX param name: tensor or array}`` dict (params trained by
+    ``gpt.make_model`` share its names; ``gpt.params_from_jax`` carries the
+    JAX package's across); None initialises through ``prog.init(seed,
+    prompt_ids=example_prompt)``. The artifact records the compute dtype
+    in force (``amp_guard``); ``compute_dtype`` enters one around the
+    export. The program is built on ``device`` (the CUDA card by default).
     Returns ``(program, params)``."""
+    import contextlib
+
     from .. import io as pio
+    from ..core.place import default_device
+    from ..framework import amp_guard, build
     from ..models import gpt
 
-    prog = gpt.make_generator(cfg, max_new_tokens=max_new_tokens,
-                              compute_dtype=compute_dtype, device=device)
-    if params is None:
-        prog.init_params(seed)
-    else:
-        prog.load_params(params)
-    params = prog.flat_params()
+    dev = default_device(device, "export_decoder")
+    prog = build(gpt.make_generator(cfg, max_new_tokens=max_new_tokens))
     feed = {"prompt_ids": np.asarray(example_prompt, np.int32)}
-    pio.save_inference_model(dirname, prog, params, {}, feed,
-                             batch_buckets=list(batch_buckets) or None)
+    with (amp_guard(compute_dtype) if compute_dtype is not None
+          else contextlib.nullcontext()):
+        if params is None:
+            params, _ = prog.init(seed, place=dev, **feed)
+        pio.save_inference_model(dirname, prog, params, {}, feed,
+                                 batch_buckets=list(batch_buckets) or None)
     return prog, params
 
 

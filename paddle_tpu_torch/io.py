@@ -22,9 +22,11 @@ An inference artifact records its program instead of an exported graph: a
 ``build`` Program by the import path of its function
 (``paddle_tpu_torch.models.mnist:mlp``), or of the factory that made it
 with the factory's arguments (a function with ``factory_spec``, as
-``models.resnet.make_model`` returns), with its layout and compute dtype;
-a GPT generator by its builder and arguments (``spec()``). The loader
-rebuilds the program from there. Not carried yet, each raising
+``models.resnet.make_model`` and ``models.gpt.make_generator`` return),
+with its layout and compute dtype. The loader rebuilds the program from
+there; an artifact of the GPT generator from before it was a ``build``
+program records a ``builder`` instead and raises
+:class:`ArtifactOutdated`, which says to export it again. Not carried yet, each raising
 :class:`NotYetPorted`: an exported graph per bucket (``torch.export``
 cannot trace a kernel called through ctypes; ROADMAP queue 1, item 9) and
 ``save_train_artifact`` (item 27).
@@ -77,6 +79,11 @@ _COLLECTIONS = {"params": "params.npz", "state": "state.npz", "opt_state": "opt_
 
 def _log():
     return logging.getLogger("paddle_tpu_torch.io")
+
+
+class ArtifactOutdated(EnforceError):
+    """An inference artifact in a format this package no longer loads;
+    the message says how to export it again."""
 
 
 class InvalidRequest(EnforceError, ValueError):
@@ -975,8 +982,8 @@ def _program_spec(program) -> Dict[str, Any]:
 
 
 class _ProgramRunner:
-    """A ``build`` Program bound to its loaded weights, called as the GPT
-    programs are: ``runner(**feed) -> outputs``, through
+    """A ``build`` Program bound to its loaded weights:
+    ``runner(**feed) -> outputs``, through
     ``Program.apply(training=False)`` under the export's compute dtype."""
 
     def __init__(self, program, params, state, device: torch.device, compute_dtype: str):
@@ -1010,9 +1017,9 @@ class _ProgramRunner:
 def save_inference_model(dirname: str, program, params: Dict[str, Any],
                          state: Dict[str, Any], example_feed: Dict[str, Any],
                          batch_buckets: Optional[Sequence[int]] = None) -> None:
-    """Export ``program`` with its weights as an inference artifact: a
-    ``build`` Program (its function must be importable by path) or a
-    module with ``spec()`` (``models.gpt.make_generator``'s).
+    """Export the ``build`` Program ``program`` with its weights as an
+    inference artifact (its function must be importable by path, or carry
+    a ``factory_spec``, as ``models.gpt.make_generator``'s does).
     ``batch_buckets`` adds batch sizes the :class:`Predictor` serves
     besides the example feed's own.
 
@@ -1022,13 +1029,10 @@ def save_inference_model(dirname: str, program, params: Dict[str, Any],
     two-rename window leaves it recoverable."""
     from .framework import Program
 
-    if isinstance(program, Program):
-        spec = _program_spec(program)
-    else:
-        enforce(callable(getattr(program, "spec", None)),
-                "save_inference_model: the program must be a build Program or "
-                "have spec() (as models.gpt.make_generator's)")
-        spec = program.spec()
+    enforce(isinstance(program, Program),
+            f"save_inference_model: expected a build Program, got "
+            f"{type(program).__name__} (build(models.gpt.make_generator(...)) for GPT)")
+    spec = _program_spec(program)
     feed_names = sorted(example_feed)
     batch, batched_feeds = _infer_batch_info(example_feed)
     buckets = sorted(set(int(b) for b in (batch_buckets or [])) | {batch})
@@ -1070,11 +1074,6 @@ def save_inference_model(dirname: str, program, params: Dict[str, Any],
         shutil.rmtree(old, ignore_errors=True)
 
 
-def _builders():
-    from .models import gpt
-    return {gpt.BUILDER: gpt.build_from_spec}
-
-
 def load_inference_model(dirname: str, device=None) -> "Predictor":
     """Validate the artifact in ``dirname`` against its manifest (a torn
     or bit-flipped one raises :class:`CheckpointCorrupt`; a legacy one
@@ -1094,21 +1093,21 @@ def load_inference_model(dirname: str, device=None) -> "Predictor":
             dirname, f"unreadable artifact: {type(e).__name__}: {e}") from e
     if manifest:
         _check_arrays_spec(manifest, dirname, params=params, state=state)
-    if "program" in meta or "program_factory" in meta:
-        from .framework import build
+    if "builder" in meta:
+        raise ArtifactOutdated(
+            f"load_inference_model: {dirname!r} records the builder "
+            f"{meta['builder']!r}, an artifact of the GPT generator from before it "
+            "became a build program; re-export it (fleet.decode.export_decoder, or "
+            "save_inference_model(build(models.gpt.make_generator(...)), ...))")
+    enforce("program" in meta or "program_factory" in meta,
+            f"load_inference_model: {dirname!r} records no program this port can rebuild")
+    from .framework import build
 
-        fn = (_resolve(meta["program"]) if "program" in meta
-              else _resolve(meta["program_factory"])(**meta["program_kwargs"]))
-        program = build(fn, name=meta["name"])
-        program.layout = meta["layout"]
-        program = _ProgramRunner(program, params, state, dev, meta["compute_dtype"])
-    else:
-        builder = _builders().get(meta.get("builder"))
-        enforce(builder is not None,
-                f"load_inference_model: {dirname!r} records no program this port "
-                f"can rebuild (builder {meta.get('builder')!r})")
-        program = builder(meta, device=dev)
-        program.load_params(params)
+    fn = (_resolve(meta["program"]) if "program" in meta
+          else _resolve(meta["program_factory"])(**meta["program_kwargs"]))
+    program = build(fn, name=meta["name"])
+    program.layout = meta["layout"]
+    program = _ProgramRunner(program, params, state, dev, meta["compute_dtype"])
     return Predictor(program, meta["feed_names"],
                      {k: {"shape": list(s), "dtype": d.name} for k, (s, d) in feeds.items()},
                      batch_size=meta["batch_size"], batched_feeds=meta["batched_feeds"],
@@ -1324,7 +1323,7 @@ def _block_on(out) -> None:
             return
 
 
-__all__ = ["InvalidRequest", "Predictor", "artifact_feed_spec", "artifact_fingerprint",
+__all__ = ["ArtifactOutdated", "InvalidRequest", "Predictor", "artifact_feed_spec", "artifact_fingerprint",
            "flat_spec", "load_inference_model", "load_params", "load_persistables",
            "load_trainer", "load_vars", "read_artifact_meta", "save_inference_model",
            "save_params", "save_persistables", "save_train_artifact", "save_trainer",

@@ -3,8 +3,7 @@
 Per-layer parameters live stacked on a leading ``[num_layers, ...]``
 axis, under the JAX package's names (``ln1/scale``, ``qkv/w`` ...):
 created through ``LayerHelper`` by :func:`encoder_stack_params` and
-:func:`decoder_stack_params` inside a ``build`` program, or owned by
-:class:`EncoderStack` (the GPT generator's module). The block functions
+:func:`decoder_stack_params` inside a ``build`` program. The block functions
 are plain functions of ``(activation, layer_params[, extra])`` as in the
 JAX package, with the compute dtype passed in
 (``framework.cast_compute``) instead of read from a flag. Weights stay
@@ -49,7 +48,6 @@ import math
 from typing import Callable, Dict, Optional
 
 import torch
-from torch import nn
 
 from ..core.errors import enforce
 from ..framework import (LayerHelper, cast_compute, compute_dtype as _compute_dtype,
@@ -75,21 +73,20 @@ class StackedInit(init.Initializer):
                             for _ in range(shape[0])])
 
 
-# JAX name inside the stack -> (module attribute, initializer); the one
-# table that maps the JAX package's names onto this module
+# JAX name inside the stack -> its initializer, in the JAX package's order
 STACK_PARAMS = {
-    "ln1/scale": ("ln1_scale", init.Constant(1.0)),
-    "ln1/bias": ("ln1_bias", init.Constant(0.0)),
-    "qkv/w": ("qkv_w", StackedInit(init.Xavier())),
-    "qkv/b": ("qkv_b", init.Constant(0.0)),
-    "out/w": ("out_w", StackedInit(init.Xavier())),
-    "out/b": ("out_b", init.Constant(0.0)),
-    "ln2/scale": ("ln2_scale", init.Constant(1.0)),
-    "ln2/bias": ("ln2_bias", init.Constant(0.0)),
-    "ffn_in/w": ("ffn_in_w", StackedInit(init.Xavier())),
-    "ffn_in/b": ("ffn_in_b", init.Constant(0.0)),
-    "ffn_out/w": ("ffn_out_w", StackedInit(init.Xavier())),
-    "ffn_out/b": ("ffn_out_b", init.Constant(0.0)),
+    "ln1/scale": init.Constant(1.0),
+    "ln1/bias": init.Constant(0.0),
+    "qkv/w": StackedInit(init.Xavier()),
+    "qkv/b": init.Constant(0.0),
+    "out/w": StackedInit(init.Xavier()),
+    "out/b": init.Constant(0.0),
+    "ln2/scale": init.Constant(1.0),
+    "ln2/bias": init.Constant(0.0),
+    "ffn_in/w": StackedInit(init.Xavier()),
+    "ffn_in/b": init.Constant(0.0),
+    "ffn_out/w": StackedInit(init.Xavier()),
+    "ffn_out/b": init.Constant(0.0),
 }
 _MATMUL_WEIGHTS = ("qkv/w", "out/w", "ffn_in/w", "ffn_out/w")
 
@@ -121,7 +118,7 @@ def encoder_stack_params(num_layers: int, d_model: int, d_inner: int,
     blocks through ``LayerHelper``, under ``<scope>/<name>/ln1/scale`` ...
     (layers/stacked.py:150)."""
     shapes = encoder_stack_shapes(num_layers, d_model, d_inner)
-    return _create_stack(name, {k: (shapes[k], i) for k, (_, i) in STACK_PARAMS.items()})
+    return _create_stack(name, {k: (shapes[k], i) for k, i in STACK_PARAMS.items()})
 
 
 def decoder_stack_params(num_layers: int, d_model: int, d_inner: int,
@@ -138,41 +135,6 @@ def decoder_stack_params(num_layers: int, d_model: int, d_inner: int,
         "xkv/w": ((L, d, 2, d), xavier), "xkv/b": ((L, 2, d), zeros),
         "xout/w": ((L, d, d), xavier), "xout/b": ((L, d), zeros)}))
     return p
-
-
-class EncoderStack(nn.Module):
-    """The stacked params of ``num_layers`` pre-LN self-attention blocks
-    (:func:`encoder_stack_params`' names and shapes) as a module the GPT
-    generator owns: float32 tensors ``[L, ...]`` under the attributes of
-    :data:`STACK_PARAMS`, not trainable."""
-
-    def __init__(self, num_layers: int, d_model: int, d_inner: int, device=None):
-        super().__init__()
-        self.num_layers = num_layers
-        for name, shape in encoder_stack_shapes(num_layers, d_model,
-                                                d_inner).items():
-            self.register_parameter(STACK_PARAMS[name][0], nn.Parameter(
-                torch.empty(shape, dtype=torch.float32, device=device),
-                requires_grad=False))
-
-    def get(self, name: str) -> torch.Tensor:
-        return getattr(self, STACK_PARAMS[name][0])
-
-    def params(self) -> Dict[str, torch.Tensor]:
-        """{JAX name inside the stack: [L, ...] tensor}, as
-        ``encoder_stack_params`` returns them."""
-        return {name: self.get(name) for name in STACK_PARAMS}
-
-    def layer(self, i: int, compute_dtype=None) -> Dict[str, torch.Tensor]:
-        """Layer ``i``'s params by JAX name. With ``compute_dtype`` the
-        matmul weights come already cast, so a decode loop casts them
-        once per call rather than once per step (the same values
-        ``cast_compute`` gives inside each block)."""
-        out = {name: self.get(name)[i] for name in STACK_PARAMS}
-        if compute_dtype is not None:
-            for name in _MATMUL_WEIGHTS:
-                out[name] = cast_compute(compute_dtype, out[name])
-        return out
 
 
 def _ln(x, scale, bias, eps: float = 1e-5):
@@ -557,7 +519,7 @@ def decode_block(x, p, k_cache, v_cache, index, num_heads: int,
     return _ffn(x, p, compute_dtype), k_cache, v_cache
 
 
-__all__ = ["EncoderStack", "STACK_PARAMS", "StackedInit",
+__all__ = ["STACK_PARAMS", "StackedInit",
            "apply_stacked", "decode_block", "decode_block_q8", "decoder_stack_params",
            "encoder_stack_params", "encoder_stack_shapes", "make_decoder_block",
            "make_encoder_block", "prefill_block", "quantize_kv", "stack_tp_specs"]

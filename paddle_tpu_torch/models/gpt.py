@@ -21,12 +21,15 @@ the JAX function's sequence-parallel branches: for ring attention it
 permutes ids, labels and positions into zigzag order once and keeps its
 activations there; for Ulysses it checks that the sequence divides.
 
-The generator is a module that owns its params under the same names
-(:data:`PARAM_TABLE`). It decodes greedily or by beam search
-(``beam_size > 1``, the caches grown to ``b·beam`` rows), over a KV cache
-in the compute dtype or in int8 with f32 scales
-(``kv_cache_dtype="int8"``). Each call runs the prefill eagerly, then its
-decode steps from static buffers through
+``make_generator(cfg, n)`` returns the generation program's function,
+which the caller wraps in ``build`` too, as in the JAX package: it
+creates every param once through ``LayerHelper`` under the training
+program's names, so ``Program.init`` draws them as ``make_model``'s init
+does and a trained scope serves directly. It decodes greedily or by beam
+search (``beam_size > 1``, the caches grown to ``b·beam`` rows), over a
+KV cache in the compute dtype or in int8 with f32 scales
+(``kv_cache_dtype="int8"``). In apply mode a call runs the prefill
+eagerly, then its decode steps from static buffers through
 :mod:`paddle_tpu_torch._captured_decode`: on the card one captured CUDA
 graph of a decode step, replayed, with the cache index on the device; on
 the CPU the same step body as a plain call.
@@ -36,26 +39,23 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Dict, List, Union
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
-from torch import nn
 
 from .. import initializer as init
-from ..core.dtypes import convert_dtype, dtype_name
-from ..core.errors import EnforceError, NotFoundError, enforce
-from ..core.place import default_device
+from .._captured_decode import eager_decode_on
+from ..core.dtypes import convert_dtype
+from ..core.errors import enforce
 from .. import framework
-from ..framework import cast_compute, name_scope
+from ..framework import (BuildContext, LayerHelper, cast_compute, compute_dtype,
+                         current_context, name_scope)
 from ..layers import attention as A
 from ..layers import nn as L
 from ..layers import stacked as S
 from ..layers.beam_search import beam_search, greedy_search
 from .lm_head import lm_head_loss
-
-BUILDER = "models.gpt.make_generator"
-
 
 @dataclasses.dataclass
 class GPTConfig:
@@ -136,193 +136,173 @@ def make_model(cfg: Union[GPTConfig, dict]):
     return gpt
 
 
-# JAX param name -> (the generator's attribute path, initializer): the one
-# table between the JAX package's flat param dict and the generator
-PARAM_TABLE = {
-    "tok/embedding_0/w": ("w_emb", init.Xavier()),
-    **{f"gpt/encoder_stack/{k}": (f"stack.{a}", i)
-       for k, (a, i) in S.STACK_PARAMS.items()},
-    "gpt/layer_norm_0/scale": ("ln_scale", init.Constant(1.0)),
-    "gpt/layer_norm_0/bias": ("ln_bias", init.Constant(0.0)),
-    "lm_head_0/w": ("w_head", init.Xavier()),
-}
+class _Weights:
+    """What the prefill and the decode steps read, by role: the embedding
+    table, each layer's params (its matmul weights in the compute dtype),
+    the final norm's params, the head's weight in the dtype of its
+    product, and the positional table. ``tensors`` lists them in the order
+    of :meth:`_GenerateProgram._sources`."""
+
+    def __init__(self, tensors: List[torch.Tensor], cfg: GPTConfig, device):
+        self.tensors = tensors
+        it = iter(tensors)
+        self.w_emb = next(it)
+        self.layers = [{name: next(it) for name in S.STACK_PARAMS}
+                       for _ in range(cfg.num_layers)]
+        self.ln_scale, self.ln_bias, self.w_head = next(it), next(it), next(it)
+        self.pe = A.positional_encoding(cfg.max_len, cfg.d_model, convert_dtype(cfg.dtype),
+                                        device=device)
+
+    def fits(self, sources) -> bool:
+        """Whether ``sources`` copy into these tensors as they are (the same
+        shapes, target dtypes and device)."""
+        return len(sources) == len(self.tensors) and all(
+            t.shape == s.shape and t.dtype == dt and t.device == s.device
+            for t, (s, dt) in zip(self.tensors, sources))
 
 
-class GPTGenerator(nn.Module):
-    """``make_generator``'s program: ``forward(prompt_ids [b, p] int32)
-    -> {"ids": [b, max_new_tokens] int32}`` (greedy) or ``{"ids": [b,
-    beam, max_new_tokens] int32, "scores": [b, beam] f32}`` (beam search,
-    best first).
-
-    A call's decode steps run from static buffers owned by one
-    ``_captured_decode.CapturedDecode`` per (batch, prompt length): on the
-    card the step is captured once as a CUDA graph and replayed; a failed
-    capture raises. At most ``max_signatures`` of them are kept, the least
-    recently called dropped first with its graph; every one reads the same
-    weights (one set of casts a generator, refreshed once a call). Calls on
-    one generator are serialised (the buffers are shared). ``load_params``
-    and ``init_params`` drop the captured steps and the casts.
-    :meth:`_generate_eager` is the same decode as a plain loop over a
-    state that each step replaces, the JAX package's ``lax.scan`` written
-    out, kept as the reference the captured steps are held to."""
+class _GenerateProgram:
+    """``make_generator``'s program function (see there). Every call
+    creates (init) or fetches (apply) its params through ``LayerHelper``
+    once. In apply mode it runs the prefill eagerly, then the decode steps
+    from the static buffers of a
+    :class:`~paddle_tpu_torch._captured_decode.CapturedDecode` for the
+    call's (batch, prompt length): the step captured once as a CUDA graph
+    and replayed on the card, called as a plain function on the CPU. At
+    most ``max_signatures`` of them are kept, the least recently called
+    dropped first with its graph (a ``Predictor`` raises the bound to its
+    bucket count). Every one reads one set of static copies of the params
+    (:class:`_Weights`), copied from the call's params once a call, with
+    the matmul weights cast to the compute dtype in that copy: a call with
+    another params dict never reads the last one's, and no replay casts.
+    Another device or compute dtype drops the static copies and the
+    decodes. Calls are serialised (the buffers are shared). In training
+    mode and under :func:`_captured_decode.eager_decode` it runs the plain
+    loop (:meth:`_eager`), the JAX program's form, which the captured steps
+    are held to. In init mode it creates the params and decodes nothing
+    (``Program.init`` returns only the params and state)."""
 
     # call signatures whose static buffers and graph are kept (each holds
     # its caches: 75.5 MB for GPT-base bf16 at batch 8, 604 MB at beam 4)
     max_signatures = 8
 
-    def __init__(self, cfg: GPTConfig, max_new_tokens: int, beam_size: int = 1,
-                 bos_id: int = 1, eos_id: int = 2, length_penalty_alpha: float = 0.0,
-                 compute_dtype="float32", device=None):
-        super().__init__()
+    def __init__(self, cfg: GPTConfig, max_new_tokens: int, beam_size: int, bos_id: int,
+                 eos_id: int, length_penalty_alpha: float):
         enforce(cfg.kv_cache_dtype in ("compute", "int8"),
                 f"kv_cache_dtype={cfg.kv_cache_dtype!r} (compute|int8)")
         enforce(int(beam_size) >= 1, f"beam_size must be >= 1, got {beam_size}")
-        dev = default_device(device, "make_generator")
         self.cfg = cfg
         self.max_new_tokens = int(max_new_tokens)
         self.beam_size = int(beam_size)
         self.bos_id, self.eos_id = int(bos_id), int(eos_id)
         self.length_penalty_alpha = float(length_penalty_alpha)
-        self.compute_dtype = convert_dtype(compute_dtype)
-        dt = convert_dtype(cfg.dtype)
-        V, d = cfg.vocab_size, cfg.d_model
-
-        def param(shape, dtype):
-            return nn.Parameter(torch.empty(shape, dtype=dtype, device=dev),
-                                requires_grad=False)
-
-        self.w_emb = param((V, d), dt)
-        self.stack = S.EncoderStack(cfg.num_layers, d, cfg.d_inner, device=dev)
-        self.ln_scale = param((d,), torch.float32)
-        self.ln_bias = param((d,), torch.float32)
-        self.w_head = param((d, V), dt)
-        self.register_buffer(
-            "pe", A.positional_encoding(cfg.max_len, d, dt, device=dev),
-            persistent=False)
-        self._decoders: Dict = {}   # (batch, prompt length) -> CapturedDecode, oldest first
-        self._weights = None        # (layers, head weight, [(param, cast)]) the steps read
+        self.__name__ = "generate"
+        self.factory_spec = {
+            "factory": f"{__name__}:make_generator",
+            "kwargs": {"cfg": dataclasses.asdict(cfg), "max_new_tokens": self.max_new_tokens,
+                       "beam_size": self.beam_size, "bos_id": self.bos_id,
+                       "eos_id": self.eos_id,
+                       "length_penalty_alpha": self.length_penalty_alpha}}
+        self._decoders: Dict = {}  # (batch, prompt length) -> CapturedDecode, oldest first
+        self._weights: Optional[_Weights] = None  # the static copies the decodes read
         self._lock = threading.Lock()
-
-    def spec(self) -> Dict:
-        """How to rebuild this program: the builder and its arguments
-        (what ``io.save_inference_model`` records in meta.json)."""
-        return {"builder": BUILDER, "config": dataclasses.asdict(self.cfg),
-                "max_new_tokens": self.max_new_tokens, "beam_size": self.beam_size,
-                "bos_id": self.bos_id, "eos_id": self.eos_id,
-                "length_penalty_alpha": self.length_penalty_alpha,
-                "compute_dtype": dtype_name(self.compute_dtype)}
 
     @property
     def int8_kv(self) -> bool:
         return self.cfg.kv_cache_dtype == "int8"
 
-    @property
-    def device(self) -> torch.device:
-        return self.w_emb.device
+    # -- the program ------------------------------------------------------------
 
-    def flat_params(self) -> Dict[str, torch.Tensor]:
-        """{JAX param name: tensor} (the tensors themselves, not copies)."""
-        return {name: self.get_parameter(attr)
-                for name, (attr, _) in PARAM_TABLE.items()}
+    def __call__(self, prompt_ids):
+        cfg = self.cfg
+        b, p = prompt_ids.shape
+        enforce(p + self.max_new_tokens <= cfg.max_len,
+                f"prompt {p} + max_new {self.max_new_tokens} exceeds max_len {cfg.max_len}")
+        ctx = current_context()
+        sources = self._sources(compute_dtype())
+        if ctx.mode == "init":
+            # Program.init keeps the params created above and discards what
+            # the program returns, so the startup runs no decode (and no
+            # kernel): its cost is the initializers'
+            return None
+        if ctx.training or eager_decode_on():
+            with torch.inference_mode():
+                weights = _Weights([t.to(dt) for t, dt in sources], cfg, ctx.device)
+                return self._eager(weights, prompt_ids, ctx.compute_dtype)
+        return self._captured(sources, prompt_ids, ctx)
 
-    def load_params(self, flat: Dict[str, torch.Tensor]):
-        """Take every parameter from ``flat`` (JAX names, e.g. a trained
-        ``Trainer.scope.params``; dtypes kept as given, copied to this
-        module's device). Missing, extra or misshapen entries raise. Drops
-        the captured steps and the weight casts."""
-        extra = sorted(set(flat) - set(PARAM_TABLE))
-        enforce(not extra, f"load_params: not params of this program: {extra}")
-        for name, (attr, _) in PARAM_TABLE.items():
-            if name not in flat:
-                raise NotFoundError(f"load_params: missing param {name!r}")
-            p = self.get_parameter(attr)
-            t = torch.as_tensor(flat[name]).detach()
-            if tuple(t.shape) != tuple(p.shape):
-                raise EnforceError(f"load_params: {name} has shape "
-                                   f"{tuple(t.shape)}, expected {tuple(p.shape)}")
-            p.data = t.to(self.device, copy=True)
-        self.drop_captured()
-        return self
+    def _sources(self, compute_dtype) -> List[tuple]:
+        """Every param, created or fetched once with ``make_model``'s names
+        (models/gpt.py:139-156), as ``(tensor, the dtype the steps read it
+        in)`` in :class:`_Weights`' order."""
+        cfg = self.cfg
+        d, V = cfg.d_model, cfg.vocab_size
+        with name_scope("tok"):
+            w_emb = LayerHelper("embedding").create_parameter(
+                "w", (V, d), cfg.dtype, initializer=init.Xavier())
+        with name_scope("gpt"):
+            stack = S.encoder_stack_params(cfg.num_layers, d, cfg.d_inner)
+            ln = LayerHelper("layer_norm")
+            ln_scale = ln.create_parameter("scale", (d,), torch.float32,
+                                           initializer=init.Constant(1.0))
+            ln_bias = ln.create_parameter("bias", (d,), torch.float32,
+                                          initializer=init.Constant(0.0))
+        w_head = LayerHelper("lm_head").create_parameter(
+            "w", (d, V), cfg.dtype, initializer=init.Xavier())
+        out = [(w_emb, w_emb.dtype)]
+        for i in range(cfg.num_layers):
+            for name in S.STACK_PARAMS:
+                t = stack[name][i]
+                out.append((t, compute_dtype if name in S._MATMUL_WEIGHTS else t.dtype))
+        # the final norm's output is f32 (its params are), and jnp.matmul
+        # promotes the mixed pair, so a bf16 head weight is read as f32
+        out += [(ln_scale, ln_scale.dtype), (ln_bias, ln_bias.dtype),
+                (w_head, torch.promote_types(ln_scale.dtype, w_head.dtype))]
+        return out
 
-    def init_params(self, seed: int = 0):
-        """Fresh init through the port's initializers: each param draws
-        from its own CPU generator seeded from (seed, its name), so the
-        values do not depend on the device or on the order of params.
-        Drops the captured steps and the weight casts."""
-        for name, (attr, initializer) in PARAM_TABLE.items():
-            p = self.get_parameter(attr)
-            g = init.param_generator(seed, name)
-            p.data = initializer(g, tuple(p.shape), p.dtype).to(self.device)
-        self.drop_captured()
-        return self
+    def _captured(self, sources, prompt_ids, ctx):
+        from .._captured_decode import CapturedDecode
 
-    def drop_captured(self) -> None:
-        """Forget every call signature's static buffers and captured step,
-        and the weight casts they read (they hold the params' addresses)."""
-        with self._lock:
-            self._decoders.clear()
-            self._weights = None
+        b, p = prompt_ids.shape
+        with self._lock, torch.inference_mode():
+            if self._weights is None or not self._weights.fits(sources):
+                self._decoders.clear()
+                self._weights = None  # the old copies go before the new ones come
+                self._weights = _Weights(
+                    [torch.empty(s.shape, dtype=dt, device=s.device) for s, dt in sources],
+                    self.cfg, ctx.device)
+            torch._foreach_copy_(self._weights.tensors, [s for s, _ in sources])
+            dec = self._decoders.pop((b, p), None)
+            if dec is None:
+                while len(self._decoders) >= self.max_signatures:
+                    del self._decoders[next(iter(self._decoders))]
+                dec = CapturedDecode(self, self._weights, b, p, ctx.compute_dtype)
+            self._decoders[(b, p)] = dec  # the most recently called last
+            return dec.run(prompt_ids)
 
-    # -- the program ----------------------------------------------------------
+    # -- the steps, over a set of weights -------------------------------------
 
-    def decode_layers(self) -> List[Dict[str, torch.Tensor]]:
-        """Each layer's params, the matmul weights cast to the compute
-        dtype (once a call, not once a step)."""
-        return [self.stack.layer(i, self.compute_dtype)
-                for i in range(self.cfg.num_layers)]
-
-    def head_weight(self) -> torch.Tensor:
-        """``lm_head_0/w`` in the dtype of the head's product: the final
-        layer norm's output is f32 (its params are), and ``jnp.matmul``
-        promotes the mixed pair, so a bf16 head weight is cast to f32 (once
-        a call, not once a step)."""
-        return self.w_head.to(torch.promote_types(self.ln_scale.dtype, self.w_head.dtype))
-
-    def _decode_weights(self):
-        """(layers, head weight) that every signature's step reads: built
-        at the first call, copied again from the params at every later one
-        (so an in-place change of a param reaches the next call), never
-        reallocated until :meth:`drop_captured`."""
-        if self._weights is None:
-            layers, w_head = self.decode_layers(), self.head_weight()
-            sources = [self.stack.layer(i) for i in range(self.cfg.num_layers)]
-            casts = [(src[name], lp[name]) for src, lp in zip(sources, layers)
-                     for name in lp if lp[name].data_ptr() != src[name].data_ptr()]
-            if w_head.data_ptr() != self.w_head.data_ptr():
-                casts.append((self.w_head, w_head))
-            self._weights = (layers, w_head, casts)
-        else:
-            layers, w_head, casts = self._weights
-            if casts:
-                torch._foreach_copy_([d for _, d in casts], [s for s, _ in casts])
-        return layers, w_head
-
-    def _head(self, x_last, w_head=None):  # [rows, d] -> log-probs [rows, vocab] f32
-        h = S._ln(x_last[:, None, :], self.ln_scale, self.ln_bias)[:, 0]
-        w_head = self.w_head if w_head is None else w_head
+    def head(self, w: _Weights, x_last):  # [rows, d] -> log-probs [rows, vocab] f32
+        h = S._ln(x_last[:, None, :], w.ln_scale, w.ln_bias)[:, 0]
         # jnp.matmul promotes mixed dtypes (f32 h, bf16 head -> f32);
         # torch.matmul does not, so promote explicitly
-        dt = torch.promote_types(h.dtype, w_head.dtype)
-        logits = torch.matmul(h.to(dt), w_head.to(dt)).float()
+        dt = torch.promote_types(h.dtype, w.w_head.dtype)
+        logits = torch.matmul(h.to(dt), w.w_head.to(dt)).float()
         return torch.log_softmax(logits, dim=-1)
 
-    def prefill(self, prompt_ids: torch.Tensor, layers=None):
+    def prefill(self, w: _Weights, prompt_ids: torch.Tensor, compute_dtype):
         """Run the prompt causally. Returns (logp0 [b, vocab] f32 — the
         first generated token's distribution, ks, vs — per-layer
         [b, h, p, hd] caches in the compute dtype)."""
         cfg = self.cfg
         p = prompt_ids.shape[1]
-        if layers is None:
-            layers = self.decode_layers()
-        x = cast_compute(self.compute_dtype,
-                         L.take_rows(self.w_emb, prompt_ids) + self.pe[:p][None])
+        x = cast_compute(compute_dtype, L.take_rows(w.w_emb, prompt_ids) + w.pe[:p][None])
         ks, vs = [], []
-        for lp in layers:
-            x, (k, v) = S.prefill_block(x, lp, cfg.num_heads, cfg.use_flash,
-                                        self.compute_dtype)
+        for lp in w.layers:
+            x, (k, v) = S.prefill_block(x, lp, cfg.num_heads, cfg.use_flash, compute_dtype)
             ks.append(k)
             vs.append(v)
-        return self._head(x[:, -1]), ks, vs
+        return self.head(w, x[:, -1]), ks, vs
 
     def prefix_caches(self, ks, vs) -> List[tuple]:
         """Per layer, the prompt's cache entries as the decode blocks store
@@ -333,102 +313,87 @@ class GPTGenerator(nn.Module):
             return [(k, v) for k, v in zip(ks, vs)]
         return [S.quantize_kv(k) + S.quantize_kv(v) for k, v in zip(ks, vs)]
 
-    def decode_step(self, tokens, caches, index, layers, w_head=None):
+    def decode_step(self, w: _Weights, tokens, caches, index, compute_dtype):
         """The incremental step: ``tokens`` [rows] int32 embedded at
         position ``index`` (a 0-dim integer tensor on the device), the
         blocks writing each layer's ``caches`` at ``index`` in place, the
         head. Returns log-probs [rows, vocab] f32. Reads nothing back to
         the host."""
         cfg = self.cfg
-        pe_row = self.pe.index_select(0, index.reshape(1).long())
-        xt = cast_compute(self.compute_dtype,
-                          L.take_rows(self.w_emb, tokens)[:, None, :] + pe_row[None])
+        pe_row = w.pe.index_select(0, index.reshape(1).long())
+        xt = cast_compute(compute_dtype,
+                          L.take_rows(w.w_emb, tokens)[:, None, :] + pe_row[None])
         block = S.decode_block_q8 if self.int8_kv else S.decode_block
-        for lp, cache in zip(layers, caches):
-            xt = block(xt, lp, *cache, index, cfg.num_heads, self.compute_dtype)[0]
-        return self._head(xt[:, 0], w_head)
+        for lp, cache in zip(w.layers, caches):
+            xt = block(xt, lp, *cache, index, cfg.num_heads, compute_dtype)[0]
+        return self.head(w, xt[:, 0])
 
-    def _check_prompt(self, prompt_ids) -> torch.Tensor:
-        prompt_ids = torch.as_tensor(prompt_ids, device=self.device)
-        p = prompt_ids.shape[1]
-        enforce(p + self.max_new_tokens <= self.cfg.max_len,
-                f"prompt {p} + max_new {self.max_new_tokens} exceeds max_len "
-                f"{self.cfg.max_len}")
-        return prompt_ids
-
-    def forward(self, prompt_ids) -> Dict[str, torch.Tensor]:
-        from .._captured_decode import CapturedDecode
-
-        prompt_ids = self._check_prompt(prompt_ids)
-        b, p = prompt_ids.shape
-        with self._lock, torch.inference_mode():
-            layers, w_head = self._decode_weights()
-            dec = self._decoders.pop((b, p), None)
-            if dec is None:
-                while len(self._decoders) >= self.max_signatures:
-                    del self._decoders[next(iter(self._decoders))]
-                dec = CapturedDecode(self, b, p, layers, w_head)
-            self._decoders[(b, p)] = dec   # the most recently called last
-            return dec.run(prompt_ids)
-
-    def _generate_eager(self, prompt_ids) -> Dict[str, torch.Tensor]:
+    def _eager(self, w: _Weights, prompt_ids, compute_dtype) -> Dict[str, torch.Tensor]:
         """The decode as a plain loop (``greedy_search``/``beam_search``
         over a step function and a state each step replaces), the form of
-        the JAX program: the reference :meth:`forward`'s captured steps are
-        held to."""
-        prompt_ids = self._check_prompt(prompt_ids)
+        the JAX program: the reference the captured steps are held to."""
         b, p = prompt_ids.shape
         K, new = self.beam_size, self.max_new_tokens
         total = p + new
-        with torch.inference_mode():
-            layers = self.decode_layers()
-            w_head = self.head_weight()
-            logp0, ks, vs = self.prefill(prompt_ids, layers)
+        dev = prompt_ids.device
+        logp0, ks, vs = self.prefill(w, prompt_ids, compute_dtype)
 
-            def grow(a):  # [b, h, p, x] -> [b·K, h, total, x], zeros beyond p
-                out = a.new_zeros((a.shape[0] * K, a.shape[1], total, a.shape[3]))
-                out[:, :, :p] = a.repeat_interleave(K, dim=0) if K > 1 else a
-                return out
+        def grow(a):  # [b, h, p, x] -> [b·K, h, total, x], zeros beyond p
+            out = a.new_zeros((a.shape[0] * K, a.shape[1], total, a.shape[3]))
+            out[:, :, :p] = a.repeat_interleave(K, dim=0) if K > 1 else a
+            return out
 
-            caches = [tuple(grow(a) for a in c) for c in self.prefix_caches(ks, vs)]
-            logp0 = logp0.repeat_interleave(K, dim=0) if K > 1 else logp0
-            state0 = {"caches": caches, "first": True,
-                      "index": torch.full((), p, dtype=torch.int32, device=self.device)}
+        caches = [tuple(grow(a) for a in c) for c in self.prefix_caches(ks, vs)]
+        logp0 = logp0.repeat_interleave(K, dim=0) if K > 1 else logp0
+        state0 = {"caches": caches, "first": True,
+                  "index": torch.full((), p, dtype=torch.int32, device=dev)}
 
-            def step_fn(tokens, state):
-                # the first step consumes the prefill's distribution without
-                # writing a token; the index advances only once a generated
-                # token is cached (position p holds token 1)
-                if state["first"]:
-                    return logp0, dict(state, first=False)
-                logp = self.decode_step(tokens, state["caches"], state["index"], layers,
-                                        w_head)
-                return logp, dict(state, index=state["index"] + 1)
+        def step_fn(tokens, state):
+            # the first step consumes the prefill's distribution without
+            # writing a token; the index advances only once a generated
+            # token is cached (position p holds token 1)
+            if state["first"]:
+                return logp0, dict(state, first=False)
+            logp = self.decode_step(w, tokens, state["caches"], state["index"], compute_dtype)
+            return logp, dict(state, index=state["index"] + 1)
 
-            if K > 1:
-                seqs, scores = beam_search(
-                    step_fn, state0, b, K, new, bos_id=self.bos_id, eos_id=self.eos_id,
-                    length_penalty_alpha=self.length_penalty_alpha, device=self.device)
-                return {"ids": seqs, "scores": scores}
-            return {"ids": greedy_search(step_fn, state0, b, new, bos_id=self.bos_id,
-                                         eos_id=self.eos_id, device=self.device)}
+        if K > 1:
+            seqs, scores = beam_search(
+                step_fn, state0, b, K, new, bos_id=self.bos_id, eos_id=self.eos_id,
+                length_penalty_alpha=self.length_penalty_alpha, device=dev)
+            return {"ids": seqs, "scores": scores}
+        return {"ids": greedy_search(step_fn, state0, b, new, bos_id=self.bos_id,
+                                     eos_id=self.eos_id, device=dev)}
+
+    def weights(self, params: Dict[str, torch.Tensor], device=None) -> _Weights:
+        """The weights a call on ``params`` reads, cast as the running
+        compute dtype (:func:`framework.compute_dtype`) asks, outside a
+        program run: for timing or checking :meth:`prefill` and
+        :meth:`decode_step` alone."""
+        dev = framework._first_device(params) if device is None else torch.device(device)
+        ctx = BuildContext("apply", params, {}, None, False, {}, dev, compute_dtype())
+        with framework._use_ctx(ctx), torch.inference_mode():
+            return _Weights([t.to(dt) for t, dt in self._sources(ctx.compute_dtype)],
+                            self.cfg, dev)
 
 
-def make_generator(cfg: GPTConfig, max_new_tokens: int, beam_size: int = 1,
-                   bos_id: int = 1, eos_id: int = 2, length_penalty_alpha: float = 0.0,
-                   compute_dtype="float32", device=None) -> GPTGenerator:
-    """Incremental generation program over a KV cache:
-    ``(prompt_ids [b, p]) -> {"ids": [b, max_new_tokens]}`` (greedy) or
-    ``{"ids": [b, beam, max_new_tokens], "scores": [b, beam]}`` (beam
-    search, with the GNMT length penalty at ``length_penalty_alpha > 0``).
-
-    ``compute_dtype`` replaces the JAX package's ``default_compute_dtype``
-    flag (its default is float32 there too). Parameters are allocated on
-    ``device`` (the CUDA card by default) uninitialised: call
-    ``init_params`` or ``load_params``."""
-    return GPTGenerator(cfg, max_new_tokens, beam_size=beam_size, bos_id=bos_id,
-                        eos_id=eos_id, length_penalty_alpha=length_penalty_alpha,
-                        compute_dtype=compute_dtype, device=device)
+def make_generator(cfg: Union[GPTConfig, dict], max_new_tokens: int, beam_size: int = 1,
+                   bos_id: int = 1, eos_id: int = 2, length_penalty_alpha: float = 0.0):
+    """Incremental generation program over a KV cache, for ``build``
+    (models/gpt.py:118): ``generate(prompt_ids [b, p]) -> {"ids": [b,
+    max_new_tokens] int32}`` (greedy) or ``{"ids": [b, beam,
+    max_new_tokens] int32, "scores": [b, beam] f32}`` (beam search, best
+    first, with the GNMT length penalty at ``length_penalty_alpha > 0``),
+    over a KV cache in the compute dtype or in int8 with f32 scales
+    (``cfg.kv_cache_dtype="int8"``). Its params are ``make_model``'s,
+    under the same names, so a trained ``Trainer.scope.params`` serves
+    directly; ``Program.init`` draws them as the training program's init
+    does. The compute dtype is the running program's (``amp_guard`` or the
+    ``default_compute_dtype`` flag). On the card the decode steps replay
+    one captured CUDA graph of a step, the cache index on the device
+    (:class:`_GenerateProgram`). It carries ``factory_spec``."""
+    return _GenerateProgram(_config(cfg), max_new_tokens, beam_size, bos_id, eos_id,
+                            length_penalty_alpha)
 
 
 def params_from_jax(flat: Dict[str, np.ndarray], device=None,
@@ -444,16 +409,4 @@ def params_from_jax(flat: Dict[str, np.ndarray], device=None,
     return out
 
 
-def build_from_spec(spec: Dict, device=None) -> GPTGenerator:
-    """Rebuild a generator from :meth:`GPTGenerator.spec` (io's loader).
-    An artifact written before beam search was carried records no
-    ``beam_size`` or ``length_penalty_alpha``, and loads as greedy."""
-    return make_generator(GPTConfig(**spec["config"]), spec["max_new_tokens"],
-                          beam_size=spec.get("beam_size", 1), bos_id=spec["bos_id"],
-                          eos_id=spec["eos_id"],
-                          length_penalty_alpha=spec.get("length_penalty_alpha", 0.0),
-                          compute_dtype=spec["compute_dtype"], device=device)
-
-
-__all__ = ["GPTConfig", "GPTGenerator", "PARAM_TABLE",
-           "base_config", "make_generator", "make_model", "params_from_jax"]
+__all__ = ["GPTConfig", "base_config", "make_generator", "make_model", "params_from_jax"]

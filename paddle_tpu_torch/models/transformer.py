@@ -30,7 +30,6 @@ graph of a decoder step ``max_len`` times, the cache index a device
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import threading
 from typing import Dict, Optional, Union
@@ -38,6 +37,7 @@ from typing import Dict, Optional, Union
 import torch
 
 from .. import initializer as init
+from .._captured_decode import eager_decode_on
 from .. import layers as L
 from ..core.dtypes import convert_dtype
 from ..core.errors import enforce
@@ -223,23 +223,6 @@ def make_model(cfg: Union[TransformerConfig, dict]):
     return transformer
 
 
-_EAGER = threading.local()
-
-
-@contextlib.contextmanager
-def _eager_decode():
-    """Run the decode programs this thread calls as the plain loop (the
-    JAX program's form, over a state each step replaces) instead of the
-    captured replay: the reference the captured steps are held to. Not a
-    public switch."""
-    prev = getattr(_EAGER, "on", False)
-    _EAGER.on = True
-    try:
-        yield
-    finally:
-        _EAGER.on = prev
-
-
 def _decoder_step(tokens, caches, enc_out, src_mask, pe, cfg: TransformerConfig):
     """One incremental decoder step (the JAX ``run_step``): ``tokens``
     [rows] int32 embedded at the cache index (``caches[0]["index"]``, a
@@ -294,7 +277,7 @@ class _DecodeProgram:
     the decoder step reads, copied from the call's params once a call, so
     a call with another params dict never reads the last one's. Calls are
     serialised (the buffers are shared). In init mode, in training mode
-    and under :func:`_eager_decode` it runs the plain loop."""
+    and under :func:`_captured_decode.eager_decode` it runs the plain loop."""
 
     # call signatures whose static buffers and graph are kept (each holds
     # its caches: 6.3 MB for Transformer-base bf16 at 8 rows and max_len
@@ -320,7 +303,7 @@ class _DecodeProgram:
     def __call__(self, src_ids):
         ctx = current_context()
         if (ctx is None or ctx.mode == "init" or ctx.training
-                or getattr(_EAGER, "on", False)):
+                or eager_decode_on()):
             return self._eager(src_ids)
         return self._captured(src_ids, ctx)
 

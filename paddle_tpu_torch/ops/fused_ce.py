@@ -136,7 +136,8 @@ def chunked_softmax_cross_entropy(hidden, weight, bias, labels,
     Differentiable in hidden, weight and bias."""
     if logit_dtype != torch.float32:
         raise NotYetPorted("chunked_softmax_cross_entropy with logits in "
-                           f"{logit_dtype} (float32 only so far)")
+                           f"{logit_dtype} (float32 only so far; ROADMAP queue 1, "
+                           "item 15)")
     if _dt.is_dtensor(hidden) or _dt.is_dtensor(weight):
         # a mesh's tensors: the rows' batch shard kept, the head's weight
         # and bias gathered, the per-row nll back as a DTensor of the rows

@@ -32,19 +32,18 @@ split or merge mid-run with the full optimizer state migrated)::
     ...
     t.client.resize([srv1.addr, srv2.addr, srv3.addr])   # shard split
 
-Not carried yet (ROADMAP queue 1, item 24): the trainer's journal lines
-(``ps.step``, ``ps.push_lost``) and its registry collector; ``report()``
-gives the same counters.
+Telemetry as in the JAX package: one journal span a step rides every pull
+and push of the step on the wire; the trainer journals ``ps.step`` and
+``ps.push_lost``, and publishes ``report()``'s counters through a
+scrape-time registry collector (``paddle_tpu_ps_*``).
 """
 
 from __future__ import annotations
 
 import functools
 import logging
-import secrets
 import socket
 import subprocess
-import threading
 import time
 import zlib
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -62,22 +61,6 @@ from ..native import build_native
 
 def _build_server() -> str:
     return build_native("pserver.cc", "pserver_server")
-
-
-# span ids as the JAX package's journal mints them
-# (paddle_tpu/telemetry/journal.py:72-77): a per-process random prefix and
-# a counter, 16 hex characters
-_span_lock = threading.Lock()
-_span_prefix = secrets.token_hex(4)
-_span_counter = 0
-
-
-def _mint_span() -> str:
-    global _span_counter
-    with _span_lock:
-        _span_counter += 1
-        n = _span_counter
-    return f"{_span_prefix}{n & 0xFFFFFFFF:08x}"
 
 
 class PServerProcess:
@@ -765,6 +748,39 @@ def _make_ps_client(addr, trainer_id: int):
     return PSClient(tuple(seq), trainer_id=trainer_id)
 
 
+def _register_ps_telemetry(trainer: "AsyncPSTrainer") -> int:
+    """The async-PS trainer's scrape-time collector (async_ps.py:769): the
+    client's transport counters and the trainer's ``pushes_lost`` and step,
+    read from :meth:`AsyncPSTrainer.report` at scrape time. Weakly bound to
+    the trainer."""
+    from ..telemetry import get_registry
+    from ..telemetry.registry import counter_family, gauge_family
+
+    def collect(tr):
+        rep = tr.report()
+        cli = rep["client"]
+        labels = {"inst": tr.telemetry_inst}
+        return [
+            gauge_family("paddle_tpu_ps_trainer_step", "Async-PS trainer global step",
+                         [(labels, rep["global_step"])]),
+            counter_family("paddle_tpu_ps_pushes_lost_total",
+                           "At-most-once pushes dropped after a lost reply",
+                           [(labels, rep["pushes_lost"])]),
+            counter_family("paddle_tpu_ps_pushes_total", "Gradient pushes sent to pservers",
+                           [(labels, cli["pushes"])]),
+            counter_family("paddle_tpu_ps_pulls_total", "Parameter pulls from pservers",
+                           [(labels, cli["pulls"])]),
+            counter_family("paddle_tpu_ps_reconnects_total",
+                           "Transport re-establishes after the first connect",
+                           [(labels, cli["reconnects"])]),
+            counter_family("paddle_tpu_ps_retries_total",
+                           "Requests re-issued after a transport failure",
+                           [(labels, cli["retries"])]),
+        ]
+
+    return get_registry().add_collector(collect, owner=trainer)
+
+
 class AsyncPSTrainer:
     """Barrier-free trainer: local gradients on the trainer's device,
     server-side updates.
@@ -818,6 +834,13 @@ class AsyncPSTrainer:
         self.pushes_lost = 0  # at-most-once pushes whose reply was lost
         self._rng = RngStream(self.device)
         self._host_buf: Optional[torch.Tensor] = None  # pinned grads, on the card
+        # telemetry: a journal span a step rides the wire's trace field, and
+        # the counters publish through one scrape-time collector
+        from ..telemetry import get_journal, get_registry
+        self.journal = get_journal()
+        self.telemetry_inst = get_registry().next_instance("ps_trainer")
+        # registered last: a scrape must never see a half-built trainer
+        self._telemetry_cid = _register_ps_telemetry(self)
 
     # ------------------------------------------------------------------
     def startup(self, rng: Optional[int] = None,
@@ -906,6 +929,9 @@ class AsyncPSTrainer:
                 # could double-apply): one stale step, the trade async SGD
                 # already makes for stragglers
                 self.pushes_lost += 1
+                self.journal.emit("ps.push_lost", span=span, inst=self.telemetry_inst,
+                                  param=name, step=self.global_step,
+                                  server=self._owner_str(name))
                 _ps_log().warning("dropped push of %s at step %d (%s); continuing",
                                   name, self.global_step, e)
 
@@ -919,13 +945,23 @@ class AsyncPSTrainer:
         it)."""
         enforce(self.params is not None, "call startup() before step()")
         seed = mix_seed(get_flag("seed") + 1, self.global_step) if rng is None else int(rng)
-        span = _mint_span()
+        span = self.journal.new_span()
         if self.global_step % self.pull_interval == 0:
             self._pull_into(span=span)
         out, grads = self._grad_step(feed, seed)
         self._push(self._host_grads(grads), span)
+        self.journal.emit("ps.step", span=span, inst=self.telemetry_inst, step=self.global_step)
         self.global_step += 1
         return out
+
+    def _owner_str(self, name: str) -> Optional[str]:
+        """``host:port`` of the pserver that owns ``name``."""
+        owner = getattr(self.client, "owner", None)
+        if owner is None:
+            a = getattr(self.client, "addr", None)
+            return f"{a[0]}:{a[1]}" if a else None
+        a = owner(name)
+        return f"{a[0]}:{a[1]}"
 
     def report(self) -> Dict[str, Any]:
         """Trainer and transport counters in one dict: ``pushes_lost``

@@ -30,11 +30,15 @@ the manifest half of ``paddle_tpu.resilience``).
   scheduled resize checkpoints at a step boundary and returns, for the
   launcher to relaunch at the new size.
 
-Not carried yet: the CRC-framed segment log of the telemetry store
-(:func:`frame_record` and its siblings raise :class:`NotYetPorted`;
-ROADMAP queue 1, item 24; an incident is logged, not journaled, until
-then), and with it the journal lines, counters and flight dumps that the
-JAX package's elastic paths emit.
+- **The segment log** (:func:`frame_record`, :func:`iter_records`,
+  :func:`seal_segment`, :func:`check_segment`): the CRC-framed append-only
+  records and sealed segments of a telemetry series store, byte for byte
+  the JAX package's, so each package reads the other's segments.
+
+Guard incidents, ``ReshardError`` and elastic reshards reach the process
+telemetry (:mod:`paddle_tpu_torch.telemetry`) as in the JAX package: the
+``guard.incident`` and ``ckpt.reshard_error`` journal events, the
+``reshard_error`` flight dump and ``paddle_tpu_resilience_reshards_total``.
 """
 
 from __future__ import annotations
@@ -48,9 +52,9 @@ import signal
 import threading
 import time
 import zlib
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
-from .core.errors import EnforceError, NotYetPorted
+from .core.errors import EnforceError
 
 MANIFEST_NAME = "manifest.json"
 MANIFEST_VERSION = 1
@@ -215,13 +219,112 @@ def validate_checkpoint(dirname: str) -> Optional[Dict[str, Any]]:
     return man
 
 
-def _segments_not_ported(*args, **kwargs):
-    raise NotYetPorted("the CRC-framed segment log (frame_record, iter_records, "
-                       "seal_segment, check_segment) comes with the telemetry "
-                       "store (ROADMAP queue 1, item 24)")
+# -- append-only segment log helpers -----------------------------------------
+# The telemetry series store persists through segmented append-only
+# logs (the JAX package's telemetry/store.py; the port's store comes
+# with ROADMAP item 24 (b)), framed as here byte for byte: every record
+# is CRC-framed so a torn or bit-flipped record is detected and SKIPPED
+# (never crashes recovery),
+# and a finished segment is committed with an atomically-written CRC
+# sidecar — the same tmp+fsync+replace discipline write_manifest uses
+# for checkpoints. The framing/sealing primitives live HERE so
+# durability stays one discipline: anything that must survive kill -9
+# goes through resilience, whether it is a parameter tensor or a
+# telemetry sample.
+
+SEGMENT_META_SUFFIX = ".meta.json"
 
 
-frame_record = iter_records = seal_segment = check_segment = _segments_not_ported
+def frame_record(payload: bytes) -> bytes:
+    """CRC-frame one record for an append-only segment log: one text
+    line ``<crc32:08x> <len> <payload>\\n``. The payload must not
+    contain raw newlines (JSON without indent qualifies) — framing is
+    line-based so a reader can resync after a corrupt record."""
+    if b"\n" in payload:
+        raise ValueError("segment record payload must be newline-free")
+    crc = zlib.crc32(payload) & 0xFFFFFFFF
+    return b"%08x %d " % (crc, len(payload)) + payload + b"\n"
+
+
+def iter_records(path: str) -> Iterator[Tuple[bool, Any]]:
+    """Stream a segment file's records: yields ``(True, payload_bytes)``
+    for every intact record and ``(False, reason)`` for every line that
+    fails its frame (bad header, length mismatch, CRC mismatch, torn
+    tail with no newline). Corruption never raises — the caller counts
+    and skips, recovery continues on the next line."""
+    with open(path, "rb") as f:
+        for raw in f:
+            if not raw.endswith(b"\n"):
+                yield False, "torn tail (no trailing newline)"
+                continue
+            line = raw[:-1]
+            head = line.split(b" ", 2)
+            if len(head) != 3:
+                yield False, f"malformed record header ({line[:32]!r}...)"
+                continue
+            crc_s, len_s, payload = head
+            try:
+                want_crc = int(crc_s, 16)
+                want_len = int(len_s)
+            except ValueError:
+                yield False, f"malformed record header ({line[:32]!r}...)"
+                continue
+            if len(payload) != want_len:
+                yield False, (f"record length mismatch ({len(payload)} "
+                              f"bytes vs {want_len} declared)")
+                continue
+            if zlib.crc32(payload) & 0xFFFFFFFF != want_crc:
+                yield False, "record CRC mismatch (bit flip)"
+                continue
+            yield True, payload
+
+
+def seal_segment(path: str, meta: Optional[Dict[str, Any]] = None
+                 ) -> Dict[str, Any]:
+    """Commit a finished segment: fsync the data file, then atomically
+    write ``<path>.meta.json`` carrying the whole-file CRC32 + size
+    (plus caller ``meta`` — first/last timestamps, record count). The
+    sidecar is written tmp+fsync+replace (the write_manifest
+    discipline), so its presence implies the segment it describes was
+    fully written; a segment without a sidecar is either active or a
+    kill artifact and is recovered record-by-record instead."""
+    with open(path, "rb") as f:
+        os.fsync(f.fileno())
+    crc, size = _crc32_file(path)
+    doc = dict(meta or {})
+    doc.update({"crc32": crc, "size": size,
+                "format_version": MANIFEST_VERSION})
+    tmp = path + SEGMENT_META_SUFFIX + ".part"
+    with open(tmp, "w") as f:
+        json.dump(doc, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path + SEGMENT_META_SUFFIX)
+    return doc
+
+
+def check_segment(path: str) -> Tuple[bool, str]:
+    """Validate a SEALED segment against its sidecar: ``(True, "")``
+    when size and whole-file CRC match, else ``(False, reason)``. A
+    missing/unreadable sidecar is a finding too — sealed segments are
+    committed WITH one."""
+    mpath = path + SEGMENT_META_SUFFIX
+    try:
+        with open(mpath) as f:
+            meta = json.load(f)
+    except (OSError, ValueError) as e:
+        return False, f"unreadable segment sidecar {mpath}: {e}"
+    try:
+        crc, size = _crc32_file(path)
+    except OSError as e:
+        return False, f"unreadable segment {path}: {e}"
+    if size != meta.get("size"):
+        return False, (f"segment truncated/grown: {size} bytes on disk vs "
+                       f"{meta.get('size')} in sidecar")
+    if crc != meta.get("crc32"):
+        return False, (f"segment checksum mismatch: crc32 {crc:#010x} on "
+                       f"disk vs {meta.get('crc32'):#010x} in sidecar")
+    return True, ""
 
 
 # -- checkpoint-directory scanning ------------------------------------------
@@ -314,10 +417,9 @@ def restore_latest(root: str, trainer, elastic: bool = False,
         try:
             try:
                 _io.load_trainer(info.path, trainer)
-            except ReshardError:
-                # (the JAX package journals and flight-dumps the error here:
-                # ROADMAP queue 1, item 24)
+            except ReshardError as re_err:
                 if not elastic:
+                    _flight_reshard(re_err)
                     raise
                 rep = reshard_restore(info.path, trainer, sample_feed=sample_feed)
                 _log().info("elastic resume: resharded %s from mesh %s onto %s "
@@ -332,6 +434,20 @@ def restore_latest(root: str, trainer, elastic: bool = False,
         _log().info("resumed from %s at global_step=%d", info.path, trainer.global_step)
         return meta
     return None
+
+
+def _flight_reshard(err: "ReshardError") -> None:
+    """Journal and flight-dump a ReshardError about to unwind
+    (resilience.py:494): a run that refuses to come back up is when an
+    operator needs the black box (what it restored from, what mesh it
+    wanted)."""
+    from .telemetry import flight_dump, get_journal
+
+    get_journal().emit("ckpt.reshard_error", path=err.path, saved_axes=err.saved_axes,
+                       target_axes=err.target_axes, reason=str(err.reason)[:500])
+    flight_dump("reshard_error",
+                detail={"path": err.path, "saved_axes": err.saved_axes,
+                        "target_axes": err.target_axes, "reason": str(err.reason)[:500]})
 
 
 def normalize_mesh_axes(axes: Optional[Dict[str, Any]]) -> Dict[str, int]:
@@ -387,12 +503,16 @@ def reshard_restore(checkpoint_dir: str, trainer,
                                         sample_feed=sample_feed)
     infeasible = report.by_code("ckpt:reshard-infeasible")
     if infeasible:
-        # (journaled and flight-dumped in the JAX package: item 24)
-        raise ReshardError(checkpoint_dir, saved_axes, target_axes, infeasible[0].message)
+        err = ReshardError(checkpoint_dir, saved_axes, target_axes, infeasible[0].message)
+        _flight_reshard(err)
+        raise err
     _io.load_trainer(checkpoint_dir, trainer, allow_reshard=True)
     # (the JAX package drops its device dataset cache here, whose arrays
-    # are laid out for the old mesh: item 23; and counts the reshard in
-    # paddle_tpu_resilience_reshards_total: item 24)
+    # are laid out for the old mesh: ROADMAP item 23)
+    from .telemetry import get_registry
+    get_registry().counter(
+        "paddle_tpu_resilience_reshards_total",
+        "Elastic checkpoint restores onto a different mesh").inc()
     bytes_moved = sum(int(spec.get("size", 0))
                       for spec in ((man or {}).get("files") or {}).values())
     return {
@@ -653,13 +773,19 @@ def record_incident(incidents: List[Incident], step: int, outputs: Tuple[str, ..
     if len(incidents) > MAX_INCIDENT_LOG:
         del incidents[:len(incidents) - MAX_INCIDENT_LOG]
     _log().warning("guard: discarded %s", inc)
+    # journaled, so a flight dump taken later (escalation, preemption)
+    # names the non-finite steps that led up to it
+    from .telemetry import get_journal
+    get_journal().emit("guard.incident", step=step, outputs=list(outputs),
+                       feed_digest=digest)
     return inc
 
 
 __all__ = ["CheckpointCorrupt", "CheckpointInfo", "GuardPolicy", "Incident",
            "InjectedCrash", "MANIFEST_NAME", "MANIFEST_VERSION", "MAX_INCIDENT_LOG",
-           "PreemptionHandler", "ReshardError", "ResizeRequest", "TMP_MARKER",
-           "crash_point", "escalate_if_needed", "feed_digest", "list_checkpoints",
+           "PreemptionHandler", "ReshardError", "ResizeRequest", "SEGMENT_META_SUFFIX",
+           "TMP_MARKER", "check_segment", "crash_point", "escalate_if_needed",
+           "feed_digest", "frame_record", "iter_records", "list_checkpoints",
            "mesh_axes", "normalize_mesh_axes", "read_manifest", "record_incident",
-           "reshard_restore", "restore_latest", "sweep_tmp_dirs", "trainer_mesh_axes",
+           "reshard_restore", "restore_latest", "seal_segment", "sweep_tmp_dirs", "trainer_mesh_axes",
            "validate_checkpoint", "write_manifest"]

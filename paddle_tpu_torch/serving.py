@@ -19,9 +19,16 @@ of ``paddle_tpu.serving.PredictorServer``).
 - **Drain** — :meth:`PredictorServer.close(drain=True)` finishes queued
   work before stopping; :class:`ServingMetrics` holds the latency/queue/
   error counters behind :meth:`PredictorServer.report`.
+- **Telemetry** — every request carries a span minted at submit
+  (:attr:`PendingResult.span`) through its journal events
+  (``serving.submit``, ``serving.reject``, ``serving.expired``,
+  ``serving.dispatch``, ``serving.complete``, ``serving.error``); the
+  server's counters, latency histogram and queue gauges publish into the
+  process registry under the JAX package's names, behind
+  :meth:`PredictorServer.serve_metrics` and :meth:`PredictorServer.ship_to`.
 
-The circuit breaker, watchdog, hot reload and telemetry export of the
-JAX package come with a later slice (ROADMAP).
+The circuit breaker, watchdog and hot reload of the JAX package, and the
+journal events and flight dumps they write, come with ROADMAP item 23.
 """
 
 from __future__ import annotations
@@ -149,7 +156,47 @@ class ServingMetrics:
                 "mean": _ms(h.sum_s / h.total if h.total else None),
                 "count": h.total,
             }
+            # the raw histogram (upper bounds in seconds, per-bucket counts
+            # with one overflow bucket): the registry's histogram family
+            out["latency_hist"] = {"bounds_s": list(_HIST_BOUNDS), "counts": list(h.counts),
+                                   "sum_s": h.sum_s, "count": h.total}
             return out
+
+    def telemetry_families(self, inst: str = "0") -> list:
+        """The same counters and histogram as the JAX package's
+        ``paddle_tpu_serving_*`` registry families (serving.py:348), read
+        from :meth:`snapshot` at scrape time, so they agree with
+        :meth:`PredictorServer.report`."""
+        from .telemetry.registry import counter_family, histogram_family
+
+        snap = self.snapshot()
+        labels = {"inst": inst}
+        fams = [
+            counter_family("paddle_tpu_serving_submitted_total",
+                           "Requests accepted into the queue", [(labels, snap["submitted"])]),
+            counter_family("paddle_tpu_serving_completed_total",
+                           "Requests completed successfully", [(labels, snap["completed"])]),
+            counter_family("paddle_tpu_serving_rejected_total",
+                           "Requests rejected at submit (by reason)",
+                           [({**labels, "reason": r}, snap[f"rejected_{r}"])
+                            for r in ("invalid", "overload")]),
+            counter_family("paddle_tpu_serving_timeouts_total",
+                           "Requests dropped at their deadline", [(labels, snap["timeouts"])]),
+            counter_family("paddle_tpu_serving_errors_total",
+                           "Requests failed by an executable error", [(labels, snap["errors"])]),
+            counter_family("paddle_tpu_serving_coalesced_batches_total",
+                           "Dispatches that coalesced >1 request",
+                           [(labels, snap["coalesced_batches"])]),
+            counter_family("paddle_tpu_serving_coalesced_requests_total",
+                           "Requests served inside a coalesced dispatch",
+                           [(labels, snap["coalesced_requests"])]),
+        ]
+        h = snap["latency_hist"]
+        fams.append(histogram_family(
+            "paddle_tpu_serving_latency_seconds",
+            "End-to-end served latency (queue wait included)",
+            labels, h["bounds_s"], h["counts"], h["sum_s"], h["count"]))
+        return fams
 
 
 def _ms(seconds: Optional[float]) -> Optional[float]:
@@ -161,9 +208,9 @@ def _ms(seconds: Optional[float]) -> Optional[float]:
 
 class _Request:
     __slots__ = ("feed", "n", "bucket", "deadline", "done", "value", "error",
-                 "submitted", "completed")
+                 "submitted", "completed", "span")
 
-    def __init__(self, feed, n, bucket, deadline):
+    def __init__(self, feed, n, bucket, deadline, span=None):
         self.feed = feed
         self.n = n
         self.bucket = bucket
@@ -173,6 +220,7 @@ class _Request:
         self.error: Optional[BaseException] = None
         self.submitted = time.monotonic()
         self.completed: Optional[float] = None
+        self.span = span              # trace id minted at submit
 
 
 class PendingResult:
@@ -183,6 +231,12 @@ class PendingResult:
 
     def done(self) -> bool:
         return self._req.done.is_set()
+
+    @property
+    def span(self) -> Optional[str]:
+        """The request's trace id (minted at submit): every journal event
+        of its life carries it."""
+        return self._req.span
 
     @property
     def latency(self) -> Optional[float]:
@@ -258,6 +312,15 @@ class PredictorServer:
         self._state = "starting"
         self._state_lock = threading.Lock()
         self._started_at = time.monotonic()
+        # telemetry: journal spans a request, a scrape-time collector in the
+        # process registry (the inst label keeps servers apart), the
+        # PDTPU_TELEMETRY_ADDR shipper
+        from .telemetry import get_journal, get_registry
+        from .telemetry.shipper import maybe_auto_ship
+        self.journal = get_journal()
+        self.telemetry_inst = get_registry().next_instance("serving")
+        self._telemetry_server = None
+        maybe_auto_ship()
         # spawn the workers, run every bucket once (``warmup``), then
         # accept requests
         for i in range(self.num_workers):
@@ -267,6 +330,9 @@ class PredictorServer:
             for b in predictor.batch_buckets:
                 _block_on(clone.run({k: np.zeros(shape, dtype) for k, (shape, dtype)
                                      in predictor.feed_spec(b).items()}))
+        # registered last: a scrape must never see a half-built server
+        self._telemetry_cid = get_registry().add_collector(
+            PredictorServer.telemetry_families, owner=self)
         with self._state_lock:
             self._state = "ready"
 
@@ -308,6 +374,12 @@ class PredictorServer:
             w.carry = []
         with self._state_lock:
             self._state = "stopped"
+        if self._telemetry_server is not None:
+            self._telemetry_server.close()
+            self._telemetry_server = None
+        # a closed server stops exporting live-looking queue and worker gauges
+        from .telemetry import get_registry
+        get_registry().remove_collector(self._telemetry_cid)
 
     def __enter__(self) -> "PredictorServer":
         return self
@@ -317,25 +389,34 @@ class PredictorServer:
 
     # -- request path --------------------------------------------------------
 
-    def submit(self, feed: Dict[str, Any],
-               deadline: Optional[float] = None) -> PendingResult:
+    def submit(self, feed: Dict[str, Any], deadline: Optional[float] = None,
+               span: Optional[str] = None) -> PendingResult:
         """Validate + enqueue one request; returns a
         :class:`PendingResult`. ``deadline`` is seconds from now (None:
         no deadline); raises :class:`InvalidRequest` (also for a
         non-finite float payload), :class:`ServerOverloaded` or
-        :class:`ServerClosed`."""
+        :class:`ServerClosed`. ``span`` adopts a trace id minted elsewhere
+        instead of minting one."""
         with self._state_lock:
             state = self._state
         if state != "ready":
             raise ServerClosed(f"server is {state}")
+        span = span or self.journal.new_span()
         try:
             n, bucket = self._predictor.validate_feed(feed, allow_padding=True)
             _check_finite(feed, self._predictor.feed_names)
-        except InvalidRequest:
+        except InvalidRequest as e:
             self.metrics.bump("rejected_invalid")
+            self.journal.emit("serving.reject", span=span, inst=self.telemetry_inst,
+                              reason="invalid", field=getattr(e, "field", None))
             raise
         req = _Request(feed, n, bucket,
-                       None if deadline is None else time.monotonic() + deadline)
+                       None if deadline is None else time.monotonic() + deadline, span=span)
+        # journaled before the enqueue: a worker may dispatch it at once,
+        # and a span's timeline must never read dispatch before submit
+        self.journal.emit("serving.submit", span=span, inst=self.telemetry_inst, n=n,
+                          bucket=bucket, deadline_s=deadline,
+                          queue_depth=self._queue.qsize())
         # state re-check + enqueue are atomic under the state lock: close()
         # flips the state under the same lock before draining, so a
         # request can never slip into the queue after the drain loop
@@ -347,6 +428,8 @@ class PredictorServer:
                 self._queue.put_nowait(req)
             except _queue.Full:
                 self.metrics.bump("rejected_overload")
+                self.journal.emit("serving.reject", span=span, inst=self.telemetry_inst,
+                                  reason="overload", queue_depth=self._queue.qsize())
                 raise ServerOverloaded(self._queue.qsize(),
                                        self.queue_size) from None
         self.metrics.bump("submitted")
@@ -375,6 +458,8 @@ class PredictorServer:
         now = time.monotonic()
         if req.deadline is not None and now > req.deadline:
             self.metrics.bump("timeouts")
+            self.journal.emit("serving.expired", span=req.span, inst=self.telemetry_inst,
+                              late_s=round(now - req.deadline, 6))
             self._complete(req, error=DeadlineExceeded(
                 f"deadline passed {now - req.deadline:.3f}s before "
                 "dispatch"))
@@ -447,7 +532,12 @@ class PredictorServer:
             bucket = (req.bucket if len(group) == 1
                       else _batching.pick_bucket(total, pred.batch_buckets))
             spans = _batching.row_spans(group)
-            w.busy_since = time.monotonic()
+            w.busy_since = now = time.monotonic()
+            for (off, n), r in zip(spans, group):
+                extra = {"coalesced": len(group), "row": off} if len(group) > 1 else {}
+                self.journal.emit("serving.dispatch", span=r.span, inst=self.telemetry_inst,
+                                  worker=w.index, n=n, bucket=bucket,
+                                  queued_s=round(now - r.submitted, 6), **extra)
             try:
                 feed = (self._pad(pred, req) if len(group) == 1
                         else _batching.merge_feeds(group, pred.feed_names,
@@ -463,6 +553,9 @@ class PredictorServer:
                 for r in group:
                     if self._complete(r, error=e):
                         self.metrics.bump("errors")
+                        self.journal.emit("serving.error", span=r.span,
+                                          inst=self.telemetry_inst, worker=w.index,
+                                          error=f"{type(e).__name__}: {e}"[:300])
             else:
                 if len(group) > 1:
                     self.metrics.bump("coalesced_batches")
@@ -471,8 +564,13 @@ class PredictorServer:
                 for (off, n), r in zip(spans, group):
                     sliced = _batching.slice_rows(out, off, n, bucket)
                     if self._complete(r, value=sliced):
+                        latency = done_t - r.submitted
                         self.metrics.bump("completed")
-                        self.metrics.record_latency(done_t - r.submitted)
+                        self.metrics.record_latency(latency)
+                        extra = {"coalesced": len(group)} if len(group) > 1 else {}
+                        self.journal.emit("serving.complete", span=r.span,
+                                          inst=self.telemetry_inst, worker=w.index,
+                                          latency_s=round(latency, 6), **extra)
             finally:
                 w.busy_since = None
         # loop exit with requests still carried (the stop flag raced the
@@ -530,6 +628,49 @@ class PredictorServer:
             "workers_busy": sum(1 for w in alive if w.busy_since is not None),
             "uptime_s": round(time.monotonic() - self._started_at, 3),
         }
+
+    def telemetry_families(self) -> list:
+        """This server's registry export (serving.py:1356): every
+        :class:`ServingMetrics` counter and the latency histogram (the
+        store :meth:`report` reads) plus the live queue and worker gauges.
+        The process registry's collector calls it at scrape time."""
+        from .telemetry.registry import gauge_family
+
+        labels = {"inst": self.telemetry_inst}
+        fams = self.metrics.telemetry_families(self.telemetry_inst)
+        alive = [w for w in self._workers if w.thread is not None and w.thread.is_alive()]
+        fams.extend([
+            gauge_family("paddle_tpu_serving_queue_depth", "Requests currently queued",
+                         [(labels, self._queue.qsize())]),
+            gauge_family("paddle_tpu_serving_queue_capacity", "Bounded queue capacity",
+                         [(labels, self.queue_size)]),
+            gauge_family("paddle_tpu_serving_workers", "Live (non-abandoned) workers",
+                         [(labels, len(alive))]),
+            gauge_family("paddle_tpu_serving_workers_busy",
+                         "Workers currently executing a dispatch",
+                         [(labels, sum(1 for w in alive if w.busy_since is not None))]),
+        ])
+        return fams
+
+    def serve_metrics(self, port: int = 0, host: str = "127.0.0.1"):
+        """Start the ``GET /metrics`` (Prometheus text of the process
+        registry; this server's series carry its ``inst`` label) and
+        ``GET /healthz`` (this server's :meth:`health`; 503 once not live)
+        endpoint. Port 0 picks a free port (``.port``); :meth:`close`
+        stops it."""
+        from .telemetry import serve_metrics as _serve
+
+        if self._telemetry_server is None:
+            self._telemetry_server = _serve(health_fn=self.health, port=port, host=host)
+        return self._telemetry_server
+
+    def ship_to(self, addr, origin=None, **kw):
+        """Attach the process telemetry shipper to a collector at ``addr``
+        (as ``Trainer.ship_to``). Returns the
+        :class:`~paddle_tpu_torch.telemetry.shipper.Shipper`."""
+        from .telemetry.shipper import ship_to as _ship_to
+
+        return _ship_to(addr, origin=origin, **kw)
 
     def report(self) -> Dict[str, Any]:
         """Metrics + health in one dict: latency percentiles, queue depth,

@@ -1,0 +1,49 @@
+"""paddle_tpu_torch.telemetry — the process's own telemetry (counterpart
+of the process half of ``paddle_tpu.telemetry``, copied and adapted: the
+JAX package is not imported).
+
+- :mod:`registry` — the process-wide **metrics registry** (counters,
+  gauges, log-bucket histograms with labels; scrape-time collectors for
+  zero hot-path cost) that the Trainer, the feeder, the guard, the
+  checkpoints, the async-PS trainer and the serving queue publish into,
+  under the JAX package's ``paddle_tpu_<subsystem>_<name>{labels}``
+  names, with Prometheus-text and JSON exporters.
+- :mod:`journal` — the **structured run journal**: a JSONL event stream
+  with a run id and a monotonic sequence; span ids minted at
+  submit/dispatch time correlate a feeder fill with its dispatch, a
+  served request's submit with its completion, and an async-PS step's
+  pulls and pushes.
+- :mod:`recorder` — the **flight recorder**: the journal's bounded ring
+  flushed to disk (atomic, CRC-manifested like checkpoints) on guard
+  escalation, preemption, a resize, a ``ReshardError`` and an unhandled
+  ``fit`` exception; ``tools/flight_dump.py`` renders a dump.
+- :mod:`http` — the opt-in ``GET /metrics`` + ``GET /healthz`` endpoint
+  behind ``Trainer.serve_metrics()`` and ``PredictorServer.serve_metrics()``.
+- :mod:`shipper` — the **push pipeline** to a telemetry collector,
+  started by ``PDTPU_TELEMETRY_ADDR`` or ``ship_to(addr)``; its wire is
+  the JAX shipper's.
+
+The daemon half — the collector, its durable series store and the alert
+engine — comes with ROADMAP item 24 (b), with the fleet it serves.
+"""
+
+from .journal import (RunJournal, get_journal, new_run_id, parse_sample,
+                      set_journal)
+from .recorder import (FlightRecorder, default_flight_dir, flight_dump,
+                       get_recorder)
+from .registry import (Counter, Gauge, Histogram, MetricFamily, MetricsRegistry,
+                       counter_family, families_snapshot, gauge_family, get_registry,
+                       histogram_family, render_families_prometheus, validate_families)
+from .http import TelemetryServer, serve_metrics
+from .shipper import (Shipper, active_shipper, maybe_auto_ship, parse_addrs,
+                      ship_to, stop_shipping)
+
+__all__ = [
+    "Counter", "FlightRecorder", "Gauge", "Histogram", "MetricFamily",
+    "MetricsRegistry", "RunJournal", "Shipper", "TelemetryServer",
+    "active_shipper", "counter_family", "default_flight_dir", "families_snapshot",
+    "flight_dump", "gauge_family", "get_journal", "get_recorder", "get_registry",
+    "histogram_family", "maybe_auto_ship", "new_run_id", "parse_addrs",
+    "parse_sample", "render_families_prometheus", "serve_metrics", "set_journal",
+    "ship_to", "stop_shipping", "validate_families",
+]

@@ -404,6 +404,15 @@ def test_push_undelivered_is_counted_and_training_goes_on(sgd_server):
     assert np.isfinite(float(tr.step(feeds[1])["loss"]))
     assert tr.pushes_lost == 1 and tr.report()["pushes_lost"] == 1
     tr.client.close()
+    # journaled with the step's span, and counted in the registry
+    lost, step = (tr.journal.recent(kind=k)[-1] for k in ("ps.push_lost", "ps.step"))
+    assert lost["span"] == step["span"] and lost["inst"] == tr.telemetry_inst
+    assert (lost["param"], lost["step"], step["step"]) == ("fc_1/w", 0, 0)
+    assert lost["server"] == f"{sgd_server.addr[0]}:{sgd_server.addr[1]}"
+    from paddle_tpu_torch.telemetry import get_registry
+    fams = {f.name: f for f in get_registry().collect()}
+    assert [v for lab, v in fams["paddle_tpu_ps_pushes_lost_total"].samples
+            if lab["inst"] == tr.telemetry_inst] == [1]
 
 
 # -- routing (tests/test_elastic_reshard.py:390-560) ---------------------------
@@ -593,6 +602,16 @@ def _exported(addr, names):
     return out
 
 
+def jtel_registry():
+    from paddle_tpu.telemetry import get_registry
+    return get_registry()
+
+
+def ttel_registry():
+    from paddle_tpu_torch.telemetry import get_registry
+    return get_registry()
+
+
 def _start_pair(jprog, tprog, sj, st, feed, trainer_kw, jstrategy=None, tstrategy=None,
                 trainer_id=0):
     """A JAX trainer on ``sj`` and a port trainer on ``st``, the port's server
@@ -635,6 +654,15 @@ def test_trainer_matches_paddle_tpu(mode):
         tt._host_grads = record
         jl = [float(jt.step(f)["loss"]) for f in feeds[1:]]
         tl = [float(tt.step(f)["loss"]) for f in feeds[1:]]
+        # each step's ps.step event and the registry's ps families, as JAX's
+        steps = [[(sorted(e), e["step"]) for e in t.journal.recent(kind="ps.")
+                  if e["inst"] == t.telemetry_inst] for t in (jt, tt)]
+        assert steps[1] == steps[0] == [(["inst", "kind", "run", "seq", "span", "step",
+                                          "t"], i) for i in range(4)]
+        fams = [sorted(f.name for f in reg.collect() if f.name.startswith("paddle_tpu_ps_")
+                       and any(lab.get("inst") == t.telemetry_inst for lab, _ in f.samples))
+                for reg, t in ((jtel_registry(), jt), (ttel_registry(), tt))]
+        assert fams[1] == fams[0] and len(fams[1]) == 6
         want, got = _exported(sj.addr, names), _exported(st.addr, names)
         assert tt.client.status()["qpushes"] == (4 * len(names) if qmax else 0)
         jt.client.close()

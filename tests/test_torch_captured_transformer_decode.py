@@ -3,7 +3,7 @@
 ``_captured_decode.CapturedEncDecDecode``) on the CPU, where the decoder
 step the card captures and replays runs as a plain call: greedy and beam
 ids and scores against ``paddle_tpu``'s ``make_decoder``, the
-static-buffer decode against the plain loop (``_eager_decode``), the
+static-buffer decode against the plain loop (``eager_decode``), the
 attention cache at a device index against an int index, and the
 lifecycle of the static state (a new params dict read by the next call,
 the signatures bounded, a ``Predictor`` keeping each bucket's, calls
@@ -87,7 +87,7 @@ def _run(prog, params, src):
 
 
 def _eager(prog, params, src):
-    with ttr._eager_decode():
+    with _captured_decode.eager_decode():
         return _run(prog, params, src)
 
 

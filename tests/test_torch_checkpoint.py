@@ -404,7 +404,7 @@ def test_mesh_checkpoint_raises_reshard_error(tmp_path):
 
 
 NOT_PORTED = {
-    "frame_record": lambda d: tres.frame_record(b"x"),
+    "save_train_artifact": lambda d: tio.save_train_artifact(d + "_artifact", _trainer(), {}),
 }
 
 

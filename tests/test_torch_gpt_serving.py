@@ -4,11 +4,12 @@ built and initialised in ``paddle_tpu``, its params are carried across
 with ``params_from_jax``, and the two run on the same numpy inputs.
 
 Tolerance: blocks in f32 atol = rtol = 1e-5 (the same f32 arithmetic,
-summed in another order); token ids exactly. Everything runs with
-``device="cpu"``."""
+summed in another order); token ids exactly. Both generators are ``build``
+programs; the port's runs with ``place="cpu"``."""
 
 import json
 import os
+from dataclasses import asdict as dataclasses_asdict
 
 import numpy as np
 import pytest
@@ -18,6 +19,7 @@ import jax.numpy as jnp
 import torch
 
 import paddle_tpu as pt
+import paddle_tpu_torch as ptt
 from paddle_tpu import io as jio
 from paddle_tpu.layers import stacked as jS
 from paddle_tpu.models import gpt as jgpt
@@ -66,9 +68,16 @@ def _jax_ids(jax_side, prompts):
     return np.asarray(out["ids"])
 
 
-def _port_generator(jax_side):
-    gen = tgpt.make_generator(_tcfg(), MAX_NEW, device=CPU)
-    return gen.load_params(tgpt.params_from_jax(jax_side[1], device=CPU))
+def _port_generator(jax_side, **cfg):
+    """The port's ``build(make_generator(...))`` program with the JAX
+    params carried across."""
+    prog = ptt.build(tgpt.make_generator(_tcfg(**cfg), MAX_NEW))
+    return prog, tgpt.params_from_jax(jax_side[1], device=CPU)
+
+
+def _port_ids(prog, params, prompts):
+    out, _ = prog.apply(params, {}, prompt_ids=prompts, place=CPU)
+    return out["ids"]
 
 
 def _layer(params, i):
@@ -77,12 +86,14 @@ def _layer(params, i):
 
 
 def test_param_names_and_layouts_are_the_jax_ones(jax_side):
-    gen = _port_generator(jax_side)
-    flat = gen.flat_params()
-    assert sorted(flat) == sorted(jax_side[1])
+    """``build(make_generator(...)).init`` creates the JAX program's params:
+    the same names, shapes and dtypes."""
+    prog = ptt.build(tgpt.make_generator(_tcfg(), MAX_NEW))
+    params, state = prog.init(0, prompt_ids=_prompts(), place=CPU)
+    assert sorted(params) == sorted(jax_side[1]) and state == {}
     for name, a in jax_side[1].items():
-        assert tuple(flat[name].shape) == a.shape, name
-        np.testing.assert_array_equal(flat[name].numpy(), a)
+        assert tuple(params[name].shape) == a.shape, name
+        assert str(params[name].dtype).split(".")[-1] == a.dtype.name, name
 
 
 @pytest.mark.parametrize("layer", [0, 1])
@@ -119,9 +130,9 @@ def test_decode_block_matches_jax(jax_side, index):
 def test_generator_ids_equal_jax(jax_side, b, p):
     prompts = _prompts(b, p, seed=b + p)
     want = _jax_ids(jax_side, prompts)
-    gen = _port_generator(jax_side)
+    prog, params = _port_generator(jax_side)
     launches = tfa.flash_fwd_launches
-    got = gen(torch.from_numpy(prompts))["ids"]
+    got = _port_ids(prog, params, torch.from_numpy(prompts))
     assert got.dtype == torch.int32 and tuple(got.shape) == (b, MAX_NEW)
     np.testing.assert_array_equal(got.numpy(), want)
     assert len(set(want.ravel().tolist())) > 2   # the test decodes, not repeats
@@ -137,9 +148,7 @@ def test_generator_ignores_training_only_fields_as_jax_does(jax_side, training_o
     prompts = _prompts(2, 8, seed=21)
     jprog = pt.build(jgpt.make_generator(_cfg(**training_only), max_new_tokens=MAX_NEW))
     want, _ = jprog.apply(jax.tree.map(jnp.asarray, jax_side[1]), jax_side[2], prompts)
-    gen = tgpt.make_generator(_tcfg(**training_only), MAX_NEW, device=CPU)
-    gen.load_params(tgpt.params_from_jax(jax_side[1], device=CPU))
-    got = gen(torch.from_numpy(prompts))["ids"].numpy()
+    got = _port_ids(*_port_generator(jax_side, **training_only), prompts).numpy()
     np.testing.assert_array_equal(got, np.asarray(want["ids"]))
     np.testing.assert_array_equal(got, _jax_ids(jax_side, prompts))
 
@@ -183,11 +192,13 @@ def test_save_load_inference_model_round_trip(jax_side, artifact):
                                             "state.npz"]
     with open(os.path.join(artifact, "meta.json")) as f:
         meta = json.load(f)
-    assert meta["builder"] == "models.gpt.make_generator"
+    assert meta["program_factory"] == "paddle_tpu_torch.models.gpt:make_generator"
+    assert meta["program_kwargs"]["cfg"] == dataclasses_asdict(_tcfg())
+    assert meta["compute_dtype"] == "float32"
     assert meta["feed_names"] == ["prompt_ids"]
     assert meta["batch_size"] == 4 and meta["batch_buckets"] == [1, 4]
     assert meta["batched_feeds"] == ["prompt_ids"]
-    assert meta["max_new_tokens"] == MAX_NEW
+    assert meta["program_kwargs"]["max_new_tokens"] == MAX_NEW
     with np.load(os.path.join(artifact, "params.npz")) as z:
         assert sorted(z.files) == sorted(jax_side[1])
         for k in z.files:
@@ -199,7 +210,7 @@ def test_save_load_inference_model_round_trip(jax_side, artifact):
                                   _jax_ids(jax_side, prompts))
     # overwriting commits atomically and leaves no temp siblings behind
     tdecode.export_decoder(artifact, _tcfg(), MAX_NEW, _prompts(4, 8),
-                           params=pred.program.flat_params(),
+                           params=pred.program.params,
                            batch_buckets=[1, 4], device=CPU)
     parent = os.path.dirname(artifact)
     assert [n for n in os.listdir(parent) if ".tmp." in n] == []
@@ -268,13 +279,13 @@ def test_decode_server_coalesces_and_matches_sequential(jax_side, artifact):
 
 def test_decode_server_warms_each_bucket_once(artifact, monkeypatch):
     calls = []
-    forward = tgpt.GPTGenerator.forward
+    call = tgpt._GenerateProgram.__call__
 
     def counted(self, prompt_ids):
         calls.append(int(prompt_ids.shape[0]))
-        return forward(self, prompt_ids)
+        return call(self, prompt_ids)
 
-    monkeypatch.setattr(tgpt.GPTGenerator, "forward", counted)
+    monkeypatch.setattr(tgpt._GenerateProgram, "__call__", counted)
     srv = tdecode.decode_server(artifact, workers=1, device=CPU)
     srv.close(drain=True, timeout=60)
     assert sorted(calls) == [1, 4]
@@ -289,8 +300,13 @@ def test_fresh_init_has_the_jax_fans_and_limits():
     cfg = _cfg(vocab_size=500, d_model=64, d_inner=256)
     prog = pt.build(jgpt.make_generator(cfg, max_new_tokens=2))
     jparams, _ = prog.init(jax.random.PRNGKey(0), _prompts(2, 4))
-    tparams = tgpt.make_generator(_tcfg(vocab_size=500, d_model=64, d_inner=256),
-                                  2, device=CPU).init_params(0).flat_params()
+    tcfg = _tcfg(vocab_size=500, d_model=64, d_inner=256)
+
+    def port_init(seed):
+        prog = ptt.build(tgpt.make_generator(tcfg, 2))
+        return prog.init(seed, prompt_ids=_prompts(2, 4), place=CPU)[0]
+
+    tparams = port_init(0)
     assert sorted(tparams) == sorted(jparams)
     for name, j in jparams.items():
         j = np.asarray(j)
@@ -303,10 +319,7 @@ def test_fresh_init_has_the_jax_fans_and_limits():
         assert np.abs(t).max() <= limit * 1.01, name
         np.testing.assert_allclose(t.var(), j.var(), rtol=0.1, err_msg=name)
     # a seed makes the same weights twice, another seed other weights
-    again = tgpt.make_generator(_tcfg(vocab_size=500, d_model=64, d_inner=256),
-                                2, device=CPU).init_params(0).flat_params()
-    other = tgpt.make_generator(_tcfg(vocab_size=500, d_model=64, d_inner=256),
-                                2, device=CPU).init_params(1).flat_params()
+    again, other = port_init(0), port_init(1)
     w = "gpt/encoder_stack/qkv/w"
     assert torch.equal(again[w], tparams[w]) and not torch.equal(other[w], tparams[w])
 

@@ -219,8 +219,9 @@ def test_trained_params_serve_in_both_generators(jax_f32):
     _, _, tr = _port_training(jax_f32[0], "float32", "float32")
     trained = {k: v.detach().numpy() for k, v in tr.scope.params.items()}
     prompts = np.random.RandomState(5).randint(3, 50, (2, 6)).astype(np.int32)
-    gen = tgpt.make_generator(tgpt.base_config(**SMALL), 5, device=CPU)
-    got = gen.load_params(tgpt.params_from_jax(trained, device=CPU))(prompts)["ids"]
+    gen = tpt.build(tgpt.make_generator(tgpt.base_config(**SMALL), 5))
+    got = gen.apply(tgpt.params_from_jax(trained, device=CPU), {}, prompt_ids=prompts,
+                    place=CPU)[0]["ids"]
     jprog = pt.build(jgpt.make_generator(jgpt.base_config(**SMALL), max_new_tokens=5))
     _, state = jprog.init(jax.random.PRNGKey(0), prompts)
     want, _ = jprog.apply({k: jnp.asarray(v) for k, v in trained.items()}, state,
@@ -232,8 +233,8 @@ def test_trained_params_serve_in_both_generators(jax_f32):
 def test_trained_scope_serves_unchanged_through_export_decoder(jax_f32, tmp_path, dtype):
     """A trained ``Trainer.scope.params`` (leaves that require grad, the
     layer norm in bf16 under a bf16 config) goes unchanged into
-    ``GPTGenerator.load_params`` and into ``export_decoder``; the artifact
-    loaded back serves the ids the generator gives."""
+    ``build(make_generator(...)).apply`` and into ``export_decoder``; the
+    artifact loaded back serves the ids the generator gives."""
     from paddle_tpu_torch import io as tio
     from paddle_tpu_torch.fleet import decode
 
@@ -245,8 +246,9 @@ def test_trained_scope_serves_unchanged_through_export_decoder(jax_f32, tmp_path
     assert all(p.requires_grad for p in scope.values())
     prompts = np.random.RandomState(6).randint(3, 50, (2, 6)).astype(np.int32)
     cfg = tgpt.base_config(dtype=dtype, **SMALL)
-    gen = tgpt.make_generator(cfg, 4, compute_dtype=compute, device=CPU).load_params(scope)
-    want = gen(prompts)["ids"]
+    gen = tpt.build(tgpt.make_generator(cfg, 4))
+    with tF.amp_guard(compute):
+        want = gen.apply(scope, {}, prompt_ids=prompts, place=CPU)[0]["ids"]
     art = str(tmp_path / "gen")
     decode.export_decoder(art, cfg, 4, prompts, params=scope, compute_dtype=compute,
                           device=CPU)

@@ -24,6 +24,7 @@ from paddle_tpu import quantize as jq
 from paddle_tpu.layers import stacked as jS
 from paddle_tpu.models import gpt as jgpt
 
+import paddle_tpu_torch as ptt
 from paddle_tpu_torch import io as tio
 from paddle_tpu_torch import quantize as tq
 from paddle_tpu_torch.fleet import decode as tdecode
@@ -158,9 +159,9 @@ def test_int8_generator_ids_equal_jax(jax_params, beam, b, p):
                                         beam_size=beam))
     _, state = prog.init(jax.random.PRNGKey(0), prompts)
     want, _ = prog.apply(jax.tree.map(jnp.asarray, jax_params), state, prompts)
-    gen = tgpt.make_generator(tgpt.base_config(**SMALL), 6, beam_size=beam, device=CPU)
-    got = gen.load_params(tgpt.params_from_jax(jax_params, device=CPU))(
-        torch.from_numpy(prompts))
+    gen = ptt.build(tgpt.make_generator(tgpt.base_config(**SMALL), 6, beam_size=beam))
+    got, _ = gen.apply(tgpt.params_from_jax(jax_params, device=CPU), {},
+                       prompt_ids=torch.from_numpy(prompts), place=CPU)
     np.testing.assert_array_equal(got["ids"].numpy(), np.asarray(want["ids"]))
     if beam > 1:
         np.testing.assert_allclose(got["scores"].numpy(), np.asarray(want["scores"]),
@@ -170,9 +171,10 @@ def test_int8_generator_ids_equal_jax(jax_params, beam, b, p):
 
 
 def test_int8_cache_is_what_the_generator_holds(jax_params):
-    gen = tgpt.make_generator(tgpt.base_config(**SMALL), 6, device=CPU)
-    gen.load_params(tgpt.params_from_jax(jax_params, device=CPU))(torch.from_numpy(_prompts()))
-    dec = gen._decoders[(3, 8)]
+    gen = ptt.build(tgpt.make_generator(tgpt.base_config(**SMALL), 6))
+    gen.apply(tgpt.params_from_jax(jax_params, device=CPU), {},
+              prompt_ids=torch.from_numpy(_prompts()), place=CPU)
+    dec = gen.fn._decoders[(3, 8)]
     kinds = [(t.dtype, tuple(t.shape)) for t in dec.caches[0]]
     assert kinds == [(torch.int8, (3, 4, 14, 8)), (torch.float32, (3, 4, 14, 1))] * 2
     # 14 positions: 8 int8 values and one f32 scale per head vector, k and v

@@ -96,7 +96,11 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.parallel.moe", "paddle_tpu_torch.models.moe_transformer",
             "paddle_tpu_torch.analysis", "paddle_tpu_torch.analysis.report",
             "paddle_tpu_torch.analysis.contracts", "paddle_tpu_torch.analysis.rules",
-            "paddle_tpu_torch.parallel.async_ps", "paddle_tpu_torch.native"]
+            "paddle_tpu_torch.parallel.async_ps", "paddle_tpu_torch.native",
+            "paddle_tpu_torch.telemetry", "paddle_tpu_torch.telemetry.journal",
+            "paddle_tpu_torch.telemetry.registry", "paddle_tpu_torch.telemetry.recorder",
+            "paddle_tpu_torch.telemetry.http", "paddle_tpu_torch.telemetry.shipper",
+            "paddle_tpu_torch.profiling", "paddle_tpu_torch.profiling.steptime"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -165,7 +169,8 @@ def _entry_points(tmp_path):
         "DeviceFeeder": lambda: data.DeviceFeeder(lambda: iter([sample])),
         "framework.params_from_jax": lambda: framework.params_from_jax(
             {"w": np.zeros(2, np.float32)}),
-        "make_generator": lambda: gpt.make_generator(_tiny_cfg(), 2),
+        "make_generator": lambda: build(gpt.make_generator(_tiny_cfg(), 2)).init(
+            0, prompt_ids=prompts),
         "make_model": lambda: build(gpt.make_model(_tiny_cfg())).init(
             0, ids=prompts, labels=prompts),
         "Trainer": lambda: Trainer(build(gpt.make_model(_tiny_cfg())),
