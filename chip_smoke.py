@@ -154,8 +154,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
    phase 5's config, bucket 8, with the launch counts zeroed just before
    the phase and read just after it: (a) greedy: ids bit-equal, ms per
    decode step and generated tokens/s a call of each (in turns), a
-   profiled call's busy share, device ms and operations a decode step
-   (the captured call's; the eager call's in (a) only), peak memory,
+   profiled captured call's busy share, device ms and operations a decode
+   step, peak memory,
    the cache's bytes, 12 flash forward launches a call (the prefill's,
    on the tensor-core route) and none in the replays;
    (b) beam 4, read as (a) with the scores bit-equal too, and f32 beam
@@ -340,6 +340,33 @@ Phases, each reported on its own lines; any failure exits non-zero:
    under ``GuardPolicy(max_incidents=0)`` escalates and its
    ``guard_escalation`` flight dump validates against its manifest. Launch
    counts are zeroed around (a) and (b) (``telemetry``).
+23. the serving fleet (``fleet/router.py``, ``fleet/remote.py``,
+   ``fleet/replica_main.py``; the server's breaker, watchdog, kill and hot
+   reload), on phase 5's bf16 GPT-base decoder (nothing cut), exported
+   twice by ``export_decoder`` from two seeds: (a) ``FleetRouter.spawn``
+   of 2 in-process replicas with continuous batching answers 32
+   single-prompt requests, each reply its row of ``Predictor.run`` on the
+   batch the fleet merged it into (the journal's dispatch events name
+   each group), generated tokens/s, latency p50/p99 and requests a
+   dispatch, ``io.aot_compile_count`` flat over the requests; (b)
+   ``faults.kill_server`` on one replica under traffic (no accepted
+   request dropped: never-dispatched ones rerouted, dispatched ones
+   ``ReplicaDied`` once, counted) and ``replace``; a rolling ``reload``
+   to the second artifact under traffic (its candidate captures its CUDA
+   graphs while the other replica serves): both replicas at generation 2,
+   no request failed, replies the second artifact's, the reload's and
+   its canary's seconds; a reload to a copy with a flipped byte refused
+   with generations and replies unchanged; a ``failing_predictor``
+   server trips its breaker, probes half-open after its cooldown and
+   closes, its ``breaker_trip`` flight dump validated; every flash call
+   of (a) and (b) held against the plain version; (c) ``spawn_fleet``:
+   two ``replica_main`` processes on this card answer the 32 requests,
+   each reply its merged batch's row and (a)'s at the same bucket,
+   tokens/s, latency and wire bytes a request, then ``faults.kill_process``
+   (SIGKILL) of one under traffic (no accepted request dropped,
+   ``ReplicaDied`` counted); every process stopped. Launch counts are
+   zeroed around (a) and (b) (``fleet``); (c)'s run in the replica
+   processes.
 
 The last lines are a JSON ``kernels`` record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -4058,12 +4085,11 @@ def _outputs_equal(a, b):
     return sorted(a) == sorted(b) and all(_bits_equal(a[k], b[k]) for k in a)
 
 
-def _decode_path(path, gen, ids, card_name, profile_eager=False, module=None):
+def _decode_path(path, gen, ids, card_name, module=None):
     """One generator at one bucket, eager loop against captured replays:
     outputs bit-equal, ms per decode step in turns, a profiled captured
-    call (and a profiled eager call where ``profile_eager``: the
-    profiler takes about a minute to sum an eager call's events), the
-    prefill's launches and the cache's bytes, beside ``module``'s quoted
+    call (not an eager one: the profiler takes about a minute to sum an
+    eager call's events), the prefill's launches and the cache's bytes, beside ``module``'s quoted
     (ms, device ms, operations) a captured decode step. Returns the captured
     outputs and the numbers."""
     import torch
@@ -4097,8 +4123,7 @@ def _decode_path(path, gen, ids, card_name, profile_eager=False, module=None):
         check(_outputs_equal(out, eager_out),
               f"captured decode {path}: a timed {name} call's outputs differ")
     pre = _profile_dispatch(lambda: gen.prefill(ids))
-    profiled = {n: _profile_dispatch(fn) for n, fn in runs.items()
-                if n == "captured" or profile_eager}
+    profiled = {"captured": _profile_dispatch(runs["captured"])}
     ms = {n: float(sum(v) / len(v)) for n, v in times.items()}
     step_ms = {n: (ms[n] - prefill_ms) / steps for n in ms}
     parts = []
@@ -4234,7 +4259,7 @@ def phase_captured_decode(dev, seed, card_name):
         params = gen.params
         say(f"captured decode: GPT-base bf16 generator initialised in "
             f"{time.perf_counter() - t0:.1f} s")
-        greedy, a = _decode_path("(a) greedy bf16", gen, ids, card_name, profile_eager=True,
+        greedy, a = _decode_path("(a) greedy bf16", gen, ids, card_name,
                                  module=MODULE_DECODE["greedy"])
         del gen
         beam = _Generator(cfg, NEW_TOKENS, dev, params=params, beam_size=DECODE_BEAM,
@@ -7827,6 +7852,440 @@ def phase_telemetry(dev, seed, card_name):
     return launches
 
 
+# -- phase 23: the serving fleet ----------------------------------------------
+
+FLEET_REQUESTS = 32
+FLEET_QUEUE = 64
+# a wait budget far above the time the submits take, so single prompts
+# coalesce into full bucket-8 dispatches (full groups dispatch at once)
+FLEET_WAIT_MS = 1000.0
+FLEET_COOLDOWN = 0.5
+FLEET_KILL_AT = 20
+FLEET_SIGKILL_REQUESTS = 24
+
+
+def _fleet_server_kw():
+    from paddle_tpu_torch.fleet import BatchPolicy
+    return dict(workers=1, queue_size=FLEET_QUEUE, warmup=False,
+                batch_policy=BatchPolicy(max_wait_ms=FLEET_WAIT_MS))
+
+
+def _served_groups(events):
+    """The dispatches a set of ``serving.dispatch`` events records: for
+    each span, (its group's spans in row order, the bucket). A worker
+    journals a coalesced group's events together, row 0 first; a replica
+    process's events carry its ``origin``."""
+    groups, current = {}, {}
+    for e in events:
+        key = (e.get("origin"), e.get("inst"), e.get("worker"))
+        if e.get("row", 0) == 0:
+            current[key] = {"spans": [], "bucket": e["bucket"]}
+        current[key]["spans"].append(e["span"])
+        groups[e["span"]] = current[key]
+    return groups
+
+
+def _rows_of_served_groups(pred, prompts, spans, replies, events):
+    """How many replies equal their row of ``Predictor.run`` on the batch
+    the fleet merged them into (reconstructed from the journal's
+    ``serving.dispatch`` events, padded with zero rows to its bucket), the
+    dispatches at each bucket, and the bucket that served each reply."""
+    import numpy as np
+    groups = _served_groups(events)
+    by_span = {s: i for i, s in enumerate(spans)}
+    refs, ok, buckets = {}, 0, collections.Counter()
+    served = [None] * len(spans)
+    for i, span in enumerate(spans):
+        g = groups.get(span)
+        if g is None:
+            continue
+        served[i] = g["bucket"]
+        key = tuple(g["spans"])
+        if key not in refs:
+            rows = np.stack([prompts[by_span[s]] for s in key])
+            pad = np.zeros((g["bucket"] - len(key), prompts.shape[1]), np.int32)
+            refs[key] = pred.run({"prompt_ids": np.concatenate([rows, pad])})["ids"] \
+                .cpu().numpy()
+            buckets[g["bucket"]] += 1
+        ok += int(np.array_equal(replies[i][0], refs[key][key.index(span)]))
+    return ok, dict(buckets), served
+
+
+def _fleet_requests(router, prompts):
+    """Submit every prompt as a single-prompt request; returns (replies as
+    numpy, the spans of the attempts that served them, sorted latencies,
+    wall seconds)."""
+    import numpy as np
+    t0 = time.perf_counter()
+    pends = [router.submit({"prompt_ids": prompts[i:i + 1]}) for i in range(len(prompts))]
+    replies = [p.result(timeout=600)["ids"] for p in pends]
+    wall = time.perf_counter() - t0
+    replies = [r.cpu().numpy() if hasattr(r, "cpu") else np.asarray(r) for r in replies]
+    return replies, [p.span for p in pends], sorted(p.latency for p in pends), wall
+
+
+def _fleet_line(name, card_name, n, wall, lat, extra=""):
+    import numpy as np
+    return (f"fleet {name} ({card_name}): {n} single-prompt requests, p={PROMPT}, "
+            f"new={NEW_TOKENS}, buckets={list(BUCKETS)}: {n * NEW_TOKENS / wall:.1f} "
+            f"generated tokens/s, latency p50 {1e3 * float(np.percentile(lat, 50)):.1f} ms "
+            f"p99 {1e3 * float(np.percentile(lat, 99)):.1f} ms, wall {wall:.2f} s{extra}")
+
+
+def _drain_killed(server, timeout=60):
+    """Wait until a killed in-process replica's abandoned workers have
+    returned from the dispatch they were running (kill does not stop a
+    call already on the card)."""
+    for w in list(server._workers):
+        if w.thread is not None:
+            w.thread.join(timeout)
+
+
+@contextlib.contextmanager
+def count_generate_calls(pio):
+    """Count every ``Predictor.run`` in this process while the block runs,
+    by where it ran: ``load`` (the bucket warm-ups of a ``Predictor``'s
+    construction: spawn, replace, a reload's candidate), ``reload`` (a
+    server's canary and warm-up of its candidate), ``dispatch`` (a serving
+    worker's) and ``reference`` (this script's own ``Predictor.run`` rows).
+    Each is one generate call of the GPT decoder: one eager prefill, a
+    flash forward for each layer."""
+    import threading
+    calls = collections.Counter()
+    local = threading.local()
+    init, run = pio.Predictor.__init__, pio.Predictor.run
+
+    def counted_init(self, *a, **kw):
+        local.depth = getattr(local, "depth", 0) + 1
+        try:
+            init(self, *a, **kw)
+        finally:
+            local.depth -= 1
+
+    def counted_run(self, feed):
+        name = threading.current_thread().name
+        calls["load" if getattr(local, "depth", 0)
+              else "reload" if name == "pdtorch-serving-reload"
+              else "dispatch" if name.startswith("pdtorch-serving-worker")
+              else "reference"] += 1
+        return run(self, feed)
+
+    pio.Predictor.__init__, pio.Predictor.run = counted_init, counted_run
+    try:
+        yield calls
+    finally:
+        pio.Predictor.__init__, pio.Predictor.run = init, run
+
+
+def _dispatches(events):
+    """Dispatches that ``serving.dispatch`` events record: one event for
+    each request of a group, row 0 first."""
+    return sum(1 for e in events if e.get("row", 0) == 0)
+
+
+def _outcomes(pends):
+    out = collections.Counter()
+    for p in pends:
+        try:
+            p.result(timeout=600)
+            out["ok"] += 1
+        except Exception as e:
+            out[type(e).__name__] += 1
+    return dict(out)
+
+
+def fleet_in_process(dev, seed, card_name, dirs, prompts):
+    """(a) and (b); returns (the replies of (a), the bucket that served
+    each, the launches of the path)."""
+    import shutil
+    import threading
+    import torch
+    from paddle_tpu_torch import io as pio
+    from paddle_tpu_torch import resilience, serving, telemetry
+    from paddle_tpu_torch.fleet import FleetRouter
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.testing import faults
+
+    journal = telemetry.get_journal()
+    torch.cuda.synchronize()
+    _zero_launch_counts(fa)
+    # ---- the main path, as a user drives it: (a) then (b)
+    with record_kernel_calls(fa) as calls, count_generate_calls(pio) as generate:
+        t0 = time.perf_counter()
+        router = FleetRouter.spawn(dirs["v1"], replicas=2, device=dev, **_fleet_server_kw())
+        try:
+            spawn_s = time.perf_counter() - t0
+            pinned = pio.aot_compile_count()
+            replies, spans, lat, wall = _fleet_requests(router, prompts)
+            flat = pio.aot_compile_count() == pinned
+            rep = router.report()
+            pred = router.replica("r0")._predictor
+            rows_ok, buckets, served_at = _rows_of_served_groups(
+                pred, prompts, spans, replies, journal.recent(kind="serving.dispatch"))
+            per_dispatch = len(prompts) / max(1, sum(
+                r["coalesced_batches"] + r["completed"] - r["coalesced_requests"]
+                for r in rep["replicas"].values()))
+            say(_fleet_line("(a) in-process, 2 replicas", card_name, len(prompts), wall, lat,
+                            f", {per_dispatch:.1f} requests a dispatch, routed "
+                            f"{rep['routed']}, buckets served {buckets}; spawn "
+                            f"{spawn_s:.1f} s; compile count flat over the requests: {flat}"))
+            check(rows_ok == len(prompts),
+                  f"fleet (a): {rows_ok}/{len(prompts)} replies equal their row of "
+                  "Predictor.run on the merged batch")
+            check(flat and all(r["compiles_since_warmup"] == 0
+                               for r in rep["replicas"].values()),
+                  "fleet (a): a request prepared a program")
+            # (b) recovery: kill r1 under traffic
+            t1 = time.perf_counter()
+            pends = []
+            for i in range(len(prompts)):
+                pends.append(router.submit({"prompt_ids": prompts[i:i + 1]}))
+                if i == FLEET_KILL_AT:
+                    # the kill lands while r1 runs a dispatch, with more queued
+                    victim = router.replica("r1")
+                    deadline = time.perf_counter() + 5
+                    while victim.health()["workers_busy"] == 0 and \
+                            time.perf_counter() < deadline:
+                        time.sleep(0.001)
+                    faults.kill_server(victim, reason="fleet drill")
+            outcomes = _outcomes(pends)
+            killed = router.replica("r1")
+            rerouted = router.report()["rerouted"]
+            state = router.health()["state"]
+            router.replace("r1")
+            _drain_killed(killed)
+            say(f"fleet (b) kill ({card_name}): {len(pends)} requests, r1 killed after "
+                f"{FLEET_KILL_AT + 1}: outcomes {outcomes}, rerouted (never dispatched) "
+                f"{rerouted}, ReplicaDied (dispatched, at most once) "
+                f"{outcomes.get('ReplicaDied', 0)}; health {state} -> "
+                f"{router.health()['state']} after replace ({time.perf_counter() - t1:.1f} s)")
+            check(set(outcomes) <= {"ok", "ReplicaDied"} and sum(outcomes.values()) == len(pends),
+                  f"fleet (b): an accepted request was dropped: {outcomes}")
+            check(state == "degraded" and router.health()["state"] == "ready"
+                  and len(router.replica_names) == 2, "fleet (b): health after the kill")
+            # a rolling reload to the second artifact under traffic
+            errors, served = [], []
+            stop = threading.Event()
+
+            def pump():
+                # a full bucket of single prompts at a time, so each group
+                # dispatches at once
+                while not stop.is_set():
+                    pends = []
+                    for i in range(max(BUCKETS)):
+                        try:
+                            pends.append(router.submit({"prompt_ids": prompts[i:i + 1]}))
+                        except Exception as e:   # any refusal counts as a failure
+                            errors.append(e)
+                    for p in pends:
+                        try:
+                            served.append(p.result(timeout=600))
+                        except Exception as e:
+                            errors.append(e)
+
+            pumper = threading.Thread(target=pump, name="fleet-pump")
+            pumper.start()
+            try:
+                t2 = time.perf_counter()
+                gens = router.reload(dirs["v2"])
+                reload_s = time.perf_counter() - t2
+            finally:
+                stop.set()
+                pumper.join(600)
+            marks = {e["kind"]: e["t"] for e in journal.recent()
+                     if e["kind"] in ("fleet.reload_canary",)}
+            canary = [e for e in journal.recent(kind="serving.reload") if e.get("ok")]
+            canary_s = canary[0]["t"] - marks["fleet.reload_canary"] if canary else None
+            v2 = router.replica("r0")._predictor
+            after, after_spans, _, _ = _fleet_requests(router, prompts[:16])
+            rows2, _, _ = _rows_of_served_groups(v2, prompts, after_spans, after,
+                                              journal.recent(kind="serving.dispatch"))
+            say(f"fleet (b) rolling reload ({card_name}): generations {gens} in "
+                f"{reload_s:.2f} s (canary {canary_s:.2f} s) under traffic: {len(served)} "
+                f"requests served meanwhile, {len(errors)} failed; {rows2}/16 replies after "
+                "it equal the second artifact's Predictor.run rows")
+            check(gens == {"r0": 2, "r1": 2}, f"fleet (b): generations after reload {gens}")
+            check(not errors, f"fleet (b): requests failed during the reload: {errors[:3]}")
+            check(rows2 == 16, "fleet (b): replies after the reload are not the second "
+                  "artifact's")
+            # a corrupt copy: the canary refuses it, nothing changes
+            corrupt = os.path.join(os.path.dirname(dirs["v2"]), "corrupt")
+            shutil.copytree(dirs["v2"], corrupt)
+            faults.flip_byte(corrupt, "params.npz")
+            err = None
+            try:
+                router.reload(corrupt)
+            except (serving.ReloadFailed, resilience.CheckpointCorrupt) as e:
+                err = e
+            same, same_spans, _, _ = _fleet_requests(router, prompts[:8])
+            rows3, _, _ = _rows_of_served_groups(v2, prompts, same_spans, same,
+                                              journal.recent(kind="serving.dispatch"))
+            gens = {n: router.replica(n).generation for n in router.replica_names}
+            say(f"fleet (b) corrupt reload ({card_name}): {type(err).__name__}: "
+                f"{str(err)[:120]}; generations {gens}; {rows3}/8 replies unchanged; "
+                f"router dirname kept: {router.dirname == dirs['v2']}")
+            check(err is not None and gens == {"r0": 2, "r1": 2} and rows3 == 8
+                  and router.dirname == dirs["v2"], "fleet (b): the corrupt reload")
+            check(all(router.replica(n).report()["compiles_since_warmup"] == 0
+                      for n in router.replica_names),
+                  "fleet (b): the replicas were not re-pinned after the reloads")
+        finally:
+            router.close(drain=True, timeout=120)
+        # a failing replica trips its breaker, probes half-open, closes
+        rec = telemetry.get_recorder()
+        injected = 3   # dispatches that raise before the program runs
+        bad = serving.PredictorServer(
+            faults.failing_predictor(pred.clone(), fail_calls=injected), workers=1,
+            warmup=False,
+            breaker=serving.BreakerPolicy(failure_threshold=3, cooldown=FLEET_COOLDOWN))
+        try:
+            seen = []
+            for i in range(4):
+                try:
+                    bad.run({"prompt_ids": prompts[i:i + 1]}, timeout=600)
+                    seen.append("ok")
+                except Exception as e:
+                    seen.append(type(e).__name__)
+            states = [bad.health()["state"]]
+            time.sleep(FLEET_COOLDOWN + 0.05)
+            probe = bad.submit({"prompt_ids": prompts[:1]})
+            states.append(bad.health()["state"])
+            probe.result(timeout=600)
+            states.append(bad.health()["state"])
+        finally:
+            bad.close()
+        dump = [d for d in rec.dumps if d.endswith("breaker_trip")]
+        man = resilience.validate_checkpoint(dump[-1]) if dump else None
+        say(f"fleet (b) breaker ({card_name}): outcomes {seen}, states {states}, trips "
+            f"{bad.breaker.trips}; breaker_trip dump {os.path.basename(dump[-1]) if dump else None}"
+            f" validated ({len((man or {}).get('files', {}))} files)")
+        check(seen == ["RuntimeError"] * 3 + ["CircuitOpen"]
+              and states == ["breaker_open", "half_open", "ready"] and bool(man),
+              "fleet (b): the breaker did not trip, probe and close")
+        torch.cuda.synchronize()
+        launches = _launch_counts(fa)
+    # ---- end of the main path
+    layers = GPT_BASE["num_layers"]
+    n_calls = sum(generate.values())
+    journaled = _dispatches(journal.recent(kind="serving.dispatch")) - injected
+    say(f"phase 23 (a)+(b): {n_calls} generate calls {dict(generate)}, "
+        f"{launches['flash_fwd']} flash_fwd launches (want {layers} x {n_calls} = "
+        f"{layers * n_calls}); the journal's dispatches that ran the program {journaled}")
+    check(launches["flash_fwd"] == layers * n_calls,
+          f"fleet (a)+(b): {launches['flash_fwd']} flash_fwd launches for {n_calls} generate "
+          f"calls, not {layers} each")
+    check(generate["dispatch"] == journaled,
+          f"fleet (a)+(b): {generate['dispatch']} dispatches ran the program, the journal "
+          f"records {journaled}")
+    check(min(generate["load"], generate["reload"], generate["dispatch"],
+              generate["reference"]) > 0, f"fleet (a)+(b): a kind of call is missing: {generate}")
+    check_recorded(fa, calls, "fleet (a)+(b)")
+    return replies, served_at, launches
+
+
+def fleet_processes(dev, seed, card_name, dirs, prompts, want, want_at):
+    """(c): two replica processes on this card; ``want`` are (a)'s replies
+    and ``want_at`` the bucket that served each."""
+    import numpy as np
+    from paddle_tpu_torch import io as pio
+    from paddle_tpu_torch import telemetry
+    from paddle_tpu_torch.fleet import FleetRouter, remote
+    from paddle_tpu_torch.testing import faults
+
+    t0 = time.perf_counter()
+    reps = remote.spawn_fleet(dirs["v1"], replicas=2, device=dev,
+                              remote_kw=dict(probe_timeout=5.0, submit_timeout=600.0),
+                              **_fleet_server_kw())
+    procs = [r.proc for r in reps.values()]
+    try:
+        spawn_s = time.perf_counter() - t0
+        router = FleetRouter(reps, dirname=dirs["v1"], remote=True, device=dev,
+                             server_kw=_fleet_server_kw(), probe_timeout=10.0)
+        replies, spans, lat, wall = _fleet_requests(router, prompts)
+        router.ship_journals()
+        events = [e for e in telemetry.get_journal().recent(kind="serving.dispatch")
+                  if e.get("origin")]
+        pred = pio.load_inference_model(dirs["v1"], device=dev)
+        rows_ok, buckets, served_at = _rows_of_served_groups(pred, prompts, spans, replies,
+                                                             events)
+        # a row's ids depend on its bucket only (rows are independent), so
+        # every reply served at (a)'s bucket must be (a)'s
+        alike = [i for i in range(len(prompts)) if served_at[i] == want_at[i]]
+        same = sum(int(np.array_equal(replies[i], want[i])) for i in alike)
+        req_bytes = sum(map(len, remote.pack_tree({"prompt_ids": prompts[:1]})))
+        reply_bytes = sum(map(len, remote.pack_tree({"ids": replies[0]})))
+        wire = {n: r.report().get("feed_wire") for n, r in reps.items()}
+        say(_fleet_line("(c) 2 replica processes", card_name, len(prompts), wall, lat,
+                        f", buckets served {buckets}; spawn {spawn_s:.1f} s; wire bytes a "
+                        f"request {req_bytes} (meta + payload) and a reply {reply_bytes}, "
+                        f"the replicas' SUBMIT counters {wire}"))
+        say(f"fleet (c) check: {rows_ok}/{len(prompts)} replies equal their row of "
+            f"Predictor.run on the merged batch (required); {same}/{len(alike)} of those "
+            f"served at (a)'s bucket equal (a)'s bit for bit (required; greedy replies "
+            "carry ids only, no scores)")
+        check(rows_ok == len(prompts) and same == len(alike)
+              and len(alike) >= len(prompts) // 2, "fleet (c): process-fleet replies differ")
+        # SIGKILL one replica process under traffic
+        pends = [router.submit({"prompt_ids": prompts[i % len(prompts):][:1]})
+                 for i in range(FLEET_SIGKILL_REQUESTS)]
+        victim = pends[0].replica
+        faults.kill_process(router.replica(victim))
+        outcomes = _outcomes(pends)
+        rep = router.report()
+        say(f"fleet (c) SIGKILL ({card_name}): {victim} killed with "
+            f"{FLEET_SIGKILL_REQUESTS} requests submitted: outcomes {outcomes}, rerouted "
+            f"{rep['rerouted']}, ReplicaDied (at most once) {outcomes.get('ReplicaDied', 0)}; "
+            f"health {router.health()['state']}")
+        check(set(outcomes) <= {"ok", "ReplicaDied"} and outcomes.get("ok", 0) >= 1,
+              f"fleet (c): an accepted request was dropped: {outcomes}")
+        router.close(drain=False, timeout=60)
+    finally:
+        for p in procs:
+            p.stop()
+    left = [p.pid for p in procs if p.poll() is None]
+    check(not left, f"fleet (c): replica processes left running: {left}")
+
+
+def phase_fleet(dev, seed, card_name):
+    """Phase 23: (a) and (b) in this process, (c) across processes.
+    Returns the flash launches of (a) and (b) (those of (c) run in the
+    replica processes)."""
+    import numpy as np
+    from paddle_tpu_torch import telemetry
+    from paddle_tpu_torch.fleet import decode
+    from paddle_tpu_torch.models import gpt
+
+    t0 = time.perf_counter()
+    cfg = gpt.base_config(max_len=PROMPT + NEW_TOKENS, dtype="bfloat16", **GPT_BASE)
+    rng = np.random.RandomState(seed + 9)
+    prompts = rng.randint(3, cfg.vocab_size, (FLEET_REQUESTS, PROMPT)).astype(np.int32)
+    telemetry.set_journal(telemetry.RunJournal(ring_size=1 << 16))
+    rec = telemetry.get_recorder()
+    old_root = rec.root
+    with tempfile.TemporaryDirectory() as tmp:
+        rec.set_root(os.path.join(tmp, "flight"))
+        try:
+            dirs = {"v1": os.path.join(tmp, "v1"), "v2": os.path.join(tmp, "v2")}
+            for name, s in (("v1", seed), ("v2", seed + 1)):
+                decode.export_decoder(dirs[name], cfg, NEW_TOKENS, prompts[:max(BUCKETS)],
+                                      batch_buckets=list(BUCKETS), seed=s,
+                                      compute_dtype="bfloat16", device=dev)
+            say(f"phase 23: two GPT-base bf16 artifacts exported in "
+                f"{time.perf_counter() - t0:.1f} s")
+            replies, served_at, launches = fleet_in_process(dev, seed, card_name, dirs,
+                                                            prompts)
+            say(f"phase 23 (a)+(b) done in {time.perf_counter() - t0:.1f} s")
+            fleet_processes(dev, seed, card_name, dirs, prompts, replies, served_at)
+            say(f"phase 23 (c) done in {time.perf_counter() - t0:.1f} s")
+        finally:
+            rec.set_root(old_root)
+    say(f"phase 23: launches {launches} (in this process; (c)'s run in the replica "
+        f"processes); {time.perf_counter() - t0:.1f} s")
+    check(launches["flash_bwd_dq"] == 0 and launches["flash_bwd_dkv"] == 0,
+          "fleet: a backward kernel launched on the serving path")
+    return launches
+
+
 def _routes(fa, torch):
     """The route table's choices, as the kernels record reports them."""
     return {"bfloat16": fa.ROUTES[(torch.bfloat16, 64)],
@@ -7986,6 +8445,11 @@ def main(argv=None) -> int:
     # each path)
     tele = phase_telemetry(dev, args.seed, smi)
     done("phase 22")
+
+    # 23. the serving fleet: the router, recovery and replica processes
+    # (launch counts zeroed inside, around the in-process path)
+    fleet = phase_fleet(dev, args.seed, smi)
+    done("phase 23")
     by_path = {name: {"served": served[name], "training": trained[name],
                       "persistence": persisted[name], "resnet": resnet_launches[name],
                       **{path: n[name] for path, n in seq2seq.items()},
@@ -7996,7 +8460,7 @@ def main(argv=None) -> int:
                       "pp_world_of_one": second["pp_world_of_one"][name],
                       "moe": second["moe"][name], "sharded_checkpoint": sharded[name],
                       "elastic": elastic[name], "async_ps": async_ps[name],
-                      "telemetry": tele[name]}
+                      "telemetry": tele[name], "fleet": fleet[name]}
                for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 
     # the kernels record: each kernel's row at the training path's shape,

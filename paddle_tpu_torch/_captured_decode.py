@@ -223,6 +223,8 @@ class StaticDecode:
                 from e
         self.graph = graph
         self.captures += 1
+        from .io import _count_compile
+        _count_compile()
 
 
 class CapturedDecode(StaticDecode):

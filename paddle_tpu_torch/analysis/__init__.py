@@ -6,12 +6,14 @@ checkpoints and elastic restores need.
   into, the baseline functions and the SARIF emitter;
 - :mod:`.contracts`: :func:`check_artifacts` for the ``ckpt:*`` findings,
   a trainer against a checkpoint and a target mesh, which
-  ``resilience.reshard_restore`` runs before it touches any state;
+  ``resilience.reshard_restore`` runs before it touches any state, and
+  :func:`~.contracts.check_reload_compat` for a hot reload's candidate
+  against a live server (``PredictorServer.reload_preflight``);
 - :mod:`.rules`: :func:`~.rules.check_replicated_optstate`, the
   ``sharding:replicated-optstate`` trigger.
 
 The program lints over the traced step (``check``, ``check_trainer``,
-the walker, the zoo), the ``artifact:*`` half of the contracts, the
+the walker, the zoo), the rest of the ``artifact:*`` half, the
 source-level checks and the CLI come with ROADMAP queue 1, item 25.
 """
 

@@ -15,11 +15,17 @@ deserialization and no device work.
   mesh cannot honour as ``ckpt:reshard-dropped-rule``;
 - ``sharding:replicated-optstate`` (:mod:`.rules`).
 
+- the serving pre-reload contract (:func:`serving_spec`,
+  :func:`check_reload_compat`): whether swapping an inference artifact in
+  under a live server would strand its in-flight traffic
+  (``artifact:feed-names``, ``artifact:bucket-shrank``,
+  ``artifact:feed-drift``), behind ``PredictorServer.reload_preflight``.
+
 Every finding's code, severity and message are the JAX package's, word
-for word. The ``artifact:*`` half (serving artifacts against a trainer
-or a live server, ``serving_spec``, ``check_reload_compat``) comes with
-ROADMAP queue 1, item 25: ``check_artifacts(artifact_dir=...)`` and
-``serving=`` raise ``NotYetPorted``.
+for word. The rest of the ``artifact:*`` half (an artifact's own
+consistency and serving artifacts against a trainer) comes with ROADMAP
+queue 1, item 25: ``check_artifacts(artifact_dir=...)`` and ``serving=``
+raise ``NotYetPorted``.
 
 A target ``mesh`` is read through its axis names and sizes only, so a
 ``parallel.mesh.AbstractMesh`` checks a layout no world is running.
@@ -392,6 +398,74 @@ def _check_reshard(manifest: Dict[str, Any], mesh, rules,
 # --------------------------------------------------------------------------
 
 
+def serving_spec(predictor) -> Dict[str, Any]:
+    """Static description of a live served model (a
+    :class:`~paddle_tpu_torch.io.Predictor` or anything shaped like one):
+    what a candidate artifact must stay compatible with across a hot
+    reload."""
+    return {
+        "feed_names": list(predictor.feed_names),
+        "batched_feeds": sorted(predictor.batched_feeds),
+        "buckets": {
+            int(b): {k: (tuple(shape), str(np.dtype(dt)))
+                     for k, (shape, dt) in predictor.feed_spec(b).items()}
+            for b in predictor.batch_buckets},
+    }
+
+
+def _norm_spec(spec: Dict[str, Tuple]) -> Dict[str, Tuple]:
+    return {k: (tuple(int(d) for d in shape), str(np.dtype(dt)))
+            for k, (shape, dt) in spec.items()}
+
+
+def check_reload_compat(served: Dict[str, Any], info: Dict[str, Any],
+                        report: Optional[LintReport] = None) -> LintReport:
+    """The serving pre-reload contract: would hot-swapping the artifact at
+    ``info`` (``io.read_artifact_meta``) under a server serving ``served``
+    (:func:`serving_spec`) strand in-flight traffic? Finds, from metadata
+    alone, the drift ``PredictorServer._do_reload`` otherwise finds only
+    after a full load: feed-name drift, a shrunken bucket set and
+    per-bucket feed signature drift. The port's artifacts carry no
+    per-bucket files, so the candidate's buckets are its meta's."""
+    from .. import io as _io
+
+    report = report or LintReport(subject=f"reload({info['path']})")
+    meta = info["meta"]
+    got_names = list(meta.get("feed_names", []))
+    if got_names != list(served["feed_names"]):
+        report.add(
+            "artifact:feed-names", "error",
+            f"feed names {got_names} != served model's "
+            f"{list(served['feed_names'])}",
+            where="feed_names", got=got_names,
+            expected=list(served["feed_names"]))
+        return report
+    candidate = {int(b) for b in meta.get("batch_buckets", [])}
+    if int(meta.get("batch_size", 0) or 0):
+        candidate.add(int(meta["batch_size"]))
+    dropped = sorted(b for b in served["buckets"] if b not in candidate)
+    if dropped:
+        report.add(
+            "artifact:bucket-shrank", "error",
+            f"bucket set shrank (missing {dropped}): in-flight bucket "
+            "traffic would go off-bucket after the swap",
+            where="batch_buckets", buckets=dropped)
+    for b in sorted(set(served["buckets"]) & candidate):
+        got = _norm_spec(_io.artifact_feed_spec(meta, b))
+        want = _norm_spec(served["buckets"][b])
+        if got != want:
+            diff = sorted(k for k in want if got.get(k) != want[k])
+            report.add(
+                "artifact:feed-drift", "error",
+                f"feed signature drifted at bucket {b} (fields {diff}: "
+                f"{[got.get(k) for k in diff]} vs served "
+                f"{[want[k] for k in diff]}): queued in-flight requests "
+                "validated against the old shapes would all fail on the "
+                "new model",
+                where=f"bucket:{b}", bucket=b, expected=diff)
+    return report
+
+
 def _degrade(report: LintReport, code: str, where: str, fn, *args) -> None:
     """Run one sub-check, degrading a crash on malformed input metadata
     (a meta.json whose sections disagree, a manifest entry missing its
@@ -497,4 +571,4 @@ def check_artifacts(
     return report
 
 
-__all__ = ["check_artifacts", "trainer_specs"]
+__all__ = ["check_artifacts", "check_reload_compat", "serving_spec", "trainer_specs"]

@@ -22,7 +22,7 @@ h2d, dispatch wait) and the consumer's to starvation, and exports them
 as the JAX package's registry families; with a journal each chunk's fill
 is a ``feeder.fill`` event with a span the dispatch reuses. Not carried
 yet, each raising :class:`NotYetPorted`: the JAX package's staging-ring
-options ``overlap_depth`` and ``wait_fn`` (data extras, item 23); this
+options ``overlap_depth`` and ``wait_fn`` (data extras, item 23 (c)); this
 feeder overlaps through its side stream.
 """
 
@@ -60,7 +60,7 @@ class PipelineMetrics:
     crossed the link; ``encode_saved_bytes`` logical minus wire. The
     report keeps the JAX package's fields of its staging ring
     (``overlap_hidden_s``) and dataset cache (``cache_hit_bytes``,
-    ``cache_hits``), which stay 0 until those come (item 23).
+    ``cache_hits``), which stay 0 until those come (item 23 (c)).
     :meth:`telemetry_families` exports the same accumulators as the JAX
     package's ``paddle_tpu_feeder_*`` families."""
 
@@ -340,8 +340,8 @@ class DeviceFeeder:
                  logical_nbytes_fn: Optional[Callable] = None, journal=None,
                  overlap_depth: int = 2, wait_fn: Optional[Callable] = None):
         for arg, value, default, later in (
-                ("overlap_depth", overlap_depth, 2, "data extras, ROADMAP queue 1 item 23"),
-                ("wait_fn", wait_fn, None, "data extras, ROADMAP queue 1 item 23")):
+                ("overlap_depth", overlap_depth, 2, "data extras, ROADMAP queue 1 item 23 (c)"),
+                ("wait_fn", wait_fn, None, "data extras, ROADMAP queue 1 item 23 (c)")):
             if value != default:
                 raise NotYetPorted(f"DeviceFeeder({arg}=...): {later}")
         self.batches = batches

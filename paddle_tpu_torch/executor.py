@@ -88,7 +88,7 @@ re-roots the flight recorder under ``<checkpoint_dir>/flight``.
 
 Not carried yet, each raising :class:`NotYetPorted` with the slice that
 brings it: the ``DistStrategy`` field of the program dump, feed wire
-formats, on-device augmentation, the HBM dataset cache (item 23) and
+formats, on-device augmentation, the HBM dataset cache (item 23 (c)) and
 interval profile events (item 24 (b)).
 """
 
@@ -433,7 +433,7 @@ class Trainer:
         for name, value in unported.items():
             if value is not None:
                 raise NotYetPorted(f"Trainer({name}=...): data extras, ROADMAP queue 1 "
-                                   "item 23")
+                                   "item 23 (c)")
         enforce(guard is None or isinstance(guard, (bool, GuardPolicy)),
                 f"Trainer(guard={guard!r}): expected True, False, None or a GuardPolicy")
         enforce(mesh is None or isinstance(mesh, Mesh),
@@ -1474,9 +1474,9 @@ class Event:
 
 # fit's arguments of later slices: (default, the slice that brings it)
 _FIT_LATER = {
-    "feed_wire": (None, "data extras, ROADMAP queue 1 item 23"),
-    "device_cache": (None, "data extras, ROADMAP queue 1 item 23"),
-    "augment": (None, "data extras, ROADMAP queue 1 item 23"),
+    "feed_wire": (None, "data extras, ROADMAP queue 1 item 23 (c)"),
+    "device_cache": (None, "data extras, ROADMAP queue 1 item 23 (c)"),
+    "augment": (None, "data extras, ROADMAP queue 1 item 23 (c)"),
     "profile_interval_steps": (0, "observability, ROADMAP queue 1 item 24 (b)"),
 }
 

@@ -66,7 +66,9 @@ def decode_server(dirname: str, max_wait_ms: float = 5.0,
     continuous batching on — the decode serving front. Single prompts
     coalesce into the largest exported bucket within ``max_wait_ms``;
     token-id outputs slice back per caller. Loads onto ``device`` (the
-    CUDA card by default)."""
+    CUDA card by default). ``server_kw`` passes on to the server
+    (``default_deadline``, ``breaker``, ``watchdog_timeout``,
+    ``golden_feed``, ``canary_check``, ``reject_nonfinite``, ``start``)."""
     from .. import io as pio
     from ..serving import PredictorServer
     from .batching import BatchPolicy
@@ -74,10 +76,11 @@ def decode_server(dirname: str, max_wait_ms: float = 5.0,
     # load_inference_model has already run every bucket once (capturing
     # each bucket's decode step on the card), so the server does not warm
     # them again
+    server_kw.setdefault("warmup", False)
     return PredictorServer(pio.load_inference_model(dirname, device=device),
                            workers=workers, queue_size=queue_size,
                            batch_policy=BatchPolicy(max_wait_ms=max_wait_ms),
-                           warmup=False, **server_kw)
+                           **server_kw)
 
 
 __all__ = ["decode_server", "export_decoder"]

@@ -59,6 +59,7 @@ import json
 import logging
 import os
 import shutil
+import threading
 import warnings
 import zlib
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -946,6 +947,15 @@ def _infer_batch_info(example_feed: Dict[str, Any]) -> Tuple[int, List[str]]:
     return batch, batched
 
 
+def _resize_batch(v: np.ndarray, n: int) -> np.ndarray:
+    """A feed at another bucket size: sliced down or tiled up along dim 0
+    (the server's warm-up and canary feeds)."""
+    if v.shape[0] >= n:
+        return np.ascontiguousarray(v[:n])
+    reps = -(-n // v.shape[0])  # ceil
+    return np.ascontiguousarray(np.concatenate([v] * reps, axis=0)[:n])
+
+
 def _resolve(path: str):
     """The object at import path ``module:qualname``."""
     module, _, qualname = path.partition(":")
@@ -1174,6 +1184,33 @@ def save_train_artifact(dirname: str, trainer, example_feed: Dict[str, Any]) -> 
                        "comes with ROADMAP queue 1, item 27")
 
 
+# process-wide count of what a Predictor prepares for a call signature:
+# each bucket's warm-up run and each CUDA graph a captured decode captures
+_aot_compiles = 0
+_aot_lock = threading.Lock()
+
+
+def aot_compile_count() -> int:
+    """How many program preparations this process has made: one for each
+    bucket a :class:`Predictor` warms at construction (the JAX package
+    AOT-compiles each bucket there) and one for each CUDA graph a captured
+    decode captures (``_captured_decode.StaticDecode``: the GPT generator's
+    and the Transformer decoder's decode step, once per call signature).
+    XLA's AOT compiles have no exact analog here: an eager call that meets
+    a new shape prepares nothing countable, so the count moves only where
+    the port does prepare. A warmed server's requests must leave it flat
+    (``PredictorServer.report()["compiles_since_warmup"]`` stays 0); a
+    capture on a request's path (a signature evicted and met again) moves
+    it."""
+    return _aot_compiles
+
+
+def _count_compile() -> None:
+    global _aot_compiles
+    with _aot_lock:
+        _aot_compiles += 1
+
+
 class Predictor:
     """Loaded inference model: ``run(feed) -> outputs`` (tensors on the
     program's device); ``clone()`` is free (the program and its weights
@@ -1205,6 +1242,7 @@ class Predictor:
             for b in self._buckets:
                 _block_on(self.run({k: np.zeros(shape, dtype) for k, (shape, dtype)
                                     in self.feed_spec(b).items()}))
+                _count_compile()
 
     @property
     def program(self):
@@ -1314,16 +1352,23 @@ class Predictor:
 
 def _block_on(out) -> None:
     """Wait until the device has produced ``out`` (the JAX
-    ``block_until_ready`` analog)."""
+    ``block_until_ready`` analog): an event recorded on this thread's
+    current stream, where the call that made ``out`` ran, and waited on.
+    Not a device-wide sync: a serving thread must not wait on, or
+    disturb, a CUDA graph another thread is capturing meanwhile (a
+    sibling replica's warm-up, a reload's candidate)."""
     values = out.values() if isinstance(out, dict) else (
         out if isinstance(out, (list, tuple)) else [out])
     for v in values:
         if isinstance(v, torch.Tensor) and v.device.type == "cuda":
-            torch.cuda.synchronize(v.device)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(v.device))
+            done.synchronize()
             return
 
 
-__all__ = ["ArtifactOutdated", "InvalidRequest", "Predictor", "artifact_feed_spec", "artifact_fingerprint",
+__all__ = ["ArtifactOutdated", "InvalidRequest", "Predictor", "aot_compile_count",
+           "artifact_feed_spec", "artifact_fingerprint",
            "flat_spec", "load_inference_model", "load_params", "load_persistables",
            "load_trainer", "load_vars", "read_artifact_meta", "save_inference_model",
            "save_params", "save_persistables", "save_train_artifact", "save_trainer",

@@ -58,7 +58,7 @@ def refuse_int8(layer: str) -> None:
     :func:`int8_serving`."""
     if in_int8_serving():
         raise NotYetPorted(f"{layer} under quantize.int8_serving(): dynamic int8 "
-                           "serving (ROADMAP queue 1, item 23)")
+                           "serving (ROADMAP queue 1, item 23 (c))")
 
 
 __all__ = ["in_int8_serving", "int8_serving", "refuse_int8"]

@@ -508,7 +508,7 @@ def reshard_restore(checkpoint_dir: str, trainer,
         raise err
     _io.load_trainer(checkpoint_dir, trainer, allow_reshard=True)
     # (the JAX package drops its device dataset cache here, whose arrays
-    # are laid out for the old mesh: ROADMAP item 23)
+    # are laid out for the old mesh: ROADMAP item 23 (c))
     from .telemetry import get_registry
     get_registry().counter(
         "paddle_tpu_resilience_reshards_total",

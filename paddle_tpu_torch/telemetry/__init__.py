@@ -23,6 +23,11 @@ JAX package is not imported).
   started by ``PDTPU_TELEMETRY_ADDR`` or ``ship_to(addr)``; its wire is
   the JAX shipper's.
 
+``RunJournal.ingest``, ``families_from_snapshot``, ``merge_exports`` and
+``FamiliesView`` are what the serving fleet (:mod:`paddle_tpu_torch.fleet`)
+reads: a router ingests its replica processes' journals and serves their
+merged series under a ``replica`` label.
+
 The daemon half — the collector, its durable series store and the alert
 engine — comes with ROADMAP item 24 (b), with the fleet it serves.
 """
@@ -31,19 +36,20 @@ from .journal import (RunJournal, get_journal, new_run_id, parse_sample,
                       set_journal)
 from .recorder import (FlightRecorder, default_flight_dir, flight_dump,
                        get_recorder)
-from .registry import (Counter, Gauge, Histogram, MetricFamily, MetricsRegistry,
-                       counter_family, families_snapshot, gauge_family, get_registry,
-                       histogram_family, render_families_prometheus, validate_families)
+from .registry import (Counter, FamiliesView, Gauge, Histogram, MetricFamily,
+                       MetricsRegistry, counter_family, families_from_snapshot,
+                       families_snapshot, gauge_family, get_registry, histogram_family,
+                       merge_exports, render_families_prometheus, validate_families)
 from .http import TelemetryServer, serve_metrics
 from .shipper import (Shipper, active_shipper, maybe_auto_ship, parse_addrs,
                       ship_to, stop_shipping)
 
 __all__ = [
-    "Counter", "FlightRecorder", "Gauge", "Histogram", "MetricFamily",
-    "MetricsRegistry", "RunJournal", "Shipper", "TelemetryServer",
-    "active_shipper", "counter_family", "default_flight_dir", "families_snapshot",
-    "flight_dump", "gauge_family", "get_journal", "get_recorder", "get_registry",
-    "histogram_family", "maybe_auto_ship", "new_run_id", "parse_addrs",
-    "parse_sample", "render_families_prometheus", "serve_metrics", "set_journal",
-    "ship_to", "stop_shipping", "validate_families",
+    "Counter", "FamiliesView", "FlightRecorder", "Gauge", "Histogram", "MetricFamily",
+    "MetricsRegistry", "RunJournal", "Shipper", "TelemetryServer", "active_shipper",
+    "counter_family", "default_flight_dir", "families_from_snapshot",
+    "families_snapshot", "flight_dump", "gauge_family", "get_journal", "get_recorder",
+    "get_registry", "histogram_family", "maybe_auto_ship", "merge_exports",
+    "new_run_id", "parse_addrs", "parse_sample", "render_families_prometheus",
+    "serve_metrics", "set_journal", "ship_to", "stop_shipping", "validate_families",
 ]

@@ -94,6 +94,7 @@ class RunJournal:
         self._next_sub = 0
         self.dropped_sink_writes = 0
         self.dropped_sampled = 0
+        self.ingested = 0
 
     # -- spans -------------------------------------------------------------
     @staticmethod
@@ -246,6 +247,30 @@ class RunJournal:
                 f.flush()
             except (OSError, ValueError):
                 self.dropped_sink_writes += 1
+
+    def ingest(self, events, origin: Optional[str] = None) -> int:
+        """Absorb another process's journal events into this one: a fleet
+        router pulls each replica process's retained ring over the framed
+        control link (the ``JOURNAL`` verb) and ingests it here, so one
+        ring (and one JSONL sink) holds the fleet-wide timeline.
+
+        Shipped events keep their own ``run`` id and ``seq`` (this
+        journal's ``seq`` is not consumed) and gain an ``origin`` field
+        when one is given (the replica's name). Returns the number of
+        events ingested."""
+        n = 0
+        with self._lock:
+            for event in events:
+                if not isinstance(event, dict) or "kind" not in event:
+                    continue
+                event = dict(event)
+                if origin is not None:
+                    event.setdefault("origin", origin)
+                self._ring.append(event)
+                self._write_sinks_locked(event, str(event["kind"]))
+                n += 1
+            self.ingested += n
+        return n
 
     # -- reads -------------------------------------------------------------
     def recent(self, n: Optional[int] = None,

@@ -401,6 +401,21 @@ def families_snapshot(fams: Iterable[MetricFamily]) -> Dict[str, Any]:
     return out
 
 
+def families_from_snapshot(snap: Dict[str, Any]) -> List[MetricFamily]:
+    """Rebuild a :func:`families_snapshot` dict into metric families: the
+    inverse used wherever a registry export crossed a process boundary as
+    JSON (a replica process's ``METRICS`` verb) and must be merged,
+    validated or rendered like a live collection."""
+    fams: List[MetricFamily] = []
+    for fname in sorted(snap or {}):
+        d = snap[fname]
+        fam = MetricFamily(fname, d["type"], d["help"])
+        for s in d["samples"]:
+            fam.add(dict(s["labels"]), s["value"])
+        fams.append(fam)
+    return fams
+
+
 def validate_families(fams: Iterable[MetricFamily]) -> List[str]:
     """Naming-convention violations of a family list (empty == clean);
     the per-family half of ``MetricsRegistry.validate``."""
@@ -418,6 +433,56 @@ def validate_families(fams: Iterable[MetricFamily]) -> List[str]:
                            "'inst' label on a per-instance collector?)")
             seen_series[key] = fam.name
     return out
+
+
+def merge_exports(named: Dict[str, Iterable[MetricFamily]],
+                  label: str = "replica") -> List[MetricFamily]:
+    """Merge several publishers' family lists into one export, stamping
+    every sample with ``{label: name}``: a fleet router merges each
+    replica's ``telemetry_families()`` and serves the result from one
+    ``/metrics`` endpoint. Same-name families merge into one (the first
+    publisher's type and help win); a sample that already carries
+    ``label`` keeps it (nested merges do not re-stamp)."""
+    if not LABEL_NAME_RE.match(label):
+        raise ValueError(f"merge label {label!r} violates the label "
+                         "naming convention")
+    merged: Dict[str, MetricFamily] = {}
+    for name in sorted(named):
+        for fam in named[name]:
+            have = merged.get(fam.name)
+            if have is None:
+                have = merged[fam.name] = MetricFamily(fam.name, fam.type, fam.help)
+            for labels, value in fam.samples:
+                stamped = dict(labels)
+                stamped.setdefault(label, name)
+                have.add(stamped, value)
+    return [merged[k] for k in sorted(merged)]
+
+
+class FamiliesView:
+    """Registry-shaped read-only view over a families callback: what
+    :class:`~paddle_tpu_torch.telemetry.http.TelemetryServer` scrapes
+    (``render_prometheus``/``render_json``) without a
+    :class:`MetricsRegistry`; how a fleet router serves its replicas'
+    merged series from one endpoint."""
+
+    def __init__(self, collect_fn: Callable[[], List[MetricFamily]]):
+        self._collect_fn = collect_fn
+
+    def collect(self) -> List[MetricFamily]:
+        return self._collect_fn()
+
+    def render_prometheus(self) -> str:
+        return render_families_prometheus(self.collect())
+
+    def snapshot(self) -> Dict[str, Any]:
+        return families_snapshot(self.collect())
+
+    def render_json(self) -> str:
+        return json.dumps(self.snapshot(), sort_keys=True)
+
+    def validate(self) -> List[str]:
+        return validate_families(self.collect())
 
 
 def _series_key(name: str, labels: Dict[str, str]) -> str:

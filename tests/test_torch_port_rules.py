@@ -112,6 +112,27 @@ def test_importing_the_port_loads_no_jax():
     assert "LOADED []" in out.stdout, out.stdout
 
 
+FLEET_MODULES = ["paddle_tpu_torch.fleet.router", "paddle_tpu_torch.fleet.remote",
+                 "paddle_tpu_torch.fleet.replica_main", "paddle_tpu_torch.fleet.agent",
+                 "paddle_tpu_torch.data.wire", "paddle_tpu_torch.testing",
+                 "paddle_tpu_torch.testing.faults"]
+
+
+def test_fleet_modules_load_no_jax():
+    """The serving fleet's modules import, in a fresh interpreter, without
+    loading JAX or the JAX package (a replica process and a host agent
+    start from them)."""
+    code = ("import importlib, sys\n"
+            f"for m in {FLEET_MODULES!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "print('LOADED', bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 def _tiny_cfg():
     from paddle_tpu_torch.models import gpt
     return gpt.base_config(vocab_size=17, max_len=16, d_model=16, d_inner=32,

@@ -12,8 +12,8 @@ CPU.
   dispatch.
 - A ``PredictorServer`` with a served request, a rejected one and one
   that expires in the queue: the same span-correlated events with the
-  same keys, and the JAX server's family names but those of the breaker,
-  the watchdog and hot reload (ROADMAP item 23).
+  same keys, and the JAX server's family names, the breaker's, the
+  watchdog's and hot reload's included.
 
 Each test takes a fresh journal in both packages and roots both flight
 recorders under its temporary directory."""
@@ -48,15 +48,6 @@ from paddle_tpu_torch.models import mnist as tmnist
 CPU = "cpu"
 BATCHES, BATCH = 5, 16
 NAN_BATCH = 1
-# the serving families the port does not have yet: the breaker, the
-# watchdog and hot reload come with ROADMAP item 23
-ITEM_23_FAMILIES = {
-    "paddle_tpu_serving_hangs_total", "paddle_tpu_serving_workers_replaced_total",
-    "paddle_tpu_serving_reloads_total", "paddle_tpu_serving_breaker_open",
-    "paddle_tpu_serving_breaker_half_open", "paddle_tpu_serving_breaker_trips_total",
-    "paddle_tpu_serving_generation"}
-
-
 @pytest.fixture()
 def fresh(tmp_path):
     """A fresh process journal in each package, both flight recorders
@@ -258,7 +249,7 @@ def test_server_spans_and_families_equal_jax(fresh, tmp_path):
         ["serving.submit", "serving.expired"]]
     assert len(fresh["port"].recent()) == 6
     port_fams = spans["port"][2]
-    assert port_fams == spans["jax"][2] - ITEM_23_FAMILIES
+    assert port_fams == spans["jax"][2]
     assert "paddle_tpu_serving_latency_seconds" in port_fams
     # a closed server stops exporting its series
     assert not any(lab.get("inst") == servers["port"].telemetry_inst
