@@ -367,6 +367,22 @@ Phases, each reported on its own lines; any failure exits non-zero:
    ``ReplicaDied`` counted); every process stopped. Launch counts are
    zeroed around (a) and (b) (``fleet``); (c)'s run in the replica
    processes.
+24. quantized inference and the data extras (``quantize.py``, ``data/wire.py``
+   on the Trainer, ``data/augment.py``, ``data/device_cache.py``, the
+   feeder's staging ring): (a) ResNet-50 served as bench.py's
+   ``_bench_infer`` (224x224 NHWC, batch 16) in fp32, bf16 and int8 (saved
+   under ``int8_serving()``, served with no switch set): images/s, latency
+   p50/p99, artifact bytes, the int8 routes a call (53 convs, 1 fc; none in
+   the others), the int8 logits against bf16's and fp32's; (b) the int8
+   route's products (``torch._int_mm``, padded) at ResNet-50's shapes bit
+   for bit against the plain product, with cuBLAS's f32 and bf16 times; (c)
+   GoogLeNet served in bf16; (d) ResNet-50 training fed uint8 pixels
+   bit-equal to f32-fed training, eager and captured; (e) the MNIST
+   input_pipeline (fp32, bf16, uint8 wires) and device_cache rows: a cached
+   epoch bit-identical to a streamed one with no h2d bytes, and the staging
+   ring at depths 2 and 1 under ``faults.slow_h2d``; (f) crop, flip and
+   normalize in ResNet-50's captured step bit-equal to eager steps. Launch
+   counts are zeroed around the phase (``quantized_data``: none).
 
 The last lines are a JSON ``kernels`` record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -563,6 +579,11 @@ LONG_GRAD_RATIO, SERVE_LOGP_TOL = 2.0, 0.05
 # (K=FUSED_LONG_K). Every comparison of captured against eager steps is bit for bit.
 FUSED_MNIST_K, FUSED_MNIST_DISPATCHES, FUSED_GUARD_AT = 16, 48, 5
 FUSED_K, FUSED_DISPATCHES, FUSED_REMAT_LAYERS = 4, 2, 2
+# the eager side of each timed turn runs fewer steps than the captured side
+# (FUSED_MNIST_EAGER_DISPATCHES and FUSED_EAGER_DISPATCHES dispatches' worth;
+# times are per step), and FUSED_BUSY_EAGER_STEPS eager steps are profiled
+# for the busy share: the eager step is the slow, well-known side
+FUSED_MNIST_EAGER_DISPATCHES, FUSED_EAGER_DISPATCHES, FUSED_BUSY_EAGER_STEPS = 12, 1, 1
 # (f) transformer_long (phase 11 (e)'s config) at K=2, eager and captured
 # trainers one after the other (two would not fit the card together); where
 # two eager runs from one state are not bit-equal (atomics in a library
@@ -3524,17 +3545,21 @@ def _profile_dispatch(fn):
     return wall_ms, device_us, n_ops, kernels
 
 
-def _eager_against_captured(eager, fused, staged, stacked, n_dispatches, k):
+def _eager_against_captured(eager, fused, staged, stacked, n_dispatches, k,
+                            eager_dispatches=None):
     """ms per step of ``eager`` (``step()`` on feeds already on the card)
     and of ``fused`` (``run_steps`` on a stacked feed on the card), each
-    over ``n_dispatches`` dispatches of ``k`` steps, in turns (eager,
-    captured, captured, eager) after one warm dispatch each; with each
-    one's peak device memory over its turns. Returns ({name: [ms per
-    step of each turn]}, {name: peak GB})."""
+    over ``n_dispatches`` dispatches of ``k`` steps (the eager turns over
+    ``eager_dispatches`` of them, when given), in turns (eager, captured,
+    captured, eager) after one warm dispatch each; with each one's peak
+    device memory over its turns. Returns ({name: [ms per step of each
+    turn]}, {name: peak GB})."""
     import torch
 
+    n_eager = (n_dispatches if eager_dispatches is None else eager_dispatches) * k
+
     def run_eager():
-        for i in range(n_dispatches * k):
+        for i in range(n_eager):
             eager.step(staged[i % len(staged)])
 
     def run_fused():
@@ -3551,27 +3576,30 @@ def _eager_against_captured(eager, fused, staged, stacked, n_dispatches, k):
         t0 = time.perf_counter()
         runs[name]()
         torch.cuda.synchronize()
-        times[name].append((time.perf_counter() - t0) / (n_dispatches * k) * 1e3)
+        steps = n_eager if name == "eager" else n_dispatches * k
+        times[name].append((time.perf_counter() - t0) / steps * 1e3)
         peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated() / 1e9)
     return times, peaks
 
 
-def _busy_against(eager, fused, staged, stacked, into=None):
+def _busy_against(eager, fused, staged, stacked, into=None, eager_steps=None):
     """The device's busy share, device ms and operations a step of K
-    profiled eager steps and of one profiled dispatch of K, as a clause of
-    the timing line; ``into`` (a dict) takes {"eager"/"captured": (device
-    ms, operations) a step}."""
+    profiled eager steps (the first ``eager_steps`` of them, when given)
+    and of one profiled dispatch of K, as a clause of the timing line;
+    ``into`` (a dict) takes {"eager"/"captured": (device ms, operations) a
+    step}."""
     k = len(staged)
+    n_eager = k if eager_steps is None else eager_steps
     parts = []
-    for name, fn in (("eager", lambda: [eager.step(f) for f in staged]),
-                     ("captured", lambda: fused.run_steps(stacked))):
+    for name, n, fn in (("eager", n_eager, lambda: [eager.step(f) for f in staged[:n_eager]]),
+                        ("captured", k, lambda: fused.run_steps(stacked))):
         wall, dev_us, n_ops, _ = _profile_dispatch(fn)
         if into is not None:
-            into[name] = (dev_us / 1e3 / k, n_ops / k)
-        parts.append(f"{name} busy {100 * dev_us / 1e3 / wall:.1f}% ({dev_us / 1e3 / k:.2f} "
-                     f"ms, {n_ops / k:.0f} operations a step)" if dev_us else
-                     f"{name} busy: not measured")
-    return f"; profiled {k} steps: " + ", ".join(parts)
+            into[name] = (dev_us / 1e3 / n, n_ops / n)
+        parts.append(f"{name} busy {100 * dev_us / 1e3 / wall:.1f}% over {n} steps "
+                     f"({dev_us / 1e3 / n:.2f} ms, {n_ops / n:.0f} operations a step)"
+                     if dev_us else f"{name} busy: not measured")
+    return "; profiled: " + ", ".join(parts)
 
 
 def _timing_line(path, times, peaks, unit, per_step, card_name, k, extra=""):
@@ -3657,9 +3685,11 @@ def fused_mnist(dev, seed, card_name, tmp):
     staged = [trainers[0]._put_feed(f) for f in feeds]
     stacked = trainers[1]._put_feed(pt.data.stack_batches(chunk))
     times, peaks = _eager_against_captured(trainers[0], trainers[1], staged, stacked,
-                                           FUSED_MNIST_DISPATCHES, k)
+                                           FUSED_MNIST_DISPATCHES, k,
+                                           FUSED_MNIST_EAGER_DISPATCHES)
     ms = _timing_line(f"MNIST MLP f32 b={MNIST_BATCH} SGD({MNIST_LR}), "
-                      f"{FUSED_MNIST_DISPATCHES} dispatches a turn", times, peaks,
+                      f"{FUSED_MNIST_DISPATCHES} dispatches a captured turn, "
+                      f"{FUSED_MNIST_EAGER_DISPATCHES * k} steps an eager one", times, peaks,
                       "samples/s", MNIST_BATCH, card_name, k)
     wall, dev_us, n_ops, _ = _profile_dispatch(lambda: trainers[1].run_steps(stacked))
     busy = (f"device busy {100 * dev_us / 1e3 / wall:.1f}% of a profiled dispatch of "
@@ -3726,11 +3756,14 @@ def fused_gpt(dev, seed, card_name):
           "captured gpt: the replays ran a kernel of the CUDA-core route")
     replayed = {n.replace("_wgmma", ""): seen[n][0] for n in tensor_core}
     staged = [eager._put_feed(f) for f in feeds]
-    times, peaks = _eager_against_captured(eager, fused, staged, stacked, FUSED_DISPATCHES, k)
+    times, peaks = _eager_against_captured(eager, fused, staged, stacked, FUSED_DISPATCHES, k,
+                                           FUSED_EAGER_DISPATCHES)
     ms = _timing_line(f"GPT-base bf16 b={TRAIN_BATCH} s={TRAIN_SEQ}, {FUSED_DISPATCHES} "
-                      f"dispatches a turn", times, peaks, "tokens/s",
+                      f"dispatches a captured turn, {FUSED_EAGER_DISPATCHES * k} steps an "
+                      "eager one", times, peaks, "tokens/s",
                       TRAIN_BATCH * TRAIN_SEQ, card_name, k,
-                      _busy_against(eager, fused, staged, stacked))
+                      _busy_against(eager, fused, staged, stacked,
+                                    eager_steps=FUSED_BUSY_EAGER_STEPS))
     READINGS["gpt_captured"]["ms"] = ms["captured"]
     del eager, fused
     gc.collect()
@@ -3789,11 +3822,14 @@ def fused_resnet(dev, seed, card_name):
     check(same_losses and not differ, "captured resnet: run_steps differs from step()")
     staged = _on_card(feeds[:2], dev)
     stacked = fused._put_feed(pt.data.stack_batches([feeds[i % 2] for i in range(k)]))
-    times, peaks = _eager_against_captured(eager, fused, staged, stacked, FUSED_DISPATCHES, k)
+    times, peaks = _eager_against_captured(eager, fused, staged, stacked, FUSED_DISPATCHES, k,
+                                           FUSED_EAGER_DISPATCHES)
     ms = _timing_line(f"ResNet-50 bf16 NHWC b={RESNET_BATCH} with a dynamic loss scaler, "
-                      f"{FUSED_DISPATCHES} dispatches a turn", times, peaks, "images/s",
-                      RESNET_BATCH, card_name, k,
-                      _busy_against(eager, fused, [staged[i % 2] for i in range(k)], stacked))
+                      f"{FUSED_DISPATCHES} dispatches a captured turn, "
+                      f"{FUSED_EAGER_DISPATCHES * k} steps an eager one", times, peaks,
+                      "images/s", RESNET_BATCH, card_name, k,
+                      _busy_against(eager, fused, [staged[i % 2] for i in range(k)], stacked,
+                                    eager_steps=FUSED_BUSY_EAGER_STEPS))
     del eager, fused
     gc.collect()
     torch.cuda.empty_cache()
@@ -3851,11 +3887,13 @@ def fused_transformer(dev, seed, card_name):
         if not remat:
             staged = [eager._put_feed(f) for f in feeds]
             times, peaks = _eager_against_captured(eager, fused, staged, stacked,
-                                                   FUSED_DISPATCHES, k)
+                                                   FUSED_DISPATCHES, k, FUSED_EAGER_DISPATCHES)
             ms = _timing_line(f"Transformer-base bf16 b={TR_BATCH} s={TR_SEQ} dropout "
-                              f"{DROPOUT_P}, {FUSED_DISPATCHES} dispatches a turn",
+                              f"{DROPOUT_P}, {FUSED_DISPATCHES} dispatches a captured turn, "
+                              f"{FUSED_EAGER_DISPATCHES * k} steps an eager one",
                               times, peaks, "tokens/s", TR_BATCH * TR_SEQ, card_name, k,
-                              _busy_against(eager, fused, staged, stacked))
+                              _busy_against(eager, fused, staged, stacked,
+                                            eager_steps=FUSED_BUSY_EAGER_STEPS))
         del eager, fused
         gc.collect()
         torch.cuda.empty_cache()
@@ -8293,6 +8331,457 @@ def _routes(fa, torch):
             "bfloat16_head_dim_32": fa.ROUTES[(torch.bfloat16, 32)]}
 
 
+# -- phase 24: quantized inference and the data extras ------------------------------
+
+# (a) ResNet-50 served as bench.py _bench_infer serves it (bench.py:1882: depth 50,
+# 1000 classes, 224x224 NHWC, batch 16, random weights from --seed) in fp32, bf16
+# (cast_params_for_inference, bf16 compute) and int8 (exported under
+# quantize.int8_serving(), loaded and served with no switch set): QUANT_WARM warm and
+# QUANT_CALLS timed calls each. The int8 logits against bf16's and fp32's within
+# QUANT_LOGIT_TOL of max|logits| (the JAX package's own bar, tests/test_int8_serving.py)
+# with top-1 agreement of at least QUANT_TOP1 (at random weights the logits of a
+# batch of 16 lie close: bf16 and fp32 themselves part on a sample). Every call of
+# the int8 artifact runs 53 convs and 1 fc through the int8 route, the others none.
+QUANT_BATCH, QUANT_IMAGE, QUANT_WARM, QUANT_CALLS = 16, 224, 3, 20
+QUANT_LOGIT_TOL, QUANT_TOP1, QUANT_CONVS, QUANT_FCS = 0.1, 0.875, 53, 1
+# (b) the int8 products at ResNet-50's distinct shapes at QUANT_BATCH: [M, K] x [K, N]
+QUANT_SHAPES = {"stem 7x7x3/2 (K 147 padded to 152)": (QUANT_BATCH * 112 * 112, 147, 64),
+                "3x3 of stage 1": (QUANT_BATCH * 56 * 56, 576, 64),
+                "strided 1x1 shortcut of stage 2": (QUANT_BATCH * 28 * 28, 256, 512),
+                "fc at bucket 1": (1, 2048, 1000),
+                "fc at bucket 16": (16, 2048, 1000)}
+# (c) GoogLeNet served in bf16 as bench_googlenet_infer (bench.py:1953), against the
+# eager program's logits
+GOOGLENET_SERVE_TOL = 1e-2
+# (d), (f) ResNet-50 trained at bench.py's resnet50 row with BENCH_FEED_DTYPE=uint8
+# (b=64, NHWC, bf16, Momentum(0.1, 0.9)), WIRE_K steps eager and captured
+WIRE_BATCH, WIRE_K, AUG_PAD = 64, 4, 4
+# (e) the MNIST MLP rows input_pipeline and device_cache (bench.py:917-1060: batch
+# 256, K=16, SGD(0.01)), PIPE_CHUNKS K-chunks an epoch; the staging ring under
+# faults.slow_h2d(SLOW_H2D_MS) over SLOW_CHUNKS chunks, depth 2 at least
+# SLOW_RATIO times faster than depth 1
+PIPE_BATCH, PIPE_K, PIPE_CHUNKS, PIPE_EPOCHS, PIPE_LR = 256, 16, 2, 3, 0.01
+SLOW_H2D_MS, SLOW_CHUNKS, SLOW_RATIO = 20.0, 6, 1.3
+
+
+def _dir_bytes(d):
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(d) for f in fs)
+
+
+def _top1(a, b):
+    return float((a.argmax(-1) == b.argmax(-1)).float().mean())
+
+
+def quantized_served(dev, seed, card_name, tmp):
+    """(a) ResNet-50 served in fp32, bf16 and int8 (see the constants)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import quantize as q
+    from paddle_tpu_torch.framework import layout_mode
+    from paddle_tpu_torch.models import resnet
+
+    rng = np.random.RandomState(seed)
+    shape = (QUANT_BATCH, QUANT_IMAGE, QUANT_IMAGE, 3)  # the export's NHWC layout
+    feed = {"image": rng.randn(*shape).astype(np.float32),
+            "label": rng.randint(0, 1000, (QUANT_BATCH, 1)).astype(np.int64)}
+    runs = [{"image": rng.randn(*shape).astype(np.float32), "label": feed["label"]}
+            for _ in range(4)]
+    with layout_mode("NHWC"):
+        prog = pt.build(resnet.make_model(depth=50, class_num=1000, image_size=QUANT_IMAGE))
+    params, state = prog.init(seed, place=dev, **_on_card([feed], dev)[0])
+    logits, rows = {}, {}
+    for variant in ("fp32", "bf16", "int8"):
+        t0 = time.perf_counter()
+        d = os.path.join(tmp, f"resnet50_{variant}")
+        p = params if variant == "fp32" else q.cast_params_for_inference(params)
+        with pt.amp_guard("float32" if variant == "fp32" else "bfloat16"), \
+                q.int8_serving(variant == "int8"):
+            pt.io.save_inference_model(d, prog, p, state, feed)
+        pred = pt.io.load_inference_model(d, device=dev)
+        check(not q.in_int8_serving(), "quantized served: the switch leaked")
+        for i in range(QUANT_WARM):
+            pred.run(runs[i % len(runs)])
+        torch.cuda.synchronize()
+        q.reset_int8_route_counts()
+        lat = []
+        for i in range(QUANT_CALLS):
+            t1 = time.perf_counter()
+            pred.run(runs[i % len(runs)])
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t1)
+        routes = q.int8_route_counts()
+        logits[variant] = pred.run(feed)["logits"].float().cpu()
+        want = ({"conv": QUANT_CONVS * QUANT_CALLS, "matmul": QUANT_FCS * QUANT_CALLS}
+                if variant == "int8" else {"conv": 0, "matmul": 0})
+        meta = pt.io.read_artifact_meta(d)["meta"]
+        rows[variant] = (np.percentile(lat, 50) * 1e3, np.percentile(lat, 99) * 1e3)
+        say(f"quantized (a) ResNet-50 {variant} served ({card_name}): b={QUANT_BATCH} "
+            f"{QUANT_IMAGE}x{QUANT_IMAGE} NHWC, {QUANT_CALLS} calls: "
+            f"{QUANT_BATCH / np.mean(lat):.1f} images/s, latency p50 {rows[variant][0]:.2f} ms "
+            f"p99 {rows[variant][1]:.2f} ms; artifact {_dir_bytes(d)} bytes (compute "
+            f"{meta['compute_dtype']}, int8_serving {meta['int8_serving']}); int8 routes over "
+            f"the timed calls {routes} (want {want}); {time.perf_counter() - t0:.1f} s")
+        check(routes == want, f"quantized served {variant}: the int8 routes ran {routes}")
+        check(meta["int8_serving"] == (variant == "int8"),
+              f"quantized served {variant}: the artifact records the wrong switch")
+        check(bool(torch.isfinite(logits[variant]).all()),
+              f"quantized served {variant}: logits not finite")
+        del pred
+    i8 = logits["int8"]
+    against = {v: (_rel_max(i8, logits[v]), _top1(i8, logits[v])) for v in ("bf16", "fp32")}
+    bf_fp = (_rel_max(logits["bf16"], logits["fp32"]), _top1(logits["bf16"], logits["fp32"]))
+    say(f"quantized (a) int8 logits ({card_name}): against bf16 max abs "
+        f"{against['bf16'][0]:.4g} of max|logits|, top-1 agreement {against['bf16'][1]:.4f}; "
+        f"against fp32 {against['fp32'][0]:.4g}, {against['fp32'][1]:.4f} (tol "
+        f"{QUANT_LOGIT_TOL} and at least {QUANT_TOP1}); bf16 against fp32 {bf_fp[0]:.4g}, "
+        f"{bf_fp[1]:.4f} (reported)")
+    for v, (err, top1) in against.items():
+        check(err <= QUANT_LOGIT_TOL and top1 >= QUANT_TOP1,
+              f"quantized served: int8 logits differ from {v}'s ({err:.3g}, top-1 {top1})")
+    del params, state
+
+
+def quantized_products(dev, seed, card_name):
+    """(b) The card's int8 route (``torch._int_mm`` through
+    ``quantize._padded_int_mm``) against the plain product of the same int8
+    operands at ResNet-50's shapes: the int32 accumulators bit for bit. The
+    plain product runs in f64 on the card, exact here (every |sum| is below
+    K·127² < 2^53; the card has no int32 matmul), beside cuBLAS's f32 and bf16
+    products of the same shape."""
+    import torch
+    from paddle_tpu_torch import quantize as q
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for name, (m, k, n) in QUANT_SHAPES.items():
+        a = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+        b = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8).t()
+        acc = q._padded_int_mm(a, b)
+        plain = (a.double() @ b.double()).to(torch.int32)
+        same = torch.equal(acc, plain)
+        iters = 20 if m > 1000 else 100
+        af, bf = a.float(), b.float()
+        ab, bb = a.bfloat16(), b.bfloat16()
+        ms = {"int8": device_ms(lambda: q._padded_int_mm(a, b), iters),
+              "plain f64": device_ms(lambda: a.double() @ b.double(), iters),
+              "f32": device_ms(lambda: af @ bf, iters),
+              "bf16": device_ms(lambda: ab @ bb, iters)}
+        say(f"quantized (b) int8 product {name} [{m}, {k}] x [{k}, {n}] ({card_name}): "
+            f"int32 accumulators bit-equal to the plain product {same}; ms "
+            + ", ".join(f"{key} {v:.4f}" for key, v in ms.items()))
+        check(same, f"quantized products: {name}: the int8 route's accumulators differ")
+
+
+def googlenet_served(dev, seed, card_name, tmp):
+    """(c) GoogLeNet served in bf16 (bench_googlenet_infer)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import quantize as q
+    from paddle_tpu_torch.framework import layout_mode
+    from paddle_tpu_torch.models import convnets
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(seed + 1)
+    shape = (QUANT_BATCH, QUANT_IMAGE, QUANT_IMAGE, 3)
+    feed = {"image": rng.randn(*shape).astype(np.float32),
+            "label": rng.randint(0, 1000, (QUANT_BATCH, 1)).astype(np.int64)}
+    with layout_mode("NHWC"):
+        prog = pt.build(convnets.make_googlenet())
+    on_card = _on_card([feed], dev)[0]
+    params, state = prog.init(seed, place=dev, **on_card)
+    p = q.cast_params_for_inference(params)
+    d = os.path.join(tmp, "googlenet")
+    with pt.amp_guard("bfloat16"):
+        pt.io.save_inference_model(d, prog, p, state, feed)
+        with torch.no_grad():
+            want, _ = prog.apply(p, state, training=False, place=dev, **on_card)
+    pred = pt.io.load_inference_model(d, device=dev)
+    for _ in range(QUANT_WARM):
+        pred.run(feed)
+    lat = []
+    for _ in range(QUANT_CALLS):
+        t1 = time.perf_counter()
+        got = pred.run(feed)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t1)
+    err = _rel_max(got["logits"], want["logits"])
+    say(f"quantized (c) GoogLeNet bf16 served ({card_name}): b={QUANT_BATCH} "
+        f"{QUANT_IMAGE}x{QUANT_IMAGE} NHWC, {QUANT_CALLS} calls: "
+        f"{QUANT_BATCH / np.mean(lat):.1f} images/s, latency p50 "
+        f"{np.percentile(lat, 50) * 1e3:.2f} ms p99 {np.percentile(lat, 99) * 1e3:.2f} ms; "
+        f"artifact {_dir_bytes(d)} bytes; logits against the eager program's max abs "
+        f"{err:.3g} of max|logits| (tol {GOOGLENET_SERVE_TOL}), bit-equal "
+        f"{torch.equal(got['logits'], want['logits'])}; {time.perf_counter() - t0:.1f} s")
+    check(err <= GOOGLENET_SERVE_TOL, "quantized: GoogLeNet's served logits differ")
+
+
+def _wire_resnet(dev, wire, augment=None):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import layout_mode
+    from paddle_tpu_torch.models import resnet
+    with layout_mode("NHWC"):
+        prog = pt.build(resnet.make_model(depth=RESNET["depth"], class_num=RESNET["class_num"],
+                                          image_size=RESNET["image_size"], data_format="NHWC"))
+    return pt.Trainer(prog, pt.optimizer.Momentum(RESNET_LR, RESNET_MOMENTUM),
+                      loss_name="loss", fetch_list=["loss"], place=dev, feed_wire=wire,
+                      augment=augment)
+
+
+def _u8_resnet_feeds(seed, n):
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    size = RESNET["image_size"]
+    return [{"image": rng.randint(0, 256, (WIRE_BATCH, size, size, 3)).astype(np.uint8),
+             "label": rng.randint(0, RESNET["class_num"], (WIRE_BATCH, 1)).astype(np.int64)}
+            for _ in range(n)]
+
+
+def _eager_and_captured(a, b, feeds_a, feeds_b):
+    """WIRE_K eager steps of ``a`` and ``b``, then one dispatch of WIRE_K
+    captured steps of each: (eager losses equal, eager states differing,
+    captured losses equal, captured states differing)."""
+    import torch
+    import paddle_tpu_torch as pt
+    la = torch.stack([a.step(f)["loss"] for f in feeds_a])
+    lb = torch.stack([b.step(f)["loss"] for f in feeds_b])
+    eager = (_bits_equal(la, lb), _states_differ(_state_of(a), _state_of(b)))
+    ca = a.run_steps(a._put_feed(pt.data.stack_batches(feeds_a)))["loss"]
+    cb = b.run_steps(b._put_feed(pt.data.stack_batches(feeds_b)))["loss"]
+    return (*eager, _bits_equal(ca, cb), _states_differ(_state_of(a), _state_of(b)),
+            la.tolist(), ca.tolist())
+
+
+def wire_training(dev, seed, card_name):
+    """(d) ResNet-50 fed uint8 pixels over the wire (``WireSpec.image_uint8``,
+    decoded in the step) against the same trainer fed the logical f32 values
+    ``(u8 - 127)/64``, from the same params: eager and captured, bit for bit."""
+    import gc
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.data.wire import FeedWire, WireSpec, feed_wire_nbytes
+
+    t0 = time.perf_counter()
+    u8 = _u8_resnet_feeds(seed, WIRE_K)
+    logical = [dict(f, image=(f["image"].astype("float32") - 127.0) / 64.0) for f in u8]
+    wire = {"image": WireSpec.image_uint8()}
+    with pt.amp_guard("bfloat16"):
+        a = _wire_resnet(dev, wire).startup(seed, u8[0])
+        b = _wire_resnet(dev, None).startup(seed, logical[0], params=_params_of(a))
+        eq, differ, ceq, cdiffer, losses, closses = _eager_and_captured(a, b, u8, logical)
+    wire_b = feed_wire_nbytes(u8[0], FeedWire(wire))
+    f32_b = feed_wire_nbytes(logical[0])
+    rep = a.pipeline_report()
+    say(f"quantized (d) ResNet-50 uint8 wire ({card_name}): bf16 NHWC b={WIRE_BATCH} "
+        f"Momentum({RESNET_LR}, {RESNET_MOMENTUM}), fed u8 pixels against the f32 values "
+        f"(u8-127)/64 from the same params: {WIRE_K} eager steps losses {losses} bit-equal "
+        f"{eq}, state leaves differing {differ}; then run_steps(K={WIRE_K}) losses "
+        f"{closses} bit-equal {ceq}, state leaves differing {cdiffer}; wire bytes a step "
+        f"{wire_b} against {f32_b} ({f32_b / wire_b:.2f}x); the wire trainer's pipeline "
+        f"h2d {rep['h2d_bytes']} bytes for {rep['logical_bytes']} logical; "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(eq and not differ, "quantized: the uint8 wire's eager steps differ from f32's")
+    check(ceq and not cdiffer, "quantized: the uint8 wire's captured steps differ from f32's")
+    check(f32_b / wire_b > 3.9, "quantized: the uint8 wire is not 4x narrower")
+    del a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def augment_on_card(dev, seed, card_name):
+    """(f) ResNet-50 with a uint8 wire (raw pixels, ``WireSpec.quantize``) and
+    ``random_crop(AUG_PAD)``, ``random_flip`` and ``normalize(127, 64)`` in the
+    step: WIRE_K captured steps against WIRE_K eager ones from the same params,
+    bit for bit."""
+    import gc
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.data.augment import AugmentSpec
+    from paddle_tpu_torch.data.wire import WireSpec
+
+    t0 = time.perf_counter()
+    u8 = _u8_resnet_feeds(seed + 7, WIRE_K)
+    wire = {"image": WireSpec.quantize("uint8")}
+    aug = {"image": AugmentSpec().random_crop(AUG_PAD, axes=(1, 2)).random_flip(axis=2)
+           .normalize(127.0, 64.0)}
+    with pt.amp_guard("bfloat16"):
+        e = _wire_resnet(dev, wire, aug).startup(seed, u8[0])
+        f = _wire_resnet(dev, wire, aug).startup(seed, u8[0], params=_params_of(e))
+        le = torch.stack([e.step(x)["loss"] for x in u8])
+        lf = f.run_steps(f._put_feed(pt.data.stack_batches(u8)))["loss"]
+        differ = _states_differ(_state_of(e), _state_of(f))
+        ev = [e.eval(u8[0])["loss"] for _ in range(2)]
+    say(f"quantized (f) augmentation on the card ({card_name}): ResNet-50 bf16 NHWC "
+        f"b={WIRE_BATCH}, uint8 wire, random_crop({AUG_PAD}), random_flip, "
+        f"normalize(127, 64): {WIRE_K} eager steps {le.tolist()} against run_steps(K={WIRE_K}) "
+        f"{lf.tolist()}: bit-equal {_bits_equal(le, lf)}, state leaves differing {differ}; "
+        f"eval twice bit-equal {_bits_equal(ev[0], ev[1])}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(_bits_equal(le, lf) and not differ,
+          "quantized: augmented captured steps differ from eager ones")
+    check(_bits_equal(ev[0], ev[1]), "quantized: eval is not deterministic under augment")
+    del e, f
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def data_pipeline(dev, seed, card_name):
+    """(e) bench.py's input_pipeline and device_cache rows on the MNIST MLP
+    (see the constants): the fp32, bf16 and uint8 wires through ``fit`` with
+    the prefetch, epochs 2 on timed; a cached run (``device_cache=True``, the
+    card's budget) against the streamed uint8 one, bit for bit, with no h2d
+    bytes after epoch 1, beside pre-staged chunks; the staging ring under
+    ``faults.slow_h2d`` at depths 2 and 1."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.data import FeedWire, WireSpec
+    from paddle_tpu_torch.data.feeder import DeviceFeeder, PipelineMetrics
+    from paddle_tpu_torch.data.wire import feed_wire_nbytes
+    from paddle_tpu_torch.models import mnist
+    from paddle_tpu_torch.testing import faults
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(seed)
+    n_batches = PIPE_CHUNKS * PIPE_K
+    raw = [rng.randint(0, 256, (PIPE_BATCH, 784)).astype(np.uint8) for _ in range(n_batches)]
+    labels = [rng.randint(0, 10, (PIPE_BATCH, 1)).astype(np.int64) for _ in range(n_batches)]
+    logical = [(r.astype(np.float32) - 127.0) / 64.0 for r in raw]
+    variants = {"fp32": (None, logical, "float32"),
+                "bf16": ({"image": WireSpec.cast("bfloat16")}, logical, "float32"),
+                "uint8": ({"image": WireSpec.image_uint8()}, raw, "uint8")}
+
+    def trainer(wire, images):
+        tr = pt.Trainer(pt.build(mnist.mlp), pt.optimizer.SGD(PIPE_LR), loss_name="loss",
+                        fetch_list=["loss"], place=dev, feed_wire=wire)
+        return tr.startup(seed, {"image": images[0], "label": labels[0]})
+
+    def run(name, device_cache=None):
+        wire, images, dtype = variants[name]
+        tr = trainer(wire, images)
+        batches = [list(zip(im, lab)) for im, lab in zip(images, labels)]
+        losses, reports, walls, t_epoch = [], [], [], [0.0]
+
+        def handler(e):
+            if e.kind == "begin_epoch":
+                torch.cuda.synchronize()
+                t_epoch[0] = time.perf_counter()
+            elif e.kind == "end_step":
+                losses.append(e.metrics["loss"])
+            elif e.kind == "end_epoch":
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t_epoch[0]) / n_batches * 1e3)
+                reports.append(e.pipeline)
+
+        pt.fit(tr, lambda: iter(batches), PIPE_EPOCHS, ["image", "label"],
+               dtypes=[dtype, "int64"], steps_per_dispatch=PIPE_K, device_cache=device_cache,
+               event_handler=handler)
+        h2d = [r["h2d_bytes"] for r in reports]
+        deltas = [b - a for a, b in zip([0] + h2d[:-1], h2d)]
+        return tr, torch.cat([x.reshape(-1) for x in losses]).cpu(), walls, deltas, reports
+
+    out = {name: run(name) for name in variants}
+    wire_b = {name: feed_wire_nbytes({"image": variants[name][1][0], "label": labels[0]},
+                                     FeedWire.make(variants[name][0]))
+              for name in variants}
+    same_u8 = _bits_equal(out["uint8"][1], out["fp32"][1])
+    bf16_rel = float(((out["bf16"][1] - out["fp32"][1]).abs() / out["fp32"][1].abs()).max())
+    say(f"quantized (e) input_pipeline ({card_name}): MNIST MLP b={PIPE_BATCH} "
+        f"SGD({PIPE_LR}), fit K={PIPE_K} with the prefetch, {PIPE_EPOCHS} epochs of "
+        f"{n_batches} batches: ms a step (epochs 2-{PIPE_EPOCHS}) "
+        + ", ".join(f"{n} {[round(w, 4) for w in out[n][2][1:]]}" for n in variants)
+        + f"; wire bytes a step {wire_b} (uint8 {wire_b['fp32'] / wire_b['uint8']:.2f}x "
+        f"fewer than fp32); uint8 losses bit-equal to fp32's {same_u8}; bf16 wire losses "
+        f"rel up to {bf16_rel:.3g} of fp32's (reported: (u8-127)/64 is exact in bf16)")
+    check(same_u8, "quantized: the uint8 wire's losses differ from fp32's")
+    check(wire_b["fp32"] / wire_b["uint8"] > 3.9, "quantized: the uint8 wire is not 4x smaller")
+
+    tr, losses, walls, deltas, reports = run("uint8", device_cache=True)
+    ref_tr, ref_losses = out["uint8"][0], out["uint8"][1]
+    cache = tr.device_cache.report()
+    same = _bits_equal(losses, ref_losses) and not _states_differ(_state_of(tr), _state_of(ref_tr))
+    staged = [tr._put_feed(pt.data.stack_batches(
+        [{"image": raw[i * PIPE_K + j], "label": labels[i * PIPE_K + j]}
+         for j in range(PIPE_K)]), stacked=True) for i in range(PIPE_CHUNKS)]
+    tr.run_steps(staged[0])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i in range(2 * PIPE_CHUNKS):
+        tr.run_steps(staged[i % PIPE_CHUNKS])
+    torch.cuda.synchronize()
+    staged_ms = (time.perf_counter() - t1) / (2 * n_batches) * 1e3
+    say(f"quantized (e) device_cache ({card_name}): uint8 wire, fit(device_cache=True) over "
+        f"{PIPE_EPOCHS} epochs: state {cache['state']}, budget {cache['budget_bytes']} bytes "
+        f"(the card's total x0.8 less the advisor's estimate), {cache['resident_bytes']} "
+        f"bytes resident, {cache['hits']} chunks served; h2d bytes an epoch {deltas} (streamed "
+        f"{out['uint8'][3]}); ms a step cached {[round(w, 4) for w in walls[1:]]} against "
+        f"streamed {[round(w, 4) for w in out['uint8'][2][1:]]} and pre-staged "
+        f"{staged_ms:.4f}; losses and state bit-identical to the streamed run {same}")
+    check(cache["state"] == "full" and cache["hits"] == PIPE_CHUNKS * (PIPE_EPOCHS - 1),
+          f"quantized: the device cache did not serve every chunk: {cache}")
+    check(deltas[0] > 0 and all(x == 0 for x in deltas[1:]),
+          f"quantized: a cached epoch moved h2d bytes: {deltas}")
+    check(same, "quantized: the cached epochs differ from the streamed ones")
+
+    wire = FeedWire.make(variants["uint8"][0])
+
+    def slow_epoch(depth):
+        def gen():
+            for i in range(SLOW_CHUNKS * PIPE_K):
+                yield {"image": raw[i % n_batches], "label": labels[i % n_batches]}
+
+        m = PipelineMetrics()
+        feeder = DeviceFeeder(gen, device=dev, stack_k=PIPE_K, encode_fn=wire.encode,
+                              metrics=m, wait_fn=faults.slow_h2d(SLOW_H2D_MS),
+                              overlap_depth=depth)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for n, feed in feeder:
+            ref_tr.run_steps(feed, k=n) if n > 1 else ref_tr.step(feed)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t1, m.report()
+
+    slow_epoch(2)  # warm
+    (d1, r1), (d2, r2) = slow_epoch(1), slow_epoch(2)
+    say(f"quantized (e) staging ring ({card_name}): faults.slow_h2d({SLOW_H2D_MS} ms) over "
+        f"{SLOW_CHUNKS} chunks of K={PIPE_K}: overlap_depth=1 {d1 * 1e3:.1f} ms, "
+        f"overlap_depth=2 {d2 * 1e3:.1f} ms ({d1 / d2:.2f}x; at least {SLOW_RATIO}); h2d "
+        f"seconds {r1['stages_s']['h2d']:.4f} and {r2['stages_s']['h2d']:.4f}, hidden "
+        f"{r1['overlap_hidden_s']:.4f} and {r2['overlap_hidden_s']:.4f}; "
+        f"{time.perf_counter() - t0:.1f} s for (e)")
+    check(d1 / d2 >= SLOW_RATIO, "quantized: the staging ring did not overlap the slow link")
+    check(r1["overlap_hidden_s"] == 0.0 and r2["overlap_hidden_s"] > 0.0,
+          "quantized: the ring's hidden transfer time is misattributed")
+
+
+def phase_quantized(dev, seed, card_name):
+    """Phase 24: quantized and low-precision inference and the data extras,
+    (a)-(f). Returns the hand kernels' launches during the phase (none of
+    its paths runs attention)."""
+    import gc
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    _zero_launch_counts(fa)
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- the main path, as a user drives it
+        quantized_served(dev, seed, card_name, tmp)
+        quantized_products(dev, seed, card_name)
+        googlenet_served(dev, seed, card_name, tmp)
+        wire_training(dev, seed, card_name)
+        data_pipeline(dev, seed, card_name)
+        augment_on_card(dev, seed, card_name)
+        launches = _launch_counts(fa)
+        # ---- end of the main path
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 24: hand-kernel launches {launches} (none of these paths runs attention); "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(all(n == 0 for n in launches.values()), "phase 24: a flash kernel launched")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8450,6 +8939,12 @@ def main(argv=None) -> int:
     # (launch counts zeroed inside, around the in-process path)
     fleet = phase_fleet(dev, args.seed, smi)
     done("phase 23")
+
+    # 24. quantized and low-precision inference, the feed wire, on-device
+    # augmentation, the device cache and the staging ring (launch counts zeroed
+    # inside, around the phase)
+    quantized = phase_quantized(dev, args.seed, smi)
+    done("phase 24")
     by_path = {name: {"served": served[name], "training": trained[name],
                       "persistence": persisted[name], "resnet": resnet_launches[name],
                       **{path: n[name] for path, n in seq2seq.items()},
@@ -8460,7 +8955,8 @@ def main(argv=None) -> int:
                       "pp_world_of_one": second["pp_world_of_one"][name],
                       "moe": second["moe"][name], "sharded_checkpoint": sharded[name],
                       "elastic": elastic[name], "async_ps": async_ps[name],
-                      "telemetry": tele[name], "fleet": fleet[name]}
+                      "telemetry": tele[name], "fleet": fleet[name],
+                      "quantized_data": quantized[name]}
                for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 
     # the kernels record: each kernel's row at the training path's shape,

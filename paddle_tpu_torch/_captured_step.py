@@ -16,7 +16,11 @@ Static buffers. A graph reads and writes fixed addresses, so:
 - each feed name has a slot of one step's shape, which gets a
   device-to-device copy of slice ``i`` of the stacked feed before replay
   ``i`` (on the consumer's stream, after the ``DeviceFeeder``'s staging
-  copy that the stream already waits on);
+  copy that the stream already waits on). A chunk the dataset cache
+  serves is on the card already and goes into the slots the same way,
+  never through pinned host memory. The slots hold the feed as it crossed
+  the link (a wire dtype); the step decodes and augments it inside the
+  graph;
 - after each replay the graph's outputs are copied into slot ``i`` of
   the ``(K, ...)`` results, which are tensors of their own;
 - the flash kernels encode their TMA tensor maps from the operands'
@@ -84,8 +88,9 @@ def signature(trainer, feed_k: Dict[str, torch.Tensor]) -> Tuple:
     """What a captured step is specific to, besides the state's tensors:
     the feed, the fetch set, the loss scaler and guard, the strategy's
     remat and accumulation (the Trainer's ``remat_mode``, whatever the
-    ambient one), and ``amp_guard``'s compute dtype, the ambient switch a
-    run reads when it starts."""
+    ambient one), ``amp_guard``'s compute dtype, the ambient switch a
+    run reads when it starts, and the feed's wire and augmentation
+    tables."""
     feed = tuple((k, tuple(v.shape[1:]), v.dtype, v.device) for k, v in sorted(feed_k.items()))
     fetch = None if trainer.fetch_list is None else tuple(trainer.fetch_list)
     s = trainer.strategy
@@ -93,7 +98,8 @@ def signature(trainer, feed_k: Dict[str, torch.Tensor]) -> Tuple:
                                        s.accum_exchange, s.quantized_allreduce,
                                        s.zero_sharding, s.sequence_parallel, s.sp_impl)
     return (feed, fetch, trainer.loss_name, id(trainer.loss_scaler), id(trainer._guard),
-            trainer.device, strategy, framework.compute_dtype())
+            trainer.device, strategy, framework.compute_dtype(), id(trainer.feed_wire),
+            id(trainer.feed_augment))
 
 
 _SIDE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}

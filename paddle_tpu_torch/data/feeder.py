@@ -20,10 +20,17 @@ remainder and odd-shaped batches come singly. :class:`PipelineMetrics`
 attributes the fill thread's time to its stages (reader, encode, stack,
 h2d, dispatch wait) and the consumer's to starvation, and exports them
 as the JAX package's registry families; with a journal each chunk's fill
-is a ``feeder.fill`` event with a span the dispatch reuses. Not carried
-yet, each raising :class:`NotYetPorted`: the JAX package's staging-ring
-options ``overlap_depth`` and ``wait_fn`` (data extras, item 23 (c)); this
-feeder overlaps through its side stream.
+is a ``feeder.fill`` event with a span the dispatch reuses.
+
+The staging ring (the JAX package's ``overlap_depth``): with
+``overlap_depth >= 2`` and metrics or a ``wait_fn``, the fill thread
+submits each copy and goes on reading, encoding and stacking while up to
+``overlap_depth`` copies are in flight; a waiter thread waits on each
+copy's CUDA event in submission order (never on the whole device),
+records its submit-to-complete time and only then hands the batch on.
+``overlap_depth=1`` is the blocking put. ``wait_fn(item, t_submit)``
+replaces the completion wait (``testing.faults.slow_h2d`` makes a slow
+link that way).
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ import torch
 from torch.profiler import record_function
 
 from ..core.dtypes import convert_dtype, dtype_name
-from ..core.errors import EnforceError, NotYetPorted
+from ..core.errors import EnforceError
 from ..core.place import default_device
 
 
@@ -57,10 +64,10 @@ class PipelineMetrics:
     blocked on a full prefetch queue: the compute-bound signal).
     ``consumer_starved_s`` is the time the training loop waited for a
     batch (the input-bound signal). ``h2d_bytes`` counts the bytes that
-    crossed the link; ``encode_saved_bytes`` logical minus wire. The
-    report keeps the JAX package's fields of its staging ring
-    (``overlap_hidden_s``) and dataset cache (``cache_hit_bytes``,
-    ``cache_hits``), which stay 0 until those come (item 23 (c)).
+    crossed the link; ``encode_saved_bytes`` logical minus wire;
+    ``overlap_hidden_s`` the transfer time the staging ring hid under
+    other work; ``cache_hit_bytes``/``cache_hits`` the chunks the device
+    dataset cache served (they count neither h2d bytes nor h2d time).
     :meth:`telemetry_families` exports the same accumulators as the JAX
     package's ``paddle_tpu_feeder_*`` families."""
 
@@ -91,12 +98,26 @@ class PipelineMetrics:
             self.stage_s["encode"] += seconds
             self.encode_saved_bytes += max(0, logical_nbytes - wire_nbytes)
 
-    def record_h2d(self, nbytes: int, seconds: float):
-        """One transfer of ``nbytes`` that took ``seconds``."""
+    def record_h2d(self, nbytes: int, seconds: float, exposed_s: Optional[float] = None):
+        """One completed transfer of ``nbytes``: ``seconds`` from its
+        submission to its completion. ``exposed_s`` (the staging ring) is
+        how long the fill thread stalled for it; the rest ran hidden and
+        adds to ``overlap_hidden_s``. None (the blocking put, the direct
+        step) counts it all as exposed."""
         with self._lock:
             self.stage_s["h2d"] += seconds
+            if exposed_s is not None:
+                self.overlap_hidden_s += max(0.0, seconds - exposed_s)
             self.h2d_bytes += nbytes
             self.chunks += 1
+
+    def record_cache_hit(self, nbytes: int):
+        """A chunk the device dataset cache served device to device:
+        ``nbytes`` of wire data that did not cross the link (neither the
+        h2d bytes nor the h2d clock move)."""
+        with self._lock:
+            self.cache_hit_bytes += nbytes
+            self.cache_hits += 1
 
     def record_batch(self, reader_seconds: float):
         with self._lock:
@@ -297,6 +318,113 @@ class _Staged:
         self.tensors, self.ready, self.pinned = tensors, ready, pinned
 
 
+def wait_staged(item) -> None:
+    """Wait until a batch staged by :class:`DeviceFeeder` has reached the
+    card: its copies' CUDA event (the copy alone, never the whole
+    device). Anything else (a ``put_fn``'s result) is taken as done."""
+    if isinstance(item, _Staged):
+        item.ready.synchronize()
+
+
+class _StagingRing:
+    """Depth-bounded asynchronous staging (paddle_tpu/data/feeder.py:315):
+    :meth:`submit` starts a chunk's put and returns, so the fill thread
+    prepares the next chunk while this one copies; a waiter thread waits
+    each put to completion in submission order (``wait_fn``, by default
+    the copy's CUDA event) and only then delivers it, so the consumer
+    never gets a half-arrived batch and the recorded h2d time is the
+    transfer's submit-to-complete wall. At most ``depth`` puts are in
+    flight; the fill thread's stall for a slot plus the submit call is the
+    exposed time, the rest accumulates as ``overlap_hidden_s``. An error
+    of the wait goes to ``on_error``, sets the stop flag and frees a slot,
+    so neither the fill thread nor the consumer stays blocked."""
+
+    _END = object()
+
+    def __init__(self, depth: int, deliver: Callable, stop: threading.Event,
+                 metrics: Optional[PipelineMetrics] = None,
+                 wait_fn: Optional[Callable] = None, journal=None,
+                 on_error: Optional[Callable] = None):
+        self.depth = max(1, int(depth))
+        self._deliver = deliver      # (item, n, span) -> bool (False: stop)
+        self._stop = stop
+        self._metrics = metrics
+        self._wait_fn = wait_fn or (lambda item, t_submit: wait_staged(item))
+        self._journal = journal
+        self._on_error = on_error
+        self._sem = threading.Semaphore(self.depth)
+        self._q: _queue.Queue = _queue.Queue()
+        self._lock = threading.Lock()
+        self._stall_s = 0.0          # fill-thread seconds blocked here
+        self._thread = threading.Thread(target=self._drain, name="DeviceFeeder.wait",
+                                        daemon=True)
+        self._thread.start()
+
+    def _take_stall(self) -> float:
+        with self._lock:
+            s, self._stall_s = self._stall_s, 0.0
+            return s
+
+    def submit(self, n: int, host_feed, putter: Callable) -> bool:
+        """Start one chunk's put. False when the stop flag fired first."""
+        t_a = time.perf_counter()
+        while not self._sem.acquire(timeout=0.1):
+            if self._stop.is_set():
+                return False
+        stall = time.perf_counter() - t_a
+        span = self._journal.new_span() if self._journal is not None else None
+        nbytes = host_feed_nbytes(host_feed)
+        t0 = time.perf_counter()
+        item = putter(host_feed)
+        with self._lock:
+            # the submit call is exposed too: the fill thread paid it
+            self._stall_s += stall + (time.perf_counter() - t0)
+        self._q.put((item, n, span, t0, nbytes))
+        return True
+
+    def finish(self):
+        """End of stream: let the puts in flight deliver, then return (at
+        once when the stop flag fires)."""
+        self._q.put(self._END)
+        while self._thread.is_alive():
+            self._thread.join(timeout=0.1)
+            if self._stop.is_set():
+                return
+
+    def _drain(self):
+        while True:
+            try:
+                entry = self._q.get(timeout=0.1)
+            except _queue.Empty:
+                if self._stop.is_set():
+                    return
+                continue
+            if entry is self._END:
+                return
+            item, n, span, t0, nbytes = entry
+            try:
+                self._wait_fn(item, t0)
+            except BaseException as e:  # surfaced on the consumer's side
+                if self._on_error is not None:
+                    self._on_error(e)
+                # a dead waiter frees no more slots: wake the fill thread
+                # (parked in submit) and the consumer; the error then
+                # propagates at __next__
+                self._stop.set()
+                self._sem.release()
+                return
+            seconds = time.perf_counter() - t0
+            if self._metrics is not None:
+                self._metrics.record_h2d(nbytes, seconds, exposed_s=self._take_stall())
+            if self._journal is not None:
+                self._journal.emit("feeder.fill", span=span, num_steps=n, nbytes=nbytes,
+                                   put_s=round(seconds, 6))
+            ok = self._deliver(item, n, span)
+            self._sem.release()
+            if not ok:
+                return
+
+
 class DeviceFeeder:
     """Double-buffered host→device prefetch. Wraps a callable returning an
     iterator of feed dicts; ``__iter__`` yields dicts of tensors on the
@@ -320,6 +448,13 @@ class DeviceFeeder:
     event, so ``h2d_mbps`` measures the link) and the dispatch wait; the
     consumer's waits count as starvation.
 
+    ``overlap_depth`` (default 2) puts, with metrics or a ``wait_fn``, go
+    through the staging ring (see the module): up to that many copies in
+    flight, each waited on by ``wait_fn(item, t_submit)`` (default: its
+    CUDA event) on a waiter thread; ``overlap_depth=1`` is the blocking
+    put, which waits inline (``wait_fn``, else the event) before the next
+    batch is read.
+
     ``journal`` (a :class:`paddle_tpu_torch.telemetry.RunJournal`) mints one
     span a chunk on the fill thread and emits a ``feeder.fill`` event once
     its transfer is put (``num_steps``, ``nbytes``, ``put_s``);
@@ -339,11 +474,6 @@ class DeviceFeeder:
                  metrics: Optional[PipelineMetrics] = None,
                  logical_nbytes_fn: Optional[Callable] = None, journal=None,
                  overlap_depth: int = 2, wait_fn: Optional[Callable] = None):
-        for arg, value, default, later in (
-                ("overlap_depth", overlap_depth, 2, "data extras, ROADMAP queue 1 item 23 (c)"),
-                ("wait_fn", wait_fn, None, "data extras, ROADMAP queue 1 item 23 (c)")):
-            if value != default:
-                raise NotYetPorted(f"DeviceFeeder({arg}=...): {later}")
         self.batches = batches
         self.capacity = max(1, int(capacity))
         self.stack_k = max(1, int(stack_k))
@@ -351,6 +481,8 @@ class DeviceFeeder:
         self.metrics = metrics
         self.logical_nbytes_fn = logical_nbytes_fn or host_feed_nbytes
         self.journal = journal
+        self.overlap_depth = max(1, int(overlap_depth))
+        self.wait_fn = wait_fn
         # the span of the item the iterator last yielded (fit passes it to
         # the dispatch, so the feeder.fill and trainer.dispatch events of
         # one batch share it)
@@ -390,18 +522,24 @@ class DeviceFeeder:
                 ready.record(self._stream)
             return _Staged(tensors, ready, pinned)
 
+    def _putter(self, n: int) -> Callable:
+        return self.put_stacked_fn if n > 1 else self.put_fn
+
     def _put(self, n: int, host_feed: Dict[str, Any]):
-        """Fill thread: one batch or chunk to the card (timed to its
-        completion under ``metrics``)."""
-        put = self.put_stacked_fn if n > 1 else self.put_fn
-        if self.metrics is None:
+        """Fill thread, the blocking put: one batch or chunk to the card,
+        waited on to its completion under ``metrics`` or a ``wait_fn``."""
+        put = self._putter(n)
+        if self.metrics is None and self.wait_fn is None:
             return put(host_feed)
         nbytes = host_feed_nbytes(host_feed)
         t0 = time.perf_counter()
         item = put(host_feed)
-        if isinstance(item, _Staged):
-            item.ready.synchronize()
-        self.metrics.record_h2d(nbytes, time.perf_counter() - t0)
+        if self.wait_fn is not None:
+            self.wait_fn(item, t0)
+        else:
+            wait_staged(item)
+        if self.metrics is not None:
+            self.metrics.record_h2d(nbytes, time.perf_counter() - t0)
         return item
 
     def _host_batches(self) -> Iterator[Dict[str, Any]]:
@@ -482,16 +620,31 @@ class DeviceFeeder:
                          put_s=round(time.perf_counter() - t0, 6))
             return item, span
 
+        ring = None
+        if self.overlap_depth >= 2 and (metrics is not None or self.wait_fn is not None):
+            ring = _StagingRing(self.overlap_depth, lambda item, n, span: put((n, item, span)),
+                                stop, metrics=metrics, wait_fn=self.wait_fn,
+                                journal=journal, on_error=err.append)
+            self._threads.append(ring._thread)
+
         def fill():
             try:
                 chunks = (_host_chunks(self._host_batches(), self.stack_k, metrics)
                           if self.stack_k > 1 else ((1, b) for b in self._host_batches()))
                 for n, hb in chunks:
-                    if stop.is_set() or not put((n, *fill_event(n, hb))):
+                    if stop.is_set():
+                        return
+                    if ring is not None:
+                        if not ring.submit(n, hb, self._putter(n)):
+                            return
+                    elif not put((n, *fill_event(n, hb))):
                         return
             except BaseException as e:  # re-raised on the consumer's side
                 err.append(e)
             finally:
+                # END trails every put still in flight in the ring
+                if ring is not None:
+                    ring.finish()
                 if not put(END, timed=False):
                     try:  # stopped: wake a consumer parked in q.get()
                         q.put_nowait(END)
@@ -536,4 +689,4 @@ class DeviceFeeder:
 
 
 __all__ = ["DataFeeder", "DeviceFeeder", "PipelineMetrics", "host_feed_nbytes",
-           "iter_chunked", "stack_batches"]
+           "iter_chunked", "stack_batches", "wait_staged"]

@@ -67,6 +67,13 @@ def bf16_tensor(bits) -> torch.Tensor:
     return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
 
 
+def _numpy_floating(dt: torch.dtype) -> bool:
+    """The JAX package's ``np.issubdtype(dt, np.floating)`` test of a
+    decode dtype: bfloat16 (an ``ml_dtypes`` type, not a numpy floating
+    subtype) is refused there, so it is refused here too."""
+    return dt.is_floating_point and dt != torch.bfloat16
+
+
 @dataclasses.dataclass(frozen=True)
 class WireSpec:
     """Per-field wire format: how one feed field crosses the link
@@ -90,7 +97,7 @@ class WireSpec:
     def cast(cls, wire_dtype: str = "bfloat16",
              decode_dtype: str = "float32") -> "WireSpec":
         wd, dd = convert_dtype(wire_dtype), convert_dtype(decode_dtype)
-        enforce(dd.is_floating_point or dd == wd,
+        enforce(_numpy_floating(dd) or dd == wd,
                 f"WireSpec.cast: decode dtype {decode_dtype!r} must be "
                 "floating (cast wire formats are for float feeds)")
         enforce(wd != dd,
@@ -109,7 +116,7 @@ class WireSpec:
         enforce(not wd.is_floating_point and not wd.is_complex and wd != torch.bool,
                 f"WireSpec.quantize: wire dtype {wire_dtype!r} must be an "
                 "integer type (uint8/int8/...)")
-        enforce(dd.is_floating_point,
+        enforce(_numpy_floating(dd),
                 f"WireSpec.quantize: decode dtype {decode_dtype!r} must be "
                 "floating — never quantize label/id/index fields (integer "
                 "identities must cross the link exactly)")
@@ -187,6 +194,8 @@ class WireSpec:
                 x = bf16_tensor(x.view(np.uint16))
             else:
                 x = torch.from_numpy(np.ascontiguousarray(x))
+        elif self.wire_dtype == "bfloat16" and x.dtype in (torch.uint16, torch.int16):
+            x = x.view(torch.bfloat16)  # bit patterns put on the device as they are
         if x.dtype == self.decode_torch:
             return x  # already logical: nothing to decode
         if self.kind == "cast":

@@ -86,10 +86,20 @@ escalation is journaled and flight-dumped. ``fit`` journals epochs,
 checkpoint saves and restores, preemptions, resizes and errors, and
 re-roots the flight recorder under ``<checkpoint_dir>/flight``.
 
+The device-resident data path, as in the JAX package:
+``Trainer(feed_wire={name: WireSpec})`` encodes those fields to their
+wire dtype on the host (on ``fit``'s fill thread) and decodes them at the
+top of the step, inside the CUDA graph ``run_steps`` captures;
+``Trainer(augment={name: AugmentSpec})`` runs crop, flip and normalize
+right after the decode, its draws from the step's stream (K captured
+steps augment as K ``step()`` calls); ``startup`` sees the logical
+dtypes. ``fit(device_cache=...)`` keeps the encoded chunks of epoch 1 on
+the card and feeds epoch 2 on from them, device to device
+(:mod:`~paddle_tpu_torch.data.device_cache`).
+
 Not carried yet, each raising :class:`NotYetPorted` with the slice that
-brings it: the ``DistStrategy`` field of the program dump, feed wire
-formats, on-device augmentation, the HBM dataset cache (item 23 (c)) and
-interval profile events (item 24 (b)).
+brings it: the ``DistStrategy`` field of the program dump and interval
+profile events (item 24 (b)).
 """
 
 from __future__ import annotations
@@ -429,11 +439,9 @@ class Trainer:
         from .parallel.mesh import Mesh
         from .parallel.sharding import ShardingRules
 
-        unported = {"feed_wire": feed_wire, "augment": augment}
-        for name, value in unported.items():
-            if value is not None:
-                raise NotYetPorted(f"Trainer({name}=...): data extras, ROADMAP queue 1 "
-                                   "item 23 (c)")
+        from .data.augment import FeedAugment
+        from .data.wire import FeedWire
+
         enforce(guard is None or isinstance(guard, (bool, GuardPolicy)),
                 f"Trainer(guard={guard!r}): expected True, False, None or a GuardPolicy")
         enforce(mesh is None or isinstance(mesh, Mesh),
@@ -512,6 +520,13 @@ class Trainer:
         # first dispatch and dropped when the training state is replaced
         self._fused = None
         self.pipeline_metrics = PipelineMetrics()
+        # the feed's wire formats (encoded on the host, decoded at the top of
+        # the step) and its augmentation (right after the decode)
+        self.feed_wire = FeedWire.make(feed_wire)
+        self.feed_augment = FeedAugment.make(augment)
+        # the dataset cache fit(device_cache=) binds here, so a restore or a
+        # reshard can drop it without knowing about fit
+        self.device_cache = None
         # the interleaved pipeline's row permutation of each stacked leaf
         self._pp_perm: Dict[str, np.ndarray] = {}
         # telemetry: the process journal (one trainer.dispatch event a
@@ -540,8 +555,10 @@ class Trainer:
         writes to the caller's tensors. ``rng`` is an int seed; None takes
         the ``seed`` flag."""
         seed = get_flag("seed") if rng is None else int(rng)
-        example = {k: torch.zeros_like(_put(v, "cpu"), device=self.device)
-                   for k, v in (sample_feed or {}).items()}
+        example = {k: (torch.zeros(v.shape, dtype=v.dtype, device=self.device)
+                       if isinstance(v, torch.Tensor) and v.is_meta
+                       else torch.zeros_like(_put(v, "cpu"), device=self.device))
+                   for k, v in self._logical_feed(sample_feed or {}).items()}
         fresh, state = self.program.init(seed, place=self.device, **example)
         if params is not None:
             check_params(params, self.program.param_info, "Trainer.startup(params=)")
@@ -575,6 +592,48 @@ class Trainer:
         self._fused = None
         self.pipeline_metrics.reset()
         return self
+
+    # -- the feed's wire formats and augmentation (executor.py:1516-1541) ---------
+    def _logical_feed(self, feed: Feed) -> Feed:
+        """A (possibly wire-typed) sample feed as the program sees it: the
+        fields the wire decodes or a normalize casts become ``meta``
+        tensors of their logical dtype (executor.py:389-397)."""
+        if self.feed_wire is not None:
+            feed = self.feed_wire.logical_feed(feed)
+        if self.feed_augment is not None:
+            feed = self.feed_augment.logical_feed(feed)
+        return feed
+
+    def _decode_feed(self, feed: Feed, stream: Optional[RngStream], training: bool) -> Feed:
+        """The wire decode, then the augmentation (in training from
+        ``stream``; eval runs its deterministic ops only): the top of the
+        step, inside the captured graph on the card."""
+        if self.feed_wire is not None:
+            feed = self.feed_wire.decode(feed)
+        if self.feed_augment is not None:
+            feed = self.feed_augment.apply(feed, stream if training else None, training)
+        return feed
+
+    def set_feed_wire(self, feed_wire) -> None:
+        """Install (or change) the feed wire table (``{name: WireSpec}``
+        or a ``FeedWire``). After ``startup`` the step's captured graph is
+        dropped, so the next ``run_steps`` captures the new decode."""
+        from .data.wire import FeedWire
+        wire = FeedWire.make(feed_wire)
+        if wire == self.feed_wire:
+            return
+        self.feed_wire = wire
+        self._fused = None
+
+    def set_augment(self, augment) -> None:
+        """Install (or change) the augmentation table (``{name:
+        AugmentSpec}`` or a ``FeedAugment``), as :meth:`set_feed_wire`."""
+        from .data.augment import FeedAugment
+        aug = FeedAugment.make(augment)
+        if aug == self.feed_augment:
+            return
+        self.feed_augment = aug
+        self._fused = None
 
     # -- the pipeline's rest layout (executor.py:477-556) ------------------------
     def _pp_settings(self):
@@ -850,12 +909,29 @@ class Trainer:
     def _put_feed(self, feed: Feed, stacked: bool = False) -> Feed:
         """The feed's values as tensors on this trainer's device (a
         ``(K, ...)`` super-batch as one tensor a name); its host bytes and
-        the put's submission time go to ``pipeline_metrics``. Under a mesh
+        the put's submission time go to ``pipeline_metrics``. The fields of
+        ``feed_wire`` are encoded first (host arrays only; the encode's
+        time and bytes are recorded too). A feed that is all tensors on
+        this device already (a chunk the dataset cache serves, or the
+        DeviceFeeder's) passes as it is and counts no h2d bytes. Under a mesh
         the feed is the whole batch on every rank, and each value becomes a
         DTensor holding this rank's slice (``parallel.api.put_batch``); a
         step that accumulates microbatches through the default exchange
         takes its slice of each microbatch, so that microbatch ``i`` is
         the batch's rows ``[i·b/a, (i+1)·b/a)`` as on one device."""
+        if self.mesh is None and feed and all(
+                isinstance(v, torch.Tensor) and v.device == self.device
+                for v in feed.values()):
+            return feed
+        if self.feed_wire is not None:
+            t0 = time.perf_counter()
+            encoded = self.feed_wire.encode(feed)
+            host = {k: v for k, v in feed.items() if not isinstance(v, torch.Tensor)}
+            if host:
+                self.pipeline_metrics.record_encode(
+                    time.perf_counter() - t0, self.feed_wire.logical_nbytes(host),
+                    sum(np.asarray(encoded[k]).nbytes for k in host))
+            feed = encoded
         nbytes = host_feed_nbytes(feed)
         t0 = time.perf_counter()
         if self.mesh is None:
@@ -1031,8 +1107,9 @@ class Trainer:
 
     def _step_body(self, feed: Dict[str, torch.Tensor],
                    stream: RngStream) -> Dict[str, torch.Tensor]:
-        """One step on the device, with no read back to the host: the
-        forward (random ops drawing from ``stream``) and backward, on each
+        """One step on the device, with no read back to the host: the feed's
+        wire decode and augmentation, the forward (random ops drawing from
+        ``stream``) and backward, on each
         microbatch under gradient accumulation, the exchange under a mesh,
         the unscale and finiteness flag, the guard's mask, the update, and
         the select of the old values where the step is skipped
@@ -1044,6 +1121,7 @@ class Trainer:
 
         ``step`` runs it eagerly; ``run_steps`` runs it from fixed feed
         slots, captured as a CUDA graph on the card (``_captured_step``)."""
+        feed = self._decode_feed(feed, stream, training=True)
         params = self.scope.params
         scaler, ls = self.loss_scaler, self.scope.loss_scale_state
         resid = self.scope.quant_resid if self.mesh is not None else None
@@ -1387,7 +1465,7 @@ class Trainer:
         pipeline (executor.py:1215-1245) and its batch must divide into
         ``pp_microbatches``; a plain-pp trainer evaluates layer by layer at
         any batch."""
-        feed = self._put_feed(feed)
+        feed = self._decode_feed(self._put_feed(feed), None, training=False)
         pp = contextlib.nullcontext()
         if self._pp_perm:
             pp_m, pp_v = self._pp_settings()
@@ -1474,9 +1552,6 @@ class Event:
 
 # fit's arguments of later slices: (default, the slice that brings it)
 _FIT_LATER = {
-    "feed_wire": (None, "data extras, ROADMAP queue 1 item 23 (c)"),
-    "device_cache": (None, "data extras, ROADMAP queue 1 item 23 (c)"),
-    "augment": (None, "data extras, ROADMAP queue 1 item 23 (c)"),
     "profile_interval_steps": (0, "observability, ROADMAP queue 1 item 24 (b)"),
 }
 
@@ -1536,6 +1611,18 @@ def fit(trainer: Trainer, reader, num_epochs: int, feed_names: Sequence[str],
     boundaries (a save lands on the boundary that crossed the interval),
     and a resume re-stacks the chunks from the restored position.
 
+    ``feed_wire={name: WireSpec}`` and ``augment={name: AugmentSpec}``
+    install the trainer's wire formats and augmentation
+    (``set_feed_wire``/``set_augment``); the fill thread encodes each
+    batch before stacking. ``device_cache=True|"auto"|<bytes>|DeviceCache``
+    arms the dataset cache: epoch 1 streams and keeps each encoded chunk
+    on the card within the budget (the card's memory less the step's
+    estimate, or the bytes given; on the CPU only an explicit budget), and
+    epoch 2 on serves the kept prefix device to device, with no h2d bytes,
+    and streams the rest. A resume invalidates it (the restored position
+    lies mid-epoch), as does ``resilience.reshard_restore``; it assumes a
+    reader that gives the same batches in the same order every epoch.
+
     Telemetry: fit journals ``fit.begin_epoch``, ``ckpt.restore``,
     ``ckpt.save`` (and counts it in ``paddle_tpu_trainer_checkpoints_total``),
     ``fit.preempted`` and ``fit.resized`` (with their counters and flight
@@ -1571,19 +1658,25 @@ def _fit_impl(trainer, reader, num_epochs, feed_names, dtypes, event_handler,
               resize, feed_wire, profile_interval_steps, device_cache, augment):
     from . import io as _io
     from . import resilience
+    from .data.device_cache import DeviceCache
     from .data.feeder import DataFeeder, DeviceFeeder, iter_chunked
     from .telemetry import flight_dump, get_registry
 
     ckpt_counter = get_registry().counter(
         "paddle_tpu_trainer_checkpoints_total", "Checkpoints committed by fit", ("kind",))
-    given = {"feed_wire": feed_wire, "device_cache": device_cache, "augment": augment,
-             "profile_interval_steps": profile_interval_steps}
+    given = {"profile_interval_steps": profile_interval_steps}
     for name, (default, later) in _FIT_LATER.items():
         if given[name] != default:
             raise NotYetPorted(f"fit({name}=...): {later}")
     enforce(int(steps_per_dispatch) >= 1,
             f"fit(steps_per_dispatch={steps_per_dispatch}): need >= 1")
     k = int(steps_per_dispatch)
+    if feed_wire is not None:
+        trainer.set_feed_wire(feed_wire)
+    if augment is not None:
+        trainer.set_augment(augment)
+    cache = DeviceCache.make(device_cache, trainer=trainer)
+    trainer.device_cache = cache
     feeder = DataFeeder(feed_names, dtypes)
 
     def emit(*args, **kw):
@@ -1612,6 +1705,10 @@ def _fit_impl(trainer, reader, num_epochs, feed_names, dtypes, event_handler,
             skip_steps = int(meta.get("epoch_step", 0))
             trainer.journal.emit("ckpt.restore", global_step=trainer.global_step,
                                  epoch=start_epoch, epoch_step=skip_steps)
+            if cache is not None:
+                # the restored position lies mid-epoch: a kept prefix no
+                # longer lines up with what the epoch consumes
+                cache.invalidate("checkpoint restore")
 
     kept: List[str] = []
     if checkpoint_config is not None:
@@ -1656,29 +1753,62 @@ def _fit_impl(trainer, reader, num_epochs, feed_names, dtypes, event_handler,
             trainer.journal.emit("fit.begin_epoch", epoch=epoch, global_step=trainer.global_step)
             emit("begin_epoch", epoch, trainer.global_step)
 
-            def batches(_skip=skip):
+            # the dataset cache this epoch: serving and admitting both start
+            # at the epoch's first batch (a resumed epoch does neither); an
+            # invalidated cache admits again at the next whole epoch
+            serve_cache = admitting = False
+            cached_steps = 0
+            if cache is not None and skip == 0:
+                if cache.state == "invalid":
+                    cache.reset()
+                serve_cache = cache.ready
+                admitting = not serve_cache and cache.state in ("cold", "admitting")
+                cached_steps = cache.cached_steps if serve_cache else 0
+
+            def batches(_skip=skip + cached_steps):
                 for i, samples in enumerate(reader()):
                     if i >= _skip:
                         yield feeder.feed(samples)
 
+            wire = trainer.feed_wire
             device_feeder = None
-            if prefetch:
-                device_feeder = DeviceFeeder(batches, device=trainer.device, stack_k=k,
-                                             metrics=trainer.pipeline_metrics,
-                                             journal=trainer.journal)
+            if serve_cache and cache.complete:
+                items = iter(())  # the whole epoch is on the card: no reader
+            elif prefetch:
+                device_feeder = DeviceFeeder(
+                    batches, device=trainer.device, stack_k=k,
+                    encode_fn=wire.encode if wire is not None else None,
+                    metrics=trainer.pipeline_metrics,
+                    logical_nbytes_fn=wire.logical_nbytes if wire is not None else None,
+                    journal=trainer.journal)
                 items = iter(device_feeder)
             elif k > 1:
                 items = iter_chunked(batches(), k, put_fn=trainer._put_feed,
                                      put_stacked_fn=lambda f: trainer._put_feed(f, stacked=True))
             else:
                 items = map(trainer._put_feed, batches())
-            preempted = resized = False
-            try:
+
+            def epoch_items():
+                """(n, feed, span, streamed): the cache's chunks first
+                (device to device, their bytes counted as cache hits), then
+                the streamed rest."""
+                if serve_cache:
+                    for n, feed in cache.chunks(metrics=trainer.pipeline_metrics):
+                        yield n, feed, None, False
                 for item in items:
                     n, feed = item if k > 1 else (1, item)
                     # the chunk's span, minted by the fill thread: its
                     # dispatch event correlates with its feeder.fill event
-                    span = device_feeder.last_span if device_feeder is not None else None
+                    yield (n, feed, device_feeder.last_span if device_feeder is not None
+                           else None, True)
+
+            preempted = resized = False
+            try:
+                for n, feed, span, streamed in epoch_items():
+                    if admitting and streamed:
+                        # epoch 1 keeps the encoded chunk (a step never
+                        # writes its feed)
+                        cache.offer(n, feed)
                     gs_before = trainer.global_step
                     emit("begin_step", epoch, gs_before, num_steps=n)
                     out = (trainer.run_steps(feed, k=n, span=span) if n > 1
@@ -1700,6 +1830,13 @@ def _fit_impl(trainer, reader, num_epochs, feed_names, dtypes, event_handler,
                 # stops the fill thread
                 if device_feeder is not None:
                     device_feeder.close()
+            if admitting:
+                if preempted:
+                    # half an epoch must not seal: the next fit resumes
+                    # mid-epoch, and its chunks would follow this prefix
+                    cache.invalidate("preempted mid-admission")
+                else:
+                    cache.seal(steps_in_epoch)
             if preempted:
                 # read the parked guard mask; an escalation it raises must
                 # not cost the boundary checkpoint (the bad update was

@@ -968,8 +968,11 @@ def _resolve(path: str):
 def _program_spec(program) -> Dict[str, Any]:
     """How to rebuild a ``build`` Program: its function's import path (or
     its ``factory_spec``: a factory's import path and arguments), its
-    name, its layout and the compute dtype in force at export."""
+    name, its layout, and the compute dtype and ``quantize.int8_serving``
+    switch in force at export (the JAX package bakes both into the
+    exported graph; here the loaded program runs under them again)."""
     from .framework import compute_dtype
+    from .quantize import in_int8_serving
 
     fn = program.fn
     factory = getattr(fn, "factory_spec", None)
@@ -977,7 +980,8 @@ def _program_spec(program) -> Dict[str, Any]:
         _resolve(factory["factory"])  # importable, or the export fails now
         return {"program_factory": factory["factory"],
                 "program_kwargs": dict(factory["kwargs"]), "name": program.name,
-                "layout": program.layout, "compute_dtype": dtype_name(compute_dtype())}
+                "layout": program.layout, "compute_dtype": dtype_name(compute_dtype()),
+                "int8_serving": in_int8_serving()}
     path = f"{getattr(fn, '__module__', None)}:{getattr(fn, '__qualname__', '')}"
     try:
         found = _resolve(path)
@@ -988,20 +992,24 @@ def _program_spec(program) -> Dict[str, Any]:
             "imported back by that path (a lambda or a nested function?): define "
             "it at module level")
     return {"program": path, "name": program.name, "layout": program.layout,
-            "compute_dtype": dtype_name(compute_dtype())}
+            "compute_dtype": dtype_name(compute_dtype()), "int8_serving": in_int8_serving()}
 
 
 class _ProgramRunner:
     """A ``build`` Program bound to its loaded weights:
     ``runner(**feed) -> outputs``, through
-    ``Program.apply(training=False)`` under the export's compute dtype."""
+    ``Program.apply(training=False)`` under the export's compute dtype and
+    its int8 switch (an artifact saved before the switch was recorded
+    serves in float)."""
 
-    def __init__(self, program, params, state, device: torch.device, compute_dtype: str):
+    def __init__(self, program, params, state, device: torch.device, compute_dtype: str,
+                 int8: bool = False):
         self.program = program
         self.params = _to_device(params, device)
         self.state = _to_device(state, device)
         self.device = device
         self.compute_dtype = compute_dtype
+        self.int8 = bool(int8)
 
     @property
     def max_signatures(self) -> int:
@@ -1017,8 +1025,9 @@ class _ProgramRunner:
 
     def __call__(self, **feed):
         from .framework import amp_guard
+        from .quantize import int8_serving
 
-        with amp_guard(self.compute_dtype):
+        with amp_guard(self.compute_dtype), int8_serving(self.int8):
             out, _ = self.program.apply(self.params, self.state, training=False,
                                         place=self.device, **feed)
         return out
@@ -1117,7 +1126,8 @@ def load_inference_model(dirname: str, device=None) -> "Predictor":
           else _resolve(meta["program_factory"])(**meta["program_kwargs"]))
     program = build(fn, name=meta["name"])
     program.layout = meta["layout"]
-    program = _ProgramRunner(program, params, state, dev, meta["compute_dtype"])
+    program = _ProgramRunner(program, params, state, dev, meta["compute_dtype"],
+                             int8=meta.get("int8_serving", False))
     return Predictor(program, meta["feed_names"],
                      {k: {"shape": list(s), "dtype": d.name} for k, (s, d) in feeds.items()},
                      batch_size=meta["batch_size"], batched_feeds=meta["batched_feeds"],

@@ -34,7 +34,7 @@ from ..core.errors import enforce
 from ..framework import (LayerHelper, cast_compute, compute_dtype, current_layout,
                          in_training, next_rng_key, seeded_generator)
 from ..ops import _dtensor as _dt
-from ..quantize import refuse_int8
+from .. import quantize
 from .ops import apply_activation
 
 Int2 = Union[int, Sequence[int]]
@@ -51,7 +51,6 @@ def fc(input, size: int, num_flatten_dims: int = 1, param_attr=None, bias_attr=N
     Flattens trailing dims from ``num_flatten_dims`` on and multiplies by
     a [flattened_in, size] weight. A list of inputs gets one weight each
     and their products are summed; ``bias_attr=False`` drops the bias."""
-    refuse_int8("fc")
     helper = LayerHelper("fc", name=name)
     inputs = input if isinstance(input, (list, tuple)) else [input]
     cd = compute_dtype()
@@ -63,7 +62,9 @@ def fc(input, size: int, num_flatten_dims: int = 1, param_attr=None, bias_attr=N
         w = helper.create_parameter(f"w_{i}" if len(inputs) > 1 else "w",
                                     shape=(in_features, size), dtype=torch.float32,
                                     attr=param_attr)
-        y = torch.matmul(*cast_compute(cd, x2, w))
+        x2, w = cast_compute(cd, x2, w)
+        y = (quantize.int8_dynamic_matmul(x2, w) if quantize.in_int8_serving()
+             else torch.matmul(x2, w))
         out = y if out is None else out + y
     if bias_attr is not False:
         b = helper.create_parameter("b", shape=(size,), dtype=torch.float32,
@@ -98,7 +99,6 @@ def conv2d(input, num_filters: int, filter_size: Int2, stride: Int2 = 1,
     MXU does). In NHWC the weight goes in as channels-last, cast and laid
     out in one copy, so cuDNN runs its NHWC kernels with no transpose of
     its own. ``use_cudnn`` is accepted and ignored."""
-    refuse_int8("conv2d")
     data_format = current_layout(data_format)
     helper = LayerHelper("conv2d", name=name)
     fs, st, pd, dl = _pair(filter_size), _pair(stride), _pair(padding), _pair(dilation)
@@ -108,6 +108,16 @@ def conv2d(input, num_filters: int, filter_size: Int2, stride: Int2 = 1,
                                 dtype=torch.float32, attr=param_attr,
                                 initializer=init.MSRA(uniform=False))
     cd = compute_dtype()
+    if quantize.in_int8_serving():
+        # the JAX layer's int8 route: the filter as its conv sees it (OIHW,
+        # or HWIO in NHWC), symmetric padding, the bias added after
+        x, w = cast_compute(cd, input, w)
+        dn = ("NCHW", "OIHW", "NCHW") if data_format == "NCHW" else ("NHWC", "HWIO", "NHWC")
+        out = quantize.int8_dynamic_conv(
+            x, w if data_format == "NCHW" else w.permute(2, 3, 1, 0), window_strides=st,
+            padding=[(pd[0], pd[0]), (pd[1], pd[1])], rhs_dilation=dl,
+            dimension_numbers=dn, feature_group_count=groups)
+        return _conv_bias_act(helper, out, num_filters, bias_attr, act, data_format)
     x = _to_nchw(cast_compute(cd, input), data_format)
     if data_format == "NHWC":
         # one copy that casts and lays out; an OIHW weight made cuDNN copy
@@ -118,6 +128,10 @@ def conv2d(input, num_filters: int, filter_size: Int2, stride: Int2 = 1,
     out = _from_nchw(_dt.rowwise(lambda a, b: F.conv2d(a, b, stride=st, padding=pd,
                                                         dilation=dl, groups=groups), x, w),
                      data_format)
+    return _conv_bias_act(helper, out, num_filters, bias_attr, act, data_format)
+
+
+def _conv_bias_act(helper, out, num_filters, bias_attr, act, data_format):
     if bias_attr is not False:
         b = helper.create_parameter("b", shape=(num_filters,), dtype=torch.float32,
                                     attr=bias_attr, initializer=init.Constant(0.0))

@@ -507,8 +507,11 @@ def reshard_restore(checkpoint_dir: str, trainer,
         _flight_reshard(err)
         raise err
     _io.load_trainer(checkpoint_dir, trainer, allow_reshard=True)
-    # (the JAX package drops its device dataset cache here, whose arrays
-    # are laid out for the old mesh: ROADMAP item 23 (c))
+    # the dataset cache holds chunks laid out for the old mesh: an elastic
+    # rejoin drops them, or the next epoch would feed stale placements
+    dc = getattr(trainer, "device_cache", None)
+    if dc is not None:
+        dc.invalidate("reshard_restore")
     from .telemetry import get_registry
     get_registry().counter(
         "paddle_tpu_resilience_reshards_total",

@@ -931,9 +931,10 @@ class PredictorServer:
                                                    bucket))
                 out = clone.run(feed)
                 _block_on(out)
-            except Exception as e:
-                # a boundary that must keep serving: the failure goes to
-                # each caller of the group, the worker lives on
+            except BaseException as e:
+                # a boundary that must keep serving, whatever was raised (an
+                # InjectedCrash is a BaseException): the failure goes to each
+                # caller of the group, the worker lives on
                 _log().exception("dispatch of %d request(s) failed",
                                  len(group))
                 for r in group:

@@ -19,6 +19,9 @@ item 26).
   with :func:`partition` (drop both ways, half-open sockets),
   :func:`heal` and :func:`slow_link` (a delay per chunk); and
   :func:`kill_process` (a real SIGKILL of a replica process).
+- **A slow host-to-device link**: :func:`slow_h2d`, a ``DeviceFeeder``
+  completion wait (the one piece of the training half that the feeder's
+  staging ring needs).
 """
 
 from __future__ import annotations
@@ -329,6 +332,27 @@ def slow_link(link: LinkProxy, delay_ms: float) -> LinkProxy:
     return link.slow(delay_ms)
 
 
+def slow_h2d(delay_ms: float):
+    """A ``DeviceFeeder(wait_fn=...)`` completion wait under which each
+    chunk's transfer completes ``delay_ms`` after its submission,
+    independently of the other chunks: a latency-bound link, which the
+    2-deep staging ring pipelines (two transfers in flight) and the
+    blocking put serializes. Deterministic: no bandwidth model, no
+    jitter. The wait ends by synchronizing the chunk's own copy (its CUDA
+    event; a CPU put is already done)."""
+    from ..data.feeder import wait_staged
+
+    delay_s = float(delay_ms) / 1e3
+
+    def wait(item, t_submit):
+        remaining = t_submit + delay_s - time.perf_counter()
+        if remaining > 0:
+            time.sleep(remaining)
+        wait_staged(item)
+
+    return wait
+
+
 def kill_process(replica) -> None:
     """SIGKILL a fleet replica PROCESS, no cleanup, no warning — the
     real thing, unlike :func:`kill_server`'s in-process stand-in.
@@ -349,4 +373,5 @@ def kill_process(replica) -> None:
 
 
 __all__ = ["FaultyPredictor", "LinkProxy", "failing_predictor", "flip_byte", "hanging_predictor",
-           "heal", "kill_process", "kill_server", "partition", "slow_link", "truncate_file"]
+           "heal", "kill_process", "kill_server", "partition", "slow_h2d", "slow_link",
+           "truncate_file"]

@@ -57,7 +57,6 @@ from paddle_tpu_torch import layers as tL
 from paddle_tpu_torch import nets as tnets
 from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch import quantize as tquant
-from paddle_tpu_torch.core.errors import NotYetPorted
 from paddle_tpu_torch.framework import amp_guard as tamp
 from paddle_tpu_torch.framework import layout_mode as tlayout
 from paddle_tpu_torch.framework import name_scope as tscope
@@ -193,15 +192,28 @@ def test_conv2d_weight_is_oihw_and_msra_normal():
 
 
 def test_int8_serving_conv_and_fc_raise():
-    prog = tpt.build(lambda image: {"y": tL.conv2d(image, 4, 3)})
+    """Under ``int8_serving()`` conv2d and fc no longer raise: they take
+    the int8 route (the route counts move) and give the JAX layers' int8
+    outputs bit for bit; the switch is off again after the block."""
+    from paddle_tpu import quantize as jquant
+
     x = _image((1, 3, 5, 5), "NCHW")
-    params, state = prog.init(0, place=CPU, image=x)
-    with tquant.int8_serving():
-        with pytest.raises(NotYetPorted, match="item 23"):
-            prog.apply(params, state, place=CPU, image=x)
-        with pytest.raises(NotYetPorted, match="item 23"):
-            tpt.build(lambda v: {"y": tL.fc(v, 3)}).init(0, place=CPU, v=np.ones((2, 4),
-                                                                             np.float32))
+    v = np.random.RandomState(1).randn(2, 4).astype(np.float32)
+    nets = {"conv": (lambda image: {"y": jL.conv2d(image, 4, 3)},
+                     lambda image: {"y": tL.conv2d(image, 4, 3)}, {"image": x}),
+            "fc": (lambda v: {"y": jL.fc(v, 3)}, lambda v: {"y": tL.fc(v, 3)}, {"v": v})}
+    for kind, (jfn, tfn, feed) in nets.items():
+        jprog, tprog = jpt.build(jfn), tpt.build(tfn)
+        jparams, jstate = jprog.init(jax.random.PRNGKey(0), **feed)
+        with jquant.int8_serving():
+            want, _ = jprog.apply(jparams, jstate, **feed)
+        tquant.reset_int8_route_counts()
+        with tquant.int8_serving():
+            got, _ = tprog.apply(_carry(jparams), {}, place=CPU,
+                                 **{k: torch.from_numpy(a) for k, a in feed.items()})
+        np.testing.assert_array_equal(_np(got["y"]), np.asarray(want["y"]))
+        assert tquant.int8_route_counts() == {"matmul": int(kind == "fc"),
+                                              "conv": int(kind == "conv")}
     assert not tquant.in_int8_serving()
 
 

@@ -148,5 +148,14 @@ def test_device_feeder_abandoned_iterator_stops_its_thread():
 
 @pytest.mark.parametrize("kw", [{"overlap_depth": 1}, {"wait_fn": lambda dev, t0: None}])
 def test_device_feeder_options_of_later_slices_raise(kw):
-    with pytest.raises(NotYetPorted):
-        tdata.DeviceFeeder(_failing_batches(1), put_fn=lambda b: b, **kw)
+    """Once NotYetPorted: the staging ring's options (the blocking put,
+    an injected completion wait) now deliver the batches in order and
+    re-raise the reader's error after them, as the default feeder does."""
+    feeder = tdata.DeviceFeeder(_failing_batches(3), put_fn=lambda b: b, **kw)
+    got = []
+    with pytest.raises(_ReaderDied, match="reader failed"):
+        for b in feeder:
+            got.append(float(b["x"][0]))
+    assert got == [0.0, 1.0, 2.0]
+    feeder.close()
+    assert not any(t.is_alive() for t in feeder._threads)

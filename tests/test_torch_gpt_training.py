@@ -337,9 +337,11 @@ def test_dropout_in_training_is_not_ported():
 def test_trainer_options_of_later_slices_raise(kw):
     # a strategy raises for its fields of later slices (loss scaling,
     # remat, accumulation, the multi-GPU slice and the parameter server are
-    # ported; the program dump is not)
+    # ported; the program dump is not); feed_wire and augment are ported
+    # and refuse what is not a table of specs, as the JAX Trainer does
     value = DistStrategy(dump_hlo_path="/x") if kw == "strategy" else object()
-    with pytest.raises(NotYetPorted):
+    with pytest.raises(NotYetPorted if kw == "strategy" else EnforceError,
+                       match=None if kw == "strategy" else kw):
         Trainer(_program(), topt.AdamW(LR), device=CPU, **{kw: value})
 
 

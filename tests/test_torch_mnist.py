@@ -16,7 +16,9 @@
 (c) ``Executor.run`` fetches the loss and accuracy (test_e2e_mnist:74).
 (d) ``fit`` gives the JAX package's event sequence, global steps and
     losses (relative 1e-5) over 2 epochs of a small reader.
-(e) Every fit/Trainer argument of a later slice raises NotYetPorted, and
+(e) Every fit/Trainer argument of a later slice raises NotYetPorted (the
+    data extras, ported since, refuse what is not a table of specs, and an
+    automatic device cache stays off on the CPU), and
     fit will not prefetch for a trainer on the CPU; the check_nan_inf flag
     stops a non-finite step before its update.
 (f) The single-device half of tests/test_e2e_mnist.py:84-107 with the JAX
@@ -167,12 +169,26 @@ FIT_LATER = {
     "augment": lambda tmp: {"image": object()},
     "profile_interval_steps": lambda tmp: 5,
 }
+# what each argument does now: the data extras are ported (a table of
+# something else than specs is refused with the JAX package's EnforceError;
+# an automatic device cache has no budget on the CPU and stays off), the
+# interval profile events are not (item 24 (b))
+FIT_NOW = {"feed_wire": (EnforceError, "FeedWire"), "augment": (EnforceError, "FeedAugment"),
+           "device_cache": (None, "off"), "profile_interval_steps": (NotYetPorted, "profile")}
 
 
 @pytest.mark.parametrize("arg", sorted(FIT_LATER))
 def test_fit_arguments_of_later_slices_raise(arg, tmp_path):
     tt = tpt.Trainer(tpt.build(tmnist.mlp), topt.SGD(0.05), place=CPU)
-    with pytest.raises(NotYetPorted, match=arg):
+    exc, what = FIT_NOW[arg]
+    if exc is None:
+        tt.startup(0, sample_feed=tdata.DataFeeder(["image", "label"]).feed(
+            next(iter(_small_reader(tdata)()))))
+        tpt.fit(tt, _small_reader(tdata), 1, ["image", "label"], prefetch=False,
+                **{arg: FIT_LATER[arg](tmp_path)})
+        assert tt.global_step == 3 and tt.device_cache.state == what
+        return
+    with pytest.raises(exc, match=what):
         tpt.fit(tt, _small_reader(tdata), 1, ["image", "label"], prefetch=False,
                 **{arg: FIT_LATER[arg](tmp_path)})
     assert tt.global_step == 0
@@ -201,9 +217,11 @@ def test_fit_elastic_and_resize_are_ported(arg, tmp_path):
 def test_trainer_arguments_of_later_slices_raise(kw):
     # a strategy raises for its fields of later slices (loss scaling, remat,
     # accumulation, the multi-GPU slice and the parameter server are ported;
-    # the program dump is not)
+    # the program dump is not); feed_wire and augment are ported and refuse
+    # what is not a table of specs, as the JAX Trainer does
     value = tpt.DistStrategy(dump_hlo_path="/x") if kw == "strategy" else object()
-    with pytest.raises(NotYetPorted):
+    with pytest.raises(NotYetPorted if kw == "strategy" else EnforceError,
+                       match=None if kw == "strategy" else kw):
         tpt.Trainer(tpt.build(tmnist.mlp), topt.SGD(0.05), place=CPU, **{kw: value})
 
 

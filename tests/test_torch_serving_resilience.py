@@ -325,6 +325,40 @@ def test_failing_predictor_trips_probes_and_closes_as_jax(artifacts, fresh):
     assert got["port"]["states"] == ["breaker_open", "half_open", "ready"]
 
 
+def test_a_base_exception_fails_the_call_and_the_worker_serves_on_as_jax(artifacts, fresh):
+    """F9: a dispatch that raises a BaseException (the harness's
+    InjectedCrash) completes its request with that error; the worker
+    lives on and serves the next request, in both packages."""
+    from paddle_tpu import resilience as jres
+
+    crash = {"jax": jres.InjectedCrash, "port": tres.InjectedCrash}
+    got = {}
+    for pkg, (_, serving, _, faults) in PKGS.items():
+        exc = crash[pkg]
+        pred = faults.failing_predictor(_pred(pkg, artifacts[pkg]["v1"]), fail_calls=1,
+                                        exc=lambda exc=exc: exc("boom"))
+        srv = serving.PredictorServer(pred, workers=1, warmup=False)
+        try:
+            try:
+                srv.run(_feed(1), timeout=10)
+                first = "ok"
+            except BaseException as e:  # noqa: B902 - the injected crash is one
+                first = (type(e).__name__, str(e))
+            health = srv.health()
+            nxt = srv.run(_feed(1, seed=5), timeout=10)
+            got[pkg] = {"first": first, "workers": health["workers"],
+                        "state": health["state"], "live": health["live"],
+                        "next": sorted(nxt), "logits": _np(nxt["logits"])}
+        finally:
+            srv.close(drain=True, timeout=10)
+    assert got["port"]["first"] == got["jax"]["first"] == ("InjectedCrash", "boom")
+    for key in ("workers", "state", "live", "next"):
+        assert got["port"][key] == got["jax"][key], key
+    assert got["port"]["workers"] == 1 and got["port"]["state"] == "ready"
+    np.testing.assert_allclose(got["port"]["logits"], got["jax"]["logits"], rtol=RTOL,
+                               atol=ATOL)
+
+
 # -- hot reload -------------------------------------------------------------------
 
 RELOADS = {

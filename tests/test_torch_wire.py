@@ -126,3 +126,37 @@ def test_feed_wire_encode_decode_and_byte_counts_equal_jax():
     np.testing.assert_array_equal(dec["dense"].numpy(), np.asarray(jfw.decode(jenc)["dense"]))
     logical = tfw.logical_feed(tenc)
     assert logical["image"].dtype == torch.float32 and logical["image"].device.type == "meta"
+
+
+BF16_DECODES = {
+    "cast_f16_to_bf16": lambda w: w.WireSpec.cast("float16", decode_dtype="bfloat16"),
+    "cast_bf16_to_bf16": lambda w: w.WireSpec.cast("bfloat16", decode_dtype="bfloat16"),
+    "cast_f32_to_bf16": lambda w: w.WireSpec.cast("float32", decode_dtype="bfloat16"),
+    "quantize_uint8_to_bf16": lambda w: w.WireSpec.quantize("uint8", 0.5,
+                                                            decode_dtype="bfloat16"),
+    "image_uint8_bf16": lambda w: w.WireSpec.image_uint8(decode_dtype="bfloat16"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BF16_DECODES))
+def test_bf16_decode_dtype_refused_as_jax(name):
+    """F10: the JAX package's ``np.issubdtype(..., np.floating)`` refuses
+    ml_dtypes' bfloat16 as a decode dtype, so the port refuses it with the
+    same message (a bf16-to-bf16 cast passes the first check by equality
+    and is refused as a no-op)."""
+    with pytest.raises(JEnforceError) as want:
+        BF16_DECODES[name](jwire)
+    with pytest.raises(EnforceError) as got:
+        BF16_DECODES[name](twire)
+    assert str(got.value) == str(want.value)
+
+
+def test_bf16_wire_with_f32_decode_stays_valid():
+    js, ts = jwire.WireSpec.cast("bfloat16"), twire.WireSpec.cast("bfloat16")
+    assert ts == twire.WireSpec(**vars(js))
+    assert (ts.wire_dtype, ts.decode_dtype) == ("bfloat16", "float32")
+    x = _values(seed=3, extremes=False)
+    # the wire's bit patterns, put on a device as they are, decode too
+    bits = torch.from_numpy(ts.encode(x))
+    np.testing.assert_array_equal(ts.decode(bits).numpy(),
+                                  np.asarray(js.decode(np.asarray(js.encode(x)))))
