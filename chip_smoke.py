@@ -153,7 +153,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
    ``_captured_decode.eager_decode``), bf16 GPT-base at
    phase 5's config, bucket 8, with the launch counts zeroed just before
    the phase and read just after it: (a) greedy: ids bit-equal, ms per
-   decode step and generated tokens/s a call of each (in turns), a
+   decode step and generated tokens/s a call of each (the eager loop's one
+   reference call, two captured calls), a
    profiled captured call's busy share, device ms and operations a decode
    step, peak memory,
    the cache's bytes, 12 flash forward launches a call (the prefill's,
@@ -288,20 +289,22 @@ Phases, each reported on its own lines; any failure exits non-zero:
    ``io.save_trainer_sharded(async_save=True)`` and 2 steps at once while
    the write runs, ``io.wait_for_checkpoints()``, and a fresh trainer
    ``load_trainer_sharded`` from it replays the same 2 feeds: its params
-   and optimizer state bit-equal to the first trainer's at step 4; once
-   unmeshed and once on a world of one over NCCL (DCP coordinating over a
-   gloo group of its own), with the bytes written, the ms until the save
-   returns (the copy off the card), the s until the write ends, the load
-   s and the ms a step while the write runs against the same steps
-   without one; (b) a 2-rank gloo world on the CPU, spawned by this script
+   and optimizer state bit-equal to the first trainer's at step 4; on a
+   world of one over NCCL (DCP coordinating over a gloo group of its own),
+   with the bytes written, the ms until the save returns (the copy off the
+   card), the s until the write ends, the load s and the ms a step while
+   the write runs against the same steps without one; an unmeshed trainer
+   from the same seed over the same 4 feeds, without a save, bit-equal to
+   that restore in losses and state (one 1.5 GB save and restore in all);
+   (b) a 2-rank gloo world on the CPU, spawned by this script
    from its own code, trains GPT-base at full width one step with
    ``zero_sharding`` over dp=2 and ``save_trainer``s it; on the card a
    plain ``load_trainer`` raises ``ReshardError`` naming ``{'dp': 2}``,
    ``resilience.restore_latest(elastic=True)`` restores it onto the
-   one-device trainer and onto the world-of-one trainer (params and
-   optimizer state bit-equal to ``load_persistables`` of the directory,
-   the report's bytes and seconds), then ``fit(resume=True,
-   elastic=True)`` trains 2 steps; (c) ``fit(resize=path)`` whose event
+   world-of-one trainer and ``fit(resume=True, elastic=True)`` onto the
+   one-device trainer (each one's params and optimizer state bit-equal to
+   ``load_persistables`` of the directory, the report's bytes and
+   seconds), and the fit trains 2 steps; (c) ``fit(resize=path)`` whose event
    handler requests ``{'dp': 2}`` at step 2 returns there with a
    ``resized`` event and a boundary checkpoint, and ``fit(resume=True,
    elastic=True)`` goes on with losses bit-equal to bare steps from that
@@ -382,7 +385,30 @@ Phases, each reported on its own lines; any failure exits non-zero:
    epoch bit-identical to a streamed one with no h2d bytes, and the staging
    ring at depths 2 and 1 under ``faults.slow_h2d``; (f) crop, flip and
    normalize in ResNet-50's captured step bit-equal to eager steps. Launch
-   counts are zeroed around the phase (``quantized_data``: none).
+   counts are zeroed around the phase (``quantized_data``: none);
+25. data from the master, and the autoscaled fleet (``recordio.py`` and
+   ``data/master.py`` over the port's builds of ``native/recordio.cc`` and
+   ``native/master.cc``, ``layers/io.py``, ``telemetry/collector.py``,
+   ``store.py``, ``alerts.py``, ``fleet/autoscaler.py``): the collector
+   daemon (``python -m paddle_tpu_torch.telemetry.collector`` with a store
+   directory and the preset pack) starts while (b) runs, then an
+   in-process standby replicates its segment log and the process ships to
+   the daemon; (a)
+   bench.py's resnet50 row (b=64, bf16, uint8 wire) trained one pass from
+   4 recordio shards (one compressed) leased through a ``MasterServer`` by
+   ``task_reader``, ``layers.io.batch`` and ``double_buffer``: losses and
+   state bit-equal to the same batches fed from memory, the write and scan
+   MB/s of each kind; the master's drill: FAIL requeue, discard at
+   ``failure_max``, a lease timeout, snapshot recovery, every record once a
+   pass; (c) the trainer's step series from ``/query`` on the daemon and on
+   the standby equal to its steps, a threshold rule posted to ``/rules``
+   firing and the preset pack firing nothing, the daemon's ``stats()`` and
+   store bytes; (b) bench.py's ``autoscale`` row: the MNIST MLP fleet fixed
+   at 3 replicas against autoscaled from 1 over the diurnal curve, p50/p99,
+   worker-seconds per 1k, SLO attainment, reject rate, a scale-up in the
+   burst and a scale-down after it, no accepted request lost and no
+   replica serving after close. Launch counts are zeroed around the phase
+   (``master_autoscale``: none).
 
 The last lines are a JSON ``kernels`` record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -4125,7 +4151,8 @@ def _outputs_equal(a, b):
 
 def _decode_path(path, gen, ids, card_name, module=None):
     """One generator at one bucket, eager loop against captured replays:
-    outputs bit-equal, ms per decode step in turns, a profiled captured
+    outputs bit-equal, ms per decode step (the eager loop's one call, two
+    captured calls), a profiled captured
     call (not an eager one: the profiler takes about a minute to sum an
     eager call's events), the prefill's launches and the cache's bytes, beside ``module``'s quoted
     (ms, device ms, operations) a captured decode step. Returns the captured
@@ -4135,7 +4162,16 @@ def _decode_path(path, gen, ids, card_name, module=None):
 
     b, steps = ids.shape[0], gen.max_new_tokens - 1
     t_path = time.perf_counter()
+    # the eager loop runs once, timed: the reference every captured call is
+    # held to (its seconds a call are most of this path's)
+    times, peaks = {"eager": [], "captured": []}, {"eager": 0.0, "captured": 0.0}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     eager_out = gen.eager(ids)
+    torch.cuda.synchronize()
+    times["eager"].append((time.perf_counter() - t0) * 1e3)
+    peaks["eager"] = torch.cuda.max_memory_allocated() / 1e9
     before = fa.flash_fwd_launches
     captured_out = gen(ids)  # the first call at this signature captures
     per_call = fa.flash_fwd_launches - before
@@ -4148,20 +4184,18 @@ def _decode_path(path, gen, ids, card_name, module=None):
     check(_outputs_equal(captured_out, eager_out),
           f"captured decode {path}: the replayed steps differ from the eager loop")
     prefill_ms = _host_ms(lambda: gen.prefill(ids))
-    runs = {"eager": lambda: gen.eager(ids), "captured": lambda: gen(ids)}
-    times, peaks = {n: [] for n in runs}, {n: 0.0 for n in runs}
-    for name in ("eager", "captured", "captured", "eager"):
+    for _ in range(2):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        out = runs[name]()
+        out = gen(ids)
         torch.cuda.synchronize()
-        times[name].append((time.perf_counter() - t0) * 1e3)
-        peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated() / 1e9)
+        times["captured"].append((time.perf_counter() - t0) * 1e3)
+        peaks["captured"] = max(peaks["captured"], torch.cuda.max_memory_allocated() / 1e9)
         check(_outputs_equal(out, eager_out),
-              f"captured decode {path}: a timed {name} call's outputs differ")
+              f"captured decode {path}: a timed captured call's outputs differ")
     pre = _profile_dispatch(lambda: gen.prefill(ids))
-    profiled = {"captured": _profile_dispatch(runs["captured"])}
+    profiled = {"captured": _profile_dispatch(lambda: gen(ids))}
     ms = {n: float(sum(v) / len(v)) for n, v in times.items()}
     step_ms = {n: (ms[n] - prefill_ms) / steps for n in ms}
     parts = []
@@ -6816,9 +6850,11 @@ def phase_pipeline_moe(dev, seed, card_name):
 
 
 # phase 20: sharded checkpoints and elastic training on bench_gpt's GPT-base.
-# (a) SHARD_STEPS steps, an async save_trainer_sharded, SHARD_OVERLAP steps
-# while it writes, a fresh trainer's load_trainer_sharded and the same
-# SHARD_OVERLAP feeds replayed (bit-equal state); (b) ELASTIC_WORLD CPU ranks
+# (a) on a world of one: SHARD_STEPS steps, an async save_trainer_sharded,
+# SHARD_OVERLAP steps while it writes, a fresh trainer's load_trainer_sharded
+# and the same SHARD_OVERLAP feeds replayed (bit-equal state), then an unmeshed
+# trainer over the same feeds from the same seed held bit for bit against that
+# restore (one 1.5 GB save and restore); (b) ELASTIC_WORLD CPU ranks
 # (this script's --elastic-world-rank) train GPT-base one step at
 # ELASTIC_WORLD_BATCH x ELASTIC_WORLD_SEQ with ZeRO and save it, restored
 # elastically on the card, then ELASTIC_FIT_STEPS steps of fit; (c) a fit
@@ -6911,8 +6947,10 @@ def _bytes_under(d):
     return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(d) for f in fs)
 
 
-def sharded_checkpoint(dev, seed, card_name, tmp, mesh=None, record=False):
-    """(a) on one trainer kind (unmeshed, or ``mesh``'s world of one).
+def sharded_checkpoint(dev, seed, card_name, tmp, mesh, record=False):
+    """(a) on ``mesh``'s world of one: one async save and one restore, the
+    replay bit-equal; then the unmeshed route, trained from the same seed on
+    the same feeds without a save, held bit for bit against that restore.
     Returns the recorded flash calls when ``record``."""
     import gc
     import numpy as np
@@ -6922,12 +6960,11 @@ def sharded_checkpoint(dev, seed, card_name, tmp, mesh=None, record=False):
     from paddle_tpu_torch.ops import flash_attention as fa
 
     cfg = gpt.base_config(**TRAIN)
-    label = "world of one" if mesh is not None else "unmeshed"
     feeds = _train_feeds(np.random.RandomState(3), SHARD_STEPS + SHARD_OVERLAP, TRAIN_BATCH,
                          TRAIN_SEQ, cfg.vocab_size)
 
-    def make(s):
-        tr = _mesh_trainer(cfg, dev, mesh) if mesh is not None else _trainer(cfg, dev)
+    def make(s, meshed=True):
+        tr = _mesh_trainer(cfg, dev, mesh) if meshed else _trainer(cfg, dev)
         return tr.startup(s, sample_feed=feeds[0])
 
     first = make(seed)
@@ -6936,7 +6973,7 @@ def sharded_checkpoint(dev, seed, card_name, tmp, mesh=None, record=False):
     with (record_kernel_calls(fa) if record else contextlib.nullcontext(calls)) as calls:
         for f in staged[:SHARD_STEPS]:
             first.step(f)
-    d = os.path.join(tmp, "sharded_" + label.replace(" ", "_"))
+    d = os.path.join(tmp, "sharded_world_of_one")
     done = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -6970,23 +7007,39 @@ def sharded_checkpoint(dev, seed, card_name, tmp, mesh=None, record=False):
     load_s = time.perf_counter() - t3
     step_after_load = second.global_step
     replay = [float(second.step(f)["loss"]) for f in staged]
-    equal = _flat_equal(_flat_state(second.scope.params, second.scope.opt_state), want)
+    restored = _flat_state(second.scope.params, second.scope.opt_state)
+    equal = _flat_equal(restored, want)
     nbytes = _bytes_under(d)
-    say(f"elastic (a) {label} ({card_name}): bf16 GPT-base b={TRAIN_BATCH} s={TRAIN_SEQ} "
-        f"AdamW; save_trainer_sharded(async_save=True) after step {SHARD_STEPS}: "
-        f"{nbytes} bytes ({nbytes / 1e9:.3f} GB) in {len(os.listdir(d))} files, returned in "
-        f"{return_ms:.1f} ms, the write ended {write_s:.3f} s after the call (still "
-        f"writing when the {SHARD_OVERLAP} steps ended: {writing_after_steps}); ms a step "
-        f"while it wrote {during_ms:.2f}, the same steps without a write {quiet_ms:.2f}; "
-        f"load_trainer_sharded into a fresh trainer {load_s:.3f} s (global_step "
-        f"{step_after_load}); replayed losses {replay} vs {want_losses}; params and "
-        f"optimizer state at step {SHARD_STEPS + SHARD_OVERLAP} bit-equal: {equal}")
-    check(all(np.isfinite(want_losses)), f"elastic (a) {label}: a loss is not finite")
-    check(step_after_load == SHARD_STEPS, f"elastic (a) {label}: global_step "
-          f"{step_after_load} after the load")
-    check(equal and replay == want_losses, f"elastic (a) {label}: the restored trainer's "
-          "state after the replay differs from the saved trainer's")
     del second, staged
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the unmeshed route: the same seed and feeds, no save, against the restore
+    t4 = time.perf_counter()
+    plain = make(seed, meshed=False)
+    plain_losses = [float(plain.step(plain._put_feed(f))["loss"]) for f in feeds]
+    plain_equal = _flat_equal(_flat_state(plain.scope.params, plain.scope.opt_state),
+                              restored)
+    plain_s = time.perf_counter() - t4
+    say(f"elastic (a) world of one ({card_name}): bf16 GPT-base b={TRAIN_BATCH} "
+        f"s={TRAIN_SEQ} AdamW; save_trainer_sharded(async_save=True) after step "
+        f"{SHARD_STEPS}: {nbytes} bytes ({nbytes / 1e9:.3f} GB) in {len(os.listdir(d))} "
+        f"files, returned in {return_ms:.1f} ms, the write ended {write_s:.3f} s after the "
+        f"call (still writing when the {SHARD_OVERLAP} steps ended: {writing_after_steps}); "
+        f"ms a step while it wrote {during_ms:.2f}, the same steps without a write "
+        f"{quiet_ms:.2f}; load_trainer_sharded into a fresh trainer {load_s:.3f} s "
+        f"(global_step {step_after_load}); replayed losses {replay} vs {want_losses}; params "
+        f"and optimizer state at step {SHARD_STEPS + SHARD_OVERLAP} bit-equal: {equal}; the "
+        f"unmeshed trainer from the same seed, {len(feeds)} steps in {plain_s:.1f} s, losses "
+        f"{plain_losses[SHARD_STEPS:]} for the replayed steps, state bit-equal to the "
+        f"restored one: {plain_equal}")
+    check(all(np.isfinite(want_losses)), "elastic (a): a loss is not finite")
+    check(step_after_load == SHARD_STEPS, f"elastic (a): global_step "
+          f"{step_after_load} after the load")
+    check(equal and replay == want_losses, "elastic (a): the restored trainer's "
+          "state after the replay differs from the saved trainer's")
+    check(plain_equal and plain_losses[SHARD_STEPS:] == replay, "elastic (a): the unmeshed "
+          "route's state differs from the world of one's restore")
+    del plain
     gc.collect()
     torch.cuda.empty_cache()
     return calls
@@ -7017,8 +7070,11 @@ def _fit_feeds(feeds, names=("ids", "labels")):
 
 
 def elastic_restore(dev, seed, card_name, root, mesh):
-    """(b) on the card: the CPU world's ZeRO dp=2 checkpoint under
-    ``root``. Returns the recorded flash calls of the fit."""
+    """(b) on the card: the CPU world's ZeRO dp=2 checkpoint under ``root``,
+    restored onto the world-of-one trainer by ``restore_latest`` and onto the
+    one-device trainer by the ``fit(resume=True, elastic=True)`` that goes on
+    from it (its state read at the first ``begin_epoch``, before a step).
+    Returns the recorded flash calls of the fit."""
     import gc
     import numpy as np
     import torch
@@ -7033,45 +7089,60 @@ def elastic_restore(dev, seed, card_name, root, mesh):
     params, _, opt_state, meta = pt.io.load_persistables(ck)
     want = _flat_state(params, opt_state)
     del params, opt_state
-    for label, make in (("one device", lambda: _trainer(cfg, dev)),
-                        ("world of one", lambda: _mesh_trainer(cfg, dev, mesh))):
-        tr = make().startup(seed, sample_feed=feeds[0])
+
+    def load_error(tr):
         try:
             pt.io.load_trainer(ck, tr)
-            err = ""
+            return ""
         except pt.resilience.ReshardError as e:
-            err = str(e)
-        with _reshard_reports() as reports:
-            t0 = time.perf_counter()
-            got_meta = pt.resilience.restore_latest(root, tr, elastic=True)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            return str(e)
+
+    def restored(label, tr, err, reports, how, wall):
         rep = reports[0] if reports else {}
         equal = _flat_equal(_flat_state(tr.scope.params, tr.scope.opt_state), want)
         say(f"elastic (b) {label} ({card_name}): plain load_trainer of the dp=2 ZeRO "
-            f"checkpoint raised ReshardError: {err[:160]!r}...; restore_latest(elastic=True) "
-            f"in {wall:.3f} s: global_step {got_meta['global_step']}, report saved "
-            f"{rep.get('saved_axes')} -> target {rep.get('target_axes')}, bytes_moved "
-            f"{rep.get('bytes_moved')}, seconds {rep.get('seconds')}; params and optimizer "
-            f"state bit-equal to load_persistables: {equal}")
+            f"checkpoint raised ReshardError: {err[:160]!r}...; {how} in {wall:.3f} s: "
+            f"global_step {tr.global_step}, report saved {rep.get('saved_axes')} -> target "
+            f"{rep.get('target_axes')}, bytes_moved {rep.get('bytes_moved')}, seconds "
+            f"{rep.get('seconds')}; params and optimizer state bit-equal to "
+            f"load_persistables: {equal}")
         check("{'dp': 2}" in err, f"elastic (b) {label}: load_trainer did not raise a "
               "ReshardError naming {'dp': 2}")
         check(bool(reports) and rep["bytes_moved"] > 0 and tr.global_step == 1,
               f"elastic (b) {label}: no reshard report")
         check(equal, f"elastic (b) {label}: the restored state differs from the checkpoint")
-        del tr
-        gc.collect()
-        torch.cuda.empty_cache()
+
+    tr = _mesh_trainer(cfg, dev, mesh).startup(seed, sample_feed=feeds[0])
+    err = load_error(tr)
+    with _reshard_reports() as reports:
+        t0 = time.perf_counter()
+        pt.resilience.restore_latest(root, tr, elastic=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    restored("world of one", tr, err, reports, "restore_latest(elastic=True)", wall)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
     tr = _trainer(cfg, dev).startup(seed + 2, sample_feed=feeds[0])
-    losses = []
-    with record_kernel_calls(fa) as calls:
+    err, losses, began = load_error(tr), [], []
+
+    def handler(e):
+        if e.kind == "begin_epoch" and not began:
+            torch.cuda.synchronize()
+            began.append(time.perf_counter() - t0)
+            restored("one device", tr, err, reports,
+                     "fit(resume=True, elastic=True)'s restore", began[0])
+        elif e.kind == "end_step":
+            losses.append(float(e.metrics["loss"]))
+
+    with _reshard_reports() as reports, record_kernel_calls(fa) as calls:
+        t0 = time.perf_counter()
         pt.fit(tr, _fit_feeds(feeds), 1, ["ids", "labels"],
                checkpoint_config=pt.CheckpointConfig(root, epoch_interval=0, step_interval=0),
-               resume=True, elastic=True,
-               event_handler=lambda e: losses.append(float(e.metrics["loss"]))
-               if e.kind == "end_step" else None)
+               resume=True, elastic=True, event_handler=handler)
     say(f"elastic (b) fit(resume=True, elastic=True) ({card_name}): {len(losses)} steps at "
         f"b={TRAIN_BATCH} s={TRAIN_SEQ}, losses {losses}, global_step {tr.global_step}")
+    check(bool(began), "elastic (b): the resumed fit began no epoch")
     check(len(losses) == ELASTIC_FIT_STEPS and all(np.isfinite(losses))
           and tr.global_step == 1 + ELASTIC_FIT_STEPS, "elastic (b): the resumed fit")
     del tr
@@ -7106,8 +7177,6 @@ def scheduled_resize(dev, seed, card_name, tmp):
     saved = [c.global_step for c in pt.resilience.list_checkpoints(root)]
     target = pt.resilience.ResizeRequest(path).consume()
     stopped = tr.global_step
-    del tr
-    gc.collect()
     losses = []
     resumed = _trainer(cfg, dev).startup(seed + 1, sample_feed=feeds[0])
     pt.fit(resumed, _fit_feeds(feeds), 1, ["ids", "labels"], checkpoint_config=ck_cfg,
@@ -7117,10 +7186,10 @@ def scheduled_resize(dev, seed, card_name, tmp):
     end = resumed.global_step
     del resumed
     gc.collect()
-    bare = _trainer(cfg, dev).startup(seed + 2, sample_feed=feeds[0])
-    pt.io.load_trainer(os.path.join(root, f"step_{RESIZE_AT}"), bare)
-    bare_losses = [float(bare.step(f)["loss"]) for f in feeds[RESIZE_AT:]]
-    del bare
+    # bare steps from the checkpoint, loaded into the trainer that wrote it
+    pt.io.load_trainer(os.path.join(root, f"step_{RESIZE_AT}"), tr)
+    bare_losses = [float(tr.step(f)["loss"]) for f in feeds[RESIZE_AT:]]
+    del tr
     gc.collect()
     torch.cuda.empty_cache()
     say(f"elastic (c) ({card_name}): fit(resize=path) requested {target} at step "
@@ -7134,9 +7203,11 @@ def scheduled_resize(dev, seed, card_name, tmp):
 
 
 def phase_elastic(dev, seed, card_name):
-    """Phase 20: (c) while (b)'s CPU world trains, then (a) unmeshed, a world
-    of one over NCCL, (a) on it, (b). Returns the launch counts of
-    ``sharded_checkpoint`` ((a)) and ``elastic`` ((b) + (c))."""
+    """Phase 20: (c), then a world of one over NCCL and (a) on it (the
+    unmeshed route held against its restore), both while (b)'s CPU world
+    trains, then (b).
+    Returns the launch counts of ``sharded_checkpoint`` ((a)) and
+    ``elastic`` ((b) + (c))."""
     import torch
     import torch.distributed as dist
     import paddle_tpu_torch as pt
@@ -7159,19 +7230,18 @@ def phase_elastic(dev, seed, card_name):
                 elastic = _launch_counts(fa)
                 # ---- end of (c)
                 say(f"phase 20 (c) done in {time.perf_counter() - t0:.1f} s")
-                _wait_elastic_world(procs, t0)
-                _zero_launch_counts(fa)
-                # ---- the main path (a)
-                calls = sharded_checkpoint(dev, seed, card_name, tmp, record=True)
                 par.initialize(place=dev, init_method=f"tcp://127.0.0.1:{_free_port()}",
                                world_size=1, rank=0)
                 try:
                     mesh = par.make_mesh({"dp": 1})
-                    sharded_checkpoint(dev, seed, card_name, tmp, mesh=mesh)
+                    _zero_launch_counts(fa)
+                    # ---- the main path (a), while (b)'s CPU world still trains
+                    calls = sharded_checkpoint(dev, seed, card_name, tmp, mesh, record=True)
                     torch.cuda.synchronize()
                     sharded = _launch_counts(fa)
                     # ---- end of (a)
                     say(f"phase 20 (a) done in {time.perf_counter() - t0:.1f} s")
+                    _wait_elastic_world(procs, t0)
                     _zero_launch_counts(fa)
                     # ---- the main path (b)
                     fit_calls = elastic_restore(dev, seed, card_name, root, mesh)
@@ -8782,6 +8852,601 @@ def phase_quantized(dev, seed, card_name):
     return launches
 
 
+# -- phase 25: data from the master, and the autoscaled fleet ----------------------
+
+# (a) bench.py's resnet50 row (b=64, 224x224 NHWC, bf16, Momentum(0.1, 0.9)) with the
+# uint8 feed wire, fed from MASTER_SHARDS recordio shards of MASTER_SHARD_BATCHES
+# batches each (one sample a record: the uint8 image and its int64 label, from
+# --seed; shard 0 compressed, the others raw), leased through a MasterServer (the
+# port's build of native/master.cc) by task_reader, batched by layers.io.batch and
+# prefetched by layers.io.double_buffer into Trainer.step: one pass, eager, bit-equal
+# to the same batches fed from memory in the lease order. Then the master's drill:
+# FAIL requeue and discard at MASTER_FAILURE_MAX, a lease timed out on a second server
+# (MASTER_LEASE_MS), recovery from a snapshot, every record delivered exactly once a
+# pass.
+MASTER_SHARDS, MASTER_SHARD_BATCHES, MASTER_BATCH = 4, 2, 64
+MASTER_FAILURE_MAX, MASTER_LEASE_MS = 2, 300
+# (b) bench.py's autoscale row as bench_autoscale runs it (bench.py:1630-1700,
+# _run_autoscale_variant at :1558): the MNIST MLP artifact at buckets {1, 8}, replicas
+# of FleetRouter.spawn(workers=1, queue_size=32, BatchPolicy(max_wait_ms=2.0)); one
+# replica's coalesced saturation (AUTOSCALE_PROBE requests, AUTOSCALE_INFLIGHT in
+# flight), then the diurnal curve (low at 0.4x the probe capped at 800 rps for 2 s,
+# burst at 2.5x capped at 2000 rps for 4 s, low for 2 s) against a fixed fleet of
+# AUTOSCALE_MAX replicas and an autoscaled one from 1 (an in-process collector fed by
+# a 0.1 s registry pump, the Autoscaler over a LocalCollectorReader, bench's policy
+# and intervals). The autoscaled loop runs on after the curve, until the fleet is back
+# to 1 replica or AUTOSCALE_SETTLE_S pass.
+AUTOSCALE = dict(batch_size=8, low_s=2.0, burst_s=4.0, workers=1, queue_size=32,
+                 max_wait_ms=2.0, slo_ms=50.0)
+AUTOSCALE_MAX, AUTOSCALE_PROBE, AUTOSCALE_INFLIGHT, AUTOSCALE_SETTLE_S = 3, 128, 16, 10.0
+AUTOSCALE_POLICY = dict(min_replicas=1, max_replicas=AUTOSCALE_MAX, up_queue_per_replica=2.0,
+                        down_queue_per_replica=0.5, up_window_s=0.3, down_window_s=1.5,
+                        up_cooldown_s=0.8, down_cooldown_s=0.7, flap_guard_s=0.4)
+AUTOSCALE_LOOP = dict(interval=0.1, trend_window_s=2.0, trend_step_s=0.2, stale_after_s=1.0)
+# (c) the collector daemon (python -m paddle_tpu_torch.telemetry.collector, with a
+# store directory and the preset pack, evaluating every COLLECTOR_EVAL_S) and an
+# in-process standby replicating its segment log every COLLECTOR_REPL_S
+COLLECTOR_EVAL_S, COLLECTOR_REPL_S, COLLECTOR_WAIT_S = 0.1, 0.2, 15.0
+
+
+def _shard_samples(rng, n):
+    """``n`` ResNet samples as records: a uint8 image and its int64 label."""
+    import numpy as np
+    size = RESNET["image_size"]
+    images = rng.randint(0, 256, (n, size, size, 3)).astype(np.uint8)
+    labels = rng.randint(0, RESNET["class_num"], (n, 1)).astype(np.int64)
+    return [(images[i], labels[i]) for i in range(n)]
+
+
+def _batch_feed(batch):
+    import numpy as np
+    return {"image": np.stack([s[0] for s in batch]), "label": np.stack([s[1] for s in batch])}
+
+
+def _write_shards(tmp, seed, card_name):
+    """The shards on disk: (paths, {path: samples}), with the write and scan
+    rates of each kind."""
+    import numpy as np
+    from paddle_tpu_torch import recordio
+
+    rng = np.random.RandomState(seed + 25)
+    paths, samples, rates = [], {}, {}
+    per = MASTER_SHARD_BATCHES * MASTER_BATCH
+    for i in range(MASTER_SHARDS):
+        path = os.path.join(tmp, f"shard-{i:02d}.recordio")
+        recs = _shard_samples(rng, per)
+        kind = "compressed" if i == 0 else "raw"
+        t0 = time.perf_counter()
+        n = recordio.write_arrays(path, recs, compress=kind == "compressed")
+        write_s = time.perf_counter() - t0
+        check(n == per, f"master (a): wrote {n} records of {per}")
+        t0 = time.perf_counter()
+        nbytes = sum(len(r) for r in recordio.Scanner(path))
+        scan_s = time.perf_counter() - t0
+        rates.setdefault(kind, []).append((nbytes, os.path.getsize(path), write_s, scan_s))
+        paths.append(path)
+        samples[path] = recs
+    for kind, rows in rates.items():
+        logical = sum(r[0] for r in rows)
+        say(f"master (a) recordio ({card_name}): {len(rows)} {kind} shard(s) of {per} "
+            f"records, {logical} record bytes in {sum(r[1] for r in rows)} file bytes; "
+            f"write_arrays {logical / 1e6 / sum(r[2] for r in rows):.1f} MB/s, Scanner "
+            f"{logical / 1e6 / sum(r[3] for r in rows):.1f} MB/s of records")
+    return paths, samples
+
+
+def master_resnet(dev, seed, card_name, tmp, before_pass):
+    """(a) ResNet-50 trained from the leased shards, against the same batches
+    from memory; ``before_pass()`` runs once the shards and trainers are
+    ready. Returns the master-fed trainer's registry instance, its steps and
+    the shards."""
+    import gc
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import recordio
+    from paddle_tpu_torch.data import master
+    from paddle_tpu_torch.data.wire import WireSpec
+    from paddle_tpu_torch.layers import io as lio
+
+    t0 = time.perf_counter()
+    paths, samples = _write_shards(tmp, seed, card_name)
+    t_write = time.perf_counter() - t0
+    wire = {"image": WireSpec.image_uint8()}
+    sample = _batch_feed(samples[paths[0]][:MASTER_BATCH])
+    with pt.amp_guard("bfloat16"):
+        a = _wire_resnet(dev, wire).startup(seed, sample)
+        b = _wire_resnet(dev, wire).startup(seed, sample)
+        before_pass()
+        with master.MasterServer() as srv:
+            client = master.MasterClient(srv.addr)
+            client.set_tasks(paths)
+            leased = []
+
+            def shard_reader(path):
+                leased.append(path)
+                return recordio.reader_creator(path)
+
+            reader = lio.Preprocessor(lio.batch(master.task_reader(client, shard_reader),
+                                                MASTER_BATCH, drop_last=True))(_batch_feed)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got = torch.stack([a.step(f)["loss"] for f in lio.double_buffer(reader, place=dev)])
+            torch.cuda.synchronize()
+            leased_ms = (time.perf_counter() - t1) * 1e3
+            status = client.status()
+            client.close()
+        order = [f for p in leased for f in
+                 (_batch_feed(samples[p][j * MASTER_BATCH:(j + 1) * MASTER_BATCH])
+                  for j in range(MASTER_SHARD_BATCHES))]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        want = torch.stack([b.step(f)["loss"] for f in order])
+        torch.cuda.synchronize()
+        memory_ms = (time.perf_counter() - t2) * 1e3
+    steps = MASTER_SHARDS * MASTER_SHARD_BATCHES
+    eq = _bits_equal(got, want)
+    differ = _states_differ(_state_of(a), _state_of(b))
+    say(f"master (a) ResNet-50 from leased recordio ({card_name}): bf16 NHWC b={MASTER_BATCH} "
+        f"Momentum({RESNET_LR}, {RESNET_MOMENTUM}), uint8 wire; {MASTER_SHARDS} shards written "
+        f"in {t_write:.2f} s, leased in the order {[os.path.basename(p) for p in leased]}, "
+        f"master status after the pass {status}; {len(got)} steps through task_reader, "
+        f"layers.io.batch and double_buffer: {leased_ms / max(len(got), 1):.2f} ms a step, "
+        f"the same batches from memory {memory_ms / steps:.2f} ms a step; losses "
+        f"{[round(x, 5) for x in got.tolist()]} bit-equal {eq}, state leaves differing "
+        f"{len(differ)}")
+    check(len(got) == steps, f"master (a): {len(got)} steps of {steps}")
+    check(status["done"] == MASTER_SHARDS and status["todo"] == 0 and status["leased"] == 0,
+          f"master (a): the pass left the master at {status}")
+    check(sorted(leased) == sorted(paths), "master (a): a shard was not leased once")
+    check(eq and not differ, f"master (a): the leased pass differs from memory ({differ[:3]})")
+    check(bool(torch.isfinite(got).all()), "master (a): a loss is not finite")
+    inst = a.telemetry_inst
+    del a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return inst, steps, paths
+
+
+def _drain_master(client, fail=()):
+    """Lease until the pass is done: (leases in order, records read a task);
+    a task whose payload is in ``fail`` is failed instead of finished."""
+    from paddle_tpu_torch import recordio
+    leases = []
+    while True:
+        t = client.get_task(wait=False)
+        if t is None:
+            return leases
+        tid, payload = t
+        path = payload.decode()
+        leases.append((tid, path))
+        if path in fail:
+            client.fail_task(tid)
+        else:
+            sum(1 for _ in recordio.read_arrays(path))
+            client.finish_task(tid)
+
+
+def master_drill(seed, card_name, tmp, paths):
+    """(a) The master's contract with no training: requeue and discard, a
+    lease timeout, snapshot recovery, each record exactly once a pass."""
+    from paddle_tpu_torch import recordio
+    from paddle_tpu_torch.data import master
+
+    t0 = time.perf_counter()
+    per = MASTER_SHARD_BATCHES * MASTER_BATCH
+    snap = os.path.join(tmp, "master.snap")
+    srv = master.MasterServer(snapshot_path=snap, failure_max=MASTER_FAILURE_MAX)
+    c = master.MasterClient(srv.addr)
+    c.set_tasks(paths)
+    # one FAIL: the task requeues at the back; its reader raising fails it again
+    tid, payload = c.get_task()
+    c.fail_task(tid)
+    after_fail = c.status()
+    # task_reader over a pass in which one more shard is missing: failed
+    # MASTER_FAILURE_MAX times in all, it is discarded
+    broken = os.path.join(tmp, "missing.recordio")
+    c.add_task(broken)
+    labels = [int(s[1][0]) for s in master.task_reader(
+        c, lambda p: recordio.reader_creator(p))()]
+    first_pass = c.status()
+    # a second pass: every record again, exactly once
+    c.reset_pass()
+    second = _drain_master(c)
+    second_pass = c.status()
+    # snapshot recovery: one task done, one leased and never finished, then the
+    # server killed; the new server recovers the done one and requeues the lease
+    c.reset_pass()
+    done_tid, _ = c.get_task()
+    c.finish_task(done_tid)
+    c.get_task()
+    c.close()
+    srv.stop()
+    with master.MasterServer(snapshot_path=snap, failure_max=MASTER_FAILURE_MAX) as srv2:
+        c2 = master.MasterClient(srv2.addr)
+        recovered = c2.status()
+        rest = _drain_master(c2)
+        after_recovery = c2.status()
+        c2.close()
+    # a lease timed out: a trainer leases the one task and never reports; a
+    # second trainer gets it after the timeout
+    with master.MasterServer(failure_max=5, lease_timeout_ms=MASTER_LEASE_MS) as srv3:
+        x, y = master.MasterClient(srv3.addr), master.MasterClient(srv3.addr)
+        x.set_tasks([paths[0]])
+        tid, _ = x.get_task()
+        t_lease = time.perf_counter()
+        held = y.get_task(wait=False)
+        got = y.get_task(wait=True, poll_interval=0.05)
+        timeout_s = time.perf_counter() - t_lease
+        y.finish_task(got[0])
+        timed_out = y.status()
+        x.close()
+        y.close()
+    want_labels = sorted(int(s[1][0]) for p in paths for s in recordio.read_arrays(p))
+    say(f"master (a) drill ({card_name}): {len(paths)} shards of {per} records + 1 missing, "
+        f"failure_max {MASTER_FAILURE_MAX}: after one FAIL {after_fail}; task_reader's pass "
+        f"read {len(labels)} records ({len(set(labels))} distinct), then {first_pass}; a "
+        f"reset pass leased {[p for _, p in second]}, then {second_pass}; snapshot "
+        f"recovery {recovered}, the rest leased {[p for _, p in rest]}, then "
+        f"{after_recovery}; a {MASTER_LEASE_MS} ms lease re-leased to a second trainer after "
+        f"{timeout_s:.3f} s (none while held: {held is None}), then {timed_out}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(after_fail["todo"] == len(paths) and after_fail["discarded"] == 0,
+          "master drill: a failed task was not requeued")
+    check(sorted(labels) == want_labels, "master drill: the pass did not deliver every "
+          "record exactly once")
+    check(first_pass["discarded"] == 1 and first_pass["done"] == len(paths),
+          f"master drill: the missing shard was not discarded ({first_pass})")
+    check(sorted(p for _, p in second) == sorted(paths) and second_pass["pass"] == 1
+          and second_pass["done"] == len(paths), "master drill: the second pass")
+    check(recovered["done"] == 1 and recovered["todo"] == len(paths) - 1
+          and recovered["leased"] == 0 and recovered["discarded"] == 1,
+          f"master drill: recovered {recovered}")
+    check(len(rest) == len(paths) - 1 and after_recovery["done"] == len(paths),
+          "master drill: the recovered pass")
+    check(held is None and got is not None and got[0] == tid
+          and timeout_s >= MASTER_LEASE_MS / 1e3 * 0.9 and timed_out["done"] == 1,
+          "master drill: the timed-out lease was not re-leased")
+
+
+def _mnist_artifact(dev, seed, tmp, batch_size):
+    """bench.py's _fleet_artifact: the MNIST MLP exported at buckets {1,
+    batch_size}, random weights from ``seed``; (dir, single-row feed)."""
+    import numpy as np
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import io as pio
+    from paddle_tpu_torch.models import mnist
+
+    prog = pt.build(mnist.mlp)
+    rng = np.random.RandomState(0)
+    feed = {"image": rng.randn(batch_size, 784).astype(np.float32),
+            "label": rng.randint(0, 10, (batch_size, 1)).astype(np.int64)}
+    params, state = prog.init(seed, place=dev, **feed)
+    d = os.path.join(tmp, "mnist_fleet")
+    pio.save_inference_model(d, prog, params, state, feed, batch_buckets=[1, batch_size])
+    return d, {k: v[:1] for k, v in feed.items()}
+
+
+def _autoscale_front(d, dev, replicas):
+    from paddle_tpu_torch.fleet import BatchPolicy, FleetRouter
+    return FleetRouter.spawn(d, replicas=replicas, workers=AUTOSCALE["workers"],
+                             queue_size=AUTOSCALE["queue_size"], device=dev,
+                             batch_policy=BatchPolicy(max_wait_ms=AUTOSCALE["max_wait_ms"]))
+
+
+def _saturation_probe(front, feed):
+    """bench.py's _saturation_probe: one front's coalesced requests/s."""
+    for _ in range(2):
+        front.run(feed, timeout=120)
+    pending = collections.deque()
+    submitted = done = 0
+    t0 = time.perf_counter()
+    while done < AUTOSCALE_PROBE:
+        while submitted < AUTOSCALE_PROBE and len(pending) < AUTOSCALE_INFLIGHT:
+            pending.append(front.submit(feed))
+            submitted += 1
+        pending.popleft().result(timeout=120)
+        done += 1
+    return AUTOSCALE_PROBE / max(time.perf_counter() - t0, 1e-9)
+
+
+def _drive_diurnal(front, feed, phases, nworkers):
+    """bench.py's _drive_diurnal: the open-loop curve, integrating the live
+    worker-seconds. Returns (latencies s, rejected at submit, failed after
+    acceptance, elapsed s, worker-seconds)."""
+    from paddle_tpu_torch import serving
+
+    pending, rejected, failed = [], 0, 0
+    t0 = last = time.perf_counter()
+    worker_seconds = 0.0
+    for n, rate in phases:
+        interval = 1.0 / max(rate, 1e-9)
+        next_t = time.perf_counter()
+        for _ in range(n):
+            now = time.perf_counter()
+            if now < next_t:
+                time.sleep(next_t - now)
+                now = time.perf_counter()
+            worker_seconds += (now - last) * nworkers()
+            last = now
+            next_t += interval
+            try:
+                pending.append(front.submit(feed))
+            except serving.ServingError:
+                rejected += 1
+    lats = []
+    for p in pending:
+        try:
+            p.result(timeout=120)
+            lats.append(p.latency)
+        except serving.ServingError:
+            failed += 1
+    now = time.perf_counter()
+    worker_seconds += (now - last) * nworkers()
+    return lats, rejected, failed, now - t0, worker_seconds
+
+
+def _autoscale_variant(d, dev, variant, feed, phases):
+    """bench.py's _run_autoscale_variant. Returns (latencies, rejected, failed,
+    elapsed, worker-seconds, scale info)."""
+    import threading
+    from paddle_tpu_torch import telemetry
+    from paddle_tpu_torch.fleet.autoscaler import (AutoscalePolicy, Autoscaler,
+                                                   LocalCollectorReader)
+    from paddle_tpu_torch.telemetry.collector import TelemetryCollector
+
+    replicas0 = AUTOSCALE_MAX if variant == "fixed" else 1
+    front = _autoscale_front(d, dev, replicas0)
+    col = scaler = pump = None
+    stop = threading.Event()
+    peak = [replicas0]
+    info = {"provisioned": replicas0}
+    try:
+        if variant == "autoscaled":
+            col = TelemetryCollector(origin_expiry_s=60.0)
+
+            def _pump():
+                while not stop.wait(0.1):
+                    col.store.ingest("bench", telemetry.get_registry().snapshot(),
+                                     t=time.time())
+                    peak[0] = max(peak[0], len(front.replica_names))
+
+            pump = threading.Thread(target=_pump, daemon=True, name="autoscale-pump")
+            pump.start()
+            scaler = Autoscaler(front, LocalCollectorReader(col),
+                                AutoscalePolicy(**AUTOSCALE_POLICY), **AUTOSCALE_LOOP).start()
+        workers = AUTOSCALE["workers"]
+        lats, rejected, failed, elapsed, ws = _drive_diurnal(
+            front, feed, phases, lambda: len(front.replica_names) * workers)
+        if scaler is not None:
+            # the quiet after the curve: the loop goes on until it retires the burst's
+            # replicas (bench closes at once; the check here is the scale-down)
+            t_end = time.perf_counter() + AUTOSCALE_SETTLE_S
+            while len(front.replica_names) > 1 and time.perf_counter() < t_end:
+                time.sleep(0.05)
+            c = scaler.counters()
+            info.update(scale_ups=c["scale_ups"], scale_downs=c["scale_downs"],
+                        final_replicas=len(front.replica_names),
+                        settle_s=round(time.perf_counter() - t_end + AUTOSCALE_SETTLE_S, 2))
+        info["peak_replicas"] = peak[0]
+        return lats, rejected, failed, elapsed, ws, info
+    finally:
+        stop.set()
+        if scaler is not None:
+            scaler.close()
+        if pump is not None:
+            pump.join(timeout=2.0)
+        if col is not None:
+            col.close()
+        front.close(drain=True, timeout=120)
+        servers = [r.server for r in front._replicas.values()]
+        info["left_serving"] = sum(1 for sv in servers if sv.health()["live"])
+
+
+def autoscale_row(dev, seed, card_name, tmp):
+    """(b) bench.py's autoscale row: fixed at the peak against autoscaled."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    d, feed1 = _mnist_artifact(dev, seed, tmp, AUTOSCALE["batch_size"])
+    front = _autoscale_front(d, dev, 1)
+    try:
+        cap = _saturation_probe(front, feed1)
+    finally:
+        front.close(drain=True, timeout=120)
+    low_rate, burst_rate = min(0.4 * cap, 800.0), min(2.5 * cap, 2000.0)
+
+    def n_of(rate, seconds):
+        return max(8, min(6000, int(rate * seconds)))
+
+    phases = [(n_of(low_rate, AUTOSCALE["low_s"]), low_rate),
+              (n_of(burst_rate, AUTOSCALE["burst_s"]), burst_rate),
+              (n_of(low_rate, AUTOSCALE["low_s"]), low_rate)]
+    offered = sum(n for n, _ in phases)
+    rows = {}
+    for variant in ("fixed", "autoscaled"):
+        lats, rejected, failed, elapsed, ws, info = _autoscale_variant(d, dev, variant, feed1,
+                                                                      phases)
+        lat = np.array(lats) if lats else np.array([0.0])
+        rows[variant] = info
+        say(f"autoscale (b) {variant} ({card_name}): MNIST MLP buckets [1, "
+            f"{AUTOSCALE['batch_size']}], {offered} single-row requests offered at "
+            f"{low_rate:.1f}/{burst_rate:.1f}/{low_rate:.1f} rps ({AUTOSCALE['low_s']:g}/"
+            f"{AUTOSCALE['burst_s']:g}/{AUTOSCALE['low_s']:g} s; one replica's coalesced "
+            f"saturation {cap:.1f} rps): latency p50 {np.percentile(lat, 50) * 1e3:.3f} ms "
+            f"p99 {np.percentile(lat, 99) * 1e3:.3f} ms, slo_attainment "
+            f"{float((lat <= AUTOSCALE['slo_ms'] / 1e3).mean()):.4f} at "
+            f"{AUTOSCALE['slo_ms']:g} ms, worker_seconds_per_1k "
+            f"{ws / max(len(lats), 1) * 1000.0:.3f}, reject_rate {rejected / offered:.4f} "
+            f"({rejected} rejected at submit, {failed} failed after acceptance), {elapsed:.2f} s; "
+            f"{info}")
+        check(failed == 0 and len(lats) + rejected == offered,
+              f"autoscale (b) {variant}: {failed} accepted requests did not complete")
+        check(info["left_serving"] == 0, f"autoscale (b) {variant}: {info['left_serving']} "
+              "replicas still serving after close")
+    a = rows["autoscaled"]
+    check(a["scale_ups"] >= 1 and a["peak_replicas"] >= 2,
+          f"autoscale (b): the fleet never grew in the burst ({a})")
+    check(a["scale_downs"] >= 1 and a["final_replicas"] < a["peak_replicas"],
+          f"autoscale (b): the fleet never shrank after the burst ({a})")
+    say(f"autoscale (b): {time.perf_counter() - t0:.1f} s")
+
+
+def _get_json(url, timeout=10.0):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def _post_json(url, doc, timeout=10.0):
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=json.dumps(doc).encode(), method="POST",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def _step_series(url, inst, steps):
+    """Trainer ``inst``'s step counter from a collector's ``/query``, once its
+    last value reads ``steps`` (else None)."""
+    doc = _get_json(f"{url}/query?metric=paddle_tpu_trainer_steps_total&labels=inst={inst}")
+    series = [[v for _, v in s["points"]] for s in doc["series"]]
+    return series if series and series[0] and series[0][-1] == steps else None
+
+
+def _wait_for(pred, timeout):
+    end = time.perf_counter() + timeout
+    while time.perf_counter() < end:
+        got = pred()
+        if got:
+            return got
+        time.sleep(0.1)
+    return pred()
+
+
+def phase_master_autoscale(dev, seed, card_name):
+    """Phase 25: (b) the autoscale row while the collector daemon starts, then
+    the daemon's standby, (a) ResNet-50 from master-leased recordio shipping
+    to the daemon, the master's drill, and (c) the daemon's and the
+    standby's reading of it. Returns the hand kernels' launches during the
+    phase (none of its paths runs attention)."""
+    import gc
+    import threading
+    import torch
+    from paddle_tpu_torch import telemetry
+    from paddle_tpu_torch.native import build_native
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.telemetry import alerts, shipper
+    from paddle_tpu_torch.telemetry.collector import CollectorProcess, TelemetryCollector
+
+    t0 = time.perf_counter()
+    for src, name, kw in (("recordio.cc", "librecordio.so",
+                           dict(extra_flags=("-shared", "-fPIC"), opt="-O3", libs=("-lz",))),
+                          ("master.cc", "master_server", {})):
+        t1 = time.perf_counter()
+        out = build_native(src, name, **kw)
+        say(f"phase 25 build: {src} -> {os.path.relpath(out)} in {time.perf_counter() - t1:.2f} s")
+    _zero_launch_counts(fa)
+    # ---- the main path, as a user drives it: (b) while (c)'s daemon starts, then (a)
+    # shipping to it
+    with tempfile.TemporaryDirectory() as tmp:
+        rules = os.path.join(tmp, "rules.json")
+        with open(rules, "w") as f:
+            json.dump(alerts.PRESET_PACK, f)
+        store = os.path.join(tmp, "collector")
+        started, t1 = {}, time.perf_counter()
+
+        def start_daemon():
+            # the daemon's interpreter imports the port (torch with it), which
+            # takes seconds: it comes up while (b) runs
+            try:
+                started["daemon"] = CollectorProcess(
+                    rules_path=rules, store_dir=store,
+                    args=("--eval-interval", str(COLLECTOR_EVAL_S)))
+                started["s"] = time.perf_counter() - t1
+            except BaseException as e:  # re-raised on the phase's thread
+                started["error"] = e
+
+        starter = threading.Thread(target=start_daemon, name="collector-start")
+        starter.start()
+        daemon = standby = None
+
+        def ship_to_daemon():
+            nonlocal daemon, standby
+            starter.join()
+            if "error" in started:
+                raise started["error"]
+            daemon = started["daemon"]
+            standby = TelemetryCollector(
+                eval_interval=3600, rules=alerts.preset_rules(), standby=True,
+                store_dir=os.path.join(tmp, "standby"), takeover_s=60.0,
+                replicate_from=f"{daemon.host}:{daemon.port}",
+                replicate_interval=COLLECTOR_REPL_S)
+            say(f"collector (c) ({card_name}): daemon pid {daemon.pid} (push {daemon.addr}, "
+                f"http {daemon.http_url}) up {started['s']:.2f} s after its spawn, a "
+                f"standby replicating every {COLLECTOR_REPL_S} s")
+            telemetry.ship_to(daemon.addr, origin="chip_smoke")
+
+        try:
+            autoscale_row(dev, seed, card_name, tmp)
+            inst, steps, paths = master_resnet(dev, seed, card_name, tmp, ship_to_daemon)
+            standby_http = standby.serve_http()
+            master_drill(seed, card_name, tmp, paths)
+            # (c) the daemon's reading of (a)'s trainer
+            code, doc = _post_json(daemon.http_url + "/rules", alerts.PRESET_PACK + [
+                {"name": "resnet_pass_done", "severity": "info",
+                 "expr": f'paddle_tpu_trainer_steps_total{{inst="{inst}"}} >= {steps} for 0s'}])
+            telemetry.active_shipper().flush()
+            primary = _wait_for(lambda: _step_series(daemon.http_url, inst, steps),
+                                COLLECTOR_WAIT_S)
+            firing = _wait_for(lambda: _get_json(daemon.http_url + "/alerts")["firing"],
+                               COLLECTOR_WAIT_S)
+            replica = _wait_for(lambda: _step_series(standby_http.url, inst, steps),
+                                COLLECTOR_WAIT_S)
+            stats = shipper.ShipperClient(daemon.addr).stats()
+            sstats = standby.stats()
+            report = telemetry.active_shipper().report()
+            store_bytes = _dir_bytes(store)
+            say(f"collector (c) ({card_name}): POST /rules {code} (accepted "
+                f"{doc.get('accepted')}, {len(doc.get('rules', []))} rules); trainer "
+                f"{inst}'s paddle_tpu_trainer_steps_total from /query: primary {primary}, "
+                f"standby {replica}; firing {[(a['rule'], a['key']) for a in firing]}; "
+                f"daemon stats {stats}; store {store_bytes} bytes on disk; standby store "
+                f"{sstats.get('store')}; shipper {report}")
+            check(code == 200 and doc.get("accepted"), f"collector (c): POST /rules {code}")
+            check(primary is not None and len(primary) == 1,
+                  f"collector (c): the primary's step series {primary}, want {steps}")
+            check(replica is not None and replica[0] == primary[0][:len(replica[0])],
+                  f"collector (c): the standby's step series {replica}, want a prefix "
+                  f"of the primary's ending at {steps}")
+            check([a["rule"] for a in firing] == ["resnet_pass_done"],
+                  f"collector (c): firing {firing} (want the pass rule alone: the preset "
+                  "pack fires nothing on a healthy run)")
+            check(stats["persistence"] and stats["store"]["appends"] > 0
+                  and sstats["store"]["repl_corrupt"] == 0 and store_bytes > 0,
+                  "collector (c): the store wrote nothing")
+        finally:
+            telemetry.stop_shipping()
+            starter.join()
+            if standby is not None:
+                standby.close()
+            if "daemon" in started:
+                started["daemon"].stop()
+        check(started["daemon"]._proc.poll() is not None,
+              "collector (c): the daemon outlived stop()")
+        launches = _launch_counts(fa)
+        # ---- end of the main path
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 25: hand-kernel launches {launches} (none of these paths runs attention); "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(all(n == 0 for n in launches.values()), "phase 25: a flash kernel launched")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8945,6 +9610,11 @@ def main(argv=None) -> int:
     # inside, around the phase)
     quantized = phase_quantized(dev, args.seed, smi)
     done("phase 24")
+
+    # 25. data from the master, the collector daemon and the autoscaled fleet
+    # (launch counts zeroed inside, around the phase)
+    master_autoscale = phase_master_autoscale(dev, args.seed, smi)
+    done("phase 25")
     by_path = {name: {"served": served[name], "training": trained[name],
                       "persistence": persisted[name], "resnet": resnet_launches[name],
                       **{path: n[name] for path, n in seq2seq.items()},
@@ -8956,7 +9626,8 @@ def main(argv=None) -> int:
                       "moe": second["moe"][name], "sharded_checkpoint": sharded[name],
                       "elastic": elastic[name], "async_ps": async_ps[name],
                       "telemetry": tele[name], "fleet": fleet[name],
-                      "quantized_data": quantized[name]}
+                      "quantized_data": quantized[name],
+                      "master_autoscale": master_autoscale[name]}
                for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 
     # the kernels record: each kernel's row at the training path's shape,

@@ -25,9 +25,12 @@ serving fleet (counterpart of ``paddle_tpu.fleet``).
   TCP partitions); ``hosts=[...]`` adopts replicas from per-host agents
   that ship artifacts over FETCH/ARTIFACT.
 
-The autoscaler (``Autoscaler``, ``AutoscalePolicy`` and its readers)
-comes with ROADMAP item 23 (b), with the telemetry collector it reads
-(item 24 (b)): its names raise ``NotYetPorted``.
+- :mod:`autoscaler` — the **closed loop**: a control thread watching
+  the telemetry collector's ``/query`` trends and ``/alerts``
+  transitions and sizing the fleet within a band via
+  ``FleetRouter.grow()`` / ``retire(drain=True)`` — pure decision core
+  (:class:`AutoscalePolicy`: hysteresis, per-direction cooldowns,
+  anti-flap, quorum floor, fail-static on stale data).
 """
 
 from .batching import BatchPolicy
@@ -55,10 +58,10 @@ def __getattr__(name):
         from . import remote
         return getattr(remote, name)
     if name in _AUTOSCALER_NAMES:
-        from ..core.errors import NotYetPorted
-        raise NotYetPorted(f"fleet.{name}: the autoscaler comes with ROADMAP item "
-                           "23 (b), with the telemetry collector it reads (item 24 (b))")
+        from . import autoscaler
+        return getattr(autoscaler, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-__all__ = ["BatchPolicy", *_ROUTER_NAMES, *_DECODE_NAMES, *_REMOTE_NAMES]
+__all__ = ["BatchPolicy", *_ROUTER_NAMES, *_DECODE_NAMES, *_REMOTE_NAMES,
+           *_AUTOSCALER_NAMES]

@@ -4,9 +4,11 @@ the tensor ops, ``accuracy``, ``create_parameter`` and the learning-rate
 decays, as the JAX package exports them; the attention layers; and the
 modules of the GPT slices (stacked blocks, greedy search); and the
 recurrent family: the dynamic LSTM/GRU, the sequence ops and
-``LoDTensor``, the CRF, control flow and ``beam_search_decode_lod``."""
+``LoDTensor``, the CRF, control flow and ``beam_search_decode_lod``; and
+the IO surface (``io``: ``data``, ``py_reader``, ``open_files`` over
+recordio shards, ``double_buffer``...)."""
 
-from . import attention, beam_search, control_flow, crf, nn, ops, rnn, sequence, tensor
+from . import attention, beam_search, control_flow, crf, io, nn, ops, rnn, sequence, tensor
 from .beam_search import beam_search_decode, beam_search_decode_lod
 from .control_flow import (
     DynamicRNN,
@@ -21,6 +23,19 @@ from .control_flow import (
     create_array,
 )
 from .crf import crf_decoding, linear_chain_crf
+from .io import (
+    Preprocessor,
+    PyReader,
+    batch,
+    data,
+    double_buffer,
+    load,
+    open_files,
+    py_reader,
+    random_data_generator,
+    read_file,
+    shuffle,
+)
 from .nn import *  # noqa: F401,F403
 from .ops import *  # noqa: F401,F403
 from .tensor import *  # noqa: F401,F403

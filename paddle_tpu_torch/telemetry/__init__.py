@@ -22,14 +22,27 @@ JAX package is not imported).
 - :mod:`shipper` — the **push pipeline** to a telemetry collector,
   started by ``PDTPU_TELEMETRY_ADDR`` or ``ship_to(addr)``; its wire is
   the JAX shipper's.
+- :mod:`collector` — the **collector daemon** (``python -m
+  paddle_tpu_torch.telemetry.collector``, or in-process): any process
+  pushes its journal and registry snapshots to it over the framed wire;
+  it keeps per-origin time series, a fleet-wide journal, and serves
+  ``/metrics`` (merged under ``origin``), ``/alerts``,
+  ``/timeline?trace=<span>`` and ``/query``; a standby replicates its
+  segment log over ``SEGMENTS``.
+- :mod:`store` — the **durable series store**: the segmented,
+  CRC-framed, retention-bounded log the collector writes every ingest
+  through and replays on a restart or a standby's promotion.
+- :mod:`alerts` — the **declarative alert engine** the collector
+  evaluates (threshold, rate, absence and quantile rules with ``for_s``
+  and a firing→resolved state machine), with the preset pack.
 
 ``RunJournal.ingest``, ``families_from_snapshot``, ``merge_exports`` and
 ``FamiliesView`` are what the serving fleet (:mod:`paddle_tpu_torch.fleet`)
 reads: a router ingests its replica processes' journals and serves their
 merged series under a ``replica`` label.
 
-The daemon half — the collector, its durable series store and the alert
-engine — comes with ROADMAP item 24 (b), with the fleet it serves.
+Every wire, file and name is the JAX package's: a shipper, collector,
+standby or store directory of one package works with the other's.
 """
 
 from .journal import (RunJournal, get_journal, new_run_id, parse_sample,
@@ -37,19 +50,32 @@ from .journal import (RunJournal, get_journal, new_run_id, parse_sample,
 from .recorder import (FlightRecorder, default_flight_dir, flight_dump,
                        get_recorder)
 from .registry import (Counter, FamiliesView, Gauge, Histogram, MetricFamily,
-                       MetricsRegistry, counter_family, families_from_snapshot,
-                       families_snapshot, gauge_family, get_registry, histogram_family,
-                       merge_exports, render_families_prometheus, validate_families)
+                       MetricsRegistry, counter_deltas, counter_family,
+                       families_from_snapshot, families_snapshot,
+                       gauge_family, get_registry,
+                       histogram_family, merge_exports,
+                       render_families_prometheus, validate_families)
 from .http import TelemetryServer, serve_metrics
+from .alerts import (AlertEngine, AlertRule, PRESET_PACK, lint_rules,
+                     load_rules, parse_rule, preset_rules)
+from .collector import (CollectorProcess, SeriesStore, TelemetryCollector,
+                        assemble_timeline, render_timeline_text)
+from .store import SegmentStore, downsample
 from .shipper import (Shipper, active_shipper, maybe_auto_ship, parse_addrs,
                       ship_to, stop_shipping)
 
 __all__ = [
-    "Counter", "FamiliesView", "FlightRecorder", "Gauge", "Histogram", "MetricFamily",
-    "MetricsRegistry", "RunJournal", "Shipper", "TelemetryServer", "active_shipper",
-    "counter_family", "default_flight_dir", "families_from_snapshot",
-    "families_snapshot", "flight_dump", "gauge_family", "get_journal", "get_recorder",
-    "get_registry", "histogram_family", "maybe_auto_ship", "merge_exports",
-    "new_run_id", "parse_addrs", "parse_sample", "render_families_prometheus",
-    "serve_metrics", "set_journal", "ship_to", "stop_shipping", "validate_families",
+    "AlertEngine", "AlertRule", "CollectorProcess", "Counter",
+    "FamiliesView", "FlightRecorder", "Gauge", "Histogram",
+    "MetricFamily", "MetricsRegistry", "PRESET_PACK", "RunJournal",
+    "SegmentStore", "SeriesStore", "Shipper", "TelemetryCollector",
+    "TelemetryServer", "active_shipper", "assemble_timeline",
+    "counter_deltas", "counter_family", "default_flight_dir",
+    "downsample", "families_from_snapshot",
+    "families_snapshot", "flight_dump", "gauge_family", "get_journal",
+    "get_recorder", "get_registry", "histogram_family", "lint_rules",
+    "load_rules", "maybe_auto_ship", "merge_exports", "new_run_id",
+    "parse_addrs", "parse_rule", "parse_sample", "preset_rules",
+    "render_families_prometheus", "render_timeline_text", "serve_metrics",
+    "set_journal", "ship_to", "stop_shipping", "validate_families",
 ]

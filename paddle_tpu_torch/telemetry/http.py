@@ -13,8 +13,13 @@ shape fleet load-balancer probes expect. No third-party dependency:
 ``http.server.ThreadingHTTPServer`` on a daemon thread, port 0 picks a
 free port (``.port`` reports it).
 
-The JAX package's ``extra_routes`` and ``post_routes`` serve its
-collector's endpoints; they come with the collector (ROADMAP item 24 (b)).
+``extra_routes`` adds endpoints beyond the two built-ins (the
+telemetry collector serves ``/alerts``, ``/timeline``, and ``/query``
+through it): ``{path: fn(query_string) -> (status, content_type,
+body_bytes)}``. ``post_routes`` is the write-side analog — ``{path:
+fn(query_string, body_bytes) -> ...}`` — used by the collector's
+``POST /rules`` hot-reload door; POST bodies are bounded (1 MiB) so a
+runaway client cannot balloon the daemon.
 
 A scraper that disconnects mid-write (curl ^C, a Prometheus timeout)
 raises ``BrokenPipeError``/``ConnectionResetError`` on the handler
@@ -28,11 +33,18 @@ from __future__ import annotations
 import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 from .registry import MetricsRegistry, get_registry
 
 PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+# an extra route: fn(query_string) -> (status, content_type, body)
+RouteFn = Callable[[str], Tuple[int, str, bytes]]
+# a POST route: fn(query_string, body) -> (status, content_type, body)
+PostRouteFn = Callable[[str, bytes], Tuple[int, str, bytes]]
+
+MAX_POST_BODY = 1 << 20
 
 
 def _scrape_aborted() -> None:
@@ -49,13 +61,18 @@ def _scrape_aborted() -> None:
 
 
 class TelemetryServer:
-    """``/metrics`` + ``/healthz`` over a registry (daemon thread)."""
+    """``/metrics`` + ``/healthz`` (+ ``extra_routes``) over a registry
+    (daemon thread)."""
 
     def __init__(self, registry: Optional[MetricsRegistry] = None,
                  health_fn: Optional[Callable[[], Dict[str, Any]]] = None,
-                 port: int = 0, host: str = "127.0.0.1"):
+                 port: int = 0, host: str = "127.0.0.1",
+                 extra_routes: Optional[Dict[str, RouteFn]] = None,
+                 post_routes: Optional[Dict[str, PostRouteFn]] = None):
         self.registry = registry if registry is not None else get_registry()
         self.health_fn = health_fn
+        self.extra_routes = dict(extra_routes or {})
+        self.post_routes = dict(post_routes or {})
         outer = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -97,9 +114,52 @@ class TelemetryServer:
                         self._reply(503, "application/json",
                                     json.dumps({"live": False,
                                                 "error": repr(e)}).encode())
+                elif path in outer.extra_routes:
+                    try:
+                        code, ctype, body = outer.extra_routes[path](query)
+                        self._reply(code, ctype, body)
+                    except Exception as e:
+                        self._reply(500, "text/plain; charset=utf-8",
+                                    f"route {path} failed: {e}\n".encode())
                 else:
                     self._reply(404, "text/plain; charset=utf-8",
-                                b"unknown path (have /metrics, /healthz)\n")
+                                b"unknown path (have /metrics, /healthz"
+                                + (b", " + ", ".join(
+                                    sorted(outer.extra_routes)).encode()
+                                   if outer.extra_routes else b"")
+                                + b")\n")
+
+            def do_POST(self):  # noqa: N802 (stdlib handler name)
+                path, _, query = self.path.partition("?")
+                fn = outer.post_routes.get(path)
+                if fn is None:
+                    self._reply(404, "text/plain; charset=utf-8",
+                                b"unknown POST path (have "
+                                + ", ".join(
+                                    sorted(outer.post_routes)).encode()
+                                + b")\n" if outer.post_routes else
+                                b"no POST endpoints\n")
+                    return
+                try:
+                    length = int(self.headers.get("Content-Length") or 0)
+                except ValueError:
+                    length = -1
+                if not 0 <= length <= MAX_POST_BODY:
+                    self._reply(413, "text/plain; charset=utf-8",
+                                f"POST body must declare 0..{MAX_POST_BODY}"
+                                " bytes\n".encode())
+                    self.close_connection = True
+                    return
+                try:
+                    body = self.rfile.read(length)
+                    code, ctype, out = fn(query, body)
+                    self._reply(code, ctype, out)
+                except (BrokenPipeError, ConnectionResetError):
+                    _scrape_aborted()
+                    self.close_connection = True
+                except Exception as e:
+                    self._reply(500, "text/plain; charset=utf-8",
+                                f"route {path} failed: {e}\n".encode())
 
             def _reply(self, code: int, ctype: str, body: bytes):
                 # a scraper disconnecting mid-write is routine (curl
@@ -153,7 +213,10 @@ class TelemetryServer:
 
 def serve_metrics(registry: Optional[MetricsRegistry] = None,
                   health_fn: Optional[Callable[[], Dict[str, Any]]] = None,
-                  port: int = 0, host: Optional[str] = None) -> TelemetryServer:
+                  port: int = 0, host: Optional[str] = None,
+                  extra_routes: Optional[Dict[str, RouteFn]] = None,
+                  post_routes: Optional[Dict[str, PostRouteFn]] = None
+                  ) -> TelemetryServer:
     """Start a :class:`TelemetryServer`; port 0 picks a free port.
     ``host=None`` binds ``PDTPU_BIND_ADDR`` when set (the cross-host
     knob — a scrape endpoint other machines must reach), else
@@ -162,7 +225,9 @@ def serve_metrics(registry: Optional[MetricsRegistry] = None,
 
     if host is None:
         host = os.environ.get("PDTPU_BIND_ADDR") or "127.0.0.1"
-    return TelemetryServer(registry=registry, health_fn=health_fn, port=port, host=host)
+    return TelemetryServer(registry=registry, health_fn=health_fn,
+                           port=port, host=host, extra_routes=extra_routes,
+                           post_routes=post_routes)
 
 
 __all__ = ["PROMETHEUS_CONTENT_TYPE", "TelemetryServer", "serve_metrics"]

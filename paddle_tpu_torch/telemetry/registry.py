@@ -565,9 +565,24 @@ def get_registry() -> MetricsRegistry:
     return _default_registry
 
 
+def counter_deltas(before: Dict[str, float], after: Dict[str, float],
+                   per: float = 1.0) -> Dict[str, float]:
+    """``(after - before) / per`` for every counter series that moved —
+    the bench "telemetry snapshot" shape (``per`` = steps or requests
+    measured, so rows are comparable across iteration counts)."""
+    out: Dict[str, float] = {}
+    for key, v in after.items():
+        d = v - before.get(key, 0.0)
+        if d:
+            out[key] = round(d / (per or 1.0), 6)
+    return out
+
+
 __all__ = [
-    "Counter", "Gauge", "Histogram", "MetricFamily", "MetricsRegistry",
-    "METRIC_NAME_RE", "DEFAULT_TIME_BUCKETS", "counter_family",
-    "families_snapshot", "gauge_family", "get_registry", "histogram_family",
+    "Counter", "FamiliesView", "Gauge", "Histogram", "MetricFamily",
+    "MetricsRegistry", "METRIC_NAME_RE", "DEFAULT_TIME_BUCKETS",
+    "counter_deltas", "counter_family", "families_from_snapshot",
+    "families_snapshot", "gauge_family",
+    "get_registry", "histogram_family", "merge_exports",
     "render_families_prometheus", "validate_families",
 ]

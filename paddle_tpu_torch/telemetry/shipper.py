@@ -1,8 +1,7 @@
 """Background telemetry shipper: the PUSH half of the collector story
 (counterpart of ``paddle_tpu.telemetry.shipper``; its verbs are the JAX
-shipper's byte for byte, so the JAX package's ``TelemetryCollector``
-takes the port's pushes; the port's own collector daemon comes with
-ROADMAP item 24 (b)).
+shipper's byte for byte, so a collector of either package takes the
+pushes of a shipper of either).
 
 Any process — a trainer, a serving process — attaches ONE process-wide
 :class:`Shipper` that streams its observability to a telemetry
@@ -54,6 +53,11 @@ each shipper adds a deterministic per-origin phase offset
 (:func:`flush_jitter`) so K replicas spawned in the same second don't
 synchronize their pushes into the collector; ``buffer_events``
 (``PDTPU_TELEMETRY_BUFFER``, 4096).
+
+:class:`ReplicationClient` is the OTHER puller on this wire: a
+cross-host standby collector's client for the primary's ``SEGMENTS``
+verb (segment-log listing + raw segment/tail fetches — see
+``telemetry/collector.py``'s replication story).
 """
 
 from __future__ import annotations
@@ -178,6 +182,62 @@ class ShipperClient:
         return self._call(f"SNAPSHOT {origin}", body)
 
     def ping(self) -> None:
+        self._cli._request("PING")
+
+    def stats(self) -> Dict[str, Any]:
+        """The collector's ``STATS`` verb: its ingest/store counters as
+        one JSON object riding the reply line (``OK {...}``) — what the
+        bench rows delta to price store ingest-writes."""
+        resp = self._cli._request("STATS")
+        return json.loads(resp.split(" ", 1)[1])
+
+    def close(self) -> None:
+        self._cli.close()
+
+
+class ReplicationClient:
+    """A cross-host standby collector's puller for the primary's
+    ``SEGMENTS`` verb: one framed request (``SEGMENTS <len>`` + json)
+    per call, one framed reply body back — the segment-log listing
+    (json) or raw segment bytes, depending on the request form. The
+    bytes are NOT trusted off the wire: the standby re-verifies every
+    sealed segment against the sidecar CRC the listing carried before
+    anything touches its store."""
+
+    def __init__(self, addr: Tuple[str, int], timeout: float = 10.0):
+        from ..parallel.async_ps import FramedClient
+
+        class _Client(FramedClient):
+            peer_name = "primary collector"
+
+        self._cli = _Client(addr, timeout=timeout, retries=2,
+                            retry_backoff=0.05, retry_backoff_max=0.2,
+                            connect=False)
+
+    def _segments(self, req: Dict[str, Any]) -> bytes:
+        body = json.dumps(req, separators=(",", ":")).encode()
+        resp, payload = self._cli._request(
+            f"SEGMENTS {len(body)}", body,
+            body_len=lambda r: int(r.split()[1]))
+        return payload
+
+    def listing(self) -> Dict[str, Any]:
+        """The primary's sealed segments (name + CRC sidecar doc each)
+        and its active segment's name/size."""
+        return json.loads(self._segments({"list": True}))
+
+    def fetch(self, name: str, offset: int = 0,
+              limit: Optional[int] = None) -> bytes:
+        """Raw bytes of one segment file from ``offset`` (the whole
+        file for a sealed segment, the unseen tail for the open
+        one)."""
+        req: Dict[str, Any] = {"fetch": name, "offset": int(offset)}
+        if limit is not None:
+            req["limit"] = int(limit)
+        return self._segments(req)
+
+    def ping(self) -> None:
+        """The promotion fence's liveness probe of the primary."""
         self._cli._request("PING")
 
     def close(self) -> None:
@@ -407,6 +467,18 @@ class Shipper:
         out["addrs"] = [f"{h}:{p}" for h, p in self.addrs]
         return out
 
+    def collector_stats(self) -> Optional[Dict[str, Any]]:
+        """The attached collector's ingest/store counters (``STATS``
+        wire verb), or None when it is unreachable — serialized against
+        the flush loop (one framed socket). The bench rows delta this
+        to price the collector-side store ingest-writes a measured
+        window caused."""
+        with self._flush_lock:
+            try:
+                return self._client.stats()
+            except Exception:
+                return None
+
     def _families(self):
         from .registry import counter_family
 
@@ -530,7 +602,7 @@ def maybe_auto_ship() -> Optional[Shipper]:
         return None
 
 
-__all__ = ["Shipper", "ShipperClient",
+__all__ = ["ReplicationClient", "Shipper", "ShipperClient",
            "active_shipper", "default_origin", "flush_jitter",
            "maybe_auto_ship", "parse_addr", "parse_addrs", "ship_to",
            "stop_shipping"]
