@@ -15,9 +15,11 @@ card they raise :class:`paddle_tpu_torch.core.place.NoCudaDevice`.
 
 __version__ = "0.1.0"
 
-from . import amp, analysis, clip, core, data, framework, initializer, io, layers  # noqa: E402
-from . import lr_scheduler, metrics, models, nets, optimizer, parallel  # noqa: E402
-from . import quantize, regularizer, resilience, sparse  # noqa: E402
+from . import amp, analysis, backward, clip, core, data, evaluator, framework  # noqa: E402
+from . import initializer, io, layers, lr_scheduler, metrics, models, nets  # noqa: E402
+from . import optimizer, parallel, quantize, regularizer, resilience, sparse  # noqa: E402
+from . import transpiler  # noqa: E402
+from .backward import append_backward, calc_gradient  # noqa: E402
 from .core.config import enable_determinism, get_flag  # noqa: E402
 from .core.place import CPUPlace, CUDAPlace  # noqa: E402
 from .executor import (CheckpointConfig, Event, Executor, Inferencer, Scope,  # noqa: E402
@@ -37,6 +39,8 @@ from .framework import (  # noqa: E402
     program_guard,
 )
 from .parallel import DistStrategy  # noqa: E402
+from .transpiler import (DistributeTranspiler, DistributeTranspilerConfig,  # noqa: E402
+                         HashName, RoundRobin, memory_optimize, release_memory)
 from .resilience import GuardPolicy  # noqa: E402
 
 # honour PDTPU_DETERMINISTIC=1, as the JAX package does at import
@@ -44,13 +48,14 @@ if get_flag("deterministic"):
     enable_determinism()
 
 __all__ = [
-    "CPUPlace", "CUDAPlace", "CheckpointConfig", "DistStrategy", "Event", "Executor",
-    "GuardPolicy", "Inferencer", "LayerHelper",
-    "ParamAttr", "Program", "Scope", "Trainer", "WeightNormParamAttr", "amp", "amp_guard",
-    "analysis",
-    "build", "clip", "create_parameter", "create_variable", "data",
-    "default_main_program", "default_startup_program", "enable_determinism", "fit",
-    "framework", "global_scope", "initializer", "io", "layers",
-    "lr_scheduler", "metrics", "models", "name_scope", "nets", "optimizer", "parallel",
-    "program_guard", "quantize", "regularizer", "resilience", "scope_guard",
+    "CPUPlace", "CUDAPlace", "CheckpointConfig", "DistStrategy", "DistributeTranspiler",
+    "DistributeTranspilerConfig", "Event", "Executor", "GuardPolicy", "HashName",
+    "Inferencer", "LayerHelper", "ParamAttr", "Program", "RoundRobin", "Scope", "Trainer",
+    "WeightNormParamAttr", "amp", "amp_guard", "analysis", "append_backward", "backward",
+    "build", "calc_gradient", "clip", "create_parameter", "create_variable", "data",
+    "default_main_program", "default_startup_program", "enable_determinism", "evaluator",
+    "fit", "framework", "global_scope", "initializer", "io", "layers",
+    "lr_scheduler", "memory_optimize", "metrics", "models", "name_scope", "nets",
+    "optimizer", "parallel", "program_guard", "quantize", "regularizer", "release_memory",
+    "resilience", "scope_guard", "transpiler",
 ]

@@ -1,6 +1,7 @@
-"""Datasets (counterpart of ``paddle_tpu.data.datasets``; so far MNIST,
-the Criteo-style CTR data, MovieLens and the text and regression sets of
-the recurrent family (uci_housing, imdb, wmt16, wmt14, conll05,
+"""Datasets (counterpart of ``paddle_tpu.data.datasets``, every one of
+its sets: MNIST, CIFAR-10 and CIFAR-100, flowers, VOC2012, the
+Criteo-style CTR data, MovieLens, MQ2007 and the text and regression sets
+of the recurrent family (uci_housing, imdb, wmt16, wmt14, conll05,
 imikolov, sentiment), copied so that each yields the same arrays bit for
 bit).
 
@@ -335,3 +336,109 @@ def wmt14(split: str = "train", dict_size: int = 30000, seq_len: int = 24,
     30K dict size."""
     return wmt16(split, src_vocab=dict_size, trg_vocab=dict_size, seq_len=seq_len,
                  synthetic_size=synthetic_size)
+
+
+# ---------------------------------------------------------------------------
+# cifar / flowers / voc2012 (dataset/{cifar,flowers,voc2012}.py analogs)
+# ---------------------------------------------------------------------------
+
+
+def cifar10(split: str = "train", synthetic_size: int = 1024) -> Callable:
+    """Yields (image[3*32*32] float in [0,1], label); the python-pickle
+    batches under ``DATA_HOME/cifar-10-batches-py`` when present."""
+    import pickle
+    base = os.path.join(DATA_HOME, "cifar-10-batches-py")
+    files = ([os.path.join(base, f"data_batch_{i}") for i in range(1, 6)]
+             if split == "train" else [os.path.join(base, "test_batch")])
+    if all(os.path.exists(f) for f in files):
+        def reader():
+            for fp in files:
+                with open(fp, "rb") as f:
+                    d = pickle.load(f, encoding="bytes")
+                for x, y in zip(d[b"data"], d[b"labels"]):
+                    yield x.astype(np.float32) / 255.0, np.int64(y)
+        reader.synthetic = False
+        return reader
+
+    def reader():
+        yield from _synthetic_classification(synthetic_size, (3 * 32 * 32,), 10, centers_seed=2,
+                                             noise_seed=2 if split == "train" else 3)
+    reader.synthetic = True
+    return reader
+
+
+def cifar100(split: str = "train", synthetic_size: int = 1024) -> Callable:
+    """Yields (image[3*32*32] float in [0,1], fine label 0..99)."""
+    def reader():
+        for x, y in _synthetic_classification(
+                synthetic_size, (3 * 32 * 32,), 100, centers_seed=7,
+                noise_seed=20 if split == "train" else 21):
+            yield np.clip(0.25 * x + 0.5, 0.0, 1.0), y
+    reader.synthetic = True
+    return reader
+
+
+def flowers(split: str = "train", synthetic_size: int = 256,
+            image_hw: Tuple[int, int] = (224, 224)) -> Callable:
+    """dataset/flowers.py (102-category Oxford flowers): yields
+    (image [3*h*w] float in [0,1], label 0..101)."""
+    h, w = image_hw
+
+    def reader():
+        for x, y in _synthetic_classification(
+                synthetic_size, (3 * h * w,), 102, centers_seed=9,
+                noise_seed=30 if split == "train" else 31):
+            yield np.clip(0.25 * x + 0.5, 0.0, 1.0), y
+    reader.synthetic = True
+    return reader
+
+
+def voc2012(split: str = "train", synthetic_size: int = 64,
+            image_hw: Tuple[int, int] = (128, 128), num_classes: int = 21) -> Callable:
+    """dataset/voc2012.py (segmentation): yields (image [3,h,w] float,
+    label mask [h,w] int in [0, 21)). The synthetic masks are rectangles
+    of one class whose pixels carry a signal of it."""
+    h, w = image_hw
+
+    def reader():
+        rng = np.random.RandomState(40 if split == "train" else 41)
+        for _ in range(synthetic_size):
+            cls = rng.randint(1, num_classes)
+            img = rng.rand(3, h, w).astype(np.float32) * 0.2
+            mask = np.zeros((h, w), np.int64)
+            y0, x0 = rng.randint(0, h // 2), rng.randint(0, w // 2)
+            y1, x1 = y0 + h // 3, x0 + w // 3
+            mask[y0:y1, x0:x1] = cls
+            img[:, y0:y1, x0:x1] += cls / num_classes
+            yield img, mask
+    reader.synthetic = True
+    return reader
+
+
+def mq2007(split: str = "train", format: str = "pairwise", n_queries: int = 256,
+           docs_per_query: int = 8, feat_dim: int = 46) -> Callable:
+    """dataset/mq2007.py (LETOR learning to rank). Synthetic queries whose
+    relevance is a quantized linear score of the 46 features:
+    - pointwise: yields (feature [46], score)
+    - pairwise:  yields (d_high [46], d_low [46]) for every ordered pair
+    - listwise:  yields (label list, feature list) a query
+    """
+    def reader():
+        rng = np.random.RandomState(70 if split == "train" else 71)
+        w = np.random.RandomState(72).randn(feat_dim).astype(np.float32)
+        for _ in range(n_queries):
+            feats = rng.randn(docs_per_query, feat_dim).astype(np.float32)
+            raw = feats @ w
+            labels = np.digitize(raw, np.quantile(raw, [0.5, 0.8])).astype(np.float32)
+            if format == "pointwise":
+                for f, lab in zip(feats, labels):
+                    yield f, lab
+            elif format == "pairwise":
+                for i in range(docs_per_query):
+                    for j in range(docs_per_query):
+                        if labels[i] > labels[j]:
+                            yield feats[i], feats[j]
+            else:
+                yield labels.tolist(), [f for f in feats]
+    reader.synthetic = True
+    return reader

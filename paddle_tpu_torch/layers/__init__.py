@@ -6,9 +6,11 @@ modules of the GPT slices (stacked blocks, greedy search); and the
 recurrent family: the dynamic LSTM/GRU, the sequence ops and
 ``LoDTensor``, the CRF, control flow and ``beam_search_decode_lod``; and
 the IO surface (``io``: ``data``, ``py_reader``, ``open_files`` over
-recordio shards, ``double_buffer``...)."""
+recordio shards, ``double_buffer``...); and the CTC family and the
+detection ops (``warpctc``, ``multi_box_head``, ``detection_output``...)."""
 
-from . import attention, beam_search, control_flow, crf, io, nn, ops, rnn, sequence, tensor
+from . import attention, beam_search, control_flow, crf, ctc, detection, io, nn, ops, rnn
+from . import sequence, tensor
 from .beam_search import beam_search_decode, beam_search_decode_lod
 from .control_flow import (
     DynamicRNN,
@@ -23,6 +25,29 @@ from .control_flow import (
     create_array,
 )
 from .crf import crf_decoding, linear_chain_crf
+from .ctc import ctc_greedy_decoder, edit_distance, warpctc
+from .detection import (
+    anchor_generator,
+    bipartite_match,
+    box_coder,
+    density_prior_box,
+    detection_map,
+    detection_output,
+    generate_proposal_labels,
+    generate_proposals,
+    iou_similarity,
+    multi_box_head,
+    multiclass_nms,
+    polygon_box_transform,
+    prior_box,
+    roi_align,
+    roi_perspective_transform,
+    roi_pool,
+    rpn_target_assign,
+    ssd_loss,
+    target_assign,
+    yolo_box,
+)
 from .io import (
     Preprocessor,
     PyReader,
@@ -87,4 +112,4 @@ from ..lr_scheduler import (
     piecewise_decay,
     polynomial_decay,
 )
-from ..metrics import accuracy
+from ..metrics import accuracy, auc, chunk_eval

@@ -1,7 +1,16 @@
-"""Deterministic fault injection for the serving fleet (counterpart of
-the serving half of ``paddle_tpu.testing.faults``; the training half,
-the crash points, NaN readers and membership meshes, comes with ROADMAP
-item 26).
+"""Deterministic fault injection (counterpart of
+``paddle_tpu.testing.faults``), every fault exactly reproducible.
+
+- **Bad batches**: :func:`nan_batch_reader` poisons one batch of a reader
+  with NaN/Inf at an exact batch index, :func:`nan_feed` one feed (they
+  drive the Trainer's guard).
+- **Scripted crashes**: :func:`crash_at_step` (an event handler that dies
+  after step k), :func:`crashing` (arms a named
+  :func:`~paddle_tpu_torch.resilience.crash_point` in the save path, so a
+  kill mid-save happens at an exact phase) and :func:`acting` (runs a side
+  effect at a crash point without dying there).
+- **Membership changes**: :func:`visible_devices` and
+  :func:`membership_meshes` give the devices and meshes of a worker count.
 
 - **Artifact corruption**: :func:`truncate_file` / :func:`flip_byte`
   tear a committed checkpoint or inference artifact the way a torn disk
@@ -20,17 +29,136 @@ item 26).
   :func:`heal` and :func:`slow_link` (a delay per chunk); and
   :func:`kill_process` (a real SIGKILL of a replica process).
 - **A slow host-to-device link**: :func:`slow_h2d`, a ``DeviceFeeder``
-  completion wait (the one piece of the training half that the feeder's
-  staging ring needs).
+  completion wait for its staging ring.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import socket
 import threading
 import time
-from typing import Callable, Optional
+from typing import Callable, Dict, Iterator, Optional
+
+import numpy as np
+
+from .. import resilience
+
+InjectedCrash = resilience.InjectedCrash
+
+
+# -- bad batches ---------------------------------------------------------------
+
+
+def nan_batch_reader(reader: Callable[[], Iterator], at_batch: int,
+                     column: int = 0, value: float = float("nan")):
+    """Wrap a paddle-style reader (``reader() -> iterator of sample
+    lists``): batch ``at_batch`` (0-based) has ``value`` splatted over
+    sample column ``column`` (an integer column as float64). The same
+    batch every epoch."""
+
+    def poisoned():
+        for i, samples in enumerate(reader()):
+            if i == at_batch:
+                samples = [
+                    tuple(np.full_like(np.asarray(v, dtype=np.float64)
+                                       if np.asarray(v).dtype.kind in "iu"
+                                       else np.asarray(v), value)
+                          if j == column else v
+                          for j, v in enumerate(s))
+                    for s in samples]
+            yield samples
+    return poisoned
+
+
+def nan_feed(feed: Dict[str, np.ndarray], name: str,
+             value: float = float("nan")) -> Dict[str, np.ndarray]:
+    """A copy of a feed dict with ``name`` wholly non-finite (f32)."""
+    out = dict(feed)
+    out[name] = np.full_like(np.asarray(feed[name], dtype=np.float32), value)
+    return out
+
+
+# -- scripted crashes ----------------------------------------------------------
+
+
+def crash_at_step(step: int, kind: str = "end_step"):
+    """Event handler for ``fit``: raises :class:`InjectedCrash` once the
+    event ``kind`` comes at step ``step`` or later, the in-process stand-in
+    for ``kill -9`` between steps (checkpoints on disk stay as a real crash
+    leaves them)."""
+
+    def handler(event):
+        if event.kind == kind and event.step >= step:
+            raise InjectedCrash(f"scripted crash at step {event.step}")
+    return handler
+
+
+@contextlib.contextmanager
+def crashing(tag: str):
+    """Arm crash point ``tag`` for the block: the next time the save path
+    reaches it, :class:`InjectedCrash` is raised there."""
+    resilience.crash_points.add(tag)
+    try:
+        yield
+    finally:
+        resilience.crash_points.discard(tag)
+
+
+@contextlib.contextmanager
+def acting(tag: str, callback: Callable[[], None], once: bool = True):
+    """Run ``callback()`` when crash point ``tag`` fires, without raising
+    there: the process under test runs on while something else dies at an
+    exact phase (a pserver stopped mid-shard-split). ``once`` disarms it
+    after the first firing. Yields a one-element list, the firing count."""
+    fired = [0]
+
+    def _cb():
+        if once and fired[0]:
+            return
+        fired[0] += 1
+        callback()
+
+    resilience.crash_callbacks[tag] = _cb
+    try:
+        yield fired
+    finally:
+        resilience.crash_callbacks.pop(tag, None)
+
+
+# -- membership changes --------------------------------------------------------
+
+
+def visible_devices(n: int):
+    """The first ``n`` of the process's devices of the default type: the
+    CUDA cards when there are any, else the CPU world (one ``cpu`` device a
+    rank of the running gloo world, or the one CPU). Raises ``ValueError``
+    past the count."""
+    import torch
+    import torch.distributed as dist
+
+    if torch.cuda.is_available():
+        devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    else:
+        world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+        devs = [torch.device("cpu")] * world
+    if not 1 <= int(n) <= len(devs):
+        raise ValueError(f"visible_devices({n}): process has {len(devs)} "
+                         "devices")
+    return devs[:int(n)]
+
+
+def membership_meshes(counts, axis: str = "dp"):
+    """One ``{axis: n}`` mesh for each entry of ``counts``, each over the
+    ranks of :func:`visible_devices` (n), built by ``parallel.make_mesh``:
+    the same counts give the same meshes every run. The port's mesh covers
+    every rank of its world (one process a device), so a count is the
+    world's size; a drill that changes the count starts a new world."""
+    from ..parallel.mesh import make_mesh
+
+    return [make_mesh({axis: int(n)}, devices=list(range(len(visible_devices(int(n))))))
+            for n in counts]
 
 
 # -- artifact corruption -------------------------------------------------------

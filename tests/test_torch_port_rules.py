@@ -100,7 +100,10 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.telemetry", "paddle_tpu_torch.telemetry.journal",
             "paddle_tpu_torch.telemetry.registry", "paddle_tpu_torch.telemetry.recorder",
             "paddle_tpu_torch.telemetry.http", "paddle_tpu_torch.telemetry.shipper",
-            "paddle_tpu_torch.profiling", "paddle_tpu_torch.profiling.steptime"]
+            "paddle_tpu_torch.profiling", "paddle_tpu_torch.profiling.steptime",
+            "paddle_tpu_torch.layers.ctc", "paddle_tpu_torch.layers.detection",
+            "paddle_tpu_torch.evaluator", "paddle_tpu_torch.backward",
+            "paddle_tpu_torch.transpiler"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -149,6 +152,7 @@ def _entry_points(tmp_path):
     decode.export_decoder(art, _tiny_cfg(), 2, prompts, device="cpu")
     from paddle_tpu_torch import (Executor, Inferencer, Trainer, build, data, fit, framework,
                                   layers, optimizer, parallel)
+    from paddle_tpu_torch.layers import detection
     from paddle_tpu_torch.models import mnist
     sample = {"image": np.zeros((2, 784), np.float32), "label": np.zeros((2, 1), np.int64)}
     mlp_params = {k: np.zeros(v.shape, np.float32) for k, v in
@@ -259,6 +263,9 @@ def _entry_points(tmp_path):
             optimizer.Adam(1e-3), strategy=parallel.DistStrategy(pp_microbatches=2)),
         # refuses before it connects: no server listens at this address
         "AsyncPSTrainer": lambda: parallel.AsyncPSTrainer(build(mnist.mlp), ("127.0.0.1", 9)),
+        "detection.prior_box": lambda: detection.prior_box((2, 2), (8, 8), [4.0]),
+        "detection.density_prior_box": lambda: detection.density_prior_box(
+            (2, 2), (8, 8), [4.0], [1.0], [1]),
     }
 
 
@@ -288,7 +295,8 @@ def _cuda_mesh(parallel):
                                    "seq2seq.make_decoder", "create_lod_tensor",
                                    "beam_search_decode_lod", "parallel.initialize",
                                    "Trainer_mesh", "Trainer_moe", "Trainer_pipeline",
-                                   "io.load_sharded", "AsyncPSTrainer"])
+                                   "io.load_sharded", "AsyncPSTrainer",
+                                   "detection.prior_box", "detection.density_prior_box"])
 def test_entry_points_refuse_to_run_without_a_card(tmp_path, entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the entry points run on it")

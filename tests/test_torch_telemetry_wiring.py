@@ -18,6 +18,7 @@ CPU.
 Each test takes a fresh journal in both packages and roots both flight
 recorders under its temporary directory."""
 
+import contextlib
 import os
 import signal
 
@@ -48,8 +49,8 @@ from paddle_tpu_torch.models import mnist as tmnist
 CPU = "cpu"
 BATCHES, BATCH = 5, 16
 NAN_BATCH = 1
-@pytest.fixture()
-def fresh(tmp_path):
+@contextlib.contextmanager
+def _fresh_journals(tmp_path):
     """A fresh process journal in each package, both flight recorders
     rooted under ``tmp_path / <package>``."""
     saved = []
@@ -63,6 +64,12 @@ def fresh(tmp_path):
         for tel, journal, root in saved:
             tel.get_recorder().set_root(root)
             tel.set_journal(journal).close()
+
+
+@pytest.fixture()
+def fresh(tmp_path):
+    with _fresh_journals(tmp_path) as journals:
+        yield journals
 
 
 def _reader():
@@ -87,10 +94,22 @@ def _shape(journal):
     return [(e["kind"], sorted(e)) for e in journal.recent()]
 
 
-def _trainer_families(tel, trainer):
+def _families_now(tel):
+    """{family name: its samples} of the package's process-global registry."""
+    return {f.name: repr(f.samples) for f in tel.get_registry().collect()}
+
+
+def _trainer_families(tel, trainer, before):
+    """The trainer and feeder families that this run registered or moved
+    since ``before`` (a :func:`_families_now` snapshot), and every family
+    labelled with this trainer's ``inst``. The registry outlives a test: a
+    family that an earlier test of the process registered and this run left
+    alone (an elastic test's ``paddle_tpu_trainer_resizes_total``) is not
+    this run's."""
     return sorted({f.name for f in tel.get_registry().collect()
-                   if f.name.startswith("paddle_tpu_trainer_")
-                   or f.name.startswith("paddle_tpu_feeder_")
+                   if ((f.name.startswith("paddle_tpu_trainer_")
+                        or f.name.startswith("paddle_tpu_feeder_"))
+                       and before.get(f.name) != repr(f.samples))
                    or any(lab.get("inst") == trainer.telemetry_inst
                           for lab, _ in f.samples)})
 
@@ -128,9 +147,37 @@ def _run_fit(pkg, tmp_path, case):
 
 @pytest.mark.parametrize("case", ["preempt", "escalate"])
 def test_fit_journal_dumps_and_families_equal_jax(fresh, tmp_path, case):
+    _fit_against_jax(fresh, tmp_path, case)
+
+
+def test_families_equal_jax_after_a_port_resize_in_the_process(tmp_path):
+    """The comparison above holds after a port ``fit`` that handled a
+    scheduled resize in the same process, whose
+    ``paddle_tpu_trainer_resizes_total`` the port's registry keeps and the
+    JAX package's does not have."""
+    tr = tpt.Trainer(tpt.build(tmnist.mlp), topt.SGD(0.05), place=CPU)
+    tr.startup(0, sample_feed=_sample())
+    rz = tres.ResizeRequest(str(tmp_path / "resize.json"))
+
+    def handler(ev):
+        if ev.kind == "end_step" and ev.step == 1:
+            rz.request({"dp": 2})
+
+    tpt.fit(tr, _reader(), 1, ["image", "label"], event_handler=handler, resize=rz,
+            checkpoint_config=tpt.CheckpointConfig(str(tmp_path / "resized"),
+                                                   step_interval=100),
+            prefetch=False)
+    assert tr.global_step == 1
+    assert "paddle_tpu_trainer_resizes_total" in _families_now(ttel)
+    with _fresh_journals(tmp_path / "after") as journals:
+        _fit_against_jax(journals, tmp_path / "after", "preempt")
+
+
+def _fit_against_jax(fresh, tmp_path, case):
     import importlib
 
     tool = importlib.import_module("tools.flight_dump")
+    before = {"jax": _families_now(jtel), "port": _families_now(ttel)}
     runs = {pkg: _run_fit(pkg, tmp_path, case) for pkg in ("jax", "port")}
     shapes = {pkg: _shape(fresh[pkg]) for pkg in runs}
     assert shapes["port"] == shapes["jax"]
@@ -149,7 +196,7 @@ def test_fit_journal_dumps_and_families_equal_jax(fresh, tmp_path, case):
         assert [e["kind"] for e in events][-1] == want_last
         assert meta["trigger"] == dumps[pkg][-1]
     assert dumps["port"] == dumps["jax"]
-    fams = {pkg: _trainer_families(tel, runs[pkg][0])
+    fams = {pkg: _trainer_families(tel, runs[pkg][0], before[pkg])
             for pkg, tel in (("jax", jtel), ("port", ttel))}
     assert fams["port"] == fams["jax"]
     assert "paddle_tpu_trainer_dispatches_total" in fams["port"]
