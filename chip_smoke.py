@@ -175,20 +175,21 @@ Phases, each reported on its own lines; any failure exits non-zero:
    12 (b)'s captured ones against the module's last readings on the
    card (quoted), within 3% on a 700 W card; (b) ``DistStrategy(remat=True,
    remat_policy=p)`` at phase 7's config for None, "nothing",
-   "dots_no_batch", "dots" and "everything", and remat off, captured
-   (K=2): peak memory in the order nothing < dots_no_batch <= dots <
-   everything ~ off and what each setting leaves allocated, ms a step,
-   the flash forward's launches a step (12, or 24 recomputed), the steps'
-   losses, one batch's grads and the params after the steps against
-   remat off; the remat-off trainer's scope served by
-   ``build(gpt.make_generator(...))``; (c)
+   "dots_no_batch", "dots" and "everything", and remat off, on one
+   trainer, measured by the profiling advisor: ``compiled_memory_usage``'s
+   measured ``temp_mb`` in the order nothing <= dots_no_batch <= dots <
+   everything ~ off, ``memory_estimate``'s activations, the flash
+   forward's launches a step (12, or 24 recomputed), one batch's loss and
+   grads against remat off, ``verify_remat(policy="dots")``; the
+   remat-off trainer's scope served by ``build(gpt.make_generator(...))``;
+   (c)
    ``TransformerConfig(stacked=True)`` at bench.py's ``BENCH_STACKED=1``
-   config, eager against captured (K=4) bit for bit beside phase 11 (b)'s
-   unrolled model, and stacked transformer_long (K=2) with every flash
+   config, eager against captured (K=4) bit for bit, and stacked
+   transformer_long (K=2) with every flash
    call of its eager steps (the stacked decoder's cross attention under
    the source's key bias among them) held against the plain versions;
-   (d) ``DistStrategy(accum_steps=a)`` at phase 7's config for a = 1, 2,
-   4, captured (K=2): peak memory, ms a step, the steps' losses, one
+   (d) ``DistStrategy(accum_steps=a)`` at phase 7's config for a = 1 and
+   2, captured (K=2): peak memory, ms a step, the steps' losses, one
    batch's grads and the params after the steps against a = 1, a planted
    fault (a microbatch's grads dropped) outside those limits, the flash
    calls at the microbatches' shapes held against the plain versions;
@@ -426,6 +427,24 @@ Phases, each reported on its own lines; any failure exits non-zero:
    ``roi_align``, ``generate_proposals``, ``yolo_box``,
    ``roi_perspective_transform`` and ``DetectionMAP`` against the CPU.
    Launch counts are zeroed around the phase (``detection_ctc``: none).
+27. profiling (``profiling/fusion.py``, ``steptime.py``, ``advisor.py``,
+   ``debugger.py``, ``core/profiler.py``; the Trainer's ``fusion_report``,
+   ``profile_report`` and ``export_trace``, ``fit(profile_interval_steps=)``):
+   (a) bench.py's ``fusion_profile`` row (Transformer-base, vocab 4000,
+   seq 128, dropout 0, bf16, fused CE, Adam(1e-3), batch 16: one warm-up
+   step, ``reset_profile``, 8 steps, ``fusion_report(feed, top_k=8)`` and
+   ``profile_report()``): the top 8 units with their device µs, coverage,
+   breakdown and bottleneck, ``temp_mb``; the units' device µs against the
+   profiled step's device time; the trainer's state bit-equal across the
+   report; (b) bench_gpt's GPT-base: the step's kernel table, the three
+   flash kernels as units with 12 launches each and their share of the
+   step's device time, ``advise`` against ``device_hbm_bytes()`` and
+   ``verify_remat(policy="dots")`` measured; (c) MNIST MLP
+   ``fit(steps_per_dispatch=4, profile_interval_steps=6)`` on the card
+   and on the CPU, the ``"profile"`` events' global steps equal;
+   ``export_trace``; a ``core.profiler.profiler(trace_dir)`` block's device
+   trace with CUDA kernel events. Launch counts are zeroed around the phase
+   (``profiling``).
 
 The last lines are a JSON ``kernels`` record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -657,17 +676,19 @@ INT8_SCORE_TOL, INT8_IDS_SHARE = 1e-3, 0.875
 # module GPT's, which this script read at its last run before GPT became a
 # build program (NVIDIA H100 80GB HBM3, 700.00 W: quoted, not measured here),
 # device time a step within BUILD_DEVICE_TOL of it on a 700 W card; (b)
-# DistStrategy(remat=True, remat_policy=p) at phase 7's config, captured,
-# K=REMAT_K, REMAT_DISPATCHES timed dispatches each, peak memory over the
-# first dispatch (its capture: a warm-up that copies the training state,
-# the same for every setting); against the remat-off run: the K steps'
-# losses at BF16_ROUNDING (relative), the grads of one forward and backward
-# from the initial params (L2 distance over their norm) and the params
-# after the K steps (L2 distance over the remat-off params' move from their
-# initial values) each at REMAT_TOL, far below the 1 that zeroed grads give
-# and the 0.5 of halved ones (bit-equality reported); what each setting
-# leaves allocated after its trainer is gone within ALLOC_GROWTH_GB of what
-# the first left (less than one cuBLAS workspace);
+# DistStrategy(remat=True, remat_policy=p) at phase 7's config, on one
+# trainer, measured by the profiling advisor (debugger.compiled_memory_usage:
+# one eager step's peak allocation over what was allocated before it, the
+# step restored; memory_estimate's activations), then one untimed captured
+# dispatch of K=REMAT_K steps from the initial state; against remat off:
+# the K steps' losses at BF16_ROUNDING (relative), the grads of one forward
+# and backward from the initial params (L2 distance over their norm) and
+# the params after the K steps (L2 distance over the remat-off params' move
+# from their initial values) each at REMAT_TOL, far below the 1 that zeroed
+# grads give and the 0.5 of halved ones; what each setting leaves allocated
+# after its graph is dropped within ALLOC_GROWTH_GB of what remat off left
+# (less than one cuBLAS workspace); verify_remat(policy="dots") from the
+# remat-off trainer;
 # the trained scope then served by the generator program (HANDOFF_PROMPT prompt
 # tokens, HANDOFF_NEW new ones, bucket 2), captured against eager; (c) the
 # stacked Transformer at bench.py's BENCH_STACKED=1 config (phase 11 (b)'s,
@@ -689,7 +710,7 @@ BUILD_DEVICE_TOL = 0.03
 REMAT_SETTINGS = ("off", None, "nothing", "dots_no_batch", "dots", "everything")
 REMAT_K, REMAT_DISPATCHES = 2, 3
 HANDOFF_PROMPT, HANDOFF_NEW = 16, 8
-ACCUM_STEPS, RESNET_ACCUM_STATE_TOL = (1, 2, 4), 1e-2
+ACCUM_STEPS, RESNET_ACCUM_STATE_TOL = (1, 2), 1e-2
 BF16_ROUNDING, REMAT_TOL, ALLOC_GROWTH_GB = 2.0 ** -8, 1e-3, 0.016
 # near the geometric means of the sound readings (accum 2 and 4: grads
 # 0.0024, params 0.033 of the move) and the planted fault's (0.71, 0.85) on
@@ -4511,108 +4532,128 @@ def _peak_gb(fn):
 
 def remat_policies(dev, seed, card_name):
     """(b) Phase 7's bf16 GPT-base under DistStrategy(remat=True,
-    remat_policy=p) for each policy, and with remat off, each from one
-    seed: the peak memory of one training forward and backward (before
-    any update: what the policy keeps) and its grads, then K=REMAT_K steps
-    captured, the peak over that first dispatch (its warm-up copies the
-    training state, and the update's new state outlasts the activations),
-    the flash forward's launches a step body (12, or 24 where the blocks
-    are recomputed), the K steps' losses and the params after them, and ms
-    a step over REMAT_DISPATCHES more dispatches. Against remat off: the
-    losses at BF16_ROUNDING, the grads and the params' move at REMAT_TOL.
-    The forward and backward's rise in memory and the dispatch's peak in
-    the order nothing < dots_no_batch <= dots < everything, which equals
-    off; what a setting leaves allocated does not grow from setting to
-    setting."""
+    remat_policy=p) for each policy, and with remat off, on one trainer
+    from one seed (its strategy set before each setting, every setting
+    from the initial state). Measured by the profiling advisor:
+    ``debugger.compiled_memory_usage`` runs one eager step and restores it
+    (``temp_mb``: the step's peak allocation over what was allocated
+    before it), counting the flash forward's launches in it (12, or 24
+    where the blocks are recomputed); ``memory_estimate(project_remat=
+    False)`` counts what the policy's forward holds for the backward. One
+    forward and backward gives the loss and the grads; one untimed
+    dispatch of K=REMAT_K captured steps (``isolated_step`` puts the state
+    back after it) gives the K losses, the params after them and the flash
+    launches a captured step body. Against remat off: the losses at
+    BF16_ROUNDING, the grads and the params' move at REMAT_TOL. The
+    measured temp_mb in the order nothing < dots_no_batch <= dots <
+    everything ~ off, the estimate nothing < dots_no_batch <= dots <
+    everything = off; what each setting leaves allocated (its graph
+    dropped) within ALLOC_GROWTH_GB of what off left. Then
+    ``verify_remat(policy="dots")`` from the remat-off trainer (its second
+    trainer built from the same params) lowers the measured temp_mb; the
+    remat-off scope served by ``build(gpt.make_generator(...))``."""
     import gc
     import numpy as np
     import torch
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.models import gpt
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.profiling.fusion import isolated_step
 
     cfg = gpt.base_config(**TRAIN)
     feeds = _train_feeds(np.random.RandomState(0), REMAT_K, TRAIN_BATCH, TRAIN_SEQ,
                          cfg.vocab_size)
-    rows, ref = {}, None
+    tr = _trainer(cfg, dev).startup(seed, sample_feed=feeds[0])
+    stacked = tr._put_feed(pt.data.stack_batches(feeds))
+    first = {k: v[0] for k, v in stacked.items()}
+    base = tr.global_step
+    rows, ref = {}, {"init": _host_tree(tr.scope.params)}
     for policy in REMAT_SETTINGS:
-        gc.collect()
-        torch.cuda.empty_cache()
-        allocated = torch.cuda.memory_allocated() / 1e9
-        strategy = None if policy == "off" else pt.DistStrategy(remat=True,
-                                                                 remat_policy=policy)
-        tr = _trainer(cfg, dev, strategy).startup(seed, sample_feed=feeds[0])
-        stacked = tr._put_feed(pt.data.stack_batches(feeds))
-        first = {k: v[0] for k, v in stacked.items()}
-        _, _, run_gb = _peak_gb(lambda: tr._forward_backward(first, tr._rng.reset(seed),
-                                                             tr.scope.state))
+        tr.strategy = None if policy == "off" else pt.DistStrategy(remat=True,
+                                                                  remat_policy=policy)
+        out, _ = tr._forward_backward(first, tr._rng.reset(seed), tr.scope.state)
         grads = _take_grads(tr)
+        loss = float(out["loss"])
         if policy == "off":
-            ref = {"init": _host_tree(tr.scope.params), "grads": _host_tree(grads)}
+            ref.update(grads=_host_tree(grads), loss=loss)
             ref["grad_norm"] = _tree_dist(ref["grads"])
         grad_rel = _tree_dist(grads, ref["grads"]) / ref["grad_norm"]
-        del grads
+        del grads, out
         before = _launch_counts(fa)
-        outs, dispatch_gb, _ = _peak_gb(lambda: tr.run_steps(stacked))
-        body = {n: (v - before[n]) / _captured_step_runs()
-                for n, v in _launch_counts(fa).items()}
-        # the K steps of the first dispatch, and the params after them
-        losses = outs["loss"].float().cpu()
-        if policy == "off":
-            ref.update(losses=losses, params=_host_tree(tr.scope.params))
-            ref["move"] = _tree_dist(ref["params"], ref["init"])
-        param_rel = _tree_dist(tr.scope.params, ref["params"]) / ref["move"]
-        t0 = time.perf_counter()
-        for _ in range(REMAT_DISPATCHES):
-            tr.run_steps(stacked)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) / (REMAT_DISPATCHES * REMAT_K) * 1e3
-        if policy == "off":
-            _gpt_handoff(tr, cfg, dev, seed, card_name)
-        del tr, stacked, first, outs
+        mem = pt.debugger.compiled_memory_usage(tr, first)
+        eager = {n: v - before[n] for n, v in _launch_counts(fa).items()}
+        est = pt.profiling.memory_estimate(tr, first, project_remat=False)
+        with isolated_step(tr, first):
+            before = _launch_counts(fa)
+            losses = tr.run_steps(stacked)["loss"].float().cpu()
+            body = {n: (v - before[n]) / _captured_step_runs()
+                    for n, v in _launch_counts(fa).items()}
+            if policy == "off":
+                ref.update(losses=losses, params=_host_tree(tr.scope.params))
+                ref["move"] = _tree_dist(ref["params"], ref["init"])
+            param_rel = _tree_dist(tr.scope.params, ref["params"]) / ref["move"]
+        tr.global_step = base
+        tr._fused = None  # the setting's graph and its pool
+        for p in tr.scope.params.values():
+            p.grad = None
         gc.collect()
         torch.cuda.empty_cache()
-        rows[policy] = {"allocated_gb": allocated,
-                        "left_gb": torch.cuda.memory_allocated() / 1e9, "run_gb": run_gb,
-                        "dispatch_gb": dispatch_gb, "ms": ms, "body": body,
-                        "losses": losses, "grad_rel": grad_rel, "param_rel": param_rel}
+        rows[policy] = {"temp_mb": mem["temp_mb"], "source": mem["source"],
+                        "act_mb": est["activation_bytes"] / 1e6, "eager": eager,
+                        "body": body, "loss": loss, "losses": losses,
+                        "loss_rel": float(((losses - ref["losses"]).abs()
+                                           / ref["losses"].abs()).max()),
+                        "grad_rel": grad_rel, "param_rel": param_rel,
+                        "left_gb": torch.cuda.memory_allocated() / 1e9}
+    tr.strategy = None
     for policy, r in rows.items():
-        r["loss_rel"] = float(((r["losses"] - ref["losses"]).abs()
-                               / ref["losses"].abs()).max())
-        r["bits"] = (torch.equal(r["losses"], ref["losses"]) and r["grad_rel"] == 0
-                     and r["param_rel"] == 0)
-        say(f"phase 14 (b) remat {policy!r} ({card_name}): allocated before the setting "
-            f"{r['allocated_gb']:.4f} GB, after it {r['left_gb']:.4f} GB; a training forward and backward raises memory by "
-            f"{r['run_gb']:.3f} GB; peak over the first captured dispatch "
-            f"{r['dispatch_gb']:.3f} GB; {r['ms']:.4f} ms a captured step (K={REMAT_K}); "
-            f"launches a step {r['body']}; losses {r['losses'].tolist()}, rel to off "
-            f"{r['loss_rel']:.3g} (tol {BF16_ROUNDING:.3g}); first grads' L2 distance to "
-            f"off's {r['grad_rel']:.3g} of their norm, params' after {REMAT_K} steps "
-            f"{r['param_rel']:.3g} of off's move from the initial params (off's move "
-            f"{ref['move']:.4g}; tol {REMAT_TOL}); bit-equal to off {r['bits']}")
+        say(f"phase 14 (b) remat {policy!r} ({card_name}): compiled_memory_usage temp_mb "
+            f"{r['temp_mb']:.3f} ({r['source']}); memory_estimate's activations "
+            f"{r['act_mb']:.3f} MB; launches an eager step {r['eager']}, a captured step "
+            f"{r['body']}; loss {r['loss']:.6f}; the first captured dispatch's losses "
+            f"{r['losses'].tolist()}, rel to off {r['loss_rel']:.3g} (tol "
+            f"{BF16_ROUNDING:.3g}); grads' L2 distance to off's {r['grad_rel']:.3g} of their "
+            f"norm, params' after {REMAT_K} steps {r['param_rel']:.3g} of off's move from "
+            f"the initial params (off's move {ref['move']:.4g}; tol {REMAT_TOL}); allocated "
+            f"after the setting {r['left_gb']:.4f} GB")
     layers = cfg.num_layers
     for policy, r in rows.items():
         recompute = policy not in ("off", "everything")
         want = {"flash_fwd": 2 * layers if recompute else layers,
                 "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
-        check(r["body"] == want, f"phase 14 (b): remat {policy!r} launches a step "
-              f"{r['body']}, want {want}")
+        check(r["eager"] == want and r["body"] == want, f"phase 14 (b): remat {policy!r} "
+              f"launches an eager step {r['eager']}, a captured step {r['body']}, want {want}")
+        check(r["source"] == "measured", f"phase 14 (b): remat {policy!r} not measured")
         check(r["loss_rel"] <= BF16_ROUNDING and r["grad_rel"] <= REMAT_TOL
               and r["param_rel"] <= REMAT_TOL,
               f"phase 14 (b): remat {policy!r} trains away from remat off")
         check(r["left_gb"] <= rows["off"]["left_gb"] + ALLOC_GROWTH_GB,
               f"phase 14 (b): remat {policy!r} left {r['left_gb']:.4f} GB allocated, "
               f"against {rows['off']['left_gb']:.4f} after off")
-    # equal programs (dots and dots_no_batch with flash on; everything and
-    # off) may part by the allocator's block rounding: 1%
-    for what, key in (("the forward and backward's rise in memory", "run_gb"),
-                      ("the first captured dispatch's peak memory", "dispatch_gb")):
-        gb = {p: r[key] for p, r in rows.items()}
-        check(gb["nothing"] < gb["dots_no_batch"] <= 1.01 * gb["dots"]
-              and gb["dots"] < gb["everything"]
-              and abs(gb["everything"] - gb["off"]) <= 0.01 * gb["off"],
-              f"phase 14 (b): {what} out of the order nothing < dots_no_batch <= dots < "
-              f"everything ~ off: {gb}")
+    # equal programs (None and nothing; dots and dots_no_batch with flash on;
+    # everything and off) may part by the allocator's block rounding: 1%
+    mb = {p: r["temp_mb"] for p, r in rows.items()}
+    check(mb["nothing"] < mb["dots_no_batch"] <= 1.01 * mb["dots"] < mb["everything"]
+          and abs(mb["everything"] - mb["off"]) <= 0.01 * mb["off"]
+          and abs(mb[None] - mb["nothing"]) <= 0.01 * mb["nothing"],
+          f"phase 14 (b): the measured temp_mb out of the order nothing < dots_no_batch "
+          f"<= dots < everything ~ off: {mb}")
+    act = {p: r["act_mb"] for p, r in rows.items()}
+    check(act["nothing"] == act[None] < act["dots_no_batch"] <= act["dots"]
+          < act["everything"] == act["off"],
+          f"phase 14 (b): the estimated activations out of the order nothing < "
+          f"dots_no_batch <= dots < everything = off: {act}")
+    t0 = time.perf_counter()
+    v = pt.profiling.verify_remat(tr, first, policy="dots")
+    say(f"phase 14 (b) verify_remat(policy='dots') ({card_name}): temp_mb "
+        f"{v['temp_mb_before']:.3f} -> {v['temp_mb_after']:.3f} ({v['memory_source']}), "
+        f"estimated activations {v['est_activation_mb_before']:.3f} -> "
+        f"{v['est_activation_mb_after']:.3f} MB ({time.perf_counter() - t0:.2f} s)")
+    check(v["temp_mb_after"] < v["temp_mb_before"]
+          and v["memory_source"] == ("measured", "measured"),
+          "phase 14 (b): verify_remat's measured temp_mb did not fall under 'dots'")
+    _gpt_handoff(tr, cfg, dev, seed, card_name)
+    del tr, first, stacked
     return rows
 
 
@@ -4620,8 +4661,7 @@ def stacked_transformer(dev, seed, card_name):
     """(c) The stacked Transformer: Transformer-base at bench.py's
     BENCH_STACKED=1 config (phase 11 (b)'s: b=32, s=256, dropout 0.1, bf16,
     Adam, fuse_qkv, fused_ce), eager against captured K=FUSED_K bit for
-    bit, with ms a step, device time and operations a step and peak memory
-    against phase 11 (b)'s unrolled model; then stacked transformer_long
+    bit; then stacked transformer_long
     (b=4, s=4096, dropout 0), eager against captured K=FUSED_LONG_K, every
     flash call of its first eager steps held against the plain versions
     (the stacked decoder's cross attention among them)."""
@@ -4652,22 +4692,7 @@ def stacked_transformer(dev, seed, card_name):
     check(same and not differ and finite, "phase 14 (c): stacked run_steps differs from step()")
     check(all(n == 0 for n in launches.values()),
           "phase 14 (c): a flash kernel launched in training at dropout 0.1")
-    staged = [eager._put_feed(f) for f in feeds]
-    times, peaks = _eager_against_captured(eager, fused, staged, stacked, FUSED_DISPATCHES, k)
-    busy = {}
-    ms = _timing_line(f"stacked Transformer-base bf16 b={TR_BATCH} s={TR_SEQ} dropout "
-                      f"{DROPOUT_P}, {FUSED_DISPATCHES} dispatches a turn", times, peaks,
-                      "tokens/s", TR_BATCH * TR_SEQ, card_name, k,
-                      _busy_against(eager, fused, staged, stacked, into=busy))
-    unrolled = READINGS.get("transformer", {})
-    dev_ms, n_ops = busy.get("eager", (0.0, 0))
-    say(f"phase 14 (c) stacked against unrolled Transformer-base ({card_name}): eager "
-        f"{ms['eager']:.4f} ms a step (phase 11 (b) unrolled {unrolled.get('ms', 0):.4f}), "
-        f"captured {ms['captured']:.4f}; device {dev_ms:.2f} ms in {n_ops:.0f} operations a "
-        f"profiled eager step (unrolled {unrolled.get('device_ms', 0):.2f} ms in "
-        f"{unrolled.get('ops', 0)}); peak memory eager {peaks['eager']:.3f} GB (unrolled "
-        f"{unrolled.get('peak_gb', 0):.3f})")
-    del eager, fused, staged, stacked
+    del eager, fused, stacked
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4700,7 +4725,7 @@ def stacked_transformer(dev, seed, card_name):
     del calls
     gc.collect()
     torch.cuda.empty_cache()
-    return {"stacked Transformer-base": ms, "stacked transformer_long": ms_long}, \
+    return {"stacked transformer_long": ms_long}, \
         {n: launches[n] + captured[n] for n in captured}
 
 
@@ -9875,6 +9900,245 @@ def phase_detection_ctc(dev, seed, card_name):
     return launches
 
 
+# -- phase 27: the step's kernel table, the profile report, the advisor --------
+
+# bench.py:1704 bench_fusion_profile: Transformer-base (vocab 4000, seq 128,
+# dropout 0, bf16, fused CE), Adam(1e-3), batch 16, one warm-up step then 8
+FUSION_BATCH, FUSION_SEQ, FUSION_VOCAB, FUSION_ITERS, FUSION_TOP_K = 16, 128, 4000, 8, 8
+# the units' device µs against every device event of the profiled step: a
+# kernel no profiled op launched is the only thing a unit misses
+FUSION_COVER_TOL = 0.02
+# PERF.md §5-§7: the three flash kernels take about 4.5% of a captured
+# GPT-base step's device time, quoted beside (b)'s share
+FLASH_SHARE_QUOTED = 4.5
+FLASH_KERNELS = {"flash_fwd": "flash_fwd_wgmma", "flash_bwd_dq": "flash_bwd_dq_wgmma",
+                 "flash_bwd_dkv": "flash_bwd_dkv_wgmma"}
+# (c): fit's interval profile events, K steps a dispatch, every N steps
+PROFILE_K, PROFILE_N, PROFILE_EPOCHS, PROFILE_BATCHES, PROFILE_BS = 4, 6, 2, 10, 32
+
+
+def _row_line(r):
+    name = r["name"] if len(r["name"]) <= 60 else r["name"][:57] + "..."
+    return (f"{name} [{r['op']} @ {r['source_ops'][0] if r['source_ops'] else '-'}] "
+            f"{r['device_us']:.1f} us in {r['launches']} launches "
+            f"({100 * r['cost_frac']:.2f}%), {r['flops']:.3g} flops, {r['bytes']:.3g} bytes")
+
+
+def fusion_profile_row(dev, seed, card_name):
+    """(a) bench.py's fusion_profile row in the port: its Transformer-base
+    config, Adam(1e-3), one warm-up step, ``reset_profile``, 8 steps, then
+    ``fusion_report(feed, top_k=8)`` and ``profile_report()``: the table,
+    its coverage, the breakdown; the units' device µs against the profiled
+    step's, and the trainer's state bit-equal across the report."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import transformer
+
+    cfg = transformer.base_config(src_vocab=FUSION_VOCAB, trg_vocab=FUSION_VOCAB,
+                                  dropout=0.0, max_len=FUSION_SEQ, dtype="bfloat16",
+                                  fused_ce=True)
+    rng = np.random.RandomState(0)
+    feeds = [{k: rng.randint(3, FUSION_VOCAB, (FUSION_BATCH, FUSION_SEQ)).astype(np.int32)
+              for k in ("src_ids", "trg_ids", "labels")} for _ in range(4)]
+    tr = pt.Trainer(pt.build(transformer.make_model(cfg)), pt.optimizer.Adam(1e-3),
+                    loss_name="loss", fetch_list=["loss"], place=dev)
+    tr.startup(seed, feeds[0])
+    tr.step(feeds[0])
+    torch.cuda.synchronize()
+    tr.reset_profile()
+    for i in range(FUSION_ITERS):
+        out = tr.step(feeds[i % len(feeds)])
+    torch.cuda.synchronize()
+    before, step_before = _state_of(tr), tr.global_step
+    t0 = time.perf_counter()
+    fus = tr.fusion_report(feeds[0], top_k=FUSION_TOP_K)
+    secs = time.perf_counter() - t0
+    prof = tr.profile_report()
+    differ = _states_differ(before, _state_of(tr))
+    share = fus["units_device_us"] / fus["device_us"]
+    say(f"phase 27 (a) fusion_profile: Transformer-base bf16 b={FUSION_BATCH} s={FUSION_SEQ} "
+        f"vocab {FUSION_VOCAB} ({card_name}): loss {float(out['loss']):.5f}; "
+        f"coverage_top_k {fus['coverage_top_k']}, n_units {fus['n_units']}, avg_step_ms "
+        f"{prof['avg_step_ms']}, breakdown {prof['breakdown']}, bottleneck "
+        f"{prof['bottleneck']}, temp_mb {fus['temp_mb']:.3f}; the profiled step "
+        f"{fus['device_us'] / 1e3:.3f} device ms in {fus['device_ops']} operations, its units "
+        f"{fus['units_device_us'] / 1e3:.3f} ms ({100 * share:.3f}%; tol "
+        f"{100 * FUSION_COVER_TOL:g}% short), device events the trace lost "
+        f"{fus['lost_device_events']}; the report took {secs:.2f} s; state leaves "
+        f"differing after it {differ}, global step {tr.global_step} (before {step_before})")
+    for i, r in enumerate(fus["top_fusions"]):
+        say(f"phase 27 (a) top {i + 1}: {_row_line(r)}")
+    check(fus["roofline_source"] == "measured" and 0 < fus["coverage_top_k"] <= 1,
+          "phase 27 (a): the kernel table is not measured")
+    check(abs(1 - share) <= FUSION_COVER_TOL and fus["lost_device_events"] == 0,
+          "phase 27 (a): the units' device time is not the profiled step's")
+    check(not differ and tr.global_step == step_before,
+          "phase 27 (a): fusion_report changed the trainer's state")
+    check(prof["steps"] == FUSION_ITERS and prof["fusion"] is fus
+          and prof["bottleneck"] in prof["breakdown"],
+          "phase 27 (a): profile_report does not carry the window and the table")
+    del tr
+
+
+def gpt_kernel_table(dev, seed, card_name):
+    """(b) bench_gpt's GPT-base: the step's kernel table, the three flash
+    kernels' units (12 launches each) and their share of the step's device
+    time, ``advise`` against the card's memory, and ``verify_remat("dots")``
+    measured."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import gpt
+
+    cfg = gpt.base_config(**TRAIN)
+    feeds = _train_feeds(np.random.RandomState(0), 2, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)
+    tr = _trainer(cfg, dev).startup(seed, sample_feed=feeds[0])
+    tr.step(feeds[1])
+    torch.cuda.synchronize()
+    before = _state_of(tr)
+    t0 = time.perf_counter()
+    fus = tr.fusion_report(feeds[0], top_k=1_000_000)
+    secs = time.perf_counter() - t0
+    differ = _states_differ(before, _state_of(tr))
+    rows = fus["top_fusions"]
+    flash = {n: [r for r in rows if k in r["name"]] for n, k in FLASH_KERNELS.items()}
+    launches = {n: sum(r["launches"] for r in rs) for n, rs in flash.items()}
+    flash_us = sum(r["device_us"] for rs in flash.values() for r in rs)
+    share = fus["units_device_us"] / fus["device_us"]
+    say(f"phase 27 (b) GPT-base kernel table bf16 b={TRAIN_BATCH} s={TRAIN_SEQ} "
+        f"({card_name}): {fus['n_units']} units, the step {fus['device_us'] / 1e3:.3f} device "
+        f"ms in {fus['device_ops']} operations ({fus['lost_device_events']} lost), its "
+        f"units {100 * share:.3f}% of it, temp_mb "
+        f"{fus['temp_mb']:.3f}; the report took {secs:.2f} s; flash units "
+        + "; ".join(f"{n}: {[r['name'][:40] for r in rs]} {launches[n]} launches "
+                    f"{sum(r['device_us'] for r in rs) / 1e3:.4f} ms"
+                    for n, rs in flash.items())
+        + f"; together {100 * flash_us / fus['device_us']:.2f}% of the step's device time "
+        f"(PERF.md quotes about {FLASH_SHARE_QUOTED}% of a captured step); state leaves "
+        f"differing after the report {differ}")
+    for i, r in enumerate(rows[:FUSION_TOP_K]):
+        say(f"phase 27 (b) top {i + 1}: {_row_line(r)}")
+    check(all(n == cfg.num_layers for n in launches.values()),
+          f"phase 27 (b): the flash units' launches {launches}, want {cfg.num_layers} each")
+    check(abs(1 - share) <= FUSION_COVER_TOL and not differ
+          and fus["lost_device_events"] == 0,
+          "phase 27 (b): the table misses device time or changed the trainer")
+    budget = pt.profiling.device_hbm_bytes(dev)
+    t0 = time.perf_counter()
+    report = pt.profiling.advise(tr, feeds[0], hbm_budget_bytes=budget)
+    codes = {f.code for f in report.findings}
+    say(f"phase 27 (b) advise against device_hbm_bytes() = {budget / 1e9:.3f} GB: {codes}: "
+        + "; ".join(f.message for f in report.findings)
+        + f" ({time.perf_counter() - t0:.2f} s)")
+    check(codes == {"memory:fits"}, "phase 27 (b): GPT-base does not fit the card by advise")
+    t0 = time.perf_counter()
+    v = pt.profiling.verify_remat(tr, feeds[0], policy="dots")
+    say(f"phase 27 (b) verify_remat(policy='dots') ({card_name}): temp_mb before "
+        f"{v['temp_mb_before']:.3f}, after {v['temp_mb_after']:.3f} ({v['memory_source']}); "
+        f"estimated activations {v['est_activation_mb_before']:.3f} MB -> "
+        f"{v['est_activation_mb_after']:.3f} MB ({time.perf_counter() - t0:.2f} s)")
+    check(v["memory_source"] == ("measured", "measured")
+          and v["temp_mb_after"] < v["temp_mb_before"],
+          "phase 27 (b): remat under 'dots' did not lower the measured temp_mb")
+    del tr
+
+
+def _profile_reader():
+    import numpy as np
+
+    def reader():
+        r = np.random.RandomState(0)
+        for _ in range(PROFILE_BATCHES):
+            yield [(r.rand(784).astype(np.float32), np.asarray([r.randint(0, 10)], np.int64))
+                   for _ in range(PROFILE_BS)]
+    return reader
+
+
+def profiled_fit(dev, seed, card_name, tmp):
+    """(c) MNIST MLP ``fit(steps_per_dispatch=4, profile_interval_steps=6)``
+    on the card (prefetched, captured) and on the CPU: the global steps of
+    the ``"profile"`` events equal; ``export_trace`` writes one event a
+    retained span; a ``core.profiler.profiler(trace_dir)`` block over two
+    steps writes a device trace with CUDA kernel events."""
+    import json
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core import profiler
+
+    steps = {}
+    for where in (dev, "cpu"):
+        tr = _mnist_trainer(where, pt.optimizer.Adam(MNIST_FIT_LR))
+        tr.startup(seed, pt.data.DataFeeder(["image", "label"]).feed(
+            next(iter(_profile_reader()()))))
+        events = []
+        pt.fit(tr, _profile_reader(), PROFILE_EPOCHS, ["image", "label"],
+               dtypes=["float32", "int64"], steps_per_dispatch=PROFILE_K,
+               profile_interval_steps=PROFILE_N, prefetch=where != "cpu",
+               event_handler=lambda e: events.append(e) if e.kind in ("profile", "end_epoch")
+               else None)
+        steps[where] = [e.step for e in events if e.kind == "profile"]
+        ends = [e for e in events if e.kind == "end_epoch"]
+        check(all(e.profile is not None and e.pipeline is e.profile["pipeline"] for e in ends),
+              "phase 27 (c): an end_epoch event carries no profile")
+    tr = _mnist_trainer(dev, pt.optimizer.Adam(MNIST_FIT_LR))
+    feed = pt.data.DataFeeder(["image", "label"]).feed(next(iter(_profile_reader()())))
+    tr.startup(seed, feed)
+    for _ in range(3):
+        tr.step(feed)
+    profiler.reset_profiler()
+    path = os.path.join(tmp, "steps.json")
+    n = tr.export_trace(path)
+    retained = tr.profile_report()["spans_retained"]
+    trace_dir = os.path.join(tmp, "trace")
+    with profiler.profiler(trace_dir):
+        with profiler.record_event("two steps"):
+            for _ in range(2):
+                tr.step(feed)
+    doc = json.load(open(os.path.join(trace_dir, "trace.json")))
+    kernels = [e for e in doc["traceEvents"] if e.get("cat") == "kernel"]
+    say(f"phase 27 (c) MNIST fit K={PROFILE_K}, profile_interval_steps={PROFILE_N}, "
+        f"{PROFILE_EPOCHS} epochs of {PROFILE_BATCHES} batches ({card_name}): the profile "
+        f"events' global steps on the card {steps[dev]}, on the CPU {steps['cpu']}; "
+        f"export_trace wrote {n} events for {retained} retained spans; the "
+        f"core.profiler trace holds {len(kernels)} CUDA kernel events of "
+        f"{len(doc['traceEvents'])}")
+    check(steps[dev] == steps["cpu"] and steps[dev],
+          "phase 27 (c): the profile events differ from the CPU's")
+    check(n == retained == 3, "phase 27 (c): export_trace wrote another count than retained")
+    check(len(kernels) > 0, "phase 27 (c): the device trace holds no CUDA kernel event")
+
+
+def phase_profiling(dev, seed, card_name):
+    """Phase 27: (a) bench's fusion_profile row, (b) GPT-base's kernel
+    table, advise and verify_remat, (c) fit's profile events, export_trace
+    and a device trace. Returns the hand kernels' launches during the
+    phase (the report's own steps among them)."""
+    import gc
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    _zero_launch_counts(fa)
+    # ---- the main path, as a user drives it
+    with pt.amp_guard("bfloat16"):
+        fusion_profile_row(dev, seed, card_name)
+        gc.collect()
+        torch.cuda.empty_cache()
+        gpt_kernel_table(dev, seed, card_name)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        profiled_fit(dev, seed, card_name, tmp)
+    launches = _launch_counts(fa)
+    # ---- end of the main path
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 27: hand-kernel launches {launches}; {time.perf_counter() - t0:.1f} s")
+    check(all(n > 0 for n in launches.values()), "phase 27: a flash kernel never launched")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -10049,6 +10313,12 @@ def main(argv=None) -> int:
     # zeroed inside, around the phase)
     detection_ctc = phase_detection_ctc(dev, args.seed, smi)
     done("phase 26")
+
+    # 27. profiling: bench's fusion_profile row, GPT-base's kernel table, the
+    # advisor and fit's profile events (launch counts zeroed inside, around the
+    # phase; the reports' own steps among them)
+    profiling = phase_profiling(dev, args.seed, smi)
+    done("phase 27")
     by_path = {name: {"served": served[name], "training": trained[name],
                       "persistence": persisted[name], "resnet": resnet_launches[name],
                       **{path: n[name] for path, n in seq2seq.items()},
@@ -10062,7 +10332,7 @@ def main(argv=None) -> int:
                       "telemetry": tele[name], "fleet": fleet[name],
                       "quantized_data": quantized[name],
                       "master_autoscale": master_autoscale[name],
-                      "detection_ctc": detection_ctc[name]}
+                      "detection_ctc": detection_ctc[name], "profiling": profiling[name]}
                for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 
     # the kernels record: each kernel's row at the training path's shape,

@@ -15,9 +15,11 @@ card they raise :class:`paddle_tpu_torch.core.place.NoCudaDevice`.
 
 __version__ = "0.1.0"
 
-from . import amp, analysis, backward, clip, core, data, evaluator, framework  # noqa: E402
+from . import amp, analysis, backward, clip, core, data, debugger, evaluator  # noqa: E402
+from . import framework  # noqa: E402
 from . import initializer, io, layers, lr_scheduler, metrics, models, nets  # noqa: E402
-from . import optimizer, parallel, quantize, regularizer, resilience, sparse  # noqa: E402
+from . import optimizer, parallel, profiling, quantize, regularizer, resilience  # noqa: E402
+from . import sparse  # noqa: E402
 from . import transpiler  # noqa: E402
 from .backward import append_backward, calc_gradient  # noqa: E402
 from .core.config import enable_determinism, get_flag  # noqa: E402
@@ -53,9 +55,9 @@ __all__ = [
     "Inferencer", "LayerHelper", "ParamAttr", "Program", "RoundRobin", "Scope", "Trainer",
     "WeightNormParamAttr", "amp", "amp_guard", "analysis", "append_backward", "backward",
     "build", "calc_gradient", "clip", "create_parameter", "create_variable", "data",
-    "default_main_program", "default_startup_program", "enable_determinism", "evaluator",
+    "debugger", "default_main_program", "default_startup_program", "enable_determinism", "evaluator",
     "fit", "framework", "global_scope", "initializer", "io", "layers",
     "lr_scheduler", "memory_optimize", "metrics", "models", "name_scope", "nets",
-    "optimizer", "parallel", "program_guard", "quantize", "regularizer", "release_memory",
+    "optimizer", "parallel", "profiling", "program_guard", "quantize", "regularizer", "release_memory",
     "resilience", "scope_guard", "transpiler",
 ]

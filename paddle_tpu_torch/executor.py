@@ -97,9 +97,18 @@ dtypes. ``fit(device_cache=...)`` keeps the encoded chunks of epoch 1 on
 the card and feeds epoch 2 on from them, device to device
 (:mod:`~paddle_tpu_torch.data.device_cache`).
 
-Not carried yet, each raising :class:`NotYetPorted` with the slice that
-brings it: the ``DistStrategy`` field of the program dump and interval
-profile events (item 24 (b)).
+Profiling, as in the JAX package: ``Trainer.profile_report()`` (the
+dispatch timeline and the input pipeline's stages as one breakdown with
+a named bottleneck), ``Trainer.fusion_report(feed)`` (the step's kernel
+table: one step under ``torch.profiler``, the trainer left as it was;
+cached for ``profile_report``), ``Trainer.export_trace(path)`` (the
+dispatch spans as chrome://tracing JSON), and ``fit``'s ``profile=`` on
+``end_epoch``, ``preempted`` and ``resized`` and its interval
+``"profile"`` events (``profile_interval_steps``).
+
+Not carried yet, raising :class:`NotYetPorted` with the item that
+brings it: the ``DistStrategy`` field of the program dump
+(``dump_hlo_path``, item 25).
 """
 
 from __future__ import annotations
@@ -540,6 +549,8 @@ class Trainer:
         self._telemetry_server = None
         maybe_auto_ship()
         self.step_timer = StepTimer(journal=self.journal, inst=self.telemetry_inst)
+        # the last fusion_report, which profile_report carries
+        self._fusion_report: Optional[Dict[str, Any]] = None
         # registered last: a scrape must never see a half-built trainer
         self._telemetry_cid = _register_trainer_telemetry(self)
 
@@ -1481,7 +1492,36 @@ class Trainer:
             out, _ = self._run(feed, training=False, params=self._logical_params())
         return {k: _full(v.detach()) for k, v in out.items()}
 
-    # -- telemetry (executor.py:1597-1641) --------------------------------
+    # -- profiling and telemetry (executor.py:1565-1641) ------------------
+    def fusion_report(self, feed: Feed, top_k: int = 8) -> Dict[str, Any]:
+        """The step's kernel table (``profiling.fusion_report``): one
+        training step on ``feed`` under ``torch.profiler``, the trainer
+        left as it was, its kernels (on the card) or leaf ops (on the CPU)
+        with bytes, FLOPs and their layers, the top ``top_k`` by cost. The
+        result is cached and rides along in :meth:`profile_report`, with
+        ``collective_bytes``."""
+        from .profiling import fusion_report as _fusion_report
+        self._fusion_report = _fusion_report(self, feed, top_k=top_k)
+        self._fusion_report["collective_bytes"] = self.collective_bytes
+        return self._fusion_report
+
+    def profile_report(self) -> Dict[str, Any]:
+        """The unified step profile (``profiling.steptime``): per-dispatch
+        wall-time totals merged with the input-pipeline stage report into
+        a compute / h2d / host-encode / starvation breakdown with a named
+        bottleneck, plus the cached kernel table when
+        :meth:`fusion_report` has run. Emitted as ``Event.profile`` on
+        ``end_epoch``/``preempted``/``resized``."""
+        from .profiling import profile_report as _profile_report
+        return _profile_report(self, fusion=self._fusion_report)
+
+    def export_trace(self, path: str) -> int:
+        """Write the retained dispatch spans (and any enabled-profiler host
+        spans) as chrome://tracing JSON via ``core.profiler.timeline``.
+        Returns the number of events written."""
+        from .profiling import export_chrome_trace
+        return export_chrome_trace(self, path)
+
     def reset_profile(self) -> None:
         """Zero the step timer and the pipeline-stage accumulators (e.g.
         between a warm-up and a measured window)."""
@@ -1537,23 +1577,22 @@ class Event:
     ``step`` the trainer's global step when it fired; ``metrics`` the
     step's fetched outputs on end_step (stacked ``(n, ...)`` for a fused
     dispatch of n steps); ``num_steps`` the steps an event covers;
-    ``pipeline`` the input pipeline's report (``Trainer.pipeline_report``)
-    on end_epoch, preempted and resized."""
+    ``profile`` the unified step profile (``Trainer.profile_report()``)
+    and ``pipeline`` its ``pipeline`` section (the input pipeline's report)
+    on end_epoch, preempted, resized and profile. A ``"profile"`` event
+    fires every time ``global_step`` crosses a multiple of
+    ``fit(profile_interval_steps=N)`` (chunk-boundary rounding, as
+    interval checkpoints)."""
 
     def __init__(self, kind: str, epoch: int, step: int, metrics=None,
-                 num_steps: int = 1, pipeline=None):
+                 num_steps: int = 1, pipeline=None, profile=None):
         self.kind = kind
         self.epoch = epoch
         self.step = step
         self.metrics = metrics or {}
         self.num_steps = num_steps
         self.pipeline = pipeline
-
-
-# fit's arguments of later slices: (default, the slice that brings it)
-_FIT_LATER = {
-    "profile_interval_steps": (0, "observability, ROADMAP queue 1 item 24 (b)"),
-}
+        self.profile = profile
 
 
 def _fit_tag(tag: str) -> bool:
@@ -1574,7 +1613,10 @@ def fit(trainer: Trainer, reader, num_epochs: int, feed_names: Sequence[str],
     reader → DataFeeder → DeviceFeeder (``prefetch=True``: batches copied
     to the card on a side stream while the step runs) or a plain put →
     ``trainer.step``, with begin_epoch / begin_step / end_step / end_epoch
-    events in the JAX package's order and with its step counts. A trainer
+    events in the JAX package's order and with its step counts.
+    ``profile_interval_steps=N`` fires a ``"profile"`` event (carrying
+    ``Event.profile``/``Event.pipeline`` as ``end_epoch`` does) whenever a
+    dispatch crosses a multiple of N steps; 0 disables them. A trainer
     on the CPU has nothing to prefetch to: pass ``prefetch=False`` there.
     At its end (and on preemption) fit reads the guard's last parked mask
     (``Trainer.drain_guard``), so every incident is recorded.
@@ -1664,10 +1706,9 @@ def _fit_impl(trainer, reader, num_epochs, feed_names, dtypes, event_handler,
 
     ckpt_counter = get_registry().counter(
         "paddle_tpu_trainer_checkpoints_total", "Checkpoints committed by fit", ("kind",))
-    given = {"profile_interval_steps": profile_interval_steps}
-    for name, (default, later) in _FIT_LATER.items():
-        if given[name] != default:
-            raise NotYetPorted(f"fit({name}=...): {later}")
+    enforce(profile_interval_steps >= 0,
+            f"fit(profile_interval_steps={profile_interval_steps}): "
+            "need >= 0 (0 disables interval profile events)")
     enforce(int(steps_per_dispatch) >= 1,
             f"fit(steps_per_dispatch={steps_per_dispatch}): need >= 1")
     k = int(steps_per_dispatch)
@@ -1682,6 +1723,15 @@ def _fit_impl(trainer, reader, num_epochs, feed_names, dtypes, event_handler,
     def emit(*args, **kw):
         if event_handler:
             event_handler(Event(*args, **kw))
+
+    def emit_profiled(kind, epoch, **kw):
+        # ONE profile snapshot: Event.pipeline aliases its pipeline
+        # section, so a handler comparing the two never sees the fill
+        # thread advance between them
+        if event_handler:
+            profile = trainer.profile_report()
+            emit(kind, epoch, trainer.global_step, pipeline=profile["pipeline"],
+                 profile=profile, **kw)
 
     enforce(resume or not elastic,
             "fit(elastic=True) without resume=True does nothing: elastic names the "
@@ -1815,6 +1865,11 @@ def _fit_impl(trainer, reader, num_epochs, feed_names, dtypes, event_handler,
                            else trainer.step(feed, span=span))
                     steps_in_epoch += n
                     emit("end_step", epoch, trainer.global_step, out, num_steps=n)
+                    # interval profile events: the checkpoints' chunk-boundary
+                    # rounding, end_epoch's report (host accumulators only)
+                    pi = profile_interval_steps
+                    if pi and trainer.global_step // pi > gs_before // pi:
+                        emit_profiled("profile", epoch, num_steps=n)
                     # a dispatch that crossed an interval multiple saves (the
                     # exact multiple when n == 1)
                     if si and trainer.global_step // si > gs_before // si:
@@ -1875,12 +1930,11 @@ def _fit_impl(trainer, reader, num_epochs, feed_names, dtypes, event_handler,
                                            "SIGTERM/SIGINT preemptions handled by fit").inc()
                     flight_dump("preempted", detail={"global_step": trainer.global_step,
                                                      "epoch": epoch, "signum": signum})
-                emit("resized" if resized else "preempted", epoch, trainer.global_step,
-                     pipeline=trainer.pipeline_report())
+                emit_profiled("resized" if resized else "preempted", epoch)
                 if guard_err is not None:
                     raise guard_err
                 return trainer
-            emit("end_epoch", epoch, trainer.global_step, pipeline=trainer.pipeline_report())
+            emit_profiled("end_epoch", epoch)
             if checkpoint_config and checkpoint_config.epoch_interval and \
                     (epoch + 1) % checkpoint_config.epoch_interval == 0:
                 save(f"epoch_{epoch}", epoch + 1, 0)

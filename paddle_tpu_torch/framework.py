@@ -60,6 +60,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                      create_selective_checkpoint_contexts, noop_context_fn)
 
+from .core import profiler as _profiler
 from .core import unique_name as _unique_name
 from .core.config import get_flag
 from .core.dtypes import convert_dtype
@@ -544,6 +545,9 @@ class LayerHelper:
     def __init__(self, layer_type: str, name: Optional[str] = None):
         ctx = _ctx()
         self.name = name or ctx.unique_name(layer_type)
+        if ctx.mode == "apply":
+            # a profiling report's layer range (a no-op outside one)
+            _profiler.enter_layer(ctx.full_name(self.name))
 
     def scope(self):
         return name_scope(self.name)
@@ -648,7 +652,7 @@ class Program:
         ctx = BuildContext("apply", params, state or {}, rng, training,
                            dict(self.param_info), device, _ambient_compute_dtype(),
                            self.layout)
-        with _use_ctx(ctx):
+        with _use_ctx(ctx), _profiler.program_scope():
             out = self.fn(*args, **kwargs)
         new_state = dict(ctx.state)
         new_state.update(ctx.new_state)
@@ -825,6 +829,44 @@ def remat_policy():
     return getattr(_remat_mode, "policy", None)
 
 
+_remat_kept = threading.local()
+
+
+@contextlib.contextmanager
+def count_remat_kept(keep: Callable[[torch.Tensor], None]):
+    """Call ``keep(tensor)`` with what each :func:`maybe_remat` block of
+    the forwards run inside the block holds for its backward: the
+    block's tensor inputs (the recompute's starting point) and the
+    outputs its selective policy keeps (``MUST_SAVE``; as ``meta``
+    tensors of their shapes and dtypes, each its own). An outer
+    ``saved_tensors_hooks`` sees neither (the checkpoint packs its own);
+    ``profiling.advisor`` counts the remat projection's bytes with it."""
+    prev = getattr(_remat_kept, "fn", None)
+    _remat_kept.fn = keep
+    try:
+        yield
+    finally:
+        _remat_kept.fn = prev
+
+
+def _counting_policy(policy, keep):
+    def counted(ctx, op, *args, **kwargs):
+        decision = policy(ctx, op, *args, **kwargs)
+        if decision == CheckpointPolicy.MUST_SAVE and not ctx.is_recompute:
+            # the kept outputs' shapes and dtypes, from the op run on meta
+            # copies of its inputs (not every torch hands a policy the output)
+            meta = [torch.empty_strided(a.shape, a.stride(), dtype=a.dtype, device="meta")
+                    if isinstance(a, torch.Tensor) else a for a in args]
+            mkw = {k: torch.empty_strided(v.shape, v.stride(), dtype=v.dtype, device="meta")
+                   if isinstance(v, torch.Tensor) else v for k, v in kwargs.items()}
+            out = op(*meta, **mkw)
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor):
+                    keep(t)
+        return decision
+    return counted
+
+
 def maybe_remat(fn: Callable, enabled: Optional[bool] = None, policy=None) -> Callable:
     """Wrap ``fn`` in ``torch.utils.checkpoint`` when remat is requested —
     explicitly (``enabled=True``) or ambiently (``enabled=None`` and
@@ -852,10 +894,16 @@ def maybe_remat(fn: Callable, enabled: Optional[bool] = None, policy=None) -> Ca
     policy = resolve_remat_policy(policy) or remat_policy()
     if policy is everything_saveable:
         return fn
+    keep = getattr(_remat_kept, "fn", None)
     context_fn = noop_context_fn if policy in (None, nothing_saveable) else \
-        functools.partial(create_selective_checkpoint_contexts, policy)
+        functools.partial(create_selective_checkpoint_contexts,
+                          policy if keep is None else _counting_policy(policy, keep))
 
     def run(*args, **kwargs):
+        if keep is not None:
+            for a in (*args, *kwargs.values()):
+                if isinstance(a, torch.Tensor):
+                    keep(a)
         ctx = current_context()
         if ctx is None:
             return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,

@@ -27,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from ..core import profiler as _profiler
 from ..core.errors import EnforceError, enforce
 from . import _dtensor as _dt
 
@@ -341,7 +342,7 @@ def flash_fwd_cuda(q, k, v, causal: bool, key_bias=None, seg_q=None, seg_k=None)
     if o.numel() == 0:  # no query row: nothing to launch, nothing to count
         return o, lse
     fn = _kernel("flash_fwd", "flash_fwd", ARGTYPES)
-    with torch.cuda.device(q.device):
+    with _profiler.kernel_range("flash_fwd"), torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_route_code(q.dtype, d), d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  _ptr(key_bias), _ptr(seg_q), _ptr(seg_k), o.data_ptr(),
@@ -435,7 +436,8 @@ def _bwd_operands(q, k, v, causal, key_bias, seg_q, seg_k, g, lse, delta):
 
 
 def _launch(fn, name, dev, *args):
-    with torch.cuda.device(dev):
+    # a profiling report names the kernel's launching op after its wrapper
+    with _profiler.kernel_range(name), torch.cuda.device(dev):
         err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise EnforceError(f"{name} kernel launch failed: CUDA error {err}")

@@ -1,5 +1,5 @@
-"""Per-dispatch wall time (counterpart of ``paddle_tpu.profiling.steptime``:
-its :class:`StepTimer`).
+"""Step-time breakdown: per-dispatch wall time + the unified profile report
+(counterpart of ``paddle_tpu.profiling.steptime``).
 
 The Trainer records every ``step``/``run_steps`` dispatch into a
 :class:`StepTimer`: two ``perf_counter`` reads around the call, a ring
@@ -9,8 +9,11 @@ dispatch (a captured ``run_steps`` is one graph replay a step, queued
 asynchronously), with no synchronize and no device read, so the
 recorded time is what the training-loop thread spent in the call — a
 lower bound on device time, and all of it for a host-bound step.
-``profile_report`` and ``export_chrome_trace`` come with ROADMAP item
-24 (b).
+``Trainer.profile_report()`` (:func:`profile_report`) merges the dispatch
+timeline with ``pipeline_report()`` into one compute / h2d / host-encode
+/ starvation breakdown, emitted on ``fit``'s ``end_epoch``, ``preempted``,
+``resized`` and interval ``profile`` events; :func:`export_chrome_trace`
+writes the retained spans through ``core.profiler.timeline``.
 """
 
 from __future__ import annotations
@@ -104,7 +107,7 @@ class StepTimer:
 
     def spans_us(self) -> List[Tuple[str, float, float, int]]:
         """Retained dispatch spans as ``(name, start_us, dur_us, tid)``
-        tuples (the shape the JAX package's chrome-trace export reads)."""
+        tuples — the shape ``core.profiler.timeline`` consumes."""
         return [(f"trainer.{kind}[{n}]", t0 * 1e6, (t1 - t0) * 1e6, 1)
                 for kind, n, t0, t1 in self._spans]
 
@@ -124,4 +127,63 @@ class StepTimer:
         }
 
 
-__all__ = ["StepTimer"]
+def profile_report(trainer, fusion: Optional[Dict[str, Any]] = None
+                   ) -> Dict[str, Any]:
+    """The unified step profile: dispatch timing + input-pipeline stage
+    attribution + (optionally) a cached kernel table, with a named
+    bottleneck. The JAX package's schema:
+
+    - ``steps`` / ``dispatches`` / ``avg_step_ms`` / ``span_s`` — from
+      the per-dispatch :class:`StepTimer`;
+    - ``breakdown`` — seconds per attribution bucket: ``compute_s``
+      (training-loop thread inside dispatch calls), ``h2d_s`` (the
+      EXPOSED transfer time — what the pipeline actually stalled for;
+      the staging ring's hidden portion rides separately as
+      ``overlap_hidden_s`` and must not crown h2d the bottleneck),
+      ``host_encode_s`` (wire encode), ``reader_s`` (host reader
+      wait), ``starved_s`` (loop thread waiting for input). With
+      prefetch the feeder buckets overlap compute — ``starved_s`` is
+      the non-overlapped input-bound signal;
+    - ``bottleneck`` — the largest bucket, with ``input_bound`` carried
+      from the pipeline report;
+    - ``pipeline`` — the full ``pipeline_report()``;
+    - ``fusion`` — the step's kernel table when one has been computed
+      (``Trainer.fusion_report``), else None;
+    - ``collective`` — static bytes-on-wire attribution of the per-step
+      gradient exchange (``Trainer.collective_bytes``), or None off-mesh.
+    """
+    st = trainer.step_timer.report()
+    pipe = trainer.pipeline_report()
+    stages = pipe.get("stages_s", {})
+    hidden = pipe.get("overlap_hidden_s", 0.0)
+    breakdown = {
+        "compute_s": st["dispatch_s"],
+        "h2d_s": max(0.0, stages.get("h2d", 0.0) - hidden),
+        "host_encode_s": stages.get("encode", 0.0),
+        "reader_s": stages.get("reader", 0.0),
+        "starved_s": pipe.get("consumer_starved_s", 0.0),
+    }
+    bottleneck = (max(breakdown, key=breakdown.get)
+                  if any(v > 0 for v in breakdown.values()) else None)
+    return {
+        **st,
+        "breakdown": {k: round(v, 6) for k, v in breakdown.items()},
+        "overlap_hidden_s": round(hidden, 6),
+        "bottleneck": bottleneck,
+        "input_bound": pipe.get("input_bound", False),
+        "pipeline": pipe,
+        "fusion": fusion,
+        "collective": getattr(trainer, "collective_bytes", None),
+    }
+
+
+def export_chrome_trace(trainer, path: str) -> int:
+    """Dump the trainer's retained dispatch spans (plus any host spans
+    the ``core.profiler`` collected while enabled) as chrome://tracing
+    JSON. Returns the number of events written."""
+    from ..core import profiler
+
+    return profiler.timeline(path, extra_spans=trainer.step_timer.spans_us())
+
+
+__all__ = ["StepTimer", "export_chrome_trace", "profile_report"]
